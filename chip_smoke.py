@@ -8,16 +8,22 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card, the CUDA toolkit (``nvcc``) and nothing of JAX.
 Phases, each failing the run on any error or mismatch:
 
-1. set-up: the card is present; the groupby kernels are built from
-   ``spark_rapids_tpu_torch/csrc/groupby_kernels.cu`` (``nvcc`` for
-   ``sm_90a``); the card's name and power limit are read;
+1. set-up: the card is present; the kernel libraries are built from
+   ``spark_rapids_tpu_torch/csrc/groupby_kernels.cu`` and
+   ``csrc/join_kernels.cu`` (one ``nvcc`` each for ``sm_90a``, started
+   together; ptxas' register and spill lines are printed); the card's
+   name and power limit are read;
 2. kernels: each hand-written kernel's wrapper runs on card tensors at the
    main path's shapes (2^24 rows; B = 128, 1024, 8192) and is held
    against its plain PyTorch version on the same inputs — integers and
    winners exactly, float sums within 1e-9 of each bucket's sum of |x|
    (the atomics' order effect); kernel, plain version and one library
    call (``index_add_`` / ``scatter_reduce_``) are timed with CUDA events
-   beside the bytes bound at 3.35 TB/s;
+   beside the bytes bound at 3.35 TB/s. The join probe kernel K4 runs at
+   the bench join's shape (2^23 probe rows with 2-word keys, 5% dead,
+   against a 2^17-row build with duplicate keys) and must equal, row for
+   row, the ranges two ``torch.searchsorted`` calls give, and its plain
+   version on a 2^16-row sample and in full at 2^20 x 2^13;
 3. queries, through the exec tree and ``collect()``, each checked against
    a numpy oracle on the host, with the kernel launch counters set to 0
    just before each query and read just after it (each query is one path;
@@ -32,7 +38,18 @@ Phases, each failing the run on any error or mismatch:
         then the sort fallback);
      Q5 group by k: exact sum(b) (no variableFloatAgg: the torch scatter
         tier with the order-preserving segment sum), run twice and
-        required to be bit-identical.
+        required to be bit-identical;
+     Q6 the bench join query (bench.py ``shape_join``: 2^23 fact rows
+        join 100 000 dim rows on fk = dk, then group by fv: sum(dv),
+        count(*)) under a forced PALLAS strategy: K4 once per probe
+        batch, K1 in the aggregate;
+     Q7 the same query under AUTO: the DIRECT tier, fused into the
+        aggregate's update (no K4 launch);
+     Q8 inner (with the residual dv > fv * 10000), left, right, full,
+        semi and anti joins of 2^20 fact rows (2% null keys) and 2^16 dim
+        rows (duplicate keys, 5% null), each under PALLAS and under AUTO,
+        reduced on the card to row counts and per-column valid counts
+        and sums.
 
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: its global-atomics branch).
@@ -54,17 +71,45 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-SOURCE = "spark_rapids_tpu_torch/csrc/groupby_kernels.cu"
+#: dim rows of the bench join (bench.py shape_join): Q6, Q7 and K4's build
+DIM_ROWS = 100_000
+GROUPBY_SOURCE = "spark_rapids_tpu_torch/csrc/groupby_kernels.cu"
+JOIN_SOURCE = "spark_rapids_tpu_torch/csrc/join_kernels.cu"
+SOURCES = {"bucket_sum": GROUPBY_SOURCE, "bucket_float_sum": GROUPBY_SOURCE,
+           "bucket_winner": GROUPBY_SOURCE,
+           "ordered_segment_sum": GROUPBY_SOURCE,
+           "probe_ranges": JOIN_SOURCE}
 #: the query whose run each kernel's ``launches`` and timed shape stand for
 PATH = {"bucket_sum": "Q1", "bucket_float_sum": "Q1",
-        "bucket_winner": "Q2", "ordered_segment_sum": "Q5"}
+        "bucket_winner": "Q2", "ordered_segment_sum": "Q5",
+        "probe_ranges": "Q6"}
 REPLACES = {
     "bucket_sum": "spark_rapids_tpu/ops/pallas_groupby.py:76",
     "bucket_float_sum": "spark_rapids_tpu/ops/pallas_groupby.py:115",
     "bucket_winner": "spark_rapids_tpu/ops/pallas_groupby.py:240",
     # not a Pallas kernel: the XLA segment_sum of the exact float sums
     "ordered_segment_sum": "spark_rapids_tpu/ops/groupby.py:910",
+    "probe_ranges": "spark_rapids_tpu/ops/pallas_join.py:36",
 }
+
+
+def _kernel_modules():
+    from spark_rapids_tpu_torch.ops import groupby_kernels, join_kernels
+
+    return groupby_kernels, join_kernels
+
+
+def reset_launches() -> None:
+    for mod in _kernel_modules():
+        mod.reset_launches()
+
+
+def launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -282,6 +327,22 @@ def _batches(np, torch, schema, arrays, valids, nb, dev):
     return out
 
 
+def _padded_batch(np, torch, schema, arrays, valids, dev):
+    """One batch of all the rows at their capacity bucket (the next power
+    of two), padding rows dead, as the engine's own batches are."""
+    from spark_rapids_tpu_torch.columnar import (batch_from_host_arrays,
+                                                 choose_capacity)
+
+    n = arrays[0].shape[0]
+    cap = choose_capacity(n)
+
+    def pad(a):
+        return np.concatenate([a, np.zeros(cap - n, a.dtype)])
+
+    return batch_from_host_arrays(schema, [pad(a) for a in arrays],
+                                  [pad(v) for v in valids], n, cap, dev)
+
+
 def _run(torch, plan_root, conf):
     """collect() rows and the wall milliseconds, device work included."""
     from spark_rapids_tpu_torch.exec import ColumnarToRowExec
@@ -310,7 +371,6 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
     from spark_rapids_tpu_torch.expr import aggregates as A
     from spark_rapids_tpu_torch.expr import expressions as E
     from spark_rapids_tpu_torch.expr.expressions import col, lit
-    from spark_rapids_tpu_torch.ops import groupby_kernels as K
     from spark_rapids_tpu_torch.ops.hashing import murmur3
     from spark_rapids_tpu_torch.expr.values import ColV
 
@@ -333,9 +393,9 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
 
     def drive(plan_root, conf):
         """One path: the counts set to 0 just before it, read just after."""
-        K.reset_launches()
+        reset_launches()
         rows, ms = _run(torch, plan_root, conf)
-        return rows, ms, dict(K.LAUNCHES)
+        return rows, ms, launches()
 
     # --- Q1: the bench query ----------------------------------------------
     scan = InMemoryScanExec(approx, [batches], schema)
@@ -530,12 +590,8 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
 
 
 def profile_q1(torch, conf, batches, schema, n):
-    """Q1 once more under torch.profiler: device time by kernel, the
-    device's busy and idle share of the wall time, and the bytes bound of
-    the query (each input plane read once)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Q1 once more under torch.profiler (:func:`profile_plan`); its
+    bytes bound reads each input plane once."""
     from spark_rapids_tpu_torch.exec import (InMemoryScanExec, TpuFilterExec,
                                              TpuHashAggregateExec,
                                              TpuProjectExec)
@@ -553,6 +609,17 @@ def profile_q1(torch, conf, batches, schema, n):
             A.agg(A.Sum(col("a2")), "s"), A.agg(A.Average(col("b")), "m"),
             A.agg(A.Count(col("b")), "c")], proj)
 
+    profile_plan(torch, "Q1", plan, conf, n, n * (4 + 8 + 8 + 3))
+
+
+def profile_plan(torch, name, plan, conf, rows, nbytes):
+    """One query (``plan()`` builds a fresh exec tree) three times
+    unprofiled, then once under torch.profiler: device time by kernel,
+    the device's busy and idle share of the wall time, beside the
+    query's bytes bound (``nbytes`` at the card's peak rate)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     walls = [_run(torch, plan(), conf)[1] for _ in range(3)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -564,13 +631,344 @@ def profile_q1(torch, conf, batches, schema, n):
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    emit({"profile": "Q1", "rows": n, "wall_ms_unprofiled": walls,
+    emit({"profile": name, "rows": rows, "wall_ms_unprofiled": walls,
           "wall_ms_profiled": wall, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1 - busy_us / 1e3 / wall,
-          "bound_ms": bound_ms(n * (4 + 8 + 8 + 3)),
+          "bound_ms": bound_ms(nbytes),
           "top": [{"name": e.key[:80], "calls": e.count,
                    "device_ms": e.self_device_time_total / 1e3}
                   for e in top]})
+
+
+# ---------------------------------------------------------------------------
+# join kernel phase (K4)
+# ---------------------------------------------------------------------------
+def _key_words(torch, keys, valid):
+    """The join's radix key words of an int64 key column."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr.values import ColV
+    from spark_rapids_tpu_torch.ops import join as J
+
+    words, _ = J.radix_key_words([ColV(keys, valid)], [T.LONG])
+    return words
+
+
+def _sorted_build(torch, np, rng, dev, nb, bcount, card):
+    """``nb`` build rows of int64 keys from [0, card), duplicates
+    included, as the join exec leaves them: the joinable prefix
+    [0, bcount) sorted by key words, garbage past it."""
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+    from spark_rapids_tpu_torch.ops.sort import SIGN64
+
+    keys = torch.from_numpy(rng.integers(0, card, nb).astype(np.int64)).to(
+        dev)
+    words = _key_words(torch, keys, torch.ones(nb, dtype=torch.bool,
+                                               device=dev))
+    order = torch.argsort(JK.pack_key(words)[:bcount] ^ SIGN64, stable=True)
+    for w in words:
+        w[:bcount] = w[:bcount][order]
+    return words
+
+
+def _check_probe(torch, got, exp, what):
+    for g, e, part in zip(got, exp, ("lo", "hi")):
+        if not torch.equal(g, e):
+            bad = int((g != e).sum())
+            raise AssertionError(f"probe_ranges {what}: {part} differs on "
+                                 f"{bad} rows")
+
+
+def join_kernel_phase(torch, np, dev, m: int, dim_rows: int, reps: int):
+    """K4 at the bench join's shape: ``m`` probe rows (2-word int64 keys
+    over 1.5x the dim's key range, 5% dead) against a build of
+    choose_capacity(dim_rows) rows with duplicate keys.
+
+    Held against the ``searchsorted``-derived ranges on every row (counts
+    equal, lo where count > 0, (0, 0) elsewhere), against the plain
+    version on 2^16 probe rows x the whole build, and against the plain
+    version in full at 2^20 x 2^13; timed beside its bytes bound, the
+    plain version (on the 2^16-row sample: in full it is an O(m x nb)
+    mask) and two ``torch.searchsorted`` calls."""
+    from spark_rapids_tpu_torch.columnar import choose_capacity
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+    from spark_rapids_tpu_torch.ops.sort import SIGN64
+
+    rng = np.random.default_rng(17)
+    nb = choose_capacity(dim_rows)
+    bcount = dim_rows
+    bw = _sorted_build(torch, np, rng, dev, nb, bcount, dim_rows)
+    fk = torch.from_numpy(rng.integers(0, dim_rows * 3 // 2, m).astype(
+        np.int64)).to(dev)
+    live = torch.from_numpy(rng.random(m) >= 0.05).to(dev)
+    pw = _key_words(torch, fk, live)
+
+    got = JK.probe_ranges(bw, bcount, pw, live)
+    bs = (JK.pack_key(bw)[:bcount] ^ SIGN64).contiguous()
+    ps = (JK.pack_key(pw) ^ SIGN64).contiguous()
+
+    def library():
+        return (torch.searchsorted(bs, ps),
+                torch.searchsorted(bs, ps, right=True))
+
+    left, right = library()
+    cnt = torch.where(live, right - left, 0).to(torch.int32)
+    lo = torch.where(cnt > 0, left.to(torch.int32), 0)
+    _check_probe(torch, got, (lo, lo + cnt), "vs searchsorted")
+    matched_share = float((cnt > 0).float().mean())
+
+    sample = min(m, 1 << 16)
+    sw = [w[:sample] for w in pw]
+    exp = JK.probe_ranges_plain(bw, bcount, sw, live[:sample])
+    _check_probe(torch, [g[:sample] for g in got], exp, "vs plain (sample)")
+
+    m2, nb2 = min(m, 1 << 20), 1 << 13
+    bw2 = _sorted_build(torch, np, rng, dev, nb2, nb2 - 321, nb2)
+    fk2 = torch.from_numpy(rng.integers(0, nb2 * 3 // 2, m2).astype(
+        np.int64)).to(dev)
+    live2 = torch.from_numpy(rng.random(m2) >= 0.05).to(dev)
+    pw2 = _key_words(torch, fk2, live2)
+    _check_probe(torch, JK.probe_ranges(bw2, nb2 - 321, pw2, live2),
+                 JK.probe_ranges_plain(bw2, nb2 - 321, pw2, live2),
+                 "vs plain (2^20 x 2^13)")
+
+    # the bound counts what the probe needs: 4 bytes per u32 key word, the
+    # liveness byte and two int32s out per probe row, 8 bytes per build
+    # row (its packed u64 key). The wrapper's ABI moves each probe word
+    # as an int64 (8 bytes): bound_abi_ms counts that.
+    nw = len(pw)
+    nbytes = m * (4 * nw + 1 + 8) + 8 * nb
+    nbytes_abi = m * (8 * nw + 1 + 8) + 8 * nb
+    res = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: JK.probe_ranges(bw, bcount, pw, live),
+                      reps),
+        "plain_ms": cuda_ms(torch, lambda: JK.probe_ranges_plain(
+            bw, bcount, sw, live[:sample]), max(1, reps // 10)),
+        "plain_rows": sample,
+        "library_ms": cuda_ms(torch, library, reps),
+        "bound_ms": bound_ms(nbytes),
+        "bound_abi_ms": bound_ms(nbytes_abi),
+    }
+    emit({"kernel_shape": "probe_ranges", "probe_rows": m, "build_rows": nb,
+          "build_count": bcount, "words": nw, "matched_share": matched_share,
+          **res})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# join queries (Q6-Q8)
+# ---------------------------------------------------------------------------
+def _reduce_join(torch, plan_root):
+    """A join's output reduced on the card: rows, and per column the
+    valid count and the sum of valid values (exact int64)."""
+    ncols = len(plan_root.output_schema.fields)
+    rows = 0
+    acc = None
+    for b in plan_root.execute_columnar():
+        rows += b.num_rows
+        part = torch.stack(
+            [t for c in b.columns for t in (
+                c.validity.sum(dtype=torch.int64),
+                torch.where(c.validity, c.data.to(torch.int64), 0).sum())])
+        acc = part if acc is None else acc + part
+    vals = [0] * (2 * ncols) if acc is None else acc.tolist()
+    return (rows,) + tuple(vals)
+
+
+def _join_oracle(np, fk, fv, fnull, dk, dv, dnull, how, thresh=None):
+    """The expected ``_reduce_join`` of fact JOIN dim ON fk = dk (numpy):
+    (rows, then per output column (valid count, sum))."""
+    nkeys = int(max(fk.max(), dk.max())) + 1
+    fok, dok = ~fnull, ~dnull
+    dcnt = np.bincount(dk[dok], minlength=nkeys)
+    dsum = np.bincount(dk[dok], weights=dv[dok], minlength=nkeys)
+    fcnt = np.bincount(fk[fok], minlength=nkeys)
+    fkz = np.where(fok, fk, 0)
+    if thresh is not None:
+        # inner with dv > thresh(fv): per fact row the dim rows of its key
+        # above its threshold, off the dim sorted by (key, dv)
+        comb = np.sort(dk[dok] * (1 << 20) + dv[dok])
+        pre = np.concatenate([[0], np.cumsum(comb & ((1 << 20) - 1))])
+        end = np.searchsorted(comb, fkz * (1 << 20) + (1 << 20) - 1, "right")
+        beg = np.searchsorted(comb, fkz * (1 << 20) + thresh(fv), "right")
+        c = np.where(fok, end - beg, 0)
+        s = np.where(fok, pre[end] - pre[beg], 0)
+    else:
+        c = np.where(fok, dcnt[fkz], 0)
+        s = np.where(fok, dsum[fkz], 0)
+    pairs = int(c.sum())
+    pair_cols = (pairs, int((fkz * c).sum()), pairs, int((fv * c).sum()),
+                 pairs, int((fkz * c).sum()), pairs, int(s.sum()))
+    if how == "semi" or how == "anti":
+        keep = (c > 0) if how == "semi" else (c == 0)
+        return (int(keep.sum()), int((fok & keep).sum()),
+                int(fk[fok & keep].sum()), int(keep.sum()),
+                int(fv[keep].sum()))
+    out = list(pair_cols)
+    rows = pairs
+    if how in ("left", "full"):
+        un = c == 0  # fact rows without a match (null keys included)
+        rows += int(un.sum())
+        out[0] += int((un & fok).sum())
+        out[1] += int(fk[un & fok].sum())
+        out[2] += int(un.sum())
+        out[3] += int(fv[un].sum())
+    if how in ("right", "full"):
+        dkz = np.where(dok, dk, 0)
+        un = ~dok | (fcnt[dkz] == 0)
+        rows += int(un.sum())
+        out[4] += int((un & dok).sum())
+        out[5] += int(dk[un & dok].sum())
+        out[6] += int(un.sum())
+        out[7] += int(dv[un].sum())
+    return (rows,) + tuple(out)
+
+
+def join_query_phase(torch, np, dev, log2_fact: int, dim_rows: int,
+                     profile: bool = False):
+    """Q6-Q8 through the exec tree, each checked against a numpy oracle,
+    with the launch counts set to 0 just before each query and read just
+    after it (see the module docstring)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import schema_of
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuHashAggregateExec,
+                                             TpuShuffledHashJoinExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    per_query = {}
+    report = []
+    # --- Q6/Q7: the bench join query (bench.py shape_join) -----------------
+    n = 1 << log2_fact
+    rng = np.random.default_rng(11)
+    fk = rng.integers(0, dim_rows, n).astype(np.int64)
+    fv = rng.integers(0, 100, n).astype(np.int64)
+    dk = np.arange(dim_rows, dtype=np.int64)
+    dv = rng.integers(0, 10**6, dim_rows).astype(np.int64)
+    fs = schema_of(fk=T.LONG, fv=T.LONG)
+    ds = schema_of(dk=T.LONG, dv=T.LONG)
+    fact = [_padded_batch(np, torch, fs, [fk, fv], [np.ones(n, bool)] * 2,
+                          dev)]
+    dim = [_padded_batch(np, torch, ds, [dk, dv],
+                         [np.ones(dim_rows, bool)] * 2, dev)]
+    s_exp = np.bincount(fv, weights=dv[fk].astype(np.float64), minlength=100)
+    c_exp = np.bincount(fv, minlength=100)
+    want = sorted((g, int(s_exp[g]), int(c_exp[g])) for g in range(100)
+                  if c_exp[g])
+
+    def bench_plan(conf):
+        join = TpuShuffledHashJoinExec(
+            conf, InMemoryScanExec(conf, [fact], fs),
+            InMemoryScanExec(conf, [dim], ds), [col("fk")], [col("dk")],
+            "inner")
+        return join, TpuHashAggregateExec(
+            conf, [col("fv")],
+            [A.agg(A.Sum(col("dv")), "s"), A.agg(A.Count(None), "c")], join)
+
+    for q, strategy in (("Q6", "PALLAS"), ("Q7", "AUTO")):
+        conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy": strategy})
+        join, agg = bench_plan(conf)
+        reset_launches()
+        rows, ms = _run(torch, agg, conf)
+        per_query[q] = launches()
+        if sorted(rows) != want:
+            raise AssertionError(f"{q}: rows differ from the numpy oracle")
+        desc = join.describe()
+        k4 = per_query[q]["probe_ranges"]
+        if per_query[q]["bucket_sum"] <= 0:
+            raise AssertionError(f"{q}: the aggregate did not launch K1")
+        if q == "Q6" and k4 != len(fact):
+            raise AssertionError(f"Q6: {k4} K4 launches for {len(fact)} "
+                                 "probe batch(es)")
+        if q == "Q7" and (k4 != 0 or "strategy=DIRECT" not in desc
+                          or "fused=direct" not in desc):
+            raise AssertionError(f"Q7: expected the fused DIRECT path, got "
+                                 f"{desc} with {k4} K4 launches")
+        report.append({"query": q, "rows": len(rows), "fact_rows": n,
+                       "dim_rows": dim_rows, "wall_ms": ms,
+                       "join": desc, "agg_strategy":
+                       agg._strategy_choice[0], "launches": per_query[q]})
+    for line in report:
+        emit(line)
+    if profile:
+        nbytes = n * (8 + 8 + 2) + dim_rows * (8 + 8 + 2)
+        for q, strategy in (("Q6", "PALLAS"), ("Q7", "AUTO")):
+            conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy":
+                               strategy})
+            profile_plan(torch, q, lambda c=conf: bench_plan(c)[1], conf, n,
+                         nbytes)
+    del fact, dim
+
+    # --- Q8: every join type, dup and null keys, PALLAS and AUTO ------------
+    n8, d8 = 1 << (log2_fact - 3), 1 << (log2_fact - 7)
+    r8 = np.random.default_rng(8)
+    fk8 = r8.integers(0, 150_000, n8).astype(np.int64)
+    fn8 = r8.random(n8) < 0.02
+    fv8 = r8.integers(0, 100, n8).astype(np.int64)
+    dk8 = r8.integers(0, 100_000, d8).astype(np.int64)
+    dn8 = r8.random(d8) < 0.05
+    dv8 = r8.integers(0, 10**6, d8).astype(np.int64)
+    fact8 = [_padded_batch(np, torch, fs, [np.where(fn8, 0, fk8), fv8],
+                           [~fn8, np.ones(n8, bool)], dev)]
+    dim8 = [_padded_batch(np, torch, ds, [np.where(dn8, 0, dk8), dv8],
+                          [~dn8, np.ones(d8, bool)], dev)]
+    q8 = {}
+    for how in ("inner_cond", "left", "right", "full", "semi", "anti"):
+        for strategy in ("PALLAS", "AUTO"):
+            conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy":
+                               strategy})
+            cond = (E.GreaterThan(col("dv"), E.Multiply(col("fv"),
+                                                        lit(10_000)))
+                    if how == "inner_cond" else None)
+            join = TpuShuffledHashJoinExec(
+                conf, InMemoryScanExec(conf, [fact8], fs),
+                InMemoryScanExec(conf, [dim8], ds), [col("fk")],
+                [col("dk")], "inner" if cond is not None else how, cond)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = _reduce_join(torch, join)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = launches()
+            exp = _join_oracle(
+                np, fk8, fv8, fn8, dk8, dv8, dn8,
+                "inner" if cond is not None else how,
+                (lambda v: v * 10_000) if cond is not None else None)
+            if got != exp:
+                raise AssertionError(f"Q8 {how} {strategy}: {got} != {exp}")
+            k4 = counts["probe_ranges"]
+            if strategy == "PALLAS" and k4 != 1:
+                raise AssertionError(f"Q8 {how} PALLAS: {k4} K4 launches, "
+                                     "expected one per probe batch (1)")
+            if strategy == "AUTO" and k4 != 0:
+                raise AssertionError(f"Q8 {how} AUTO launched K4")
+            q8[f"{how}/{strategy}"] = {"rows": got[0], "wall_ms": ms,
+                                       "join": join.describe()}
+            per_query.setdefault("Q8", dict.fromkeys(counts, 0))
+            for k, v in counts.items():
+                per_query["Q8"][k] += v
+    emit({"query": "Q8", "fact_rows": n8, "dim_rows": d8, "runs": q8,
+          "launches": per_query["Q8"]})
+    return per_query
+
+
+def build_all() -> dict:
+    """Build every kernel library from the sources beside this script,
+    one ``nvcc`` per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    mods = _kernel_modules()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda mod: mod.build_kernels(), mods))
+    return {"build_s": time.perf_counter() - t0,
+            "ptxas": {mod.SOURCE.name: [
+                ln.strip() for ln in "".join(mod.BUILD_LOG).splitlines()
+                if "registers" in ln or "spill" in ln] for mod in mods}}
 
 
 def main() -> int:
@@ -578,9 +976,12 @@ def main() -> int:
     ap.add_argument("--log2-rows", type=int, default=26,
                     help="rows of the bench table, as a power of two")
     ap.add_argument("--kernel-log2-rows", type=int, default=24)
+    ap.add_argument("--join-log2-rows", type=int, default=23,
+                    help="fact rows of the bench join (Q6, Q7, K4's probe "
+                    "side), as a power of two; Q8 takes 1/8 of them")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Q1 with torch.profiler")
+                    help="also profile Q1, Q6 and Q7 with torch.profiler")
     args = ap.parse_args()
 
     import numpy as np
@@ -592,7 +993,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from spark_rapids_tpu_torch.ops import groupby_kernels as K
+        _kernel_modules()
     except ImportError as e:
         print(f"chip_smoke: the port package is missing beside this script "
               f"({e})", file=sys.stderr)
@@ -603,27 +1004,32 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
 
-    t0 = time.perf_counter()
-    K.build_kernels()
-    emit({"build_s": time.perf_counter() - t0,
-          "ptxas": [ln.strip() for ln in "".join(K.BUILD_LOG).splitlines()
-                    if "registers" in ln or "spill" in ln]})
-
+    emit(build_all())
     kres = kernel_phase(torch, np, dev, 1 << args.kernel_log2_rows, args.reps)
+    kres[("probe_ranges", 128)] = join_kernel_phase(
+        torch, np, dev, 1 << args.join_log2_rows, DIM_ROWS, args.reps)
     per_query = query_phase(torch, np, dev, args.log2_rows, 4,
                             args.profile)
+    per_query.update(join_query_phase(torch, np, dev, args.join_log2_rows,
+                                      DIM_ROWS, args.profile))
 
     kernels = []
     for name, path in PATH.items():
-        r = kres[(name, 128)]  # the direct tier of Q1's table (Q1, Q2, Q5)
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name], "path": path,
-                        "launches": per_query[path][name],
-                        "launches_by_path": {q: c[name] for q, c
-                                             in per_query.items()},
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": "bytes", "library_ms": r["library_ms"]})
+        # the groupby kernels at the direct tier of Q1's table (Q1, Q2,
+        # Q5); K4 at the bench join's shape (Q6)
+        r = kres[(name, 128)]
+        line = {"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "path": path,
+                "launches": per_query[path][name],
+                "launches_by_path": {q: c[name] for q, c
+                                     in per_query.items()},
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": "bytes", "library_ms": r["library_ms"]}
+        for extra in ("plain_rows", "bound_abi_ms"):
+            if extra in r:
+                line[extra] = r[extra]
+        kernels.append(line)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""Typed configuration (``spark.rapids.tpu.*``), the entries this slice reads.
+"""Typed configuration (``spark.rapids.tpu.*``), the entries the port reads.
 
 Counterpart of ``spark_rapids_tpu/conf.py``: the same keys, defaults and
 validation, so one conf dict drives both packages. Unknown
@@ -7,7 +7,7 @@ validation, so one conf dict drives both packages. Unknown
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 _REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -19,6 +19,8 @@ class ConfEntry:
     doc: str
     conf_type: type
     valid_values: Optional[Sequence[Any]] = None
+    #: None when ``v`` is allowed, else the reason it is not
+    check: Optional[Callable[[Any], Optional[str]]] = None
 
     def convert(self, raw: Any) -> Any:
         if raw is None:
@@ -41,13 +43,17 @@ class ConfEntry:
                              f"{list(self.valid_values)}")
         if self.conf_type is int and v <= 0:
             raise ValueError(f"{self.key}: must be positive")
+        if self.check is not None:
+            why = self.check(v)
+            if why is not None:
+                raise ValueError(f"{self.key}: {why}")
         return v
 
 
-def conf(key, default, doc, valid_values=None) -> ConfEntry:
+def conf(key, default, doc, valid_values=None, check=None) -> ConfEntry:
     if key in _REGISTRY:
         raise ValueError(f"duplicate conf key {key}")
-    entry = ConfEntry(key, default, doc, type(default), valid_values)
+    entry = ConfEntry(key, default, doc, type(default), valid_values, check)
     _REGISTRY[key] = entry
     return entry
 
@@ -69,6 +75,67 @@ AGG_STRATEGY = conf(
     "device when the plan has no exact float sum, else SCATTER; on the "
     "CPU it picks SCATTER below 2^21 rows, as the reference does.",
     valid_values=("AUTO", "MATMUL", "SCATTER", "SORT", "RADIX", "PALLAS"))
+
+
+JOIN_PALLAS_PROBE = conf(
+    "spark.rapids.tpu.sql.join.pallasProbe.enabled", False,
+    "Legacy toggle: lower single-fixed-width-key hash-join probes to the "
+    "hand-written probe kernel (K4). Superseded by "
+    "spark.rapids.tpu.sql.join.strategy=PALLAS; when join.strategy is "
+    "AUTO, this flag still selects the PALLAS tier for the GENERAL probe "
+    "path while the DIRECT fused fast path keeps pre-empting it where "
+    "its table fits. A forced join.strategy=PALLAS disables the fast "
+    "path too.")
+JOIN_STRATEGY = conf(
+    "spark.rapids.tpu.sql.join.strategy", "AUTO",
+    "Lowering strategy for equi-join probes (ops/join.py). SEARCH runs "
+    "the vectorized lexicographic binary search over the sorted build "
+    "words; DIRECT builds direct-address (first, count) tables when the "
+    "single fixed-width key's value range fits 4x the build capacity "
+    "(else SEARCH), and the whole join can then fuse into its consumer "
+    "chain; RADIX co-sorts build and probe rows by the shared "
+    "order-preserving key words and derives every [lo, hi) range from "
+    "prefix sums over that order; PALLAS runs the probe as the "
+    "hand-written kernel K4 (csrc/join_kernels.cu; its plain version on "
+    "the CPU), keys wider than two words going to SEARCH. The tiers "
+    "agree on match counts and on lo wherever a row matched; an "
+    "unmatched live row reports its insertion point under SEARCH and "
+    "RADIX and (0, 0) under DIRECT and PALLAS. AUTO picks per plan from "
+    "the build capacity, key widths and the build's device, against "
+    "spark.rapids.tpu.roofline.peakHbmGBps, and records its reason in "
+    "describe().",
+    valid_values=("AUTO", "SEARCH", "DIRECT", "RADIX", "PALLAS"))
+
+
+def _non_negative(v) -> Optional[str]:
+    return None if v >= 0 else "must be >= 0"
+
+
+ROOFLINE_PEAK_HBM_GBPS = conf(
+    "spark.rapids.tpu.roofline.peakHbmGBps", 0.0,
+    "Peak device-memory bandwidth (GB/s) the join chooser prices its "
+    "tiers at. 0.0 (the default) picks a per-device peak "
+    "(:data:`DEVICE_PEAKS`).", check=_non_negative)
+ROOFLINE_PEAK_TFLOPS = conf(
+    "spark.rapids.tpu.roofline.peakTflops", 0.0,
+    "Peak compute throughput (TFLOP/s). Kept for parity with the "
+    "reference's conf keys; no chooser of the port reads it yet.",
+    check=_non_negative)
+
+#: per-device-type peak device-memory GB/s when peakHbmGBps is 0.0.
+#: "cuda" is one NVIDIA H100 SXM at its 700 W limit, from NVIDIA's H100
+#: data sheet: 3.35 TB/s of HBM3. "cpu" is the reference's nominal figure
+#: for its CPU backend, kept so the CPU chooser prices the same way.
+DEVICE_PEAKS: Dict[str, float] = {"cuda": 3350.0, "cpu": 100.0}
+
+
+def roofline_peak_bps(rconf: "RapidsConf", device_type: str) -> float:
+    """Peak bytes/s for the join chooser: the conf-declared peak when
+    set, else the device type's default (reference
+    ``exec/aggregate._roofline_peaks``)."""
+    gbps = rconf.get(ROOFLINE_PEAK_HBM_GBPS) or DEVICE_PEAKS.get(
+        device_type, DEVICE_PEAKS["cpu"])
+    return gbps * 1e9
 
 
 class RapidsConf:

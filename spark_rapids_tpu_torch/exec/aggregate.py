@@ -210,8 +210,10 @@ class TpuHashAggregateExec(TpuExec):
         dev = cols[0].validity.device if cols else None
         if live is None:
             live = live_of(batch.num_rows_lazy, cap, dev)
+        # each chain member's side tensors (a fused join's build table)
+        # enter with its lowering, as in the reference (aggregate.py:556)
         for e in chain:
-            cols, live = e.lower_batch(cols, live, cap)
+            cols, live = e.lower_batch(cols, live, cap, e.side_vals())
         dev = live.device
         keys = [lower(e, cols, cap, dev) for e in key_exprs]
         vals = [None if e is None else lower(e, cols, cap, dev)

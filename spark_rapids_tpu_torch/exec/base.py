@@ -2,9 +2,10 @@
 
 Counterpart of ``spark_rapids_tpu/exec/base.py``. An exec exposes
 ``num_partitions`` and ``execute_partition(i)``; fusable execs
-(project, filter) implement ``lower_batch`` and run as one eager chain of
-torch calls per batch (:func:`run_fused_chain`). PyTorch runs eagerly, so
-there is no ``jit``, no ``cached_pipeline`` and no buffer donation.
+(project, filter, a join on its fused fast path) implement ``lower_batch``
+and run as one eager chain of torch calls per batch
+(:func:`run_fused_chain`). PyTorch runs eagerly, so there is no ``jit``, no
+``cached_pipeline`` and no buffer donation.
 """
 from __future__ import annotations
 
@@ -83,17 +84,33 @@ class TpuExec:
             yield from self.execute_partition(p)
 
     # -- fusion --------------------------------------------------------------
-    def lower_batch(self, cols, live, cap):
-        """(cols, live_mask) -> (cols, live_mask), eager torch ops."""
+    def lower_batch(self, cols, live, cap, side=()):
+        """(cols, live_mask) -> (cols, live_mask), eager torch ops.
+        ``side``: this exec's :meth:`side_vals` (e.g. a join's build-side
+        table)."""
         raise NotImplementedError(type(self).__name__)
+
+    def side_vals(self) -> tuple:
+        """Device tensors this exec's ``lower_batch`` needs beyond the
+        streamed batch."""
+        return ()
+
+    def fusion_stream_child(self) -> Optional["TpuExec"]:
+        """The child whose batches stream through this exec's lowering:
+        a single-child exec's only child; a fast-path join's probe side
+        (its build side enters through :meth:`side_vals`)."""
+        return self.children[0] if len(self.children) == 1 else None
 
     def fused_source_chain(self):
         """(source exec, [fusable execs bottom-up ending at self])."""
         node = self
         chain: List[TpuExec] = []
-        while node.fusable and len(node.children) == 1:
+        while node.fusable:
+            nxt = node.fusion_stream_child()
+            if nxt is None:
+                break
             chain.append(node)
-            node = node.children[0]
+            node = nxt
         return node, list(reversed(chain))
 
     # -- conveniences --------------------------------------------------------
@@ -163,6 +180,7 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
     source, chain = exec_self.fused_source_chain()
     out_schema = exec_self.output_schema
     needs_compact = any(e.sparsifies for e in chain)
+    sides = [e.side_vals() for e in chain]
     for b in source.execute_partition(index):
         with exec_self.op_timed():
             cols = vals_of_batch(b)
@@ -170,8 +188,8 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
             nr = b.num_rows_lazy
             dev = cols[0].validity.device if cols else None
             live = filter_gather.live_of(nr, cap, dev)
-            for e in chain:
-                cols, live = e.lower_batch(cols, live, cap)
+            for e, side in zip(chain, sides):
+                cols, live = e.lower_batch(cols, live, cap, side)
             if needs_compact:
                 cols, nr = filter_gather.filter_cols(cols, live)
             out = batch_from_vals(cols, out_schema, nr, capacity=cap)

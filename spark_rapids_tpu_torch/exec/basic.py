@@ -89,7 +89,7 @@ class TpuProjectExec(TpuExec):
     def describe(self):
         return f"TpuProjectExec [{', '.join(map(str, self.exprs))}]"
 
-    def lower_batch(self, cols, live, cap):
+    def lower_batch(self, cols, live, cap, side=()):
         return [lower(e, cols, cap, live.device) for e in self._bound], live
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
@@ -113,7 +113,7 @@ class TpuFilterExec(TpuExec):
     def describe(self):
         return f"TpuFilterExec [{self.condition}]"
 
-    def lower_batch(self, cols, live, cap):
+    def lower_batch(self, cols, live, cap, side=()):
         c = lower(self._bound, cols, cap, live.device)
         return cols, live & c.data & c.validity
 

@@ -61,6 +61,75 @@ def gather(cols: Sequence[ColV], indices: torch.Tensor,
     return [gather_fixed(c, indices, valid_slot) for c in cols]
 
 
+def packable_dtype(dt: torch.dtype) -> bool:
+    """True when :func:`pack_fixed_cols` carries this dtype. f64 is
+    excluded, as in the reference (``filter_gather.py:125``), whose TPU
+    rewriter has no 64-bit bitcast: the port could carry it, but keeping
+    the rule keeps both engines' fusion decisions the same."""
+    return dt != torch.float64
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern -> its unsigned value in an int64."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def pack_fixed_cols(cols: Sequence[ColV]) -> torch.Tensor:
+    """Pack fixed-width columns (+ their validity bits) into ONE (cap, W)
+    int32 matrix, so a multi-column row gather is one 2-D gather
+    (reference ``filter_gather.py:152``): 64-bit columns as (lo, hi)
+    int32 words, 32-bit ones by bit pattern, bool and narrower integers
+    widened; then the validity bits, 32 columns per word. Callers exclude
+    non-:func:`packable_dtype` columns."""
+    parts: List[torch.Tensor] = []
+    for c in cols:
+        d = c.data
+        if d.dtype == torch.bool or d.element_size() < 4:
+            parts.append(d.to(torch.int32)[:, None])
+        elif d.element_size() == 8:  # int64 (f64 is not packable)
+            lo = ((d & 0xFFFFFFFF) ^ (1 << 31)) - (1 << 31)
+            parts.append(torch.stack([lo.to(torch.int32),
+                                      (d >> 32).to(torch.int32)], 1))
+        else:
+            parts.append(d.view(torch.int32)[:, None])
+    for i in range(0, len(cols), 32):
+        w = torch.zeros(cols[0].validity.shape[0], dtype=torch.int64,
+                        device=cols[0].validity.device)
+        for j, c in enumerate(cols[i:i + 32]):
+            w = w | (c.validity.to(torch.int64) << j)
+        parts.append((((w ^ (1 << 31)) - (1 << 31)).to(torch.int32))[:, None])
+    return torch.cat(parts, 1)
+
+
+def unpack_fixed_cols(mat: torch.Tensor, dtypes: Sequence[torch.dtype],
+                      valid_slot: torch.Tensor) -> List[ColV]:
+    """Inverse of :func:`pack_fixed_cols` over a gathered matrix
+    (reference ``filter_gather.py:183``); ``dtypes`` are the packed
+    columns' torch dtypes, in pack order."""
+    widths = [2 if (dt != torch.bool and dt.itemsize == 8) else 1
+              for dt in dtypes]
+    vbase = sum(widths)
+    out: List[ColV] = []
+    w = 0
+    for ci, (dt, nw) in enumerate(zip(dtypes, widths)):
+        vword = mat[:, vbase + ci // 32]
+        validity = (((vword >> (ci % 32)) & 1) == 1) & valid_slot
+        if dt == torch.bool:
+            data = mat[:, w] != 0
+        elif nw == 2:
+            data = (_u32(mat[:, w]) | (mat[:, w + 1].to(torch.int64) << 32)
+                    ).to(dt)
+        elif dt.itemsize == 4:
+            data = mat[:, w].contiguous().view(dt)
+        else:
+            data = mat[:, w].to(dt)
+        data = torch.where(validity, data, torch.zeros((), dtype=dt,
+                                                       device=data.device))
+        out.append(ColV(data, validity))
+        w += nw
+    return out
+
+
 def filter_cols(cols: Sequence[ColV], mask: torch.Tensor
                 ) -> Tuple[List[ColV], torch.Tensor]:
     """Compact rows where ``mask`` holds to the front of each column.

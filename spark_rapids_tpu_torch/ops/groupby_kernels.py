@@ -4,7 +4,8 @@ PyTorch versions, and the order words.
 Counterpart of ``spark_rapids_tpu/ops/pallas_groupby.py`` (the PALLAS
 aggregation tier). The CUDA C++ lives in ``csrc/groupby_kernels.cu``; it
 is compiled for ``sm_90a`` by ``nvcc`` on first use into ``_build/`` (a
-shared library with a plain C interface, loaded with ``ctypes``).
+shared library with a plain C interface, loaded with ``ctypes``; see
+``ops/_cuda_build.py``).
 
 =====  ========================  ====================================
  K     wrapper                    replaces (spark_rapids_tpu/...)
@@ -35,23 +36,18 @@ the kernels read them as unsigned through raw pointers.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from . import _cuda_build
+from ._cuda_build import ptrs as _ptrs
+from ._cuda_build import stream as _stream
 from .sort import SIGN64, radix_of
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "groupby_kernels.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _cuda_build.PKG / "csrc" / "groupby_kernels.cu"
+BUILD_DIR = _cuda_build.BUILD_DIR
 
 #: columns per launch (SRT_MAXC in the .cu)
 MAX_COLS = 16
@@ -79,35 +75,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the groupby kernels are built from "
-                       f"{SOURCE} on first use and need the CUDA toolkit")
-
-
 def build_kernels() -> ctypes.CDLL:
     """Compile (once per source content) and load the kernel library."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"libgroupby_kernels_{tag}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stderr}{res.stdout}")
-            BUILD_LOG.append(res.stderr + res.stdout)
-            os.replace(tmp, so)
+        so = _cuda_build.build_library(SOURCE, BUILD_DIR, BUILD_LOG)
         lib = ctypes.CDLL(str(so))
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         pp = ctypes.POINTER(ctypes.c_void_p)
@@ -125,18 +99,7 @@ def build_kernels() -> ctypes.CDLL:
 
 
 def _check(lib: ctypes.CDLL, rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.srt_error_string(rc).decode()}")
-
-
-def _ptrs(tensors: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * max(1, len(tensors)))(
-        *[t.data_ptr() for t in tensors])
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    _cuda_build.check_launch(lib.srt_error_string, rc, name)
 
 
 def _on_card(seg: torch.Tensor, others: Sequence[torch.Tensor]) -> bool:

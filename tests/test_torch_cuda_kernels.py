@@ -3,9 +3,11 @@ reference pins, on a card.
 
 Needs a CUDA card and ``nvcc``; without them every test here skips. The
 plain versions (CPU) are held against the reference's Pallas kernels in
-``tests/test_torch_groupby_kernels.py``, so agreeing with them here holds
-the kernels to the reference. Run on a card, without the JAX-side
-conftest:
+``tests/test_torch_groupby_kernels.py`` and ``test_torch_join_kernels.py``,
+so agreeing with them here holds the kernels to the reference. The join
+exec runs here on the card and on the CPU under every strategy and must
+give the same rows in the same order. Run on a card, without the
+JAX-side conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -148,3 +150,94 @@ def test_grand_count_over_empty_input_stays_on_the_card(dev):
     out = list(plan.execute_partition(0))
     assert out[0].columns[0].data.device.type == "cuda"
     assert ColumnarToRowExec(conf, plan).collect() == [(0,)]
+
+
+# ---------------------------------------------------------------------------
+# K4: the join probe kernel
+# ---------------------------------------------------------------------------
+def _probe_inputs(rng, m, nb, bcount, nwords, dead=0.1):
+    bws = [rng.integers(0, 1000, nb).astype(np.int64)]
+    pws = [rng.integers(0, 1200, m).astype(np.int64)]
+    if nwords == 2:
+        bws.append(rng.integers(0, 2**32, nb, dtype=np.int64))
+        bws[1][rng.random(nb) < 0.5] = 7  # duplicates on both words
+        pws.append(np.where(rng.random(m) < 0.5, 7,
+                            rng.integers(0, 2**32, m, dtype=np.int64)))
+    order = np.lexsort(tuple(w[:bcount] for w in reversed(bws)))
+    for w in bws:
+        w[:bcount] = w[:bcount][order]
+    live = rng.random(m) >= dead
+    return bws, bcount, pws, live
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 50_000, 4096, 4096, 0.1), (2, 50_000, 4096, 3000, 0.1),
+    (1, 777, 333, 0, 0.1), (2, 70_001, 5_003, 4_999, 1.0),
+    (2, 1, 1, 1, 0.0), (1, 131_071, 65_537, 60_000, 0.05)])
+def test_probe_ranges_matches_plain(dev, shape):
+    nwords, m, nb, bcount, dead = shape
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+
+    rng = np.random.default_rng(m + nb)
+    bws, bc, pws, live = _probe_inputs(rng, m, nb, bcount, nwords, dead)
+    args = (_on(dev, *bws), bc, _on(dev, *pws), *_on(dev, live))
+    exp = JK.probe_ranges_plain(*args)  # the plain version, on the card
+    before = JK.LAUNCHES["probe_ranges"]
+    got = JK.probe_ranges(*args)
+    assert JK.LAUNCHES["probe_ranges"] - before == 1
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    if dead == 1.0 or bcount == 0:
+        assert not bool(got[1].any())
+
+
+def test_probe_ranges_rejects_cpu_tensor_on_the_card_path(dev):
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+
+    w = torch.zeros(8, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="probe_live on"):
+        JK.probe_ranges([w], 8, [w.cpu()], torch.ones(8, dtype=torch.bool,
+                                                     device=dev))
+    with pytest.raises(ValueError, match="probe_live on"):
+        JK.probe_ranges([w], 8, [w], torch.ones(8, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("strategy", ["PALLAS", "SEARCH", "DIRECT", "RADIX",
+                                      "AUTO"])
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full", "semi",
+                                 "anti"])
+def test_join_on_the_card_matches_the_cpu(dev, how, strategy):
+    """The same join on the card and on the CPU, per strategy (PALLAS: K4
+    on the card, its plain version on the CPU): the same rows in the same
+    order."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, schema_of
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuShuffledHashJoinExec)
+    from spark_rapids_tpu_torch.expr.expressions import col
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+
+    rng = np.random.default_rng(3)
+    n, d = 5000, 700
+    ld = {"k": [None if x < 0 else int(x)
+                for x in rng.integers(-50, 1000, n)],
+          "a": rng.integers(0, 100, n).tolist()}
+    rd = {"k2": [None if x < 0 else int(x)
+                 for x in rng.integers(-20, 600, d)],
+          "b": rng.integers(0, 10**6, d).tolist()}
+    ls, rs = schema_of(k=T.LONG, a=T.LONG), schema_of(k2=T.LONG, b=T.LONG)
+    conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy": strategy})
+
+    def run(device):
+        j = TpuShuffledHashJoinExec(
+            conf, InMemoryScanExec(conf, [[ColumnarBatch.from_pydict(
+                ld, ls, device=device)]], ls),
+            InMemoryScanExec(conf, [[ColumnarBatch.from_pydict(
+                rd, rs, device=device)]], rs), [col("k")], [col("k2")], how)
+        return j.collect()
+
+    before = JK.LAUNCHES["probe_ranges"]
+    got = run(dev)
+    assert JK.LAUNCHES["probe_ranges"] - before == (strategy == "PALLAS")
+    assert got == run("cpu")

@@ -80,13 +80,27 @@ def test_default_device_is_the_card_and_never_the_cpu():
     assert b.to_rows() == [(1,), (None,)]
 
 
-def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
-    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+def _without_nvcc(monkeypatch, tmp_path, K):
+    from spark_rapids_tpu_torch.ops import _cuda_build
 
     monkeypatch.setattr(K, "_LIB", None)
     monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(K.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+
+    _without_nvcc(monkeypatch, tmp_path, K)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.build_kernels()
+
+
+def test_join_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from spark_rapids_tpu_torch.ops import join_kernels as K
+
+    _without_nvcc(monkeypatch, tmp_path, K)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         K.build_kernels()
 
