@@ -9,10 +9,10 @@ It needs one CUDA card, the CUDA toolkit (``nvcc``) and nothing of JAX.
 Phases, each failing the run on any error or mismatch:
 
 1. set-up: the card is present; the kernel libraries are built from
-   ``spark_rapids_tpu_torch/csrc/groupby_kernels.cu`` and
-   ``csrc/join_kernels.cu`` (one ``nvcc`` each for ``sm_90a``, started
-   together; ptxas' register and spill lines are printed); the card's
-   name and power limit are read;
+   ``spark_rapids_tpu_torch/csrc/groupby_kernels.cu``,
+   ``csrc/join_kernels.cu`` and ``csrc/udf_kernels.cu`` (one ``nvcc``
+   each for ``sm_90a``, started together; ptxas' register and spill lines
+   are printed); the card's name and power limit are read;
 2. kernels: each hand-written kernel's wrapper runs on card tensors at the
    main path's shapes (2^24 rows; B = 128, 1024, 8192) and is held
    against its plain PyTorch version on the same inputs — integers and
@@ -23,7 +23,11 @@ Phases, each failing the run on any error or mismatch:
    the bench join's shape (2^23 probe rows with 2-word keys, 5% dead,
    against a 2^17-row build with duplicate keys) and must equal, row for
    row, the ranges two ``torch.searchsorted`` calls give, and its plain
-   version on a 2^16-row sample and in full at 2^20 x 2^13;
+   version on a 2^16-row sample and in full at 2^20 x 2^13. The
+   word-start kernel K5 runs on the chars pool of Q10's first batch as
+   the query hands it over (2^20 rows, the pool padded to its capacity
+   bucket) and must equal its plain version on every byte and numpy's
+   flags on sampled windows;
 3. queries, through the exec tree and ``collect()``, each checked against
    a numpy oracle on the host, with the kernel launch counters set to 0
    just before each query and read just after it (each query is one path;
@@ -49,7 +53,16 @@ Phases, each failing the run on any error or mismatch:
         semi and anti joins of 2^20 fact rows (2% null keys) and 2^16 dim
         rows (duplicate keys, 5% null), each under PALLAS and under AUTO,
         reduced on the card to row counts and per-column valid counts
-        and sums.
+        and sums;
+     Q9 the bench string query (bench.py ``shape_string``, scale 1): 2^22
+        rows of ``s`` from the bench's 56-entry pool (in the expanded
+        Arrow layout) and ``v``; filter contains(s, "X"), project
+        upper(s)[1:6], length(s), v; grand aggregate; exact against the
+        pool (per-entry values times entry counts);
+     Q10 the native-UDF word count: 2^22 rows of generated text in 4
+        batches, project (k, string_word_count(s)), group by k: sum, count
+        of the count and count(*), exact against the generator's own word
+        counts; K5 once per batch.
 
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: its global-atomics branch).
@@ -75,14 +88,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 DIM_ROWS = 100_000
 GROUPBY_SOURCE = "spark_rapids_tpu_torch/csrc/groupby_kernels.cu"
 JOIN_SOURCE = "spark_rapids_tpu_torch/csrc/join_kernels.cu"
+UDF_SOURCE = "spark_rapids_tpu_torch/csrc/udf_kernels.cu"
 SOURCES = {"bucket_sum": GROUPBY_SOURCE, "bucket_float_sum": GROUPBY_SOURCE,
            "bucket_winner": GROUPBY_SOURCE,
            "ordered_segment_sum": GROUPBY_SOURCE,
-           "probe_ranges": JOIN_SOURCE}
+           "probe_ranges": JOIN_SOURCE, "word_starts": UDF_SOURCE}
 #: the query whose run each kernel's ``launches`` and timed shape stand for
 PATH = {"bucket_sum": "Q1", "bucket_float_sum": "Q1",
         "bucket_winner": "Q2", "ordered_segment_sum": "Q5",
-        "probe_ranges": "Q6"}
+        "probe_ranges": "Q6", "word_starts": "Q10"}
 REPLACES = {
     "bucket_sum": "spark_rapids_tpu/ops/pallas_groupby.py:76",
     "bucket_float_sum": "spark_rapids_tpu/ops/pallas_groupby.py:115",
@@ -90,13 +104,17 @@ REPLACES = {
     # not a Pallas kernel: the XLA segment_sum of the exact float sums
     "ordered_segment_sum": "spark_rapids_tpu/ops/groupby.py:910",
     "probe_ranges": "spark_rapids_tpu/ops/pallas_join.py:36",
+    "word_starts": "spark_rapids_tpu/udf/native.py:52",
 }
+#: Q10's text comes in this many batches
+WORD_COUNT_BATCHES = 4
 
 
 def _kernel_modules():
-    from spark_rapids_tpu_torch.ops import groupby_kernels, join_kernels
+    from spark_rapids_tpu_torch.ops import (groupby_kernels, join_kernels,
+                                            udf_kernels)
 
-    return groupby_kernels, join_kernels
+    return groupby_kernels, join_kernels, udf_kernels
 
 
 def reset_launches() -> None:
@@ -956,6 +974,246 @@ def join_query_phase(torch, np, dev, log2_fact: int, dim_rows: int,
     return per_query
 
 
+# ---------------------------------------------------------------------------
+# string data (Q9, Q10)
+# ---------------------------------------------------------------------------
+#: the bench's string pool (bench.py ``shape_string``): 14 entries x 4
+STRING_POOL = [
+    "alpha-001", "beta-smallX", "gamma", "delta-verylongvalue-0042",
+    "epsilon-X", "zeta", "eta-middling", "theta-X-suffix", "iota",
+    "kappa-longish-string", "", "lambda-Xx", "mu-0", "nu-tail",
+] * 4
+#: the six ASCII whitespace bytes the word count splits on
+WHITESPACE = (0x20, 0x09, 0x0A, 0x0B, 0x0C, 0x0D)
+
+
+def string_pool_rows(np, n: int):
+    """Q9's data, as bench.py draws it with ``rng(17)``: pool indices and
+    v in [0, 1000); plus the expanded Arrow planes of ``s`` (offsets
+    (n+1,), chars)."""
+    rng = np.random.default_rng(17)
+    idx = rng.integers(0, len(STRING_POOL), n)
+    v = rng.integers(0, 1000, n).astype(np.int64)
+    enc = [e.encode("utf-8") for e in STRING_POOL]
+    plens = np.array([len(b) for b in enc], np.int64)
+    pstart = np.concatenate([[0], np.cumsum(plens)[:-1]])
+    pool = np.frombuffer(b"".join(enc), np.uint8)
+    lens = plens[idx]
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    src = (np.repeat(pstart[idx] - offsets[:-1], lens)
+           + np.arange(offsets[-1]))
+    return idx, v, offsets, pool[src]
+
+
+def word_count_text(np, rng, n: int):
+    """Q10's text column: each row has 0-16 words of 1-12 bytes of
+    [a-z] (about 5% of words carry one 2-byte UTF-8 letter, U+00E0 to
+    U+00FF), separated by runs of 1-3 bytes drawn from the six ASCII
+    whitespace bytes; an eighth of the rows start with such a run and an
+    eighth end with one; 2% of rows are null (and hold no bytes). Returns
+    (offsets (n+1,) int64, chars uint8, valid (n,) bool, words (n,)): the
+    Arrow planes and each row's word count."""
+    valid = rng.random(n) >= 0.02
+    words = np.where(valid, rng.integers(0, 17, n), 0)
+    lead = valid & (rng.random(n) < 0.125)
+    trail = valid & (rng.random(n) < 0.125)
+    nseg = lead + np.maximum(2 * words - 1, 0) + trail
+    seg_row = np.repeat(np.arange(n), nseg)
+    first = np.concatenate([[0], np.cumsum(nseg)[:-1]])
+    j = np.arange(seg_row.size) - first[seg_row] - lead[seg_row]
+    is_word = (j >= 0) & (j < 2 * words[seg_row] - 1) & (j % 2 == 0)
+    nw = int(is_word.sum())
+    wlen = rng.integers(1, 13, nw)
+    utf8 = rng.random(nw) < 0.05
+    wlen = np.where(utf8, np.maximum(wlen, 2), wlen)
+    seglen = rng.integers(1, 4, seg_row.size)
+    seglen[is_word] = wlen
+    chars = rng.choice(np.array(WHITESPACE, np.uint8), int(seglen.sum()))
+    seg_start = np.concatenate([[0], np.cumsum(seglen)[:-1]])
+    word_byte = np.repeat(is_word, seglen)
+    chars[word_byte] = rng.integers(ord("a"), ord("z") + 1,
+                                    int(word_byte.sum()))
+    at = seg_start[is_word][utf8] + (rng.random(int(utf8.sum()))
+                                     * (wlen[utf8] - 1)).astype(np.int64)
+    chars[at] = 0xC3
+    chars[at + 1] = 0xA0 + rng.integers(0, 32, at.size)
+    row_bytes = np.bincount(seg_row, weights=seglen, minlength=n)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(row_bytes.astype(np.int64), out=offsets[1:])
+    return offsets, chars.astype(np.uint8), valid, words
+
+
+def _word_count_batches(np, dev, log2_rows: int):
+    """Q10's batches (seeded): per batch k int32 in [0, 64) and the text
+    column, uploaded as the engine's own batches are (pool padded to its
+    capacity bucket); plus k, the word counts and validity on the host."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import (ColumnarBatch, DeviceColumn,
+                                                 HostColumn, schema_of)
+
+    rng = np.random.default_rng(10)
+    per = (1 << log2_rows) // WORD_COUNT_BATCHES
+    schema = schema_of(k=T.INT, s=T.STRING)
+    batches, ks, words, valids = [], [], [], []
+    for _ in range(WORD_COUNT_BATCHES):
+        k = rng.integers(0, 64, per).astype(np.int32)
+        off, chars, valid, w = word_count_text(np, rng, per)
+        scol = DeviceColumn.from_string_arrays(T.STRING, per, off, chars,
+                                               valid, dev)
+        kcol = DeviceColumn.from_host(HostColumn(T.INT, k,
+                                                 np.ones(per, bool)),
+                                      per, "k", dev)
+        batches.append(ColumnarBatch([kcol, scol], schema, per))
+        ks.append(k)
+        words.append(w)
+        valids.append(valid)
+    return (batches, schema, np.concatenate(ks), np.concatenate(words),
+            np.concatenate(valids))
+
+
+def udf_kernel_phase(torch, np, dev, batch, reps: int):
+    """K5 on the chars pool of one Q10 batch as the query hands it over:
+    equal to its plain version on every byte and to numpy's flags on
+    sampled windows; timed beside its plain version and its bytes bound.
+    The bound counts what the word count needs, 1 byte read + 4 bytes
+    written per live byte (up to offsets[rows]); the kernel as called
+    passes the whole padded pool, and bound_abi_ms counts that. No single
+    torch call computes the flags, so there is no library time."""
+    from spark_rapids_tpu_torch.ops import udf_kernels as UK
+
+    scol = batch.columns[1]
+    chars = scol.chars
+    n = chars.shape[0]
+    live = int(scol.offsets[-1])
+    got = UK.word_starts(chars)
+    if not torch.equal(got, UK.word_starts_plain(chars)):
+        raise AssertionError("word_starts: kernel != plain")
+    host = chars.cpu().numpy()
+    flags = got.cpu().numpy()
+    sp = np.isin(host, np.array(WHITESPACE, np.uint8))
+    rng = np.random.default_rng(5)
+    for start in [0, n - (1 << 16)] + rng.integers(0, n - (1 << 16),
+                                                   6).tolist():
+        w = slice(start, start + (1 << 16))
+        prev = np.concatenate([[True] if start == 0 else sp[start - 1:start],
+                               sp[w][:-1]])
+        if not np.array_equal(flags[w], (~sp[w] & prev).astype(np.int32)):
+            raise AssertionError(f"word_starts: differs from numpy at "
+                                 f"[{start}, {start + (1 << 16)})")
+    res = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: UK.word_starts(chars), reps),
+        "plain_ms": cuda_ms(torch, lambda: UK.word_starts_plain(chars),
+                            reps),
+        "library_ms": None,
+        "library": "none: no single torch call",
+        "bound_ms": bound_ms(5 * live),
+        "bound_abi_ms": bound_ms(5 * n),
+    }
+    emit({"kernel_shape": "word_starts", "pool_bytes": n,
+          "live_bytes": live, **res})
+    return res
+
+
+def string_query_phase(torch, np, dev, log2_rows: int, wc_batches,
+                       profile: bool = False):
+    """Q9 and Q10 through the exec tree, each checked against an exact
+    oracle, with the launch counts set to 0 just before each query and
+    read just after it."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import (ColumnarBatch, DeviceColumn,
+                                                 HostColumn, schema_of)
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec, TpuFilterExec,
+                                             TpuHashAggregateExec,
+                                             TpuProjectExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.udf import string_word_count
+
+    per_query = {}
+    conf = RapidsConf({})
+    # --- Q9: the bench string query --------------------------------------
+    n = 1 << log2_rows
+    idx, v, offsets, chars = string_pool_rows(np, n)
+    schema9 = schema_of(s=T.STRING, v=T.LONG)
+    batch9 = ColumnarBatch([
+        DeviceColumn.from_string_arrays(T.STRING, n, offsets, chars,
+                                        np.ones(n, bool), dev),
+        DeviceColumn.from_host(HostColumn(T.LONG, v, np.ones(n, bool)), n,
+                               "v", dev)], schema9, n)
+
+    def q9_plan():
+        scan = InMemoryScanExec(conf, [[batch9]], schema9)
+        filt = TpuFilterExec(conf, E.Contains(col("s"), lit("X")), scan)
+        proj = TpuProjectExec(conf, [
+            E.Alias(E.Substring(E.Upper(col("s")), lit(1), lit(6)), "u"),
+            E.Alias(E.Length(col("s")), "ln"), col("v")], filt)
+        return TpuHashAggregateExec(conf, [], [
+            A.agg(A.Sum(E.Length(col("u"))), "ul"),
+            A.agg(A.Sum(col("ln")), "l"), A.agg(A.Count(None), "c"),
+            A.agg(A.Sum(col("v")), "sv")], proj)
+
+    reset_launches()
+    rows, ms9 = _run(torch, q9_plan(), conf)
+    per_query["Q9"] = launches()
+    counts = np.bincount(idx, minlength=len(STRING_POOL))
+    hit = np.array(["X" in e for e in STRING_POOL])
+    want = [(sum(min(6, len(e)) * int(c) for e, c, h in
+                 zip(STRING_POOL, counts, hit) if h),
+             sum(len(e) * int(c) for e, c, h in
+                 zip(STRING_POOL, counts, hit) if h),
+             int(counts[hit].sum()), int(v[hit[idx]].sum()))]
+    if rows != want:
+        raise AssertionError(f"Q9: {rows} != {want}")
+    emit({"query": "Q9", "rows": n, "result": rows[0], "wall_ms": ms9,
+          "char_bytes": int(offsets[-1]), "launches": per_query["Q9"]})
+
+    # --- Q10: the native-UDF word count -----------------------------------
+    batches, schema10, k, words, valid = wc_batches
+
+    def q10_plan():
+        scan = InMemoryScanExec(conf, [batches], schema10)
+        proj = TpuProjectExec(conf, [col("k"), E.Alias(
+            string_word_count(col("s")), "wc")], scan)
+        return TpuHashAggregateExec(conf, [col("k")], [
+            A.agg(A.Sum(col("wc")), "sw"), A.agg(A.Count(col("wc")), "cw"),
+            A.agg(A.Count(None), "c")], proj)
+
+    reset_launches()
+    agg = q10_plan()
+    rows, ms10 = _run(torch, agg, conf)
+    per_query["Q10"] = launches()
+    sw = np.bincount(k, weights=np.where(valid, words, 0), minlength=64)
+    cw = np.bincount(k[valid], minlength=64)
+    c = np.bincount(k, minlength=64)
+    want = [(g, int(sw[g]), int(cw[g]), int(c[g])) for g in range(64)
+            if c[g]]
+    if sorted(rows) != want:
+        raise AssertionError("Q10: rows differ from the generator's counts")
+    k5 = per_query["Q10"]["word_starts"]
+    if k5 != len(batches) or per_query["Q10"]["bucket_sum"] <= 0:
+        raise AssertionError(f"Q10: {k5} K5 launches for {len(batches)} "
+                             f"batches, K1 {per_query['Q10']['bucket_sum']}")
+    live = sum(int(b.columns[1].offsets[-1]) for b in batches)
+    pool = sum(int(b.columns[1].chars.shape[0]) for b in batches)
+    emit({"query": "Q10", "rows": int(k.size), "batches": len(batches),
+          "groups": len(rows), "wall_ms": ms10, "char_bytes": live,
+          "pool_bytes": pool, "agg_strategy": agg._strategy_choice[0],
+          "launches": per_query["Q10"]})
+    if profile:
+        # each input plane read once: offsets, live chars, validity, and
+        # the fixed-width column with its validity
+        profile_plan(torch, "Q9", q9_plan, conf, n,
+                     4 * (n + 1) + int(offsets[-1]) + n + 9 * n)
+        nrows = int(k.size)
+        profile_plan(torch, "Q10", q10_plan, conf, nrows,
+                     4 * (nrows + len(batches)) + live + nrows + 5 * nrows)
+    return per_query
+
+
 def build_all() -> dict:
     """Build every kernel library from the sources beside this script,
     one ``nvcc`` per source, all started together."""
@@ -971,6 +1229,29 @@ def build_all() -> dict:
                 if "registers" in ln or "spill" in ln] for mod in mods}}
 
 
+def kernels_line(kres: dict, per_query: dict) -> list:
+    """One entry per kernel: its own path's launches, every path's, and
+    the kernel phase's numbers at the main path's shape (the groupby
+    kernels at the direct tier of Q1's table; K4 at the bench join's
+    shape; K5 on a Q10 batch)."""
+    kernels = []
+    for name, path in PATH.items():
+        r = kres[(name, 128)]
+        line = {"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "path": path,
+                "launches": per_query[path][name],
+                "launches_by_path": {q: c[name] for q, c
+                                     in per_query.items()},
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": "bytes", "library_ms": r["library_ms"]}
+        for extra in ("plain_rows", "bound_abi_ms", "library"):
+            if extra in r:
+                line[extra] = r[extra]
+        kernels.append(line)
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2-rows", type=int, default=26,
@@ -979,9 +1260,13 @@ def main() -> int:
     ap.add_argument("--join-log2-rows", type=int, default=23,
                     help="fact rows of the bench join (Q6, Q7, K4's probe "
                     "side), as a power of two; Q8 takes 1/8 of them")
+    ap.add_argument("--string-log2-rows", type=int, default=22,
+                    help="rows of Q9 and of Q10 (in 4 batches; K5 runs on "
+                    "the first batch's pool), as a power of two")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Q1, Q6 and Q7 with torch.profiler")
+                    help="also profile Q1, Q6, Q7, Q9 and Q10 with "
+                    "torch.profiler")
     args = ap.parse_args()
 
     import numpy as np
@@ -1008,29 +1293,21 @@ def main() -> int:
     kres = kernel_phase(torch, np, dev, 1 << args.kernel_log2_rows, args.reps)
     kres[("probe_ranges", 128)] = join_kernel_phase(
         torch, np, dev, 1 << args.join_log2_rows, DIM_ROWS, args.reps)
+    wc_batches = _word_count_batches(np, dev, args.string_log2_rows)
+    kres[("word_starts", 128)] = udf_kernel_phase(
+        torch, np, dev, wc_batches[0][0], args.reps)
     per_query = query_phase(torch, np, dev, args.log2_rows, 4,
                             args.profile)
     per_query.update(join_query_phase(torch, np, dev, args.join_log2_rows,
                                       DIM_ROWS, args.profile))
+    per_query.update(string_query_phase(torch, np, dev,
+                                        args.string_log2_rows, wc_batches,
+                                        args.profile))
+    for q, counts in per_query.items():
+        if q != "Q10" and counts["word_starts"]:
+            raise AssertionError(f"{q} launched K5")
 
-    kernels = []
-    for name, path in PATH.items():
-        # the groupby kernels at the direct tier of Q1's table (Q1, Q2,
-        # Q5); K4 at the bench join's shape (Q6)
-        r = kres[(name, 128)]
-        line = {"name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "path": path,
-                "launches": per_query[path][name],
-                "launches_by_path": {q: c[name] for q, c
-                                     in per_query.items()},
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": "bytes", "library_ms": r["library_ms"]}
-        for extra in ("plain_rows", "bound_abi_ms"):
-            if extra in r:
-                line[extra] = r[extra]
-        kernels.append(line)
-    emit({"kernels": kernels})
+    emit({"kernels": kernels_line(kres, per_query)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

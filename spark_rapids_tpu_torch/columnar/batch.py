@@ -5,7 +5,8 @@ a 0-d device tensor (a lazy length produced by a filter or an aggregate);
 the ``num_rows`` property syncs once and caches, ``num_rows_lazy`` never
 syncs. :func:`batch_from_host_arrays` carries a reference batch's planes
 across unchanged, padding included, so both engines see identical
-inputs.
+inputs. Row decoding (``to_rows``) turns string columns back into
+``str`` (``bytes`` for binary).
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import DataType, StructField, StructType, torch_dtype
+from ..types import DataType, StructField, StructType, is_string, \
+    torch_dtype
 from .column import (
     DeviceColumn,
     HostColumn,
@@ -104,10 +106,19 @@ def batch_from_host_arrays(schema: StructType,
                            device=None) -> ColumnarBatch:
     """A batch built from the numpy planes of a reference batch: per column
     its (capacity,) data and validity arrays, padding included, plus the
-    row count. The tests feed both engines identical batches through it."""
+    row count. A string column's data is an ``(offsets, chars)`` pair:
+    offsets (capacity+1,), the byte pool as it is (its padding kept). The
+    tests feed both engines identical batches through it."""
     dev = resolve_device(device)
     cols = []
     for f, d, v in zip(schema.fields, datas, validities):
+        if is_string(f.dataType):
+            offsets, chars = d
+            chars = np.asarray(chars, dtype=np.uint8)
+            cols.append(DeviceColumn.from_string_arrays(
+                f.dataType, num_rows, offsets, chars, v, dev,
+                char_cap=chars.shape[0]))
+            continue
         st = torch_dtype(f.dataType)
         d = np.asarray(d)
         v = np.asarray(v, dtype=bool)

@@ -1,11 +1,14 @@
-"""Fixed-width columns over torch tensors.
+"""Columns over torch tensors: fixed width and Arrow-layout strings.
 
-Counterpart of ``spark_rapids_tpu/columnar/column.py``: a column is a
-``data`` tensor of the storage dtype plus a bool ``validity`` tensor, both
-of length ``capacity`` — the same power-of-two bucket the reference picks
-(:func:`choose_capacity`), so capacities and padding line up row for row.
-Padding slots hold validity False and zeroed data. String and dictionary
-columns are not ported yet (see ``types.NOT_PORTED_TYPES``).
+Counterpart of ``spark_rapids_tpu/columnar/column.py``. A fixed-width
+column is a ``data`` tensor of the storage dtype plus a bool ``validity``
+tensor, both of length ``capacity`` — the same power-of-two bucket the
+reference picks (:func:`choose_capacity`), so capacities and padding line
+up row for row. Padding slots hold validity False and zeroed data. A
+string (or binary) column is ``offsets`` (capacity+1 int32, flat past the
+last row) plus ``chars`` (the uint8 byte pool, padded with zeros to
+``choose_capacity(total bytes)``) plus ``validity``; null rows hold no
+bytes. Dictionary-encoded columns are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import DataType, NullType, torch_dtype
+from ..types import BinaryType, DataType, NullType, check_storable, \
+    is_string, torch_dtype
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,13 +41,63 @@ def round_up_pow2(n: int) -> int:
 
 def choose_capacity(rows: int, min_bucket: int = 128) -> int:
     """Capacity bucket for a logical row count (reference
-    ``column.py:42``): the next power of two, at least ``min_bucket``."""
+    ``column.py:42``): the next power of two, at least ``min_bucket``.
+    String byte pools use the same rule over their byte count."""
     return max(min_bucket, round_up_pow2(rows))
+
+
+def encode_strings(values: Sequence[Any], validity: np.ndarray
+                   ) -> List[bytes]:
+    """UTF-8 bytes per row (``bytes`` pass as they are); null rows hold
+    none."""
+    out: List[bytes] = []
+    for v, ok in zip(values, validity):
+        if v is None or not ok:
+            out.append(b"")
+        elif isinstance(v, bytes):
+            out.append(v)
+        else:
+            out.append(str(v).encode("utf-8"))
+    return out
+
+
+def decode_string_rows(chars: np.ndarray, offsets: np.ndarray,
+                       validity: np.ndarray, n: int,
+                       binary: bool = False) -> np.ndarray:
+    """The first ``n`` rows of a string column as Python objects (``str``,
+    or ``bytes`` for binary; ``None`` for nulls): one UTF-8 decode of the
+    live byte pool, then slices at per-row character offsets (reference
+    ``columnar/batch.decode_string_rows``)."""
+    data = np.empty(n, dtype=object)
+    if n == 0:
+        return data
+    total = int(offsets[n])
+    raw = chars[:total].tobytes()
+    bounds = zip(offsets[:n].tolist(), offsets[1:n + 1].tolist(),
+                 validity[:n].tolist())
+    if binary:
+        data[:] = [raw[a:b] if v else None for a, b, v in bounds]
+        return data
+    try:
+        big = raw.decode("utf-8")
+    except UnicodeDecodeError:
+        # bytes under null rows may be garbage: decode the valid rows alone
+        data[:] = [raw[a:b].decode("utf-8") if v else None
+                   for a, b, v in bounds]
+        return data
+    starts = (chars[:total] & 0xC0) != 0x80
+    co = np.zeros(total + 1, np.int64)
+    np.cumsum(starts, out=co[1:])
+    ro = co[offsets[:n + 1]].tolist()
+    data[:] = [big[a:b] if v else None
+               for a, b, v in zip(ro[:n], ro[1:], validity[:n].tolist())]
+    return data
 
 
 @dataclasses.dataclass
 class HostColumn:
-    """Host mirror of a column: numpy ``data`` + bool ``validity``."""
+    """Host mirror of a column: numpy ``data`` (an object array of
+    ``str``/``bytes`` for strings) + bool ``validity``."""
 
     dtype: DataType
     data: np.ndarray
@@ -54,11 +108,15 @@ class HostColumn:
 
     @staticmethod
     def from_pylist(values: Sequence[Any], dtype: DataType) -> "HostColumn":
-        torch_dtype(dtype)  # raises for types this slice does not store
+        check_storable(dtype)
         n = len(values)
         validity = np.array([v is not None for v in values], dtype=bool)
         if isinstance(dtype, NullType):
             return HostColumn(dtype, np.zeros(n, bool), np.zeros(n, bool))
+        if is_string(dtype):
+            data = np.empty(n, dtype=object)
+            data[:] = list(values)
+            return HostColumn(dtype, data, validity)
         data = np.zeros(n, dtype=dtype.to_numpy())
         for i, v in enumerate(values):
             if v is not None:
@@ -82,27 +140,36 @@ class HostColumn:
 
 
 class DeviceColumn:
-    """A device-resident fixed-width column (reference: DeviceColumn's
-    fixed-width layout)."""
+    """A device-resident column (reference: DeviceColumn's fixed-width and
+    string layouts). ``data`` is None for a string column; ``offsets`` and
+    ``chars`` are None for a fixed-width one."""
 
-    __slots__ = ("dtype", "length", "data", "validity")
+    __slots__ = ("dtype", "length", "data", "validity", "offsets", "chars")
 
-    def __init__(self, dtype: DataType, length, data: torch.Tensor,
-                 validity: torch.Tensor):
+    def __init__(self, dtype: DataType, length, data: Optional[torch.Tensor],
+                 validity: torch.Tensor,
+                 offsets: Optional[torch.Tensor] = None,
+                 chars: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.length = length  # logical rows; python int at batch boundaries
         self.data = data
         self.validity = validity
+        self.offsets = offsets
+        self.chars = chars
 
     @property
     def capacity(self) -> int:
         return int(self.validity.shape[0])
 
+    @property
+    def is_string(self) -> bool:
+        return is_string(self.dtype)
+
     @staticmethod
     def from_host(host: HostColumn, capacity: Optional[int] = None,
                   name: Optional[str] = None, device=None) -> "DeviceColumn":
         dev = resolve_device(device)
-        st = torch_dtype(host.dtype)
+        check_storable(host.dtype)
         n = len(host)
         cap = capacity or choose_capacity(n)
         if cap < n:
@@ -111,18 +178,69 @@ class DeviceColumn:
                              f"{n}")
         validity = np.zeros(cap, dtype=bool)
         validity[:n] = host.validity
+        if is_string(host.dtype):
+            encoded = encode_strings(host.data, host.validity)
+            offsets = np.zeros(cap + 1, dtype=np.int64)
+            np.cumsum([len(b) for b in encoded], out=offsets[1:n + 1])
+            offsets[n + 1:] = offsets[n]
+            chars = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+            return DeviceColumn.from_string_arrays(
+                host.dtype, n, offsets, chars, validity, dev)
+        st = torch_dtype(host.dtype)
         npdt = np.bool_ if st == torch.bool else host.dtype.to_numpy()
         data = np.zeros(cap, dtype=npdt)
         data[:n] = np.where(host.validity, host.data, np.zeros(1, npdt))
         return DeviceColumn(host.dtype, n, torch.from_numpy(data).to(dev),
                             torch.from_numpy(validity).to(dev))
 
+    @staticmethod
+    def from_string_arrays(dtype: DataType, num_rows: int,
+                           offsets: np.ndarray, chars: np.ndarray,
+                           validity: np.ndarray, device=None,
+                           char_cap: Optional[int] = None
+                           ) -> "DeviceColumn":
+        """A string column from numpy planes: ``offsets`` (cap+1,),
+        ``validity`` (cap,) and the live bytes ``chars``, padded with zeros
+        to ``char_cap`` (default: ``choose_capacity`` of the byte count,
+        as the reference's upload, ``column.py:212-218``). Offsets must
+        start at 0, never fall and fit int32."""
+        dev = resolve_device(device)
+        offsets = np.asarray(offsets)
+        validity = np.asarray(validity, dtype=bool)
+        cap = validity.shape[0]
+        if offsets.shape != (cap + 1,):
+            raise ValueError(f"offsets must have shape ({cap + 1},), got "
+                             f"{offsets.shape}")
+        total = int(offsets[-1]) if cap else 0
+        if cap and (offsets[0] != 0 or np.any(np.diff(offsets) < 0)
+                    or total >= 2**31):
+            raise ValueError("offsets must start at 0, never fall and stay "
+                             "below 2^31")
+        chars = np.asarray(chars, dtype=np.uint8)
+        if chars.shape[0] < total:
+            raise ValueError(f"{chars.shape[0]} chars for {total} bytes of "
+                             "rows")
+        cc = char_cap or choose_capacity(max(total, 1))
+        pool = np.zeros(max(cc, total), dtype=np.uint8)
+        pool[:total] = chars[:total]
+        return DeviceColumn(
+            dtype, num_rows, None, torch.tensor(validity, device=dev),
+            torch.tensor(offsets.astype(np.int32), device=dev),
+            torch.tensor(pool, device=dev))
+
     def to_host(self, n: Optional[int] = None) -> HostColumn:
         """The first ``n`` rows (default: the column's length) on the
         host."""
         n = int(self.length) if n is None else n
+        validity = self.validity[:n].cpu().numpy().copy()
+        if self.is_string:
+            offsets = self.offsets[:n + 1].cpu().numpy()
+            chars = self.chars[:int(offsets[n]) if n else 0].cpu().numpy()
+            data = decode_string_rows(chars, offsets, validity, n,
+                                      isinstance(self.dtype, BinaryType))
+            return HostColumn(self.dtype, data, validity)
         return HostColumn(self.dtype, self.data[:n].cpu().numpy().copy(),
-                          self.validity[:n].cpu().numpy().copy())
+                          validity)
 
     def __repr__(self):
         return (f"DeviceColumn({self.dtype}, rows={self.length}, "

@@ -6,6 +6,8 @@ update, a filter only clearing liveness bits), a merge of the partials
 with each function's merge ops, then the result projection. Modes
 (``expr/aggregates.py``): COMPLETE, PARTIAL, FINAL.
 
+String columns enter as aggregate inputs of expressions (``sum(length(s))``)
+and of counts; string grouping keys and string min/max/first/last raise.
 Left out of this slice (ROADMAP.md port queue): the fused plan/stage
 programs, OOM retry, null elision and the event/observability emitters.
 """
@@ -22,6 +24,7 @@ from ..conf import AGG_STRATEGY, IMPROVED_FLOAT_OPS, RapidsConf
 from ..expr import aggregates as A
 from ..expr import expressions as E
 from ..expr.eval import lower
+from ..expr.values import ColV, StrV, Val
 from ..ops import concat as concat_ops
 from ..ops import groupby as groupby_ops
 from ..ops.bucket_reduce import NOT_PORTED_TIERS, not_ported_tier
@@ -70,6 +73,13 @@ def choose_agg_strategy(conf: RapidsConf, cap: int,
                 "hand-written bucket kernels K1-K3")
     return ("SCATTER", f"AUTO: CUDA device with {n_fexact} exact float "
             "sum(s) — order-preserving segment sums, torch scatter ops")
+
+
+def _count_input(v: Val) -> ColV:
+    """A string value enters the aggregate only to be counted (the
+    constructor refuses other ops over strings): its validity is all a
+    count reads."""
+    return ColV(v.validity, v.validity) if isinstance(v, StrV) else v
 
 
 class TpuHashAggregateExec(TpuExec):
@@ -139,6 +149,15 @@ class TpuHashAggregateExec(TpuExec):
                 self._update_ops.append(op)
                 pos += 1
             self._merge_ops.extend(f.merge_ops)
+
+        for kf in self._key_fields:
+            if T.is_string(kf.dataType):
+                raise NotImplementedError(
+                    f"string grouping keys are {T.NOT_PORTED_STRING_LAYERS}")
+        for op, e in zip(self._update_ops, self._update_exprs):
+            if e is not None and T.is_string(e.dtype) and op != "count":
+                raise NotImplementedError(
+                    f"{op} over strings is {T.NOT_PORTED_STRING_LAYERS}")
 
         if self.mode == A.FINAL:
             # child emits [keys..., buffers...]; merge those buffers
@@ -216,7 +235,7 @@ class TpuHashAggregateExec(TpuExec):
             cols, live = e.lower_batch(cols, live, cap, e.side_vals())
         dev = live.device
         keys = [lower(e, cols, cap, dev) for e in key_exprs]
-        vals = [None if e is None else lower(e, cols, cap, dev)
+        vals = [None if e is None else _count_input(lower(e, cols, cap, dev))
                 for e in value_exprs]
         if self.group_exprs:
             out_keys, out_aggs, nseg = groupby_ops.groupby_agg(

@@ -13,9 +13,10 @@ import contextlib
 import time
 from typing import Dict, Iterator, List, Optional, Sequence
 
-from ..columnar import ColumnarBatch, DeviceColumn
+from ..columnar import ColumnarBatch
 from ..conf import RapidsConf
-from ..expr.values import ColV
+from ..expr.eval import column_of_val, val_of_column
+from ..expr.values import Val
 from ..ops import filter_gather
 from ..types import StructType
 
@@ -161,13 +162,13 @@ class TpuExec:
         return self.tree_string()
 
 
-def vals_of_batch(batch: ColumnarBatch) -> List[ColV]:
-    return [ColV(c.data, c.validity) for c in batch.columns]
+def vals_of_batch(batch: ColumnarBatch) -> List[Val]:
+    return [val_of_column(c) for c in batch.columns]
 
 
-def batch_from_vals(vals: Sequence[ColV], schema: StructType, num_rows,
+def batch_from_vals(vals: Sequence[Val], schema: StructType, num_rows,
                     capacity: Optional[int] = None) -> ColumnarBatch:
-    cols = [DeviceColumn(f.dataType, num_rows, v.data, v.validity)
+    cols = [column_of_val(f.dataType, num_rows, v)
             for f, v in zip(schema.fields, vals)]
     return ColumnarBatch(cols, schema, num_rows, capacity=capacity)
 
@@ -175,8 +176,9 @@ def batch_from_vals(vals: Sequence[ColV], schema: StructType, num_rows,
 def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
     """Shared execute_partition of fusable execs: the chain below (and
     including) ``exec_self`` runs eagerly per batch, threading a liveness
-    mask; if any stage sparsified it, rows compact once at the end, and the
-    row count stays a device scalar (no host sync)."""
+    mask; if any stage sparsified it, rows compact once at the end (string
+    columns through the two-pass string gather), and the row count stays
+    a device scalar (no host sync)."""
     source, chain = exec_self.fused_source_chain()
     out_schema = exec_self.output_schema
     needs_compact = any(e.sparsifies for e in chain)

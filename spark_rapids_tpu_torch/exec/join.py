@@ -183,6 +183,11 @@ class TpuShuffledHashJoinExec(TpuExec):
         for k in self._probe_keys + self._build_keys:
             if not T.is_fixed_width(k.dtype):
                 raise NotImplementedError(join_ops.STRING_KEYS)
+        for f in left.output_schema.fields + right.output_schema.fields:
+            if T.is_string(f.dataType):
+                # an expanded string payload outgrows its byte pool
+                raise NotImplementedError(
+                    f"string join payloads are {T.NOT_PORTED_STRING_LAYERS}")
 
         lf = left.output_schema.fields
         rf = right.output_schema.fields

@@ -1,7 +1,9 @@
 """The columnar -> row boundary.
 
 Counterpart of ``ColumnarToRowExec`` in
-``spark_rapids_tpu/exec/transitions.py``: device batches -> host rows.
+``spark_rapids_tpu/exec/transitions.py``: device batches -> host rows;
+string columns decode to ``str`` (``bytes`` for binary) through
+``columnar.column.decode_string_rows``.
 """
 from __future__ import annotations
 

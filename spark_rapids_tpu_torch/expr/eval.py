@@ -1,9 +1,11 @@
-"""Lowering bound expression trees to torch ops, fixed-width part.
+"""Lowering bound expression trees to torch ops.
 
-Counterpart of the fixed-width part of ``spark_rapids_tpu/expr/eval.py``
-``lower`` (``eval.py:275``). Where the reference traces one XLA program,
-the port runs the same elementwise ops eagerly on the device of the input
-tensors. Spark semantics are kept exactly:
+Counterpart of ``spark_rapids_tpu/expr/eval.py`` ``lower``
+(``eval.py:275``) for fixed-width and string values; the string family
+lowers in ``expr/eval_strings.py``, native UDFs call their columnar
+function. Where the reference traces one XLA program, the port runs the
+same ops eagerly on the device of the input tensors. Spark semantics are
+kept exactly:
 
   * integer arithmetic wraps like Java (two's complement);
   * division and remainder by zero give NULL: the divisor is masked BEFORE
@@ -12,19 +14,23 @@ tensors. Spark semantics are kept exactly:
     it is computed by negation, which wraps to ``MIN`` as in Java;
   * three-valued (Kleene) And/Or;
   * float comparisons treat NaN as equal to NaN and larger than anything;
-  * float -> integral casts saturate, NaN -> 0 (Java narrowing).
+  * float -> integral casts saturate, NaN -> 0 (Java narrowing);
+  * strings compare as unsigned bytes, and length() counts characters.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import types as T
 from ..columnar import ColumnarBatch, DeviceColumn
+from ..ops import strings as S
 from ..types import DataType, torch_dtype
 from . import expressions as E
-from .values import ColV, UnsupportedExpressionError  # noqa: F401
+from .eval_strings import compare_strings, lower_strings
+from .values import ColV, StrV, UnsupportedExpressionError, Val
 
 _INT_INFO = {
     "tinyint": (torch.int8, -(2**7), 2**7 - 1),
@@ -35,6 +41,13 @@ _INT_INFO = {
 
 
 def _check_fixed(dt: DataType) -> None:
+    """Raise for a type this lowering cannot take here: string casts and
+    string selection (If / CaseWhen / Coalesce) are among the other string
+    expressions not ported yet."""
+    if T.is_string(dt):
+        raise NotImplementedError(
+            f"{dt.simpleString} casts and selection are "
+            f"{T.NOT_PORTED_STRING_EXPRS}")
     if not T.is_fixed_width(dt):
         raise NotImplementedError(
             f"{dt.simpleString} expressions are {T.NOT_PORTED_TYPES}")
@@ -112,11 +125,24 @@ def _cmp(expr, ld: torch.Tensor, rd: torch.Tensor, floating: bool):
     }[type(expr)]
 
 
-def lower(expr: E.Expression, cols: Sequence[ColV], cap: int,
-          device: Optional[torch.device] = None) -> ColV:
+def _string_literal(value, cap: int, device) -> StrV:
+    """A string literal as a column: its bytes tiled once per row (Arrow
+    offsets must not fall)."""
+    raw = value.encode("utf-8") if isinstance(value, str) else (value or b"")
+    nb = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).copy())
+    chars = (nb.to(device).repeat(cap) if len(raw)
+             else torch.zeros(1, dtype=torch.uint8, device=device))
+    offsets = torch.arange(cap + 1, dtype=torch.int32,
+                           device=device) * len(raw)
+    return StrV(offsets, chars, torch.full((cap,), value is not None,
+                                           dtype=torch.bool, device=device))
+
+
+def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
+          device: Optional[torch.device] = None) -> Val:
     """Recursively lower a bound expression to torch ops over ``cols``
-    (each a (cap,) ColV). Literals are built on ``device``, by default
-    the device of the first input column."""
+    (each a (cap,) ColV or StrV). Literals are built on ``device``, by
+    default the device of the first input column."""
     if device is None:
         if not cols:
             raise ValueError("lower() needs a device when there are no "
@@ -137,12 +163,19 @@ def lower(expr: E.Expression, cols: Sequence[ColV], cap: int,
 
     if isinstance(expr, E.Literal):
         dt = expr.data_type
+        if T.is_string(dt):
+            return _string_literal(expr.value, cap, device)
         _check_fixed(dt)
         if isinstance(dt, T.NullType):
             return ColV(full(False, torch.bool), full(False, torch.bool))
         v = expr.value
         return ColV(full(v if v is not None else 0, torch_dtype(dt)),
                     full(v is not None, torch.bool))
+
+    if isinstance(expr, E.NativeUDF):
+        # the UDF's columnar function runs inside the projection
+        # (reference: RapidsUDF.evaluateColumnar)
+        return expr.columnar_fn(cap, *[ev(c) for c in expr.children_])
 
     if isinstance(expr, (E.Add, E.Subtract, E.Multiply)):
         out = expr.dtype
@@ -177,6 +210,11 @@ def lower(expr: E.Expression, cols: Sequence[ColV], cap: int,
 
     if isinstance(expr, E._BinaryComparison):
         l, r = ev(expr.left), ev(expr.right)
+        if isinstance(l, StrV) or isinstance(r, StrV):
+            if not (isinstance(l, StrV) and isinstance(r, StrV)):
+                raise UnsupportedExpressionError(
+                    "comparison between string and non-string")
+            return compare_strings(expr, l, r, cap)
         tgt = (T.promote(expr.left.dtype, expr.right.dtype)
                if expr.left.dtype != expr.right.dtype else expr.left.dtype)
         ld, rd = _promote2(l, expr.left.dtype, r, expr.right.dtype, tgt)
@@ -265,23 +303,49 @@ def lower(expr: E.Expression, cols: Sequence[ColV], cap: int,
         return ColV(data, valid)
 
     if isinstance(expr, E.Cast):
+        if expr.child.dtype == expr.to:
+            return ev(expr.child)
+        _check_fixed(expr.child.dtype)
+        _check_fixed(expr.to)
         c = ev(expr.child)
         return ColV(_cast_data(c.data, expr.child.dtype, expr.to),
                     c.validity)
 
+    if isinstance(expr, E.Length):
+        c = ev(expr.child)
+        if not isinstance(c, StrV):
+            raise UnsupportedExpressionError("length() on non-string")
+        return ColV(S.char_counts(c), c.validity)
+
+    sv = lower_strings(expr, ev, cap)
+    if sv is not None:
+        return sv
+
     raise UnsupportedExpressionError(
         f"no lowering for {type(expr).__name__} in the port yet")
+
+
+def val_of_column(c: DeviceColumn) -> Val:
+    """A column's planes as a lowering value."""
+    if c.is_string:
+        return StrV(c.offsets, c.chars, c.validity)
+    return ColV(c.data, c.validity)
+
+
+def column_of_val(dtype: DataType, num_rows, v: Val) -> DeviceColumn:
+    """A lowering value as a column of ``num_rows`` rows."""
+    if isinstance(v, StrV):
+        return DeviceColumn(dtype, num_rows, None, v.validity, v.offsets,
+                            v.chars)
+    return DeviceColumn(dtype, num_rows, v.data, v.validity)
 
 
 def evaluate_projection(bound_exprs: Sequence[E.Expression],
                         batch: ColumnarBatch) -> List[DeviceColumn]:
     """Evaluate bound expressions against a batch (reference:
     ``eval.evaluate_projection``), eagerly on the batch's device."""
-    cols = [ColV(c.data, c.validity) for c in batch.columns]
+    cols = [val_of_column(c) for c in batch.columns]
     dev = cols[0].validity.device if cols else None
     n = batch.num_rows_lazy
-    out = []
-    for e in bound_exprs:
-        v = lower(e, cols, batch.capacity, dev)
-        out.append(DeviceColumn(e.dtype, n, v.data, v.validity))
-    return out
+    return [column_of_val(e.dtype, n, lower(e, cols, batch.capacity, dev))
+            for e in bound_exprs]

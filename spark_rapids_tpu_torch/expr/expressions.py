@@ -1,9 +1,11 @@
-"""Expression trees, the fixed-width subset of the reference.
+"""Expression trees, the ported subset of the reference.
 
 Counterpart of ``spark_rapids_tpu/expr/expressions.py``: the same frozen
-dataclasses, names and result-type rules for the nodes this slice lowers
-(``expr/eval.py``). Structural equality and hashing come from the
-dataclasses, as in the reference.
+dataclasses, names and result-type rules for the nodes the port lowers
+(``expr/eval.py``, ``expr/eval_strings.py``), plus the reference's other
+string nodes, which exist so plans can name them and raise
+``NotImplementedError`` when lowered. Structural equality and hashing
+come from the dataclasses, as in the reference.
 """
 from __future__ import annotations
 
@@ -77,6 +79,8 @@ class Literal(Expression):
             return Literal(value, T.DOUBLE)
         if isinstance(value, str):
             return Literal(value, T.STRING)
+        if isinstance(value, bytes):
+            return Literal(value, T.BINARY)
         raise NotImplementedError(
             f"literal of {type(value).__name__} is {T.NOT_PORTED_TYPES}")
 
@@ -326,6 +330,212 @@ class Cast(Expression):
     @property
     def dtype(self):
         return self.to
+
+
+# ---------------------------------------------------------------------------
+# Strings (reference: expressions.py:782-1051)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Length(Expression):
+    """Character length (UTF-8 code points, not bytes)."""
+
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+@dataclasses.dataclass(frozen=True)
+class _UnaryString(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+
+class Upper(_UnaryString):
+    pass
+
+
+class Lower(_UnaryString):
+    pass
+
+
+class InitCap(_UnaryString):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Substring(Expression):
+    """1-based, character-indexed, with UTF8String.substringSQL's rules
+    for position 0 and negative positions; pos and len are literals."""
+
+    str: Expression
+    pos: Expression
+    len: Expression
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+
+@dataclasses.dataclass(frozen=True)
+class Concat(Expression):
+    """Null if any input is null."""
+
+    children_: Tuple[Expression, ...]
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+
+@dataclasses.dataclass(frozen=True)
+class _TrimBase(Expression):
+    column: Expression
+    trim_str: Optional[str] = None  # None = trim ASCII space (Spark default)
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+
+class StringTrim(_TrimBase):
+    pass
+
+
+class StringTrimLeft(_TrimBase):
+    pass
+
+
+class StringTrimRight(_TrimBase):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class _BinaryStringPredicate(Expression):
+    """left: a string column; right: a string literal."""
+
+    left: Expression
+    right: Expression
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
+class StartsWith(_BinaryStringPredicate):
+    pass
+
+
+class EndsWith(_BinaryStringPredicate):
+    pass
+
+
+class Contains(_BinaryStringPredicate):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Like(Expression):
+    left: Expression
+    pattern: Expression
+    escape: str = "\\"
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
+@dataclasses.dataclass(frozen=True)
+class RLike(Expression):
+    left: Expression
+    pattern: Expression
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
+@dataclasses.dataclass(frozen=True)
+class StringLocate(Expression):
+    substr: Expression
+    str: Expression
+    start: Expression
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+@dataclasses.dataclass(frozen=True)
+class _ThreeArgString(Expression):
+    str: Expression
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+
+@dataclasses.dataclass(frozen=True)
+class StringReplace(_ThreeArgString):
+    search: Expression
+    replacement: Expression
+
+
+@dataclasses.dataclass(frozen=True)
+class RegExpReplace(_ThreeArgString):
+    pattern: Expression
+    replacement: Expression
+
+
+@dataclasses.dataclass(frozen=True)
+class StringLPad(_ThreeArgString):
+    len: Expression
+    pad: Expression
+
+
+@dataclasses.dataclass(frozen=True)
+class StringRPad(_ThreeArgString):
+    len: Expression
+    pad: Expression
+
+
+@dataclasses.dataclass(frozen=True)
+class SubstringIndex(_ThreeArgString):
+    delim: Expression
+    count: Expression
+
+
+@dataclasses.dataclass(frozen=True)
+class StringSplitPart(_ThreeArgString):
+    delim: Expression
+    index: Expression
+
+
+#: string nodes the port does not lower yet (ROADMAP.md, queue A item
+#: 'Other string expressions')
+NOT_PORTED_STRING_NODES = (InitCap, Like, RLike, StringLocate, StringReplace,
+                           RegExpReplace, StringLPad, StringRPad,
+                           SubstringIndex, StringSplitPart)
+
+
+@dataclasses.dataclass(frozen=True)
+class NativeUDF(Expression):
+    """A native UDF (reference: RapidsUDF.java:22): a COLUMNAR function
+    over the engine's column values (ColV / StrV), run inside the
+    projection, plus the row function of the CPU fallback."""
+
+    columnar_fn: Any
+    row_fn: Any
+    children_: Tuple[Expression, ...]
+    return_type: DataType
+
+    @property
+    def dtype(self):
+        return self.return_type
 
 
 def bind_references(expr: Expression, schema: T.StructType) -> Expression:

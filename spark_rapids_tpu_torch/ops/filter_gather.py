@@ -1,17 +1,19 @@
 """Row selection: liveness masks, mask compaction and row gather.
 
-Counterpart of ``spark_rapids_tpu/ops/filter_gather.py`` for fixed-width
-columns. Outputs keep the input capacity: selected rows are compacted to
-the front, tail slots zeroed with validity False, and the surviving row
-count stays a 0-d device tensor.
+Counterpart of ``spark_rapids_tpu/ops/filter_gather.py``. Outputs keep
+the input capacity: selected rows are compacted to the front, tail slots
+zeroed with validity False, and the surviving row count stays a 0-d
+device tensor. String columns gather in two passes (new offsets, then
+the bytes) into a byte pool of a size fixed up front, as in the
+reference.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..expr.values import ColV
+from ..expr.values import ColV, StrV, Val
 
 
 def live_of(num_rows_or_mask, cap: int, device=None) -> torch.Tensor:
@@ -23,6 +25,43 @@ def live_of(num_rows_or_mask, cap: int, device=None) -> torch.Tensor:
             return x
         device = x.device
     return torch.arange(cap, dtype=torch.int32, device=device) < x
+
+
+def _drop_add(npos: int, at: torch.Tensor, values: torch.Tensor
+              ) -> torch.Tensor:
+    """(npos,) int32 zeros with ``values`` added at positions ``at``;
+    positions at or past ``npos`` are dropped (the reference's
+    ``.at[].add(mode="drop")``: they land in a spare slot that is cut
+    off)."""
+    arr = torch.zeros(npos + 1, dtype=torch.int32, device=values.device)
+    arr.index_add_(0, at.long().clamp(0, npos), values.to(torch.int32))
+    return arr[:npos]
+
+
+def rows_of_positions(offsets: torch.Tensor, npos: int) -> torch.Tensor:
+    """Row id per position given row-boundary offsets (cap+1,): one
+    boundary scatter + one cumsum (reference ``filter_gather.py:55``).
+    Empty rows put several marks on one position, so the ids still skip
+    them; positions past the last row clamp to the last row."""
+    cap = offsets.shape[0] - 1
+    ones = torch.ones(max(cap - 1, 0), dtype=torch.int32,
+                      device=offsets.device)
+    return torch.cumsum(_drop_add(npos, offsets[1:cap], ones), 0,
+                        dtype=torch.int32)
+
+
+def piecewise_by_row(values: torch.Tensor, new_offsets: torch.Tensor,
+                     npos: int) -> torch.Tensor:
+    """Expand per-row ``values`` to per-position, constant over each row's
+    [new_offsets[i], new_offsets[i+1]) range: one scatter-add of boundary
+    deltas + a cumsum (reference ``filter_gather.py:76``). Deltas of
+    empty rows collide at one position and add up, so the net is still
+    right. int32 arithmetic, wrapping as the reference's."""
+    cap = new_offsets.shape[0] - 1
+    v = values.to(torch.int32)
+    inc = v[1:] - v[:-1]
+    arr = _drop_add(npos, new_offsets[1:cap], inc[:cap - 1])
+    return torch.cumsum(arr, 0, dtype=torch.int32) + v[0]
 
 
 def compaction_indices(mask: torch.Tensor) -> Tuple[torch.Tensor,
@@ -55,10 +94,50 @@ def gather_fixed(col: ColV, indices: torch.Tensor,
                 validity)
 
 
-def gather(cols: Sequence[ColV], indices: torch.Tensor,
-           valid_slot: torch.Tensor) -> List[ColV]:
-    """Gather each column by row ``indices`` (same output rows for all)."""
-    return [gather_fixed(c, indices, valid_slot) for c in cols]
+def gather_string(col: StrV, indices: torch.Tensor,
+                  valid_slot: torch.Tensor, out_char_cap: int) -> StrV:
+    """Gather rows of a string column into a pool of ``out_char_cap``
+    bytes (reference ``filter_gather.py:214``): sizes first (new offsets
+    by prefix sum), then each output byte's source byte, whose
+    per-row delta expands with :func:`piecewise_by_row`. Indices clip
+    into range as the reference's ``mode="clip"`` takes do."""
+    m = indices.shape[0]
+    cap = col.offsets.shape[0] - 1
+    dev = col.offsets.device
+    idx = indices.long().clamp(0, max(cap - 1, 0))
+    lens = col.offsets[1:] - col.offsets[:-1]
+    validity = col.validity[idx] & valid_slot
+    sel_lens = torch.where(validity, lens[idx], 0)
+    new_offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                             torch.cumsum(sel_lens, 0, dtype=torch.int32)])
+    total = new_offsets[m]
+    j = torch.arange(out_char_cap, dtype=torch.int32, device=dev)
+    delta = col.offsets[indices.long().clamp(0, cap)] - new_offsets[:-1]
+    src = j + piecewise_by_row(delta, new_offsets, out_char_cap)
+    nchars = col.chars.shape[0]
+    chars = torch.where(j < total,
+                        col.chars[src.long().clamp(0, nchars - 1)],
+                        torch.zeros((), dtype=torch.uint8, device=dev))
+    return StrV(new_offsets, chars, validity)
+
+
+def gather(cols: Sequence[Val], indices: torch.Tensor,
+           valid_slot: torch.Tensor,
+           char_caps: Optional[Sequence[int]] = None) -> List[Val]:
+    """Gather each column by row ``indices`` (same output rows for all).
+    ``char_caps`` sets the output byte pool per string column, in order
+    (default: the input pool's size, enough for a row subset)."""
+    out: List[Val] = []
+    si = 0
+    for c in cols:
+        if isinstance(c, StrV):
+            cc = (char_caps[si] if char_caps is not None
+                  and si < len(char_caps) else int(c.chars.shape[0]))
+            si += 1
+            out.append(gather_string(c, indices, valid_slot, cc))
+        else:
+            out.append(gather_fixed(c, indices, valid_slot))
+    return out
 
 
 def packable_dtype(dt: torch.dtype) -> bool:
@@ -130,8 +209,8 @@ def unpack_fixed_cols(mat: torch.Tensor, dtypes: Sequence[torch.dtype],
     return out
 
 
-def filter_cols(cols: Sequence[ColV], mask: torch.Tensor
-                ) -> Tuple[List[ColV], torch.Tensor]:
+def filter_cols(cols: Sequence[Val], mask: torch.Tensor
+                ) -> Tuple[List[Val], torch.Tensor]:
     """Compact rows where ``mask`` holds to the front of each column.
     ``mask`` must already be False in padding slots. Returns the new
     columns and the new row count as a 0-d device tensor."""

@@ -43,8 +43,7 @@ from .sort import SIGN64, SortOrder, fixed_radix_keys
 _M32 = 0xFFFFFFFF
 _I64_MAX = 2**63 - 1
 #: the ROADMAP item string join keys name when they raise
-STRING_KEYS = ("string join keys are not ported yet: see ROADMAP.md, queue A "
-               "item 'Strings, dictionary columns, decimals and dates'")
+STRING_KEYS = f"string join keys are {T.NOT_PORTED_STRING_LAYERS}"
 
 
 def _ult(a: torch.Tensor, b) -> torch.Tensor:

@@ -1,13 +1,14 @@
-"""SQL type system, fixed-width slice.
+"""SQL type system.
 
 Counterpart of ``spark_rapids_tpu/types.py`` (same names, equality and
 promotion rules), kept as an own copy: the port imports nothing of the
 JAX package. Each fixed-width type maps onto one torch dtype
-(:func:`torch_dtype`). String, binary, decimal, date and timestamp types
-exist so schemas can name them, but columns of those types are not
-ported yet and raise :class:`NotImplementedError` where they are built
-(ROADMAP.md, queue A: "Strings, dictionary columns, decimals and
-dates").
+(:func:`torch_dtype`); string and binary columns are stored in the Arrow
+layout (int32 offsets + uint8 chars + validity, :func:`is_string`).
+Decimal, date and timestamp types exist so schemas can name them, but
+columns of those types are not ported yet and raise
+:class:`NotImplementedError` where they are built (ROADMAP.md, queue A:
+"Decimals and dates").
 """
 from __future__ import annotations
 
@@ -16,9 +17,14 @@ import dataclasses
 import numpy as np
 import torch
 
-#: the ROADMAP item every not-yet-ported type names in its error
+#: the ROADMAP items the not-yet-ported parts name in their errors
 NOT_PORTED_TYPES = ("not ported yet: see ROADMAP.md, queue A item "
-                    "'Strings, dictionary columns, decimals and dates'")
+                    "'Decimals and dates'")
+NOT_PORTED_STRING_EXPRS = ("not ported yet: see ROADMAP.md, queue A item "
+                           "'Other string expressions'")
+NOT_PORTED_STRING_LAYERS = ("not ported yet: see ROADMAP.md, queue A item "
+                            "'Strings in joins, grouping keys, min/max and "
+                            "concat'")
 
 
 class DataType:
@@ -222,11 +228,24 @@ def is_fixed_width(dt: DataType) -> bool:
                         IntegerType, LongType, FloatType, DoubleType)
 
 
-def torch_dtype(dt: DataType) -> torch.dtype:
-    """Storage dtype of a fixed-width type; others raise."""
-    if not is_fixed_width(dt):
+def is_string(dt: DataType) -> bool:
+    """True for the types stored as Arrow offsets + chars."""
+    return isinstance(dt, (StringType, BinaryType))
+
+
+def check_storable(dt: DataType) -> None:
+    """Raise for a type no port column can hold yet."""
+    if not (is_fixed_width(dt) or is_string(dt)):
         raise NotImplementedError(f"{dt.simpleString} columns are "
                                   f"{NOT_PORTED_TYPES}")
+
+
+def torch_dtype(dt: DataType) -> torch.dtype:
+    """Storage dtype of a fixed-width type; others raise."""
+    check_storable(dt)
+    if is_string(dt):
+        raise TypeError(f"{dt.simpleString} columns are offsets + chars, "
+                        "not one tensor")
     return _TORCH[dt.name]
 
 

@@ -6,7 +6,9 @@ plain versions (CPU) are held against the reference's Pallas kernels in
 ``tests/test_torch_groupby_kernels.py`` and ``test_torch_join_kernels.py``,
 so agreeing with them here holds the kernels to the reference. The join
 exec runs here on the card and on the CPU under every strategy and must
-give the same rows in the same order. Run on a card, without the
+give the same rows in the same order; so do the string expressions and
+the word-count query (K5, whose plain version is held against the
+reference's kernel in ``tests/test_torch_udf.py``). Run on a card, without the
 JAX-side conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -241,3 +243,114 @@ def test_join_on_the_card_matches_the_cpu(dev, how, strategy):
     got = run(dev)
     assert JK.LAUNCHES["probe_ranges"] - before == (strategy == "PALLAS")
     assert got == run("cpu")
+
+
+# ---------------------------------------------------------------------------
+# K5: word-start flags
+# ---------------------------------------------------------------------------
+_WS_ALPHABET = np.array([0x20, 0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x61, 0x62,
+                         0xC3, 0x00, 0x08, 0x0E, 0x1F, 0x21], np.uint8)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 255, 1023, 1024, 1025,
+                               4097, 65537, (1 << 20) + 3])
+def test_word_starts_matches_plain(dev, n):
+    from spark_rapids_tpu_torch.ops import udf_kernels as UK
+
+    c = np.random.default_rng(n).choice(_WS_ALPHABET, n)
+    exp = UK.word_starts_plain(torch.from_numpy(c))
+    (cd,) = _on(dev, c)
+    before = UK.LAUNCHES["word_starts"]
+    got = UK.word_starts(cd)
+    assert UK.LAUNCHES["word_starts"] - before == 1
+    assert torch.equal(got.cpu(), exp)
+    # a view that starts one byte in: not 4-byte aligned
+    assert torch.equal(UK.word_starts(cd[1:]).cpu(),
+                       UK.word_starts_plain(torch.from_numpy(c[1:])))
+
+
+@pytest.mark.parametrize("fill", [0x20, 0x0D, 0x61, 0xC3])
+def test_word_starts_all_space_and_no_space(dev, fill):
+    from spark_rapids_tpu_torch.ops import udf_kernels as UK
+
+    c = torch.full(((1 << 16) + 5,), fill, dtype=torch.uint8)
+    assert torch.equal(UK.word_starts(c.to(dev)).cpu(),
+                       UK.word_starts_plain(c))
+
+
+def test_word_starts_empty_pool_launches_nothing(dev):
+    from spark_rapids_tpu_torch.ops import udf_kernels as UK
+
+    before = UK.LAUNCHES["word_starts"]
+    out = UK.word_starts(torch.zeros(0, dtype=torch.uint8, device=dev))
+    assert out.shape == (0,) and UK.LAUNCHES["word_starts"] == before
+
+
+def _string_batch(device, n, seed):
+    import chip_smoke
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import (DeviceColumn,
+                                                 choose_capacity)
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, schema_of
+
+    rng = np.random.default_rng(seed)
+    off, chars, valid, _ = chip_smoke.word_count_text(np, rng, n)
+    cap = choose_capacity(n)
+    offsets = np.full(cap + 1, off[-1])
+    offsets[:n + 1] = off
+    v = np.zeros(cap, bool)
+    v[:n] = valid
+    k = np.zeros(cap, np.int32)
+    k[:n] = rng.integers(0, 64, n)
+    scol = DeviceColumn.from_string_arrays(T.STRING, n, offsets, chars, v,
+                                           device)
+    kcol = DeviceColumn(T.INT, n, torch.from_numpy(k).to(device),
+                        torch.from_numpy(np.arange(cap) < n).to(device))
+    return ColumnarBatch([kcol, scol], schema_of(k=T.INT, s=T.STRING), n)
+
+
+def test_word_count_query_on_the_card_matches_the_cpu(dev):
+    """Q10's plan at 3 x 5000 rows: K5 once per batch, same rows as the
+    CPU."""
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuHashAggregateExec,
+                                             TpuProjectExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr.expressions import Alias, col
+    from spark_rapids_tpu_torch.ops import udf_kernels as UK
+    from spark_rapids_tpu_torch.udf import string_word_count
+
+    conf = RapidsConf({})
+
+    def run(device):
+        bs = [_string_batch(device, 5000, s) for s in range(3)]
+        proj = TpuProjectExec(conf, [col("k"), Alias(string_word_count(
+            col("s")), "wc")], InMemoryScanExec(conf, [bs], bs[0].schema))
+        agg = TpuHashAggregateExec(conf, [col("k")], [
+            A.agg(A.Sum(col("wc")), "sw"), A.agg(A.Count(col("wc")), "cw"),
+            A.agg(A.Count(None), "c")], proj)
+        return sorted(agg.collect())
+
+    before = UK.LAUNCHES["word_starts"]
+    got = run(dev)
+    assert UK.LAUNCHES["word_starts"] - before == 3
+    assert got == run("cpu")
+
+
+def test_string_expressions_on_the_card_match_the_cpu(dev):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.eval import evaluate_projection
+
+    s = E.BoundReference(1, T.STRING)
+    exprs = [E.Substring(E.Upper(s), E.lit(1), E.lit(6)), E.Length(s),
+             E.Contains(s, E.lit("é")), E.StringTrim(s), E.Lower(s),
+             E.Concat((s, E.lit("-"), s)), E.LessThan(s, E.lit("m")),
+             E.StartsWith(s, E.lit("a")), E.EndsWith(s, E.lit("z"))]
+    rows = {}
+    for device in (dev, "cpu"):
+        b = _string_batch(device, 3000, 7)
+        rows[str(device)] = [c.to_host().to_pylist()
+                             for c in evaluate_projection(exprs, b)]
+    assert rows[str(dev)] == rows["cpu"]

@@ -186,7 +186,7 @@ def test_types_not_ported_raise():
     from spark_rapids_tpu_torch.columnar import ColumnarBatch, schema_of
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ColumnarBatch.from_pydict({"s": ["a"]}, schema_of(s=T.STRING),
+        ColumnarBatch.from_pydict({"d": [1]}, schema_of(d=T.DATE),
                                   device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EV.lower(E.Cast(E.BoundReference(0, T.INT), T.DATE),

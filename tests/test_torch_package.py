@@ -22,12 +22,19 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "spark_rapids_tpu_torch"
 
 
+#: every subpackage the import walk must reach
+SUBPACKAGES = ("columnar", "exec", "expr", "ops", "udf")
+
+
 def test_import_leaves_jax_and_reference_out():
     code = (
         "import importlib, pkgutil, sys\n"
         "import spark_rapids_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"for sub in {SUBPACKAGES!r}:\n"
+        "    assert 'spark_rapids_tpu_torch.' + sub in sys.modules, sub\n"
+        "assert 'spark_rapids_tpu_torch.udf.native' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'spark_rapids_tpu'\n"
         "             or m.startswith('spark_rapids_tpu.'))\n"
@@ -46,6 +53,7 @@ def test_no_port_source_names_jax_or_the_reference():
     sources = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [
         ROOT / "chip_smoke.py"]
     assert len(sources) > 15
+    assert PKG / "udf" / "native.py" in sources
     offenders = []
     for path in sources:
         for no, line in enumerate(path.read_text().splitlines(), 1):
@@ -99,6 +107,14 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_join_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     from spark_rapids_tpu_torch.ops import join_kernels as K
+
+    _without_nvcc(monkeypatch, tmp_path, K)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.build_kernels()
+
+
+def test_udf_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from spark_rapids_tpu_torch.ops import udf_kernels as K
 
     _without_nvcc(monkeypatch, tmp_path, K)
     with pytest.raises(RuntimeError, match="nvcc not found"):
