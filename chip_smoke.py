@@ -19,7 +19,11 @@ Phases, each failing the run on any error or mismatch:
    winners exactly, float sums within 1e-9 of each bucket's sum of |x|
    (the atomics' order effect); kernel, plain version and one library
    call (``index_add_`` / ``scatter_reduce_``) are timed with CUDA events
-   beside the bytes bound at 3.35 TB/s. The join probe kernel K4 runs at
+   beside the bytes bound at 3.35 TB/s. The ordered segment sum must
+   equal numpy's serial ``bincount`` bit for bit, and has a second bound,
+   its longest segment times the card's dependent f64 add latency, which
+   a one-thread probe kernel from the same source measures in the run
+   (a chain of 2^20 adds timed with CUDA events). The join probe kernel K4 runs at
    the bench join's shape (2^23 probe rows with 2-word keys, 5% dead,
    against a 2^17-row build with duplicate keys) and must equal, row for
    row, the ranges two ``torch.searchsorted`` calls give, and its plain
@@ -65,7 +69,8 @@ Phases, each failing the run on any error or mismatch:
         counts; K5 once per batch.
 
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
-filled evenly, K1 with Q4's five columns: its global-atomics branch).
+filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
+K1 at that shape has its own entry in the ``kernels`` line.
 
 Output: one JSON line per kernel shape and per query, then one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` are those of its
@@ -108,6 +113,10 @@ REPLACES = {
 }
 #: Q10's text comes in this many batches
 WORD_COUNT_BATCHES = 4
+#: the CUDA symbols of the kernels, for the profiles' per-kernel time
+KERNEL_SYMBOLS = ("bucket_sum_kernel", "bucket_fsum_kernel",
+                  "bucket_winner_kernel", "ordered_segment_sum_kernel",
+                  "probe_ranges_kernel", "word_starts_kernel")
 
 
 def _kernel_modules():
@@ -185,6 +194,7 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
             if not torch.equal(g, e):
                 raise AssertionError(f"bucket_sum B={B}: kernel != plain")
         L = len(int_cols) + len(cnt_cols)
+        passes = K.plan_bucket_sum(B, len(int_cols), len(cnt_cols))
         n_in = int(live.sum())
         n_data = sum(int((v & live).sum()) for _, v in int_cols)
         nbytes = 4 * n + n_in * L + 8 * n_data + 8 * B * L
@@ -193,6 +203,8 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
                               + [v.long() for v in cnt_cols], 1)
         return {
             "max_abs_err": 0.0,
+            "passes": [[lo, hi, "shared" if sh else "device"]
+                       for lo, hi, sh in passes],
             "ms": cuda_ms(torch, lambda: K.bucket_sum(seg, B, int_cols,
                                                       cnt_cols), reps),
             "plain_ms": cuda_ms(torch, lambda: K.bucket_sum_plain(
@@ -225,6 +237,17 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
             ).scatter_reduce_(0, idx, sw, "a" + op), reps),
             "bound_ms": bound_ms(nbytes),
         }
+
+    # the card's dependent f64 add latency: one thread, a chain of 2^20
+    # adds in registers (0 + 1 - 0.5 + 1 - 0.5 ... = 2^18 exactly)
+    nadds = 1 << 20
+    x = torch.tensor([0.0, 1.0, -0.5], dtype=torch.float64, device=dev)
+    if float(K.dadd_chain(x, nadds)) != nadds / 4:
+        raise AssertionError("dadd_chain: wrong sum")
+    chain_ms = cuda_ms(torch, lambda: K.dadd_chain(x, nadds), 5)
+    dadd_ns = chain_ms * 1e6 / nadds
+    emit({"probe": "dadd_chain", "adds": nadds, "ms": chain_ms,
+          "dadd_ns": dadd_ns})
 
     for B in (128, 1024, 8192):
         seg = seg_for(B)
@@ -290,6 +313,7 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
         if bool((diff > 1e-9 * torch.nan_to_num(absx) + 1e-300).any()):
             raise AssertionError(f"ordered_segment_sum B={B}: kernel != plain")
         nbytes = 8 * n + 8 * n_in + 8 * B
+        longest = int(np.bincount(seg_h[keep], minlength=B).max())
         sidx = torch.where(in_range(sseg, B), sseg.long(), B)
         results[("ordered_segment_sum", B)] = {
             "max_abs_err": float(diff.max()),
@@ -301,6 +325,10 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
                 B + 1, dtype=torch.float64, device=dev).index_add_(
                 0, sidx, sv), reps),
             "bound_ms": bound_ms(nbytes),
+            # the serial chain: the longest segment's dependent adds
+            "bound_chain_ms": longest * dadd_ns * 1e-6,
+            "longest_segment": longest,
+            "dadd_ns": dadd_ns,
         }
         for name in ("bucket_sum", "bucket_float_sum", "bucket_winner",
                      "ordered_segment_sum"):
@@ -312,8 +340,8 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
     # K1 and K3 at Q4's shape: 2^20 keys hashed into the B = 8192 tier,
     # every row live, so the buckets fill evenly. K1 carries Q4's five
     # columns (sum(a), its count, count(b), max(b)'s count and the row
-    # count): 5 x 8192 x 8 bytes exceed the shared-memory table, so K1
-    # takes its global-atomics branch. K3 is max(b)'s winner.
+    # count): 8192 x (8 + 4 x 4) bytes, one 192 KB shared table. K3 is
+    # max(b)'s winner.
     B = 8192
     seg = upload(rng.integers(0, B, n).astype(np.int32))
     a = upload(rng.integers(-(10**6), 10**6, n).astype(np.int64))
@@ -604,6 +632,11 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
         emit(line)
     if profile:
         profile_q1(torch, approx, batches, schema, n)
+        # Q5: each input plane read once (k, b and their validity)
+        profile_plan(torch, "Q5", lambda: TpuHashAggregateExec(
+            exact, [col("k")], [A.agg(A.Sum(col("b")), "s")],
+            InMemoryScanExec(exact, [batches], schema)), exact, n,
+            n * (4 + 8 + 2))
     return per_query
 
 
@@ -649,9 +682,12 @@ def profile_plan(torch, name, plan, conf, rows, nbytes):
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    ours = {k: sum(e.self_device_time_total for e in events
+                   if k in e.key) / 1e3 for k in KERNEL_SYMBOLS}
     emit({"profile": name, "rows": rows, "wall_ms_unprofiled": walls,
           "wall_ms_profiled": wall, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1 - busy_us / 1e3 / wall,
+          "kernel_device_ms": {k: v for k, v in ours.items() if v},
           "bound_ms": bound_ms(nbytes),
           "top": [{"name": e.key[:80], "calls": e.count,
                    "device_ms": e.self_device_time_total / 1e3}
@@ -1233,11 +1269,16 @@ def kernels_line(kres: dict, per_query: dict) -> list:
     """One entry per kernel: its own path's launches, every path's, and
     the kernel phase's numbers at the main path's shape (the groupby
     kernels at the direct tier of Q1's table; K4 at the bench join's
-    shape; K5 on a Q10 batch)."""
+    shape; K5 on a Q10 batch); then K1 at Q4's shape. Every bound is
+    bytes; the ordered sum also gives its chain bound
+    (``bound_chain_ms``)."""
     kernels = []
-    for name, path in PATH.items():
-        r = kres[(name, 128)]
-        line = {"name": name, "route": "cuda", "source": SOURCES[name],
+    # (entry name, kernel, shape key in the kernel phase, path)
+    shapes = [(name, name, 128, path) for name, path in PATH.items()]
+    shapes.append(("bucket_sum@Q4", "bucket_sum", "Q4", "Q4"))
+    for entry, name, key, path in shapes:
+        r = kres[(name, key)]
+        line = {"name": entry, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "path": path,
                 "launches": per_query[path][name],
                 "launches_by_path": {q: c[name] for q, c
@@ -1245,7 +1286,8 @@ def kernels_line(kres: dict, per_query: dict) -> list:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": "bytes", "library_ms": r["library_ms"]}
-        for extra in ("plain_rows", "bound_abi_ms", "library"):
+        for extra in ("plain_rows", "bound_abi_ms", "library", "passes",
+                      "bound_chain_ms", "longest_segment", "dadd_ns"):
             if extra in r:
                 line[extra] = r[extra]
         kernels.append(line)
@@ -1265,7 +1307,7 @@ def main() -> int:
                     "the first batch's pool), as a power of two")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Q1, Q6, Q7, Q9 and Q10 with "
+                    help="also profile Q1, Q5, Q6, Q7, Q9 and Q10 with "
                     "torch.profiler")
     args = ap.parse_args()
 

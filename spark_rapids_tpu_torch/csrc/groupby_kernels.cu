@@ -12,21 +12,23 @@
 //      replaces XLA's serial segment_sum scatter (ops/groupby.py fsum_exact
 //      and the sort fallback); no Pallas kernel exists for it.
 //
-// What bounds them on an H100: bytes. Each reads its input stream once
+// What bounds K1-K3 on an H100: bytes. Each reads its input stream once
 // (seg int32 + the value and validity planes) and writes B x columns x 8
 // bytes; there is no arithmetic to speak of. The design keeps the bucket
 // table out of device memory while the stream passes: each block
 // accumulates into a private copy in shared memory and flushes it once
 // with global atomics, so the 2^26-row bench query with 64 groups does
-// not serialize on 64 global addresses. When B x columns x 8 bytes does
-// not fit the shared-memory budget (B = 8192 with many columns), the
-// kernel accumulates with global atomics directly: a branch chosen by
-// size, not a fallback.
+// not serialize on 64 global addresses. K1 plans its table to fit (see
+// its section); K2 and K3 accumulate with global atomics directly when
+// B x columns x 8 bytes exceed 200 KB: a branch chosen by size, not a
+// fallback. The ordered segment sum is bound by its chain of dependent
+// f64 adds (see its section).
 //
 // Contract shared by all: rows with seg < 0 or seg >= B (dead rows,
 // padding at seg == B) drop out. The kernels allocate nothing and never
 // synchronize; outputs are pre-filled by the caller (zeros, or the
-// winner's identity). Every entry point returns the launch's cudaError_t.
+// winner's identity). Every entry point returns the launch's cudaError_t,
+// including a refused shared-memory request.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,59 +68,257 @@ static int srt_grid(long long n, size_t smem_bytes) {
   return (int)(g < 1 ? 1 : g);
 }
 
+// A runtime call failed before the launch: clear it from cudaGetLastError
+// (so the next launch does not report it) and return it.
+static int srt_fail(cudaError_t e) {
+  cudaGetLastError();
+  return (int)e;
+}
+
 // ---------------------------------------------------------------------------
 // K1: exact int64 sums (mod 2^64, Java wraparound) and counts per bucket.
-// 64-bit unsigned atomicAdd wraps mod 2^64, bit-identical to the
-// reference's limb reconstruction. out is (B, L) row-major, L = nint + ncnt.
+// out is (L, B) row-major, L = nint + ncnt: column c's B sums are
+// contiguous.
+//
+// Design for the H100:
+//  * The table stays in shared memory: int sums as u64, counts as u32 (a
+//    launch takes fewer than 2^27 rows, so a block's count cannot wrap;
+//    counts widen to u64 when flushed). Q4's B = 8192 with one sum and
+//    four counts is 192 KB, within the 227 KB a block may opt into.
+//  * Passes: the wrapper plans the launch's columns into contiguous
+//    passes whose tables each fit (ops/groupby_kernels.plan_bucket_sum);
+//    blockIdx.y is the pass, so one launch runs them all and each pass
+//    re-reads only seg and its own columns. A column whose table alone
+//    exceeds the budget (one u64 column past 29,056 buckets) accumulates
+//    with global atomics in its pass: a branch chosen by size.
+//  * Atomics: a valid row adds with one native 32-bit shared atomic (a
+//    count) or two (a sum: a 64-bit shared atomic add is a compare-and-
+//    swap loop on sm_90, ATOMS.CAST.SPIN.64, so the u64 is added as two
+//    32-bit words with the carry, k1_add_u64). The card combines adds to
+//    one address within a warp: warp aggregation (__match_any_sync, or a
+//    whole-warp sum for a warp on one bucket) measured slower at every
+//    shape tried, a one-bucket input included.
+//  * Bytes in flight: each thread takes four consecutive rows at a time
+//    with 16-byte loads (int4 of seg, two longlong2 of data) and one
+//    32-bit load of four validity bytes per column. Seg, the first
+//    K1_PREFETCH columns' validity words and the first int column's
+//    values are issued before the first is used, and an int column's
+//    values load one column ahead; unaligned planes and the ragged tail
+//    take scalar loads. 1024 threads a block, so at most 64 registers each: more
+//    columns ahead spill. The grid is one wave at the occupancy the table
+//    leaves.
 // ---------------------------------------------------------------------------
+#define K1_THREADS 1024
+#define K1_PREFETCH 2  // columns whose validity words load ahead of use
+
+struct SumPlan {
+  int lo[SRT_MAXC + 1];  // pass p covers columns [lo[p], lo[p + 1])
+  unsigned global_mask;  // bit p: pass p accumulates in device memory
+};
+
+// Four rows' validity bytes as one word (byte j = row r0 + j), and four
+// rows' int64 values: one 32-bit or two 16-byte loads when the quad is
+// whole and aligned, else per row with the rows past n left 0.
+__device__ __forceinline__ unsigned load_valid4(const bool* __restrict__ v, long long r0,
+                                                long long n, bool full) {
+  if (full) return __ldg(reinterpret_cast<const unsigned*>(v + r0));
+  unsigned w = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (r0 + j < n) w |= (v[r0 + j] ? 1u : 0u) << (8 * j);
+  return w;
+}
+
+__device__ __forceinline__ void load_data4(const long long* __restrict__ d, long long r0,
+                                           long long n, bool full,
+                                           unsigned long long (&x)[4]) {
+  if (full) {
+    const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(d + r0));
+    const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(d + r0 + 2));
+    x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = r0 + j < n ? (unsigned long long)__ldg(d + r0 + j) : 0ULL;
+  }
+}
+
+// x added to a u64 table entry, mod 2^64. A 64-bit atomic add on shared
+// memory is a compare-and-swap loop on sm_90 (ATOMS.CAST.SPIN.64), so
+// there it is two native 32-bit adds: the low word's old value gives the
+// carry into the high word, and a high word of 0 (a small value, or a
+// small negative one that carries) is not added. Exact: the table is read
+// only after the block's last add.
 template <bool SMEM>
-__global__ void bucket_sum_kernel(const int* __restrict__ seg, long long n, int B,
-                                  int nint, int ncnt, SumCols cols,
-                                  unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned long long sacc[];
-  const int L = nint + ncnt;
-  unsigned long long* acc = SMEM ? sacc : out;
+__device__ __forceinline__ void k1_add_u64(unsigned long long* a, unsigned long long x) {
   if (SMEM) {
-    for (int i = threadIdx.x; i < B * L; i += blockDim.x) sacc[i] = 0ULL;
-    __syncthreads();
+    unsigned* h = reinterpret_cast<unsigned*>(a);
+    const unsigned lo = (unsigned)x;
+    const unsigned old = atomicAdd(h, lo);
+    const unsigned hi = (unsigned)(x >> 32) + (old + lo < old ? 1u : 0u);
+    if (hi != 0u) atomicAdd(h + 1, hi);
+  } else {
+    atomicAdd(a, x);
   }
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
-    const int s = seg[r];
-    if (s < 0 || s >= B) continue;
-    unsigned long long* a = acc + (long long)s * L;
-    for (int c = 0; c < nint; ++c)
-      if (cols.valid[c][r]) atomicAdd(a + c, (unsigned long long)cols.data[c][r]);
-    for (int c = 0; c < ncnt; ++c)
-      if (cols.valid[nint + c][r]) atomicAdd(a + nint + c, 1ULL);
-  }
-  if (SMEM) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < B * L; i += blockDim.x) {
-      const unsigned long long v = sacc[i];
-      if (v != 0ULL) atomicAdd(out + i, v);
+}
+
+// One int column's four rows into the table, one atomic per valid row.
+template <bool SMEM>
+__device__ __forceinline__ void k1_add_ints(unsigned long long* sums, const int (&s)[4],
+                                            unsigned vw, const unsigned long long (&x)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (s[j] >= 0 && ((vw >> (8 * j)) & 0xFFu) && x[j] != 0ULL) k1_add_u64<SMEM>(sums + s[j], x[j]);
+}
+
+// One count column's four rows.
+template <bool SMEM>
+__device__ __forceinline__ void k1_add_counts(unsigned* cnt32, unsigned long long* cnt64,
+                                              const int (&s)[4], unsigned vw) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (s[j] >= 0 && ((vw >> (8 * j)) & 0xFFu)) {
+      if (SMEM) atomicAdd(cnt32 + s[j], 1u);
+      else atomicAdd(cnt64 + s[j], 1ULL);
     }
   }
 }
 
+template <bool SMEM>
+__device__ __forceinline__ void bucket_sum_pass(const int* __restrict__ seg, long long n,
+                                                int B, int nint, int c0, int c1,
+                                                const SumCols& cols, bool vec,
+                                                unsigned long long* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  const int i0 = c0, ni = max(0, min(c1, nint) - c0);  // int columns [i0, i0 + ni)
+  const int k0 = max(c0, nint), nk = max(0, c1 - k0);  // count columns [k0, k0 + nk)
+  const int L = ni + nk;  // the pass's columns: c0 + [0, L)
+  unsigned long long* sums = SMEM ? (unsigned long long*)k1_smem : out + (long long)i0 * B;
+  unsigned* cnt32 = (unsigned*)(k1_smem + (size_t)ni * B * sizeof(unsigned long long));
+  unsigned long long* cnt64 = out + (long long)k0 * B;
+  if (SMEM) {
+    const int words = (ni * B * 8 + nk * B * 4) / 4;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) ((unsigned*)k1_smem)[i] = 0u;
+    __syncthreads();
+  }
+  const long long nq = (n + 3) >> 2;  // quads of four rows
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < nq; q += stride) {
+    const long long r0 = q * 4;
+    const bool full = vec && r0 + 3 < n;
+    // issued before the first is used: seg, the validity words of the
+    // first K1_PREFETCH columns (loops unrolled so vw stays in registers)
+    // and the first int column's values
+    int s[4];
+    if (full) {
+      const int4 t = __ldg(reinterpret_cast<const int4*>(seg + r0));
+      s[0] = t.x; s[1] = t.y; s[2] = t.z; s[3] = t.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = r0 + j < n ? __ldg(seg + r0 + j) : -1;
+    }
+    unsigned vw[K1_PREFETCH > 0 ? K1_PREFETCH : 1];
+#pragma unroll
+    for (int c = 0; c < K1_PREFETCH; ++c)
+      vw[c] = c < L ? load_valid4(cols.valid[c0 + c], r0, n, full) : 0u;
+    unsigned long long x[4] = {0ULL, 0ULL, 0ULL, 0ULL};
+    if (ni > 0) load_data4(cols.data[i0], r0, n, full, x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (s[j] < 0 || s[j] >= B) s[j] = -1;
+    unsigned long long xn[4] = {0ULL, 0ULL, 0ULL, 0ULL};
+#pragma unroll
+    for (int c = 0; c < K1_PREFETCH; ++c) {
+      if (c < ni) {
+        if (c + 1 < ni) load_data4(cols.data[i0 + c + 1], r0, n, full, xn);
+        k1_add_ints<SMEM>(sums + (long long)c * B, s, vw[c], x);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[j] = xn[j];
+      }
+    }
+    for (int c = K1_PREFETCH; c < ni; ++c) {
+      if (c + 1 < ni) load_data4(cols.data[i0 + c + 1], r0, n, full, xn);
+      const unsigned v = load_valid4(cols.valid[c0 + c], r0, n, full);
+      k1_add_ints<SMEM>(sums + (long long)c * B, s, v, x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = xn[j];
+    }
+#pragma unroll
+    for (int c = 0; c < K1_PREFETCH; ++c)
+      if (c >= ni && c < L)
+        k1_add_counts<SMEM>(cnt32 + (c - ni) * B, cnt64 + (long long)(c - ni) * B, s, vw[c]);
+    for (int c = max(ni, K1_PREFETCH); c < L; ++c)
+      k1_add_counts<SMEM>(cnt32 + (c - ni) * B, cnt64 + (long long)(c - ni) * B, s,
+                          load_valid4(cols.valid[c0 + c], r0, n, full));
+  }
+  if (SMEM) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < ni * B; i += blockDim.x) {
+      const unsigned long long w = sums[i];
+      if (w != 0ULL) atomicAdd(out + (long long)i0 * B + i, w);
+    }
+    for (int i = threadIdx.x; i < nk * B; i += blockDim.x) {
+      const unsigned w = cnt32[i];
+      if (w != 0u) atomicAdd(cnt64 + i, (unsigned long long)w);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(K1_THREADS, 1)
+    bucket_sum_kernel(const int* __restrict__ seg, long long n, int B, int nint,
+                      SumCols cols, SumPlan plan, int vec,
+                      unsigned long long* __restrict__ out) {
+  const int p = blockIdx.y;
+  if ((plan.global_mask >> p) & 1u)
+    bucket_sum_pass<false>(seg, n, B, nint, plan.lo[p], plan.lo[p + 1], cols, vec != 0, out);
+  else
+    bucket_sum_pass<true>(seg, n, B, nint, plan.lo[p], plan.lo[p + 1], cols, vec != 0, out);
+}
+
 extern "C" int srt_bucket_sum(const int* seg, long long n, int B, int nint, int ncnt,
                               const void* const* data, const void* const* valid,
+                              const int* pass_lo, int npass, unsigned global_mask,
                               long long* out, void* stream) {
-  if (nint + ncnt > SRT_MAXC || nint + ncnt <= 0) return (int)cudaErrorInvalidValue;
+  const int L = nint + ncnt;
+  if (L > SRT_MAXC || L <= 0 || nint < 0 || ncnt < 0 || B < 0 || npass <= 0 || npass > L ||
+      pass_lo[0] != 0 || pass_lo[npass] != L)
+    return (int)cudaErrorInvalidValue;
   SumCols cols;
-  for (int c = 0; c < nint; ++c) cols.data[c] = (const long long*)data[c];
-  for (int c = 0; c < nint + ncnt; ++c) cols.valid[c] = (const bool*)valid[c];
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)B * (nint + ncnt) * sizeof(unsigned long long);
-  if (smem <= SRT_SMEM_MAX) {
-    cudaFuncSetAttribute(bucket_sum_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    bucket_sum_kernel<true><<<srt_grid(n, smem), SRT_THREADS, smem, st>>>(
-        seg, n, B, nint, ncnt, cols, (unsigned long long*)out);
-  } else {
-    bucket_sum_kernel<false><<<srt_grid(n, 0), SRT_THREADS, 0, st>>>(
-        seg, n, B, nint, ncnt, cols, (unsigned long long*)out);
+  bool vec = ((uintptr_t)seg & 15u) == 0;
+  for (int c = 0; c < nint; ++c) {
+    cols.data[c] = (const long long*)data[c];
+    vec = vec && ((uintptr_t)data[c] & 15u) == 0;
   }
+  for (int c = 0; c < L; ++c) {
+    cols.valid[c] = (const bool*)valid[c];
+    vec = vec && ((uintptr_t)valid[c] & 3u) == 0;
+  }
+  SumPlan plan;
+  plan.global_mask = global_mask;
+  size_t smem = 0;
+  for (int p = 0; p <= npass; ++p) plan.lo[p] = pass_lo[p];
+  for (int p = 0; p < npass; ++p) {
+    const int lo = pass_lo[p], hi = pass_lo[p + 1];
+    if (hi <= lo) return (int)cudaErrorInvalidValue;
+    if ((global_mask >> p) & 1u) continue;
+    const int ni = lo < nint ? (hi < nint ? hi : nint) - lo : 0;
+    const size_t bytes = (size_t)B * (8 * ni + 4 * (hi - lo - ni));
+    if (bytes > smem) smem = bytes;
+  }
+  cudaError_t e = cudaFuncSetAttribute(bucket_sum_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return srt_fail(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bucket_sum_kernel, K1_THREADS,
+                                                    smem);
+  if (e != cudaSuccess) return srt_fail(e);
+  if (per_sm < 1) per_sm = 1;  // the launch then reports what does not fit
+  long long gx = (long long)per_sm * srt_sm_count() / npass;
+  const long long need = ((n + 3) / 4 + K1_THREADS - 1) / K1_THREADS;
+  if (need < gx) gx = need;
+  if (gx < 1) gx = 1;
+  bucket_sum_kernel<<<dim3((unsigned)gx, (unsigned)npass), K1_THREADS, smem,
+                      (cudaStream_t)stream>>>(seg, n, B, nint, cols, plan, vec ? 1 : 0,
+                                              (unsigned long long*)out);
   return (int)cudaGetLastError();
 }
 
@@ -166,8 +366,9 @@ extern "C" int srt_bucket_fsum(const int* seg, long long n, int B, int nf,
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = (size_t)B * nf * sizeof(double);
   if (smem <= SRT_SMEM_MAX) {
-    cudaFuncSetAttribute(bucket_fsum_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        bucket_fsum_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return srt_fail(e);
     bucket_fsum_kernel<true><<<srt_grid(n, smem), SRT_THREADS, smem, st>>>(
         seg, n, B, nf, cols, out);
   } else {
@@ -226,8 +427,9 @@ extern "C" int srt_bucket_winner(const int* seg, long long n, int B, int is_min,
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = (size_t)B * sizeof(unsigned long long);
   if (smem <= SRT_SMEM_MAX) {
-    cudaFuncSetAttribute(bucket_winner_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        bucket_winner_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return srt_fail(e);
     bucket_winner_kernel<true><<<srt_grid(n, smem), SRT_THREADS, smem, st>>>(
         seg, n, B, is_min, (const unsigned long long*)word, (unsigned long long*)out);
   } else {
@@ -239,28 +441,125 @@ extern "C" int srt_bucket_winner(const int* seg, long long n, int B, int is_min,
 
 // ---------------------------------------------------------------------------
 // Ordered segment sum: rows arrive sorted by segment (a stable sort keeps
-// row order inside each segment); one thread walks one segment in row
+// row order inside each segment); each segment is summed serially in row
 // order from 0.0, so the result is the serial row-order sum — exact-mode
-// float sums stay order-preserving and deterministic, which atomics are
-// not. bounds has nseg + 1 entries: segment s is [bounds[s], bounds[s+1]).
+// float sums stay order-preserving and deterministic, which atomics and
+// tree reductions are not. bounds has nseg + 1 entries: segment s is
+// [bounds[s], bounds[s+1]).
+//
+// What bounds it: the chain of dependent f64 adds of the longest segment
+// (its length x the card's DADD latency), not bytes. No reduction that
+// splits a segment keeps the serial result, so a segment holding most of
+// the rows is bound by its own chain. The design keeps that chain fed:
+// one warp per segment, so the segments run on warps spread over the SMs;
+// the warp streams its segment in chunks of 256 rows with coalesced
+// 16-byte loads, OSS_DEPTH chunks in flight in registers, stages each
+// chunk in shared memory, and lane 0 folds it into the accumulator in row
+// order while the next chunks' loads are outstanding.
 // ---------------------------------------------------------------------------
-__global__ void ordered_segment_sum_kernel(const double* __restrict__ vals,
-                                           const long long* __restrict__ bounds,
-                                           int nseg, double* __restrict__ out) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= nseg) return;
+#define OSS_WARPS 4  // segments (warps) per block
+#define OSS_PAIRS 4  // 16-byte pairs per lane per chunk
+#define OSS_DEPTH 3  // chunks in flight per warp
+#define OSS_CHUNK (32 * OSS_PAIRS * 2)  // rows per chunk
+
+// chunk k of a segment covers rows [base + k * OSS_CHUNK, ...); base is
+// even, so with vals 16-byte aligned every pair is one aligned load. Rows
+// at or past hi are not read; rows before lo are read and not folded.
+__device__ __forceinline__ void oss_load(const double* __restrict__ vals, long long first,
+                                         long long hi, bool vec, unsigned lane,
+                                         double2 (&r)[OSS_PAIRS]) {
+  if (vec && first + OSS_CHUNK <= hi) {  // a whole chunk: no per-pair test
+#pragma unroll
+    for (int i = 0; i < OSS_PAIRS; ++i)
+      r[i] = __ldcs(reinterpret_cast<const double2*>(vals + first) + i * 32 + lane);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < OSS_PAIRS; ++i) {
+    const long long row = first + 2 * (i * 32 + (int)lane);
+    if (vec && row + 1 < hi) {
+      r[i] = __ldcs(reinterpret_cast<const double2*>(vals + row));
+    } else {
+      r[i].x = row < hi ? vals[row] : 0.0;
+      r[i].y = row + 1 < hi ? vals[row + 1] : 0.0;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(OSS_WARPS * 32)
+    ordered_segment_sum_kernel(const double* __restrict__ vals,
+                               const long long* __restrict__ bounds, int nseg, int vec,
+                               double* __restrict__ out) {
+  __shared__ __align__(16) double stage[OSS_WARPS][OSS_CHUNK];
+  const unsigned lane = threadIdx.x & 31u;
+  const int s = blockIdx.x * OSS_WARPS + (int)(threadIdx.x >> 5);
+  if (s >= nseg) return;  // warp-uniform
+  const long long lo = bounds[s], hi = bounds[s + 1];
+  const long long base = lo & ~1LL;
+  const long long nchunks = hi > lo ? (hi - base + OSS_CHUNK - 1) / OSS_CHUNK : 0;
+  double* buf = stage[threadIdx.x >> 5];
+  double2* buf2 = reinterpret_cast<double2*>(buf);
+  double2 r[OSS_DEPTH][OSS_PAIRS];
+#pragma unroll
+  for (int d = 0; d < OSS_DEPTH; ++d)
+    if (d < nchunks) oss_load(vals, base + (long long)d * OSS_CHUNK, hi, vec != 0, lane, r[d]);
   double acc = 0.0;
-  const long long end = bounds[s + 1];
-  for (long long i = bounds[s]; i < end; ++i) acc += vals[i];
-  out[s] = acc;
+  for (long long k = 0; k < nchunks; k += OSS_DEPTH) {
+#pragma unroll
+    for (int d = 0; d < OSS_DEPTH; ++d) {
+      const long long kk = k + d;
+      if (kk < nchunks) {
+        __syncwarp();  // lane 0 has folded the chunk before
+#pragma unroll
+        for (int i = 0; i < OSS_PAIRS; ++i) buf2[i * 32 + lane] = r[d][i];
+        __syncwarp();
+        if (kk + OSS_DEPTH < nchunks)
+          oss_load(vals, base + (kk + OSS_DEPTH) * OSS_CHUNK, hi, vec != 0, lane, r[d]);
+        if (lane == 0) {
+          const long long c0 = base + kk * OSS_CHUNK;
+          if (c0 >= lo && c0 + OSS_CHUNK <= hi) {
+#pragma unroll
+            for (int j = 0; j < OSS_CHUNK; ++j) acc += buf[j];
+          } else {
+            const int j0 = (int)(lo > c0 ? lo - c0 : 0);
+            const int j1 = (int)(hi - c0 < OSS_CHUNK ? hi - c0 : OSS_CHUNK);
+            for (int j = j0; j < j1; ++j) acc += buf[j];
+          }
+        }
+      }
+    }
+  }
+  if (lane == 0) out[s] = acc;
 }
 
 extern "C" int srt_ordered_segment_sum(const double* vals, const long long* bounds,
                                        int nseg, double* out, void* stream) {
   if (nseg <= 0) return 0;
-  const int threads = 128;
-  ordered_segment_sum_kernel<<<(nseg + threads - 1) / threads, threads, 0,
-                               (cudaStream_t)stream>>>(vals, bounds, nseg, out);
+  const int vec = ((uintptr_t)vals & 15u) == 0 ? 1 : 0;
+  ordered_segment_sum_kernel<<<(nseg + OSS_WARPS - 1) / OSS_WARPS, OSS_WARPS * 32, 0,
+                               (cudaStream_t)stream>>>(vals, bounds, nseg, vec, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Probe (not a kernel of any path): one thread runs a dependent chain of
+// nadds f64 adds in registers, so its time over nadds is the card's DADD
+// latency, the floor of the ordered segment sum per row of its longest
+// segment. x holds the start value and the two addends.
+// ---------------------------------------------------------------------------
+__global__ void dadd_chain_kernel(const double* __restrict__ x, long long nadds,
+                                  double* __restrict__ out) {
+  double a = x[0];
+  const double b = x[1], c = x[2];
+  for (long long i = 0; i < nadds; i += 2) {
+    a += b;
+    a += c;
+  }
+  out[0] = a;
+}
+
+extern "C" int srt_dadd_chain(const double* x, long long nadds, double* out, void* stream) {
+  dadd_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(x, nadds, out);
   return (int)cudaGetLastError();
 }
 

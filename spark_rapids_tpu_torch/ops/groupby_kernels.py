@@ -23,11 +23,13 @@ its kernel or raises — there is no fallback to the plain version when
 ``nvcc`` or the library is missing. Each launch adds one to
 :data:`LAUNCHES`; nothing else does.
 
-Bounds on an H100 (all bytes-bound, see the .cu notes): the input stream
-(seg int32 + value and validity planes, each read once) plus
+Bounds on an H100 (see the .cu notes): K1-K3 are bytes-bound, the input
+stream (seg int32 + value and validity planes, each read once) plus
 B x columns x 8 bytes of output. The kernels keep the bucket table in
 shared memory per block and flush it once, instead of the TPU kernels'
-one-hot blocks in VMEM.
+one-hot blocks in VMEM; K1's table is planned into passes that fit
+(:func:`plan_bucket_sum`). The ordered segment sum is bound by the chain
+of dependent f64 adds of its longest segment.
 
 torch has little uint32/uint64 support, so 64-bit words (order words,
 unsigned accumulators) ride in int64 tensors with the same bit pattern;
@@ -51,6 +53,9 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 
 #: columns per launch (SRT_MAXC in the .cu)
 MAX_COLS = 16
+#: shared memory one block may opt into on an H100 (227 KB); K1's pass
+#: tables are planned within it
+BLOCK_SMEM = 232_448
 #: the reference's PALLAS capacity bound (its 4-bit limb accumulators);
 #: kept so both engines accept the same inputs
 MAX_ROWS = 1 << 27
@@ -85,12 +90,16 @@ def build_kernels() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         pp = ctypes.POINTER(ctypes.c_void_p)
-        lib.srt_bucket_sum.argtypes = [vp, i64, i32, i32, i32, pp, pp, vp, vp]
+        lib.srt_bucket_sum.argtypes = [vp, i64, i32, i32, i32, pp, pp,
+                                       ctypes.POINTER(i32), i32,
+                                       ctypes.c_uint, vp, vp]
         lib.srt_bucket_fsum.argtypes = [vp, i64, i32, i32, pp, pp, vp, vp]
         lib.srt_bucket_winner.argtypes = [vp, i64, i32, i32, vp, vp, vp]
         lib.srt_ordered_segment_sum.argtypes = [vp, vp, i32, vp, vp]
+        lib.srt_dadd_chain.argtypes = [vp, i64, vp, vp]
         for f in (lib.srt_bucket_sum, lib.srt_bucket_fsum,
-                  lib.srt_bucket_winner, lib.srt_ordered_segment_sum):
+                  lib.srt_bucket_winner, lib.srt_ordered_segment_sum,
+                  lib.srt_dadd_chain):
             f.restype = i32
         lib.srt_error_string.argtypes = [i32]
         lib.srt_error_string.restype = ctypes.c_char_p
@@ -148,13 +157,42 @@ def bucket_sum_plain(seg, B, int_cols=(), count_cols=()):
     return outs[:len(int_cols)], outs[len(int_cols):]
 
 
+def table_bytes(B: int, nint: int, lo: int, hi: int) -> int:
+    """Bytes of K1's shared table for columns [lo, hi) of a launch whose
+    first ``nint`` columns are int sums (u64) and the rest counts (u32)."""
+    ni = max(0, min(hi, nint) - lo)
+    return B * (8 * ni + 4 * (hi - lo - ni))
+
+
+def plan_bucket_sum(B: int, nint: int, ncnt: int,
+                    budget: int = BLOCK_SMEM) -> List[Tuple[int, int, bool]]:
+    """K1's passes over one launch's columns (``nint`` int columns, then
+    ``ncnt`` count columns): ``(lo, hi, shared)`` ranges covering the
+    columns once, in order. A shared pass's table fits ``budget``; filling
+    each pass greedily makes the passes as few as contiguous ranges allow.
+    A column whose table alone exceeds the budget accumulates in device
+    memory (``shared`` False); consecutive such columns share one pass.
+    The kernel runs every pass in one launch (one pass per grid row)."""
+    passes: List[Tuple[int, int, bool]] = []
+    for c in range(nint + ncnt):
+        shared = table_bytes(B, nint, c, c + 1) <= budget
+        if passes and passes[-1][2] == shared and (
+                not shared
+                or table_bytes(B, nint, passes[-1][0], c + 1) <= budget):
+            passes[-1] = (passes[-1][0], c + 1, shared)
+        else:
+            passes.append((c, c + 1, shared))
+    return passes
+
+
 def bucket_sum(seg: torch.Tensor, B: int,
                int_cols: Sequence[Tuple[torch.Tensor, torch.Tensor]] = (),
                count_cols: Sequence[torch.Tensor] = ()
                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """K1: per-bucket int64 sums of ``int_cols`` [(data, valid)] (mod 2^64,
     Java wraparound) and counts of ``count_cols`` [valid]. Rows with
-    seg < 0 or seg >= B drop out."""
+    seg < 0 or seg >= B drop out. One launch per :data:`MAX_COLS`
+    columns, its passes planned by :func:`plan_bucket_sum`."""
     n = seg.shape[0]
     _check_rows(n)
     flat = [t for d, v in int_cols for t in (d, v)] + list(count_cols)
@@ -171,14 +209,19 @@ def bucket_sum(seg: torch.Tensor, B: int,
         for lo in range(0, len(entries), MAX_COLS):
             chunk = entries[lo:lo + MAX_COLS]
             datas = [d for d, _ in chunk if d is not None]
-            out = torch.zeros((B, len(chunk)), dtype=torch.int64, device=dev)
+            passes = plan_bucket_sum(B, len(datas), len(chunk) - len(datas))
+            bounds = [p[0] for p in passes] + [len(chunk)]
+            in_device_memory = sum(1 << i for i, p in enumerate(passes)
+                                   if not p[2])
+            out = torch.zeros((len(chunk), B), dtype=torch.int64, device=dev)
             rc = lib.srt_bucket_sum(
                 seg32.data_ptr(), n, B, len(datas), len(chunk) - len(datas),
-                _ptrs(datas), _ptrs([v for _, v in chunk]), out.data_ptr(),
-                _stream(dev))
+                _ptrs(datas), _ptrs([v for _, v in chunk]),
+                (ctypes.c_int * len(bounds))(*bounds), len(passes),
+                in_device_memory, out.data_ptr(), _stream(dev))
             _check(lib, rc, "bucket_sum")
             LAUNCHES["bucket_sum"] += 1
-            outs.extend(out[:, i] for i in range(len(chunk)))
+            outs.extend(out.unbind(0))
     return outs[:len(int_cols)], outs[len(int_cols):]
 
 
@@ -290,9 +333,11 @@ def ordered_segment_sum(vals: torch.Tensor, seg: torch.Tensor,
     lib = build_kernels()
     dev = seg.device
     v = vals.to(torch.float64).contiguous()
+    # searched in seg's own integer type: no int64 copy of the column
+    s = seg.contiguous() if seg.dtype in (torch.int32, torch.int64) else (
+        seg.to(torch.int64).contiguous())
     bounds = torch.searchsorted(
-        seg.to(torch.int64).contiguous(),
-        torch.arange(nseg + 1, dtype=torch.int64, device=dev))
+        s, torch.arange(nseg + 1, dtype=s.dtype, device=dev))
     out = torch.zeros(nseg, dtype=torch.float64, device=dev)
     if nseg == 0:
         return out
@@ -301,6 +346,25 @@ def ordered_segment_sum(vals: torch.Tensor, seg: torch.Tensor,
                                          nseg, out.data_ptr(), _stream(dev))
     _check(lib, rc, "ordered_segment_sum")
     LAUNCHES["ordered_segment_sum"] += 1
+    return out
+
+
+def dadd_chain(x: torch.Tensor, nadds: int) -> torch.Tensor:
+    """Launch the one-thread probe: ``nadds`` dependent f64 adds in
+    registers, from ``x[0]`` adding ``x[1]`` and ``x[2]`` in turn; its
+    time over ``nadds`` is the card's dependent DADD latency, the ordered
+    segment sum's floor per row of its longest segment. A measurement
+    probe, on card tensors only; it is no path's kernel and has no
+    launch count."""
+    if x.device.type != "cuda" or x.dtype != torch.float64 or x.numel() < 3:
+        raise ValueError("dadd_chain takes 3 float64 values on a CUDA card")
+    lib = build_kernels()
+    x = x.contiguous()
+    out = torch.empty(1, dtype=torch.float64, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.srt_dadd_chain(x.data_ptr(), nadds, out.data_ptr(),
+                                _stream(x.device))
+    _check(lib, rc, "dadd_chain")
     return out
 
 

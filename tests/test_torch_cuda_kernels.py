@@ -125,6 +125,163 @@ def test_ordered_segment_sum_is_serial(dev, B):
     np.testing.assert_array_equal(got, exp)
 
 
+# ---------------------------------------------------------------------------
+# K1's table layouts and the ordered sum's edge cases
+# ---------------------------------------------------------------------------
+#: B = 32768: one int column's u64 table (256 KB) exceeds what a block may
+#: hold, so that column's pass accumulates in device memory
+K1_BUCKETS = (8, 128, 8192, 16384, 32768)
+
+
+def _k1_inputs(rng, n, nint, ncnt):
+    ints = [(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64),
+             rng.random(n) < 0.7) for _ in range(nint)]
+    return ints, [rng.random(n) < 0.6 for _ in range(ncnt)]
+
+
+def _k1_check(dev, seg, B, ints, counts, views=slice(None)):
+    exp_i, exp_c = K.bucket_sum_plain(
+        torch.from_numpy(seg[views]), B,
+        [(torch.from_numpy(d[views]), torch.from_numpy(v[views]))
+         for d, v in ints], [torch.from_numpy(c[views]) for c in counts])
+    before = K.LAUNCHES["bucket_sum"]
+    got_i, got_c = K.bucket_sum(
+        _on(dev, seg)[0][views], B,
+        [tuple(t[views] for t in _on(dev, d, v)) for d, v in ints],
+        [t[views] for t in _on(dev, *counts)])
+    ncols = len(ints) + len(counts)
+    assert K.LAUNCHES["bucket_sum"] - before == -(-ncols // K.MAX_COLS)
+    for g, e in zip(got_i + got_c, exp_i + exp_c):
+        assert torch.equal(g.cpu(), e)
+
+
+@pytest.mark.parametrize("mix", ["ints", "counts", "mixed"])
+@pytest.mark.parametrize("ncols", [1, 5, 6, 16, 17])
+@pytest.mark.parametrize("B", K1_BUCKETS)
+def test_bucket_sum_every_pass_layout_matches_plain(dev, B, ncols, mix):
+    """Every pass split plan_bucket_sum picks (one shared pass, several,
+    a device-memory pass) over 40 003 rows: not a multiple of 4."""
+    rng = np.random.default_rng(B + 31 * ncols + len(mix))
+    n = 40_003
+    nint = {"ints": ncols, "counts": 0, "mixed": (ncols + 1) // 2}[mix]
+    ints, counts = _k1_inputs(rng, n, nint, ncols - nint)
+    _k1_check(dev, _seg(rng, n, B), B, ints, counts)
+
+
+@pytest.mark.parametrize("B", [8, 8192, 32768])
+def test_bucket_sum_every_row_in_one_bucket(dev, B):
+    """Maximum contention: every live row of every warp in one bucket."""
+    rng = np.random.default_rng(B)
+    n = 100_001
+    seg = np.full(n, B - 1, np.int32)
+    seg[rng.random(n) < 0.01] = B  # a few dead rows
+    ints, counts = _k1_inputs(rng, n, 2, 4)
+    _k1_check(dev, seg, B, ints, counts)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 4097, 65_539])
+def test_bucket_sum_ragged_and_unaligned_rows(dev, n):
+    """Columns one row into their storage (not 16-byte aligned: the
+    scalar loads) and row counts off the four-row step."""
+    rng = np.random.default_rng(n)
+    seg = _seg(rng, n + 1, 128)
+    ints, counts = _k1_inputs(rng, n + 1, 1, 4)
+    _k1_check(dev, seg, 128, ints, counts, views=slice(1, None))
+    _k1_check(dev, seg, 128, ints, counts, views=slice(None, n))
+
+
+def _segments(lengths, lead=3):
+    """Sorted seg ids with the given segment lengths, after ``lead`` dead
+    rows (-1) so segments start off the 16-byte pair grid, and two dead
+    rows past the last segment."""
+    nseg = len(lengths)
+    return np.concatenate([np.full(lead, -1), np.repeat(np.arange(nseg),
+                                                         lengths),
+                           np.full(2, nseg)]).astype(np.int32)
+
+
+def _oss_check(dev, seg, x, nseg, views=slice(None)):
+    seg, x = seg[views], x[views]
+    keep = (seg >= 0) & (seg < nseg)
+    exp = np.bincount(seg[keep], weights=x[keep], minlength=nseg)
+    plain = K.ordered_segment_sum_plain(torch.from_numpy(x),
+                                        torch.from_numpy(seg), nseg).numpy()
+    sd, xd = _on(dev, seg, x)
+    before = K.LAUNCHES["ordered_segment_sum"]
+    got = K.ordered_segment_sum(xd, sd, nseg).cpu().numpy()
+    assert K.LAUNCHES["ordered_segment_sum"] - before == 1
+    np.testing.assert_array_equal(got, exp)
+    np.testing.assert_array_equal(got, plain)
+
+
+@pytest.mark.parametrize("lengths", [
+    (0, 1, 31, 32, 33, 4097), (4097, 0, 1), (0,), (1,), (33, 0, 0, 31),
+    (255, 256, 257, 767, 768, 769)])
+def test_ordered_segment_sum_segment_lengths(dev, lengths):
+    rng = np.random.default_rng(sum(lengths))
+    seg = _segments(lengths)
+    x = rng.normal(size=seg.size) * 10.0 ** rng.integers(-8, 8, seg.size)
+    _oss_check(dev, seg, x, len(lengths))
+    # the values one element into their storage: not 16-byte aligned
+    _oss_check(dev, seg, x, len(lengths), views=slice(1, None))
+
+
+def test_ordered_segment_sum_one_segment_holds_most_rows(dev):
+    rng = np.random.default_rng(99)
+    lengths = [1000, 5, 990_000, 3000, 0, 6000]  # segment 2: 99% of rows
+    seg = _segments(lengths)
+    x = rng.normal(size=seg.size) * 10.0 ** rng.integers(-6, 6, seg.size)
+    _oss_check(dev, seg, x, len(lengths))
+
+
+def test_ordered_segment_sum_nan_and_inf(dev):
+    rng = np.random.default_rng(5)
+    lengths = [300, 300, 300, 300, 300, 2000]
+    seg = _segments(lengths)
+    x = rng.normal(size=seg.size)
+    start = 3 + np.cumsum([0] + lengths[:-1])
+    x[start[0] + 17] = np.nan                       # NaN
+    x[start[1] + 5] = np.inf                        # +inf
+    x[start[2] + 250] = -np.inf                     # -inf
+    x[start[3] + 1], x[start[3] + 299] = np.inf, -np.inf  # inf - inf
+    x[start[5] + 1999] = np.nan                     # NaN last
+    _oss_check(dev, seg, x, len(lengths))
+
+
+@pytest.mark.parametrize("nseg", [1, 64, 8192])
+def test_ordered_segment_sum_is_not_a_tree(dev, nseg):
+    """[1e16, 1, -1e16, 1, ...] per segment: the serial row-order sum
+    differs from any pairwise or chunked reduction of the same rows."""
+    per = 1200 if nseg < 8192 else 40
+    seg = _segments([per] * nseg)
+    x = np.zeros(seg.size)
+    x[3:3 + per * nseg] = np.tile([1e16, 1.0, -1e16, 1.0], per * nseg // 4)
+    keep = (seg >= 0) & (seg < nseg)
+    serial = np.bincount(seg[keep], weights=x[keep], minlength=nseg)
+    pairwise = x[3:3 + per * nseg].reshape(nseg, per).sum(1)
+    assert not np.array_equal(serial, pairwise)
+    _oss_check(dev, seg, x, nseg)
+
+
+def test_bucket_sum_refused_shared_memory_raises(dev):
+    """A table past what a block may hold, forced into shared memory by a
+    plan with a larger budget, surfaces the card's refusal as an error."""
+    seg = torch.zeros(64, dtype=torch.int32, device=dev)
+    v = torch.ones(64, dtype=torch.bool, device=dev)
+    orig = K.plan_bucket_sum
+    try:
+        K.plan_bucket_sum = lambda B, ni, nc: orig(B, ni, nc, budget=1 << 30)
+        with pytest.raises(RuntimeError, match="bucket_sum kernel launch"):
+            K.bucket_sum(seg, 65536, count_cols=[v])
+    finally:
+        K.plan_bucket_sum = orig
+
+
+def test_dadd_chain_probe_adds_serially(dev):
+    x = torch.tensor([0.5, 1.0, -0.25], dtype=torch.float64, device=dev)
+    assert float(K.dadd_chain(x, 1 << 12)) == 0.5 + 0.75 * (1 << 11)
+
+
 def test_mixed_devices_and_short_columns_raise(dev):
     seg = torch.zeros(4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
