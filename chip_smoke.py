@@ -27,7 +27,10 @@ Phases, each failing the run on any error or mismatch:
    the bench join's shape (2^23 probe rows with 2-word keys, 5% dead,
    against a 2^17-row build with duplicate keys) and must equal, row for
    row, the ranges two ``torch.searchsorted`` calls give, and its plain
-   version on a 2^16-row sample and in full at 2^20 x 2^13. The
+   version on a 2^16-row sample and in full at 2^20 x 2^13, on a build
+   where one key holds most rows, and with a device build count whose
+   garbage tail holds the probe keys; it also runs at Q8's shape (2^20
+   probe rows against a 2^16-row build). The
    word-start kernel K5 runs on the chars pool of Q10's first batch as
    the query hands it over (2^20 rows, the pool padded to its capacity
    bucket) and must equal its plain version on every byte and numpy's
@@ -70,7 +73,8 @@ Phases, each failing the run on any error or mismatch:
 
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
-K1 at that shape has its own entry in the ``kernels`` line.
+K1 and K3 at that shape, and K4 at Q8's, have their own entries in the
+``kernels`` line.
 
 Output: one JSON line per kernel shape and per query, then one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` are those of its
@@ -475,10 +479,13 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
                    "launches": per_query["Q1"]})
 
     # --- Q2: min/max/first/last on the direct tier ------------------------
-    scan = InMemoryScanExec(exact, [batches], schema)
-    agg = TpuHashAggregateExec(exact, [col("k")], [
-        A.agg(A.Min(col("b")), "mn"), A.agg(A.Max(col("a")), "mx"),
-        A.agg(A.First(col("a")), "f"), A.agg(A.Last(col("b")), "l")], scan)
+    def q2_plan():
+        return TpuHashAggregateExec(exact, [col("k")], [
+            A.agg(A.Min(col("b")), "mn"), A.agg(A.Max(col("a")), "mx"),
+            A.agg(A.First(col("a")), "f"), A.agg(A.Last(col("b")), "l")],
+            InMemoryScanExec(exact, [batches], schema))
+
+    agg = q2_plan()
     rows, ms, per_query["Q2"] = drive(agg, exact)
     mn_exp = np.full(64, np.inf)
     np.minimum.at(mn_exp, k[~b_null], b[~b_null])
@@ -632,6 +639,8 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
         emit(line)
     if profile:
         profile_q1(torch, approx, batches, schema, n)
+        # Q2: k, a, b and their validity read once
+        profile_plan(torch, "Q2", q2_plan, exact, n, n * (4 + 8 + 8 + 2))
         # Q5: each input plane read once (k, b and their validity)
         profile_plan(torch, "Q5", lambda: TpuHashAggregateExec(
             exact, [col("k")], [A.agg(A.Sum(col("b")), "s")],
@@ -732,28 +741,23 @@ def _check_probe(torch, got, exp, what):
                                  f"{bad} rows")
 
 
-def join_kernel_phase(torch, np, dev, m: int, dim_rows: int, reps: int):
-    """K4 at the bench join's shape: ``m`` probe rows (2-word int64 keys
-    over 1.5x the dim's key range, 5% dead) against a build of
-    choose_capacity(dim_rows) rows with duplicate keys.
+def _probe_shape(torch, np, dev, rng, m, nb, bcount, bcard, pcard, dead,
+                 reps):
+    """K4 on ``m`` probe rows (2-word int64 keys from [0, pcard), a
+    ``dead`` share dead) against ``nb`` build rows whose first ``bcount``
+    are sorted keys from [0, bcard), duplicates included.
 
     Held against the ``searchsorted``-derived ranges on every row (counts
-    equal, lo where count > 0, (0, 0) elsewhere), against the plain
-    version on 2^16 probe rows x the whole build, and against the plain
-    version in full at 2^20 x 2^13; timed beside its bytes bound, the
-    plain version (on the 2^16-row sample: in full it is an O(m x nb)
-    mask) and two ``torch.searchsorted`` calls."""
-    from spark_rapids_tpu_torch.columnar import choose_capacity
+    equal, lo where count > 0, (0, 0) elsewhere) and against the plain
+    version on 2^16 probe rows x the whole build; timed beside its bytes
+    bound, the plain version (on the 2^16-row sample: in full it is an
+    O(m x nb) mask) and two ``torch.searchsorted`` calls."""
     from spark_rapids_tpu_torch.ops import join_kernels as JK
     from spark_rapids_tpu_torch.ops.sort import SIGN64
 
-    rng = np.random.default_rng(17)
-    nb = choose_capacity(dim_rows)
-    bcount = dim_rows
-    bw = _sorted_build(torch, np, rng, dev, nb, bcount, dim_rows)
-    fk = torch.from_numpy(rng.integers(0, dim_rows * 3 // 2, m).astype(
-        np.int64)).to(dev)
-    live = torch.from_numpy(rng.random(m) >= 0.05).to(dev)
+    bw = _sorted_build(torch, np, rng, dev, nb, bcount, bcard)
+    fk = torch.from_numpy(rng.integers(0, pcard, m).astype(np.int64)).to(dev)
+    live = torch.from_numpy(rng.random(m) >= dead).to(dev)
     pw = _key_words(torch, fk, live)
 
     got = JK.probe_ranges(bw, bcount, pw, live)
@@ -767,23 +771,14 @@ def join_kernel_phase(torch, np, dev, m: int, dim_rows: int, reps: int):
     left, right = library()
     cnt = torch.where(live, right - left, 0).to(torch.int32)
     lo = torch.where(cnt > 0, left.to(torch.int32), 0)
-    _check_probe(torch, got, (lo, lo + cnt), "vs searchsorted")
+    _check_probe(torch, got, (lo, lo + cnt), f"{m} x {nb} vs searchsorted")
     matched_share = float((cnt > 0).float().mean())
 
     sample = min(m, 1 << 16)
     sw = [w[:sample] for w in pw]
     exp = JK.probe_ranges_plain(bw, bcount, sw, live[:sample])
-    _check_probe(torch, [g[:sample] for g in got], exp, "vs plain (sample)")
-
-    m2, nb2 = min(m, 1 << 20), 1 << 13
-    bw2 = _sorted_build(torch, np, rng, dev, nb2, nb2 - 321, nb2)
-    fk2 = torch.from_numpy(rng.integers(0, nb2 * 3 // 2, m2).astype(
-        np.int64)).to(dev)
-    live2 = torch.from_numpy(rng.random(m2) >= 0.05).to(dev)
-    pw2 = _key_words(torch, fk2, live2)
-    _check_probe(torch, JK.probe_ranges(bw2, nb2 - 321, pw2, live2),
-                 JK.probe_ranges_plain(bw2, nb2 - 321, pw2, live2),
-                 "vs plain (2^20 x 2^13)")
+    _check_probe(torch, [g[:sample] for g in got], exp,
+                 f"{m} x {nb} vs plain (sample)")
 
     # the bound counts what the probe needs: 4 bytes per u32 key word, the
     # liveness byte and two int32s out per probe row, 8 bytes per build
@@ -802,11 +797,74 @@ def join_kernel_phase(torch, np, dev, m: int, dim_rows: int, reps: int):
         "library_ms": cuda_ms(torch, library, reps),
         "bound_ms": bound_ms(nbytes),
         "bound_abi_ms": bound_ms(nbytes_abi),
+        "log2_buckets": JK.plan_probe(nb),
     }
     emit({"kernel_shape": "probe_ranges", "probe_rows": m, "build_rows": nb,
           "build_count": bcount, "words": nw, "matched_share": matched_share,
           **res})
     return res
+
+
+def join_kernel_phase(torch, np, dev, m: int, dim_rows: int, reps: int):
+    """K4 at the bench join's shape (``m`` probe rows over 1.5x the dim's
+    key range, 5% dead, against a build of choose_capacity(dim_rows) rows
+    with duplicate keys) and at Q8's (m / 8 probe rows over [0, 150 000),
+    2% dead, against choose_capacity(m / 128) rows of keys from
+    [0, 100 000)); see :func:`_probe_shape`. Also held against the plain
+    version in full at 2^20 x 2^13, on a build where one key holds most
+    rows (the kernel's search path), and with a device build count below
+    the build's rows whose garbage tail holds the probe keys. Returns
+    the bench shape's and Q8's numbers."""
+    from spark_rapids_tpu_torch.columnar import choose_capacity
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+
+    rng = np.random.default_rng(17)
+    bench = _probe_shape(torch, np, dev, rng, m, choose_capacity(dim_rows),
+                         dim_rows, dim_rows, dim_rows * 3 // 2, 0.05, reps)
+    m8, d8 = max(1, m // 8), max(1, m // 128)
+    q8 = _probe_shape(torch, np, dev, rng, m8, choose_capacity(d8), d8,
+                      100_000, 150_000, 0.02, reps)
+
+    m2, nb2 = min(m, 1 << 20), 1 << 13
+    bw2 = _sorted_build(torch, np, rng, dev, nb2, nb2 - 321, nb2)
+    fk2 = torch.from_numpy(rng.integers(0, nb2 * 3 // 2, m2).astype(
+        np.int64)).to(dev)
+    live2 = torch.from_numpy(rng.random(m2) >= 0.05).to(dev)
+    pw2 = _key_words(torch, fk2, live2)
+    _check_probe(torch, JK.probe_ranges(bw2, nb2 - 321, pw2, live2),
+                 JK.probe_ranges_plain(bw2, nb2 - 321, pw2, live2),
+                 "vs plain (2^20 x 2^13)")
+
+    # one key over many buckets' worth of rows: 2^17 rows of 5 keys, key
+    # 2 holding 90% (the kernel's search path)
+    nb3 = 1 << 17
+    k3 = np.sort(np.where(rng.random(nb3) < 0.9, 2,
+                          rng.integers(0, 5, nb3))).astype(np.int64)
+    ones = torch.ones(nb3, dtype=torch.bool, device=dev)
+    bw3 = _key_words(torch, torch.from_numpy(k3).to(dev), ones)
+    fk3 = torch.from_numpy(rng.integers(-1, 6, m2).astype(np.int64)).to(dev)
+    pw3 = _key_words(torch, fk3, live2)
+    _check_probe(torch, JK.probe_ranges(bw3, nb3, pw3, live2),
+                 JK.probe_ranges_plain(bw3, nb3, pw3, live2),
+                 "vs plain (one key, most rows)")
+
+    # a device build count below nb: the tail past it is garbage that
+    # holds the probe keys, and must not be read
+    bc4 = nb2 - 1000
+    bw4 = _sorted_build(torch, np, rng, dev, nb2, bc4, nb2)
+    tail = rng.integers(0, nb2, nb2 - bc4).astype(np.int64)
+    tail_w = _key_words(torch, torch.from_numpy(tail).to(dev),
+                        torch.ones(nb2 - bc4, dtype=torch.bool, device=dev))
+    for w, t in zip(bw4, tail_w):
+        w[bc4:] = t
+    fk4 = torch.from_numpy(np.concatenate([tail, rng.integers(
+        0, nb2, m2 - tail.size)]).astype(np.int64)).to(dev)
+    pw4 = _key_words(torch, fk4, live2)
+    bc_dev = torch.tensor(bc4, dtype=torch.int32, device=dev)
+    _check_probe(torch, JK.probe_ranges(bw4, bc_dev, pw4, live2),
+                 JK.probe_ranges_plain(bw4, bc4, pw4, live2),
+                 "vs plain (device build count, keys in the tail)")
+    return bench, q8
 
 
 # ---------------------------------------------------------------------------
@@ -1262,20 +1320,24 @@ def build_all() -> dict:
     return {"build_s": time.perf_counter() - t0,
             "ptxas": {mod.SOURCE.name: [
                 ln.strip() for ln in "".join(mod.BUILD_LOG).splitlines()
-                if "registers" in ln or "spill" in ln] for mod in mods}}
+                if "entry function" in ln or "registers" in ln
+                or "spill" in ln] for mod in mods}}
 
 
 def kernels_line(kres: dict, per_query: dict) -> list:
     """One entry per kernel: its own path's launches, every path's, and
     the kernel phase's numbers at the main path's shape (the groupby
     kernels at the direct tier of Q1's table; K4 at the bench join's
-    shape; K5 on a Q10 batch); then K1 at Q4's shape. Every bound is
+    shape; K5 on a Q10 batch); then K1 and K3 at Q4's shape and K4 at
+    Q8's, each with its own path. Every bound is
     bytes; the ordered sum also gives its chain bound
     (``bound_chain_ms``)."""
     kernels = []
     # (entry name, kernel, shape key in the kernel phase, path)
     shapes = [(name, name, 128, path) for name, path in PATH.items()]
-    shapes.append(("bucket_sum@Q4", "bucket_sum", "Q4", "Q4"))
+    shapes += [("bucket_sum@Q4", "bucket_sum", "Q4", "Q4"),
+               ("bucket_winner@Q4", "bucket_winner", "Q4", "Q4"),
+               ("probe_ranges@Q8", "probe_ranges", "Q8", "Q8")]
     for entry, name, key, path in shapes:
         r = kres[(name, key)]
         line = {"name": entry, "route": "cuda", "source": SOURCES[name],
@@ -1286,8 +1348,9 @@ def kernels_line(kres: dict, per_query: dict) -> list:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": "bytes", "library_ms": r["library_ms"]}
-        for extra in ("plain_rows", "bound_abi_ms", "library", "passes",
-                      "bound_chain_ms", "longest_segment", "dadd_ns"):
+        for extra in ("plain_rows", "bound_abi_ms", "log2_buckets",
+                      "library", "passes", "bound_chain_ms",
+                      "longest_segment", "dadd_ns"):
             if extra in r:
                 line[extra] = r[extra]
         kernels.append(line)
@@ -1307,7 +1370,7 @@ def main() -> int:
                     "the first batch's pool), as a power of two")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Q1, Q5, Q6, Q7, Q9 and Q10 with "
+                    help="also profile Q1, Q2, Q5, Q6, Q7, Q9 and Q10 with "
                     "torch.profiler")
     args = ap.parse_args()
 
@@ -1333,8 +1396,9 @@ def main() -> int:
 
     emit(build_all())
     kres = kernel_phase(torch, np, dev, 1 << args.kernel_log2_rows, args.reps)
-    kres[("probe_ranges", 128)] = join_kernel_phase(
-        torch, np, dev, 1 << args.join_log2_rows, DIM_ROWS, args.reps)
+    kres[("probe_ranges", 128)], kres[("probe_ranges", "Q8")] = (
+        join_kernel_phase(torch, np, dev, 1 << args.join_log2_rows,
+                          DIM_ROWS, args.reps))
     wc_batches = _word_count_batches(np, dev, args.string_log2_rows)
     kres[("word_starts", 128)] = udf_kernel_phase(
         torch, np, dev, wc_batches[0][0], args.reps)

@@ -19,10 +19,10 @@
 // accumulates into a private copy in shared memory and flushes it once
 // with global atomics, so the 2^26-row bench query with 64 groups does
 // not serialize on 64 global addresses. K1 plans its table to fit (see
-// its section); K2 and K3 accumulate with global atomics directly when
-// B x columns x 8 bytes exceed 200 KB: a branch chosen by size, not a
-// fallback. The ordered segment sum is bound by its chain of dependent
-// f64 adds (see its section).
+// its section); K2 accumulates with global atomics directly when
+// B x columns x 8 bytes exceed 200 KB, K3 when B x 8 bytes exceed
+// 227 KB: a branch chosen by size, not a fallback. The ordered segment
+// sum is bound by its chain of dependent f64 adds (see its section).
 //
 // Contract shared by all: rows with seg < 0 or seg >= B (dead rows,
 // padding at seg == B) drop out. The kernels allocate nothing and never
@@ -385,58 +385,128 @@ extern "C" int srt_bucket_fsum(const int* seg, long long n, int B, int nf,
 // decides it. Excluded rows carry the identity (all ones for min, 0 for
 // max) and are skipped; out is pre-filled with the identity, so empty
 // buckets return it.
+//
+// Design for the H100:
+//  * Bytes in flight: each thread takes four consecutive rows at a time,
+//    seg as one int4 and the words as two longlong2, a pair's load issued
+//    only where one of its rows is in range, every load before the first
+//    compare; the next quad's seg loads while this quad's words do. The
+//    ragged tail (n % 4, or every row when a plane is not 16-byte
+//    aligned) goes one row at a time. Loading every pair whatever seg
+//    says measured no faster.
+//  * The table stays in shared memory up to the 227 KB a block may opt
+//    into (29 056 buckets); larger B accumulates with global atomics: a
+//    branch chosen by size, by the wrapper's planner. A table the card
+//    refuses surfaces as the launch's error.
+//  * The CAS loop: a 64-bit shared atomicMin/Max is a compare-and-swap
+//    loop on sm_90 (ATOMS.CAST.SPIN.64). A plain read of the running
+//    winner first skips every row that cannot improve it (min and max
+//    are idempotent, so a stale read only costs an atomic). A per-thread
+//    running winner over the four rows before the atomic measured no
+//    faster at B = 128 or 8192.
+//  * 1024-thread blocks, as many per SM as the table leaves room for, in
+//    one wave.
 // ---------------------------------------------------------------------------
-template <bool SMEM>
-__global__ void bucket_winner_kernel(const int* __restrict__ seg, long long n, int B,
-                                     int is_min, const unsigned long long* __restrict__ word,
-                                     unsigned long long* __restrict__ out) {
+#define K3_THREADS 1024
+
+template <bool MIN>
+__device__ __forceinline__ void k3_update(unsigned long long* w, int s, unsigned long long v) {
+  // a plain read first: most rows cannot improve the running winner
+  if (MIN) {
+    if (v < w[s]) atomicMin(w + s, v);
+  } else {
+    if (v > w[s]) atomicMax(w + s, v);
+  }
+}
+
+template <bool SMEM, bool MIN>
+__global__ void __launch_bounds__(K3_THREADS)
+    bucket_winner_kernel(const int* __restrict__ seg, long long n, int B,
+                         const unsigned long long* __restrict__ word, int vec,
+                         unsigned long long* __restrict__ out) {
   extern __shared__ unsigned long long swin[];
-  const unsigned long long ident = is_min ? ~0ULL : 0ULL;
+  const unsigned long long ident = MIN ? ~0ULL : 0ULL;
   unsigned long long* w = SMEM ? swin : out;
   if (SMEM) {
     for (int i = threadIdx.x; i < B; i += blockDim.x) swin[i] = ident;
     __syncthreads();
   }
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nq = vec ? n >> 2 : 0;  // whole quads of four rows
+  // seg of a thread's next quad loads while the current one's words do
+  int4 tn = make_int4(-1, -1, -1, -1);
+  if (tid < nq) tn = __ldg(reinterpret_cast<const int4*>(seg) + tid);
+  for (long long q = tid; q < nq; q += stride) {
+    const long long r0 = q * 4;
+    const int4 t = tn;
+    if (q + stride < nq) tn = __ldg(reinterpret_cast<const int4*>(seg) + q + stride);
+    int s[4] = {t.x, t.y, t.z, t.w};
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ok[j] = (unsigned)s[j] < (unsigned)B;
+    longlong2 a = make_longlong2((long long)ident, (long long)ident), b = a;
+    if (ok[0] || ok[1]) a = __ldg(reinterpret_cast<const longlong2*>(word + r0));
+    if (ok[2] || ok[3]) b = __ldg(reinterpret_cast<const longlong2*>(word + r0 + 2));
+    unsigned long long v[4] = {(unsigned long long)a.x, (unsigned long long)a.y,
+                               (unsigned long long)b.x, (unsigned long long)b.y};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (ok[j] && v[j] != ident) k3_update<MIN>(w, s[j], v[j]);
+  }
+  for (long long r = nq * 4 + tid; r < n; r += stride) {  // the tail
     const int s = seg[r];
-    if (s < 0 || s >= B) continue;
+    if ((unsigned)s >= (unsigned)B) continue;
     const unsigned long long v = word[r];
-    if (v == ident) continue;
-    // a plain read first: most rows cannot improve the running winner,
-    // and skipping their atomic is safe (min/max are idempotent)
-    if (is_min) {
-      if (v < w[s]) atomicMin(w + s, v);
-    } else {
-      if (v > w[s]) atomicMax(w + s, v);
-    }
+    if (v != ident) k3_update<MIN>(w, s, v);
   }
   if (SMEM) {
     __syncthreads();
     for (int i = threadIdx.x; i < B; i += blockDim.x) {
       const unsigned long long v = swin[i];
       if (v == ident) continue;
-      if (is_min) atomicMin(out + i, v);
+      if (MIN) atomicMin(out + i, v);
       else atomicMax(out + i, v);
     }
   }
 }
 
-extern "C" int srt_bucket_winner(const int* seg, long long n, int B, int is_min,
-                                 const long long* word, long long* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)B * sizeof(unsigned long long);
-  if (smem <= SRT_SMEM_MAX) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bucket_winner_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return srt_fail(e);
-    bucket_winner_kernel<true><<<srt_grid(n, smem), SRT_THREADS, smem, st>>>(
-        seg, n, B, is_min, (const unsigned long long*)word, (unsigned long long*)out);
-  } else {
-    bucket_winner_kernel<false><<<srt_grid(n, 0), SRT_THREADS, 0, st>>>(
-        seg, n, B, is_min, (const unsigned long long*)word, (unsigned long long*)out);
-  }
+template <bool SMEM, bool MIN>
+static int k3_launch(const int* seg, long long n, int B, const unsigned long long* word,
+                     unsigned long long* out, cudaStream_t st) {
+  void (*kern)(const int*, long long, int, const unsigned long long*, int,
+               unsigned long long*) = bucket_winner_kernel<SMEM, MIN>;
+  const size_t smem = SMEM ? (size_t)B * sizeof(unsigned long long) : 0;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return srt_fail(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, K3_THREADS, smem);
+  if (e != cudaSuccess) return srt_fail(e);
+  if (per_sm < 1) per_sm = 1;  // the launch then reports what does not fit
+  long long grid = (long long)per_sm * srt_sm_count();
+  const long long need = ((n + 3) / 4 + K3_THREADS - 1) / K3_THREADS;
+  if (need < grid) grid = need;
+  if (grid < 1) grid = 1;
+  const int vec = ((uintptr_t)seg & 15u) == 0 && ((uintptr_t)word & 15u) == 0 ? 1 : 0;
+  kern<<<(unsigned)grid, K3_THREADS, smem, st>>>(seg, n, B, word, vec, out);
   return (int)cudaGetLastError();
+}
+
+// shared: the wrapper's plan (ops/groupby_kernels.plan_bucket_winner),
+// 1 for a table in shared memory, 0 for global atomics.
+extern "C" int srt_bucket_winner(const int* seg, long long n, int B, int is_min,
+                                 const long long* word, int shared, long long* out,
+                                 void* stream) {
+  if (B < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned long long* w = (const unsigned long long*)word;
+  unsigned long long* o = (unsigned long long*)out;
+  if (shared)
+    return is_min ? k3_launch<true, true>(seg, n, B, w, o, st)
+                  : k3_launch<true, false>(seg, n, B, w, o, st);
+  return is_min ? k3_launch<false, true>(seg, n, B, w, o, st)
+                : k3_launch<false, false>(seg, n, B, w, o, st);
 }
 
 // ---------------------------------------------------------------------------

@@ -21,6 +21,9 @@ import torch
 
 PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
+#: shared memory one block may opt into on an H100 (227 KB), after
+#: ``cudaFuncSetAttribute``; the kernels' planners size their tables by it
+BLOCK_SMEM = 232_448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -54,8 +54,9 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 #: columns per launch (SRT_MAXC in the .cu)
 MAX_COLS = 16
 #: shared memory one block may opt into on an H100 (227 KB); K1's pass
-#: tables are planned within it
-BLOCK_SMEM = 232_448
+#: tables are planned within it, K3's table stays in it up to
+#: BLOCK_SMEM // 8 buckets
+BLOCK_SMEM = _cuda_build.BLOCK_SMEM
 #: the reference's PALLAS capacity bound (its 4-bit limb accumulators);
 #: kept so both engines accept the same inputs
 MAX_ROWS = 1 << 27
@@ -94,7 +95,8 @@ def build_kernels() -> ctypes.CDLL:
                                        ctypes.POINTER(i32), i32,
                                        ctypes.c_uint, vp, vp]
         lib.srt_bucket_fsum.argtypes = [vp, i64, i32, i32, pp, pp, vp, vp]
-        lib.srt_bucket_winner.argtypes = [vp, i64, i32, i32, vp, vp, vp]
+        lib.srt_bucket_winner.argtypes = [vp, i64, i32, i32, vp, i32, vp,
+                                          vp]
         lib.srt_ordered_segment_sum.argtypes = [vp, vp, i32, vp, vp]
         lib.srt_dadd_chain.argtypes = [vp, i64, vp, vp]
         for f in (lib.srt_bucket_sum, lib.srt_bucket_fsum,
@@ -287,6 +289,15 @@ def bucket_winner_plain(seg, B, op, word):
     return acc[:B] ^ SIGN64
 
 
+def plan_bucket_winner(B: int, budget: int = BLOCK_SMEM) -> bool:
+    """K3's table placement: True for one u64 word per bucket in each
+    block's shared memory (B x 8 bytes within ``budget``: up to 29 056
+    buckets), False for global atomics on the output. The kernel runs
+    1024-thread blocks, as many per SM as the table leaves room for (the
+    card's occupancy query), in one wave."""
+    return B * 8 <= budget
+
+
 def bucket_winner(seg: torch.Tensor, B: int, op: str,
                   word: torch.Tensor) -> torch.Tensor:
     """K3: (B,) winner words: the unsigned ``op`` ('min'/'max') of the
@@ -299,13 +310,16 @@ def bucket_winner(seg: torch.Tensor, B: int, op: str,
         return bucket_winner_plain(seg, B, op, word)
     lib = build_kernels()
     dev = seg.device
-    seg32 = seg.to(torch.int32).contiguous()
-    w = word.to(torch.int64).contiguous()
+    # the kernel loads four rows at a time (an int4 of seg, two longlong2
+    # of words): a view that starts off a 16-byte boundary is copied
+    seg32, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (
+        seg.to(torch.int32).contiguous(), word.to(torch.int64).contiguous()))
     out = torch.full((B,), IDENT_MIN if op == "min" else IDENT_MAX,
                      dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = lib.srt_bucket_winner(seg32.data_ptr(), seg.shape[0], B,
                                    int(op == "min"), w.data_ptr(),
+                                   int(plan_bucket_winner(B)),
                                    out.data_ptr(), _stream(dev))
     _check(lib, rc, "bucket_winner")
     LAUNCHES["bucket_winner"] += 1

@@ -24,9 +24,10 @@ Bound on an H100: bytes. The probe needs each probe row's u32 key words
 build's packed u64 keys: (4 x words + 9) bytes per probe row + 8 bytes
 per build row. The wrapper passes the words as the int64 tensors they
 ride in, so the kernel reads 8 bytes per word: (8 x words + 9) bytes per
-probe row as called. It searches (one thread per probe row, a binary
-search over the sorted build, then a galloping upper bound) instead of
-the TPU kernel's O(probe x build) tiled equality mask; see the .cu notes.
+probe row as called. It looks each key up instead of the TPU kernel's
+O(probe x build) tiled equality mask: a bucket index over the live keys'
+span in shared memory (:func:`plan_probe`), then the few build rows of
+the probe's bucket from L2; see the .cu notes.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import _cuda_build
+from ._cuda_build import BLOCK_SMEM
 
 SOURCE = _cuda_build.PKG / "csrc" / "join_kernels.cu"
 BUILD_DIR = _cuda_build.BUILD_DIR
@@ -47,6 +49,9 @@ LAUNCHES: Dict[str, int] = {"probe_ranges": 0}
 BUILD_LOG: List[str] = []
 #: elements of the plain version's equality mask per chunk of probe rows
 PLAIN_CHUNK_ELEMS = 1 << 24
+#: log2 of the largest bucket index the planner picks: 2^15 + 1 u32
+#: bounds, 128 KB of each block's shared memory
+MAX_LOG2_BUCKETS = 15
 
 _M32 = 0xFFFFFFFF
 _LIB: Optional[ctypes.CDLL] = None
@@ -67,8 +72,8 @@ def build_kernels() -> ctypes.CDLL:
         so = _cuda_build.build_library(SOURCE, BUILD_DIR, BUILD_LOG)
         lib = ctypes.CDLL(str(so))
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.srt_probe_ranges.argtypes = [vp, vp, vp, i64, vp, i64, vp, i64,
-                                         vp, vp, vp]
+        lib.srt_probe_ranges.argtypes = [vp, vp, vp, i64, vp, vp, i64, i32,
+                                         vp, i64, i32, vp, vp, vp, vp, vp, vp]
         lib.srt_probe_ranges.restype = i32
         lib.srt_join_error_string.argtypes = [i32]
         lib.srt_join_error_string.restype = ctypes.c_char_p
@@ -84,6 +89,23 @@ def pack_key(words: Sequence[torch.Tensor]) -> torch.Tensor:
         return words[0].to(torch.int64)
     return (words[0].to(torch.int64) << 32) | (words[1].to(torch.int64)
                                                & _M32)
+
+
+def plan_probe(nb: int, budget: int = BLOCK_SMEM) -> int:
+    """K4's bucket index for ``nb`` build rows: log2 of its bucket count,
+    the next power of two >= nb, at least 2 and at most 2^15, and
+    smaller while the index (2^r + 1 u32 in each block's shared memory)
+    would not fit ``budget`` bytes. The kernel cuts the live keys' span
+    into these buckets; bucket b holds rows [index[b], index[b + 1])."""
+    r = max(1, min(MAX_LOG2_BUCKETS, (max(nb, 1) - 1).bit_length()))
+    while r > 1 and probe_index_bytes(r) > budget:
+        r -= 1
+    return r
+
+
+def probe_index_bytes(log2_buckets: int) -> int:
+    """Shared memory of K4's bucket index: 2^r + 1 u32 bounds."""
+    return ((1 << log2_buckets) + 1) * 4
 
 
 def _check_args(build_words, probe_words, probe_live) -> None:
@@ -154,8 +176,8 @@ def probe_ranges(build_words: Sequence[torch.Tensor], build_count,
     m = probe_live.shape[0]
     nb = build_words[0].shape[0]
     pw = [w.to(torch.int64).contiguous() for w in probe_words]
+    bw = [w.to(torch.int64).contiguous() for w in build_words]
     live = probe_live.to(torch.bool).contiguous()
-    bkeys = pack_key(build_words).contiguous()
     if isinstance(build_count, torch.Tensor):  # read on the device
         bc_t = build_count.to(device=dev, dtype=torch.int32).reshape(1)
         bc_ptr, bc_val = bc_t.data_ptr(), 0
@@ -165,11 +187,22 @@ def probe_ranges(build_words: Sequence[torch.Tensor], build_count,
     hi = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return lo, hi
+    log2_buckets = plan_probe(nb)
+    # scratch: the packed keys (two spare rows: the kernel reads whole
+    # aligned pairs), the bucket index, the grid barrier's counter
+    keys = torch.empty(nb + 2, dtype=torch.int64, device=dev)
+    index = torch.empty((1 << log2_buckets) + 1, dtype=torch.int32,
+                        device=dev)
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    two = len(pw) > 1
     with torch.cuda.device(dev):
         rc = lib.srt_probe_ranges(
-            pw[0].data_ptr(), pw[1].data_ptr() if len(pw) > 1 else None,
-            live.data_ptr(), m, bkeys.data_ptr(), nb, bc_ptr, bc_val,
-            lo.data_ptr(), hi.data_ptr(), _cuda_build.stream(dev))
+            pw[0].data_ptr(), pw[1].data_ptr() if two else None,
+            live.data_ptr(), m, bw[0].data_ptr(),
+            bw[1].data_ptr() if two else None, nb, len(pw), bc_ptr, bc_val,
+            log2_buckets, keys.data_ptr(), index.data_ptr(),
+            barrier.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            _cuda_build.stream(dev))
     _cuda_build.check_launch(lib.srt_join_error_string, rc, "probe_ranges")
     LAUNCHES["probe_ranges"] += 1
     return lo, hi

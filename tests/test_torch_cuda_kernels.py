@@ -113,6 +113,75 @@ def test_bucket_winner_matches_plain(dev, B, op):
     assert torch.equal(got, exp)
 
 
+def _k3_check(dev, seg, B, op, w, seg_offset=0, word_offset=0):
+    """K3 on the card (on views that start ``*_offset`` elements into
+    their storage) against its plain version, bit for bit."""
+    exp = K.bucket_winner_plain(torch.from_numpy(seg), B, op,
+                                torch.from_numpy(w))
+    sd = _on(dev, np.concatenate([np.zeros(seg_offset, np.int32), seg]))[0]
+    wd = _on(dev, np.concatenate([np.zeros(word_offset, np.int64), w]))[0]
+    before = K.LAUNCHES["bucket_winner"]
+    got = K.bucket_winner(sd[seg_offset:], B, op, wd[word_offset:])
+    assert K.LAUNCHES["bucket_winner"] - before == 1
+    assert torch.equal(got.cpu(), exp)
+    return got
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("B", [1, 128, 8192, 29056, 29057, 32768])
+def test_bucket_winner_shared_and_device_tables(dev, B, op):
+    """Every table size up to the 227 KB a block may hold (29 056 words)
+    and past it (global atomics), every bucket hit."""
+    rng = np.random.default_rng(B + (op == "max"))
+    n = 200_003
+    seg = rng.integers(0, B, n).astype(np.int32)
+    seg[rng.random(n) < 0.05] = B
+    seg[rng.random(n) < 0.01] = -1
+    w = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    w[rng.random(n) < 0.05] = K.IDENT_MIN if op == "min" else K.IDENT_MAX
+    _k3_check(dev, seg, B, op, w)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097])
+def test_bucket_winner_ragged_rows(dev, n, op):
+    rng = np.random.default_rng(n)
+    seg = rng.integers(-1, 9, n).astype(np.int32)
+    w = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    _k3_check(dev, seg, 8, op, w)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("case", ["identity", "one_bucket", "descending",
+                                  "top_bit", "misaligned"])
+def test_bucket_winner_edge_inputs(dev, case, op):
+    """Every row on the identity; every row in one bucket; words in
+    descending order for min and ascending for max (every row improves
+    its bucket's winner); only top-bit words; and seg and word views that
+    start one element off a 16-byte boundary."""
+    rng = np.random.default_rng(5)
+    n, B = 100_001, 128
+    seg = rng.integers(0, B, n).astype(np.int32)
+    w = rng.integers(0, 2**62, n, dtype=np.int64)
+    ident = K.IDENT_MIN if op == "min" else K.IDENT_MAX
+    offsets = (0, 0)
+    if case == "identity":
+        w[:] = ident
+    elif case == "one_bucket":
+        seg[:] = B - 1
+    elif case == "descending":
+        w = np.arange(n, dtype=np.int64)
+        w = w[::-1].copy() if op == "min" else w
+        seg[:] = np.arange(n) % 3
+    elif case == "top_bit":
+        w |= np.int64(-(2**63))
+    else:
+        offsets = (1, 1)
+    got = _k3_check(dev, seg, B, op, w, *offsets)
+    if case == "identity":
+        assert bool((got == ident).all())
+
+
 @pytest.mark.parametrize("B", (1, 37, 8192))
 def test_ordered_segment_sum_is_serial(dev, B):
     rng = np.random.default_rng(B)
@@ -277,6 +346,28 @@ def test_bucket_sum_refused_shared_memory_raises(dev):
         K.plan_bucket_sum = orig
 
 
+def test_bucket_winner_refused_shared_memory_raises(dev, monkeypatch):
+    """A table past what a block may hold, forced into shared memory by
+    the planner, surfaces the card's refusal as an error."""
+    monkeypatch.setattr(K, "plan_bucket_winner", lambda B: True)
+    seg = torch.zeros(64, dtype=torch.int32, device=dev)
+    w = torch.ones(64, dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="bucket_winner kernel launch"):
+        K.bucket_winner(seg, 65536, "min", w)
+
+
+def test_probe_ranges_refused_shared_memory_raises(dev, monkeypatch):
+    """K4's bucket index past what a block may hold (a planner forced to
+    2^17 buckets: 512 KB) surfaces as an error."""
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+
+    monkeypatch.setattr(JK, "plan_probe", lambda nb: 17)
+    w = torch.zeros(1 << 18, dtype=torch.int64, device=dev)
+    live = torch.ones(8, dtype=torch.bool, device=dev)
+    with pytest.raises(RuntimeError, match="probe_ranges kernel launch"):
+        JK.probe_ranges([w], 1 << 18, [w[:8]], live)
+
+
 def test_dadd_chain_probe_adds_serially(dev):
     x = torch.tensor([0.5, 1.0, -0.25], dtype=torch.float64, device=dev)
     assert float(K.dadd_chain(x, 1 << 12)) == 0.5 + 0.75 * (1 << 11)
@@ -400,6 +491,95 @@ def test_join_on_the_card_matches_the_cpu(dev, how, strategy):
     got = run(dev)
     assert JK.LAUNCHES["probe_ranges"] - before == (strategy == "PALLAS")
     assert got == run("cpu")
+
+
+# K4's bucket index: build sizes around its bucket counts (2^r >= nb up
+# to 2^15) and its fast path's 8 rows a bucket
+K4_BUILDS = (0, 1, 2, 3, 4, 5, 7, 8, 9, 17, 32_767, 32_768, 32_769,
+             1 << 17, (1 << 17) + 3, 232_449)
+K4_FAST_ROWS = 8
+_M32 = 0xFFFFFFFF
+
+
+def _k4_keys(rng, nb, nwords, stride):
+    """``nb`` sorted u64 keys (as Python ints) in runs: mostly short, some
+    longer than ``stride``, a few over several times it; for two words a
+    third of the keys with the top bit set (far outliers: most rows then
+    share few buckets)."""
+    keys, k = [], int(rng.integers(1, 1 << 20))
+    while len(keys) < nb:
+        r = rng.random()
+        run = (1 if r < 0.5 else int(rng.integers(2, stride + 2)) if r < 0.95
+               else int(rng.integers(2 * stride, 5 * stride)))
+        keys += [k] * run
+        k += int(rng.integers(1, 3 << 28 if nwords == 2 else 3 << 12))
+        if nwords == 1:
+            k &= _M32
+    keys = sorted(keys[:nb])
+    if nwords == 2:  # split so the top bit shows in the hi word
+        keys = sorted(x | (1 << 63) if i % 3 == 0 else x
+                      for i, x in enumerate(keys))
+    return keys
+
+
+def _k4_words(keys, nwords):
+    a = np.array(keys, dtype=np.uint64)
+    if nwords == 1:
+        return [(a & np.uint64(_M32)).astype(np.int64)]
+    return [(a >> np.uint64(32)).astype(np.int64),
+            (a & np.uint64(_M32)).astype(np.int64)]
+
+
+def _k4_check(dev, bkeys, bc, pkeys, live, nwords, device_count=False):
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+
+    bws = _on(dev, *_k4_words(bkeys, nwords))
+    pws = _on(dev, *_k4_words(pkeys, nwords))
+    (lv,) = _on(dev, live)
+    exp = JK.probe_ranges_plain(bws, bc, pws, lv)
+    count = (torch.tensor(bc, dtype=torch.int32, device=dev)
+             if device_count else bc)
+    before = JK.LAUNCHES["probe_ranges"]
+    got = JK.probe_ranges(bws, count, pws, lv)
+    assert JK.LAUNCHES["probe_ranges"] - before == 1
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    return got
+
+
+@pytest.mark.parametrize("device_count", [False, True])
+@pytest.mark.parametrize("nwords", [1, 2])
+@pytest.mark.parametrize("nb", K4_BUILDS)
+def test_probe_ranges_bucket_index_edges(dev, nb, nwords, device_count):
+    """Build sizes at the planner's edges, runs longer than the fast
+    path's bucket (the search path), keys with the top bit set, probes
+    below the minimum and above the maximum, a build count below nb whose
+    garbage tail holds probe keys, and m not a multiple of four."""
+    rng = np.random.default_rng(nb * 4 + nwords * 2 + device_count)
+    keys = _k4_keys(rng, nb, nwords, K4_FAST_ROWS)
+    bc = nb - min(nb // 3, 1000) if nb % 2 else nb
+    tail = sorted(keys[bc:], reverse=True)  # garbage: unsorted past bc
+    bkeys = keys[:bc] + tail
+    top = (1 << 64) - 1 if nwords == 2 else _M32
+    m = 4099 + nb % 3
+    pool = keys + [0, top, keys[0] - 1 if keys else 5, keys[-1] + 1 if keys
+                   else 6]
+    pkeys = [int(x) & top for x in rng.choice(np.array(pool, dtype=object),
+                                              m)]
+    live = rng.random(m) >= 0.05
+    got = _k4_check(dev, bkeys, bc, pkeys, live, nwords, device_count)
+    if bc == 0:
+        assert not bool(got[1].any())
+
+
+@pytest.mark.parametrize("nwords", [1, 2])
+@pytest.mark.parametrize("nb", [1, 5, 4096, (1 << 17) + 3])
+def test_probe_ranges_every_build_row_one_key(dev, nb, nwords):
+    k = (1 << 63) + 12345 if nwords == 2 else 0x80000007
+    pkeys = [k, k - 1, k + 1, 0] * 1025 + [k]
+    live = np.ones(len(pkeys), bool)
+    lo, hi = _k4_check(dev, [k] * nb, nb, pkeys, live, nwords)
+    assert int(hi[0]) == nb and int(lo[0]) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""K1's pass planner and the ordered segment sum's serial contract, on the
-CPU.
+"""K1's pass planner, K3's table placement and the ordered segment sum's
+serial contract, on the CPU.
 
 ``plan_bucket_sum`` decides, for one launch of K1, which columns share a
 shared-memory table (one pass per grid row of the launch): every column is
@@ -59,6 +59,22 @@ def test_plan_respects_a_smaller_budget(budget):
                 assert (K.table_bytes(B, nint, lo, hi) <= budget
                         if shared else K.table_bytes(B, nint, lo, lo + 1)
                         > budget)
+
+
+@pytest.mark.parametrize("B", BUCKETS)
+def test_winner_table_fits_or_goes_to_device_memory(B):
+    """K3 keeps one u64 per bucket in shared memory exactly while that
+    fits one block (29 056 buckets), else accumulates in device memory."""
+    shared = K.plan_bucket_winner(B)
+    assert shared == (B * 8 <= K.BLOCK_SMEM)
+    assert shared == (B <= 29056)
+
+
+def test_winner_table_of_the_main_path_shapes():
+    # Q2's direct tier (B = 128), Q3's hash tier and Q4's B = 8192
+    assert all(K.plan_bucket_winner(B) for B in (128, 1024, 8192))
+    assert K.plan_bucket_winner(29056) and not K.plan_bucket_winner(29057)
+    assert not K.plan_bucket_winner(128, budget=1000)
 
 
 def _serial(seg, x, nseg):
