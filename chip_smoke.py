@@ -19,7 +19,10 @@ Phases, each failing the run on any error or mismatch:
    winners exactly, float sums within 1e-9 of each bucket's sum of |x|
    (the atomics' order effect); kernel, plain version and one library
    call (``index_add_`` / ``scatter_reduce_``) are timed with CUDA events
-   beside the bytes bound at 3.35 TB/s. The ordered segment sum must
+   over back-to-back calls (``ms``), beside the bytes bound at 3.35 TB/s;
+   K2 and K5 also report the same calls queued behind a spin kernel, so
+   that the host's time to issue them is not counted (``dev_ms``), and
+   the wrapper's host time a call (``host_ms``). The ordered segment sum must
    equal numpy's serial ``bincount`` bit for bit, and has a second bound,
    its longest segment times the card's dependent f64 add latency, which
    a one-thread probe kernel from the same source measures in the run
@@ -31,10 +34,13 @@ Phases, each failing the run on any error or mismatch:
    where one key holds most rows, and with a device build count whose
    garbage tail holds the probe keys; it also runs at Q8's shape (2^20
    probe rows against a 2^16-row build). The
-   word-start kernel K5 runs on the chars pool of Q10's first batch as
-   the query hands it over (2^20 rows, the pool padded to its capacity
-   bucket) and must equal its plain version on every byte and numpy's
-   flags on sampled windows;
+   word-count kernel K5 runs on Q10's first batch as the query hands it
+   over (2^20 rows, the pool padded to its capacity bucket) and must
+   equal its plain version and the generator's own word counts on every
+   row, also on a slice of the column whose offsets start mid-pool, with
+   non-space garbage past its last offset. K2 also runs with every live
+   row in one bucket and with five float columns, held to its plain
+   version at the same tolerance;
 3. queries, through the exec tree and ``collect()``, each checked against
    a numpy oracle on the host, with the kernel launch counters set to 0
    just before each query and read just after it (each query is one path;
@@ -101,11 +107,11 @@ UDF_SOURCE = "spark_rapids_tpu_torch/csrc/udf_kernels.cu"
 SOURCES = {"bucket_sum": GROUPBY_SOURCE, "bucket_float_sum": GROUPBY_SOURCE,
            "bucket_winner": GROUPBY_SOURCE,
            "ordered_segment_sum": GROUPBY_SOURCE,
-           "probe_ranges": JOIN_SOURCE, "word_starts": UDF_SOURCE}
+           "probe_ranges": JOIN_SOURCE, "word_counts": UDF_SOURCE}
 #: the query whose run each kernel's ``launches`` and timed shape stand for
 PATH = {"bucket_sum": "Q1", "bucket_float_sum": "Q1",
         "bucket_winner": "Q2", "ordered_segment_sum": "Q5",
-        "probe_ranges": "Q6", "word_starts": "Q10"}
+        "probe_ranges": "Q6", "word_counts": "Q10"}
 REPLACES = {
     "bucket_sum": "spark_rapids_tpu/ops/pallas_groupby.py:76",
     "bucket_float_sum": "spark_rapids_tpu/ops/pallas_groupby.py:115",
@@ -113,14 +119,14 @@ REPLACES = {
     # not a Pallas kernel: the XLA segment_sum of the exact float sums
     "ordered_segment_sum": "spark_rapids_tpu/ops/groupby.py:910",
     "probe_ranges": "spark_rapids_tpu/ops/pallas_join.py:36",
-    "word_starts": "spark_rapids_tpu/udf/native.py:52",
+    "word_counts": "spark_rapids_tpu/udf/native.py:52",
 }
 #: Q10's text comes in this many batches
 WORD_COUNT_BATCHES = 4
 #: the CUDA symbols of the kernels, for the profiles' per-kernel time
 KERNEL_SYMBOLS = ("bucket_sum_kernel", "bucket_fsum_kernel",
                   "bucket_winner_kernel", "ordered_segment_sum_kernel",
-                  "probe_ranges_kernel", "word_starts_kernel")
+                  "probe_ranges_kernel", "word_counts_kernel")
 
 
 def _kernel_modules():
@@ -155,6 +161,43 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: cycles of the spin kernel that :func:`dev_ms`'s calls queue behind
+#: (about 6 ms)
+SPIN_CYCLES = 10_000_000
+
+
+def dev_ms(torch, fn, reps: int) -> float:
+    """:func:`cuda_ms` with the calls queued behind a spin kernel
+    (``torch.cuda._sleep``), so the card runs them back to back and the
+    host's time to issue them (Python, the wrapper, the launch) is not
+    counted unless it exceeds the spin: the device's time a call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host milliseconds to issue one call (host clock, the card left
+    to finish afterwards): a wrapper whose host time exceeds its device
+    time sets the pace of back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 def bound_ms(nbytes: float) -> float:
@@ -242,6 +285,48 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
             "bound_ms": bound_ms(nbytes),
         }
 
+    def k2(seg, B, fcols):
+        """K2 against its plain version within 1e-9 of each bucket's sum
+        of |x| (the atomics' order), NaN where the plain version has NaN;
+        timed beside index_add_."""
+        got = K.bucket_float_sum(seg, B, fcols)
+        exp = K.bucket_float_sum_plain(seg, B, fcols)
+        absx = K.bucket_float_sum_plain(seg, B, [(d.abs(), v)
+                                                 for d, v in fcols])
+        err = 0.0
+        for g, e, ax in zip(got, exp, absx):
+            both_nan = torch.isnan(g) & torch.isnan(e)
+            diff = torch.where(both_nan, 0.0, (g - e).abs())
+            if bool((torch.isnan(g) != torch.isnan(e)).any()) or bool(
+                    (diff > 1e-9 * torch.where(torch.isnan(ax), 0.0, ax)
+                     + 1e-300).any()):
+                raise AssertionError(f"bucket_float_sum B={B}, "
+                                     f"{len(fcols)} column(s): kernel != "
+                                     "plain")
+            err = max(err, float(diff.max()))
+        res = {"max_abs_err": err,
+               "replicas": K.plan_bucket_fsum(B, len(fcols))}
+        live = in_range(seg, B)
+        nbytes = 4 * n + int(live.sum()) * len(fcols) + 8 * sum(
+            int((v & live).sum()) for _, v in fcols) + 8 * B * len(fcols)
+        fidx = torch.where(live, seg.long(), B)
+        fvals = torch.stack([torch.where(v, d, 0.0) for d, v in fcols], 1)
+        res.update({
+            "ms": cuda_ms(torch, lambda: K.bucket_float_sum(seg, B, fcols),
+                          reps),
+            "dev_ms": dev_ms(torch, lambda: K.bucket_float_sum(
+                seg, B, fcols), reps),
+            "host_ms": host_ms(torch, lambda: K.bucket_float_sum(
+                seg, B, fcols), reps),
+            "plain_ms": cuda_ms(torch, lambda: K.bucket_float_sum_plain(
+                seg, B, fcols), reps),
+            "library_ms": cuda_ms(torch, lambda: torch.zeros(
+                (B + 1, len(fcols)), dtype=torch.float64,
+                device=dev).index_add_(0, fidx, fvals), reps),
+            "bound_ms": bound_ms(nbytes),
+        })
+        return res
+
     # the card's dependent f64 add latency: one thread, a chain of 2^20
     # adds in registers (0 + 1 - 0.5 + 1 - 0.5 ... = 2^18 exactly)
     nadds = 1 << 20
@@ -268,30 +353,7 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
         bv = rng.normal(size=n) * 1e3
         bv[rng.random(n) < 1e-6] = np.nan
         b = upload(bv)
-        fcols = [(b, vb)]
-        got = K.bucket_float_sum(seg, B, fcols)[0]
-        exp = K.bucket_float_sum_plain(seg, B, fcols)[0]
-        absx = K.bucket_float_sum_plain(seg, B, [(b.abs(), vb)])[0]
-        both_nan = torch.isnan(got) & torch.isnan(exp)
-        diff = torch.where(both_nan, 0.0, (got - exp).abs())
-        if bool((torch.isnan(got) != torch.isnan(exp)).any()) or bool(
-                (diff > 1e-9 * torch.where(torch.isnan(absx), 0.0, absx)
-                 + 1e-300).any()):
-            raise AssertionError(f"bucket_float_sum B={B}: kernel != plain")
-        nbytes = 4 * n + n_in + 8 * int((vb & live).sum()) + 8 * B
-        fidx = torch.where(live, seg.long(), B)
-        fvals = torch.where(vb, b, 0.0)[:, None]
-        results[("bucket_float_sum", B)] = {
-            "max_abs_err": float(diff.max()),
-            "ms": cuda_ms(torch, lambda: K.bucket_float_sum(seg, B, fcols),
-                          reps),
-            "plain_ms": cuda_ms(torch, lambda: K.bucket_float_sum_plain(
-                seg, B, fcols), reps),
-            "library_ms": cuda_ms(torch, lambda: torch.zeros(
-                (B + 1, 1), dtype=torch.float64, device=dev).index_add_(
-                0, fidx, fvals), reps),
-            "bound_ms": bound_ms(nbytes),
-        }
+        results[("bucket_float_sum", B)] = k2(seg, B, [(b, vb)])
 
         # K3 at min(b): the order words of a nullable f64 column
         word = K._order_words(b, ~vb, "min")
@@ -340,6 +402,21 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
                   **results[(name, B)]})
         del seg, live, a2, va, vb, b, word, sseg, sv
         torch.cuda.empty_cache()
+
+    # K2 at its worst contention (every live row in one bucket of Q1's
+    # B = 128) and with five float columns, held to the plain version
+    B = 128
+    seg = seg_for(B)
+    one = torch.where(in_range(seg, B), 63, seg)
+    fcols = [(upload(rng.normal(size=n) * 10.0 ** i),
+              upload(rng.random(n) >= 0.05 * i)) for i in range(5)]
+    for what, s_, cols in (("one_bucket", one, fcols[:1]),
+                           ("five_columns", seg, fcols)):
+        r = k2(s_, B, cols)
+        emit({"kernel_shape": "bucket_float_sum", "rows": n, "B": B,
+              "check": what, "columns": len(cols), **r})
+    del seg, one, fcols
+    torch.cuda.empty_cache()
 
     # K1 and K3 at Q4's shape: 2^20 keys hashed into the B = 8192 tier,
     # every row live, so the buckets fill evenly. K1 carries Q4's five
@@ -1166,47 +1243,59 @@ def _word_count_batches(np, dev, log2_rows: int):
             np.concatenate(valids))
 
 
-def udf_kernel_phase(torch, np, dev, batch, reps: int):
-    """K5 on the chars pool of one Q10 batch as the query hands it over:
-    equal to its plain version on every byte and to numpy's flags on
-    sampled windows; timed beside its plain version and its bytes bound.
-    The bound counts what the word count needs, 1 byte read + 4 bytes
-    written per live byte (up to offsets[rows]); the kernel as called
-    passes the whole padded pool, and bound_abi_ms counts that. No single
-    torch call computes the flags, so there is no library time."""
+def udf_kernel_phase(torch, np, dev, batch, words, reps: int):
+    """K5 on one Q10 batch as the query hands it over: equal to its plain
+    version and to the generator's word counts (``words``) on every row,
+    and so on a slice of rows whose offsets start mid-pool with non-space
+    garbage past its last offset; timed beside its plain version and its
+    bytes bound. The bound counts what the word count needs: the live
+    chars read once, 4 bytes of offsets and 4 of output per row;
+    ``bound_abi_ms`` counts what the launch moves as called (the 16-byte
+    chunks holding the live chars, every offset, the output). No single
+    torch call computes word counts, so there is no library time."""
     from spark_rapids_tpu_torch.ops import udf_kernels as UK
 
     scol = batch.columns[1]
-    chars = scol.chars
-    n = chars.shape[0]
-    live = int(scol.offsets[-1])
-    got = UK.word_starts(chars)
-    if not torch.equal(got, UK.word_starts_plain(chars)):
-        raise AssertionError("word_starts: kernel != plain")
-    host = chars.cpu().numpy()
-    flags = got.cpu().numpy()
-    sp = np.isin(host, np.array(WHITESPACE, np.uint8))
-    rng = np.random.default_rng(5)
-    for start in [0, n - (1 << 16)] + rng.integers(0, n - (1 << 16),
-                                                   6).tolist():
-        w = slice(start, start + (1 << 16))
-        prev = np.concatenate([[True] if start == 0 else sp[start - 1:start],
-                               sp[w][:-1]])
-        if not np.array_equal(flags[w], (~sp[w] & prev).astype(np.int32)):
-            raise AssertionError(f"word_starts: differs from numpy at "
-                                 f"[{start}, {start + (1 << 16)})")
+    offsets, chars = scol.offsets, scol.chars
+    rows = offsets.shape[0] - 1
+    start, live = int(offsets[0]), int(offsets[-1])
+    want = torch.from_numpy(np.asarray(words, np.int32)).to(dev)
+    got = UK.word_counts(offsets, chars)
+    if not torch.equal(got, UK.word_counts_plain(offsets, chars)):
+        raise AssertionError("word_counts: kernel != plain")
+    if not torch.equal(got[:want.shape[0]], want) or bool(
+            got[want.shape[0]:].any()):
+        raise AssertionError("word_counts: differs from the generator's "
+                             "word counts")
+    # rows [a, b): offsets start mid-pool; bytes past offsets[b] are
+    # non-space garbage that must not count
+    a, b = rows // 3 + 1, 2 * rows // 3
+    sub = offsets[a:b + 1]
+    garbage = chars.clone()
+    garbage[int(sub[-1]):] = ord("a")
+    got = UK.word_counts(sub, garbage)
+    if not (torch.equal(got, want[a:b])
+            and torch.equal(got, UK.word_counts_plain(sub, garbage))):
+        raise AssertionError("word_counts: wrong on a mid-pool slice")
+    del garbage
+    chunks = -(-live // 16) - start // 16
     res = {
         "max_abs_err": 0.0,
-        "ms": cuda_ms(torch, lambda: UK.word_starts(chars), reps),
-        "plain_ms": cuda_ms(torch, lambda: UK.word_starts_plain(chars),
-                            reps),
+        "ms": cuda_ms(torch, lambda: UK.word_counts(offsets, chars), reps),
+        "dev_ms": dev_ms(torch, lambda: UK.word_counts(offsets, chars),
+                         reps),
+        "host_ms": host_ms(torch, lambda: UK.word_counts(offsets, chars),
+                           reps),
+        "plain_ms": cuda_ms(torch, lambda: UK.word_counts_plain(
+            offsets, chars), reps),
         "library_ms": None,
         "library": "none: no single torch call",
-        "bound_ms": bound_ms(5 * live),
-        "bound_abi_ms": bound_ms(5 * n),
+        "bound_ms": bound_ms((live - start) + 8 * rows),
+        "bound_abi_ms": bound_ms(16 * chunks + 4 * (rows + 1) + 4 * rows),
     }
-    emit({"kernel_shape": "word_starts", "pool_bytes": n,
-          "live_bytes": live, **res})
+    emit({"kernel_shape": "word_counts", "rows": rows,
+          "pool_bytes": int(chars.shape[0]), "live_bytes": live - start,
+          **res})
     return res
 
 
@@ -1287,7 +1376,7 @@ def string_query_phase(torch, np, dev, log2_rows: int, wc_batches,
             if c[g]]
     if sorted(rows) != want:
         raise AssertionError("Q10: rows differ from the generator's counts")
-    k5 = per_query["Q10"]["word_starts"]
+    k5 = per_query["Q10"]["word_counts"]
     if k5 != len(batches) or per_query["Q10"]["bucket_sum"] <= 0:
         raise AssertionError(f"Q10: {k5} K5 launches for {len(batches)} "
                              f"batches, K1 {per_query['Q10']['bucket_sum']}")
@@ -1348,9 +1437,9 @@ def kernels_line(kres: dict, per_query: dict) -> list:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": "bytes", "library_ms": r["library_ms"]}
-        for extra in ("plain_rows", "bound_abi_ms", "log2_buckets",
-                      "library", "passes", "bound_chain_ms",
-                      "longest_segment", "dadd_ns"):
+        for extra in ("dev_ms", "host_ms", "plain_rows", "bound_abi_ms",
+                      "log2_buckets", "library", "passes", "replicas",
+                      "bound_chain_ms", "longest_segment", "dadd_ns"):
             if extra in r:
                 line[extra] = r[extra]
         kernels.append(line)
@@ -1367,7 +1456,7 @@ def main() -> int:
                     "side), as a power of two; Q8 takes 1/8 of them")
     ap.add_argument("--string-log2-rows", type=int, default=22,
                     help="rows of Q9 and of Q10 (in 4 batches; K5 runs on "
-                    "the first batch's pool), as a power of two")
+                    "the first batch), as a power of two")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="also profile Q1, Q2, Q5, Q6, Q7, Q9 and Q10 with "
@@ -1400,8 +1489,9 @@ def main() -> int:
         join_kernel_phase(torch, np, dev, 1 << args.join_log2_rows,
                           DIM_ROWS, args.reps))
     wc_batches = _word_count_batches(np, dev, args.string_log2_rows)
-    kres[("word_starts", 128)] = udf_kernel_phase(
-        torch, np, dev, wc_batches[0][0], args.reps)
+    first = wc_batches[0][0]
+    kres[("word_counts", 128)] = udf_kernel_phase(
+        torch, np, dev, first, wc_batches[3][:first.num_rows], args.reps)
     per_query = query_phase(torch, np, dev, args.log2_rows, 4,
                             args.profile)
     per_query.update(join_query_phase(torch, np, dev, args.join_log2_rows,
@@ -1410,7 +1500,7 @@ def main() -> int:
                                         args.string_log2_rows, wc_batches,
                                         args.profile))
     for q, counts in per_query.items():
-        if q != "Q10" and counts["word_starts"]:
+        if q != "Q10" and counts["word_counts"]:
             raise AssertionError(f"{q} launched K5")
 
     emit({"kernels": kernels_line(kres, per_query)})

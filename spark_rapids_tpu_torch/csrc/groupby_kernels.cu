@@ -20,22 +20,21 @@
 // with global atomics, so the 2^26-row bench query with 64 groups does
 // not serialize on 64 global addresses. K1 plans its table to fit (see
 // its section); K2 accumulates with global atomics directly when
-// B x columns x 8 bytes exceed 200 KB, K3 when B x 8 bytes exceed
-// 227 KB: a branch chosen by size, not a fallback. The ordered segment
-// sum is bound by its chain of dependent f64 adds (see its section).
+// B x columns x 8 bytes exceed 227 KB, K3 when B x 8 bytes do: a branch
+// chosen by size, not a fallback. The ordered segment sum is bound by its
+// chain of dependent f64 adds (see its section).
 //
 // Contract shared by all: rows with seg < 0 or seg >= B (dead rows,
 // padding at seg == B) drop out. The kernels allocate nothing and never
 // synchronize; outputs are pre-filled by the caller (zeros, or the
-// winner's identity). Every entry point returns the launch's cudaError_t,
-// including a refused shared-memory request.
+// winner's identity), except K2's, which its entry point zeroes on the
+// stream. Every entry point returns the launch's cudaError_t, including a
+// refused shared-memory request.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define SRT_MAXC 16
-#define SRT_THREADS 512
-#define SRT_SMEM_MAX (200 * 1024)
 
 struct SumCols {
   const long long* data[SRT_MAXC];
@@ -56,16 +55,6 @@ static int srt_sm_count() {
     if (sms <= 0) sms = 132;
   }
   return sms;
-}
-
-static int srt_grid(long long n, size_t smem_bytes) {
-  long long per_sm = smem_bytes == 0 ? 4 : (long long)(SRT_SMEM_MAX / (smem_bytes + 1024));
-  if (per_sm < 1) per_sm = 1;
-  if (per_sm > 4) per_sm = 4;
-  long long g = (long long)srt_sm_count() * per_sm;
-  long long need = (n + SRT_THREADS - 1) / SRT_THREADS;
-  if (need < g) g = need;
-  return (int)(g < 1 ? 1 : g);
 }
 
 // A runtime call failed before the launch: clear it from cudaGetLastError
@@ -323,59 +312,164 @@ extern "C" int srt_bucket_sum(const int* seg, long long n, int B, int nint, int 
 }
 
 // ---------------------------------------------------------------------------
-// K2: f64 sums per bucket (native f64 atomicAdd on sm_90). Order is
-// run-dependent: the order-insensitive variableFloatAgg family, as the
-// reference's f32 hi/lo kernel is. NaN/inf stay in their own bucket by
-// construction. out is (B, F) row-major.
+// K2: f64 sums per bucket. Order is run-dependent: the order-insensitive
+// variableFloatAgg family, as the reference's f32 hi/lo kernel is. NaN/inf
+// stay in their own bucket by construction. out is (B, F) row-major.
+//
+// Design for the H100:
+//  * Bytes in flight, as K3: 1024-thread blocks, four consecutive rows per
+//    thread, seg as one int4 and each column's four validity bytes as one
+//    u32 (the next quad's seg and first validity word load while this
+//    quad's values do), the values as two double2 loads issued whatever
+//    seg and validity say, so they do not wait on them: that reads the
+//    value planes whole, and measured faster than loading only the pairs
+//    a live valid row needs. Misaligned planes and the ragged tail go one
+//    row at a time.
+//  * No contended compare-and-swap loop: an f64 atomicAdd on shared memory
+//    is a CAS loop on sm_90 (ATOMS.CAST.SPIN.64), and in the bench query
+//    every block sends all its rows into the 64 live buckets of one table.
+//    Each block therefore keeps `reps` replicas of the (B, F) table, warp w
+//    adding into replica w % reps, so a retry mostly happens between lanes
+//    of one warp on one address. The kernel's registers hold an SM to one
+//    block, so the wrapper's planner (ops/groupby_kernels.plan_bucket_fsum)
+//    gives it as many replicas as 227 KB holds, up to one per warp. At the
+//    flush the replicas are summed in shared memory and each nonzero entry
+//    goes out with one global f64 atomicAdd (NaN != 0.0, so NaN flushes).
+//    Combining a warp's same-bucket adds first (__match_any_sync and a
+//    shuffle tree) measured slower at the bench query's 64 live buckets and
+//    was removed; it won only with every row in one bucket.
+//  * A table that does not fit a block even once accumulates with global
+//    atomics (native on sm_90): a branch chosen by size, by the planner.
 // ---------------------------------------------------------------------------
+#define K2_THREADS 1024
+
 template <bool SMEM>
-__global__ void bucket_fsum_kernel(const int* __restrict__ seg, long long n, int B,
-                                   int nf, FloatCols cols, double* __restrict__ out) {
-  extern __shared__ double sfacc[];
-  double* acc = SMEM ? sfacc : out;
+__global__ void __launch_bounds__(K2_THREADS)
+    bucket_fsum_kernel(const int* __restrict__ seg, long long n, int B, int nf, FloatCols cols,
+                       int reps, int vec, double* __restrict__ out) {
+  extern __shared__ double k2_smem[];
+  const int table = B * nf;
+  double* acc = out;
   if (SMEM) {
-    for (int i = threadIdx.x; i < B * nf; i += blockDim.x) sfacc[i] = 0.0;
+    for (int i = threadIdx.x; i < reps * table; i += blockDim.x) k2_smem[i] = 0.0;
     __syncthreads();
+    acc = k2_smem + (size_t)((threadIdx.x >> 5) % reps) * table;
   }
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
-    const int s = seg[r];
-    if (s < 0 || s >= B) continue;
-    double* a = acc + (long long)s * nf;
-    for (int c = 0; c < nf; ++c)
-      if (cols.valid[c][r]) atomicAdd(a + c, cols.data[c][r]);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nq = vec ? n >> 2 : 0;  // whole quads of four rows
+  // seg and the first validity word of a thread's next quad load while
+  // the current one's values do
+  int4 tn = make_int4(-1, -1, -1, -1);
+  unsigned vn = 0u;
+  if (tid < nq) {
+    tn = __ldg(reinterpret_cast<const int4*>(seg) + tid);
+    vn = __ldg(reinterpret_cast<const unsigned*>(cols.valid[0]) + tid);
+  }
+  // warp-uniform loops (q runs over the warp's quads): measured faster than
+  // a per-thread loop over the same quads
+  const long long wtid = tid & ~31LL;
+  for (long long qw = wtid; qw < nq; qw += stride) {
+    const long long q = tid - wtid + qw;
+    const bool live = q < nq;
+    const long long r0 = q * 4;
+    const int4 t = tn;
+    unsigned vw = vn;
+    if (q + stride < nq) {
+      tn = __ldg(reinterpret_cast<const int4*>(seg) + q + stride);
+      vn = __ldg(reinterpret_cast<const unsigned*>(cols.valid[0]) + q + stride);
+    }
+    const int s[4] = {t.x, t.y, t.z, t.w};
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ok[j] = live && (unsigned)s[j] < (unsigned)B;
+    for (int c = 0; c < nf; ++c) {
+      if (c > 0 && live) vw = __ldg(reinterpret_cast<const unsigned*>(cols.valid[c]) + q);
+      bool use[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) use[j] = ok[j] && ((vw >> (8 * j)) & 0xFFu);
+      // both value pairs load whatever seg and validity say, so the loads
+      // do not wait on them
+      double2 a = make_double2(0.0, 0.0), b = a;
+      if (live) {
+        a = __ldg(reinterpret_cast<const double2*>(cols.data[c] + r0));
+        b = __ldg(reinterpret_cast<const double2*>(cols.data[c] + r0 + 2));
+      }
+      const double x[4] = {a.x, a.y, b.x, b.y};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (use[j]) atomicAdd(acc + (long long)s[j] * nf + c, x[j]);
+    }
+  }
+  for (long long rw = nq * 4 + wtid; rw < n; rw += stride) {  // the tail
+    const long long r = tid - wtid + rw;
+    const int s = r < n ? seg[r] : -1;
+    const bool ok = (unsigned)s < (unsigned)B;
+    for (int c = 0; c < nf; ++c) {
+      const bool use = ok && cols.valid[c][r];
+      if (use) atomicAdd(acc + (long long)s * nf + c, cols.data[c][r]);
+    }
   }
   if (SMEM) {
     __syncthreads();
-    for (int i = threadIdx.x; i < B * nf; i += blockDim.x) {
-      const double v = sfacc[i];
+    for (int i = threadIdx.x; i < table; i += blockDim.x) {
+      double v = 0.0;
+      for (int k = 0; k < reps; ++k) v += k2_smem[(size_t)k * table + i];
       if (v != 0.0) atomicAdd(out + i, v);  // NaN != 0.0, so NaN flushes
     }
   }
 }
 
+template <bool SMEM>
+static int k2_launch(const int* seg, long long n, int B, int nf, const FloatCols& cols,
+                     int reps, int vec, double* out, cudaStream_t st) {
+  void (*kern)(const int*, long long, int, int, FloatCols, int, int, double*) =
+      bucket_fsum_kernel<SMEM>;
+  // the shared-memory opt-in and the occupancy query, made once per size
+  static size_t opted = 0, queried = (size_t)-1;
+  static int per_sm = 0;
+  const size_t smem = SMEM ? (size_t)reps * B * nf * sizeof(double) : 0;
+  cudaError_t e;
+  if (smem > opted) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return srt_fail(e);
+    opted = smem;
+  }
+  if (smem != queried) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, K2_THREADS, smem);
+    if (e != cudaSuccess) return srt_fail(e);
+    if (per_sm < 1) per_sm = 1;  // the launch then reports what does not fit
+    queried = smem;
+  }
+  long long grid = (long long)per_sm * srt_sm_count();
+  const long long need = ((n + 3) / 4 + K2_THREADS - 1) / K2_THREADS;
+  if (need < grid) grid = need;
+  if (grid < 1) grid = 1;
+  kern<<<(unsigned)grid, K2_THREADS, smem, st>>>(seg, n, B, nf, cols, reps, vec, out);
+  return (int)cudaGetLastError();
+}
+
+// reps: the wrapper's plan (ops/groupby_kernels.plan_bucket_fsum), the
+// shared-memory replicas of the table per block, 0 for global atomics.
+// out need not be zeroed: the entry point zeroes it on the stream.
 extern "C" int srt_bucket_fsum(const int* seg, long long n, int B, int nf,
-                               const void* const* data, const void* const* valid,
+                               const void* const* data, const void* const* valid, int reps,
                                double* out, void* stream) {
-  if (nf > SRT_MAXC || nf <= 0) return (int)cudaErrorInvalidValue;
+  if (nf > SRT_MAXC || nf <= 0 || B < 0 || reps < 0 || reps > K2_THREADS / 32)
+    return (int)cudaErrorInvalidValue;
   FloatCols cols;
+  int vec = ((uintptr_t)seg & 15u) == 0;
   for (int c = 0; c < nf; ++c) {
     cols.data[c] = (const double*)data[c];
     cols.valid[c] = (const bool*)valid[c];
+    vec = vec && ((uintptr_t)data[c] & 15u) == 0 && ((uintptr_t)valid[c] & 3u) == 0;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)B * nf * sizeof(double);
-  if (smem <= SRT_SMEM_MAX) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bucket_fsum_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return srt_fail(e);
-    bucket_fsum_kernel<true><<<srt_grid(n, smem), SRT_THREADS, smem, st>>>(
-        seg, n, B, nf, cols, out);
-  } else {
-    bucket_fsum_kernel<false><<<srt_grid(n, 0), SRT_THREADS, 0, st>>>(
-        seg, n, B, nf, cols, out);
-  }
-  return (int)cudaGetLastError();
+  // out starts at zero: the blocks add into it
+  const cudaError_t e = cudaMemsetAsync(out, 0, (size_t)B * nf * sizeof(double), st);
+  if (e != cudaSuccess) return srt_fail(e);
+  if (reps > 0) return k2_launch<true>(seg, n, B, nf, cols, reps, vec, out, st);
+  return k2_launch<false>(seg, n, B, nf, cols, 0, vec, out, st);
 }
 
 // ---------------------------------------------------------------------------

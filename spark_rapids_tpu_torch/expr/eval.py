@@ -27,6 +27,7 @@ import torch
 from .. import types as T
 from ..columnar import ColumnarBatch, DeviceColumn
 from ..ops import strings as S
+from ..ops.hashing import flush_subnormals
 from ..types import DataType, torch_dtype
 from . import expressions as E
 from .eval_strings import compare_strings, lower_strings
@@ -62,7 +63,8 @@ def _cast_data(data: torch.Tensor, frm: DataType, to: DataType) -> torch.Tensor:
     if isinstance(frm, T.NullType):
         return torch.zeros_like(data, dtype=torch_dtype(to))
     if isinstance(to, T.BooleanType):
-        return data != 0
+        # a subnormal reads as zero, as on the reference's backends
+        return flush_subnormals(data) != 0
     if isinstance(frm, T.BooleanType):
         return data.to(torch_dtype(to))
     if to.name in _INT_INFO and frm.is_floating:
@@ -186,9 +188,11 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
         return ColV(op(ld, rd), l.validity & r.validity)
 
     if isinstance(expr, E.Divide):
+        # subnormal operands read as zero, as on the reference's backends:
+        # x / 5e-324 is NULL there
         l, r = ev(expr.left), ev(expr.right)
-        ld = _cast_data(l.data, expr.left.dtype, T.DOUBLE)
-        rd = _cast_data(r.data, expr.right.dtype, T.DOUBLE)
+        ld = flush_subnormals(_cast_data(l.data, expr.left.dtype, T.DOUBLE))
+        rd = flush_subnormals(_cast_data(r.data, expr.right.dtype, T.DOUBLE))
         valid = l.validity & r.validity & (rd != 0)
         return ColV(ld / torch.where(rd == 0, 1.0, rd), valid)
 
@@ -218,7 +222,10 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
         tgt = (T.promote(expr.left.dtype, expr.right.dtype)
                if expr.left.dtype != expr.right.dtype else expr.left.dtype)
         ld, rd = _promote2(l, expr.left.dtype, r, expr.right.dtype, tgt)
-        res = _cmp(expr, ld, rd, tgt.is_floating)
+        # subnormals compare as zero, as on the reference's backends (and
+        # as a subnormal key groups with 0.0, ops/hashing.canonical_float)
+        res = _cmp(expr, flush_subnormals(ld), flush_subnormals(rd),
+                   tgt.is_floating)
         if isinstance(expr, E.EqualNullSafe):
             both_null = ~l.validity & ~r.validity
             val = (l.validity & r.validity & res) | both_null

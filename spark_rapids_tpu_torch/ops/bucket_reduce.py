@@ -75,11 +75,14 @@ def bucket_min_max(seg: torch.Tensor, B: int, op: str,
                    strategy: Optional[str] = None) -> List[torch.Tensor]:
     """Per-bucket min/max of identity-prefilled columns (callers overwrite
     empty buckets via their count mask). Both tiers reduce the columns'
-    order words (NaN largest, -0.0 == 0.0): PALLAS on K3, SCATTER on K3's
-    plain version (``scatter_reduce_``)."""
-    winner = (K.bucket_winner if _resolve_strategy(strategy) == "PALLAS"
-              else K.bucket_winner_plain)
-    return K.min_max_by_words(winner, seg, B, op, cols)
+    order words, NaN largest: PALLAS on K3, folding -0.0 into 0.0 as the
+    reference's PALLAS tier does; SCATTER on K3's plain version
+    (``scatter_reduce_``) with -0.0 below 0.0, as the reference's
+    ``segment_min``/``segment_max`` order the raw values."""
+    if _resolve_strategy(strategy) == "PALLAS":
+        return K.min_max_by_words(K.bucket_winner, seg, B, op, cols)
+    return K.min_max_by_words(K.bucket_winner_plain, seg, B, op, cols,
+                              keep_zero_sign=True)
 
 
 def bucket_lookup_u32(seg: torch.Tensor, B: int,

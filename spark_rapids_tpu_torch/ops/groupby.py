@@ -41,7 +41,8 @@ from .bucket_reduce import (
 )
 from .filter_gather import gather, live_of
 from .hashing import murmur3
-from .sort import SortOrder, fixed_radix_keys, sort_with_radix_keys
+from .sort import (SIGN64, SortOrder, fixed_radix_keys,
+                   sort_with_radix_keys)
 
 
 def _seg_sum(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -72,9 +73,11 @@ def _ordered_fsum(vals: torch.Tensor, seg: torch.Tensor, n: int,
 def _winner_words(op: str, data: torch.Tensor, valid: torch.Tensor,
                   seg: torch.Tensor, n: int) -> torch.Tensor:
     """Per-segment min/max of the valid rows' order words (NaN largest,
-    -0.0 == 0.0: Spark's float min skips NaN unless the group is all NaN,
-    max returns NaN when present), decoded to ``data``'s dtype."""
-    w = K.bucket_winner_plain(seg, n, op, K._order_words(data, ~valid, op))
+    -0.0 below 0.0 as the reference's ``segment_min``/``segment_max``
+    order raw values: Spark's float min skips NaN unless the group is all
+    NaN, max returns NaN when present), decoded to ``data``'s dtype."""
+    w = K.bucket_winner_plain(seg, n, op, K._order_words(
+        data, ~valid, op, keep_zero_sign=True))
     return K._decode_word(w, data.dtype)
 
 
@@ -216,13 +219,11 @@ def _reduce_one(op: str, col: Optional[ColV],
         return ColV(s.to(data.dtype).reshape(1), has)
     if op in ("min", "max"):
         if data.is_floating_point():
-            if op == "max":
-                r = torch.where(valid, data, float("-inf")).amax()
-            else:
-                nan_as_inf = torch.where(torch.isnan(data), float("inf"), data)
-                r = torch.where(valid, nan_as_inf, float("inf")).amin()
-                non_nan = (valid & ~torch.isnan(data)).any()
-                r = torch.where(~non_nan & has[0], float("nan"), r)
+            # order words: NaN largest, -0.0 below 0.0 (the reference's
+            # jnp.min/jnp.max on raw values)
+            w = K._order_words(data, ~valid, op, keep_zero_sign=True) ^ SIGN64
+            r = K._decode_word((w.amax() if op == "max" else w.amin())
+                               ^ SIGN64, data.dtype)
         elif data.dtype == torch.bool:
             d = torch.where(valid, data, op == "min").to(torch.uint8)
             r = (d.amax() if op == "max" else d.amin()).to(torch.bool)

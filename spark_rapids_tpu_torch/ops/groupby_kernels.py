@@ -28,8 +28,9 @@ stream (seg int32 + value and validity planes, each read once) plus
 B x columns x 8 bytes of output. The kernels keep the bucket table in
 shared memory per block and flush it once, instead of the TPU kernels'
 one-hot blocks in VMEM; K1's table is planned into passes that fit
-(:func:`plan_bucket_sum`). The ordered segment sum is bound by the chain
-of dependent f64 adds of its longest segment.
+(:func:`plan_bucket_sum`), K2's into replicas (:func:`plan_bucket_fsum`).
+The ordered segment sum is bound by the chain of dependent f64 adds of
+its longest segment.
 
 torch has little uint32/uint64 support, so 64-bit words (order words,
 unsigned accumulators) ride in int64 tensors with the same bit pattern;
@@ -54,8 +55,8 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 #: columns per launch (SRT_MAXC in the .cu)
 MAX_COLS = 16
 #: shared memory one block may opt into on an H100 (227 KB); K1's pass
-#: tables are planned within it, K3's table stays in it up to
-#: BLOCK_SMEM // 8 buckets
+#: tables and K2's replicas are planned within it, K3's table stays in it
+#: up to BLOCK_SMEM // 8 buckets
 BLOCK_SMEM = _cuda_build.BLOCK_SMEM
 #: the reference's PALLAS capacity bound (its 4-bit limb accumulators);
 #: kept so both engines accept the same inputs
@@ -94,7 +95,8 @@ def build_kernels() -> ctypes.CDLL:
         lib.srt_bucket_sum.argtypes = [vp, i64, i32, i32, i32, pp, pp,
                                        ctypes.POINTER(i32), i32,
                                        ctypes.c_uint, vp, vp]
-        lib.srt_bucket_fsum.argtypes = [vp, i64, i32, i32, pp, pp, vp, vp]
+        lib.srt_bucket_fsum.argtypes = [vp, i64, i32, i32, pp, pp, i32, vp,
+                                        vp]
         lib.srt_bucket_winner.argtypes = [vp, i64, i32, i32, vp, i32, vp,
                                           vp]
         lib.srt_ordered_segment_sum.argtypes = [vp, vp, i32, vp, vp]
@@ -241,12 +243,31 @@ def bucket_float_sum_plain(seg, B, float_cols=()):
     return [acc[:B, i] for i in range(len(cols))]
 
 
+#: K2 keeps at most one table replica per warp of its 1024-thread block
+MAX_FSUM_REPLICAS = 32
+
+
+def plan_bucket_fsum(B: int, F: int, budget: int = BLOCK_SMEM) -> int:
+    """K2's table placement for ``B`` buckets and ``F`` f64 columns: the
+    number of replicas of the (B, F) table each block keeps in shared
+    memory (warp w adds into replica w % replicas, so a shared CAS retry
+    mostly happens between lanes of one warp), or 0 for global atomics on
+    the output when one table exceeds ``budget``. As many replicas as fit
+    ``budget``, up to one per warp: the kernel's registers hold an SM to
+    one 1024-thread block, so the replicas cost no occupancy."""
+    table = B * F * 8
+    if table > budget:
+        return 0
+    return min(MAX_FSUM_REPLICAS, budget // max(table, 1))
+
+
 def bucket_float_sum(seg: torch.Tensor, B: int,
                      float_cols: Sequence[Tuple[torch.Tensor, torch.Tensor]]
                      = ()) -> List[torch.Tensor]:
     """K2: per-bucket f64 sums of ``float_cols`` [(data, valid)]. The
     summation order is run-dependent (the variableFloatAgg family); NaN
-    and inf stay in their own bucket."""
+    and inf stay in their own bucket. One launch per :data:`MAX_COLS`
+    columns, its table placed by :func:`plan_bucket_fsum`."""
     _check_rows(seg.shape[0])
     flat = [t for d, v in float_cols for t in (d, v)]
     if not _on_card(seg, flat):
@@ -261,12 +282,14 @@ def bucket_float_sum(seg: torch.Tensor, B: int,
     with torch.cuda.device(dev):
         for lo in range(0, len(entries), MAX_COLS):
             chunk = entries[lo:lo + MAX_COLS]
-            out = torch.zeros((B, len(chunk)), dtype=torch.float64,
+            # zeroed on the stream by the entry point
+            out = torch.empty((B, len(chunk)), dtype=torch.float64,
                               device=dev)
             rc = lib.srt_bucket_fsum(
                 seg32.data_ptr(), n, B, len(chunk),
                 _ptrs([d for d, _ in chunk]), _ptrs([v for _, v in chunk]),
-                out.data_ptr(), _stream(dev))
+                plan_bucket_fsum(B, len(chunk)), out.data_ptr(),
+                _stream(dev))
             _check(lib, rc, "bucket_float_sum")
             LAUNCHES["bucket_float_sum"] += 1
             outs.extend(out[:, i] for i in range(len(chunk)))
@@ -386,12 +409,13 @@ def dadd_chain(x: torch.Tensor, nadds: int) -> torch.Tensor:
 # order words and the kernel tier's entry points
 # ---------------------------------------------------------------------------
 def _order_words(data: torch.Tensor, fill_excluded: torch.Tensor,
-                 op: str) -> torch.Tensor:
+                 op: str, keep_zero_sign: bool = False) -> torch.Tensor:
     """The packed (hi, lo) order word of one column (the sort radix
-    encoding: NaN canonical-largest, -0.0 folded), with the op identity at
-    excluded rows. 32-bit and bool values fill the hi word (lo = 0), as in
-    the reference's bit-exact branch (``pallas_groupby.py:343-351``)."""
-    w = radix_of(data)
+    encoding: NaN canonical-largest, -0.0 folded, or with
+    ``keep_zero_sign`` just below 0.0), with the op identity at excluded
+    rows. 32-bit and bool values fill the hi word (lo = 0), as in the
+    reference's bit-exact branch (``pallas_groupby.py:343-351``)."""
+    w = radix_of(data, keep_zero_sign)
     if data.element_size() < 8:
         w = w << 32
     ident = IDENT_MIN if op == "min" else IDENT_MAX
@@ -428,14 +452,15 @@ def kernel_bucket_reduce(seg, B, int_cols=(), count_cols=(), float_cols=()):
     return isums, counts, fsums
 
 
-def min_max_by_words(winner, seg, B, op, cols):
+def min_max_by_words(winner, seg, B, op, cols, keep_zero_sign=False):
     """Per-bucket min/max of identity-prefilled columns through
     ``winner`` (K3's wrapper or its plain version): each column's order
-    word is reduced and decoded back to the column's dtype; callers
-    overwrite empty buckets via their count mask."""
+    word (:func:`_order_words`) is reduced and decoded back to the
+    column's dtype; callers overwrite empty buckets via their count
+    mask."""
     no = torch.zeros(seg.shape[0], dtype=torch.bool, device=seg.device)
-    return [_decode_word(winner(seg, B, op, _order_words(d, no, op)),
-                         d.dtype) for d in cols]
+    return [_decode_word(winner(seg, B, op, _order_words(
+        d, no, op, keep_zero_sign)), d.dtype) for d in cols]
 
 
 def kernel_bucket_min_max(seg, B, op, cols):

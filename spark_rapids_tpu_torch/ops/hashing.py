@@ -76,6 +76,16 @@ def canonical_float(data: torch.Tensor) -> torch.Tensor:
     return torch.where(d.abs() < torch.finfo(d.dtype).tiny, 0.0, d)
 
 
+def flush_subnormals(data: torch.Tensor) -> torch.Tensor:
+    """A float tensor as the reference's backends read its operands in
+    compares, zero checks and min/max: a subnormal is the zero of its
+    sign. Other dtypes pass through."""
+    if not data.is_floating_point():
+        return data
+    return torch.where(data.abs() < torch.finfo(data.dtype).tiny,
+                       torch.copysign(torch.zeros_like(data), data), data)
+
+
 def hash_column(col: ColV, dtype: T.DataType,
                 seed: torch.Tensor) -> torch.Tensor:
     """Hash one column into the running per-row seed; nulls leave it as-is."""

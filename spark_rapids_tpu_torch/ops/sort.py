@@ -23,7 +23,7 @@ import torch
 from .. import types as T
 from ..expr.values import ColV
 from .filter_gather import live_of
-from .hashing import canonical_float
+from .hashing import canonical_float, flush_subnormals
 
 #: int64 with only bit 63 set; ``k ^ SIGN64`` turns unsigned order into
 #: signed order
@@ -51,9 +51,17 @@ def _int_radix(data: torch.Tensor) -> torch.Tensor:
     return data ^ SIGN64
 
 
-def _float_radix(data: torch.Tensor) -> torch.Tensor:
-    """IEEE total-order trick with Spark's NaN-largest / -0.0 == 0.0."""
-    d = canonical_float(data)  # NaN canonical; -0.0, subnormals -> +0.0
+def _float_radix(data: torch.Tensor,
+                 keep_zero_sign: bool = False) -> torch.Tensor:
+    """IEEE total-order trick with Spark's NaN-largest and -0.0 == 0.0;
+    with ``keep_zero_sign`` -0.0 sorts just below 0.0, as the reference's
+    SCATTER-tier min/max order them (a subnormal reads as the zero of its
+    sign there)."""
+    if keep_zero_sign:
+        d = flush_subnormals(torch.where(torch.isnan(data), float("nan"),
+                                         data))
+    else:
+        d = canonical_float(data)  # NaN canonical; -0.0, subnormals -> +0.0
     if data.dtype == torch.float32:
         bits = d.view(torch.int32).to(torch.int64) & _M32
         neg = bits >= (1 << 31)
@@ -62,10 +70,11 @@ def _float_radix(data: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, ~bits, bits ^ SIGN64)
 
 
-def radix_of(data: torch.Tensor) -> torch.Tensor:
-    """The order-preserving radix key of a fixed-width value tensor."""
+def radix_of(data: torch.Tensor, keep_zero_sign: bool = False) -> torch.Tensor:
+    """The order-preserving radix key of a fixed-width value tensor
+    (``keep_zero_sign``: see :func:`_float_radix`)."""
     if data.is_floating_point():
-        return _float_radix(data)
+        return _float_radix(data, keep_zero_sign)
     if data.dtype == torch.bool:
         return data.to(torch.int64)
     return _int_radix(data)

@@ -8,22 +8,19 @@ COLUMNAR function over the engine's column values (``ColV`` fixed width,
 CPU fallback; the columnar function runs inside the projection.
 
 In-tree example: :func:`string_word_count`, the UDF the reference ships
-(``string_word_count.cu``), with the per-byte pass as the hand-written
-kernel K5 (``ops/udf_kernels.word_starts``) and the ragged row reduction
-in PyTorch.
+(``string_word_count.cu``): the reference's per-byte Pallas pass and its
+ragged row reduction are one hand-written kernel, K5
+(``ops/udf_kernels.word_counts``).
 """
 from __future__ import annotations
 
 import re
 from typing import Callable, Optional
 
-import torch
-
 from .. import types as T
 from ..expr import expressions as E
 from ..expr.values import ColV, StrV
 from ..ops import udf_kernels
-from ..ops.udf_kernels import is_space as _is_space
 
 
 def tpu_udf(columnar_fn: Callable, row_fn: Callable,
@@ -44,26 +41,10 @@ def tpu_udf(columnar_fn: Callable, row_fn: Callable,
 # in-tree example: string word count (reference: string_word_count.cu)
 # ---------------------------------------------------------------------------
 def _word_count_columnar(cap: int, s) -> ColV:
-    """Word count per row: K5's per-byte word-start flags, then a
-    prefix-sum difference at the row offsets (no scatter)."""
+    """Word count per row: one K5 launch from the chars pool to the
+    per-row counts (``ops/udf_kernels.word_counts``)."""
     assert isinstance(s, StrV), "string_word_count takes a string column"
-    flags = udf_kernels.word_starts(s.chars)
-    nch = s.chars.shape[0]
-    dev = s.chars.device
-    # int32 as the reference (its totals stay below 2^31 bytes)
-    P = torch.empty(nch + 1, dtype=torch.int32, device=dev)
-    P[:1] = 0
-    torch.cumsum(flags, 0, dtype=torch.int32, out=P[1:])
-    lo = s.offsets[:-1].clamp(0, nch).long()
-    hi = s.offsets[1:].clamp(0, nch).long()
-    counts = P[hi] - P[lo]
-    # a row starting mid-pool with a non-space first byte whose global
-    # predecessor is non-space still starts a word
-    last = max(nch - 1, 0)
-    first = s.chars[lo.clamp(0, last)]
-    prev = s.chars[(lo - 1).clamp(0, last)]
-    fix = (hi > lo) & ~_is_space(first) & (lo > 0) & ~_is_space(prev)
-    return ColV((counts + fix.to(torch.int32)).to(torch.int32), s.validity)
+    return ColV(udf_kernels.word_counts(s.offsets, s.chars), s.validity)
 
 
 def _word_count_row(s: Optional[str]) -> Optional[int]:

@@ -98,6 +98,92 @@ def test_bucket_float_sum_confines_nan_and_inf(dev, B):
                  <= 1e-9 * absx[fin] + 1e-300).all())
 
 
+def _k2_check(dev, seg, B, cols, views=slice(None)):
+    """K2 on the card against its plain version: within 1e-9 of each
+    bucket's sum of |x| (the atomics' order), NaN and +-inf where it has
+    them; one launch per 16 columns."""
+    sv = torch.from_numpy(seg[views])
+    hc = [(torch.from_numpy(d[views]), torch.from_numpy(v[views]))
+          for d, v in cols]
+    exp = K.bucket_float_sum_plain(sv, B, hc)
+    absx = K.bucket_float_sum_plain(sv, B, [(d.abs(), v) for d, v in hc])
+    before = K.LAUNCHES["bucket_float_sum"]
+    got = K.bucket_float_sum(_on(dev, seg)[0][views], B,
+                             [tuple(t[views] for t in _on(dev, d, v))
+                              for d, v in cols])
+    assert K.LAUNCHES["bucket_float_sum"] - before == -(-len(cols)
+                                                        // K.MAX_COLS)
+    for g, e, ax in zip(got, exp, absx):
+        g = g.cpu()
+        assert torch.equal(torch.isnan(g), torch.isnan(e))
+        fin = torch.isfinite(e)
+        inf = ~fin & ~torch.isnan(e)
+        assert torch.equal(g[inf], e[inf])
+        assert bool(((g[fin] - e[fin]).abs()
+                     <= 1e-9 * ax[fin] + 1e-300).all())
+
+
+def _k2_cols(rng, n, F):
+    cols = []
+    for i in range(F):
+        x = rng.normal(size=n) * 10.0 ** (i % 4)
+        x[rng.integers(0, n, 2)] = np.inf if i % 2 else np.nan
+        cols.append((x, rng.random(n) < 0.9))
+    return cols
+
+
+#: K2's table sizes: one replica of the largest table a block holds
+#: ("max") and one bucket more, which goes to global atomics ("max+1")
+K2_BUCKETS = (1, 64, 128, 1024, 8192, "max", "max+1")
+
+
+@pytest.mark.parametrize("F", [1, 2, 5, 16])
+@pytest.mark.parametrize("B", K2_BUCKETS)
+def test_bucket_float_sum_every_table_placement(dev, B, F):
+    """Every replica count plan_bucket_fsum picks, the largest shared
+    table and the global branch past it, over 40 003 rows (not a
+    multiple of 4)."""
+    if isinstance(B, str):
+        B = K.BLOCK_SMEM // (8 * F) + (B == "max+1")
+    assert (K.plan_bucket_fsum(B, F) > 0) == (B * F * 8 <= K.BLOCK_SMEM)
+    rng = np.random.default_rng(B + 7 * F)
+    n = 40_003
+    _k2_check(dev, _seg(rng, n, B), B, _k2_cols(rng, n, F))
+
+
+@pytest.mark.parametrize("F", [1, 5, 17])
+@pytest.mark.parametrize("B", [1, 128, 8192])
+def test_bucket_float_sum_every_row_in_one_bucket(dev, B, F):
+    """Maximum contention: every live row of every warp in one bucket."""
+    rng = np.random.default_rng(B + F)
+    n = 100_001
+    seg = np.full(n, B - 1, np.int32)
+    seg[rng.random(n) < 0.01] = B  # a few dead rows
+    _k2_check(dev, seg, B, _k2_cols(rng, n, F))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 4097, 65_539])
+def test_bucket_float_sum_ragged_and_unaligned_rows(dev, n):
+    """Columns one row into their storage (not 16-byte aligned: the
+    one-row path) and row counts off the four-row step."""
+    rng = np.random.default_rng(n)
+    seg = _seg(rng, n + 1, 128)
+    cols = _k2_cols(rng, n + 1, 2)
+    _k2_check(dev, seg, 128, cols, views=slice(1, None))
+    _k2_check(dev, seg, 128, cols, views=slice(None, n))
+
+
+def test_bucket_float_sum_refused_shared_memory_raises(dev, monkeypatch):
+    """Replicas past what a block may hold, forced by the planner,
+    surface the card's refusal as an error."""
+    monkeypatch.setattr(K, "plan_bucket_fsum", lambda B, F: 32)
+    seg = torch.zeros(64, dtype=torch.int32, device=dev)
+    x = torch.ones(64, dtype=torch.float64, device=dev)
+    v = torch.ones(64, dtype=torch.bool, device=dev)
+    with pytest.raises(RuntimeError, match="bucket_float_sum kernel launch"):
+        K.bucket_float_sum(seg, 8192, [(x, v)])
+
+
 @pytest.mark.parametrize("B", BUCKETS)
 @pytest.mark.parametrize("op", ["min", "max"])
 def test_bucket_winner_matches_plain(dev, B, op):
@@ -583,44 +669,141 @@ def test_probe_ranges_every_build_row_one_key(dev, nb, nwords):
 
 
 # ---------------------------------------------------------------------------
-# K5: word-start flags
+# K5: word counts per row
 # ---------------------------------------------------------------------------
-_WS_ALPHABET = np.array([0x20, 0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x61, 0x62,
-                         0xC3, 0x00, 0x08, 0x0E, 0x1F, 0x21], np.uint8)
+#: the word-count cases the CPU suite also holds against the reference
+#: (``tests/test_torch_udf.py``)
+WORD_COUNT_CASES = ("mid_pool", "garbage_tail", "empty_and_space_rows",
+                    "long_row", "capacity_rows", "utf8")
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 255, 1023, 1024, 1025,
-                               4097, 65537, (1 << 20) + 3])
-def test_word_starts_matches_plain(dev, n):
+def word_count_case(name, seed=0):
+    """(offsets int32, chars uint8) of one word-count edge case, made from
+    the chip check's Q10 text generator (``chip_smoke.word_count_text``)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    off, chars, _, _ = chip_smoke.word_count_text(np, rng, 1500)
+    off = off.astype(np.int64)
+    if name == "mid_pool":
+        # rows [301, 1200): offsets start mid-pool, some right after a
+        # non-space byte of a skipped row
+        off = off[301:1201]
+    elif name == "garbage_tail":
+        # the last rows cut off; non-space bytes where they were
+        off = off[:1001]
+        chars = chars.copy()
+        chars[off[-1]:] = rng.choice(np.frombuffer(b"ab\xc3x", np.uint8),
+                                     chars.size - off[-1])
+    elif name == "empty_and_space_rows":
+        lens = np.diff(off)
+        kind = rng.integers(0, 3, lens.size)  # as made, empty, all space
+        pieces = [bytes(chars[a:b]) if k == 0 else b"" if k == 1 else
+                  bytes(rng.choice(np.frombuffer(b" \t\n\x0b\x0c\r",
+                                                 np.uint8),
+                                   int(rng.integers(1, 40))))
+                  for a, b, k in zip(off[:-1], off[1:], kind)]
+        chars = np.frombuffer(b"".join(pieces), np.uint8).copy()
+        off = np.concatenate([[0], np.cumsum([len(x) for x in pieces])])
+    elif name == "long_row":
+        # one row of 70 000 bytes of words among short rows
+        words = b" ".join(b"w%d" % i for i in range(12_000))[:70_000]
+        pieces = [bytes(chars[a:b]) for a, b in zip(off[:-1], off[1:])]
+        pieces[700] = words
+        chars = np.frombuffer(b"".join(pieces), np.uint8).copy()
+        off = np.concatenate([[0], np.cumsum([len(x) for x in pieces])])
+    elif name == "capacity_rows":
+        # a batch of 1500 rows at capacity 2048: flat offsets past the live
+        # rows, the pool padded with zeros (non-space) to 2^17 bytes
+        off = np.concatenate([off, np.full(548, off[-1])])
+        chars = np.concatenate([chars, np.zeros((1 << 17) - chars.size,
+                                                np.uint8)])
+    elif name == "utf8":
+        # every third letter a 2-byte UTF-8 letter
+        chars = chars.copy()
+        letters = np.flatnonzero((chars >= ord("a")) & (chars <= ord("z")))
+        lead = letters[:-1][(np.diff(letters) == 1)][::3]
+        chars[lead] = 0xC3
+        chars[lead + 1] = 0xA0 + rng.integers(0, 32, lead.size)
+    else:
+        raise ValueError(name)
+    return off.astype(np.int32), chars
+
+
+def _wc_check(dev, off, chars, char_offset=0):
+    """K5 on the card against its plain version, row for row: one launch
+    per call. ``char_offset`` puts the pool that many bytes into its
+    storage (a view not 16-byte aligned when it is not 0)."""
     from spark_rapids_tpu_torch.ops import udf_kernels as UK
 
-    c = np.random.default_rng(n).choice(_WS_ALPHABET, n)
-    exp = UK.word_starts_plain(torch.from_numpy(c))
-    (cd,) = _on(dev, c)
-    before = UK.LAUNCHES["word_starts"]
-    got = UK.word_starts(cd)
-    assert UK.LAUNCHES["word_starts"] - before == 1
-    assert torch.equal(got.cpu(), exp)
-    # a view that starts one byte in: not 4-byte aligned
-    assert torch.equal(UK.word_starts(cd[1:]).cpu(),
-                       UK.word_starts_plain(torch.from_numpy(c[1:])))
+    exp = UK.word_counts_plain(torch.from_numpy(off),
+                               torch.from_numpy(chars))
+    od = _on(dev, off)[0]
+    cd = _on(dev, np.concatenate([np.zeros(char_offset, np.uint8),
+                                  chars]))[0][char_offset:]
+    before = UK.LAUNCHES["word_counts"]
+    got = UK.word_counts(od, cd)
+    assert UK.LAUNCHES["word_counts"] - before == 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), exp)
+    return got
+
+
+@pytest.mark.parametrize("char_offset", [0, 1])
+@pytest.mark.parametrize("name", WORD_COUNT_CASES)
+def test_word_counts_matches_plain(dev, name, char_offset):
+    off, chars = word_count_case(name)
+    _wc_check(dev, off, chars, char_offset)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 511, 512, 513, 1024, 5000])
+@pytest.mark.parametrize("row_bytes", [0, 3, 16, 17, 700])
+def test_word_counts_rows_straddling_runs_and_chunks(dev, rows, row_bytes):
+    """Rows of one length, so row and 16-byte chunk boundaries fall at
+    every offset against the kernel's runs of rows; a byte alphabet with
+    whitespace, letters and the bytes next to the whitespace range."""
+    rng = np.random.default_rng(rows * 1000 + row_bytes)
+    alphabet = np.array([0x20, 0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x61, 0x62,
+                         0xC3, 0x00, 0x08, 0x0E, 0x1F, 0x21], np.uint8)
+    chars = rng.choice(alphabet, rows * row_bytes + 5)
+    off = np.arange(rows + 1, dtype=np.int32) * row_bytes + 5
+    _wc_check(dev, off, chars)
+
+
+@pytest.mark.parametrize("max_bytes", [0, 12, 40])
+def test_word_counts_more_runs_than_the_card_holds(dev, max_bytes):
+    """2^21 + 3 short rows: more runs of rows than blocks resident on the
+    card, so every block takes several runs of the grid-stride loop (the
+    next run's offsets loaded while one counts) and a ragged last run."""
+    rows = (1 << 21) + 3
+    rng = np.random.default_rng(max_bytes)
+    alphabet = np.array([0x20, 0x09, 0x0A, 0x0D, 0x61, 0x62, 0xC3, 0x00],
+                        np.uint8)
+    lens = rng.integers(0, max_bytes + 1, rows)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    chars = rng.choice(alphabet, int(off[-1]) + 16)
+    chars[off[-1]:] = 0x61  # non-space bytes past the last row
+    _wc_check(dev, off, chars)
 
 
 @pytest.mark.parametrize("fill", [0x20, 0x0D, 0x61, 0xC3])
-def test_word_starts_all_space_and_no_space(dev, fill):
+def test_word_counts_one_row_pool(dev, fill):
+    chars = np.full((1 << 16) + 5, fill, np.uint8)
+    chars[::7] = 0x20
+    got = _wc_check(dev, np.array([0, chars.size], np.int32), chars)
+    assert got.shape == (1,)
+
+
+def test_word_counts_empty_pool_launches_nothing(dev):
     from spark_rapids_tpu_torch.ops import udf_kernels as UK
 
-    c = torch.full(((1 << 16) + 5,), fill, dtype=torch.uint8)
-    assert torch.equal(UK.word_starts(c.to(dev)).cpu(),
-                       UK.word_starts_plain(c))
-
-
-def test_word_starts_empty_pool_launches_nothing(dev):
-    from spark_rapids_tpu_torch.ops import udf_kernels as UK
-
-    before = UK.LAUNCHES["word_starts"]
-    out = UK.word_starts(torch.zeros(0, dtype=torch.uint8, device=dev))
-    assert out.shape == (0,) and UK.LAUNCHES["word_starts"] == before
+    before = UK.LAUNCHES["word_counts"]
+    empty = torch.zeros(0, dtype=torch.uint8, device=dev)
+    out = UK.word_counts(torch.zeros(4, dtype=torch.int32, device=dev),
+                         empty)
+    assert out.tolist() == [0, 0, 0] and out.device.type == "cuda"
+    out = UK.word_counts(torch.zeros(1, dtype=torch.int32, device=dev),
+                         empty)
+    assert out.shape == (0,) and UK.LAUNCHES["word_counts"] == before
 
 
 def _string_batch(device, n, seed):
@@ -669,9 +852,9 @@ def test_word_count_query_on_the_card_matches_the_cpu(dev):
             A.agg(A.Count(None), "c")], proj)
         return sorted(agg.collect())
 
-    before = UK.LAUNCHES["word_starts"]
+    before = UK.LAUNCHES["word_counts"]
     got = run(dev)
-    assert UK.LAUNCHES["word_starts"] - before == 3
+    assert UK.LAUNCHES["word_counts"] - before == 3
     assert got == run("cpu")
 
 

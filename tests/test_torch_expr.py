@@ -232,3 +232,56 @@ def test_evaluate_projection_matches_reference():
     got = EV.evaluate_projection(exprs(E, T), tb)
     for r, g in zip(ref, got):
         _assert_same(JEV.ColV(r.data, r.validity), ColV(g.data, g.validity))
+
+
+#: ROADMAP §C's C2 input: two subnormals beside 0.0 and 1.0
+SUBNORMALS = [5e-324, 0.0, -1e-310, 1.0]
+
+
+def _exec_rows(engine, query):
+    """One query over d = SUBNORMALS through each engine's scan, filter and
+    project execs; the collected rows."""
+    if engine == "jax":
+        from spark_rapids_tpu import exec as M
+        from spark_rapids_tpu.columnar.batch import ColumnarBatch as B
+        from spark_rapids_tpu.columnar.batch import schema_of as sch
+        from spark_rapids_tpu.conf import RapidsConf
+        X, TT = JE, JT
+        batch = lambda d, s: B.from_pydict(d, s)  # noqa: E731
+    else:
+        from spark_rapids_tpu_torch import exec as M
+        from spark_rapids_tpu_torch.columnar import ColumnarBatch as B
+        from spark_rapids_tpu_torch.columnar import schema_of as sch
+        from spark_rapids_tpu_torch.conf import RapidsConf
+        X, TT = E, T
+        batch = lambda d, s: B.from_pydict(d, s, device="cpu")  # noqa: E731
+    conf = RapidsConf({})
+    schema = sch(d=TT.DOUBLE)
+    plan = M.InMemoryScanExec(conf, [[batch({"d": SUBNORMALS}, schema)]],
+                              schema)
+    d, zero = X.col("d"), X.Literal(0.0, TT.DOUBLE)
+    if query == "d = 0.0":
+        plan = M.TpuFilterExec(conf, X.EqualTo(d, zero), plan)
+    elif query == "d > 0.0":
+        plan = M.TpuFilterExec(conf, X.GreaterThan(d, zero), plan)
+    elif query == "cast(d as boolean)":
+        plan = M.TpuProjectExec(conf, [X.Alias(X.Cast(d, TT.BOOLEAN), "b")],
+                                plan)
+    else:  # 1.0 / d
+        plan = M.TpuProjectExec(conf, [X.Alias(X.Divide(
+            X.Literal(1.0, TT.DOUBLE), d), "q")], plan)
+    return plan.collect()
+
+
+@pytest.mark.parametrize("query", ["d = 0.0", "d > 0.0", "cast(d as boolean)",
+                                   "1.0 / d"])
+def test_subnormal_operands_read_as_zero_as_the_reference(query):
+    """Compares, the divide's zero check and boolean casts read a
+    subnormal operand as zero, as the reference's backends do: the same
+    rows, the same nulls and the same values."""
+    ref = _exec_rows("jax", query)
+    got = _exec_rows("torch", query)
+    assert len(got) == len(ref)
+    assert [[v is None for v in r] for r in got] == [
+        [v is None for v in r] for r in ref]
+    assert got == ref

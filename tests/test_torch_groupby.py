@@ -201,3 +201,64 @@ def test_reduce_no_keys_matches_reference():
             np.testing.assert_allclose(gv, rv, rtol=1e-12)
         else:
             assert gv == rv, (ai, OPS[ai], gv, rv)
+
+
+def _agg_rows(engine, data, keys, op, strategy):
+    """``op``(d) grouped by ``keys`` (or a grand aggregate) through each
+    engine's scan and hash-aggregate execs; collected rows."""
+    if engine == "jax":
+        from spark_rapids_tpu import exec as M
+        from spark_rapids_tpu.columnar.batch import ColumnarBatch as B
+        from spark_rapids_tpu.columnar.batch import schema_of
+        from spark_rapids_tpu.conf import RapidsConf
+        from spark_rapids_tpu.expr import aggregates as A_
+        from spark_rapids_tpu.expr import expressions as E_
+        types = JT
+        batch = lambda d, s: B.from_pydict(d, s)  # noqa: E731
+    else:
+        from spark_rapids_tpu_torch import exec as M
+        from spark_rapids_tpu_torch.columnar import ColumnarBatch as B
+        from spark_rapids_tpu_torch.columnar import schema_of
+        from spark_rapids_tpu_torch.conf import RapidsConf
+        from spark_rapids_tpu_torch.expr import aggregates as A_
+        from spark_rapids_tpu_torch.expr import expressions as E_
+        types = T
+        batch = lambda d, s: B.from_pydict(d, s, device="cpu")  # noqa: E731
+    conf = RapidsConf({} if strategy == "AUTO" else
+                      {"spark.rapids.tpu.sql.agg.strategy": strategy})
+    schema = schema_of(k=types.INT, d=types.DOUBLE)
+    scan = M.InMemoryScanExec(conf, [[batch(data, schema)]], schema)
+    fn = A_.Max if op == "max" else A_.Min
+    agg = M.TpuHashAggregateExec(conf, [E_.col("k")] if keys else [],
+                                 [A_.agg(fn(E_.col("d")), "m")], scan)
+    return sorted(agg.collect())
+
+
+#: ROADMAP §C's C1 inputs, then ties across rows and tiers: (d, grouped,
+#: op); grouped rows all have k = 1
+SIGNED_ZERO_CASES = [
+    ([-0.0], True, "max"), ([0.0, -0.0], False, "min"),
+    ([-0.0, 0.0], False, "max"), ([-0.0, -0.0, 0.0], True, "min"),
+    ([0.0, -0.0], True, "max"), ([-0.0, float("nan")], True, "min"),
+    ([-0.0, None], False, "max"), ([-0.0], False, "min"),
+]
+
+
+@pytest.mark.parametrize("strategy", ["AUTO", "SCATTER", "PALLAS"])
+@pytest.mark.parametrize("d,grouped,op", SIGNED_ZERO_CASES)
+def test_min_max_keep_the_sign_of_zero_as_the_reference(d, grouped, op,
+                                                        strategy):
+    """The port's float min/max against the reference's on signed zeros:
+    value and sign (``np.signbit``) per group. SCATTER (AUTO's choice on
+    the CPU) and the grand aggregate keep -0.0 below 0.0 as the
+    reference's raw-value reductions do; the PALLAS tier folds -0.0 into
+    0.0 in both engines."""
+    data = {"k": [1] * len(d), "d": d}
+    ref = _agg_rows("jax", data, grouped, op, strategy)
+    got = _agg_rows("torch", data, grouped, op, strategy)
+    assert len(got) == len(ref) == 1
+    rv, gv = ref[0][-1], got[0][-1]
+    assert (rv is None) == (gv is None)
+    if rv is not None:
+        assert gv == rv or (np.isnan(gv) and np.isnan(rv))
+        assert np.signbit(gv) == np.signbit(rv), (rv, gv)

@@ -1,5 +1,5 @@
-"""K1's pass planner, K3's table placement and the ordered segment sum's
-serial contract, on the CPU.
+"""K1's pass planner, K2's table replicas, K3's table placement and the
+ordered segment sum's serial contract, on the CPU.
 
 ``plan_bucket_sum`` decides, for one launch of K1, which columns share a
 shared-memory table (one pass per grid row of the launch): every column is
@@ -75,6 +75,39 @@ def test_winner_table_of_the_main_path_shapes():
     assert all(K.plan_bucket_winner(B) for B in (128, 1024, 8192))
     assert K.plan_bucket_winner(29056) and not K.plan_bucket_winner(29057)
     assert not K.plan_bucket_winner(128, budget=1000)
+
+
+@pytest.mark.parametrize("F", [1, 2, 5, 16])
+@pytest.mark.parametrize("B", BUCKETS)
+def test_fsum_replicas_fit_or_go_to_device_memory(B, F):
+    """K2 keeps as many table replicas as one block's shared memory holds,
+    at most one per warp, and at least one while a table fits; past that,
+    global atomics (0)."""
+    reps = K.plan_bucket_fsum(B, F)
+    table = B * F * 8
+    if table > K.BLOCK_SMEM:
+        assert reps == 0
+        return
+    assert 1 <= reps <= K.MAX_FSUM_REPLICAS
+    assert reps * table <= K.BLOCK_SMEM
+    # as many as fit: one more would leave the budget or the warps
+    assert (reps == K.MAX_FSUM_REPLICAS
+            or (reps + 1) * table > K.BLOCK_SMEM)
+
+
+def test_fsum_replicas_of_the_main_path_shapes():
+    # Q1's avg(b): one f64 column at B = 128, a 1 KB table per warp
+    assert K.plan_bucket_fsum(128, 1) == 32
+    # the other kernel-phase tiers: 28 tables of 8 KB, 3 of 64 KB
+    assert K.plan_bucket_fsum(1024, 1) == 28
+    assert K.plan_bucket_fsum(8192, 1) == 3
+    # the largest shared table, and one bucket more
+    assert K.plan_bucket_fsum(29056, 1) == 1
+    assert K.plan_bucket_fsum(29057, 1) == 0
+    assert K.plan_bucket_fsum(1816, 16) == 1
+    assert K.plan_bucket_fsum(1817, 16) == 0
+    assert K.plan_bucket_fsum(128, 1, budget=1000) == 0
+    assert K.plan_bucket_fsum(8, 1, budget=1000) == 15
 
 
 def _serial(seg, x, nseg):

@@ -1,14 +1,18 @@
 """The native-UDF layer against the reference.
 
-* K5's plain version against the reference's Pallas kernel
+* the per-byte word-start flags against the reference's Pallas kernel
   (``_word_starts_pallas``, interpret mode on the CPU), on pools of every
   length class around its 1024-byte blocks;
+* K5's plain version (``word_counts_plain``) against the reference's
+  ``_word_count_columnar`` on the word-count edge cases the card tests
+  also run (``tests/test_torch_cuda_kernels.py``);
 * ``string_word_count`` against the reference's (same planes in, same
   counts out), against the row function, and on rows that start
   mid-pool (offsets that skip bytes);
 * the numeric native UDF of the reference's own test;
 * on a CUDA tensor the K5 wrapper launches its kernel or raises: with no
-  kernel library it raises and never runs the plain version.
+  kernel library it raises and never runs the plain version; the flags
+  have no card path.
 """
 import numpy as np
 import pytest
@@ -33,6 +37,7 @@ from spark_rapids_tpu_torch.ops import udf_kernels as K
 from spark_rapids_tpu_torch.udf import native as N
 from spark_rapids_tpu_torch.udf import string_word_count, tpu_udf
 
+from test_torch_cuda_kernels import WORD_COUNT_CASES, word_count_case
 from test_torch_strings import sample_strings, strvs
 
 #: whitespace, letters, a UTF-8 lead byte, NUL and the bytes next to the
@@ -56,6 +61,24 @@ def test_word_starts_plain_all_space_and_no_space(fill):
     np.testing.assert_array_equal(
         K.word_starts(torch.from_numpy(c)).numpy(),
         np.asarray(RN._word_starts_pallas(jnp.asarray(c))))
+
+
+@pytest.mark.parametrize("name", WORD_COUNT_CASES)
+def test_word_counts_plain_matches_reference(name):
+    """K5's plain version against the reference's columnar word count
+    (its Pallas kernel in interpret mode, then its prefix-sum reduction)
+    on the same planes, every row."""
+    off, chars = word_count_case(name)
+    rows = off.size - 1
+    ref = RN._word_count_columnar(rows, JStrV(
+        jnp.asarray(off), jnp.asarray(chars), jnp.ones(rows, bool)))
+    got = K.word_counts(torch.from_numpy(off), torch.from_numpy(chars))
+    assert got.dtype == torch.int32 and got.shape == (rows,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.data))
+    # and the row function on every live row
+    live = [N._word_count_row(bytes(chars[a:b]).decode("utf-8", "replace"))
+            for a, b in zip(off[:-1], off[1:])]
+    assert got.numpy().tolist() == live
 
 
 def _text_rows(seed, n):
@@ -182,19 +205,27 @@ def test_native_udf_numeric():
 
 
 class _CardTensor:
-    """Stands for a uint8 pool on a CUDA card (this machine has none): the
-    wrapper reads only its dtype, rank and device before it builds."""
+    """Stands for a tensor on a CUDA card (this machine has none): the
+    wrappers read only its dtype, rank, shape and device before they
+    build."""
 
-    dtype = torch.uint8
     device = torch.device("cuda")
-    shape = (8,)
+
+    def __init__(self, dtype=torch.uint8, shape=(8,)):
+        self.dtype, self.shape = dtype, shape
 
     def dim(self):
-        return 1
+        return len(self.shape)
+
+    def is_floating_point(self):
+        return self.dtype.is_floating_point
 
 
 def test_word_starts_raises_on_the_card_without_its_library(monkeypatch,
                                                             tmp_path):
+    """On a card tensor the flags have no path (they stay in K5's
+    registers), and K5's wrapper with no kernel library raises: neither
+    runs a plain version."""
     from spark_rapids_tpu_torch.ops import _cuda_build
 
     monkeypatch.setattr(K, "_LIB", None)
@@ -202,13 +233,16 @@ def test_word_starts_raises_on_the_card_without_its_library(monkeypatch,
     monkeypatch.setattr(_cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
 
-    def no_plain(chars):
+    def no_plain(*args):
         raise AssertionError("the plain version ran for a card tensor")
 
     monkeypatch.setattr(K, "word_starts_plain", no_plain)
+    monkeypatch.setattr(K, "word_counts_plain", no_plain)
     before = dict(K.LAUNCHES)
-    with pytest.raises(RuntimeError, match="nvcc not found"):
+    with pytest.raises(ValueError, match="no kernel for device cuda"):
         K.word_starts(_CardTensor())
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.word_counts(_CardTensor(torch.int32, (9,)), _CardTensor())
     assert K.LAUNCHES == before
 
 
@@ -217,3 +251,19 @@ def test_word_starts_rejects_what_the_kernel_does_not_take():
         K.word_starts(torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="no kernel for device"):
         K.word_starts(torch.zeros(4, dtype=torch.uint8, device="meta"))
+
+
+def test_word_counts_rejects_what_the_kernel_does_not_take():
+    chars = torch.zeros(4, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="uint8"):
+        K.word_counts(torch.zeros(2, dtype=torch.int32), chars.int())
+    with pytest.raises(ValueError, match="integer offsets"):
+        K.word_counts(torch.zeros(2), chars)
+    with pytest.raises(ValueError, match="integer offsets"):
+        K.word_counts(torch.zeros(0, dtype=torch.int32), chars)
+    with pytest.raises(ValueError, match="offsets on"):
+        K.word_counts(torch.zeros(2, dtype=torch.int32, device="meta"),
+                      chars)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K.word_counts(torch.zeros(2, dtype=torch.int32, device="meta"),
+                      torch.zeros(4, dtype=torch.uint8, device="meta"))
