@@ -75,7 +75,37 @@ Phases, each failing the run on any error or mismatch:
      Q10 the native-UDF word count: 2^22 rows of generated text in 4
         batches, project (k, string_word_count(s)), group by k: sum, count
         of the count and count(*), exact against the generator's own word
-        counts; K5 once per batch.
+        counts; K5 once per batch;
+4. session queries, from the session's own entry points
+   (``TpuSession`` -> ``DataFrame`` -> ``collect()``: planner, type
+   checks and fallback boundaries), with the counts set to 0 just before
+   and read just after each:
+     Q11 the bench's product query (bench.py ``shape_parquet``, scale 1):
+        2^23 rows seeded as the bench does, written with pyarrow (row
+        groups of 2^21 rows, pyarrow's defaults: dictionary pages,
+        snappy) under ``_chip_data/``, then ``read.parquet`` -> where
+        ss_sold_date_sk >= 2452015 -> group by ss_quantity: sum of
+        ss_wholesale_cost and count of ss_item_sk under
+        variableFloatAgg; the pages decode on the card. Run cold (fresh
+        process-level scan and scanner caches; the file was just written,
+        so it is still in the OS page cache: process-cold, not disk-cold)
+        and then three times warm (the device scan cache), each against a
+        numpy oracle (counts exact, sums within 1e-9 of each group's sum
+        of |x|); the plan must be aggregate <- filter <- file scan with no
+        CPU exec, the cold run must decode every column chunk on the
+        device route (no chunk through pyarrow's host decode, no split
+        through the plain reader, fewer bytes uploaded than decoded), and
+        the query must launch K1 and K2. pyarrow is installed on the card's machine (24.0.0 when
+        checked), so Q11 reads parquet there; the script does not
+        branch on it;
+     Q12 the fallback boundary: 2^16 rows from ``create_dataframe``,
+        project k and a Python UDF (``-> int``), then group by k: sum and
+        count of its result under the default conf. ``explain()`` must
+        give the reference's lines (``Q12_EXPLAIN``: the project falls
+        back because PythonUDF is not supported), the executed plan must
+        hold the CPU project between a RowToColumnarExec under the device
+        aggregate and the device scan's ColumnarToRowExec, and K1 must
+        launch; exact against a numpy oracle.
 
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
@@ -1397,6 +1427,234 @@ def string_query_phase(torch, np, dev, log2_rows: int, wc_batches,
     return per_query
 
 
+# ---------------------------------------------------------------------------
+# session phase (Q11, Q12): the session's own entry points
+# ---------------------------------------------------------------------------
+#: the tagging report Q12 must give (the reference's, pinned by
+#: tests/test_torch_session.py against the JAX package on the CPU)
+Q12_EXPLAIN = (
+    "*Exec <HashAggregateExec> will run on TPU\n"
+    "  !Exec <ProjectExec> cannot run on TPU because expression PythonUDF "
+    "is not supported on TPU\n"
+    "    *Exec <ScanExec> will run on TPU")
+#: where Q11 writes its parquet file (git-ignored; removed after the run)
+PARQUET_DIR = "_chip_data"
+#: Q11's rows (bench.py ``shape_parquet`` at scale 1) and Q12's, as powers
+#: of two
+PARQUET_LOG2_ROWS = 23
+UDF_LOG2_ROWS = 16
+
+
+def bench_parquet_table(np, n: int):
+    """The bench's store_sales-like columns (``bench.py:549-559``, seed
+    19), as numpy arrays in the bench's draw order."""
+    rng = np.random.default_rng(19)
+    prices = np.round(rng.uniform(1.0, 100.0, 9750), 2)
+    item = rng.integers(1, 18_001, n).astype(np.int32)
+    qty = rng.integers(1, 101, n).astype(np.int32)
+    cost = prices[rng.integers(0, 9750, n)]
+    date = (2_450_815 + rng.integers(0, 2400, n)).astype(np.int32)
+    return item, qty, cost, date
+
+
+def udf_times_three_plus_one(v) -> int:
+    """Q12's Python UDF (annotated ``-> int``: a LONG result)."""
+    return None if v is None else v * 3 + 1
+
+
+def _device_tree(node):
+    """Every exec of a device subtree (the children of each)."""
+    yield node
+    for c in getattr(node, "children", []):
+        yield from _device_tree(c)
+
+
+def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
+                        profile: bool = False):
+    """Q11 (the bench parquet query) and Q12 (the PythonUDF fallback
+    boundary) through ``TpuSession``, each checked against a numpy oracle,
+    with the launch counts set to 0 just before each query and read just
+    after it."""
+    import shutil
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.cpu import plan as C
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             RowToColumnarExec,
+                                             TpuFilterExec,
+                                             TpuHashAggregateExec)
+    from spark_rapids_tpu_torch.exec.scan import TpuFileSourceScanExec
+    from spark_rapids_tpu_torch.exec.transitions import ColumnarToRowExec
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.sql import session as S
+
+    per_query = {}
+
+    def timed_collect(df):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = df.collect()
+        torch.cuda.synchronize()
+        return rows, (time.perf_counter() - t0) * 1e3
+
+    # --- Q11: the bench parquet query -------------------------------------
+    n = 1 << log2_parquet
+    item, qty, cost, date = bench_parquet_table(np, n)
+    here = os.path.dirname(os.path.abspath(__file__))
+    pdir = os.path.join(here, PARQUET_DIR, "store_sales")
+    shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
+    os.makedirs(pdir)
+    try:
+        t0 = time.perf_counter()
+        pq.write_table(pa.table({
+            "ss_item_sk": item, "ss_quantity": qty,
+            "ss_wholesale_cost": cost, "ss_sold_date_sk": date}),
+            os.path.join(pdir, "t.parquet"), row_group_size=1 << 21)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(os.path.join(pdir, "t.parquet"))
+        sess = S.TpuSession(
+            {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True},
+            device=dev)
+
+        def q11():
+            return (sess.read.parquet(pdir)
+                    .where(E.GreaterThanOrEqual(col("ss_sold_date_sk"),
+                                                lit(2_452_015)))
+                    .group_by("ss_quantity")
+                    .agg(A.agg(A.Sum(col("ss_wholesale_cost")), "s"),
+                         A.agg(A.Count(col("ss_item_sk")), "c")))
+
+        keep = date >= 2_452_015
+        want_c = np.bincount(qty[keep], minlength=101)
+        want_s = np.bincount(qty[keep], weights=cost[keep], minlength=101)
+        want_abs = np.bincount(qty[keep], weights=np.abs(cost[keep]),
+                               minlength=101)
+
+        def check(rows, what):
+            if len(rows) != int((want_c > 0).sum()):
+                raise AssertionError(f"{what}: {len(rows)} groups")
+            for g, s_, c_ in rows:
+                if c_ != int(want_c[g]) or not _close(
+                        s_, want_s[g], want_abs[g]):
+                    raise AssertionError(
+                        f"{what} group {g}: ({s_}, {c_}) != "
+                        f"({want_s[g]}, {want_c[g]})")
+
+        # cold: a fresh process-level scan cache and scanner cache
+        DeviceScanCache.reset()
+        S._SCANNER_CACHE.clear()
+        reset_launches()
+        rows, cold_ms = timed_collect(q11())
+        per_query["Q11"] = launches()
+        check(rows, "Q11 cold")
+        top = sess.last_executed_plan
+        agg = top.tpu_child if isinstance(top, ColumnarToRowExec) else None
+        if not (isinstance(agg, TpuHashAggregateExec)
+                and isinstance(agg.children[0], TpuFilterExec)
+                and isinstance(agg.children[0].children[0],
+                               TpuFileSourceScanExec)):
+            raise AssertionError(f"Q11 plan: {top.tree_string()}")
+        if any(isinstance(e, RowToColumnarExec) for e in _device_tree(agg)):
+            raise AssertionError("Q11 plan holds a CPU exec")
+        for name in ("bucket_sum", "bucket_float_sum"):
+            if per_query["Q11"][name] <= 0:
+                raise AssertionError(f"Q11 did not launch {name}")
+        scan = agg.children[0].children[0]
+        m = {k: v.value for k, v in scan.metrics.items()}
+        decoded = n * (4 + 4 + 8 + 4)
+        # every column chunk decoded on the card: none through pyarrow's
+        # host decode, no split through the plain reader, and less
+        # uploaded than the decoded columns hold
+        if m["hostFallbackChunks"] or m["scanTime"] or not (
+                0 < m["uploadBytes"] < decoded):
+            raise AssertionError(
+                f"Q11 left the device-decode route: {m['hostFallbackChunks']}"
+                f" chunks on the host, read {m['scanTime']} ns, uploaded "
+                f"{m['uploadBytes']} of {decoded} bytes")
+        warm = []
+        for _ in range(3):
+            rows, ms = timed_collect(q11())
+            check(rows, "Q11 warm")
+            warm.append(ms)
+        cache = DeviceScanCache.get_instance(sess.conf).stats()
+        emit({"query": "Q11", "pyarrow": pa.__version__, "rows": n,
+              "row_groups": n >> 21 or 1,
+              "groups": len(rows), "file_bytes": file_bytes,
+              "write_s": write_s, "cold_wall_ms": cold_ms,
+              "warm_wall_ms": warm,
+              "scan_decode_ms": m["tpuDecodeTime"] / 1e6,
+              "host_decode_ms": m["hostDecodeTime"] / 1e6,
+              "scan_read_ms": m["scanTime"] / 1e6,
+              "upload_bytes": m["uploadBytes"],
+              "host_fallback_chunks": m["hostFallbackChunks"],
+              "decoded_bytes": decoded, "bound_ms": bound_ms(decoded),
+              "scan_cache": cache,
+              "agg_strategy": agg._strategy_choice[0],
+              "launches": per_query["Q11"]})
+        if profile:
+            profile_plan(torch, "Q11", lambda: sess._execute(
+                q11().node).tpu_child, sess.conf, n, decoded)
+    finally:
+        shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
+
+    # --- Q12: the PythonUDF fallback boundary ------------------------------
+    m_rows = 1 << log2_udf
+    rng = np.random.default_rng(12)
+    k = rng.integers(0, 50, m_rows).astype(np.int32)
+    x = rng.integers(-10**6, 10**6, m_rows).astype(np.int64)
+    xnull = rng.random(m_rows) < 0.05
+    schema = T.StructType((T.StructField("k", T.INT),
+                           T.StructField("x", T.LONG)))
+    sess12 = S.TpuSession({}, device=dev)
+
+    def q12():
+        df = sess12.create_dataframe(
+            {"k": k.tolist(),
+             "x": [None if z else int(v) for v, z in zip(x, xnull)]},
+            schema)
+        udf = E.PythonUDF(udf_times_three_plus_one, (col("x"),))
+        return (df.select(col("k"), E.Alias(udf, "u"))
+                .group_by("k").agg(A.agg(A.Sum(col("u")), "su"),
+                                   A.agg(A.Count(col("u")), "cu")))
+
+    text = q12().explain()
+    if text != Q12_EXPLAIN:
+        raise AssertionError(f"Q12 explain:\n{text}")
+    reset_launches()
+    rows, ms12 = timed_collect(q12())
+    per_query["Q12"] = launches()
+    u = np.where(xnull, 0, x * 3 + 1)
+    want_cu = np.bincount(k[~xnull], minlength=50)
+    want = sorted((g, int(u[k == g].sum()), int(want_cu[g]))
+                  for g in range(50) if (k == g).any())
+    if sorted(rows) != want:
+        raise AssertionError("Q12: rows differ from the oracle")
+    top = sess12.last_executed_plan
+    agg = top.tpu_child
+    r2c = agg.children[0]
+    proj = getattr(r2c, "cpu_child", None)
+    c2r = proj.children[0] if proj is not None else None
+    if not (isinstance(agg, TpuHashAggregateExec)
+            and isinstance(r2c, RowToColumnarExec)
+            and isinstance(proj, C.CpuProjectExec)
+            and isinstance(c2r, ColumnarToRowExec)
+            and isinstance(c2r.tpu_child, InMemoryScanExec)):
+        raise AssertionError(f"Q12 plan: {top.tree_string()}")
+    if per_query["Q12"]["bucket_sum"] <= 0:
+        raise AssertionError("Q12 did not launch bucket_sum")
+    emit({"query": "Q12", "rows": m_rows, "groups": len(rows),
+          "wall_ms": ms12, "explain": text.splitlines(),
+          "agg_strategy": agg._strategy_choice[0],
+          "launches": per_query["Q12"]})
+    return per_query
+
+
 def build_all() -> dict:
     """Build every kernel library from the sources beside this script,
     one ``nvcc`` per source, all started together."""
@@ -1459,8 +1717,8 @@ def main() -> int:
                     "the first batch), as a power of two")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Q1, Q2, Q5, Q6, Q7, Q9 and Q10 with "
-                    "torch.profiler")
+                    help="also profile Q1, Q2, Q5, Q6, Q7, Q9, Q10 and "
+                    "Q11 (warm) with torch.profiler")
     args = ap.parse_args()
 
     import numpy as np
@@ -1499,6 +1757,9 @@ def main() -> int:
     per_query.update(string_query_phase(torch, np, dev,
                                         args.string_log2_rows, wc_batches,
                                         args.profile))
+    per_query.update(session_query_phase(torch, np, dev,
+                                         PARQUET_LOG2_ROWS,
+                                         UDF_LOG2_ROWS, args.profile))
     for q, counts in per_query.items():
         if q != "Q10" and counts["word_counts"]:
             raise AssertionError(f"{q} launched K5")

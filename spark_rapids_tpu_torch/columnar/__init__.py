@@ -8,5 +8,6 @@ from .column import (  # noqa: F401
 from .batch import (  # noqa: F401
     ColumnarBatch,
     batch_from_host_arrays,
+    batch_from_rows,
     schema_of,
 )

@@ -133,6 +133,24 @@ def batch_from_host_arrays(schema: StructType,
     return ColumnarBatch(cols, schema, num_rows, capacity=capacity)
 
 
+def batch_from_rows(rows: Sequence[Sequence[Any]], schema: StructType,
+                    device=None) -> ColumnarBatch:
+    """Row-to-columnar transition (reference ``batch.batch_from_rows``):
+    Python rows -> one uploaded batch on ``device`` (``None``: the CUDA
+    card). The row count is passed explicitly: a fully-pruned (zero-column)
+    schema has no column to recover it from."""
+    data: Dict[str, List[Any]] = {f.name: [] for f in schema.fields}
+    width = len(schema.fields)
+    for i, row in enumerate(rows):
+        if len(row) != width:
+            raise ValueError(f"row {i} has {len(row)} values, schema has "
+                             f"{width}")
+        for f, v in zip(schema.fields, row):
+            data[f.name].append(v)
+    return ColumnarBatch.from_pydict(data, schema, num_rows=len(rows),
+                                     device=device)
+
+
 def schema_of(**kwargs: DataType) -> StructType:
     return StructType(tuple(StructField(k, v) for k, v in kwargs.items()))
 

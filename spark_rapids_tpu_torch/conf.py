@@ -41,8 +41,6 @@ class ConfEntry:
         if self.valid_values is not None and v not in self.valid_values:
             raise ValueError(f"{self.key}: {v!r} not in allowed values "
                              f"{list(self.valid_values)}")
-        if self.conf_type is int and v <= 0:
-            raise ValueError(f"{self.key}: must be positive")
         if self.check is not None:
             why = self.check(v)
             if why is not None:
@@ -50,12 +48,125 @@ class ConfEntry:
         return v
 
 
-def conf(key, default, doc, valid_values=None, check=None) -> ConfEntry:
+def conf(key, default, doc, valid_values=None, check=None,
+         conf_type=None) -> ConfEntry:
     if key in _REGISTRY:
         raise ValueError(f"duplicate conf key {key}")
-    entry = ConfEntry(key, default, doc, type(default), valid_values, check)
+    entry = ConfEntry(key, default, doc, conf_type or type(default),
+                      valid_values, check)
     _REGISTRY[key] = entry
     return entry
+
+
+def _positive(v) -> Optional[str]:
+    return None if v > 0 else "must be positive"
+
+
+# ---------------------------------------------------------------------------
+# General: the session, the planner's tagging and its type checks
+# ---------------------------------------------------------------------------
+SQL_ENABLED = conf(
+    "spark.rapids.tpu.sql.enabled", True,
+    "Enable or disable TPU acceleration of SQL operators entirely.")
+EXPLAIN = conf(
+    "spark.rapids.tpu.sql.explain", "NONE",
+    "Explain why parts of a query were or were not placed on the TPU. "
+    "NONE/ALL/NOT_ON_TPU.", valid_values=("NONE", "ALL", "NOT_ON_TPU"))
+ENABLE_CAST_STRING_TO_FLOAT = conf(
+    "spark.rapids.tpu.sql.castStringToFloat.enabled", False,
+    "String-to-float casts can differ in last-ulp from Spark.")
+ENABLE_CAST_STRING_TO_TIMESTAMP = conf(
+    "spark.rapids.tpu.sql.castStringToTimestamp.enabled", False,
+    "String-to-timestamp casts support a subset of formats.")
+ENABLE_CAST_FLOAT_TO_TIMESTAMP = conf(
+    "spark.rapids.tpu.sql.castFloatToTimestamp.enabled", False,
+    "Float-to-timestamp casts round differently from Spark.")
+ENABLE_CAST_STRING_TO_INTEGER = conf(
+    "spark.rapids.tpu.sql.castStringToInteger.enabled", False,
+    "String-to-integral casts can differ from Spark on malformed-input "
+    "edge cases.")
+DECIMAL_ENABLED = conf(
+    "spark.rapids.tpu.sql.decimalType.enabled", True,
+    "Enable DECIMAL(<=18) columns on the device (stored as int64 "
+    "unscaled). The port's decimal columns are not ported yet and raise.")
+UDF_COMPILER_ENABLED = conf(
+    "spark.rapids.tpu.sql.udfCompiler.enabled", False,
+    "Compile Python scalar UDF bytecode into engine expression trees. "
+    "The compiler is not ported yet: a plan with a PythonUDF raises when "
+    "this is on.")
+MAX_READER_BATCH_SIZE_ROWS = conf(
+    "spark.rapids.tpu.sql.reader.batchSizeRows", 1 << 20,
+    "Soft cap on rows per batch produced by scans.", check=_positive)
+MAX_READER_BATCH_SIZE_BYTES = conf(
+    "spark.rapids.tpu.sql.reader.batchSizeBytes", 2147483647,
+    "Soft cap on bytes per batch produced by scans.", check=_positive)
+AUTO_BROADCAST_JOIN_THRESHOLD = conf(
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold", 10 * 1024 * 1024,
+    "Build sides estimated below this size broadcast instead of paying two "
+    "hash exchanges. -1 disables. Read by the planner to name the route a "
+    "partitioned join would take; neither route is ported yet.",
+    conf_type=int)
+SHUFFLE_PARTITIONS = conf(
+    "spark.rapids.tpu.sql.shuffle.partitions", 0,
+    "Number of reduce partitions for exchanges; 0 keeps the child's "
+    "partition count. Registered so a session takes the reference's "
+    "settings; the exchange that reads it is not ported yet.")
+TEST_CONF = conf(
+    "spark.rapids.tpu.sql.test.enabled", False,
+    "Fail instead of falling back to CPU when an operator is unsupported.")
+TEST_ALLOWED_NONTPU = conf(
+    "spark.rapids.tpu.sql.test.allowedNonTpu", "",
+    "Comma-separated operator class names allowed to stay on CPU when "
+    "test.enabled is set.")
+
+# ---------------------------------------------------------------------------
+# IO: the parquet scan and its device cache
+# ---------------------------------------------------------------------------
+PARQUET_ENABLED = conf(
+    "spark.rapids.tpu.sql.format.parquet.enabled", True,
+    "Enable the device parquet scan.")
+PARQUET_READER_TYPE = conf(
+    "spark.rapids.tpu.sql.format.parquet.reader.type", "AUTO",
+    "PERFILE, COALESCING, MULTITHREADED or AUTO.",
+    valid_values=("AUTO", "PERFILE", "COALESCING", "MULTITHREADED"))
+PARQUET_MULTITHREAD_READ_NUM_THREADS = conf(
+    "spark.rapids.tpu.sql.format.parquet.multiThreadedRead.numThreads", 4,
+    "Threads for the cloud multithreaded reader.", check=_positive)
+PARQUET_DEVICE_DECODE = conf(
+    "spark.rapids.tpu.sql.format.parquet.deviceDecode.enabled", True,
+    "Decode parquet pages on the device (dictionary/RLE expansion as "
+    "torch ops) so the host uploads encoded bytes instead of raw "
+    "columns. Columns with unsupported encodings fall back to the host "
+    "arrow decoder per column.")
+PARQUET_PIPELINE_MAX_IN_FLIGHT = conf(
+    "spark.rapids.tpu.sql.format.parquet.pipeline.maxInFlight", 8,
+    "Row groups the pipelined device-decode reader keeps in flight: while "
+    "row group N's upload and device unpack run, up to this many row "
+    "groups (N included) host-decode on the shared decode pool.",
+    check=_positive)
+PARQUET_DICT_STRINGS = conf(
+    "spark.rapids.tpu.sql.format.parquet.dictStrings.enabled", True,
+    "Keep dictionary-encoded BYTE_ARRAY columns encoded on the device "
+    "(late materialization). Dictionary-encoded string columns are not "
+    "ported yet: with this on, such chunks raise; with it off, they "
+    "decode to the expanded Arrow layout.")
+SCAN_DEVICE_CACHE = conf(
+    "spark.rapids.tpu.scan.deviceCache.enabled", True,
+    "Keep decoded scan columns resident in device memory keyed by "
+    "(file, mtime, size, row group) so hot files upload once; evicted "
+    "LRU under scan.deviceCache.maxBytes.")
+SCAN_DEVICE_CACHE_MAX_BYTES = conf(
+    "spark.rapids.tpu.scan.deviceCache.maxBytes", 2 << 30,
+    "LRU byte budget for the device scan cache.", check=_positive)
+CLOUD_SCHEMES = conf(
+    "spark.rapids.tpu.cloudSchemes", "abfs,abfss,dbfs,gs,s3,s3a,s3n,wasbs",
+    "URI schemes treated as high-latency cloud stores.")
+CSV_ENABLED = conf(
+    "spark.rapids.tpu.sql.format.csv.enabled", True,
+    "Enable the device CSV scan (not ported yet).")
+ORC_ENABLED = conf(
+    "spark.rapids.tpu.sql.format.orc.enabled", True,
+    "Enable the device ORC scan (not ported yet).")
 
 
 IMPROVED_FLOAT_OPS = conf(
@@ -64,7 +175,8 @@ IMPROVED_FLOAT_OPS = conf(
     "last-ulp ordering from CPU Spark.")
 SHAPE_BUCKET_MIN = conf(
     "spark.rapids.tpu.sql.shapeBucket.minRows", 128,
-    "Row counts are padded up to power-of-two buckets >= this.")
+    "Row counts are padded up to power-of-two buckets >= this.",
+    check=_positive)
 AGG_STRATEGY = conf(
     "spark.rapids.tpu.sql.agg.strategy", "AUTO",
     "Lowering strategy for grouped-aggregation reductions. The port has "
@@ -157,3 +269,5 @@ class RapidsConf:
     @property
     def shape_bucket_min(self) -> int:
         return self.get(SHAPE_BUCKET_MIN)
+
+

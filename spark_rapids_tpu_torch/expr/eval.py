@@ -15,11 +15,22 @@ kept exactly:
   * three-valued (Kleene) And/Or;
   * float comparisons treat NaN as equal to NaN and larger than anything;
   * float -> integral casts saturate, NaN -> 0 (Java narrowing);
-  * strings compare as unsigned bytes, and length() counts characters.
+  * strings compare as unsigned bytes, and length() counts characters;
+  * the math family reads a subnormal operand as the zero of its sign,
+    as the compares do (ROADMAP.md §C, C2);
+  * ``Round`` is HALF_UP (away from zero at .5), ``Pmod``'s result takes
+    the divisor's sign, shift counts are masked to the value's width,
+    and ``Abs``/``UnaryMinus`` of MIN wrap to MIN, as in Java.
+
+The date/time and nondeterministic nodes are not lowered yet and raise
+``NotImplementedError`` naming their ROADMAP.md items; a node the
+reference itself cannot lower (``PythonUDF``) raises
+``UnsupportedExpressionError``, which the planner reads as a fallback
+(:func:`tpu_supports`).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +50,34 @@ _INT_INFO = {
     "int": (torch.int32, -(2**31), 2**31 - 1),
     "bigint": (torch.int64, -(2**63), 2**63 - 1),
 }
+
+
+#: nodes the reference lowers on its device and the port not yet, by the
+#: ROADMAP.md item that brings them
+_NOT_PORTED_NODES = (
+    ((E._DateUnary, E.DateAdd, E.DateSub, E.DateDiff, E.LastDay,
+      E.UnixTimestamp, E.ToUnixTimestamp, E.FromUnixTime, E.TimeAdd,
+      E.TruncDate, E._DecimalSumCheck, E._DecimalAvgEval),
+     T.NOT_PORTED_TYPES),
+    ((E.Rand, E.MonotonicallyIncreasingID, E.SparkPartitionID,
+      E.InputFileName, E.Murmur3Hash),
+     "not ported yet: see ROADMAP.md, queue A item 'Nondeterministic and "
+     "metadata expressions'"),
+)
+
+#: the unary double functions of ``E._UnaryMathDouble`` (Log* are guarded
+#: separately)
+_MATH_FNS = {
+    E.Sqrt: torch.sqrt, E.Exp: torch.exp, E.Sin: torch.sin,
+    E.Cos: torch.cos, E.Tan: torch.tan, E.Asin: torch.asin,
+    E.Acos: torch.acos, E.Atan: torch.atan, E.Sinh: torch.sinh,
+    E.Cosh: torch.cosh, E.Tanh: torch.tanh, E.Expm1: torch.expm1,
+    E.ToDegrees: torch.rad2deg, E.ToRadians: torch.deg2rad,
+    E.Cbrt: lambda x: torch.copysign(torch.pow(torch.abs(x), 1.0 / 3.0),
+                                     x),
+}
+_LOG_FNS = {E.Log: torch.log, E.Log10: torch.log10, E.Log2: torch.log2,
+            E.Log1p: torch.log1p}
 
 
 def _check_fixed(dt: DataType) -> None:
@@ -105,6 +144,182 @@ def _java_rem(l: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return torch.where(torch.isinf(r) & torch.isfinite(l), l, m)
     rs = torch.where(r == 0, torch.ones_like(r), r)
     return l - _trunc_div(l, rs) * rs
+
+
+def _logical_shift_right(x: torch.Tensor, sh: torch.Tensor,
+                         bits: int) -> torch.Tensor:
+    """``x >>> sh`` for a signed dtype of ``bits`` bits, 0 <= sh < bits:
+    the arithmetic shift with the sign copies masked off."""
+    width = torch.clamp(bits - sh, max=bits - 1)
+    mask = (torch.ones_like(x) << width) - 1  # wraps to MAX at 2^(bits-1)
+    return torch.where(sh == 0, x, (x >> sh) & mask)
+
+
+def _lower_in(expr: E.In, c: Val, cap: int, device) -> ColV:
+    """Fixed-width IN: the comparison dtype is picked on the host so
+    out-of-range literals widen instead of truncating (reference
+    ``eval.py:469-506``)."""
+    if isinstance(c, StrV):
+        raise NotImplementedError(
+            f"string In is {T.NOT_PORTED_STRING_EXPRS}")
+    child_dt = expr.child.dtype
+    _check_fixed(child_dt)
+    non_null = [v for v in expr.values if v is not None]
+    has_null_value = len(non_null) != len(expr.values)
+    cmp_dt = child_dt
+    if child_dt.is_floating or any(isinstance(v, float) for v in non_null):
+        cmp_dt = T.DOUBLE if child_dt != T.FLOAT or any(
+            isinstance(v, float) for v in non_null) else T.FLOAT
+    elif child_dt.name in _INT_INFO:
+        _, lo, hi = _INT_INFO[child_dt.name]
+        if any(not (lo <= v <= hi) for v in non_null):
+            cmp_dt = T.LONG
+            # literals beyond int64 can never match an integral column
+            non_null = [v for v in non_null if -(2**63) <= v < 2**63]
+    cd = _cast_data(flush_subnormals(c.data), child_dt, cmp_dt)
+    match = torch.zeros(cap, dtype=torch.bool, device=device)
+    for v in non_null:
+        match = match | (cd == torch.tensor(v, dtype=cd.dtype,
+                                            device=device))
+    valid = c.validity & (match | (not has_null_value))
+    return ColV(match, valid)
+
+
+def _lower_math(expr: E.Expression, ev, cap: int, device) -> Optional[ColV]:
+    """The math, sign and bitwise families (ROADMAP.md item 21), with the
+    reference's Java semantics; None for any other node."""
+    if isinstance(expr, E.Pmod):
+        out = expr.dtype
+        l, r = ev(expr.left), ev(expr.right)
+        ld, rd = _promote2(l, expr.left.dtype, r, expr.right.dtype, out)
+        valid = l.validity & r.validity
+        if not out.is_floating:
+            valid = valid & (rd != 0)
+        m = _java_rem(ld, rd)
+        m = torch.where(m < 0, _java_rem(m + rd, rd), m)
+        return ColV(m, valid)
+
+    if isinstance(expr, E.UnaryMinus):
+        c = ev(expr.child)
+        return ColV(-c.data, c.validity)  # MIN wraps to MIN
+
+    if isinstance(expr, E.UnaryPositive):
+        return ev(expr.child)
+
+    if isinstance(expr, E.Abs):
+        c = ev(expr.child)
+        return ColV(torch.abs(c.data), c.validity)  # abs(MIN) == MIN
+
+    if isinstance(expr, E.In):
+        return _lower_in(expr, ev(expr.child), cap, device)
+
+    if isinstance(expr, E.IsNan):
+        c = ev(expr.child)
+        isnan = (torch.isnan(c.data) if c.data.is_floating_point()
+                 else torch.zeros(cap, dtype=torch.bool, device=device))
+        return ColV(isnan & c.validity,
+                    torch.ones(cap, dtype=torch.bool, device=device))
+
+    if isinstance(expr, E.NaNvl):
+        l, r = ev(expr.left), ev(expr.right)
+        out = expr.dtype
+        ld = _cast_data(l.data, expr.left.dtype, out)
+        rd = _cast_data(r.data, expr.right.dtype, out)
+        use_r = l.validity & torch.isnan(ld)
+        return ColV(torch.where(use_r, rd, ld),
+                    torch.where(use_r, r.validity, l.validity))
+
+    if isinstance(expr, E._UnaryMathDouble):
+        c = ev(expr.child)
+        kind = type(expr)
+        # cbrt reads a subnormal as it is on the reference's backends
+        x = _cast_data(c.data if kind is E.Cbrt
+                       else flush_subnormals(c.data),
+                       expr.child.dtype, T.DOUBLE)
+        if kind in _LOG_FNS:
+            # Spark: null when x <= 0 (or <= -1 for log1p); NaN passes
+            # the guard and yields NaN
+            t = -1.0 if kind is E.Log1p else 0.0
+            bad = x <= t
+            r = _LOG_FNS[kind](torch.where(bad, 1.0 - t, x))
+            return ColV(r, c.validity & ~bad)
+        return ColV(_MATH_FNS[kind](x), c.validity)
+
+    if isinstance(expr, (E.Floor, E.Ceil)):
+        c = ev(expr.child)
+        if not expr.child.dtype.is_floating:
+            return c
+        fn = torch.floor if isinstance(expr, E.Floor) else torch.ceil
+        x = flush_subnormals(c.data).to(torch.float64)
+        return ColV(_cast_data(fn(x), T.DOUBLE, T.LONG), c.validity)
+
+    if isinstance(expr, E.Round):
+        c = ev(expr.child)
+        dt = expr.child.dtype
+        s = expr.scale
+        if dt.is_floating:
+            f = 10.0 ** s
+            x = flush_subnormals(c.data).to(torch.float64)
+            r = torch.sign(x) * torch.floor(torch.abs(x) * f + 0.5) / f
+            return ColV(r.to(torch_dtype(dt)), c.validity)
+        if s >= 0:
+            return c
+        f = int(10 ** (-s))
+        x = c.data.to(torch.int64)
+        q = torch.div(torch.abs(x) + f // 2, f, rounding_mode="floor")
+        return ColV((torch.sign(x) * q * f).to(torch_dtype(dt)), c.validity)
+
+    if isinstance(expr, E.Rint):
+        # Math.rint: round half to even
+        c = ev(expr.child)
+        x = _cast_data(flush_subnormals(c.data), expr.child.dtype, T.DOUBLE)
+        fin = torch.isfinite(x)
+        xs = torch.where(fin, x, 0.0)
+        f = torch.floor(xs)
+        d = xs - f
+        even_down = torch.remainder(f, 2.0) == 0.0
+        r = torch.where(d > 0.5, f + 1.0,
+                        torch.where(d < 0.5, f,
+                                    torch.where(even_down, f, f + 1.0)))
+        return ColV(torch.where(fin, r, x), c.validity)
+
+    if isinstance(expr, (E.Pow, E.Atan2)):
+        l, r = ev(expr.left), ev(expr.right)
+        ld = _cast_data(flush_subnormals(l.data), expr.left.dtype, T.DOUBLE)
+        rd = _cast_data(flush_subnormals(r.data), expr.right.dtype, T.DOUBLE)
+        fn = torch.pow if isinstance(expr, E.Pow) else torch.atan2
+        return ColV(fn(ld, rd), l.validity & r.validity)
+
+    if isinstance(expr, E.Signum):
+        c = ev(expr.child)
+        x = _cast_data(flush_subnormals(c.data), expr.child.dtype, T.DOUBLE)
+        return ColV(torch.where(torch.isnan(x), x, torch.sign(x)),
+                    c.validity)
+
+    if isinstance(expr, (E.BitwiseAnd, E.BitwiseOr, E.BitwiseXor)):
+        out = expr.dtype
+        l, r = ev(expr.left), ev(expr.right)
+        ld, rd = _promote2(l, expr.left.dtype, r, expr.right.dtype, out)
+        op = {E.BitwiseAnd: torch.bitwise_and, E.BitwiseOr: torch.bitwise_or,
+              E.BitwiseXor: torch.bitwise_xor}[type(expr)]
+        return ColV(op(ld, rd), l.validity & r.validity)
+
+    if isinstance(expr, E.BitwiseNot):
+        c = ev(expr.child)
+        return ColV(torch.bitwise_not(c.data), c.validity)
+
+    if isinstance(expr, (E.ShiftLeft, E.ShiftRight, E.ShiftRightUnsigned)):
+        l, r = ev(expr.left), ev(expr.right)
+        bits = l.data.element_size() * 8
+        sh = (r.data & (bits - 1)).to(l.data.dtype)  # Java masks the count
+        if isinstance(expr, E.ShiftLeft):
+            res = l.data << sh
+        elif isinstance(expr, E.ShiftRight):
+            res = l.data >> sh
+        else:
+            res = _logical_shift_right(l.data, sh, bits)
+        return ColV(res, l.validity & r.validity)
+    return None
 
 
 def _promote2(l: ColV, ldt, r: ColV, rdt, target: DataType):
@@ -318,6 +533,10 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
         return ColV(_cast_data(c.data, expr.child.dtype, expr.to),
                     c.validity)
 
+    mv = _lower_math(expr, ev, cap, device)
+    if mv is not None:
+        return mv
+
     if isinstance(expr, E.Length):
         c = ev(expr.child)
         if not isinstance(c, StrV):
@@ -328,8 +547,51 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
     if sv is not None:
         return sv
 
+    for classes, why in _NOT_PORTED_NODES:
+        if isinstance(expr, classes):
+            raise NotImplementedError(f"{type(expr).__name__} is {why}")
     raise UnsupportedExpressionError(
-        f"no lowering for {type(expr).__name__} in the port yet")
+        f"no lowering for {type(expr).__name__}")
+
+
+def tpu_supports(expr: E.Expression, schema: T.StructType
+                 ) -> Tuple[bool, str]:
+    """Supportability probe of the planner (reference ``eval.py:886``,
+    which traces abstractly): bind ``expr`` and lower it over capacity-8
+    CPU tensors. ``UnsupportedExpressionError`` and ``TypeError`` mean
+    the plan falls back, as any error of a native UDF's columnar function
+    does. ``NotImplementedError`` (a node, type or layer the port has not
+    ported) propagates: the planner must raise it, never fall back."""
+    try:
+        bound = E.bind_references(expr, schema)
+        cap = 8
+        cpu = torch.device("cpu")
+        cols: List[Val] = []
+        for f in schema.fields:
+            valid = torch.zeros(cap, dtype=torch.bool)
+            if T.is_string(f.dataType):
+                cols.append(StrV(torch.zeros(cap + 1, dtype=torch.int32),
+                                 torch.zeros(1, dtype=torch.uint8), valid))
+            else:
+                cols.append(ColV(torch.zeros(cap,
+                                             dtype=torch_dtype(f.dataType)),
+                                 valid))
+        lower(bound, cols, cap, cpu)
+        return True, ""
+    except NotImplementedError:
+        raise
+    except (UnsupportedExpressionError, TypeError) as e:
+        return False, str(e)
+    except Exception as e:  # noqa: BLE001
+        if any(isinstance(n, E.NativeUDF) for n in _walk_expressions(expr)):
+            return False, f"native UDF columnar trace failed: {e}"
+        raise
+
+
+def _walk_expressions(expr: E.Expression):
+    yield expr
+    for c in expr.children:
+        yield from _walk_expressions(c)
 
 
 def val_of_column(c: DeviceColumn) -> Val:

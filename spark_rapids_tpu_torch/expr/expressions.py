@@ -3,8 +3,9 @@
 Counterpart of ``spark_rapids_tpu/expr/expressions.py``: the same frozen
 dataclasses, names and result-type rules for the nodes the port lowers
 (``expr/eval.py``, ``expr/eval_strings.py``), plus the reference's other
-string nodes, which exist so plans can name them and raise
-``NotImplementedError`` when lowered. Structural equality and hashing
+nodes (string, date/time, nondeterministic), which exist so plans and the
+CPU engine can name them and raise ``NotImplementedError`` when lowered
+to the device. Structural equality and hashing
 come from the dataclasses, as in the reference.
 """
 from __future__ import annotations
@@ -20,12 +21,24 @@ class Expression:
     """Base node. Subclasses are frozen dataclasses; `children` is derived."""
 
     @property
+    def children(self) -> Tuple["Expression", ...]:
+        return tuple(
+            v
+            for f in dataclasses.fields(self)  # type: ignore[arg-type]
+            for v in _as_children(getattr(self, f.name))
+        )
+
+    @property
     def dtype(self) -> DataType:
         raise NotImplementedError(type(self).__name__)
 
     @property
     def nullable(self) -> bool:
         return True
+
+    @property
+    def pretty_name(self) -> str:
+        return type(self).__name__
 
     def transform(self, fn):
         """Bottom-up rewrite: rebuild this node with transformed children."""
@@ -42,6 +55,17 @@ class Expression:
 
     def __str__(self):
         return repr(self)
+
+
+def _as_children(v):
+    if isinstance(v, Expression):
+        yield v
+    elif isinstance(v, tuple):
+        for x in v:
+            if isinstance(x, Expression):
+                yield x
+            elif isinstance(x, tuple):
+                yield from _as_children(x)
 
 
 def _transform_value(v, fn):
@@ -536,6 +560,593 @@ class NativeUDF(Expression):
     @property
     def dtype(self):
         return self.return_type
+
+
+# ---------------------------------------------------------------------------
+# Nodes copied from the reference for the session planner and the CPU
+# engine: the math, bitwise and predicate families (lowered in
+# expr/eval.py), date/time and nondeterministic nodes (the CPU engine
+# evaluates them; device lowering raises naming their ROADMAP items),
+# the decimal evaluation helpers of the aggregates, and PythonUDF.
+# ---------------------------------------------------------------------------
+class Pmod(_BinaryNumeric):
+    """Positive modulo."""
+
+
+@dataclasses.dataclass(frozen=True)
+class UnaryMinus(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class UnaryPositive(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Abs(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class In(Expression):
+    child: Expression
+    values: Tuple[Any, ...]  # python scalar values (may include None)
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
+@dataclasses.dataclass(frozen=True)
+class IsNan(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    @property
+    def nullable(self):
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class NaNvl(Expression):
+    left: Expression
+    right: Expression
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class _UnaryMathDouble(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+
+class Sqrt(_UnaryMathDouble):
+    pass
+
+
+class Exp(_UnaryMathDouble):
+    pass
+
+
+class Log(_UnaryMathDouble):
+    """Natural log; log(x<=0) -> NULL (Spark)."""
+
+
+class Log10(_UnaryMathDouble):
+    pass
+
+
+class Log2(_UnaryMathDouble):
+    pass
+
+
+class Log1p(_UnaryMathDouble):
+    pass
+
+
+class Sin(_UnaryMathDouble):
+    pass
+
+
+class Cos(_UnaryMathDouble):
+    pass
+
+
+class Tan(_UnaryMathDouble):
+    pass
+
+
+class Asin(_UnaryMathDouble):
+    pass
+
+
+class Acos(_UnaryMathDouble):
+    pass
+
+
+class Atan(_UnaryMathDouble):
+    pass
+
+
+class Sinh(_UnaryMathDouble):
+    pass
+
+
+class Cosh(_UnaryMathDouble):
+    pass
+
+
+class Tanh(_UnaryMathDouble):
+    pass
+
+
+class Cbrt(_UnaryMathDouble):
+    pass
+
+
+class Expm1(_UnaryMathDouble):
+    pass
+
+
+class ToDegrees(_UnaryMathDouble):
+    pass
+
+
+class ToRadians(_UnaryMathDouble):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Floor(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.LONG if self.child.dtype.is_floating else self.child.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Ceil(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.LONG if self.child.dtype.is_floating else self.child.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Round(Expression):
+    """HALF_UP rounding, matching Spark's BigDecimal semantics on doubles."""
+
+    child: Expression
+    scale: int = 0
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Pow(Expression):
+    left: Expression
+    right: Expression
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+
+@dataclasses.dataclass(frozen=True)
+class Atan2(Expression):
+    left: Expression
+    right: Expression
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+
+@dataclasses.dataclass(frozen=True)
+class Signum(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+
+@dataclasses.dataclass(frozen=True)
+class Rint(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+
+class BitwiseAnd(_BinaryNumeric):
+    symbol = "&"
+
+
+class BitwiseOr(_BinaryNumeric):
+    symbol = "|"
+
+
+class BitwiseXor(_BinaryNumeric):
+    symbol = "^"
+
+
+@dataclasses.dataclass(frozen=True)
+class BitwiseNot(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftLeft(Expression):
+    left: Expression
+    right: Expression
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftRight(Expression):
+    left: Expression
+    right: Expression
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftRightUnsigned(Expression):
+    left: Expression
+    right: Expression
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Rand(Expression):
+    """rand(seed): uniform [0, 1) doubles, deterministic per
+    (seed, partition, row) — a counter-based generator rather than the
+    JVM's sequential XORShift (the TPU-native design, same guarantee
+    Spark documents: reproducible given the seed and partitioning;
+    reference: GpuRandomExpressions.scala:31)."""
+
+    seed: int = 0
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+    @property
+    def nullable(self):
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class MonotonicallyIncreasingID(Expression):
+    """(partition_id << 33) + row_index_in_partition — Spark's exact
+    layout (reference: GpuMonotonicallyIncreasingID.scala)."""
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    @property
+    def nullable(self):
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class SparkPartitionID(Expression):
+    """Current partition index (reference: GpuSparkPartitionID.scala)."""
+
+    @property
+    def dtype(self):
+        return T.INT
+
+    @property
+    def nullable(self):
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class InputFileName(Expression):
+    """Path of the file being scanned, or '' when the source is not a
+    file scan (reference: GpuInputFileBlock.scala — same empty-string
+    contract as Spark's InputFileName)."""
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    @property
+    def nullable(self):
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class Murmur3Hash(Expression):
+    """hash(cols...): Spark's murmur3_32 with seed 42, int32 result
+    (reference: HashFunctions.scala:43 GpuMurmur3Hash; kernel:
+    ops/hashing.py murmur3)."""
+
+    exprs: Tuple[Expression, ...]
+    seed: int = 42
+
+    @property
+    def dtype(self):
+        return T.INT
+
+    @property
+    def nullable(self):
+        return False
+
+
+NONDETERMINISTIC_CONTEXT_EXPRS = (
+    Rand, MonotonicallyIncreasingID, SparkPartitionID, InputFileName)
+
+
+def has_context_expr(e: Expression) -> bool:
+    """True when the tree contains a partition-context expression (these
+    evaluate at the exec boundary, like Spark pulling nondeterministic
+    expressions into their own Project)."""
+    if isinstance(e, NONDETERMINISTIC_CONTEXT_EXPRS):
+        return True
+    return any(has_context_expr(c) for c in e.children)
+
+
+@dataclasses.dataclass(frozen=True)
+class _DecimalSumCheck(Expression):
+    """Internal: nullOnOverflow for decimal SUM results — validity clears
+    when the accumulated unscaled value needs more digits than the result
+    precision (Spark's CheckOverflow around Sum, decimalExpressions.scala)."""
+
+    child: Expression
+    result: "T.DecimalType" = None  # type: ignore[assignment]
+
+    @property
+    def dtype(self):
+        return self.result
+
+
+@dataclasses.dataclass(frozen=True)
+class _DecimalAvgEval(Expression):
+    """Internal: decimal AVERAGE finalization — sum/count rounded HALF_UP
+    at the Spark result scale (s+4), computed exactly in int64 by long
+    division + scaled-remainder division (no 128-bit intermediate)."""
+
+    sum: Expression
+    count: Expression
+    result: "T.DecimalType" = None  # type: ignore[assignment]
+
+    @property
+    def dtype(self):
+        return self.result
+
+
+@dataclasses.dataclass(frozen=True)
+class _DateUnary(Expression):
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class Year(_DateUnary):
+    """reference: GpuYear (datetimeExpressions.scala:112)"""
+
+
+class Quarter(_DateUnary):
+    """reference: GpuQuarter (datetimeExpressions.scala:254)"""
+
+
+class Month(_DateUnary):
+    """reference: GpuMonth (datetimeExpressions.scala:269)"""
+
+
+class DayOfMonth(_DateUnary):
+    """reference: GpuDayOfMonth (datetimeExpressions.scala:274)"""
+
+
+class DayOfYear(_DateUnary):
+    """reference: GpuDayOfYear (datetimeExpressions.scala:279)"""
+
+
+class DayOfWeek(_DateUnary):
+    """1 = Sunday .. 7 = Saturday (reference: GpuDayOfWeek
+    datetimeExpressions.scala:63)."""
+
+
+class WeekDay(_DateUnary):
+    """0 = Monday .. 6 = Sunday (reference: GpuWeekDay
+    datetimeExpressions.scala:51)."""
+
+
+class Hour(_DateUnary):
+    """reference: GpuHour (datetimeExpressions.scala:102), UTC only"""
+
+
+class Minute(_DateUnary):
+    """reference: GpuMinute (datetimeExpressions.scala:82), UTC only"""
+
+
+class Second(_DateUnary):
+    """reference: GpuSecond (datetimeExpressions.scala:92), UTC only"""
+
+
+@dataclasses.dataclass(frozen=True)
+class DateAdd(Expression):
+    """reference: GpuDateAdd (datetimeExpressions.scala:701)"""
+
+    start_date: Expression
+    days: Expression
+
+    @property
+    def dtype(self):
+        return T.DATE
+
+
+@dataclasses.dataclass(frozen=True)
+class DateSub(Expression):
+    """reference: GpuDateSub (datetimeExpressions.scala:690)"""
+
+    start_date: Expression
+    days: Expression
+
+    @property
+    def dtype(self):
+        return T.DATE
+
+
+@dataclasses.dataclass(frozen=True)
+class DateDiff(Expression):
+    """end - start in days (reference: GpuDateDiff
+    datetimeExpressions.scala:206)."""
+
+    end_date: Expression
+    start_date: Expression
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+@dataclasses.dataclass(frozen=True)
+class LastDay(Expression):
+    """Last day of the month (reference: GpuLastDay
+    datetimeExpressions.scala:711)."""
+
+    start_date: Expression
+
+    @property
+    def dtype(self):
+        return T.DATE
+
+
+@dataclasses.dataclass(frozen=True)
+class UnixTimestamp(Expression):
+    """Seconds since epoch of a DATE/TIMESTAMP column (reference:
+    GpuUnixTimestamp datetimeExpressions.scala:543; string parsing is the
+    gated GpuToTimestamp path, not supported here)."""
+
+    child: Expression
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+
+class ToUnixTimestamp(UnixTimestamp):
+    """reference: GpuToUnixTimestamp (datetimeExpressions.scala:558)"""
+
+
+@dataclasses.dataclass(frozen=True)
+class FromUnixTime(Expression):
+    """Format seconds-since-epoch as a string; only the default
+    'yyyy-MM-dd HH:mm:ss' format (reference: GpuFromUnixTime
+    datetimeExpressions.scala:603 has the same literal-format restriction)."""
+
+    sec: Expression
+    format: Expression
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeAdd(Expression):
+    """timestamp + literal interval with zero months (reference: GpuTimeAdd
+    datetimeExpressions.scala:178 — same months==0 restriction).
+    ``days``/``microseconds`` are the interval payload."""
+
+    start: Expression
+    days: int
+    microseconds: int
+
+    @property
+    def dtype(self):
+        return T.TIMESTAMP
+
+
+@dataclasses.dataclass(frozen=True)
+class TruncDate(Expression):
+    """trunc(date, fmt) for fmt in year/yyyy/yy/quarter/month/mon/mm/week."""
+
+    date: Expression
+    fmt: Expression
+
+    @property
+    def dtype(self):
+        return T.DATE
+
+
+@dataclasses.dataclass(frozen=True)
+class PythonUDF(Expression):
+    """A user Python function over scalar args. The planner's resolution
+    pass (sql/session.py) replaces it with bytecode-compiled engine
+    expressions when spark.rapids.tpu.sql.udfCompiler.enabled; otherwise it
+    evaluates row-by-row in the CPU interpreter (fallback)."""
+
+    func: Any
+    children_: Tuple[Expression, ...]
+    return_type: Optional[DataType] = None
+
+    @property
+    def dtype(self):
+        if self.return_type is not None:
+            return self.return_type
+        # infer from a best-effort: assume numeric double unless annotated
+        import typing
+
+        try:
+            hints = typing.get_type_hints(self.func) if callable(
+                self.func) else {}
+        except Exception:  # unresolvable forward refs etc.
+            hints = {}
+        r = hints.get("return")
+        m = {int: T.LONG, float: T.DOUBLE, bool: T.BOOLEAN, str: T.STRING}
+        return m.get(r, T.DOUBLE)
+
+    @property
+    def pretty_name(self):
+        return f"pythonUDF({getattr(self.func, '__name__', '?')})"
+
 
 
 def bind_references(expr: Expression, schema: T.StructType) -> Expression:

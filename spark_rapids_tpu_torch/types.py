@@ -121,23 +121,53 @@ class DoubleType(DataType):
 class StringType(DataType):
     name = "string"
 
+    def to_numpy(self):
+        return np.dtype(object)
+
 
 class BinaryType(DataType):
     name = "binary"
 
+    def to_numpy(self):
+        return np.dtype(object)
+
 
 class DateType(DataType):
+    """Days since unix epoch, int32 (Spark semantics)."""
+
     name = "date"
+
+    def to_numpy(self):
+        return np.dtype(np.int32)
 
 
 class TimestampType(DataType):
+    """Microseconds since unix epoch, int64, UTC only."""
+
     name = "timestamp"
+
+    def to_numpy(self):
+        return np.dtype(np.int64)
 
 
 @dataclasses.dataclass(frozen=True)
 class DecimalType(DataType):
+    """DECIMAL64: precision <= 18 stored as int64 unscaled values, as in
+    the reference."""
+
     precision: int = 10
     scale: int = 0
+
+    MAX_PRECISION = 18
+
+    def __post_init__(self):
+        if not (0 < self.precision <= self.MAX_PRECISION):
+            raise ValueError(f"precision {self.precision} outside (0, 18]")
+        if not (0 <= self.scale <= self.precision):
+            raise ValueError(f"scale {self.scale} outside [0, precision]")
+
+    def to_numpy(self):
+        return np.dtype(np.int64)
 
     @property
     def name(self):  # type: ignore[override]
@@ -153,6 +183,33 @@ class DecimalType(DataType):
 
     def __hash__(self):
         return hash((DecimalType, self.precision, self.scale))
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrayType(DataType):
+    """Array columns are not representable on the engine (as in the
+    reference); the type exists so plans can name it."""
+
+    element_type: DataType = dataclasses.field(default_factory=IntegerType)
+    contains_null: bool = True
+
+    @property
+    def name(self):  # type: ignore[override]
+        return f"array<{self.element_type.simpleString}>"
+
+    def __repr__(self):
+        return self.name
+
+    def to_numpy(self):
+        return np.dtype(object)
+
+    def __eq__(self, other):
+        return (isinstance(other, ArrayType)
+                and other.element_type == self.element_type
+                and other.contains_null == self.contains_null)
+
+    def __hash__(self):
+        return hash((ArrayType, self.element_type, self.contains_null))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,6 +247,13 @@ class StructType(DataType):
 
     def __iter__(self):
         return iter(self.fields)
+
+    def to_numpy(self):
+        return np.dtype(object)
+
+    @property
+    def names(self):
+        return [f.name for f in self.fields]
 
     def field_index(self, name: str) -> int:
         for i, f in enumerate(self.fields):

@@ -23,7 +23,8 @@ PKG = ROOT / "spark_rapids_tpu_torch"
 
 
 #: every subpackage the import walk must reach
-SUBPACKAGES = ("columnar", "exec", "expr", "ops", "udf")
+SUBPACKAGES = ("columnar", "cpu", "exec", "expr", "io", "ops", "plugin", "sql",
+               "udf")
 
 
 def test_import_leaves_jax_and_reference_out():
