@@ -76,7 +76,18 @@ Phases, each failing the run on any error or mismatch:
         batches, project (k, string_word_count(s)), group by k: sum, count
         of the count and count(*), exact against the generator's own word
         counts; K5 once per batch;
-4. session queries, from the session's own entry points
+4. sort and window, exec trees at the bench's scale 1 against exact
+   numpy oracles, each with its cold wall and three warm walls:
+     Q13 bench.py ``shape_sort``: 2^23 rows (``rng(7)``: int64 ``key``
+        in [-2^40, 2^40), int32 ``pay``), sort by key ASC NULLS FIRST,
+        local limit 1000; the first 1000 rows of numpy's stable argsort;
+     Q14 bench.py ``shape_window``: 2^23 rows (``rng(13)``: int32 ``k``
+        64 groups, a permutation ``ts``, int64 ``v``), sum(v) and
+        row_number() over (partition by k order by ts), filter rn <= 3;
+        192 rows against a lexsort and per-group cumsum.
+   Neither launches a hand kernel (torch sorts and scans); under
+   ``--profile`` each also reports its sort kernels' device time.
+5. session queries, from the session's own entry points
    (``TpuSession`` -> ``DataFrame`` -> ``collect()``: planner, type
    checks and fallback boundaries), with the counts set to 0 just before
    and read just after each:
@@ -98,6 +109,14 @@ Phases, each failing the run on any error or mismatch:
         the query must launch K1 and K2. pyarrow is installed on the card's machine (24.0.0 when
         checked), so Q11 reads parquet there; the script does not
         branch on it;
+     Q15 a TPC-DS-shaped top-N over Q11's file in the same session:
+        where ss_sold_date_sk >= 2452015 -> group by ss_item_sk:
+        count(ss_quantity) n, sum(ss_wholesale_cost) s -> order by n
+        DESC, ss_item_sk -> limit 100; keys and counts exact, sums
+        within 1e-9 of each group's sum of |x|; the plan must be collect
+        limit <- sort <- aggregate <- filter <- file scan, on the device;
+        the first run's launches are recorded and the three warm runs
+        must repeat them;
      Q12 the fallback boundary: 2^16 rows from ``create_dataframe``,
         project k and a Python UDF (``-> int``), then group by k: sum and
         count of its result under the default conf. ``explain()`` must
@@ -105,7 +124,17 @@ Phases, each failing the run on any error or mismatch:
         back because PythonUDF is not supported), the executed plan must
         hold the CPU project between a RowToColumnarExec under the device
         aggregate and the device scan's ColumnarToRowExec, and K1 must
-        launch; exact against a numpy oracle.
+        launch; exact against a numpy oracle;
+     Q16 Q12 with ``spark.rapids.tpu.sql.udfCompiler.enabled``, over
+        Q12's UDF and a branching one (``v * 3 + 1 if v > 100 else
+        -v``): both compile to device expressions, ``explain()`` shows
+        no fallback, the device tree holds no row/columnar boundary, and
+        the rows equal Q12's and the Python functions' row by row, in a
+        cold and three warm runs that must launch the same kernels; K1
+        must launch;
+     small: range -> union -> local limit -> posexplode -> collect limit
+        through the session, every operator on the device, the rows held
+        to the same query on the port's CPU engine.
 
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
@@ -779,11 +808,13 @@ def profile_q1(torch, conf, batches, schema, n):
     profile_plan(torch, "Q1", plan, conf, n, n * (4 + 8 + 8 + 3))
 
 
-def profile_plan(torch, name, plan, conf, rows, nbytes):
+def profile_plan(torch, name, plan, conf, rows, nbytes, sort_kernels=()):
     """One query (``plan()`` builds a fresh exec tree) three times
     unprofiled, then once under torch.profiler: device time by kernel,
     the device's busy and idle share of the wall time, beside the
-    query's bytes bound (``nbytes`` at the card's peak rate)."""
+    query's bytes bound (``nbytes`` at the card's peak rate); with
+    ``sort_kernels`` (name substrings) also the device time of the
+    kernels that match them (``sort_device_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -804,6 +835,10 @@ def profile_plan(torch, name, plan, conf, rows, nbytes):
           "wall_ms_profiled": wall, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1 - busy_us / 1e3 / wall,
           "kernel_device_ms": {k: v for k, v in ours.items() if v},
+          **({"sort_device_ms": sum(
+              e.self_device_time_total for e in events
+              if any(k in e.key for k in sort_kernels)) / 1e3}
+             if sort_kernels else {}),
           "bound_ms": bound_ms(nbytes),
           "top": [{"name": e.key[:80], "calls": e.count,
                    "device_ms": e.self_device_time_total / 1e3}
@@ -1428,6 +1463,155 @@ def string_query_phase(torch, np, dev, log2_rows: int, wc_batches,
 
 
 # ---------------------------------------------------------------------------
+# sort and window phase (Q13, Q14): the bench's last two shapes
+# ---------------------------------------------------------------------------
+#: Q13's and Q14's rows (bench.py ``shape_sort`` and ``shape_window`` at
+#: scale 1), as a power of two
+SORT_LOG2_ROWS = 23
+#: substrings of the device kernels a sort launches (CUB's radix sort
+#: passes; torch's in-place sort of short rows), for the sort's share of
+#: a profile
+SORT_KERNELS = ("RadixSort", "sortKeyValue", "radix_sort")
+
+
+def _walls(torch, what, run_once, check):
+    """The cold wall (first run) and three warm walls of ``run_once()``
+    (which returns rows), each result checked, and the first run's launch
+    counts: they are set to 0 just before each run and read just after
+    it, and every run must repeat the first one's."""
+    walls = []
+    counts = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = run_once()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts.append(launches())
+        check(rows)
+    if any(c != counts[0] for c in counts[1:]):
+        raise AssertionError(f"{what} launches changed between runs: "
+                             f"{counts}")
+    return walls[0], walls[1:], counts[0]
+
+
+def sort_window_phase(torch, np, dev, log2_rows: int,
+                      profile: bool = False):
+    """Q13 (the bench's ORDER BY ... LIMIT 1000) and Q14 (its window query)
+    through the exec tree, each against an exact numpy oracle, with the
+    launch counts set to 0 just before each run and read just after it;
+    Q14's window output is also held to numpy whole, before its filter.
+    Neither launches a hand kernel: the sort is ``torch.argsort`` passes
+    and the window's scans are torch ops."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import schema_of
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import InMemoryScanExec, TpuFilterExec
+    from spark_rapids_tpu_torch.exec.basic import TpuLocalLimitExec
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+    from spark_rapids_tpu_torch.exec.window import TpuWindowExec
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr import windows as W
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    conf = RapidsConf({})
+    n = 1 << log2_rows
+    per_query = {}
+
+    # --- Q13: bench.py shape_sort ------------------------------------------
+    rng = np.random.default_rng(7)
+    key = rng.integers(-(2**40), 2**40, n)
+    pay = rng.integers(0, 1000, n).astype(np.int32)
+    schema = schema_of(key=T.LONG, pay=T.INT)
+    batch = _padded_batch(np, torch, schema, [key, pay],
+                          [np.ones(n, bool)] * 2, dev)
+    top = np.argsort(key, kind="stable")[:1000]
+    want13 = list(zip(key[top].tolist(), pay[top].tolist()))
+
+    def q13_plan():
+        srt = TpuSortExec(conf, [col("key")], [(True, True)],
+                          InMemoryScanExec(conf, [[batch]], schema))
+        return TpuLocalLimitExec(conf, 1000, srt)
+
+    def check13(rows):
+        if rows != want13:
+            raise AssertionError("Q13: rows differ from numpy's stable "
+                                 "argsort")
+
+    cold, warm, per_query["Q13"] = _walls(
+        torch, "Q13", lambda: _run(torch, q13_plan(), conf)[0], check13)
+    emit({"query": "Q13", "rows": n, "limit": 1000, "cold_wall_ms": cold,
+          "warm_wall_ms": warm, "bytes": n * 14,
+          "bound_ms": bound_ms(n * 14), "launches": per_query["Q13"]})
+    if profile:
+        profile_plan(torch, "Q13", q13_plan, conf, n, n * 14, SORT_KERNELS)
+
+    # --- Q14: bench.py shape_window ----------------------------------------
+    rng = np.random.default_rng(13)
+    k = rng.integers(0, 64, n).astype(np.int32)
+    ts = rng.permutation(n).astype(np.int64)
+    v = rng.integers(0, 1000, n).astype(np.int64)
+    schema = schema_of(k=T.INT, ts=T.LONG, v=T.LONG)
+    batch = _padded_batch(np, torch, schema, [k, ts, v],
+                          [np.ones(n, bool)] * 3, dev)
+    order = np.lexsort((ts, k))
+    want14 = []
+    for g in range(64):
+        rows = order[k[order] == g][:3]
+        rs = np.cumsum(v[rows])
+        want14 += [(g, int(ts[r]), int(v[r]), int(s_), i + 1)
+                   for i, (r, s_) in enumerate(zip(rows, rs))]
+
+    def q14_plan():
+        spec = W.WindowSpec(partition_by=(col("k"),), order_by=(col("ts"),),
+                            orders=((True, True),))
+        win = TpuWindowExec(conf, [
+            W.WindowExpression(A.Sum(col("v")), spec, "rs"),
+            W.WindowExpression(W.RowNumber(), spec, "rn")],
+            InMemoryScanExec(conf, [[batch]], schema))
+        return TpuFilterExec(conf, E.LessThanOrEqual(col("rn"), lit(3)),
+                             win)
+
+    def check14(rows):
+        if rows != want14:
+            raise AssertionError("Q14: rows differ from the numpy oracle")
+
+    def check14_full(win):
+        """The window's whole output (the filter keeps 192 of its rows),
+        column by column against numpy: rows in (k, ts) order, rn the
+        position in the partition, rs the partition's running sum."""
+        hosts = [b.host_columns() for p in range(win.num_partitions)
+                 for b in win.execute_partition(p)]
+        got = [np.concatenate([h[i].data for h in hosts]) for i in range(5)]
+        if not all(np.concatenate([h[i].validity for h in hosts]).all()
+                   for i in range(5)):
+            raise AssertionError("Q14 window: a null in the output")
+        ks, vs = k[order], v[order]
+        idx = np.arange(n)
+        start = np.maximum.accumulate(
+            np.where(np.r_[True, ks[1:] != ks[:-1]], idx, 0))
+        cs = np.cumsum(vs)
+        want = [ks, ts[order], vs, cs - cs[start] + vs[start],
+                idx - start + 1]
+        for name, g, w in zip(("k", "ts", "v", "rs", "rn"), got, want):
+            if g.shape != w.shape or not np.array_equal(g, w):
+                raise AssertionError(f"Q14 window: column {name} differs "
+                                     "from the numpy oracle")
+
+    cold, warm, per_query["Q14"] = _walls(
+        torch, "Q14", lambda: _run(torch, q14_plan(), conf)[0], check14)
+    check14_full(q14_plan().children[0])
+    emit({"query": "Q14", "rows": n, "out_rows": len(want14),
+          "cold_wall_ms": cold, "warm_wall_ms": warm, "bytes": n * 23,
+          "bound_ms": bound_ms(n * 23), "launches": per_query["Q14"]})
+    if profile:
+        profile_plan(torch, "Q14", q14_plan, conf, n, n * 23, SORT_KERNELS)
+    return per_query
+
+
+# ---------------------------------------------------------------------------
 # session phase (Q11, Q12): the session's own entry points
 # ---------------------------------------------------------------------------
 #: the tagging report Q12 must give (the reference's, pinned by
@@ -1600,6 +1784,8 @@ def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
         if profile:
             profile_plan(torch, "Q11", lambda: sess._execute(
                 q11().node).tpu_child, sess.conf, n, decoded)
+        per_query["Q15"] = q15_top_n(torch, np, sess, pdir, item, qty, cost,
+                                     date, profile)
     finally:
         shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
 
@@ -1652,7 +1838,214 @@ def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
           "wall_ms": ms12, "explain": text.splitlines(),
           "agg_strategy": agg._strategy_choice[0],
           "launches": per_query["Q12"]})
+    per_query["Q16"] = q16_compiled_udfs(torch, np, dev, k, x, xnull, schema,
+                                         want, profile)
+    per_query["small"] = small_session_phase(torch, dev)
     return per_query
+
+
+#: Q15's date cut (Q11's) and row limit
+Q15_DATE = 2_452_015
+Q15_LIMIT = 100
+#: Q15's launches at Q11's full size (PARQUET_LOG2_ROWS), as the H100 run
+#: of this script reports them: the aggregate's hash tiers and sort
+#: fallback at 18 000 groups
+Q15_LAUNCHES = {"bucket_sum": 15, "bucket_float_sum": 15,
+                "bucket_winner": 15, "ordered_segment_sum": 5,
+                "probe_ranges": 0, "word_counts": 0}
+
+
+def q15_top_n(torch, np, sess, pdir, item, qty, cost, date,
+              profile: bool = False) -> dict:
+    """Q15, a TPC-DS-shaped top-N over Q11's file through the same
+    session: where ss_sold_date_sk >= 2452015 -> group by ss_item_sk:
+    count(ss_quantity) n, sum(ss_wholesale_cost) s -> order by n DESC,
+    ss_item_sk -> limit 100. Keys and counts exact, sums within 1e-9 of
+    each group's sum of |x|; the plan must be collect limit <- sort <-
+    aggregate <- filter <- file scan, all on the device; every run must
+    launch K1 and K2 and repeat the first run's counts, which at Q11's
+    full size must be ``Q15_LAUNCHES``. Returns the first run's counts."""
+    from spark_rapids_tpu_torch.exec import (RowToColumnarExec,
+                                             TpuFilterExec,
+                                             TpuHashAggregateExec)
+    from spark_rapids_tpu_torch.exec.basic import TpuCollectLimitExec
+    from spark_rapids_tpu_torch.exec.scan import TpuFileSourceScanExec
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    def q15():
+        return (sess.read.parquet(pdir)
+                .where(E.GreaterThanOrEqual(col("ss_sold_date_sk"),
+                                            lit(Q15_DATE)))
+                .group_by("ss_item_sk")
+                .agg(A.agg(A.Count(col("ss_quantity")), "n"),
+                     A.agg(A.Sum(col("ss_wholesale_cost")), "s"))
+                .order_by("n", "ss_item_sk", ascending=[False, True])
+                .limit(Q15_LIMIT))
+
+    keep = date >= Q15_DATE
+    cnt = np.bincount(item[keep], minlength=18_001)
+    tot = np.bincount(item[keep], weights=cost[keep], minlength=18_001)
+    mag = np.bincount(item[keep], weights=np.abs(cost[keep]),
+                      minlength=18_001)
+    ids = np.nonzero(cnt)[0]
+    top = ids[np.lexsort((ids, -cnt[ids]))][:Q15_LIMIT]
+
+    def check(rows):
+        if [(r[0], r[1]) for r in rows] != [(int(g), int(cnt[g]))
+                                            for g in top]:
+            raise AssertionError("Q15: keys or counts differ from numpy")
+        for (g, _, s_), w in zip(rows, top):
+            if not _close(s_, tot[w], mag[w]):
+                raise AssertionError(f"Q15 item {g}: sum {s_} != {tot[w]}")
+
+    first, warm, counts = _walls(torch, "Q15", lambda: q15().collect(),
+                                 check)
+    for name in ("bucket_sum", "bucket_float_sum"):
+        if counts[name] <= 0:
+            raise AssertionError(f"Q15 did not launch {name}")
+    if item.shape[0] == 1 << PARQUET_LOG2_ROWS and counts != Q15_LAUNCHES:
+        raise AssertionError(f"Q15 launches {counts} != {Q15_LAUNCHES}")
+    top_exec = sess.last_executed_plan.tpu_child
+    chain = [top_exec]
+    while chain[-1].children:
+        chain.append(chain[-1].children[0])
+    kinds = (TpuCollectLimitExec, TpuSortExec, TpuHashAggregateExec,
+             TpuFilterExec, TpuFileSourceScanExec)
+    if len(chain) != len(kinds) or not all(
+            isinstance(e, t) for e, t in zip(chain, kinds)):
+        raise AssertionError(f"Q15 plan: {top_exec.tree_string()}")
+    if any(isinstance(e, RowToColumnarExec) for e in chain):
+        raise AssertionError("Q15 plan holds a CPU exec")
+    emit({"query": "Q15", "groups": int(len(ids)), "limit": Q15_LIMIT,
+          "first_wall_ms": first, "warm_wall_ms": warm,
+          "agg_strategy": chain[2]._strategy_choice[0],
+          "plan": top_exec.tree_string().splitlines(),
+          "launches": counts})
+    if profile:
+        profile_plan(torch, "Q15", lambda: sess._execute(
+            q15().node).tpu_child, sess.conf, int(keep.sum()),
+            item.shape[0] * 20, SORT_KERNELS)
+    return counts
+
+
+def udf_branch(v) -> int:
+    """Q16's second UDF: a branch, compiled to an ``If``."""
+    return None if v is None else (v * 3 + 1 if v > 100 else -v)
+
+
+def q16_compiled_udfs(torch, np, dev, k, x, xnull, schema, q12_rows,
+                      profile: bool = False) -> dict:
+    """Q16: Q12's data and query with
+    ``spark.rapids.tpu.sql.udfCompiler.enabled``, over Q12's UDF and a
+    branching one: both compile, so the whole plan runs on the device
+    (no row/columnar boundary, no fallback in ``explain()``); rows equal
+    Q12's and the Python functions' applied row by row."""
+    from spark_rapids_tpu_torch.exec import (ColumnarToRowExec,
+                                             RowToColumnarExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col
+    from spark_rapids_tpu_torch.sql import session as S
+
+    sess = S.TpuSession({"spark.rapids.tpu.sql.udfCompiler.enabled": True},
+                        device=dev)
+    xs = [None if z else int(v) for v, z in zip(x, xnull)]
+
+    def q16():
+        df = sess.create_dataframe({"k": k.tolist(), "x": xs}, schema)
+        u1 = E.PythonUDF(udf_times_three_plus_one, (col("x"),))
+        u2 = E.PythonUDF(udf_branch, (col("x"),))
+        return (df.select(col("k"), E.Alias(u1, "u"), E.Alias(u2, "w"))
+                .group_by("k").agg(A.agg(A.Sum(col("u")), "su"),
+                                   A.agg(A.Count(col("u")), "cu"),
+                                   A.agg(A.Sum(col("w")), "sw")))
+
+    text = q16().explain()
+    if "!" in text or "cannot run" in text:
+        raise AssertionError(f"Q16 explain:\n{text}")
+    want_u = {}
+    want_w = {}
+    for g, v in zip(k.tolist(), xs):
+        if v is not None:
+            want_u[g] = want_u.get(g, 0) + udf_times_three_plus_one(v)
+            want_w[g] = want_w.get(g, 0) + udf_branch(v)
+    want = [(g, su, cu, want_w.get(g)) for g, su, cu in q12_rows]
+    if [(g, su) for g, su, _ in q12_rows] != [
+            (g, want_u.get(g)) for g, _, _ in q12_rows]:
+        raise AssertionError("Q16: Q12's rows differ from its Python UDF")
+
+    def check(rows):
+        if sorted(rows) != want:
+            raise AssertionError("Q16: rows differ from Q12's or the "
+                                 "Python functions'")
+
+    cold, warm, counts = _walls(torch, "Q16", lambda: q16().collect(),
+                                check)
+    top = sess.last_executed_plan
+    if not isinstance(top, ColumnarToRowExec) or any(
+            isinstance(e, (RowToColumnarExec, ColumnarToRowExec))
+            for e in _device_tree(top.tpu_child)):
+        raise AssertionError(f"Q16 plan: {top.tree_string()}")
+    if counts["bucket_sum"] <= 0:
+        raise AssertionError("Q16 did not launch bucket_sum")
+    emit({"query": "Q16", "rows": int(k.shape[0]), "groups": len(want),
+          "cold_wall_ms": cold, "warm_wall_ms": warm,
+          "explain": text.splitlines(),
+          "plan": top.tree_string().splitlines(), "launches": counts})
+    if profile:
+        # the scan's upload happens while the plan is built, outside the
+        # profiled collect()
+        profile_plan(torch, "Q16", lambda: sess._execute(
+            q16().node).tpu_child, sess.conf, int(k.shape[0]),
+            int(k.shape[0]) * (4 + 8 + 2))
+    return counts
+
+
+def small_session_phase(torch, dev) -> dict:
+    """range -> union -> local limit -> explode (posexplode) -> collect
+    limit through the session on the card, held to the same query on the
+    CPU engine (``spark.rapids.tpu.sql.enabled`` false); every operator
+    must run on the device."""
+    from spark_rapids_tpu_torch.exec.basic import (TpuCollectLimitExec,
+                                                   TpuExpandExec,
+                                                   TpuLocalLimitExec,
+                                                   TpuRangeExec, TpuUnionExec)
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.sql import session as S
+
+    def query(sess):
+        df = sess.range(0, 1000, 3, num_slices=2).union(sess.range(5000, 5100))
+        # 167 + 167 + 100 rows -> 100 a partition -> x2; the collect limit
+        # ends at the second partition's end, because only there do both
+        # engines' row sets agree: the device expands a batch per
+        # projection and the CPU engine row by row (a divergence the
+        # reference has too, ROADMAP.md section C)
+        return (df.local_limit(100)
+                .explode([col("id"), E.Multiply(col("id"), lit(-2))],
+                         name="v", pos=True)
+                .limit(400))
+
+    sess = S.TpuSession({}, device=dev)
+    cpu = S.TpuSession({"spark.rapids.tpu.sql.enabled": False}, device=dev)
+    reset_launches()
+    got = query(sess).collect()
+    counts = launches()
+    want = query(cpu).collect()
+    if sorted(got) != sorted(want) or len(got) != 400:
+        raise AssertionError("small phase: rows differ from the CPU engine")
+    tree = list(_device_tree(sess.last_executed_plan.tpu_child))
+    for kind in (TpuCollectLimitExec, TpuExpandExec, TpuLocalLimitExec,
+                 TpuUnionExec, TpuRangeExec):
+        if not any(isinstance(e, kind) for e in tree):
+            raise AssertionError(f"small phase plan lacks {kind.__name__}")
+    emit({"query": "small", "rows": len(got),
+          "plan": sess.last_executed_plan.tree_string().splitlines(),
+          "launches": counts})
+    return counts
 
 
 def build_all() -> dict:
@@ -1717,8 +2110,8 @@ def main() -> int:
                     "the first batch), as a power of two")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Q1, Q2, Q5, Q6, Q7, Q9, Q10 and "
-                    "Q11 (warm) with torch.profiler")
+                    help="also profile Q1, Q2, Q5, Q6, Q7, Q9, Q10, Q11 "
+                    "(warm), Q13, Q14, Q15 and Q16 with torch.profiler")
     args = ap.parse_args()
 
     import numpy as np
@@ -1757,6 +2150,8 @@ def main() -> int:
     per_query.update(string_query_phase(torch, np, dev,
                                         args.string_log2_rows, wc_batches,
                                         args.profile))
+    per_query.update(sort_window_phase(torch, np, dev, SORT_LOG2_ROWS,
+                                       args.profile))
     per_query.update(session_query_phase(torch, np, dev,
                                          PARQUET_LOG2_ROWS,
                                          UDF_LOG2_ROWS, args.profile))

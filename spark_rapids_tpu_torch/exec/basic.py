@@ -1,21 +1,30 @@
-"""Basic physical operators: scan-from-memory, project, filter.
+"""Basic physical operators: scan-from-memory, project, filter, range,
+union, limits, expand and coalesce-batches.
 
-Counterpart of ``spark_rapids_tpu/exec/basic.py`` (``InMemoryScanExec``,
-``TpuProjectExec``, ``TpuFilterExec``). Project and filter are fusable:
-below an aggregate they run inside its per-batch update, and a filter
-only clears liveness bits there — rows compact only where a dense batch
-is emitted (``base.run_fused_chain``).
+Counterpart of ``spark_rapids_tpu/exec/basic.py``. Project and filter
+are fusable: below an aggregate they run inside its per-batch update,
+and a filter only clears liveness bits there — rows compact only where a
+dense batch is emitted (``base.run_fused_chain``). A limit keeps its
+batch's capacity and cuts the row count (``filter_gather.truncate_cols``);
+it syncs for the row counts of the batches it takes and no others. The
+reference's null elision in the expand (``entry_nonnull_flags``) is not
+ported (ROADMAP.md, queue A item 'Null elision').
 """
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+from typing import Iterator, List, Optional, Sequence
 
-from ..columnar import ColumnarBatch, resolve_device
-from ..conf import RapidsConf
+import torch
+
+from .. import types as T
+from ..columnar import ColumnarBatch, DeviceColumn, resolve_device
+from ..columnar.column import choose_capacity
+from ..conf import MAX_READER_BATCH_SIZE_ROWS, RapidsConf
 from ..expr import expressions as E
 from ..expr.eval import lower
+from ..ops import filter_gather
 from ..types import StructField, StructType
-from .base import TpuExec, run_fused_chain
+from .base import TpuExec, batch_from_vals, run_fused_chain, vals_of_batch
 
 
 def _output_schema_for(exprs: Sequence[E.Expression],
@@ -119,3 +128,214 @@ class TpuFilterExec(TpuExec):
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
         yield from run_fused_chain(self, index)
+
+
+class TpuRangeExec(TpuExec):
+    """reference: ``exec/basic.py:418`` (GpuRangeExec). A leaf: its
+    batches are made on ``device`` (``None``: the CUDA card)."""
+
+    def __init__(self, conf: RapidsConf, start: int, end: int, step: int = 1,
+                 num_slices: int = 1, name: str = "id", device=None):
+        super().__init__(conf)
+        if step == 0:
+            raise ValueError("step must not be 0")
+        self.start, self.end, self.step = start, end, step
+        self.num_slices = num_slices
+        self._schema = StructType((StructField(name, T.LONG, False),))
+        self._device = resolve_device(device)
+
+    @property
+    def device(self):
+        return self._device
+
+    @property
+    def output_schema(self):
+        return self._schema
+
+    @property
+    def num_partitions(self):
+        return self.num_slices
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        total = max(0, -(-(self.end - self.start) // self.step))
+        per = (total + self.num_slices - 1) // self.num_slices if total else 0
+        lo = index * per
+        hi = min(total, (index + 1) * per)
+        max_rows = self.conf.get(MAX_READER_BATCH_SIZE_ROWS)
+        pos = lo
+        while pos < hi:
+            n = min(max_rows, hi - pos)
+            cap = choose_capacity(n, self.conf.shape_bucket_min)
+            base = self.start + pos * self.step
+            iota = torch.arange(cap, dtype=torch.int64, device=self._device)
+            live = iota < n
+            data = torch.where(live, iota * self.step + base, 0)
+            col = DeviceColumn(T.LONG, n, data, live)
+            yield self.record_batch(ColumnarBatch([col], self._schema, n))
+            pos += n
+
+
+class TpuUnionExec(TpuExec):
+    """reference: ``exec/basic.py:457`` (GpuUnionExec): the children's
+    partitions, one after another."""
+
+    def __init__(self, conf: RapidsConf, children: Sequence[TpuExec]):
+        super().__init__(conf, children)
+        self._schema = children[0].output_schema
+
+    @property
+    def output_schema(self):
+        return self._schema
+
+    @property
+    def num_partitions(self):
+        return sum(c.num_partitions for c in self.children)
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        for c in self.children:
+            if index < c.num_partitions:
+                for b in c.execute_partition(index):
+                    yield self.record_batch(b)
+                return
+            index -= c.num_partitions
+        raise IndexError(index)
+
+
+def _take_rows(exec_: TpuExec, batches: Iterator[ColumnarBatch],
+               limit: int) -> Iterator[ColumnarBatch]:
+    """The first ``limit`` rows of ``batches``: whole batches while they
+    fit, then the last one cut at the same capacity. Stops pulling once
+    the limit is reached (no further child batch is computed)."""
+    remaining = limit
+    for batch in batches:
+        if remaining <= 0:
+            return
+        n = batch.num_rows
+        if n <= remaining:
+            remaining -= n
+            yield exec_.record_batch(batch)
+        else:
+            cols = filter_gather.truncate_cols(vals_of_batch(batch),
+                                               remaining)
+            yield exec_.record_batch(batch_from_vals(
+                cols, exec_.output_schema, remaining,
+                capacity=batch.capacity))
+            remaining = 0
+        if remaining == 0:
+            return
+
+
+class TpuLocalLimitExec(TpuExec):
+    """reference: ``exec/basic.py:482`` (GpuBaseLimitExec): a limit per
+    partition."""
+
+    def __init__(self, conf: RapidsConf, limit: int, child: TpuExec):
+        super().__init__(conf, [child])
+        self.limit = limit
+
+    @property
+    def output_schema(self):
+        return self.children[0].output_schema
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        yield from _take_rows(self, self.children[0].execute_partition(index),
+                              self.limit)
+
+
+class TpuCollectLimitExec(TpuExec):
+    """reference: ``exec/basic.py:514`` (GpuCollectLimitMeta): one output
+    partition, the first ``limit`` rows of the child's partitions in
+    order."""
+
+    def __init__(self, conf: RapidsConf, limit: int, child: TpuExec):
+        super().__init__(conf, [child])
+        self.limit = limit
+
+    @property
+    def output_schema(self):
+        return self.children[0].output_schema
+
+    @property
+    def num_partitions(self):
+        return 1
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        yield from _take_rows(self, self.children[0].execute_columnar(),
+                              self.limit)
+
+
+class TpuExpandExec(TpuExec):
+    """reference: ``exec/basic.py:555`` (GpuExpandExec): each input batch
+    projected once per projection (rollup/cube lowering, and the
+    ``explode`` of a fixed list through ``CpuGenerateExec``)."""
+
+    def __init__(self, conf: RapidsConf,
+                 projections: Sequence[Sequence[E.Expression]],
+                 output_names: Sequence[str], child: TpuExec):
+        super().__init__(conf, [child])
+        self.projections = [list(p) for p in projections]
+        child_schema = child.output_schema
+        self._bound = [
+            tuple(E.bind_references(e, child_schema) for e in p)
+            for p in self.projections
+        ]
+        self._schema = StructType(tuple(
+            StructField(n, e.dtype, True)
+            for n, e in zip(output_names, self._bound[0])))
+
+    @property
+    def output_schema(self):
+        return self._schema
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        for batch in self.children[0].execute_partition(index):
+            cap = batch.capacity
+            cols = vals_of_batch(batch)
+            dev = batch.columns[0].validity.device if batch.columns \
+                else self.device
+            for bound in self._bound:
+                with self.op_timed():
+                    vals = [lower(e, cols, cap, dev) for e in bound]
+                    out = batch_from_vals(vals, self._schema,
+                                          batch.num_rows_lazy, capacity=cap)
+                yield self.record_batch(out)
+
+
+class TpuCoalesceBatchesExec(TpuExec):
+    """reference: ``exec/basic.py:595`` (GpuCoalesceBatches): concatenate
+    small batches up to a target row count. String columns raise in the
+    concat (ROADMAP.md, queue A item 'Strings in joins, grouping keys,
+    min/max and concat')."""
+
+    def __init__(self, conf: RapidsConf, child: TpuExec,
+                 target_rows: Optional[int] = None):
+        super().__init__(conf, [child])
+        self.target_rows = target_rows or conf.get(MAX_READER_BATCH_SIZE_ROWS)
+
+    @property
+    def output_schema(self):
+        return self.children[0].output_schema
+
+    def _flush(self, pending: List[ColumnarBatch]) -> Optional[ColumnarBatch]:
+        from .join import _concat_batches
+
+        return _concat_batches(self.output_schema, pending)
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        pending: List[ColumnarBatch] = []
+        rows = 0
+        for batch in self.children[0].execute_partition(index):
+            if batch.num_rows == 0:
+                continue
+            pending.append(batch)
+            rows += batch.num_rows
+            if rows >= self.target_rows:
+                with self.op_timed():
+                    out = self._flush(pending)
+                pending, rows = [], 0
+                if out is not None:
+                    yield self.record_batch(out)
+        with self.op_timed():
+            out = self._flush(pending)
+        if out is not None:
+            yield self.record_batch(out)

@@ -1,0 +1,75 @@
+"""Sort exec.
+
+Counterpart of ``spark_rapids_tpu/exec/sort.py`` (``TpuSortExec``): a
+global sort concatenates every partition of its child into one batch
+(the reference's single-partition route; its range exchange and mesh
+sort, and the local sort per partition they feed, are not ported,
+ROADMAP.md queue A item 'Partitioned join builds'); then one sort
+permutation (``ops/sort.py``) and one gather of every column, string payloads
+through the two-pass string gather. The reference's OOM split-and-retry
+around the sort is not ported ('OOM retry and split-and-retry'): the
+port sorts without it, as its aggregate does.
+"""
+from __future__ import annotations
+
+from typing import Iterator, Sequence, Tuple
+
+from .. import types as T
+from ..columnar import ColumnarBatch
+from ..conf import RapidsConf
+from ..expr import expressions as E
+from ..expr.eval import lower
+from ..ops import filter_gather
+from ..ops.sort import SortOrder, sort_permutation
+from ..types import StructType
+from .base import TpuExec, batch_from_vals, vals_of_batch
+from .join import _concat_all
+
+
+class TpuSortExec(TpuExec):
+    def __init__(self, conf: RapidsConf, sort_exprs: Sequence[E.Expression],
+                 orders: Sequence[Tuple[bool, object]],
+                 child: TpuExec):
+        super().__init__(conf, [child])
+        self.sort_exprs = list(sort_exprs)
+        self.orders = [SortOrder(a, nf) for a, nf in orders]
+        self._bound = [E.bind_references(e, child.output_schema)
+                       for e in self.sort_exprs]
+        for b in self._bound:
+            if T.is_string(b.dtype):
+                raise NotImplementedError(
+                    f"sorting by a string key is "
+                    f"{T.NOT_PORTED_STRING_LAYERS}")
+
+    @property
+    def output_schema(self) -> StructType:
+        return self.children[0].output_schema
+
+    @property
+    def num_partitions(self) -> int:
+        return 1
+
+    def describe(self):
+        ks = ", ".join(f"{e}{'' if o.ascending else ' DESC'}"
+                       for e, o in zip(self.sort_exprs, self.orders))
+        return f"TpuSortExec [{ks}]"
+
+    def _sort_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
+        cap = batch.capacity
+        cols = vals_of_batch(batch)
+        dev = cols[0].validity.device
+        nr = batch.num_rows_lazy
+        keys = [lower(b, cols, cap, dev) for b in self._bound]
+        perm = sort_permutation(keys, [b.dtype for b in self._bound],
+                                self.orders, nr)
+        live_sorted = filter_gather.live_of(nr, cap, dev)[perm]
+        vals = filter_gather.gather(cols, perm, live_sorted)
+        return batch_from_vals(vals, self.output_schema, nr)
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        batch = _concat_all(self.children[0])
+        if batch is None:
+            return
+        with self.op_timed():
+            out = self._sort_batch(batch)
+        yield self.record_batch(out)

@@ -219,3 +219,33 @@ def filter_cols(cols: Sequence[Val], mask: torch.Tensor
     valid_slot = torch.arange(cap, dtype=torch.int32,
                               device=mask.device) < count
     return gather(cols, indices, valid_slot), count
+
+
+def truncate_cols(cols: Sequence[Val], count) -> List[Val]:
+    """Keep the first ``count`` rows (host int or 0-d tensor) at the same
+    capacity: later slots become zero and invalid, and a string column's
+    later offsets stay at its last kept row's end with the bytes past it
+    zeroed, the layout every filter output has. No gather, no sync."""
+    out: List[Val] = []
+    for c in cols:
+        dev = c.validity.device
+        keep = torch.arange(c.validity.shape[0], dtype=torch.int32,
+                            device=dev) < count
+        validity = c.validity & keep
+        if isinstance(c, StrV):
+            cap = c.offsets.shape[0] - 1
+            at = torch.as_tensor(count, device=dev).clamp(0, cap).long()
+            end = c.offsets[at]
+            rows = torch.arange(cap + 1, dtype=torch.int32, device=dev)
+            offsets = torch.where(rows <= at, c.offsets, end)
+            pos = torch.arange(c.chars.shape[0], dtype=torch.int32,
+                               device=dev)
+            chars = torch.where(pos < end, c.chars,
+                                torch.zeros((), dtype=torch.uint8,
+                                            device=dev))
+            out.append(StrV(offsets, chars, validity))
+        else:
+            out.append(ColV(torch.where(keep, c.data,
+                                        torch.zeros_like(c.data)),
+                            validity))
+    return out

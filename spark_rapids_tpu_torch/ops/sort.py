@@ -10,8 +10,12 @@ signed order for sorting. Only the bit-exact f64 branch of
 ``_float_radix`` (``sort.py:76-79``) is ported: the TPU's f32-pair branch
 has no meaning on a card with native f64.
 
-torch has no multi-key sort: :func:`sort_with_radix_keys` runs one stable
-sort per key, least significant first.
+torch has no multi-key sort: :func:`sort_with_radix_keys` packs the
+lexicographic key sequence into as few int64 sort keys as its digits'
+widths allow (a rank of 1-2 bits and a 32-bit radix share one word; a
+64-bit radix takes a word of its own) and runs one stable ``argsort`` per
+word, least significant first. String keys (``string_chunk_keys``) are
+not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -21,8 +25,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import types as T
-from ..expr.values import ColV
-from .filter_gather import live_of
+from ..expr.values import ColV, StrV, Val
+from .filter_gather import gather, live_of
 from .hashing import canonical_float, flush_subnormals
 
 #: int64 with only bit 63 set; ``k ^ SIGN64`` turns unsigned order into
@@ -80,9 +84,23 @@ def radix_of(data: torch.Tensor, keep_zero_sign: bool = False) -> torch.Tensor:
     return _int_radix(data)
 
 
+def _flip(k: torch.Tensor, bits: int) -> torch.Tensor:
+    """Reverse the unsigned order of a ``bits``-wide radix key (the
+    reference's ``~k`` on its uint32 / uint64 key)."""
+    return ~k if bits == 64 else k ^ ((1 << bits) - 1)
+
+
+def _radix_bits(dtype: T.DataType, data: torch.Tensor) -> int:
+    if isinstance(dtype, T.BooleanType):
+        return 1
+    return 64 if data.element_size() == 8 else 32
+
+
 def fixed_radix_keys(col: ColV, dtype: T.DataType,
                      order: SortOrder) -> List[torch.Tensor]:
-    """[null_rank, value_key] for a fixed-width column."""
+    """[null_rank, value_key] for a fixed-width column (reference
+    ``sort.py:98``): a descending key's radix is flipped; null rows rank
+    0 (nulls first) or 2 (nulls last) and carry key 0."""
     if dtype.is_floating:
         k = _float_radix(col.data)
     elif isinstance(dtype, T.BooleanType):
@@ -90,30 +108,111 @@ def fixed_radix_keys(col: ColV, dtype: T.DataType,
     else:
         k = _int_radix(col.data)
     if not order.ascending:
-        raise NotImplementedError(
-            "descending sort keys come with the sort exec: see ROADMAP.md, "
-            "queue A 'Later slices'")
+        k = _flip(k, _radix_bits(dtype, col.data))
     null_rank = torch.where(
         col.validity, 1, 0 if order.nulls_first_resolved else 2)
     k = torch.where(col.validity, k, 0)
     return [null_rank.to(torch.int64), k]
 
 
-def sort_with_radix_keys(key_cols: Sequence[ColV],
+def _sort_words(digits: Sequence[Tuple[torch.Tensor, int, bool]]
+                ) -> List[Tuple[torch.Tensor, bool, bool]]:
+    """Pack (key, bits, is_rank) digits, most significant first, into
+    sort words, least significant word first, as (word, is_64bit,
+    ranks_only). Digits share a word while it stays within 63 bits
+    (non-negative, so signed order is unsigned order); a 64-bit digit
+    takes a word of its own, sorted through ``^ SIGN64``."""
+    words: List[Tuple[torch.Tensor, bool, bool]] = []
+    acc, used, ranks_only = None, 0, True
+    for k, bits, is_rank in reversed(digits):
+        if acc is not None and (bits == 64 or used + bits > 63):
+            words.append((acc, False, ranks_only))
+            acc, used, ranks_only = None, 0, True
+        if bits == 64:
+            words.append((k, True, False))
+            continue
+        acc = k if acc is None else acc | (k << used)
+        used += bits
+        ranks_only = ranks_only and is_rank
+    if acc is not None:
+        words.append((acc, False, ranks_only))
+    return words
+
+
+def _sort_order(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
+                orders: Sequence[SortOrder],
+                num_rows) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(permutation, radix key arrays in row order); padding rows sort
+    last.
+
+    The order is the reference's ``lax.sort`` over [pad_rank, per key
+    (null_rank, value_key), row_id] (``sort.py:164``). The digits pack
+    into int64 words (:func:`_sort_words`), each sorted by one stable
+    ``argsort``, least significant first, so ties keep row order. A word
+    of ranks only (no value key) is skipped when it is the same on every
+    row (one host sync): a stable sort by a constant is the identity. The
+    pad rank is left out, with no sync, when the row count is a host int
+    equal to the capacity."""
+    for c in key_cols:
+        if isinstance(c, StrV):
+            raise NotImplementedError(
+                f"sorting by a string key is {T.NOT_PORTED_STRING_LAYERS}")
+    cap = key_cols[0].validity.shape[0]
+    dev = key_cols[0].validity.device
+    keys: List[torch.Tensor] = []
+    digits: List[Tuple[torch.Tensor, int, bool]] = []
+    if not (isinstance(num_rows, int) and num_rows >= cap):
+        digits.append(((~live_of(num_rows, cap, dev)).to(torch.int64), 1,
+                       True))
+    for colv, dtype, order in zip(key_cols, key_dtypes, orders):
+        null_rank, k = fixed_radix_keys(colv, dtype, order)
+        keys.extend([null_rank, k])
+        digits.append((null_rank, 2, True))
+        digits.append((k, _radix_bits(dtype, colv.data), False))
+    perm = None
+    for w, wide, ranks_only in _sort_words(digits):
+        if ranks_only and cap and not bool((w != w[0]).any()):
+            continue
+        wp = w if perm is None else w[perm]
+        if wide:
+            wp = wp ^ SIGN64
+        p = torch.argsort(wp, stable=True)
+        perm = p if perm is None else perm[p]
+    if perm is None:
+        perm = torch.arange(cap, dtype=torch.int64, device=dev)
+    return perm, keys
+
+
+def sort_with_radix_keys(key_cols: Sequence[Val],
                          key_dtypes: Sequence[T.DataType],
                          orders: Sequence[SortOrder],
                          num_rows) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """(permutation, sorted radix key arrays); padding rows sort last.
-
-    Lexicographic over [pad_rank, per key (null_rank, value_key)], ties
-    by row id — one stable sort per key, least significant first."""
-    cap = key_cols[0].validity.shape[0]
-    dev = key_cols[0].validity.device
-    pad_rank = (~live_of(num_rows, cap, dev)).to(torch.int64)
-    keys: List[torch.Tensor] = []
-    for colv, dtype, order in zip(key_cols, key_dtypes, orders):
-        keys.extend(fixed_radix_keys(colv, dtype, order))
-    perm = torch.arange(cap, dtype=torch.int64, device=dev)
-    for k in reversed([pad_rank] + keys):
-        perm = perm[torch.argsort(k[perm] ^ SIGN64, stable=True)]
+    """(permutation, sorted radix key arrays: [null_rank, value_key] per
+    key); padding rows sort last (reference ``sort.py:164``). Callers
+    find group and peer boundaries from the sorted keys."""
+    perm, keys = _sort_order(key_cols, key_dtypes, orders, num_rows)
     return perm, [k[perm] for k in keys]
+
+
+def sort_permutation(key_cols: Sequence[Val],
+                     key_dtypes: Sequence[T.DataType],
+                     orders: Sequence[SortOrder],
+                     num_rows) -> torch.Tensor:
+    """Stable sort permutation over the given keys; padding rows go last
+    (reference ``sort.py:196``). The radix keys are not gathered."""
+    return _sort_order(key_cols, key_dtypes, orders, num_rows)[0]
+
+
+def sort_cols(cols: Sequence[Val], key_indices: Sequence[int],
+              key_dtypes: Sequence[T.DataType],
+              orders: Sequence[SortOrder], num_rows) -> List[Val]:
+    """Sort all columns by the keys at ``key_indices`` (reference
+    ``sort.py:210``)."""
+    c0 = cols[0]
+    cap = (c0.offsets.shape[0] - 1 if isinstance(c0, StrV)
+           else c0.validity.shape[0])
+    perm = sort_permutation([cols[i] for i in key_indices], key_dtypes,
+                            orders, num_rows)
+    # live rows sort first, so this is ``iota < num_rows`` for a count
+    valid_slot = live_of(num_rows, cap, c0.validity.device)[perm]
+    return gather(cols, perm, valid_slot)

@@ -10,14 +10,14 @@ expression, so that a node, type or layer the port has not ported raises
 ``NotImplementedError`` while the plan is tagged (never a fallback the
 reference would not make).
 
-Converted on the device: the in-memory scan, the file scan, project,
-filter, the one-partition aggregate and the equi-join over one partition
-a side. The reference's other conversions raise ``NotImplementedError``
-naming their ROADMAP.md items: range, union, limits, expand and sort
-('Sort and the rest of exec/basic.py'), the exchange routes of a
-partitioned aggregate or join ('Partitioned join builds', 'Broadcast
-exchange'), nested-loop joins ('Nested-loop and cartesian joins') and
-window ('Window'). The mesh routes do not exist in the port.
+Converted on the device: the in-memory scan, the file scan, range,
+project, filter, union, both limits, expand (and explode through it),
+and, over one partition, the aggregate, the sort, the window and the
+equi-join (one partition a side). The reference's other conversions
+raise ``NotImplementedError`` naming their ROADMAP.md items: the
+exchange and mesh routes of a partitioned aggregate, sort, window or
+join ('Partitioned join builds', 'Broadcast exchange') and nested-loop
+joins ('Nested-loop and cartesian joins').
 
 Device rule: the plan's device (``None``: the CUDA card) is threaded to
 every leaf the pass builds: the in-memory scan, the file scan and the
@@ -331,11 +331,9 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet: see ROADMAP.md, queue A item '{item}'")
 
 
-SORT_ITEM = "Sort and the rest of exec/basic.py"
 EXCHANGE_ITEM = "Partitioned join builds"
 BROADCAST_ITEM = "Broadcast exchange"
 NESTED_LOOP_ITEM = "Nested-loop and cartesian joins"
-WINDOW_ITEM = "Window"
 
 
 def _tag_output_types(meta: "PlanMeta") -> None:
@@ -425,7 +423,8 @@ def _tag_range(meta: "PlanMeta") -> None:
 
 
 def _convert_range(cpu: C.CpuRangeExec, conf, children, device):
-    raise not_ported("TpuRangeExec", SORT_ITEM)
+    return XB.TpuRangeExec(conf, cpu.start, cpu.end, cpu.step, cpu.num_slices,
+                           cpu.output_schema.fields[0].name, device)
 
 
 def _tag_union(meta: "PlanMeta") -> None:
@@ -433,7 +432,7 @@ def _tag_union(meta: "PlanMeta") -> None:
 
 
 def _convert_union(cpu: C.CpuUnionExec, conf, children, device):
-    raise not_ported("TpuUnionExec", SORT_ITEM)
+    return XB.TpuUnionExec(conf, children)
 
 
 def _tag_limit(meta: "PlanMeta") -> None:
@@ -441,12 +440,12 @@ def _tag_limit(meta: "PlanMeta") -> None:
 
 
 def _convert_limit(cpu: C.CpuLocalLimitExec, conf, children, device):
-    raise not_ported("TpuLocalLimitExec", SORT_ITEM)
+    return XB.TpuLocalLimitExec(conf, cpu.limit, children[0])
 
 
 def _convert_collect_limit(cpu: "C.CpuCollectLimitExec", conf, children,
                            device):
-    raise not_ported("TpuCollectLimitExec", SORT_ITEM)
+    return XB.TpuCollectLimitExec(conf, cpu.limit, children[0])
 
 
 def _tag_expand(meta: "PlanMeta") -> None:
@@ -459,7 +458,10 @@ def _tag_expand(meta: "PlanMeta") -> None:
 
 
 def _convert_expand(cpu: C.CpuExpandExec, conf, children, device):
-    raise not_ported("TpuExpandExec", SORT_ITEM)
+    return XB.TpuExpandExec(
+        conf, cpu.projections, [f.name for f in cpu.output_schema.fields],
+        children[0],
+    )
 
 
 def _tag_aggregate(meta: "PlanMeta") -> None:
@@ -508,7 +510,16 @@ def _tag_sort(meta: "PlanMeta") -> None:
 
 
 def _convert_sort(cpu: C.CpuSortExec, conf, children, device):
-    raise not_ported("TpuSortExec", SORT_ITEM)
+    from ..exec.sort import TpuSortExec
+
+    child = children[0]
+    if child.num_partitions == 1:
+        return TpuSortExec(conf, cpu.sort_exprs, cpu.orders, child)
+    # the reference range-partitions (or runs its mesh sort), then sorts
+    # each partition locally
+    raise not_ported(
+        f"a sort over {child.num_partitions} partitions (the range "
+        "exchange or the mesh sort)", EXCHANGE_ITEM)
 
 
 def _tag_join(meta: "PlanMeta") -> None:
@@ -648,7 +659,16 @@ def _tag_window(meta: "PlanMeta") -> None:
 
 
 def _convert_window(cpu: C.CpuWindowExec, conf, children, device):
-    raise not_ported("TpuWindowExec", WINDOW_ITEM)
+    from ..exec.window import TpuWindowExec
+
+    child = children[0]
+    if child.num_partitions == 1:
+        return TpuWindowExec(conf, cpu.window_exprs, child)
+    # the reference hash-exchanges by the partition keys (its mesh window)
+    # or gathers every partition first
+    raise not_ported(
+        f"a window over {child.num_partitions} partitions (the mesh window "
+        "or the gather of its partitions)", EXCHANGE_ITEM)
 
 
 _exec_rule(C.CpuScanExec, "ScanExec", "in-memory data source", _tag_scan, _convert_scan)

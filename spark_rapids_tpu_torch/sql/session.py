@@ -14,11 +14,10 @@ Left out, as later ROADMAP.md items: plan analysis (so ``explain()``
 returns the tagging lines only), the event log, the observability plane,
 serving and the XLA cost and HLO planes, and ``DataFrameWriter`` and the
 CSV and ORC readers ('The remaining modules'); their conf keys are not
-registered. The Python-bytecode UDF compiler is not ported either: with
-``spark.rapids.tpu.sql.udfCompiler.enabled`` on, a plan holding a
-``PythonUDF`` raises ('The Python-bytecode UDF compiler'). With it off
-(the default) a ``PythonUDF`` falls back to the CPU engine, as in the
-reference.
+registered. With ``spark.rapids.tpu.sql.udfCompiler.enabled`` on, each
+``PythonUDF`` is compiled to engine expressions where its bytecode allows
+(``udf/compiler.py``); an uncompilable one, and every one with the conf
+off (the default), falls back to the CPU engine, as in the reference.
 """
 from __future__ import annotations
 
@@ -36,7 +35,6 @@ from ..plugin.overrides import TpuOverrides, not_ported as _not_ported
 from ..types import StructType
 
 REMAINING_ITEM = "The remaining modules"
-UDF_COMPILER_ITEM = "The Python-bytecode UDF compiler"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,11 +139,10 @@ def _extract_pushed_filters(cond: E.Expression) -> tuple:
 
 
 def _resolve_udfs(e: E.Expression, conf: RapidsConf) -> E.Expression:
-    """Resolution pass (reference ``session.py:135-155``): with
-    spark.rapids.tpu.sql.udfCompiler.enabled the reference compiles each
-    PythonUDF's bytecode into engine expressions; the compiler is not
-    ported yet, so a PythonUDF under that conf raises. With the conf off
-    the UDF stays a PythonUDF and runs row by row on the CPU engine."""
+    """Resolution pass (reference ``session.py:135-155``): PythonUDF ->
+    bytecode-compiled expression tree when
+    spark.rapids.tpu.sql.udfCompiler.enabled. Uncompilable UDFs stay
+    PythonUDF nodes and run row by row on the CPU engine."""
     from ..conf import UDF_COMPILER_ENABLED
 
     if not conf.get(UDF_COMPILER_ENABLED):
@@ -153,7 +150,11 @@ def _resolve_udfs(e: E.Expression, conf: RapidsConf) -> E.Expression:
 
     def rw(node):
         if isinstance(node, E.PythonUDF):
-            raise _not_ported("compiling a PythonUDF", UDF_COMPILER_ITEM)
+            from ..udf import try_compile
+
+            compiled = try_compile(node)
+            if compiled is not None:
+                return compiled
         return node
 
     return e.transform(rw)

@@ -151,6 +151,35 @@ def _q_cast_string_to_int(m, sess):
     return _df(m, sess).select(E.Alias(E.Cast(E.col("s"), T_.INT), "i"))
 
 
+def _order_by(m, sess):
+    return _df(m, sess).order_by("k")
+
+
+def _window(m, sess):
+    W, E = m["W"], m["E"]
+    spec = W.WindowSpec((E.col("k"),), (E.col("x"),), ((True, None),))
+    return _df(m, sess).with_windows(
+        W.WindowExpression(W.RowNumber(), spec, "rn"))
+
+
+def _partitioned_agg(m, sess):
+    E, A = m["E"], m["A"]
+    return _df(m, sess, parts=3).group_by("k").agg(
+        A.agg(A.Sum(E.col("x")), "s"))
+
+
+def _limit(m, sess):
+    return _df(m, sess).limit(5)
+
+
+def _union(m, sess):
+    return _df(m, sess).union(_df(m, sess))
+
+
+def _cross(m, sess):
+    return _df(m, sess).cross_join(_df(m, sess))
+
+
 QUERIES = {
     "filter_agg": (_q_filter_agg, {}),
     "filter_agg_pallas": (_q_filter_agg,
@@ -166,7 +195,15 @@ QUERIES = {
     "string_min_of_concat_falls_back": (_q_string_minmax_computed, {}),
     "cast_string_to_int_falls_back": (_q_cast_string_to_int, {}),
     "sql_disabled": (_q_filter_agg, {"spark.rapids.tpu.sql.enabled": False}),
+    "order_by": (_order_by, {}),
+    "window": (_window, {}),
+    "limit": (_limit, {}),
+    "union": (_union, {}),
+    "udf_compiler": (_q_udf, {"spark.rapids.tpu.sql.udfCompiler.enabled":
+                              True}),
 }
+#: cases whose row order is the query's result (compared unsorted too)
+ORDERED = ("order_by", "window", "limit", "union")
 
 #: float tolerance per case (exact elsewhere): the PALLAS tier's float
 #: sums (hi/lo planes in the reference), and Round, whose reference
@@ -216,6 +253,17 @@ def test_session_rows_match_reference(case):
     tol = _FLOAT_RTOL.get(case)
     for r, g in zip(ref_rows, got):
         assert all(_close(a, b, tol) for a, b in zip(r, g)), (r, g)
+
+
+@pytest.mark.parametrize("case", ORDERED)
+def test_ordered_queries_keep_the_reference_order(case):
+    """Sort, window, limit and union rows come out in the reference's
+    order (floats by ``repr``)."""
+    q, settings = QUERIES[case]
+    ref = q(REF, JSession(settings)).collect()
+    got = q(PORT, PSession(settings, device="cpu")).collect()
+    assert [tuple(map(repr, r)) for r in got] == [
+        tuple(map(repr, r)) for r in ref]
 
 
 def test_round_is_the_cpu_engines_value():
@@ -280,47 +328,23 @@ def test_device_plan_has_no_cpu_exec():
     assert isinstance(agg.children[0].children[0], InMemoryScanExec)
 
 
-def _order_by(m, sess):
-    return _df(m, sess).order_by("k")
+def _order_by_string(m, sess):
+    return _df(m, sess).order_by("s")
 
 
-def _window(m, sess):
-    W, E = m["W"], m["E"]
-    spec = W.WindowSpec((E.col("k"),), (E.col("x"),), ((True, None),))
-    return _df(m, sess).with_windows(
-        W.WindowExpression(W.RowNumber(), spec, "rn"))
-
-
-def _partitioned_agg(m, sess):
-    E, A = m["E"], m["A"]
-    return _df(m, sess, parts=3).group_by("k").agg(
-        A.agg(A.Sum(E.col("x")), "s"))
-
-
-def _limit(m, sess):
-    return _df(m, sess).limit(5)
-
-
-def _union(m, sess):
-    return _df(m, sess).union(_df(m, sess))
-
-
-def _cross(m, sess):
-    return _df(m, sess).cross_join(_df(m, sess))
+def _order_by_partitioned(m, sess):
+    return _df(m, sess, parts=3).order_by("k")
 
 
 NOT_PORTED = {
-    "order_by": (_order_by, {}, "Sort and the rest of exec/basic.py"),
-    "window": (_window, {}, "Window"),
+    "order_by_string_key": (_order_by_string, {}, "Strings in joins, "
+                            "grouping keys, min/max and concat"),
+    "order_by_partitioned": (_order_by_partitioned, {},
+                             "Partitioned join builds"),
     "partitioned_aggregate": (_partitioned_agg, {},
                               "Partitioned join builds"),
-    "udf_compiler": (_q_udf, {"spark.rapids.tpu.sql.udfCompiler.enabled":
-                              True}, "The Python-bytecode UDF compiler"),
-    "limit": (_limit, {}, "Sort and the rest of exec/basic.py"),
-    "union": (_union, {}, "Sort and the rest of exec/basic.py"),
     "cross_join": (_cross, {}, "Nested-loop and cartesian joins"),
 }
-
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_not_ported_raise_naming_their_item(case):
