@@ -135,10 +135,57 @@ Phases, each failing the run on any error or mismatch:
      small: range -> union -> local limit -> posexplode -> collect limit
         through the session, every operator on the device, the rows held
         to the same query on the port's CPU engine.
+6. string keys, 2^23 rows each, every query against a numpy oracle
+   (strings in numpy's bytewise ``S`` order), with its cold wall, three
+   warm walls, input bytes and bound, and the launches of each of the
+   four runs set to 0 before it and required to repeat the first's:
+     Q17 TPC-H Q1 (pricing summary report) through the session from
+        parquet: ``lineitem`` after the spec's rules, decimals as f64 and
+        dates as int32 days, written by pyarrow in 4 row groups with the
+        string columns PLAIN; where l_shipdate <= 1998-09-02 -> group by
+        l_returnflag, l_linestatus: the four sums, three averages,
+        count(*), min and max of l_shipmode -> order by both keys;
+        ``dictStrings`` off and variableFloatAgg on (the planner keeps a
+        float sum on the CPU without it), under SCATTER (Q17) and AUTO
+        (Q17v, PALLAS on the card). String keys take the sort path: the
+        ordered segment sum runs 7 times per scan batch and once more per
+        sum in the merge, and no hash-tier kernel; the plan must be sort
+        <- aggregate <- filter <- file scan, on the device. Then one more
+        Q17 run records the ordered sum's first call over a whole scan
+        batch (its four skewed segments), which is held to numpy's serial
+        ``bincount`` and its plain version and timed beside
+        ``index_add_``, its bytes bound and its chain bound;
+     Q18 a string-keyed equi-join with string payloads (TPC-DS q8/q24's
+        join on a 5-digit zip): 2^23 fact rows in 4 probe batches (5%
+        null zips, 2% absent from the dim) join 100 000 dim rows (unique
+        zips, a city from 600 names of 4-20 bytes, a 2-byte state), then
+        group by city: count, sum(net_paid), min(state), max(state);
+        under PALLAS (Q18: K4 once per probe batch on the zips' two chunk
+        words) and AUTO (Q18a); the ordered sum once per partial and in
+        the merge. One more Q18 run records the ordered sum's first call
+        over a probe batch's join output, held and timed as in Q17. Then
+        K4 on one probe batch's words against the dim's, held to its
+        plain version and to two ``searchsorted`` calls, and
+        Q18s: every join type (and an inner join with a residual) over
+        10-byte keys (4 words: SEARCH under PALLAS, no K4), 2^20 x 2^16
+        rows with duplicate and null keys, each under PALLAS and AUTO,
+        reduced on the card (string columns to their byte sums);
+     Q19 an item table (i_item_id "AAAAAAAA" + 8 letters A-P, TPC-DS's
+        ten categories, brand ids 1-1000, sales): (a) order by i_item_id
+        desc, local limit 100; (b) rank() over (partition by i_category
+        order by sales desc), filter rank <= 3; (c) group by i_brand_id:
+        min and max of i_item_id, count(*) under AUTO (PALLAS on the
+        card): the hash tiers reduce the ids' rank columns on K3,
+        exactly ``Q19C_LAUNCHES``. Then one more (c) run records K1's
+        call on the 1024-bucket direct tier, held to its plain version
+        and timed beside ``index_add_``, and K3 runs on the ids' rank
+        column over that tier, held to its plain version and timed beside
+        ``scatter_reduce_``.
 
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
-K1 and K3 at that shape, and K4 at Q8's, have their own entries in the
+K1 and K3 at that shape, K4 at Q8's and Q18's, the ordered sum at
+Q17's and Q18's and K1 and K3 at Q19(c)'s have their own entries in the
 ``kernels`` line.
 
 Output: one JSON line per kernel shape and per query, then one
@@ -151,6 +198,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -292,57 +340,10 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
         return (seg >= 0) & (seg < B)
 
     def k1(seg, B, int_cols, cnt_cols):
-        """K1 against its plain version, timed beside index_add_."""
-        live = in_range(seg, B)
-        got_i, got_c = K.bucket_sum(seg, B, int_cols, cnt_cols)
-        exp_i, exp_c = K.bucket_sum_plain(seg, B, int_cols, cnt_cols)
-        for g, e in zip(got_i + got_c, exp_i + exp_c):
-            if not torch.equal(g, e):
-                raise AssertionError(f"bucket_sum B={B}: kernel != plain")
-        L = len(int_cols) + len(cnt_cols)
-        passes = K.plan_bucket_sum(B, len(int_cols), len(cnt_cols))
-        n_in = int(live.sum())
-        n_data = sum(int((v & live).sum()) for _, v in int_cols)
-        nbytes = 4 * n + n_in * L + 8 * n_data + 8 * B * L
-        idx = torch.where(live, seg.long(), B)
-        stacked = torch.stack([torch.where(v, d, 0) for d, v in int_cols]
-                              + [v.long() for v in cnt_cols], 1)
-        return {
-            "max_abs_err": 0.0,
-            "passes": [[lo, hi, "shared" if sh else "device"]
-                       for lo, hi, sh in passes],
-            "ms": cuda_ms(torch, lambda: K.bucket_sum(seg, B, int_cols,
-                                                      cnt_cols), reps),
-            "plain_ms": cuda_ms(torch, lambda: K.bucket_sum_plain(
-                seg, B, int_cols, cnt_cols), reps),
-            "library_ms": cuda_ms(torch, lambda: torch.zeros(
-                (B + 1, L), dtype=torch.int64, device=dev).index_add_(
-                0, idx, stacked), reps),
-            "bound_ms": bound_ms(nbytes),
-        }
+        return sum_shape(torch, dev, seg, B, int_cols, cnt_cols, reps)
 
     def k3(seg, B, op, word):
-        """K3 against its plain version, timed beside scatter_reduce_."""
-        live = in_range(seg, B)
-        got = K.bucket_winner(seg, B, op, word)
-        exp = K.bucket_winner_plain(seg, B, op, word)
-        if not torch.equal(got, exp):
-            raise AssertionError(f"bucket_winner B={B}: kernel != plain")
-        nbytes = 4 * n + 8 * int(live.sum()) + 8 * B
-        idx = torch.where(live, seg.long(), B)
-        sw = word ^ SIGN64
-        init = (K.IDENT_MIN if op == "min" else K.IDENT_MAX) ^ SIGN64
-        return {
-            "max_abs_err": 0.0,
-            "ms": cuda_ms(torch, lambda: K.bucket_winner(seg, B, op, word),
-                          reps),
-            "plain_ms": cuda_ms(torch, lambda: K.bucket_winner_plain(
-                seg, B, op, word), reps),
-            "library_ms": cuda_ms(torch, lambda: torch.full(
-                (B + 1,), init, dtype=torch.int64, device=dev
-            ).scatter_reduce_(0, idx, sw, "a" + op), reps),
-            "bound_ms": bound_ms(nbytes),
-        }
+        return winner_shape(torch, dev, seg, B, op, word, reps)
 
     def k2(seg, B, fcols):
         """K2 against its plain version within 1e-9 of each bucket's sum
@@ -400,7 +401,6 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
     for B in (128, 1024, 8192):
         seg = seg_for(B)
         live = in_range(seg, B)
-        n_in = int(live.sum())
         # K1 at the bench query's column mix: sum(a2) + 4 counts
         a2 = upload(rng.integers(-2 * 10**6, 2 * 10**6, n).astype(np.int64))
         va = upload(np.ones(n, bool))
@@ -423,43 +423,13 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
         # bit for bit
         sseg, order = torch.sort(seg, stable=True)
         sv = torch.where(vb, b, 0.0)[order]
-        got = K.ordered_segment_sum(sv, sseg, B)
-        exp = K.ordered_segment_sum_plain(sv, sseg, B)
-        seg_h, sv_h = sseg.cpu().numpy(), sv.cpu().numpy()
-        keep = (seg_h >= 0) & (seg_h < B)
-        ref = np.bincount(seg_h[keep], weights=sv_h[keep], minlength=B)
-        got_h = got.cpu().numpy()
-        if not np.array_equal(got_h, ref, equal_nan=True):
-            raise AssertionError(f"ordered_segment_sum B={B}: not the serial "
-                                 "row-order sum")
-        absx = K.ordered_segment_sum_plain(sv.abs(), sseg, B)
-        diff = torch.where(torch.isnan(got) & torch.isnan(exp), 0.0,
-                           (got - exp).abs())
-        if bool((diff > 1e-9 * torch.nan_to_num(absx) + 1e-300).any()):
-            raise AssertionError(f"ordered_segment_sum B={B}: kernel != plain")
-        nbytes = 8 * n + 8 * n_in + 8 * B
-        longest = int(np.bincount(seg_h[keep], minlength=B).max())
-        sidx = torch.where(in_range(sseg, B), sseg.long(), B)
-        results[("ordered_segment_sum", B)] = {
-            "max_abs_err": float(diff.max()),
-            "ms": cuda_ms(torch, lambda: K.ordered_segment_sum(sv, sseg, B),
-                          reps),
-            "plain_ms": cuda_ms(torch, lambda: K.ordered_segment_sum_plain(
-                sv, sseg, B), reps),
-            "library_ms": cuda_ms(torch, lambda: torch.zeros(
-                B + 1, dtype=torch.float64, device=dev).index_add_(
-                0, sidx, sv), reps),
-            "bound_ms": bound_ms(nbytes),
-            # the serial chain: the longest segment's dependent adds
-            "bound_chain_ms": longest * dadd_ns * 1e-6,
-            "longest_segment": longest,
-            "dadd_ns": dadd_ns,
-        }
+        results[("ordered_segment_sum", B)] = ordered_sum_shape(
+            torch, np, dev, sv, sseg, B, reps, dadd_ns)
         for name in ("bucket_sum", "bucket_float_sum", "bucket_winner",
                      "ordered_segment_sum"):
             emit({"kernel_shape": name, "rows": n, "B": B,
                   **results[(name, B)]})
-        del seg, live, a2, va, vb, b, word, sseg, sv
+        del seg, live, a2, va, vb, b, word, sseg, sv, order
         torch.cuda.empty_cache()
 
     # K2 at its worst contention (every live row in one bucket of Q1's
@@ -496,6 +466,141 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
     return results
 
 
+def sum_shape(torch, dev, seg, B: int, int_cols, cnt_cols,
+              reps: int) -> dict:
+    """K1 on ``int_cols`` (int64 sums) and ``cnt_cols`` (counts) over
+    ``seg``'s buckets, held to its plain version exactly and timed beside
+    its bytes bound and one ``index_add_``."""
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+
+    n = seg.shape[0]
+    live = (seg >= 0) & (seg < B)
+    got_i, got_c = K.bucket_sum(seg, B, int_cols, cnt_cols)
+    exp_i, exp_c = K.bucket_sum_plain(seg, B, int_cols, cnt_cols)
+    for g, e in zip(got_i + got_c, exp_i + exp_c):
+        if not torch.equal(g, e):
+            raise AssertionError(f"bucket_sum B={B}: kernel != plain")
+    L = len(int_cols) + len(cnt_cols)
+    passes = K.plan_bucket_sum(B, len(int_cols), len(cnt_cols))
+    n_in = int(live.sum())
+    n_data = sum(int((v & live).sum()) for _, v in int_cols)
+    nbytes = 4 * n + n_in * L + 8 * n_data + 8 * B * L
+    idx = torch.where(live, seg.long(), B)
+    stacked = torch.stack([torch.where(v, d, 0) for d, v in int_cols]
+                          + [v.long() for v in cnt_cols], 1)
+    return {
+        "max_abs_err": 0.0,
+        "passes": [[lo, hi, "shared" if sh else "device"]
+                   for lo, hi, sh in passes],
+        "ms": cuda_ms(torch, lambda: K.bucket_sum(seg, B, int_cols,
+                                                  cnt_cols), reps),
+        "plain_ms": cuda_ms(torch, lambda: K.bucket_sum_plain(
+            seg, B, int_cols, cnt_cols), reps),
+        "library_ms": cuda_ms(torch, lambda: torch.zeros(
+            (B + 1, L), dtype=torch.int64, device=dev).index_add_(
+            0, idx, stacked), reps),
+        "bound_ms": bound_ms(nbytes),
+    }
+
+
+def ordered_sum_shape(torch, np, dev, sv, sseg, B: int, reps: int,
+                      dadd_ns: float) -> dict:
+    """The ordered segment sum of ``sv`` over ``sseg``'s segments (rows
+    sorted by segment): equal to numpy's serial ``bincount`` bit for bit
+    and to its plain version within 1e-9 of each segment's sum of |x|;
+    timed beside its bytes bound, its chain bound (the longest segment's
+    dependent adds at ``dadd_ns``) and one ``index_add_``."""
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+
+    n = sseg.shape[0]
+    got = K.ordered_segment_sum(sv, sseg, B)
+    exp = K.ordered_segment_sum_plain(sv, sseg, B)
+    seg_h, sv_h = sseg.cpu().numpy(), sv.cpu().numpy()
+    keep = (seg_h >= 0) & (seg_h < B)
+    ref = np.bincount(seg_h[keep], weights=sv_h[keep], minlength=B)
+    if not np.array_equal(got.cpu().numpy(), ref, equal_nan=True):
+        raise AssertionError(f"ordered_segment_sum B={B}: not the serial "
+                             "row-order sum")
+    absx = K.ordered_segment_sum_plain(sv.abs(), sseg, B)
+    diff = torch.where(torch.isnan(got) & torch.isnan(exp), 0.0,
+                       (got - exp).abs())
+    if bool((diff > 1e-9 * torch.nan_to_num(absx) + 1e-300).any()):
+        raise AssertionError(f"ordered_segment_sum B={B}: kernel != plain")
+    n_in = int(keep.sum())
+    nbytes = 8 * n + 8 * n_in + 8 * B
+    longest = int(np.bincount(seg_h[keep], minlength=B).max())
+    sidx = torch.where((sseg >= 0) & (sseg < B), sseg.long(), B)
+    return {
+        "max_abs_err": float(diff.max()),
+        "ms": cuda_ms(torch, lambda: K.ordered_segment_sum(sv, sseg, B),
+                      reps),
+        "dev_ms": dev_ms(torch, lambda: K.ordered_segment_sum(sv, sseg, B),
+                         reps),
+        "plain_ms": cuda_ms(torch, lambda: K.ordered_segment_sum_plain(
+            sv, sseg, B), reps),
+        "library_ms": cuda_ms(torch, lambda: torch.zeros(
+            B + 1, dtype=torch.float64, device=dev).index_add_(
+            0, sidx, sv), reps),
+        "bound_ms": bound_ms(nbytes),
+        # the serial chain: the longest segment's dependent adds
+        "bound_chain_ms": longest * dadd_ns * 1e-6,
+        "longest_segment": longest,
+        "segments": int((np.bincount(seg_h[keep], minlength=B) > 0).sum()),
+        "dadd_ns": dadd_ns,
+    }
+
+
+@contextlib.contextmanager
+def captured_calls(mod, name: str, keep, limit: int = 1):
+    """Record the arguments of the first ``limit`` calls to ``mod.name``
+    for which ``keep(*args)`` holds, in a list the block receives; each
+    call still runs (and counts its launch)."""
+    calls = []
+    fn = getattr(mod, name)
+
+    def recording(*args):
+        if len(calls) < limit and keep(*args):
+            calls.append(args)
+        return fn(*args)
+
+    setattr(mod, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, fn)
+
+
+def winner_shape(torch, dev, seg, B: int, op: str, word, reps: int) -> dict:
+    """K3 on ``word`` (one order word per row) over ``seg``'s buckets,
+    held to its plain version exactly and timed beside its bytes bound
+    (the segment ids, each live row's word, the table) and one
+    ``scatter_reduce_``."""
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+    from spark_rapids_tpu_torch.ops.sort import SIGN64
+
+    live = (seg >= 0) & (seg < B)
+    got = K.bucket_winner(seg, B, op, word)
+    exp = K.bucket_winner_plain(seg, B, op, word)
+    if not torch.equal(got, exp):
+        raise AssertionError(f"bucket_winner B={B}: kernel != plain")
+    nbytes = 4 * seg.shape[0] + 8 * int(live.sum()) + 8 * B
+    idx = torch.where(live, seg.long(), B)
+    sw = word ^ SIGN64
+    init = (K.IDENT_MIN if op == "min" else K.IDENT_MAX) ^ SIGN64
+    return {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: K.bucket_winner(seg, B, op, word), reps),
+        "dev_ms": dev_ms(torch, lambda: K.bucket_winner(seg, B, op, word),
+                         reps),
+        "plain_ms": cuda_ms(torch, lambda: K.bucket_winner_plain(
+            seg, B, op, word), reps),
+        "library_ms": cuda_ms(torch, lambda: torch.full(
+            (B + 1,), init, dtype=torch.int64, device=dev
+        ).scatter_reduce_(0, idx, sw, "a" + op), reps),
+        "bound_ms": bound_ms(nbytes),
+    }
+
+
 # ---------------------------------------------------------------------------
 # query phase
 # ---------------------------------------------------------------------------
@@ -515,14 +620,20 @@ def _batches(np, torch, schema, arrays, valids, nb, dev):
 
 def _padded_batch(np, torch, schema, arrays, valids, dev):
     """One batch of all the rows at their capacity bucket (the next power
-    of two), padding rows dead, as the engine's own batches are."""
+    of two), padding rows dead, as the engine's own batches are. A string
+    column's array is its (offsets (n+1,), chars) pair."""
     from spark_rapids_tpu_torch.columnar import (batch_from_host_arrays,
                                                  choose_capacity)
 
-    n = arrays[0].shape[0]
+    n = valids[0].shape[0]
     cap = choose_capacity(n)
 
     def pad(a):
+        if isinstance(a, tuple):
+            off, chars = a  # the pool padded to its bucket, as uploads are
+            pool = np.zeros(choose_capacity(max(1, chars.size)), np.uint8)
+            pool[:chars.size] = chars
+            return (np.concatenate([off, np.full(cap - n, off[-1])]), pool)
         return np.concatenate([a, np.zeros(cap - n, a.dtype)])
 
     return batch_from_host_arrays(schema, [pad(a) for a in arrays],
@@ -887,21 +998,30 @@ def _probe_shape(torch, np, dev, rng, m, nb, bcount, bcard, pcard, dead,
                  reps):
     """K4 on ``m`` probe rows (2-word int64 keys from [0, pcard), a
     ``dead`` share dead) against ``nb`` build rows whose first ``bcount``
-    are sorted keys from [0, bcard), duplicates included.
-
-    Held against the ``searchsorted``-derived ranges on every row (counts
-    equal, lo where count > 0, (0, 0) elsewhere) and against the plain
-    version on 2^16 probe rows x the whole build; timed beside its bytes
-    bound, the plain version (on the 2^16-row sample: in full it is an
-    O(m x nb) mask) and two ``torch.searchsorted`` calls."""
-    from spark_rapids_tpu_torch.ops import join_kernels as JK
-    from spark_rapids_tpu_torch.ops.sort import SIGN64
-
+    are sorted keys from [0, bcard), duplicates included; checked and
+    timed by :func:`probe_timed`."""
     bw = _sorted_build(torch, np, rng, dev, nb, bcount, bcard)
     fk = torch.from_numpy(rng.integers(0, pcard, m).astype(np.int64)).to(dev)
     live = torch.from_numpy(rng.random(m) >= dead).to(dev)
     pw = _key_words(torch, fk, live)
+    res = probe_timed(torch, bw, bcount, pw, live, reps)
+    emit({"kernel_shape": "probe_ranges", "probe_rows": m, "build_rows": nb,
+          "build_count": bcount, "words": len(pw), **res})
+    return res
 
+
+def probe_timed(torch, bw, bcount: int, pw, live, reps: int) -> dict:
+    """K4 on probe words ``pw`` (``live`` rows) against the sorted build
+    words ``bw`` (joinable prefix ``bcount``), held against the
+    ``searchsorted``-derived ranges on every row (counts equal, lo where
+    count > 0, (0, 0) elsewhere) and against the plain version on 2^16
+    probe rows x the whole build; timed beside its bytes bound, the plain
+    version (on the 2^16-row sample: in full it is an O(m x nb) mask) and
+    two ``torch.searchsorted`` calls."""
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+    from spark_rapids_tpu_torch.ops.sort import SIGN64
+
+    m, nb = pw[0].shape[0], bw[0].shape[0]
     got = JK.probe_ranges(bw, bcount, pw, live)
     bs = (JK.pack_key(bw)[:bcount] ^ SIGN64).contiguous()
     ps = (JK.pack_key(pw) ^ SIGN64).contiguous()
@@ -914,7 +1034,6 @@ def _probe_shape(torch, np, dev, rng, m, nb, bcount, bcard, pcard, dead,
     cnt = torch.where(live, right - left, 0).to(torch.int32)
     lo = torch.where(cnt > 0, left.to(torch.int32), 0)
     _check_probe(torch, got, (lo, lo + cnt), f"{m} x {nb} vs searchsorted")
-    matched_share = float((cnt > 0).float().mean())
 
     sample = min(m, 1 << 16)
     sw = [w[:sample] for w in pw]
@@ -929,10 +1048,12 @@ def _probe_shape(torch, np, dev, rng, m, nb, bcount, bcard, pcard, dead,
     nw = len(pw)
     nbytes = m * (4 * nw + 1 + 8) + 8 * nb
     nbytes_abi = m * (8 * nw + 1 + 8) + 8 * nb
-    res = {
+    return {
         "max_abs_err": 0.0,
         "ms": cuda_ms(torch, lambda: JK.probe_ranges(bw, bcount, pw, live),
                       reps),
+        "dev_ms": dev_ms(torch, lambda: JK.probe_ranges(bw, bcount, pw,
+                                                        live), reps),
         "plain_ms": cuda_ms(torch, lambda: JK.probe_ranges_plain(
             bw, bcount, sw, live[:sample]), max(1, reps // 10)),
         "plain_rows": sample,
@@ -940,11 +1061,8 @@ def _probe_shape(torch, np, dev, rng, m, nb, bcount, bcard, pcard, dead,
         "bound_ms": bound_ms(nbytes),
         "bound_abi_ms": bound_ms(nbytes_abi),
         "log2_buckets": JK.plan_probe(nb),
+        "matched_share": float((cnt > 0).float().mean()),
     }
-    emit({"kernel_shape": "probe_ranges", "probe_rows": m, "build_rows": nb,
-          "build_count": bcount, "words": nw, "matched_share": matched_share,
-          **res})
-    return res
 
 
 def join_kernel_phase(torch, np, dev, m: int, dim_rows: int, reps: int):
@@ -1014,7 +1132,8 @@ def join_kernel_phase(torch, np, dev, m: int, dim_rows: int, reps: int):
 # ---------------------------------------------------------------------------
 def _reduce_join(torch, plan_root):
     """A join's output reduced on the card: rows, and per column the
-    valid count and the sum of valid values (exact int64)."""
+    valid count and the sum of valid values (exact int64; a string
+    column's: the sum of its rows' bytes)."""
     ncols = len(plan_root.output_schema.fields)
     rows = 0
     acc = None
@@ -1023,16 +1142,22 @@ def _reduce_join(torch, plan_root):
         part = torch.stack(
             [t for c in b.columns for t in (
                 c.validity.sum(dtype=torch.int64),
+                _string_sum(torch, c, b.num_rows) if c.is_string else
                 torch.where(c.validity, c.data.to(torch.int64), 0).sum())])
         acc = part if acc is None else acc + part
     vals = [0] * (2 * ncols) if acc is None else acc.tolist()
     return (rows,) + tuple(vals)
 
 
-def _join_oracle(np, fk, fv, fnull, dk, dv, dnull, how, thresh=None):
+def _join_oracle(np, fk, fv, fnull, dk, dv, dnull, how, thresh=None,
+                 fks=None, dks=None):
     """The expected ``_reduce_join`` of fact JOIN dim ON fk = dk (numpy):
-    (rows, then per output column (valid count, sum))."""
+    (rows, then per output column (valid count, sum)). ``fks``/``dks``:
+    what a key column's rows sum to, when not the keys themselves (the
+    byte sums of string keys)."""
     nkeys = int(max(fk.max(), dk.max())) + 1
+    fks = fk if fks is None else fks
+    dks = dk if dks is None else dks
     fok, dok = ~fnull, ~dnull
     dcnt = np.bincount(dk[dok], minlength=nkeys)
     dsum = np.bincount(dk[dok], weights=dv[dok], minlength=nkeys)
@@ -1051,12 +1176,13 @@ def _join_oracle(np, fk, fv, fnull, dk, dv, dnull, how, thresh=None):
         c = np.where(fok, dcnt[fkz], 0)
         s = np.where(fok, dsum[fkz], 0)
     pairs = int(c.sum())
-    pair_cols = (pairs, int((fkz * c).sum()), pairs, int((fv * c).sum()),
-                 pairs, int((fkz * c).sum()), pairs, int(s.sum()))
+    fksz = np.where(fok, fks, 0)
+    pair_cols = (pairs, int((fksz * c).sum()), pairs, int((fv * c).sum()),
+                 pairs, int((fksz * c).sum()), pairs, int(s.sum()))
     if how == "semi" or how == "anti":
         keep = (c > 0) if how == "semi" else (c == 0)
         return (int(keep.sum()), int((fok & keep).sum()),
-                int(fk[fok & keep].sum()), int(keep.sum()),
+                int(fks[fok & keep].sum()), int(keep.sum()),
                 int(fv[keep].sum()))
     out = list(pair_cols)
     rows = pairs
@@ -1064,7 +1190,7 @@ def _join_oracle(np, fk, fv, fnull, dk, dv, dnull, how, thresh=None):
         un = c == 0  # fact rows without a match (null keys included)
         rows += int(un.sum())
         out[0] += int((un & fok).sum())
-        out[1] += int(fk[un & fok].sum())
+        out[1] += int(fks[un & fok].sum())
         out[2] += int(un.sum())
         out[3] += int(fv[un].sum())
     if how in ("right", "full"):
@@ -1072,7 +1198,7 @@ def _join_oracle(np, fk, fv, fnull, dk, dv, dnull, how, thresh=None):
         un = ~dok | (fcnt[dkz] == 0)
         rows += int(un.sum())
         out[4] += int((un & dok).sum())
-        out[5] += int(dk[un & dok].sum())
+        out[5] += int(dks[un & dok].sum())
         out[6] += int(un.sum())
         out[7] += int(dv[un].sum())
     return (rows,) + tuple(out)
@@ -2048,6 +2174,771 @@ def small_session_phase(torch, dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# string keys (Q17-Q19)
+# ---------------------------------------------------------------------------
+#: rows of Q17 (TPC-H lineitem at SF 1.4), Q18's fact (the bench join's)
+#: and Q19 (a TPC-DS item-like table), as a power of two
+STRING_LOG2_ROWS = 23
+#: Q17's parquet file holds this many row groups (2^21 rows each at
+#: full size): the scan hands the aggregate one batch per group
+Q17_ROW_GROUPS = 4
+#: Q18's fact rows arrive in this many probe batches
+Q18_BATCHES = 4
+#: TPC-H's flag and status values (spec 4.2.3), each sorted bytewise
+RETURN_FLAGS = (b"A", b"N", b"R")
+LINE_STATUS = (b"F", b"O")
+#: TPC-H's seven l_shipmode values (spec 4.2.2.13)
+SHIP_MODES = (b"REG AIR", b"AIR", b"RAIL", b"SHIP", b"TRUCK", b"MAIL",
+              b"FOB")
+#: TPC-DS's ten i_category values
+CATEGORIES = (b"Books", b"Children", b"Electronics", b"Home", b"Jewelry",
+              b"Men", b"Music", b"Shoes", b"Sports", b"Women")
+#: two-letter state codes (the 50 states and DC)
+STATES = tuple(s.encode() for s in (
+    "AK AL AR AZ CA CO CT DC DE FL GA HI IA ID IL IN KS KY LA MA MD ME MI "
+    "MN MO MS MT NC ND NE NH NJ NM NV NY OH OK OR PA RI SC SD TN TX UT VA "
+    "VT WA WI WV WY").split())
+#: Q17's where clause: l_shipdate <= date '1998-12-01' - interval 90 days
+Q17_CUTOFF = "1998-09-02"
+Q17_DICT_OFF = "spark.rapids.tpu.sql.format.parquet.dictStrings.enabled"
+
+
+def _days(np, iso: str) -> int:
+    return int(np.datetime64(iso, "D").astype(np.int64))
+
+
+def pool_planes(np, codes, pool, valid=None):
+    """Arrow planes (offsets (n+1,) int64, chars) of rows that hold entry
+    ``codes[i]`` of ``pool`` (bytes); null rows hold no bytes."""
+    plens = np.array([len(b) for b in pool], np.int64)
+    pstart = np.concatenate([[0], np.cumsum(plens)[:-1]])
+    flat = np.frombuffer(b"".join(pool), np.uint8)
+    lens = plens[codes] if valid is None else np.where(valid, plens[codes],
+                                                       0)
+    offsets = np.zeros(codes.size + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    src = (np.repeat(pstart[codes] - offsets[:-1], lens)
+           + np.arange(offsets[-1]))
+    return offsets, flat[src]
+
+
+def _slice_planes(np, planes, a: int, b: int):
+    """Rows [a, b) of a column: a numpy array, or an (offsets, chars)
+    pair rebased to 0."""
+    if isinstance(planes, tuple):
+        off, chars = planes
+        return off[a:b + 1] - off[a], chars[off[a]:off[b]]
+    return planes[a:b]
+
+
+def lineitem_table(np, n: int) -> dict:
+    """TPC-H lineitem's Q1 columns, seeded (``rng(17)``), after the
+    spec's rules (4.2.3): l_shipdate uniform over 1992-01-02..1998-12-01,
+    l_receiptdate 1-30 days later; l_linestatus 'O' when shipped after
+    the current date 1995-06-17, else 'F'; l_returnflag 'R' or 'A' when
+    received by then, else 'N'; l_quantity 1-50; l_extendedprice the
+    quantity times the part's retail price; l_discount 0.00-0.10;
+    l_tax 0.00-0.08. Decimals are f64 and dates int32 days (the port has
+    no decimal or date columns yet). Codes index RETURN_FLAGS,
+    LINE_STATUS and SHIP_MODES."""
+    rng = np.random.default_rng(17)
+    ship = rng.integers(_days(np, "1992-01-02"), _days(np, "1998-12-01") + 1,
+                        n).astype(np.int32)
+    receipt = ship + rng.integers(1, 31, n)
+    current = _days(np, "1995-06-17")
+    status = (ship > current).astype(np.int64)
+    flag = np.where(receipt <= current, 2 * rng.integers(0, 2, n), 1)
+    mode = rng.integers(0, len(SHIP_MODES), n)
+    qty = rng.integers(1, 51, n).astype(np.float64)
+    part = rng.integers(1, 280_001, n)
+    retail = (90_000 + (part // 10) % 20_001 + 100 * (part % 1000)) / 100
+    price = np.round(qty * retail, 2)
+    disc = rng.integers(0, 11, n) / 100
+    tax = rng.integers(0, 9, n) / 100
+    return {"flag": flag, "status": status, "mode": mode, "qty": qty,
+            "price": price, "disc": disc, "tax": tax, "ship": ship}
+
+
+def _pa_strings(pa, np, planes):
+    off, chars = planes
+    return pa.Array.from_buffers(
+        pa.string(), off.size - 1,
+        [None, pa.py_buffer(off.astype(np.int32)), pa.py_buffer(chars)])
+
+
+def q17_oracle(np, t: dict):
+    """Q1's rows (numpy): per (flag, status) of the rows shipped by the
+    cutoff, in that order: sums of qty, price, price*(1-disc) and
+    price*(1-disc)*(1+tax), their magnitudes (for the tolerance), avg
+    qty/price/disc, count, min and max l_shipmode."""
+    keep = t["ship"] <= _days(np, Q17_CUTOFF)
+    g = (t["flag"] * 2 + t["status"])[keep]
+    dp = t["price"] * (1 - t["disc"])
+    ch = dp * (1 + t["tax"])
+    mode_rank = np.argsort(np.argsort(np.array(SHIP_MODES, "S7")))
+    mr = mode_rank[t["mode"][keep]]
+    by_rank = sorted(SHIP_MODES)
+    rows = []
+    for gid in np.unique(g):
+        sel = g == gid
+        cnt = int(sel.sum())
+        sums = [float(np.sum(x[keep][sel])) for x in
+                (t["qty"], t["price"], dp, ch)]
+        mags = [float(np.sum(np.abs(x[keep][sel]))) for x in
+                (t["qty"], t["price"], dp, ch)]
+        avgs = [sums[0] / cnt, sums[1] / cnt,
+                float(np.sum(t["disc"][keep][sel])) / cnt]
+        rows.append((RETURN_FLAGS[gid // 2].decode(),
+                     LINE_STATUS[gid % 2].decode(), sums, mags, avgs, cnt,
+                     by_rank[int(mr[sel].min())].decode(),
+                     by_rank[int(mr[sel].max())].decode()))
+    return rows, int(keep.sum())
+
+
+def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
+                profile: bool):
+    """Q17, TPC-H Q1 (the pricing summary report) through a port
+    ``TpuSession`` from parquet: see the module docstring. Both runs set
+    variableFloatAgg (without it the planner keeps a float sum on the
+    CPU, as the reference's type matrix does). Returns each run's
+    launches (``Q17`` forces the SCATTER tier, ``Q17v`` takes AUTO, which
+    resolves PALLAS on the card; string keys take the sort path under
+    both, with order-preserving f64 sums) and the ordered sum's numbers
+    on the inputs one partial over a scan batch hands it in ``Q17``."""
+    import shutil
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.exec import (RowToColumnarExec,
+                                             TpuFilterExec,
+                                             TpuHashAggregateExec)
+    from spark_rapids_tpu_torch.exec.scan import TpuFileSourceScanExec
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+    from spark_rapids_tpu_torch.sql import session as S
+
+    n = 1 << log2_rows
+    t = lineitem_table(np, n)
+    osum = None
+    want, kept = q17_oracle(np, t)
+    here = os.path.dirname(os.path.abspath(__file__))
+    pdir = os.path.join(here, PARQUET_DIR, "lineitem")
+    shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
+    os.makedirs(pdir)
+    per_query = {}
+    strs = {"l_returnflag": pool_planes(np, t["flag"], RETURN_FLAGS),
+            "l_linestatus": pool_planes(np, t["status"], LINE_STATUS),
+            "l_shipmode": pool_planes(np, t["mode"], SHIP_MODES)}
+    nums = {"l_quantity": t["qty"], "l_extendedprice": t["price"],
+            "l_discount": t["disc"], "l_tax": t["tax"],
+            "l_shipdate": t["ship"]}
+    try:
+        pq.write_table(
+            pa.table({**{k: _pa_strings(pa, np, v) for k, v in strs.items()},
+                      **nums}),
+            os.path.join(pdir, "t.parquet"),
+            row_group_size=n // Q17_ROW_GROUPS,
+            use_dictionary=list(nums))  # strings PLAIN-encoded
+
+        def q17(sess):
+            price = col("l_extendedprice")
+            disc_price = E.Multiply(price, E.Subtract(lit(1.0),
+                                                      col("l_discount")))
+            charge = E.Multiply(disc_price, E.Add(lit(1.0), col("l_tax")))
+            return (sess.read.parquet(pdir)
+                    .where(E.LessThanOrEqual(col("l_shipdate"),
+                                             lit(_days(np, Q17_CUTOFF))))
+                    .group_by("l_returnflag", "l_linestatus")
+                    .agg(A.agg(A.Sum(col("l_quantity")), "sum_qty"),
+                         A.agg(A.Sum(price), "sum_base_price"),
+                         A.agg(A.Sum(disc_price), "sum_disc_price"),
+                         A.agg(A.Sum(charge), "sum_charge"),
+                         A.agg(A.Average(col("l_quantity")), "avg_qty"),
+                         A.agg(A.Average(price), "avg_price"),
+                         A.agg(A.Average(col("l_discount")), "avg_disc"),
+                         A.agg(A.Count(None), "count_order"),
+                         A.agg(A.Min(col("l_shipmode")), "min_mode"),
+                         A.agg(A.Max(col("l_shipmode")), "max_mode"))
+                    .order_by("l_returnflag", "l_linestatus"))
+
+        def check(rows, what):
+            if len(rows) != len(want):
+                raise AssertionError(f"{what}: {len(rows)} groups, "
+                                     f"expected {len(want)}")
+            for r, (f, st, sums, mags, avgs, cnt, mn, mx) in zip(rows, want):
+                if (r[0], r[1], r[9], r[10], r[11]) != (f, st, cnt, mn, mx):
+                    raise AssertionError(f"{what}: row {r[:2]} {r[9:]} != "
+                                         f"{(f, st, cnt, mn, mx)}")
+                for got, exp, mag in zip(r[2:6], sums, mags):
+                    if not _close(got, exp, mag, 1e-12):
+                        raise AssertionError(f"{what} {f}{st}: sum {got} "
+                                             f"!= {exp}")
+                for got, exp, mag in zip(r[6:9], avgs,
+                                         [mags[0], mags[1], mags[1]]):
+                    if not _close(got, exp, mag / cnt, 1e-12):
+                        raise AssertionError(f"{what} {f}{st}: avg {got} "
+                                             f"!= {exp}")
+
+        vfa = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+        for q, strategy in (("Q17", "SCATTER"), ("Q17v", "AUTO")):
+            sess = S.TpuSession({Q17_DICT_OFF: False, **vfa,
+                                 "spark.rapids.tpu.sql.agg.strategy":
+                                 strategy}, device=dev)
+            DeviceScanCache.reset()
+            S._SCANNER_CACHE.clear()
+            plans = []
+
+            def run_once():
+                rows = q17(sess).collect()
+                plans.append(sess.last_executed_plan)
+                return rows
+
+            cold, warm, counts = _walls(torch, q, run_once,
+                                        lambda rows: check(rows, q))
+            top = plans[0].tpu_child  # the cold run's plan and metrics
+            chain = [top]
+            while chain[-1].children:
+                chain.append(chain[-1].children[0])
+            kinds = (TpuSortExec, TpuHashAggregateExec, TpuFilterExec,
+                     TpuFileSourceScanExec)
+            if len(chain) != len(kinds) or not all(
+                    isinstance(e, k) for e, k in zip(chain, kinds)) or any(
+                    isinstance(e, RowToColumnarExec) for e in chain):
+                raise AssertionError(f"{q} plan: {top.tree_string()}")
+            agg, scan = chain[1], chain[3]
+            batches = scan.metrics["numOutputBatches"].value
+            # seven exact f64 sums (four sums, three averages) per partial
+            # and once more in the merge, on the sort path of string keys
+            want_sums = 7 * (batches + 1)
+            if batches < 2 or counts["ordered_segment_sum"] != want_sums:
+                raise AssertionError(
+                    f"{q}: {batches} scan batches and "
+                    f"{counts['ordered_segment_sum']} ordered sums "
+                    f"(expected at least 2 and {want_sums})")
+            if any(counts[k] for k in ("bucket_sum", "bucket_float_sum",
+                                       "bucket_winner", "probe_ranges")):
+                raise AssertionError(f"{q}: a hash-tier or join kernel "
+                                     f"launched on the sort path: {counts}")
+            per_query[q] = counts
+            m = {k: v.value for k, v in scan.metrics.items()}
+            in_bytes = n * (4 * 8 + 4) + sum(int(p[0][-1]) + 4 * n
+                                             for p in strs.values())
+            emit({"query": q, "rows": n, "kept_rows": kept,
+                  "row_groups": Q17_ROW_GROUPS,
+                  "scan_batches": batches, "groups": len(want),
+                  "cold_wall_ms": cold, "warm_wall_ms": warm,
+                  "host_fallback_chunks": m["hostFallbackChunks"],
+                  "upload_bytes": m["uploadBytes"],
+                  "bytes": in_bytes, "bound_ms": bound_ms(in_bytes),
+                  "agg": agg.describe(), "launches": counts})
+            if profile:
+                profile_plan(torch, q, lambda: sess._execute(
+                    q17(sess).node).tpu_child, sess.conf, n, in_bytes,
+                    SORT_KERNELS)
+            if q == "Q17":
+                # the ordered sum at Q17's shape: one more run, recording
+                # the first call over a whole scan batch (a partial's
+                # sum(l_quantity): the batch's four skewed segments)
+                with captured_calls(K, "ordered_segment_sum",
+                                    lambda v, sg, nseg: sg.shape[0] >= n
+                                    // Q17_ROW_GROUPS) as calls:
+                    check(q17(sess).collect(), q)
+                if not calls:
+                    raise AssertionError("Q17: no ordered sum over a scan "
+                                         "batch")
+                sv, sseg, nseg = calls[0]
+                osum = ordered_sum_shape(torch, np, dev, sv, sseg, nseg,
+                                         reps, dadd_ns)
+                emit({"kernel_shape": "ordered_segment_sum", "path": "Q17",
+                      "rows": sseg.shape[0], "B": nseg, **osum})
+                del calls, sv, sseg
+    finally:
+        shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
+    return per_query, osum
+
+
+def city_pool(np) -> list:
+    """600 city names of 4-20 bytes (seeded), sorted bytewise."""
+    rng = np.random.default_rng(600)
+    names = set()
+    while len(names) < 600:
+        w = rng.integers(ord("a"), ord("z") + 1,
+                         int(rng.integers(4, 21))).astype(np.uint8)
+        w[0] -= 32
+        names.add(w.tobytes())
+    return sorted(names)
+
+
+def zip_tables(np, n: int, dim_rows: int) -> dict:
+    """Q18's data (``rng(18)``): a dim of ``dim_rows`` unique 5-digit zip
+    codes (in shuffled order) with a city from :func:`city_pool` and a
+    state; a fact of ``n`` rows whose zip is a dim zip (93%), a 5-byte
+    code absent from the dim (2%) or null (5%), and a net_paid."""
+    rng = np.random.default_rng(18)
+    dzip = rng.permutation(dim_rows)
+    dcity = rng.integers(0, 600, dim_rows)
+    dstate = rng.integers(0, len(STATES), dim_rows)
+    fzip = rng.integers(0, dim_rows, n)
+    absent = rng.random(n) < 0.02
+    fzip[absent] = dim_rows + rng.integers(0, 10_000, int(absent.sum()))
+    fnull = rng.random(n) < 0.05
+    paid = np.round(rng.uniform(0.0, 300.0, n), 2)
+    return {"dzip": dzip, "dcity": dcity, "dstate": dstate, "fzip": fzip,
+            "fnull": fnull, "paid": paid}
+
+
+def zip_pool(dim_rows: int) -> list:
+    """The dim's zip codes ("00000".."99999" for 100 000 rows), then
+    10 000 codes ("X0000".."X9999") no dim row holds."""
+    return ([b"%05d" % i for i in range(dim_rows)]
+            + [b"X%04d" % i for i in range(10_000)])
+
+
+def q18_oracle(np, z: dict, cities: list, dim_rows: int) -> list:
+    """(city, count, sum(net_paid), its magnitude, min(state),
+    max(state)) per city of the inner join, sorted by city."""
+    pos = np.empty(dim_rows, np.int64)
+    pos[z["dzip"]] = np.arange(dim_rows)
+    hit = ~z["fnull"] & (z["fzip"] < dim_rows)
+    drow = pos[z["fzip"][hit]]
+    city, state = z["dcity"][drow], z["dstate"][drow]
+    cnt = np.bincount(city, minlength=600)
+    tot = np.bincount(city, weights=z["paid"][hit], minlength=600)
+    mn = np.full(600, len(STATES))
+    mx = np.full(600, -1)
+    np.minimum.at(mn, city, state)
+    np.maximum.at(mx, city, state)
+    return [(cities[c].decode(), int(cnt[c]), float(tot[c]), float(tot[c]),
+             STATES[mn[c]].decode(), STATES[mx[c]].decode())
+            for c in range(600) if cnt[c]]
+
+
+def _string_sum(torch, c, n: int):
+    """The sum of the bytes of a string column's first ``n`` rows."""
+    pos = torch.arange(c.chars.shape[0], device=c.chars.device)
+    return torch.where(pos < c.offsets[n], c.chars.to(torch.int64), 0).sum()
+
+
+def key_byte_sums(np, keys):
+    """The byte sum of each key's string ``b"K%09d" % key``."""
+    digits = sum((keys // 10**i) % 10 for i in range(9))
+    return ord("K") + 9 * ord("0") + digits
+
+
+def _key_strings(np, keys, valid):
+    """(offsets, chars) of ``b"K%09d" % key`` per row; null rows empty."""
+    n = keys.size
+    d = (keys[:, None] // 10 ** np.arange(8, -1, -1)) % 10 + ord("0")
+    rows = np.concatenate([np.full((n, 1), ord("K")), d], 1).astype(np.uint8)
+    lens = np.where(valid, 10, 0)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return offsets, rows[valid].ravel()
+
+
+def q18_string_join(torch, np, dev, log2_fact: int, dim_rows: int,
+                    reps: int, dadd_ns: float, profile: bool):
+    """Q18, a string-keyed equi-join with string payloads (TPC-DS q8/q24's
+    join on a 5-digit zip), and Q18s, every join type over 10-byte keys;
+    see the module docstring. Returns (per-path launches, K4's numbers
+    on a Q18 probe batch, the ordered sum's on one partial of Q18)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import schema_of
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuHashAggregateExec,
+                                             TpuShuffledHashJoinExec)
+    from spark_rapids_tpu_torch.exec.base import vals_of_batch
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+    from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.ops.filter_gather import live_of
+    from spark_rapids_tpu_torch.ops.sort import (SortOrder, sort_permutation,
+                                                 str_max_lens)
+
+    per_query = {}
+    n = 1 << log2_fact
+    z = zip_tables(np, n, dim_rows)
+    cities = city_pool(np)
+    zips = zip_pool(dim_rows)
+    want = q18_oracle(np, z, cities, dim_rows)
+    fs = schema_of(zip=T.STRING, net_paid=T.DOUBLE)
+    ds = schema_of(dzip=T.STRING, city=T.STRING, state=T.STRING)
+    fzip = pool_planes(np, z["fzip"], zips, ~z["fnull"])
+    per = n // Q18_BATCHES
+    fact = [_padded_batch(np, torch, fs, [
+        _slice_planes(np, fzip, i * per, (i + 1) * per),
+        z["paid"][i * per:(i + 1) * per]],
+        [~z["fnull"][i * per:(i + 1) * per], np.ones(per, bool)], dev)
+        for i in range(Q18_BATCHES)]
+    dcols = [pool_planes(np, z["dzip"], zips),
+             pool_planes(np, z["dcity"], cities),
+             pool_planes(np, z["dstate"], STATES)]
+    dim = [_padded_batch(np, torch, ds, dcols,
+                         [np.ones(dim_rows, bool)] * 3, dev)]
+    in_bytes = (int(fzip[0][-1]) + n * (4 + 8 + 2)
+                + sum(int(p[0][-1]) + 4 * dim_rows + dim_rows
+                      for p in dcols))
+
+    def plan(conf):
+        join = TpuShuffledHashJoinExec(
+            conf, InMemoryScanExec(conf, [fact], fs),
+            InMemoryScanExec(conf, [dim], ds), [col("zip")], [col("dzip")],
+            "inner")
+        return join, TpuHashAggregateExec(
+            conf, [col("city")],
+            [A.agg(A.Count(None), "n"), A.agg(A.Sum(col("net_paid")), "s"),
+             A.agg(A.Min(col("state")), "mn"),
+             A.agg(A.Max(col("state")), "mx")], join)
+
+    def check(rows, what):
+        rows = sorted(rows)
+        if len(rows) != len(want):
+            raise AssertionError(f"{what}: {len(rows)} cities, expected "
+                                 f"{len(want)}")
+        for r, (c, k, s_, mag, mn, mx) in zip(rows, want):
+            if (r[0], r[1], r[3], r[4]) != (c, k, mn, mx) or not _close(
+                    r[2], s_, mag, 1e-12):
+                raise AssertionError(f"{what}: {r} != {(c, k, s_, mn, mx)}")
+
+    for q, strategy in (("Q18", "PALLAS"), ("Q18a", "AUTO")):
+        conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy": strategy})
+        joins = []
+
+        def run_once():
+            join, agg = plan(conf)
+            joins.append((join, agg))
+            return _run(torch, agg, conf)[0]
+
+        cold, warm, counts = _walls(torch, q, run_once,
+                                    lambda rows: check(rows, q))
+        k4 = counts["probe_ranges"]
+        want_k4 = Q18_BATCHES if strategy == "PALLAS" else 0
+        # one exact f64 sum per partial and one in the merge
+        if k4 != want_k4 or counts["ordered_segment_sum"] != Q18_BATCHES + 1:
+            raise AssertionError(f"{q}: launches {counts} (expected K4 "
+                                 f"{want_k4}, ordered sums "
+                                 f"{Q18_BATCHES + 1})")
+        per_query[q] = counts
+        emit({"query": q, "fact_rows": n, "dim_rows": dim_rows,
+              "probe_batches": Q18_BATCHES, "groups": len(want),
+              "cold_wall_ms": cold, "warm_wall_ms": warm,
+              "join": joins[0][0].describe(), "agg": joins[0][1].describe(),
+              "bytes": in_bytes, "bound_ms": bound_ms(in_bytes),
+              "launches": counts})
+        if profile:
+            profile_plan(torch, q, lambda c=conf: plan(c)[1], conf, n,
+                         in_bytes, SORT_KERNELS)
+        if q == "Q18":
+            # the ordered sum at Q18's shape: one more run, recording the
+            # first call over a whole probe batch's join output (a
+            # partial's sum(net_paid) over about 600 city segments)
+            with captured_calls(K, "ordered_segment_sum",
+                                lambda v, sg, nseg: sg.shape[0] >= per // 2
+                                ) as calls:
+                check(run_once(), q)
+            if not calls:
+                raise AssertionError("Q18: no ordered sum over a probe "
+                                     "batch")
+            osum = ordered_sum_shape(torch, np, dev, *calls[0][:2],
+                                     calls[0][2], reps, dadd_ns)
+            emit({"kernel_shape": "ordered_segment_sum", "path": "Q18",
+                  "rows": calls[0][1].shape[0], "B": calls[0][2], **osum})
+            del calls
+
+    # K4 on string chunk words at Q18's shape: one probe batch's zips
+    # against the dim's sorted zips (2 words each: 5 bytes, an 8-byte
+    # bound), as the join hands them over
+    dvals = vals_of_batch(dim[0])
+    bcap = dim[0].capacity
+    blive = live_of(dim_rows, bcap, dev)
+    bml = str_max_lens([dvals[0]])
+    bw, _ = J.radix_key_words([dvals[0]], [T.STRING], bml)
+    perm = sort_permutation([dvals[0]], [T.STRING], [SortOrder(True, True)],
+                            blive, bml)
+    bw = [w[perm] for w in bw]
+    pvals = vals_of_batch(fact[0])
+    pw, pnull = J.radix_key_words([pvals[0]], [T.STRING],
+                                  str_max_lens([pvals[0]]))
+    plive = live_of(per, fact[0].capacity, dev) & ~pnull
+    if len(bw) != 2 or len(pw) != 2:
+        raise AssertionError(f"Q18 keys: {len(bw)} and {len(pw)} words")
+    k4 = probe_timed(torch, bw, dim_rows, pw, plive, reps)
+    emit({"kernel_shape": "probe_ranges", "path": "Q18", "probe_rows": per,
+          "build_rows": bcap, "build_count": dim_rows, "words": 2, **k4})
+    del fact, dim, dvals, pvals, bw, pw
+
+    # --- Q18s: every join type over 10-byte keys (4 words: SEARCH) --------
+    n8, d8 = 1 << (log2_fact - 3), 1 << (log2_fact - 7)
+    r8 = np.random.default_rng(81)
+    fk = r8.integers(0, 150_000, n8).astype(np.int64)
+    fn = r8.random(n8) < 0.02
+    fv = r8.integers(0, 100, n8).astype(np.int64)
+    dk = r8.integers(0, 100_000, d8).astype(np.int64)
+    dn = r8.random(d8) < 0.05
+    dv = r8.integers(0, 10**6, d8).astype(np.int64)
+    fs8 = schema_of(fk=T.STRING, fv=T.LONG)
+    ds8 = schema_of(dk=T.STRING, dv=T.LONG)
+    fact8 = [_padded_batch(np, torch, fs8, [_key_strings(np, fk, ~fn), fv],
+                           [~fn, np.ones(n8, bool)], dev)]
+    dim8 = [_padded_batch(np, torch, ds8, [_key_strings(np, dk, ~dn), dv],
+                          [~dn, np.ones(d8, bool)], dev)]
+    runs = {}
+    counts8 = None
+    for how in ("inner_cond", "left", "right", "full", "semi", "anti"):
+        for strategy in ("PALLAS", "AUTO"):
+            conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy":
+                               strategy})
+            cond = (E.GreaterThan(col("dv"), E.Multiply(col("fv"),
+                                                        lit(10_000)))
+                    if how == "inner_cond" else None)
+            join = TpuShuffledHashJoinExec(
+                conf, InMemoryScanExec(conf, [fact8], fs8),
+                InMemoryScanExec(conf, [dim8], ds8), [col("fk")],
+                [col("dk")], "inner" if cond is not None else how, cond)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = _reduce_join(torch, join)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = launches()
+            exp = _join_oracle(
+                np, fk, fv, fn, dk, dv, dn,
+                "inner" if cond is not None else how,
+                (lambda v: v * 10_000) if cond is not None else None,
+                key_byte_sums(np, fk), key_byte_sums(np, dk))
+            if got != exp:
+                raise AssertionError(f"Q18s {how} {strategy}: {got} != "
+                                     f"{exp}")
+            if any(counts.values()):
+                raise AssertionError(f"Q18s {how} {strategy} launched "
+                                     f"{counts}: 4-word keys take SEARCH")
+            runs[f"{how}/{strategy}"] = {"rows": got[0], "wall_ms": ms,
+                                         "join": join.describe()}
+            counts8 = counts
+    per_query["Q18s"] = counts8
+    emit({"query": "Q18s", "fact_rows": n8, "dim_rows": d8, "key_bytes": 10,
+          "runs": runs, "launches": counts8})
+    return per_query, k4, osum
+
+
+ITEM_PREFIX = b"AAAAAAAA"
+
+
+def item_table(np, n: int) -> dict:
+    """Q19's TPC-DS item-like rows (``rng(19)``): i_item_id is
+    "AAAAAAAA" and eight letters A-P (dsdgen's business keys) spelling a
+    random 32-bit number ``id`` (so byte order is ``id`` order); a
+    category code into CATEGORIES; i_brand_id in [1, 1000]; sales."""
+    rng = np.random.default_rng(19)
+    ids = rng.integers(0, 2**32, n, dtype=np.int64)
+    cat = rng.integers(0, len(CATEGORIES), n)
+    brand = rng.integers(1, 1001, n).astype(np.int32)
+    sales = rng.integers(0, 10**6, n).astype(np.int64)
+    return {"id": ids, "cat": cat, "brand": brand, "sales": sales}
+
+
+def item_id_planes(np, ids):
+    n = ids.size
+    letters = (ids[:, None] >> (4 * np.arange(7, -1, -1))) & 15
+    rows = np.concatenate([np.full((n, 8), ord("A")), letters + ord("A")],
+                          1).astype(np.uint8)
+    return np.arange(n + 1, dtype=np.int64) * 16, rows.ravel()
+
+
+def item_id(i: int) -> str:
+    return (ITEM_PREFIX + bytes(ord("A") + ((i >> (4 * k)) & 15)
+                                for k in range(7, -1, -1))).decode()
+
+
+#: Q19(c)'s launches at full size (STRING_LOG2_ROWS), as the H100 run of
+#: this script reports them: 1000 brands miss the 128-bucket hash tier
+#: (K1 once, K3 for min, max and the representative row) and fit the
+#: 1024-bucket direct tier (K1 once, K3 for min and max)
+Q19C_LAUNCHES = {"bucket_sum": 2, "bucket_float_sum": 0,
+                 "bucket_winner": 5, "ordered_segment_sum": 0,
+                 "probe_ranges": 0, "word_counts": 0}
+
+
+def q19_item_keys(torch, np, dev, log2_rows: int, reps: int,
+                  profile: bool):
+    """Q19: string sort and window keys and string min/max over an item
+    table; see the module docstring. Returns (per-path launches, K3's
+    numbers on Q19(c)'s rank column, K1's on the direct tier's call in
+    Q19(c))."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import schema_of
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec, TpuFilterExec,
+                                             TpuHashAggregateExec)
+    from spark_rapids_tpu_torch.exec.base import vals_of_batch
+    from spark_rapids_tpu_torch.exec.basic import TpuLocalLimitExec
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+    from spark_rapids_tpu_torch.exec.window import TpuWindowExec
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr import windows as W
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.ops import groupby as G
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+    from spark_rapids_tpu_torch.ops.sort import str_max_lens
+
+    n = 1 << log2_rows
+    t = item_table(np, n)
+    ids, cat, brand, sales = t["id"], t["cat"], t["brand"], t["sales"]
+    schema = schema_of(i_item_id=T.STRING, i_category=T.STRING,
+                       i_brand_id=T.INT, sales=T.LONG)
+    planes = [item_id_planes(np, ids), pool_planes(np, cat, CATEGORIES),
+              brand, sales]
+    batch = _padded_batch(np, torch, schema, planes, [np.ones(n, bool)] * 4,
+                          dev)
+    conf = RapidsConf({})
+    in_bytes = n * (16 + 4 + 4 + 8) + int(planes[1][0][-1]) + 4 * n + 4 * n
+    idx = np.arange(n)
+    cats = [c.decode() for c in CATEGORIES]
+    per_query = {}
+
+    def row(i, *extra):
+        return (item_id(int(ids[i])), cats[cat[i]], int(brand[i]),
+                int(sales[i])) + extra
+
+    def scan():
+        return InMemoryScanExec(conf, [[batch]], schema)
+
+    # (a) order by i_item_id desc limit 100
+    top = np.lexsort((idx, -ids))[:100]
+    want_a = [row(i) for i in top]
+
+    def plan_a():
+        return TpuLocalLimitExec(conf, 100, TpuSortExec(
+            conf, [col("i_item_id")], [(False, None)], scan()))
+
+    # (b) rank() over (partition by i_category order by sales desc) <= 3
+    order = np.lexsort((idx, -sales, cat))
+    cs, ss = cat[order], sales[order]
+    new_part = np.r_[True, cs[1:] != cs[:-1]]
+    new_peer = new_part | np.r_[True, ss[1:] != ss[:-1]]
+    pos = np.arange(n)
+    rk = (np.maximum.accumulate(np.where(new_peer, pos, 0))
+          - np.maximum.accumulate(np.where(new_part, pos, 0)) + 1)
+    want_b = [row(i, int(r)) for i, r in zip(order[rk <= 3], rk[rk <= 3])]
+
+    def plan_b():
+        spec = W.WindowSpec(partition_by=(col("i_category"),),
+                            order_by=(col("sales"),), orders=((False, None),))
+        win = TpuWindowExec(conf, [W.WindowExpression(W.Rank(), spec, "rk")],
+                            scan())
+        return TpuFilterExec(conf, E.LessThanOrEqual(col("rk"), lit(3)), win)
+
+    # (c) group by i_brand_id: min/max(i_item_id), count(*)
+    bo = np.lexsort((ids, brand))
+    b_sorted, id_sorted = brand[bo], ids[bo]
+    first = np.r_[True, b_sorted[1:] != b_sorted[:-1]]
+    last = np.r_[first[1:], True]
+    want_c = [(int(b_sorted[i]), item_id(int(id_sorted[i])),
+               item_id(int(id_sorted[j])), int(c_))
+              for i, j, c_ in zip(np.nonzero(first)[0], np.nonzero(last)[0],
+                                  np.bincount(brand, minlength=1001)[
+                                      np.unique(brand)])]
+
+    def plan_c():
+        return TpuHashAggregateExec(
+            conf, [col("i_brand_id")],
+            [A.agg(A.Min(col("i_item_id")), "mn"),
+             A.agg(A.Max(col("i_item_id")), "mx"),
+             A.agg(A.Count(None), "n")], scan())
+
+    aggs = []
+
+    def run_c():
+        agg = plan_c()
+        aggs.append(agg)
+        return sorted(_run(torch, agg, conf)[0])
+
+    for q, run, want in (
+            ("Q19a", lambda: _run(torch, plan_a(), conf)[0], want_a),
+            ("Q19b", lambda: _run(torch, plan_b(), conf)[0], want_b),
+            ("Q19c", run_c, want_c)):
+        def check(rows, q=q, want=want):
+            if rows != want:
+                raise AssertionError(f"{q}: rows differ from the numpy "
+                                     "oracle")
+
+        cold, warm, counts = _walls(torch, q, run, check)
+        per_query[q] = counts
+        if q != "Q19c" and any(counts.values()):
+            raise AssertionError(f"{q} launched {counts}")
+        line = {"query": q, "rows": n, "out_rows": len(want),
+                "cold_wall_ms": cold, "warm_wall_ms": warm,
+                "bytes": in_bytes, "bound_ms": bound_ms(in_bytes),
+                "launches": counts}
+        if q == "Q19c":
+            line["agg"] = aggs[0].describe()
+            if counts["bucket_winner"] <= 0 or (
+                    n == 1 << STRING_LOG2_ROWS and counts != Q19C_LAUNCHES):
+                raise AssertionError(f"Q19c launches {counts} (expected K3 "
+                                     f"on the rank columns: "
+                                     f"{Q19C_LAUNCHES})")
+        emit(line)
+        if profile:
+            profile_plan(torch, q, {"Q19a": plan_a, "Q19b": plan_b,
+                                    "Q19c": plan_c}[q], conf, n, in_bytes,
+                         SORT_KERNELS)
+
+    # K1 at Q19(c)'s shape: one more run, recording the direct tier's
+    # call (1024 buckets, brand ids 1..1000) as the aggregate makes it
+    with captured_calls(K, "bucket_sum",
+                        lambda sg, B, ic, cc: B == 1024) as calls:
+        if run_c() != want_c:
+            raise AssertionError("Q19c: rows differ from the numpy oracle")
+    if not calls:
+        raise AssertionError("Q19c: K1 made no call on the direct tier")
+    k1 = sum_shape(torch, dev, *calls[0], reps)
+    emit({"kernel_shape": "bucket_sum", "path": "Q19c", "rows": n,
+          "B": 1024, **k1})
+    del calls
+
+    # K3 on a rank column at Q19(c)'s shape: i_item_id's ranks over the
+    # direct tier's 1024 buckets (brand ids 1..1000), min's order words
+    vals = vals_of_batch(batch)
+    _, rank = G._plain_rank(vals[0], n, str_max_lens([vals[0]])[0])
+    seg = torch.where(vals[2].validity, vals[2].data, 1024).to(torch.int32)
+    word = K._order_words(rank.data, ~rank.validity, "min")
+    k3 = winner_shape(torch, dev, seg, 1024, "min", word, reps)
+    emit({"kernel_shape": "bucket_winner", "path": "Q19c", "rows": n,
+          "B": 1024, **k3})
+    return per_query, k3, k1
+
+
+def string_key_phase(torch, np, dev, log2_rows: int, dim_rows: int,
+                     reps: int, dadd_ns: float, profile: bool = False):
+    """Q17-Q19 at ``log2_rows`` rows (Q18's dim: ``dim_rows``): each
+    path's launches, and the kernels' numbers at the shapes these paths
+    give them, keyed as in ``kernels_line``: the ordered sum's at Q17's
+    and Q18's, K4's at Q18's, K1's and K3's at Q19(c)'s."""
+    per_query, osum = q17_tpch_q1(torch, np, dev, log2_rows, reps, dadd_ns,
+                                  profile)
+    q18, k4, osum18 = q18_string_join(torch, np, dev, log2_rows, dim_rows,
+                                      reps, dadd_ns, profile)
+    q19, k3, k1 = q19_item_keys(torch, np, dev, log2_rows, reps, profile)
+    per_query.update(q18)
+    per_query.update(q19)
+    return per_query, {("ordered_segment_sum", "Q17"): osum,
+                       ("ordered_segment_sum", "Q18"): osum18,
+                       ("probe_ranges", "Q18"): k4,
+                       ("bucket_sum", "Q19c"): k1,
+                       ("bucket_winner", "Q19c"): k3}
+
+
 def build_all() -> dict:
     """Build every kernel library from the sources beside this script,
     one ``nvcc`` per source, all started together."""
@@ -2068,8 +2959,10 @@ def kernels_line(kres: dict, per_query: dict) -> list:
     """One entry per kernel: its own path's launches, every path's, and
     the kernel phase's numbers at the main path's shape (the groupby
     kernels at the direct tier of Q1's table; K4 at the bench join's
-    shape; K5 on a Q10 batch); then K1 and K3 at Q4's shape and K4 at
-    Q8's, each with its own path. Every bound is
+    shape; K5 on a Q10 batch); then K1 and K3 at Q4's shape, K4 at Q8's
+    and on Q18's string chunk words, the ordered sum on one partial of
+    Q17 and of Q18, and K1 and K3 on Q19(c)'s direct tier (K3 on its
+    string ranks), each with its own path. Every bound is
     bytes; the ordered sum also gives its chain bound
     (``bound_chain_ms``)."""
     kernels = []
@@ -2077,7 +2970,14 @@ def kernels_line(kres: dict, per_query: dict) -> list:
     shapes = [(name, name, 128, path) for name, path in PATH.items()]
     shapes += [("bucket_sum@Q4", "bucket_sum", "Q4", "Q4"),
                ("bucket_winner@Q4", "bucket_winner", "Q4", "Q4"),
-               ("probe_ranges@Q8", "probe_ranges", "Q8", "Q8")]
+               ("probe_ranges@Q8", "probe_ranges", "Q8", "Q8"),
+               ("ordered_segment_sum@Q17", "ordered_segment_sum", "Q17",
+                "Q17"),
+               ("ordered_segment_sum@Q18", "ordered_segment_sum", "Q18",
+                "Q18"),
+               ("probe_ranges@Q18", "probe_ranges", "Q18", "Q18"),
+               ("bucket_sum@Q19c", "bucket_sum", "Q19c", "Q19c"),
+               ("bucket_winner@Q19c", "bucket_winner", "Q19c", "Q19c")]
     for entry, name, key, path in shapes:
         r = kres[(name, key)]
         line = {"name": entry, "route": "cuda", "source": SOURCES[name],
@@ -2090,7 +2990,8 @@ def kernels_line(kres: dict, per_query: dict) -> list:
                 "bound_by": "bytes", "library_ms": r["library_ms"]}
         for extra in ("dev_ms", "host_ms", "plain_rows", "bound_abi_ms",
                       "log2_buckets", "library", "passes", "replicas",
-                      "bound_chain_ms", "longest_segment", "dadd_ns"):
+                      "bound_chain_ms", "longest_segment", "segments",
+                      "dadd_ns"):
             if extra in r:
                 line[extra] = r[extra]
         kernels.append(line)
@@ -2111,7 +3012,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="also profile Q1, Q2, Q5, Q6, Q7, Q9, Q10, Q11 "
-                    "(warm), Q13, Q14, Q15 and Q16 with torch.profiler")
+                    "(warm), Q13-Q17, Q18 (PALLAS and AUTO) and Q19 (a, b, "
+                    "c) with torch.profiler")
     args = ap.parse_args()
 
     import numpy as np
@@ -2155,6 +3057,11 @@ def main() -> int:
     per_query.update(session_query_phase(torch, np, dev,
                                          PARQUET_LOG2_ROWS,
                                          UDF_LOG2_ROWS, args.profile))
+    strings, shapes = string_key_phase(
+        torch, np, dev, STRING_LOG2_ROWS, DIM_ROWS, args.reps,
+        kres[("ordered_segment_sum", 128)]["dadd_ns"], args.profile)
+    per_query.update(strings)
+    kres.update(shapes)
     for q, counts in per_query.items():
         if q != "Q10" and counts["word_counts"]:
             raise AssertionError(f"{q} launched K5")

@@ -6,8 +6,12 @@ update, a filter only clearing liveness bits), a merge of the partials
 with each function's merge ops, then the result projection. Modes
 (``expr/aggregates.py``): COMPLETE, PARTIAL, FINAL.
 
-String columns enter as aggregate inputs of expressions (``sum(length(s))``)
-and of counts; string grouping keys and string min/max/first/last raise.
+String columns enter as grouping keys (the sort path, ``ops/groupby.py``),
+as min/max inputs (reduced as ranks), as counts and inside expressions
+(``sum(length(s))``). A string key's or min/max input's byte bound is
+measured per batch (one host sync for all of them), and partials that
+hold strings merge at their synced row and byte counts. ``first``/``last``
+over strings stay on the CPU, as the type matrix says.
 Left out of this slice (ROADMAP.md port queue): the fused plan/stage
 programs, OOM retry, null elision and the event/observability emitters.
 """
@@ -29,8 +33,9 @@ from ..ops import concat as concat_ops
 from ..ops import groupby as groupby_ops
 from ..ops.bucket_reduce import NOT_PORTED_TIERS, not_ported_tier
 from ..ops.filter_gather import live_of
+from ..ops.sort import str_max_lens
 from ..types import StructField, StructType
-from .base import TpuExec, batch_from_vals, vals_of_batch
+from .base import TpuExec, batch_from_vals, concat_batches, vals_of_batch
 
 #: the reference's CPU rule: AUTO picks RADIX at or above this capacity
 _RADIX_CPU_MIN_CAP = 1 << 21
@@ -75,11 +80,12 @@ def choose_agg_strategy(conf: RapidsConf, cap: int,
             "sum(s) — order-preserving segment sums, torch scatter ops")
 
 
-def _count_input(v: Val) -> ColV:
-    """A string value enters the aggregate only to be counted (the
-    constructor refuses other ops over strings): its validity is all a
-    count reads."""
-    return ColV(v.validity, v.validity) if isinstance(v, StrV) else v
+def _agg_input(op: str, v: Val) -> Val:
+    """A counted string enters as its validity, all a count reads; a
+    string min/max input stays a string (it reduces as ranks)."""
+    if isinstance(v, StrV) and op not in ("min", "max"):
+        return ColV(v.validity, v.validity)
+    return v
 
 
 class TpuHashAggregateExec(TpuExec):
@@ -150,14 +156,13 @@ class TpuHashAggregateExec(TpuExec):
                 pos += 1
             self._merge_ops.extend(f.merge_ops)
 
-        for kf in self._key_fields:
-            if T.is_string(kf.dataType):
-                raise NotImplementedError(
-                    f"string grouping keys are {T.NOT_PORTED_STRING_LAYERS}")
         for op, e in zip(self._update_ops, self._update_exprs):
-            if e is not None and T.is_string(e.dtype) and op != "count":
+            if (e is not None and T.is_string(e.dtype)
+                    and op not in ("count", "min", "max")):
                 raise NotImplementedError(
-                    f"{op} over strings is {T.NOT_PORTED_STRING_LAYERS}")
+                    f"{op} over strings runs on the CPU: the type matrix "
+                    "(plugin/typechecks.py, First/Last) keeps it off the "
+                    "device, as the reference's")
 
         if self.mode == A.FINAL:
             # child emits [keys..., buffers...]; merge those buffers
@@ -196,6 +201,8 @@ class TpuHashAggregateExec(TpuExec):
         aggs = ", ".join(a.resolved_name() for a in self.agg_exprs)
         strat = (f", strategy={self._strategy_choice[0]}"
                  if self._strategy_choice is not None else "")
+        if strat and any(T.is_string(f.dataType) for f in self._key_fields):
+            strat += f" ({groupby_ops.STRING_KEY_ROUTE})"
         return (f"TpuHashAggregateExec(mode={self.mode}, keys=[{keys}], "
                 f"aggs=[{aggs}]{strat})")
 
@@ -235,16 +242,24 @@ class TpuHashAggregateExec(TpuExec):
             cols, live = e.lower_batch(cols, live, cap, e.side_vals())
         dev = live.device
         keys = [lower(e, cols, cap, dev) for e in key_exprs]
-        vals = [None if e is None else _count_input(lower(e, cols, cap, dev))
-                for e in value_exprs]
+        vals = [None if e is None else _agg_input(op, lower(e, cols, cap, dev))
+                for op, e in zip(ops, value_exprs)]
+        # byte bounds of the string keys, then of the string min/max
+        # inputs (reference aggregate.py:489-524): one host sync
+        str_keys = [k for k in keys if isinstance(k, StrV)]
+        bounds = str_max_lens(str_keys + [v for v in vals
+                                          if isinstance(v, StrV)])
+        sml, svml = bounds[:len(str_keys)], bounds[len(str_keys):]
         if self.group_exprs:
             out_keys, out_aggs, nseg = groupby_ops.groupby_agg(
                 keys, self._key_dtypes(), vals, list(ops), live,
                 approx_float_sum=self.conf.get(IMPROVED_FLOAT_OPS),
-                strategy=self.resolved_strategy(cap, dev))
+                strategy=self.resolved_strategy(cap, dev),
+                str_max_lens=sml, str_val_max_lens=svml)
         else:
             out_keys, nseg = [], 1
-            out_aggs = groupby_ops.reduce_no_keys(vals, list(ops), live, dev)
+            out_aggs = groupby_ops.reduce_no_keys(vals, list(ops), live, dev,
+                                                  svml)
         return batch_from_vals(list(out_keys) + list(out_aggs),
                                self._buffer_schema, nseg)
 
@@ -274,23 +289,16 @@ class TpuHashAggregateExec(TpuExec):
         """Concat the partials and re-aggregate with the merge ops."""
         if len(partials) == 1:
             return partials[0]
-        if (sum(max(1, b.capacity) for b in partials)
+        has_strings = any(T.is_string(f.dataType)
+                          for f in self._buffer_schema.fields)
+        if (not has_strings and sum(max(1, b.capacity) for b in partials)
                 <= self._SYNC_FREE_MERGE_MAX_ROWS):
             return self._merge_fixed_width(partials)
-        # one host sync for every partial's row count, then a concat of
-        # the live rows only (group-count sized, not capacity sized)
-        lazy = [b.num_rows_lazy for b in partials]
-        dev = partials[0].columns[0].validity.device
-        lengths = [int(x) for x in torch.stack([
-            torch.as_tensor(n, dtype=torch.int64, device=dev)
-            for n in lazy]).tolist()]
-        total = sum(lengths)
-        out_cap = choose_capacity(total, self.conf.shape_bucket_min)
-        parts = [vals_of_batch(b) for b in partials]
-        cols = [concat_ops.concat_fixed([p[j] for p in parts], lengths,
-                                        out_cap)
-                for j in range(len(self._buffer_schema.fields))]
-        merged_in = batch_from_vals(cols, self._buffer_schema, total)
+        # one host sync for every partial's row count and string byte
+        # counts, then a concat of the live rows only (group-count sized,
+        # not capacity sized; reference aggregate.py:640-688)
+        merged_in = concat_batches(self._buffer_schema, partials,
+                                    self.conf.shape_bucket_min)
         keys, vals = self._merge_inputs()
         return self._run_batch(merged_in, self._merge_ops, vals, keys)
 
@@ -319,6 +327,14 @@ class TpuHashAggregateExec(TpuExec):
         child = self.children[0]
         source, chain = (child.fused_source_chain() if child.fusable
                          else (child, []))
+        if chain and any(op in ("min", "max") and e is not None
+                         and T.is_string(e.dtype)
+                         for op, e in zip(self._update_ops,
+                                          self._update_exprs)):
+            # a string min/max runs its chain as real execs, as the
+            # reference does (aggregate.py:955-970, where a fused chain
+            # would bound its rank sort by the source batch's strings)
+            source, chain = child, []
         partials: List[ColumnarBatch] = []
         for batch in source.execute_partition(index):
             nr = batch.num_rows_lazy

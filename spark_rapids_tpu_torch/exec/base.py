@@ -13,10 +13,14 @@ import contextlib
 import time
 from typing import Dict, Iterator, List, Optional, Sequence
 
-from ..columnar import ColumnarBatch
+import torch
+
+from .. import types as T
+from ..columnar import ColumnarBatch, choose_capacity
 from ..conf import RapidsConf
 from ..expr.eval import column_of_val, val_of_column
 from ..expr.values import Val
+from ..ops import concat as concat_ops
 from ..ops import filter_gather
 from ..types import StructType
 
@@ -171,6 +175,62 @@ def batch_from_vals(vals: Sequence[Val], schema: StructType, num_rows,
     cols = [column_of_val(f.dataType, num_rows, v)
             for f, v in zip(schema.fields, vals)]
     return ColumnarBatch(cols, schema, num_rows, capacity=capacity)
+
+
+def concat_all(exec_: TpuExec) -> Optional[ColumnarBatch]:
+    """Every partition of an exec in ONE batch (the build side)."""
+    batches: List[ColumnarBatch] = []
+    for p in range(exec_.num_partitions):
+        for b in exec_.execute_partition(p):
+            if b.num_rows > 0:
+                batches.append(b)
+    return concat_batches(exec_.output_schema, batches)
+
+
+def host_ints(xs: Sequence) -> List[int]:
+    """Host ints and 0-d device tensors as host ints, with one sync for
+    all the tensors among them."""
+    ts = [x for x in xs if isinstance(x, torch.Tensor)]
+    if not ts:
+        return [int(x) for x in xs]
+    dev = ts[0].device
+    return [int(v) for v in torch.stack([
+        torch.as_tensor(x, dtype=torch.int64, device=dev).reshape(())
+        for x in xs]).tolist()]
+
+
+def concat_batches(schema: StructType, batches: List[ColumnarBatch],
+                    min_bucket: int = 128) -> Optional[ColumnarBatch]:
+    """The live rows of ``batches`` in one batch (reference
+    ``exec/join.py:213``). String columns splice their byte pools
+    (``ops/concat.concat_batches_cols``): one host sync reads every
+    batch's row count and string byte counts."""
+    if not batches:
+        return None
+    if len(batches) == 1:
+        return batches[0]
+    str_cols = [j for j, f in enumerate(schema.fields)
+                if T.is_string(f.dataType)]
+    heads = [b.num_rows_lazy for b in batches]
+    for b in batches:
+        n = b.num_rows_lazy
+        for j in str_cols:
+            c = b.columns[j]
+            cap = c.offsets.shape[0] - 1
+            heads.append(c.offsets[min(n, cap) if isinstance(n, int)
+                                   else n.long().clamp(0, cap)])
+    pulled = host_ints(heads)
+    nb, ns = len(batches), len(str_cols)
+    lengths = pulled[:nb]
+    byte_lengths = [pulled[nb + i * ns:nb + (i + 1) * ns] for i in range(nb)]
+    total = sum(lengths)
+    out_cap = choose_capacity(total, min_bucket)
+    char_caps = [choose_capacity(max(1, sum(bl[k] for bl in byte_lengths)),
+                                 128) for k in range(ns)]
+    cols, n = concat_ops.concat_batches_cols(
+        [vals_of_batch(b) for b in batches], lengths, byte_lengths, out_cap,
+        char_caps)
+    return batch_from_vals(cols, schema, n)
 
 
 def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:

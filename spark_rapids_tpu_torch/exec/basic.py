@@ -24,7 +24,8 @@ from ..expr import expressions as E
 from ..expr.eval import lower
 from ..ops import filter_gather
 from ..types import StructField, StructType
-from .base import TpuExec, batch_from_vals, run_fused_chain, vals_of_batch
+from .base import (TpuExec, batch_from_vals, concat_batches, run_fused_chain,
+                   vals_of_batch)
 
 
 def _output_schema_for(exprs: Sequence[E.Expression],
@@ -303,9 +304,8 @@ class TpuExpandExec(TpuExec):
 
 class TpuCoalesceBatchesExec(TpuExec):
     """reference: ``exec/basic.py:595`` (GpuCoalesceBatches): concatenate
-    small batches up to a target row count. String columns raise in the
-    concat (ROADMAP.md, queue A item 'Strings in joins, grouping keys,
-    min/max and concat')."""
+    small batches up to a target row count; string columns splice their
+    byte pools at synced byte counts."""
 
     def __init__(self, conf: RapidsConf, child: TpuExec,
                  target_rows: Optional[int] = None):
@@ -317,9 +317,7 @@ class TpuCoalesceBatchesExec(TpuExec):
         return self.children[0].output_schema
 
     def _flush(self, pending: List[ColumnarBatch]) -> Optional[ColumnarBatch]:
-        from .join import _concat_batches
-
-        return _concat_batches(self.output_schema, pending)
+        return concat_batches(self.output_schema, pending)
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
         pending: List[ColumnarBatch] = []

@@ -7,15 +7,18 @@ tier of ``spark.rapids.tpu.sql.join.strategy``) and an expand phase (the
 pair list and two gathers). The host syncs are the build's row count,
 the fast paths' one feasibility check per build, DIRECT's ``fits`` check
 per probe batch, and one match total per probe batch (it sizes the
-output), as in the reference.
+output), as in the reference; with string columns also the byte bound of
+the string keys (the build once, each probe batch once), the byte counts
+of a multi-batch build's string columns, and the byte counts of an
+expansion's string payloads (one sync per probe batch).
 
 Right joins run as left joins with the sides swapped and the output
 columns put back in order.
 
 Left out of this slice (ROADMAP.md, queue A): ``partitioned=True`` builds
 (they need the exchange), the spillable build and OOM retry, buffer
-donation, the join events and observability counters, string join keys,
-and the nested-loop and cartesian execs.
+donation, the join events and observability counters, and the
+nested-loop and cartesian execs.
 """
 from __future__ import annotations
 
@@ -30,13 +33,14 @@ from ..conf import (JOIN_PALLAS_PROBE, JOIN_STRATEGY, RapidsConf,
                     roofline_peak_bps)
 from ..expr import expressions as E
 from ..expr.eval import lower
-from ..expr.values import ColV
+from ..expr.values import ColV, StrV, Val
 from ..ops import concat as concat_ops
 from ..ops import filter_gather
 from ..ops import join as join_ops
-from ..ops.sort import SortOrder, sort_with_radix_keys
+from ..ops.sort import SortOrder, sort_permutation, str_max_lens
 from ..types import StructField, StructType, torch_dtype
-from .base import TpuExec, batch_from_vals, run_fused_chain, vals_of_batch
+from .base import (TpuExec, batch_from_vals, concat_all, host_ints,
+                   run_fused_chain, vals_of_batch)
 
 _JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
 
@@ -117,28 +121,14 @@ def choose_join_strategy(conf: RapidsConf, build_cap: int, key_dtypes,
             f"{hbm_bps / 1e9:.0f}GB/s peak")
 
 
-def _concat_all(exec_: TpuExec) -> Optional[ColumnarBatch]:
-    """Every partition of an exec in ONE batch (the build side)."""
-    batches: List[ColumnarBatch] = []
-    for p in range(exec_.num_partitions):
-        for b in exec_.execute_partition(p):
-            if b.num_rows > 0:
-                batches.append(b)
-    return _concat_batches(exec_.output_schema, batches)
-
-
-def _concat_batches(schema: StructType, batches: List[ColumnarBatch]
-                    ) -> Optional[ColumnarBatch]:
-    if not batches:
-        return None
-    if len(batches) == 1:
-        return batches[0]
-    lengths = [b.num_rows for b in batches]
-    out_cap = choose_capacity(sum(lengths))
-    parts = [vals_of_batch(b) for b in batches]
-    cols = [concat_ops.concat_fixed([p[j] for p in parts], lengths, out_cap)
-            for j in range(len(schema.fields))]
-    return batch_from_vals(cols, schema, sum(lengths))
+def _null_col(dt: T.DataType, cap: int, dev) -> Val:
+    """An all-null column of ``cap`` rows (an empty byte pool for a
+    string)."""
+    nulls = torch.zeros(cap, dtype=torch.bool, device=dev)
+    if T.is_string(dt):
+        return StrV(torch.zeros(cap + 1, dtype=torch.int32, device=dev),
+                    torch.zeros(1, dtype=torch.uint8, device=dev), nulls)
+    return ColV(torch.zeros(cap, dtype=torch_dtype(dt), device=dev), nulls)
 
 
 class TpuShuffledHashJoinExec(TpuExec):
@@ -180,14 +170,6 @@ class TpuShuffledHashJoinExec(TpuExec):
             E.bind_references(k, self._build.output_schema)
             for k in (left_keys if self._swap else right_keys)]
         self._jt = "left" if self._swap else join_type
-        for k in self._probe_keys + self._build_keys:
-            if not T.is_fixed_width(k.dtype):
-                raise NotImplementedError(join_ops.STRING_KEYS)
-        for f in left.output_schema.fields + right.output_schema.fields:
-            if T.is_string(f.dataType):
-                # an expanded string payload outgrows its byte pool
-                raise NotImplementedError(
-                    f"string join payloads are {T.NOT_PORTED_STRING_LAYERS}")
 
         lf = left.output_schema.fields
         rf = right.output_schema.fields
@@ -211,6 +193,7 @@ class TpuShuffledHashJoinExec(TpuExec):
         else:
             self._cond = None
         self._built = None  # general path: the sorted build
+        self._build_widths: Tuple[int, ...] = ()  # words per build key
         self._fast_built = None  # fused fast path state (None = untried)
         self._build_batch = None  # concatenated build input, shared
         # strategy memoized per build capacity so AUTO never flips
@@ -258,7 +241,7 @@ class TpuShuffledHashJoinExec(TpuExec):
         """The whole build side in one batch, concatenated ONCE and shared
         by the fast and the general build."""
         if self._build_batch is None:
-            batch = _concat_all(self._build)
+            batch = concat_all(self._build)
             if batch is None:
                 bschema = self._build.output_schema
                 batch = ColumnarBatch.from_pydict(
@@ -268,15 +251,19 @@ class TpuShuffledHashJoinExec(TpuExec):
         return self._build_batch
 
     def _build_words(self, cols, cap, dev):
+        """(keys, words, any_null, string key bounds) of the build side;
+        the string keys' byte bounds cost one host sync (the reference's
+        ``_key_str_lens``, measured here on the keys themselves)."""
         keys = [lower(k, cols, cap, dev) for k in self._build_keys]
+        sml = str_max_lens(keys)
         words, any_null = join_ops.radix_key_words(
-            keys, [k.dtype for k in self._build_keys])
-        return keys, words, any_null
+            keys, [k.dtype for k in self._build_keys], sml)
+        return keys, words, any_null, sml
 
-    def _sort_build(self, keys, ok):
-        return sort_with_radix_keys(
+    def _sort_build(self, keys, ok, sml):
+        return sort_permutation(
             keys, [k.dtype for k in self._build_keys],
-            [SortOrder(True, True) for _ in keys], ok)
+            [SortOrder(True, True) for _ in keys], ok, sml)
 
     def _get_build(self):
         """(sorted cols, sorted words, joinable count, live mask in sorted
@@ -289,16 +276,17 @@ class TpuShuffledHashJoinExec(TpuExec):
         dev = batch.columns[0].validity.device
         cols = vals_of_batch(batch)
         live = filter_gather.live_of(batch.num_rows_lazy, cap, dev)
-        keys, words, any_null = self._build_words(cols, cap, dev)
+        keys, words, any_null, sml = self._build_words(cols, cap, dev)
         self.resolved_strategy(cap, dev)
         ok = live & ~any_null
         # joinable rows first (sorted by key), then live null-key rows
         # (full outer still emits them) among the dead padding
-        perm, _ = self._sort_build(keys, ok)
+        perm = self._sort_build(keys, ok, sml)
         live_all = live[perm]
         sorted_cols = filter_gather.gather(cols, perm, live_all)
         sorted_words = [w[perm] for w in words]
         count = int(ok.sum())  # host sync: the build's joinable rows
+        self._build_widths = join_ops.key_word_widths(keys, sml)
         self._built = (sorted_cols, sorted_words, count, live_all, cap)
         self._build_batch = None
         return self._built
@@ -321,6 +309,8 @@ class TpuShuffledHashJoinExec(TpuExec):
             return False
         if not self._build_keys:
             return False
+        if any(T.is_string(k.dtype) for k in self._build_keys):
+            return False
         words = sum(2 if k.dtype.to_numpy().itemsize == 8 else 1
                     for k in self._build_keys)
         if strategy == "DIRECT" and words > 2:
@@ -328,7 +318,8 @@ class TpuShuffledHashJoinExec(TpuExec):
         if self._jt in ("inner", "left"):
             # appended build columns gather as one packed matrix
             for f in self._build.output_schema.fields:
-                if not filter_gather.packable_dtype(torch_dtype(f.dataType)):
+                if T.is_string(f.dataType) or not filter_gather.packable_dtype(
+                        torch_dtype(f.dataType)):
                     return False
         return True
 
@@ -367,7 +358,7 @@ class TpuShuffledHashJoinExec(TpuExec):
         need_mat = self._jt in ("inner", "left")
         cols = vals_of_batch(batch)
         live = filter_gather.live_of(batch.num_rows_lazy, bcap, dev)
-        _, words, any_null = self._build_words(cols, bcap, dev)
+        _, words, any_null, _ = self._build_words(cols, bcap, dev)
         ok = live & ~any_null
         key64 = join_ops.pack_key(words)
         kmin, kmax = join_ops.key_span(key64, ok)
@@ -395,9 +386,9 @@ class TpuShuffledHashJoinExec(TpuExec):
         need_mat = self._jt in ("inner", "left")
         cols = vals_of_batch(batch)
         live = filter_gather.live_of(batch.num_rows_lazy, bcap, dev)
-        keys, words, any_null = self._build_words(cols, bcap, dev)
+        keys, words, any_null, sml = self._build_words(cols, bcap, dev)
         ok = live & ~any_null
-        perm, _ = self._sort_build(keys, ok)
+        perm = self._sort_build(keys, ok, sml)
         sorted_words = [w[perm] for w in words]
         count = ok.sum(dtype=torch.int32)
         side = tuple(sorted_words) + (count,)
@@ -515,8 +506,14 @@ class TpuShuffledHashJoinExec(TpuExec):
         # count phase
         live = filter_gather.live_of(pbatch.num_rows_lazy, cap, dev)
         keys = [lower(k, pvals, cap, dev) for k in self._probe_keys]
+        # the probe's string keys are bounded on their own (one sync);
+        # each key's words on the narrower side are zero-padded
+        psml = str_max_lens(keys)
         words, any_null = join_ops.radix_key_words(
-            keys, [k.dtype for k in self._probe_keys])
+            keys, [k.dtype for k in self._probe_keys], psml)
+        build_words, words = join_ops.pad_key_words(
+            build_words, words, self._build_widths,
+            join_ops.key_word_widths(keys, psml))
         ok = live & ~any_null
         matched = None
         if radix_matched:
@@ -551,8 +548,11 @@ class TpuShuffledHashJoinExec(TpuExec):
         p, build_row, slot_live = plan(ex_counts, lo, out_cap)
         pad_slot = slot_live & (counts[p.long()] == 0)
         build_live = slot_live & ~pad_slot
-        probe_side = filter_gather.gather(pvals, p, slot_live)
-        build_side = filter_gather.gather(build_cols, build_row, build_live)
+        pcaps, bcaps = _expanded_pools([(pvals, p, slot_live),
+                                        (build_cols, build_row, build_live)])
+        probe_side = filter_gather.gather(pvals, p, slot_live, pcaps)
+        build_side = filter_gather.gather(build_cols, build_row, build_live,
+                                          bcaps)
         left_side, right_side = ((build_side, probe_side) if self._swap
                                  else (probe_side, build_side))
         vals = list(left_side) + list(right_side)
@@ -576,9 +576,30 @@ class TpuShuffledHashJoinExec(TpuExec):
             return
         cap_out = vals[0].validity.shape[0]
         dev = vals[0].validity.device
-        null_left = [ColV(torch.zeros(cap_out, dtype=torch_dtype(f.dataType),
-                                      device=dev),
-                          torch.zeros(cap_out, dtype=torch.bool, device=dev))
+        null_left = [_null_col(f.dataType, cap_out, dev)
                      for f in self.children[0].output_schema.fields]
         yield self.record_batch(
             batch_from_vals(null_left + list(vals), self._schema, n))
+
+
+def _expanded_pools(sides) -> List[List[int]]:
+    """The byte pool of each string column of an expansion, per side of
+    (columns, source rows, live slots): the bytes its live slots repeat,
+    rounded up to a power of two of at least 128 (reference
+    ``exec/join.py:879-903``). A row repeated by many slots outgrows its
+    input pool, so the pool comes from this count; one host sync for
+    every string column of both sides."""
+    needs = []
+    for cols, rows, live in sides:
+        for c in cols:
+            if isinstance(c, StrV):
+                lens = c.offsets[1:] - c.offsets[:-1]
+                r = rows.long().clamp(0, max(lens.shape[0] - 1, 0))
+                needs.append(torch.where(live, lens[r], 0).sum())
+    synced = host_ints(needs)
+    if any(x > concat_ops.MAX_POOL_BYTES for x in synced):
+        raise ValueError(f"an expanded string pool of {max(synced)} bytes "
+                         "overflows its int32 offsets")
+    got = iter(synced)
+    return [[choose_capacity(max(1, next(got)), 128)
+             for c in cols if isinstance(c, StrV)] for cols, _, _ in sides]

@@ -8,22 +8,21 @@ ROADMAP.md queue A item 'Partitioned join builds'); then one sort
 permutation (``ops/sort.py``) and one gather of every column, string payloads
 through the two-pass string gather. The reference's OOM split-and-retry
 around the sort is not ported ('OOM retry and split-and-retry'): the
-port sorts without it, as its aggregate does.
+port sorts without it, as its aggregate does. A string key's byte bound
+is measured on the key (one host sync for all of them).
 """
 from __future__ import annotations
 
 from typing import Iterator, Sequence, Tuple
 
-from .. import types as T
 from ..columnar import ColumnarBatch
 from ..conf import RapidsConf
 from ..expr import expressions as E
 from ..expr.eval import lower
 from ..ops import filter_gather
-from ..ops.sort import SortOrder, sort_permutation
+from ..ops.sort import SortOrder, sort_permutation, str_max_lens
 from ..types import StructType
-from .base import TpuExec, batch_from_vals, vals_of_batch
-from .join import _concat_all
+from .base import TpuExec, batch_from_vals, concat_all, vals_of_batch
 
 
 class TpuSortExec(TpuExec):
@@ -35,11 +34,6 @@ class TpuSortExec(TpuExec):
         self.orders = [SortOrder(a, nf) for a, nf in orders]
         self._bound = [E.bind_references(e, child.output_schema)
                        for e in self.sort_exprs]
-        for b in self._bound:
-            if T.is_string(b.dtype):
-                raise NotImplementedError(
-                    f"sorting by a string key is "
-                    f"{T.NOT_PORTED_STRING_LAYERS}")
 
     @property
     def output_schema(self) -> StructType:
@@ -61,13 +55,13 @@ class TpuSortExec(TpuExec):
         nr = batch.num_rows_lazy
         keys = [lower(b, cols, cap, dev) for b in self._bound]
         perm = sort_permutation(keys, [b.dtype for b in self._bound],
-                                self.orders, nr)
+                                self.orders, nr, str_max_lens(keys))
         live_sorted = filter_gather.live_of(nr, cap, dev)[perm]
         vals = filter_gather.gather(cols, perm, live_sorted)
         return batch_from_vals(vals, self.output_schema, nr)
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
-        batch = _concat_all(self.children[0])
+        batch = concat_all(self.children[0])
         if batch is None:
             return
         with self.op_timed():

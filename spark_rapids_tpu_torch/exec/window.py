@@ -5,10 +5,11 @@ one exec per (partition by, order by) spec, computing every window
 expression over it. The exec gathers its input into one batch, sorts it
 once by (partition keys, order keys) and derives partition and peer
 boundaries from the co-sorted radix keys; each function is then O(n)
-scan arithmetic (``ops/window.py``). The reference's mesh window
-(``exec/mesh.TpuMeshWindowExec``) is not ported (ROADMAP.md, queue A
-item 'Partitioned join builds'), nor are string partition or order keys
-('Strings in joins, grouping keys, min/max and concat').
+scan arithmetic (``ops/window.py``). A string partition or order key
+sorts by its chunk words, bounded by its longest row (one host sync for
+all string keys), and its boundaries come from the sorted words. The
+reference's mesh window (``exec/mesh.TpuMeshWindowExec``) is not ported
+(ROADMAP.md, queue A item 'Partitioned join builds').
 """
 from __future__ import annotations
 
@@ -27,10 +28,9 @@ from ..expr.eval import lower
 from ..expr.values import ColV
 from ..ops import filter_gather
 from ..ops import window as window_ops
-from ..ops.sort import SortOrder, sort_with_radix_keys
+from ..ops.sort import SortOrder, sort_with_radix_keys, str_max_lens
 from ..types import StructField, StructType
-from .base import TpuExec, batch_from_vals, vals_of_batch
-from .join import _concat_all
+from .base import TpuExec, batch_from_vals, concat_all, vals_of_batch
 
 _AGG_OPS = {A.Count: "count", A.Sum: "sum", A.Min: "min", A.Max: "max"}
 
@@ -52,10 +52,6 @@ class TpuWindowExec(TpuExec):
         cs = child.output_schema
         self._part_keys = [E.bind_references(k, cs) for k in spec.partition_by]
         self._order_keys = [E.bind_references(k, cs) for k in spec.order_by]
-        for k in self._part_keys + self._order_keys:
-            if T.is_string(k.dtype):
-                raise NotImplementedError(
-                    f"a string window key is {T.NOT_PORTED_STRING_LAYERS}")
         self._orders = [SortOrder(a, nf) for a, nf in spec.orders] or [
             SortOrder(True, None) for _ in self._order_keys]
         self._bound_funcs: List[E.Expression] = []
@@ -84,7 +80,7 @@ class TpuWindowExec(TpuExec):
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
         assert index == 0
-        batch = _concat_all(self.children[0])
+        batch = concat_all(self.children[0])
         if batch is None:
             return
         with self.op_timed():
@@ -115,13 +111,14 @@ class TpuWindowExec(TpuExec):
         orders = ([SortOrder(True, True)] * len(self._part_keys)
                   + list(self._orders))
         perm, radix = sort_with_radix_keys(
-            keys, [k.dtype for k in all_keys], orders, live)
+            keys, [k.dtype for k in all_keys], orders, live,
+            str_max_lens(keys))
         live_s = live[perm]
         sorted_cols = filter_gather.gather(cols, perm, live_s)
-        # two radix arrays (null rank, value key) per key
-        npart = 2 * len(self._part_keys)
+        npart = len(self._part_keys)
         ps, pe, qs, qe, seg = window_ops.boundaries_from_radix(
-            radix[:npart], radix[npart:], live_s)
+            [k for ks in radix[:npart] for k in ks],
+            [k for ks in radix[npart:] for k in ks], live_s)
 
         def ev(e):
             return lower(e, sorted_cols, cap, dev)

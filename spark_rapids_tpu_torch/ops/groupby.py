@@ -1,7 +1,7 @@
 """Group-by aggregation: the hash-bucket tiers and the sort fallback.
 
-Counterpart of ``spark_rapids_tpu/ops/groupby.py`` for fixed-width keys
-and values:
+Counterpart of ``spark_rapids_tpu/ops/groupby.py`` for fixed-width and
+plain string keys and values:
 
   * :func:`hash_groupby` — tier 1 (direct range: buckets injective by
     construction, keys rebuilt from the bucket id) and tier 2 (murmur3
@@ -11,7 +11,15 @@ and values:
     buckets) and then :func:`sort_groupby`, which reduces sorted segments
     with torch scatter ops (its segment-reduce path; the reference's
     RADIX tiled reduction is not ported);
-  * :func:`reduce_no_keys` — the grand aggregate.
+  * :func:`reduce_no_keys` — the grand aggregate;
+  * :func:`string_minmax_ranks` — string min/max reduce over int32 rank
+    columns (one rank sort per column, shared by its min and max), and
+    the winning rows' strings are gathered back.
+
+String keys take :func:`sort_groupby` under every tier: the reference
+reduces that path through its RADIX tiled reduction under PALLAS and
+RADIX (``groupby.py:1023-1035``), which is not ported (ROADMAP.md, queue
+A item 1), so the segments reduce as under its SCATTER tier.
 
 Each ``lax.cond`` of the reference becomes a host decision: a ``.item()``
 sync on the 0-d result, after which only the taken branch runs, as under
@@ -25,12 +33,12 @@ segment is summed serially in row order (``ordered_segment_sum``), since
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import types as T
-from ..expr.values import ColV
+from ..expr.values import ColV, StrV, Val
 from . import groupby_kernels as K
 from .bucket_reduce import (
     bucket_equal_check,
@@ -39,10 +47,14 @@ from .bucket_reduce import (
     not_ported_tier,
     NOT_PORTED_TIERS,
 )
-from .filter_gather import gather, live_of
+from .filter_gather import gather, gather_string, live_of
 from .hashing import murmur3
-from .sort import (SIGN64, SortOrder, fixed_radix_keys,
-                   sort_with_radix_keys)
+from .sort import (SIGN64, SortOrder, fixed_radix_keys, next_bound,
+                   sort_permutation, sort_with_radix_keys)
+
+#: the describe() reason of a string-keyed aggregate's route
+STRING_KEY_ROUTE = ("string keys: sort path; the RADIX segment reduction "
+                    "is queue A item 1")
 
 
 def _seg_sum(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -79,6 +91,59 @@ def _winner_words(op: str, data: torch.Tensor, valid: torch.Tensor,
     w = K.bucket_winner_plain(seg, n, op, K._order_words(
         data, ~valid, op, keep_zero_sign=True))
     return K._decode_word(w, data.dtype)
+
+
+def _plain_rank(v: StrV, num_rows, max_len: int
+                ) -> Tuple[torch.Tensor, ColV]:
+    """(perm, per-row rank) of a plain string column by one chunk-key
+    sort (reference ``groupby.py:181``): ``perm[p]`` is the row holding
+    the p-th smallest string, and row ``perm[p]`` has rank p."""
+    cap = v.offsets.shape[0] - 1
+    perm = sort_permutation([v], [T.STRING], [SortOrder(True, True)],
+                            num_rows, [max_len])
+    rank = torch.empty(cap, dtype=torch.int32, device=perm.device)
+    rank[perm] = torch.arange(cap, dtype=torch.int32, device=perm.device)
+    return perm, ColV(rank, v.validity)
+
+
+def string_minmax_ranks(value_cols: List[Optional[Val]],
+                        agg_ops: Sequence[str], num_rows,
+                        str_val_max_lens: Sequence[int] = ()
+                        ) -> Dict[int, Callable[[ColV], StrV]]:
+    """Replace each string min/max input in ``value_cols`` (in place) by
+    its rank column (reference ``groupby.py:192``); ``min(s)`` and
+    ``max(s)`` over one column share one rank sort. Returns ``recover``:
+    aggregate index -> a function from the reduced rank column to the
+    winning strings (a row gather). ``str_val_max_lens`` bounds each
+    string min/max input in turn (each must have one)."""
+    recover: Dict[int, Callable[[ColV], StrV]] = {}
+    ranks: Dict[int, Tuple[torch.Tensor, ColV]] = {}
+    lens = iter(str_val_max_lens)
+    for ai, (op, v) in enumerate(zip(agg_ops, value_cols)):
+        if op not in ("min", "max") or not isinstance(v, StrV):
+            continue
+        ml = next_bound(lens)
+        if id(v) not in ranks:
+            ranks[id(v)] = _plain_rank(v, num_rows, ml)
+        perm, rank_rows = ranks[id(v)]
+
+        def rec(r: ColV, perm=perm, src=v) -> StrV:
+            cap = src.offsets.shape[0] - 1
+            rows = perm[r.data.long().clamp(0, cap - 1)]
+            # winners are distinct source rows: the source pool holds them
+            return gather_string(src, rows, r.validity,
+                                 int(src.chars.shape[0]))
+
+        value_cols[ai] = rank_rows
+        recover[ai] = rec
+    return recover
+
+
+def _recovered(aggs: Sequence[Val], recover) -> List[Val]:
+    aggs = list(aggs)
+    for ai, rec in recover.items():
+        aggs[ai] = rec(aggs[ai])
+    return aggs
 
 
 def segment_ids_from_radix_keys(sorted_radix_keys: Sequence[torch.Tensor],
@@ -142,21 +207,25 @@ def segment_reduce(op: str, col: Optional[ColV], seg: torch.Tensor,
     raise ValueError(f"unknown aggregation op {op!r}")
 
 
-def sort_groupby(key_cols: Sequence[ColV], key_dtypes: Sequence[T.DataType],
+def sort_groupby(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
                  value_cols: Sequence[Optional[ColV]],
-                 agg_ops: Sequence[str], num_rows
-                 ) -> Tuple[List[ColV], List[ColV], torch.Tensor]:
-    """Group-by via sort: sort by keys, segment, reduce. Outputs are
-    compacted to the front at the input capacity."""
+                 agg_ops: Sequence[str], num_rows,
+                 str_max_lens: Sequence[int] = ()
+                 ) -> Tuple[List[Val], List[ColV], torch.Tensor]:
+    """Group-by via sort: sort by keys (``str_max_lens`` bounds the
+    string keys in turn), segment, reduce. Outputs are compacted to the
+    front at the input capacity."""
     cap = key_cols[0].validity.shape[0]
     dev = key_cols[0].validity.device
     orders = [SortOrder(True, True) for _ in key_cols]
-    perm, radix = sort_with_radix_keys(key_cols, key_dtypes, orders, num_rows)
+    perm, radix = sort_with_radix_keys(key_cols, key_dtypes, orders, num_rows,
+                                       str_max_lens)
     live = live_of(num_rows, cap, dev)[perm]
     sorted_keys = gather(key_cols, perm, live)
     sorted_vals = [None if v is None else gather([v], perm, live)[0]
                    for v in value_cols]
-    seg, nseg = segment_ids_from_radix_keys(radix, live)
+    seg, nseg = segment_ids_from_radix_keys(
+        [k for ks in radix for k in ks], live)
     # representative (first) row of each segment, for key output
     idx = torch.arange(cap, dtype=torch.int64, device=dev)
     first_row = _seg_extreme(torch.where(live, idx, cap), seg, cap, "min",
@@ -175,12 +244,17 @@ def _int_bounds(dtype: torch.dtype) -> Tuple[int, int]:
     return info.min, info.max
 
 
-def reduce_no_keys(value_cols: Sequence[Optional[ColV]],
+def reduce_no_keys(value_cols: Sequence[Optional[Val]],
                    agg_ops: Sequence[str], num_rows,
-                   device=None) -> List[ColV]:
-    """Grand aggregate (no grouping keys): one output row."""
+                   device=None, str_val_max_lens: Sequence[int] = ()
+                   ) -> List[Val]:
+    """Grand aggregate (no grouping keys): one output row. String
+    min/max reduce through their ranks (:func:`string_minmax_ranks`)."""
     if not value_cols:
         return []
+    value_cols = list(value_cols)
+    recover = string_minmax_ranks(value_cols, agg_ops, num_rows,
+                                  str_val_max_lens)
     present = [v for v in value_cols if v is not None]
     if not present:
         # only count(*) over an implicit capacity
@@ -199,7 +273,7 @@ def reduce_no_keys(value_cols: Sequence[Optional[ColV]],
         if r is None:
             r = segment_reduce(op, v, torch.where(live, 0, 1), 1, live)
         outs.append(r)
-    return outs
+    return _recovered(outs, recover)
 
 
 def _reduce_one(op: str, col: Optional[ColV],
@@ -461,32 +535,43 @@ def _pow2_floor(x: int) -> int:
     return 1 << (x.bit_length() - 1) if x & (x - 1) else x
 
 
-def groupby_agg(key_cols: Sequence[ColV], key_dtypes: Sequence[T.DataType],
-                value_cols: Sequence[Optional[ColV]], agg_ops: Sequence[str],
+def groupby_agg(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
+                value_cols: Sequence[Optional[Val]], agg_ops: Sequence[str],
                 num_rows, approx_float_sum: bool = False,
-                num_buckets: int = 8192, strategy: Optional[str] = None
-                ) -> Tuple[List[ColV], List[ColV], torch.Tensor]:
+                num_buckets: int = 8192, strategy: Optional[str] = None,
+                str_max_lens: Sequence[int] = (),
+                str_val_max_lens: Sequence[int] = ()
+                ) -> Tuple[List[Val], List[Val], torch.Tensor]:
     """Adaptive group-by: narrow hash tiers first, escalating to wider
     ones and then the sort fallback only when the keys do not fit
     (``groupby.py:1040-1080``). Each tier's collision check is a host
-    decision; only the taken path runs."""
+    decision; only the taken path runs. String keys take the sort path
+    (``str_max_lens`` bounds them); string min/max inputs reduce as rank
+    columns (``str_val_max_lens``) on whichever path runs."""
     if strategy in NOT_PORTED_TIERS:
         raise not_ported_tier(strategy)
     for dt in key_dtypes:
-        if not T.is_fixed_width(dt):
+        if not (T.is_fixed_width(dt) or T.is_string(dt)):
             raise NotImplementedError(
                 f"{dt.simpleString} group keys are {T.NOT_PORTED_TYPES}")
     if not key_cols:
         raise ValueError("groupby_agg needs keys; use reduce_no_keys")
+    value_cols = list(value_cols)
+    recover = string_minmax_ranks(value_cols, agg_ops, num_rows,
+                                  str_val_max_lens)
     cap = key_cols[0].validity.shape[0]
     B2 = _pow2_floor(min(cap, num_buckets))
     B1 = min(1024, B2)
     B0 = min(128, B1)
     tiers = [B0] + [b for b, below in ((B1, B0), (B2, B1)) if b > below]
+    if any(isinstance(c, StrV) for c in key_cols):
+        tiers = []  # string keys: the sort path
     for B in tiers:
         hk, ha, hn, ok = hash_groupby(
             list(key_cols), key_dtypes, value_cols, agg_ops, num_rows, B,
             approx_float_sum=approx_float_sum, reduce_strategy=strategy)
         if bool(ok.item()):  # host sync: groupby.py:1072
-            return hk, ha, hn
-    return sort_groupby(key_cols, key_dtypes, value_cols, agg_ops, num_rows)
+            return hk, _recovered(ha, recover), hn
+    keys, aggs, n = sort_groupby(key_cols, key_dtypes, value_cols, agg_ops,
+                                 num_rows, str_max_lens)
+    return keys, _recovered(aggs, recover), n

@@ -1,4 +1,5 @@
-"""Spark-compatible Murmur3_x86_32 hashing, fixed-width columns.
+"""Spark-compatible Murmur3_x86_32 hashing of fixed-width and string
+columns.
 
 Counterpart of ``spark_rapids_tpu/ops/hashing.py``, bit-exact with it (the
 hash bucket tier of the group-by depends on that). torch has no uint32
@@ -8,12 +9,12 @@ to their low 32 bits, which are exactly the uint32 products.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from .. import types as T
-from ..expr.values import ColV
+from ..expr.values import StrV, Val
 
 DEFAULT_SEED = 42
 
@@ -67,6 +68,33 @@ def hash_long(data: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return _fmix(h1, 8)
 
 
+def hash_string(col: StrV, seed: torch.Tensor, max_len: int) -> torch.Tensor:
+    """hashUnsafeBytes over UTF-8 (reference ``hashing.py:78``): each
+    full 4-byte little-endian block, then each tail byte sign-extended.
+    ``max_len`` bounds the byte length (bucketed by the caller)."""
+    cap = col.offsets.shape[0] - 1
+    dev = col.offsets.device
+    starts = col.offsets[:-1].to(torch.int64)
+    ends = col.offsets[1:].to(torch.int64)
+    lens = ends - starts
+    pool = torch.cat([col.chars.reshape(-1),
+                      torch.zeros(4, dtype=torch.uint8, device=dev)])
+    win = pool.unfold(0, 4, 1)  # win[p] = pool[p:p + 4], a view
+    h1 = seed.expand(cap)
+    for c in range(max_len // 4 + 1):
+        base = starts + 4 * c
+        word = win[base.clamp(0, win.shape[0] - 1)].contiguous().view(
+            torch.int32).reshape(cap)
+        h1 = torch.where(base + 4 <= ends, _mix_h1(h1, _mix_k1(_u32(word))),
+                         h1)
+    aligned = starts + (lens & ~3)
+    for b in range(3):
+        pos = aligned + b
+        sbyte = pool[pos.clamp(0, pool.shape[0] - 1)].view(torch.int8)
+        h1 = torch.where(pos < ends, _mix_h1(h1, _mix_k1(_u32(sbyte))), h1)
+    return _fmix(h1, lens & _M32)
+
+
 def canonical_float(data: torch.Tensor) -> torch.Tensor:
     """NaN canonicalized; -0.0 and subnormals folded to +0.0. The
     reference's backends treat subnormals as zero in these compares (XLA
@@ -86,9 +114,16 @@ def flush_subnormals(data: torch.Tensor) -> torch.Tensor:
                        torch.copysign(torch.zeros_like(data), data), data)
 
 
-def hash_column(col: ColV, dtype: T.DataType,
-                seed: torch.Tensor) -> torch.Tensor:
-    """Hash one column into the running per-row seed; nulls leave it as-is."""
+def hash_column(col: Val, dtype: T.DataType, seed: torch.Tensor,
+                str_max_len: Optional[int] = None) -> torch.Tensor:
+    """Hash one column into the running per-row seed; nulls leave it
+    as-is. A string column needs its byte bound ``str_max_len``."""
+    if isinstance(col, StrV):
+        if str_max_len is None:
+            raise ValueError("a string column needs its byte bound "
+                             "(ops/sort.str_max_lens)")
+        return torch.where(col.validity,
+                           hash_string(col, seed, str_max_len), seed)
     data = col.data
     if isinstance(dtype, T.BooleanType):
         h = hash_int(data.to(torch.int32), seed)
@@ -106,13 +141,17 @@ def hash_column(col: ColV, dtype: T.DataType,
     return torch.where(col.validity, h, seed)
 
 
-def murmur3(cols: Sequence[ColV], dtypes: Sequence[T.DataType],
-            seed: int = DEFAULT_SEED) -> torch.Tensor:
+def murmur3(cols: Sequence[Val], dtypes: Sequence[T.DataType],
+            seed: int = DEFAULT_SEED,
+            str_max_lens: Sequence[int] = ()) -> torch.Tensor:
     """Spark Murmur3Hash(expr*) — int32 result, seed chained across
-    columns."""
+    columns; ``str_max_lens`` bounds each string column in turn (each
+    must have one)."""
     cap = cols[0].validity.shape[0]
     h = torch.full((cap,), seed & _M32, dtype=torch.int64,
                    device=cols[0].validity.device)
+    lens = iter(str_max_lens)
     for c, dt in zip(cols, dtypes):
-        h = hash_column(c, dt, h)
+        h = hash_column(c, dt, h,
+                        next(lens, None) if isinstance(c, StrV) else None)
     return (((h + 2**31) & _M32) - 2**31).to(torch.int32)

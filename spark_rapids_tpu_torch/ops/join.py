@@ -34,16 +34,15 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .. import types as T
-from ..expr.values import ColV
+from ..expr.values import StrV, Val
 from . import join_kernels
 from .join_kernels import pack_key
 from .radix_bin import segment_start_broadcast
-from .sort import SIGN64, SortOrder, fixed_radix_keys
+from .sort import (SIGN64, SortOrder, chunk_count, fixed_radix_keys,
+                   next_bound, string_chunk_keys)
 
 _M32 = 0xFFFFFFFF
 _I64_MAX = 2**63 - 1
-#: the ROADMAP item string join keys name when they raise
-STRING_KEYS = f"string join keys are {T.NOT_PORTED_STRING_LAYERS}"
 
 
 def _ult(a: torch.Tensor, b) -> torch.Tensor:
@@ -52,25 +51,36 @@ def _ult(a: torch.Tensor, b) -> torch.Tensor:
     return (a ^ SIGN64) < (b ^ SIGN64)
 
 
-def radix_key_words(cols: Sequence[ColV], dtypes: Sequence[T.DataType]
+def _fixed_key_words(c: Val) -> int:
+    """Words a fixed-width key gives: (hi, lo) for a 64-bit one."""
+    return 2 if (c.data.dtype != torch.bool
+                 and c.data.element_size() == 8) else 1
+
+
+def radix_key_words(cols: Sequence[Val], dtypes: Sequence[T.DataType],
+                    str_max_lens: Sequence[int] = ()
                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """(key word tensors, any_null) for join-key comparison (reference
     ``join.py:51``). Words are the sort's order-preserving u32 radix
     words, so equality over words is Spark's join-key equality (NaN ==
     NaN, -0.0 == 0.0) and the build side can be ordered by them; a 64-bit
-    key splits into (hi, lo) words."""
+    key splits into (hi, lo) words, a string key gives its chunk words
+    (``str_max_lens`` bounds the string keys in turn; each must have
+    one)."""
     order = SortOrder(True, True)
-    for c, dt in zip(cols, dtypes):
-        if not isinstance(c, ColV) or not T.is_fixed_width(dt):
-            raise NotImplementedError(STRING_KEYS)
     cap = cols[0].validity.shape[0]
     words: List[torch.Tensor] = []
     any_null = torch.zeros(cap, dtype=torch.bool,
                            device=cols[0].validity.device)
+    lens = iter(str_max_lens)
     for c, dt in zip(cols, dtypes):
         any_null = any_null | ~c.validity
+        if isinstance(c, StrV):
+            # null_rank skipped: null keys never match
+            words.extend(string_chunk_keys(c, order, next_bound(lens))[1:])
+            continue
         k = fixed_radix_keys(c, dt, order)[1]  # null_rank skipped
-        if c.data.dtype != torch.bool and c.data.element_size() == 8:
+        if _fixed_key_words(c) == 2:
             words.append((k >> 32) & _M32)
             words.append(k & _M32)
         else:
@@ -78,19 +88,56 @@ def radix_key_words(cols: Sequence[ColV], dtypes: Sequence[T.DataType]
     return words, any_null
 
 
+def key_word_widths(cols: Sequence[Val], str_max_lens: Sequence[int]
+                    ) -> Tuple[int, ...]:
+    """How many words each key gives in :func:`radix_key_words` under
+    the same bounds."""
+    lens = iter(str_max_lens)
+    return tuple(chunk_count(next_bound(lens)) if isinstance(c, StrV)
+                 else _fixed_key_words(c) for c in cols)
+
+
 def pad_key_words(build_words: Sequence[torch.Tensor],
-                  probe_words: Sequence[torch.Tensor]
+                  probe_words: Sequence[torch.Tensor],
+                  build_widths: Sequence[int], probe_widths: Sequence[int]
                   ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """Zero-pad the shorter side's word list to the longer count (string
-    keys derive their word count from each side's own length bucket;
-    fixed-width keys always agree)."""
-    bw = list(build_words)
-    pw = list(probe_words)
-    while len(bw) < len(pw):
-        bw.append(torch.zeros_like(bw[0]))
-    while len(pw) < len(bw):
-        pw.append(torch.zeros_like(pw[0]))
+    """Both sides' words with each key zero-padded to the wider side's
+    word count, the zero words right after that key's own.
+
+    A string key's word count comes from each side's own length bucket
+    (exec/join bounds the build once and each probe batch on its own).
+    Every string of the narrower side fits its bucket, so its chunks past
+    it are zero: the inserted zero words give its encoding at the wider
+    bound. Padding at the end of the whole list instead (the reference's
+    ``pad_key_words``) shifts every key after a string key against the
+    other side's (ROADMAP.md §C); comparing only a shared prefix would
+    match keys that differ past it."""
+    if len(build_widths) != len(probe_widths):
+        raise ValueError(f"{len(build_widths)} build keys against "
+                         f"{len(probe_widths)} probe keys")
+    bw: List[torch.Tensor] = []
+    pw: List[torch.Tensor] = []
+    bi = pi = 0
+    for nb, npr in zip(build_widths, probe_widths):
+        n = max(nb, npr)
+        bw.extend(build_words[bi:bi + nb])
+        bw.extend(torch.zeros_like(build_words[bi]) for _ in range(n - nb))
+        pw.extend(probe_words[pi:pi + npr])
+        pw.extend(torch.zeros_like(probe_words[pi]) for _ in range(n - npr))
+        bi += nb
+        pi += npr
+    if bi != len(build_words) or pi != len(probe_words):
+        raise ValueError("key word widths do not add up to the words")
     return bw, pw
+
+
+def _check_aligned(build_words: Sequence[torch.Tensor],
+                   probe_words: Sequence[torch.Tensor]) -> None:
+    if len(build_words) != len(probe_words):
+        raise ValueError(
+            f"{len(build_words)} build key words against "
+            f"{len(probe_words)} probe words: align them per key with "
+            "pad_key_words")
 
 
 def key_span(key64: torch.Tensor, ok: torch.Tensor
@@ -136,8 +183,9 @@ def probe_ranges(build_words: Sequence[torch.Tensor], build_count,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, hi) int32 match range per probe row, per the lowering tier
     (reference ``join.py:129``): SEARCH / DIRECT / RADIX / PALLAS.
+    Both sides give the same number of words (:func:`pad_key_words`).
     DIRECT's runtime ``fits`` decision is one host sync."""
-    build_words, probe_words = pad_key_words(build_words, probe_words)
+    _check_aligned(build_words, probe_words)
     if strategy == "RADIX":
         lo, hi, _ = radix_probe_ranges(build_words, build_count,
                                        probe_words, probe_live)
@@ -187,7 +235,6 @@ def _probe_binary_search(build_words: Sequence[torch.Tensor], build_count,
     """General path (reference ``join.py:206``): vectorized lexicographic
     binary search over the sorted build words (build rows sorted
     joinable-first). Unmatched live rows report their insertion point."""
-    build_words, probe_words = pad_key_words(build_words, probe_words)
     dev = probe_live.device
     m = probe_words[0].shape[0]
     nb = build_words[0].shape[0]
@@ -259,7 +306,7 @@ def radix_probe_ranges(build_words: Sequence[torch.Tensor], build_count,
     (full outer) also returns which build rows a live probe row matched;
     ``lo_matched_only`` (the fused fast path) returns lo and
     ``lo + matched bit`` — the true run end is not computed there."""
-    build_words, probe_words = pad_key_words(build_words, probe_words)
+    _check_aligned(build_words, probe_words)
     dev = probe_live.device
     nb = build_words[0].shape[0]
     m = probe_words[0].shape[0]

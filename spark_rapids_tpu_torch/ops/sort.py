@@ -14,17 +14,20 @@ torch has no multi-key sort: :func:`sort_with_radix_keys` packs the
 lexicographic key sequence into as few int64 sort keys as its digits'
 widths allow (a rank of 1-2 bits and a 32-bit radix share one word; a
 64-bit radix takes a word of its own) and runs one stable ``argsort`` per
-word, least significant first. String keys (``string_chunk_keys``) are
-not ported yet and raise.
+word, least significant first. A string key sorts by its
+:func:`string_chunk_keys`: 4-byte big-endian chunks of its bytes,
+zero-padded to a byte bound the caller measured (:func:`str_max_lens`),
+two chunks to a 64-bit word.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import torch
 
 from .. import types as T
+from ..columnar.column import choose_capacity
 from ..expr.values import ColV, StrV, Val
 from .filter_gather import gather, live_of
 from .hashing import canonical_float, flush_subnormals
@@ -115,6 +118,116 @@ def fixed_radix_keys(col: ColV, dtype: T.DataType,
     return [null_rank.to(torch.int64), k]
 
 
+def max_string_len(col: StrV) -> torch.Tensor:
+    """Device scalar: the longest row's byte length (reference
+    ``sort.py:227``); callers bucket it on the host."""
+    lens = col.offsets[1:] - col.offsets[:-1]
+    if lens.numel() == 0:
+        return torch.zeros((), dtype=torch.int32, device=lens.device)
+    return lens.max()
+
+
+def str_max_lens(vals: Sequence[Val]) -> Tuple[int, ...]:
+    """The byte bound of each string value in ``vals``, in order: its
+    longest row rounded up to a power of two of at least 4 (the
+    reference's ``max(4, choose_capacity(max(1, m), 4))``). One host sync
+    for all of them; none when there is no string."""
+    strs = [v for v in vals if isinstance(v, StrV)]
+    if not strs:
+        return ()
+    ms = torch.stack([max_string_len(v) for v in strs]).tolist()
+    return tuple(max(4, choose_capacity(max(1, int(m)), 4)) for m in ms)
+
+
+def chunk_count(max_len: int) -> int:
+    """The 4-byte chunks of a string key bounded by ``max_len`` bytes."""
+    return max(1, (max_len + 3) // 4)
+
+
+def next_bound(lens: Iterator[int]) -> int:
+    """The next string key's byte bound from an iterator over a
+    ``str_max_lens``. A key past its bound is cut there, so a string key
+    without one raises rather than take a guess."""
+    b = next(lens, None)
+    if b is None:
+        raise ValueError("a string key needs its byte bound "
+                         "(ops/sort.str_max_lens)")
+    return b
+
+
+def _chunk_pairs(col: StrV, nchunks: int) -> List[torch.Tensor]:
+    """Each row's bytes as big-endian 8-byte words, zero past the row's
+    end: word i is ``(chunk[2i] << 32) | chunk[2i+1]`` as an int64 bit
+    pattern, ceil(nchunks / 2) words. One 8-byte window gather per word
+    (the reference takes the bytes one at a time)."""
+    cap = col.offsets.shape[0] - 1
+    dev = col.offsets.device
+    starts = col.offsets[:-1].to(torch.int64)
+    lens = (col.offsets[1:] - col.offsets[:-1]).to(torch.int64)
+    pool = torch.cat([col.chars.reshape(-1),
+                      torch.zeros(8, dtype=torch.uint8, device=dev)])
+    win = pool.unfold(0, 8, 1)  # win[p] = pool[p:p + 8], a view
+    last = win.shape[0] - 1
+    lane = torch.arange(8, dtype=torch.int64, device=dev)
+    out: List[torch.Tensor] = []
+    for i in range((nchunks + 1) // 2):
+        b = win[(starts + 8 * i).clamp(0, last)]
+        keep = lane < (lens - 8 * i).clamp(0, 8).unsqueeze(1)
+        b = torch.where(keep, b, torch.zeros((), dtype=torch.uint8,
+                                             device=dev))
+        out.append(b.flip(1).contiguous().view(torch.int64).reshape(cap))
+    return out
+
+
+def _string_digits(col: StrV, order: SortOrder, max_len: int
+                   ) -> List[Tuple[torch.Tensor, int, bool]]:
+    """The sort digits of a string key, most significant first: its null
+    rank, then its chunks two to a 64-bit digit (an odd last chunk is a
+    32-bit digit). A descending key flips every chunk, padding included;
+    null rows carry 0."""
+    nchunks = chunk_count(max_len)
+    null_rank = torch.where(
+        col.validity, 1, 0 if order.nulls_first_resolved else 2)
+    digits = [(null_rank.to(torch.int64), 2, True)]
+    for i, w in enumerate(_chunk_pairs(col, nchunks)):
+        bits = 64 if 2 * i + 1 < nchunks else 32
+        if bits == 32:
+            w = (w >> 32) & _M32
+        if not order.ascending:
+            w = _flip(w, bits)
+        digits.append((torch.where(col.validity, w, 0), bits, False))
+    return digits
+
+
+def string_chunk_keys(col: StrV, order: SortOrder,
+                      max_len: int) -> List[torch.Tensor]:
+    """[null_rank, chunk0, chunk1, ...] (reference ``sort.py:118``): the
+    4-byte big-endian u32 chunks of each row's bytes, zero-padded past
+    its end to ``max(1, ceil(max_len / 4))`` chunks, each flipped for a
+    descending key and 0 on null rows, so lexicographic order over the
+    chunks is unsigned byte order (Spark's UTF8String order) with a
+    shorter string first. Each chunk rides in an int64 in [0, 2^32)."""
+    nchunks = chunk_count(max_len)
+    digits = _string_digits(col, order, max_len)
+    keys = [digits[0][0]]
+    for w, bits, _ in digits[1:]:
+        if bits == 64:
+            keys.extend([(w >> 32) & _M32, w & _M32])
+        else:
+            keys.append(w)
+    return keys[:1 + nchunks]
+
+
+def _key_digits(colv: Val, dtype: T.DataType, order: SortOrder,
+                max_len: int) -> List[Tuple[torch.Tensor, int, bool]]:
+    """(key, bits, is_rank) digits of one sort key, most significant
+    first."""
+    if isinstance(colv, StrV):
+        return _string_digits(colv, order, max_len)
+    null_rank, k = fixed_radix_keys(colv, dtype, order)
+    return [(null_rank, 2, True), (k, _radix_bits(dtype, colv.data), False)]
+
+
 def _sort_words(digits: Sequence[Tuple[torch.Tensor, int, bool]]
                 ) -> List[Tuple[torch.Tensor, bool, bool]]:
     """Pack (key, bits, is_rank) digits, most significant first, into
@@ -140,35 +253,35 @@ def _sort_words(digits: Sequence[Tuple[torch.Tensor, int, bool]]
 
 
 def _sort_order(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
-                orders: Sequence[SortOrder],
-                num_rows) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """(permutation, radix key arrays in row order); padding rows sort
-    last.
+                orders: Sequence[SortOrder], num_rows,
+                str_max_lens: Sequence[int] = ()
+                ) -> Tuple[torch.Tensor, List[List[torch.Tensor]]]:
+    """(permutation, each key's digit arrays in row order); padding rows
+    sort last.
 
     The order is the reference's ``lax.sort`` over [pad_rank, per key
-    (null_rank, value_key), row_id] (``sort.py:164``). The digits pack
-    into int64 words (:func:`_sort_words`), each sorted by one stable
-    ``argsort``, least significant first, so ties keep row order. A word
-    of ranks only (no value key) is skipped when it is the same on every
-    row (one host sync): a stable sort by a constant is the identity. The
-    pad rank is left out, with no sync, when the row count is a host int
-    equal to the capacity."""
-    for c in key_cols:
-        if isinstance(c, StrV):
-            raise NotImplementedError(
-                f"sorting by a string key is {T.NOT_PORTED_STRING_LAYERS}")
+    its radix keys, row_id] (``sort.py:164``): (null_rank, value_key)
+    for a fixed-width key, (null_rank, chunks...) for a string key, whose
+    byte bound is the next of ``str_max_lens`` (each string key must
+    have one). The digits pack into int64 words (:func:`_sort_words`), each
+    sorted by one stable ``argsort``, least significant first, so ties
+    keep row order. A word of ranks only (no value key) is skipped when
+    it is the same on every row (one host sync): a stable sort by a
+    constant is the identity. The pad rank is left out, with no sync,
+    when the row count is a host int equal to the capacity."""
     cap = key_cols[0].validity.shape[0]
     dev = key_cols[0].validity.device
-    keys: List[torch.Tensor] = []
+    keys: List[List[torch.Tensor]] = []
     digits: List[Tuple[torch.Tensor, int, bool]] = []
     if not (isinstance(num_rows, int) and num_rows >= cap):
         digits.append(((~live_of(num_rows, cap, dev)).to(torch.int64), 1,
                        True))
+    lens = iter(str_max_lens)
     for colv, dtype, order in zip(key_cols, key_dtypes, orders):
-        null_rank, k = fixed_radix_keys(colv, dtype, order)
-        keys.extend([null_rank, k])
-        digits.append((null_rank, 2, True))
-        digits.append((k, _radix_bits(dtype, colv.data), False))
+        ml = next_bound(lens) if isinstance(colv, StrV) else 0
+        kd = _key_digits(colv, dtype, order, ml)
+        keys.append([d[0] for d in kd])
+        digits.extend(kd)
     perm = None
     for w, wide, ranks_only in _sort_words(digits):
         if ranks_only and cap and not bool((w != w[0]).any()):
@@ -185,34 +298,39 @@ def _sort_order(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
 
 def sort_with_radix_keys(key_cols: Sequence[Val],
                          key_dtypes: Sequence[T.DataType],
-                         orders: Sequence[SortOrder],
-                         num_rows) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """(permutation, sorted radix key arrays: [null_rank, value_key] per
-    key); padding rows sort last (reference ``sort.py:164``). Callers
-    find group and peer boundaries from the sorted keys."""
-    perm, keys = _sort_order(key_cols, key_dtypes, orders, num_rows)
-    return perm, [k[perm] for k in keys]
+                         orders: Sequence[SortOrder], num_rows,
+                         str_max_lens: Sequence[int] = ()
+                         ) -> Tuple[torch.Tensor, List[List[torch.Tensor]]]:
+    """(permutation, per key its digit arrays in sorted order); padding
+    rows sort last (reference ``sort.py:164``). Two adjacent sorted rows
+    hold equal keys iff every array of the key matches, so callers find
+    group and peer boundaries from them (a string key's chunks come two
+    to a 64-bit array)."""
+    perm, keys = _sort_order(key_cols, key_dtypes, orders, num_rows,
+                             str_max_lens)
+    return perm, [[k[perm] for k in ks] for ks in keys]
 
 
 def sort_permutation(key_cols: Sequence[Val],
                      key_dtypes: Sequence[T.DataType],
-                     orders: Sequence[SortOrder],
-                     num_rows) -> torch.Tensor:
+                     orders: Sequence[SortOrder], num_rows,
+                     str_max_lens: Sequence[int] = ()) -> torch.Tensor:
     """Stable sort permutation over the given keys; padding rows go last
     (reference ``sort.py:196``). The radix keys are not gathered."""
-    return _sort_order(key_cols, key_dtypes, orders, num_rows)[0]
+    return _sort_order(key_cols, key_dtypes, orders, num_rows,
+                       str_max_lens)[0]
 
 
 def sort_cols(cols: Sequence[Val], key_indices: Sequence[int],
               key_dtypes: Sequence[T.DataType],
-              orders: Sequence[SortOrder], num_rows) -> List[Val]:
+              orders: Sequence[SortOrder], num_rows,
+              str_max_lens: Sequence[int] = ()) -> List[Val]:
     """Sort all columns by the keys at ``key_indices`` (reference
     ``sort.py:210``)."""
     c0 = cols[0]
-    cap = (c0.offsets.shape[0] - 1 if isinstance(c0, StrV)
-           else c0.validity.shape[0])
+    cap = c0.validity.shape[0]
     perm = sort_permutation([cols[i] for i in key_indices], key_dtypes,
-                            orders, num_rows)
+                            orders, num_rows, str_max_lens)
     # live rows sort first, so this is ``iota < num_rows`` for a count
     valid_slot = live_of(num_rows, cap, c0.validity.device)[perm]
     return gather(cols, perm, valid_slot)

@@ -874,3 +874,116 @@ def test_string_expressions_on_the_card_match_the_cpu(dev):
         rows[str(device)] = [c.to_host().to_pylist()
                              for c in evaluate_projection(exprs, b)]
     assert rows[str(dev)] == rows["cpu"]
+
+
+def _key_column(device, keys):
+    """A string column of ``keys`` (None for null) on ``device``."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, schema_of
+    from spark_rapids_tpu_torch.exec.base import vals_of_batch
+
+    b = ColumnarBatch.from_pydict({"s": keys}, schema_of(s=T.STRING),
+                                  device=device)
+    return vals_of_batch(b)[0], b.capacity
+
+
+@pytest.mark.parametrize("width", [3, 5, 8])
+def test_probe_ranges_on_string_chunk_words(dev, width):
+    """K4 on the chunk words of string keys of 1 and 2 words (as the
+    string join hands them over), against its plain version on the same
+    card tensors."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.ops import join_kernels as JK
+    from spark_rapids_tpu_torch.ops.filter_gather import live_of
+    from spark_rapids_tpu_torch.ops.sort import (SortOrder, sort_permutation,
+                                                 str_max_lens)
+
+    rng = np.random.default_rng(width)
+    pool = ["%0*d" % (width, i) for i in range(3000)]
+    build = [pool[i] for i in rng.integers(0, 3000, 5000)]
+    probe = [None if rng.random() < 0.05 else pool[i] if rng.random() < 0.9
+             else "X" * width for i in rng.integers(0, 3000, 40_000)]
+    bcol, bcap = _key_column(dev, build)
+    pcol, pcap = _key_column(dev, probe)
+    bml = str_max_lens([bcol])
+    bw, _ = J.radix_key_words([bcol], [T.STRING], bml)
+    perm = sort_permutation([bcol], [T.STRING], [SortOrder(True, True)],
+                            live_of(5000, bcap, dev), bml)
+    bw = [w[perm] for w in bw]
+    pw, pnull = J.radix_key_words([pcol], [T.STRING], str_max_lens([pcol]))
+    live = live_of(40_000, pcap, dev) & ~pnull
+    assert len(bw) == len(pw) == (1 if width <= 4 else 2)
+    exp = JK.probe_ranges_plain(bw, 5000, pw, live)
+    before = JK.LAUNCHES["probe_ranges"]
+    got = JK.probe_ranges(bw, 5000, pw, live)
+    assert JK.LAUNCHES["probe_ranges"] - before == 1
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_bucket_winner_on_string_ranks(dev, op):
+    """K3 on the order words of a string column's rank column (string
+    min/max on the hash tiers), against its plain version."""
+    from spark_rapids_tpu_torch.ops import groupby as G
+
+    rng = np.random.default_rng(5)
+    keys = ["AAAAAAAA" + "".join(chr(65 + c) for c in rng.integers(0, 16, 8))
+            if rng.random() > 0.05 else None for _ in range(60_000)]
+    col, cap = _key_column(dev, keys)
+    _, rank = G._plain_rank(col, 60_000, 16)
+    seg = torch.from_numpy(rng.integers(0, 1024, cap).astype(
+        np.int32)).to(dev)
+    word = K._order_words(rank.data, ~rank.validity, op)
+    exp = K.bucket_winner_plain(seg, 1024, op, word)
+    before = K.LAUNCHES["bucket_winner"]
+    got = K.bucket_winner(seg, 1024, op, word)
+    assert K.LAUNCHES["bucket_winner"] - before == 1
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("strategy", ["PALLAS", "SEARCH", "RADIX", "AUTO"])
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full", "semi",
+                                 "anti"])
+def test_string_key_join_on_the_card_matches_the_cpu(dev, how, strategy):
+    """A join on 6-byte string keys with string payloads, then a
+    string-keyed aggregate of its output, on the card and on the CPU:
+    the same rows in the same order (PALLAS: K4 on the card)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, schema_of
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuHashAggregateExec,
+                                             TpuShuffledHashJoinExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr.expressions import col
+
+    rng = np.random.default_rng(9)
+    n, d = 5000, 700
+    ld = {"k": [None if x < 0 else "k%05d" % x
+                for x in rng.integers(-50, 1000, n)],
+          "p": ["p" * int(x) for x in rng.integers(0, 12, n)]}
+    rd = {"k2": [None if x < 0 else "k%05d" % x
+                 for x in rng.integers(-20, 800, d)],
+          "q": ["city%d" % x for x in rng.integers(0, 40, d)]}
+    ls, rs = schema_of(k=T.STRING, p=T.STRING), schema_of(k2=T.STRING,
+                                                          q=T.STRING)
+
+    def run(device):
+        conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy": strategy})
+        join = TpuShuffledHashJoinExec(
+            conf, InMemoryScanExec(conf, [[ColumnarBatch.from_pydict(
+                ld, ls, device=device)]], ls),
+            InMemoryScanExec(conf, [[ColumnarBatch.from_pydict(
+                rd, rs, device=device)]], rs),
+            [col("k")], [col("k2")], how)
+        rows = join.collect()
+        if how in ("semi", "anti"):
+            return rows, None
+        agg = TpuHashAggregateExec(conf, [col("q")], [
+            A.agg(A.Count(None), "n"), A.agg(A.Min(col("p")), "mn"),
+            A.agg(A.Max(col("k")), "mx")], join)
+        return rows, sorted(agg.collect(), key=repr)
+
+    assert run(dev) == run("cpu")

@@ -209,10 +209,31 @@ def test_matched_build_mask_matches_reference():
 
 
 def test_string_keys_raise_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue A"):
-        J.radix_key_words([ColV(torch.zeros(4, dtype=torch.int32),
-                                torch.ones(4, dtype=torch.bool))],
-                          [T.StringType()])
+    """String join keys are ported: with its byte bound a string key
+    gives the reference's chunk words and raises nothing naming a roadmap
+    item; without one it raises, naming the bound it needs (the wider
+    string cases are in ``test_torch_string_join.py``)."""
+    from spark_rapids_tpu.expr.eval import StrV as JStrV
+    from spark_rapids_tpu_torch.expr.values import StrV
+
+    strs = [b"", b"a", b"a\x00", b"abcde", b"\xc3\xa9t\xc3\xa9"]
+    off = np.concatenate([[0], np.cumsum([len(s) for s in strs])]).astype(
+        np.int32)
+    chars = np.frombuffer(b"".join(strs), np.uint8).copy()
+    valid = np.array([True, True, False, True, True])
+    ref, rnull = RJ.radix_key_words(
+        [JStrV(jnp.asarray(off), jnp.asarray(chars), jnp.asarray(valid))],
+        [JT.STRING], (8,))
+    col = StrV(torch.from_numpy(off), torch.from_numpy(chars),
+               torch.from_numpy(valid))
+    words, any_null = J.radix_key_words([col], [T.STRING], (8,))
+    assert len(words) == len(ref) == 2
+    for i, (rw, w) in enumerate(zip(ref, words)):
+        _eq(np.asarray(rw).astype(np.int64), w, f"word {i}")
+    _eq(rnull, any_null, "any_null")
+    with pytest.raises(ValueError, match="str_max_lens") as err:
+        J.radix_key_words([col], [T.STRING])
+    assert "queue A" not in str(err.value)
 
 
 def test_packed_columns_match_reference_and_round_trip():

@@ -126,7 +126,6 @@ def _q_join(m, sess):
     dim = sess.from_rows([(k, k * 10) for k in range(0, 12, 2)],
                          T_.StructType((T_.StructField("dk", T_.INT),
                                         T_.StructField("w", T_.INT))))
-    # string join payloads are not ported yet (ROADMAP.md item 17)
     return (_df(m, sess).select("k", "x").join(dim, [("k", "dk")], "left")
             .group_by("w").agg(A.agg(A.Sum(E.col("x")), "sx"),
                                A.agg(A.Count(), "n")))
@@ -158,6 +157,39 @@ def _order_by(m, sess):
 def _window(m, sess):
     W, E = m["W"], m["E"]
     spec = W.WindowSpec((E.col("k"),), (E.col("x"),), ((True, None),))
+    return _df(m, sess).with_windows(
+        W.WindowExpression(W.RowNumber(), spec, "rn"))
+
+
+def _order_by_string(m, sess):
+    return _df(m, sess).order_by("s", "k", ascending=[False, True])
+
+
+def _group_by_string(m, sess):
+    E, A = m["E"], m["A"]
+    return _df(m, sess).group_by("s").agg(A.agg(A.Count(None), "n"),
+                                          A.agg(A.Sum(E.col("x")), "sx"),
+                                          A.agg(A.Max(E.col("k")), "mk"))
+
+
+def _string_min_max(m, sess):
+    E, A = m["E"], m["A"]
+    return _df(m, sess).group_by("k").agg(A.agg(A.Min(E.col("s")), "mn"),
+                                          A.agg(A.Max(E.col("s")), "mx"))
+
+
+def _join_string_payload(m, sess):
+    T_ = m["T"]
+    dim = sess.from_rows([("c", "one"), ("ab", "two"), ("", "three"),
+                          ("zz", "four")],
+                         T_.StructType((T_.StructField("ds", T_.STRING),
+                                        T_.StructField("name", T_.STRING))))
+    return _df(m, sess).join(dim, [("s", "ds")], "left")
+
+
+def _window_string_key(m, sess):
+    W, E = m["W"], m["E"]
+    spec = W.WindowSpec((E.col("s"),), (E.col("x"),), ((True, None),))
     return _df(m, sess).with_windows(
         W.WindowExpression(W.RowNumber(), spec, "rn"))
 
@@ -199,11 +231,17 @@ QUERIES = {
     "window": (_window, {}),
     "limit": (_limit, {}),
     "union": (_union, {}),
+    "order_by_string": (_order_by_string, {}),
+    "group_by_string": (_group_by_string, {}),
+    "string_min_max": (_string_min_max, {}),
+    "join_string_payload": (_join_string_payload, {}),
+    "window_string_key": (_window_string_key, {}),
     "udf_compiler": (_q_udf, {"spark.rapids.tpu.sql.udfCompiler.enabled":
                               True}),
 }
 #: cases whose row order is the query's result (compared unsorted too)
-ORDERED = ("order_by", "window", "limit", "union")
+ORDERED = ("order_by", "window", "limit", "union", "order_by_string",
+           "window_string_key")
 
 #: float tolerance per case (exact elsewhere): the PALLAS tier's float
 #: sums (hi/lo planes in the reference), and Round, whose reference
@@ -328,17 +366,11 @@ def test_device_plan_has_no_cpu_exec():
     assert isinstance(agg.children[0].children[0], InMemoryScanExec)
 
 
-def _order_by_string(m, sess):
-    return _df(m, sess).order_by("s")
-
-
 def _order_by_partitioned(m, sess):
     return _df(m, sess, parts=3).order_by("k")
 
 
 NOT_PORTED = {
-    "order_by_string_key": (_order_by_string, {}, "Strings in joins, "
-                            "grouping keys, min/max and concat"),
     "order_by_partitioned": (_order_by_partitioned, {},
                              "Partitioned join builds"),
     "partitioned_aggregate": (_partitioned_agg, {},

@@ -138,15 +138,6 @@ def test_sort_cols_matches_reference():
         np.testing.assert_array_equal(g.data.numpy(), np.asarray(r.data))
 
 
-def test_string_key_raises_naming_its_item():
-    s = T.StructType((T.StructField("s", T.STRING),))
-    scan = InMemoryScanExec.from_pydict(RapidsConf({}), {"s": ["b", "a"]},
-                                        s, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="item 'Strings in joins, grouping keys"):
-        TpuSortExec(RapidsConf({}), [E.col("s")], [(True, None)], scan)
-
-
 # ---------------------------------------------------------------------------
 # the exec, over several batches, under a local limit
 # ---------------------------------------------------------------------------
