@@ -68,10 +68,14 @@ Phases, each failing the run on any error or mismatch:
         reduced on the card to row counts and per-column valid counts
         and sums;
      Q9 the bench string query (bench.py ``shape_string``, scale 1): 2^22
-        rows of ``s`` from the bench's 56-entry pool (in the expanded
-        Arrow layout) and ``v``; filter contains(s, "X"), project
-        upper(s)[1:6], length(s), v; grand aggregate; exact against the
-        pool (per-entry values times entry counts);
+        rows of ``s`` from the bench's 56-entry pool in the bench's own
+        layout (``bench.py:_dev_string_col``: the pool's 14 distinct
+        values as a dictionary, int32 codes, ``unique`` set) and ``v``;
+        filter contains(s, "X"), project upper(s)[1:6], length(s), v;
+        grand aggregate; exact against the pool (per-entry values times
+        entry counts); the string kernels run over the 14 entries. Q9x is
+        the same query over the expanded Arrow layout. Each with a cold
+        and three warm walls and a profiled run (device busy time);
      Q10 the native-UDF word count: 2^22 rows of generated text in 4
         batches, project (k, string_word_count(s)), group by k: sum, count
         of the count and count(*), exact against the generator's own word
@@ -181,12 +185,35 @@ Phases, each failing the run on any error or mismatch:
         and timed beside ``index_add_``, and K3 runs on the ids' rank
         column over that tier, held to its plain version and timed beside
         ``scatter_reduce_``.
+7. dictionary-encoded strings, 2^23 rows each, against exact oracles,
+   with cold and warm walls as in 6 (``--profile`` adds a profiled run
+   of each):
+     Q20 TPC-H Q1 as files hold it: Q17's rows written by pyarrow with its
+        default dictionary encoding on every column, read through a port
+        ``TpuSession`` with default confs (``dictStrings`` on: the string
+        columns scan as the files' dictionaries and int32 codes) and
+        variableFloatAgg, under SCATTER (Q20: no hash-tier kernel) and
+        AUTO (Q20v: K1, K2 and K3). The unique dictionary keys group on
+        their codes on the direct tier (``describe()`` must say so); the
+        merge of the four partials materializes the keys and takes the
+        string sort path (the ordered sum, 7 calls). One more Q20v run
+        records K1's and K2's first calls over a scan batch, held to their
+        plain versions and timed beside ``index_add_``;
+     Q21 Q19's item table with i_category and i_brand (1000 dsdgen-like
+        names, one per i_brand_id) dictionary-encoded: (a) group by
+        i_category: min and max of i_brand, count(*), sum(sales) under
+        AUTO: the codes on the direct tier (K1) and i_brand's min and max
+        over the ranks of a sort of its 1000-entry dictionary (K3); (b)
+        order by i_category, i_brand, local limit 100 (the sort
+        materializes; no kernel). One more (a) run records K3's first
+        call over the batch, held to its plain version and timed beside
+        ``scatter_reduce_``.
 
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
 K1 and K3 at that shape, K4 at Q8's and Q18's, the ordered sum at
-Q17's and Q18's and K1 and K3 at Q19(c)'s have their own entries in the
-``kernels`` line.
+Q17's and Q18's, K1 and K3 at Q19(c)'s, K1 and K2 at Q20v's and K3 at
+Q21(a)'s have their own entries in the ``kernels`` line.
 
 Output: one JSON line per kernel shape and per query, then one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` are those of its
@@ -199,6 +226,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -346,46 +374,7 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
         return winner_shape(torch, dev, seg, B, op, word, reps)
 
     def k2(seg, B, fcols):
-        """K2 against its plain version within 1e-9 of each bucket's sum
-        of |x| (the atomics' order), NaN where the plain version has NaN;
-        timed beside index_add_."""
-        got = K.bucket_float_sum(seg, B, fcols)
-        exp = K.bucket_float_sum_plain(seg, B, fcols)
-        absx = K.bucket_float_sum_plain(seg, B, [(d.abs(), v)
-                                                 for d, v in fcols])
-        err = 0.0
-        for g, e, ax in zip(got, exp, absx):
-            both_nan = torch.isnan(g) & torch.isnan(e)
-            diff = torch.where(both_nan, 0.0, (g - e).abs())
-            if bool((torch.isnan(g) != torch.isnan(e)).any()) or bool(
-                    (diff > 1e-9 * torch.where(torch.isnan(ax), 0.0, ax)
-                     + 1e-300).any()):
-                raise AssertionError(f"bucket_float_sum B={B}, "
-                                     f"{len(fcols)} column(s): kernel != "
-                                     "plain")
-            err = max(err, float(diff.max()))
-        res = {"max_abs_err": err,
-               "replicas": K.plan_bucket_fsum(B, len(fcols))}
-        live = in_range(seg, B)
-        nbytes = 4 * n + int(live.sum()) * len(fcols) + 8 * sum(
-            int((v & live).sum()) for _, v in fcols) + 8 * B * len(fcols)
-        fidx = torch.where(live, seg.long(), B)
-        fvals = torch.stack([torch.where(v, d, 0.0) for d, v in fcols], 1)
-        res.update({
-            "ms": cuda_ms(torch, lambda: K.bucket_float_sum(seg, B, fcols),
-                          reps),
-            "dev_ms": dev_ms(torch, lambda: K.bucket_float_sum(
-                seg, B, fcols), reps),
-            "host_ms": host_ms(torch, lambda: K.bucket_float_sum(
-                seg, B, fcols), reps),
-            "plain_ms": cuda_ms(torch, lambda: K.bucket_float_sum_plain(
-                seg, B, fcols), reps),
-            "library_ms": cuda_ms(torch, lambda: torch.zeros(
-                (B + 1, len(fcols)), dtype=torch.float64,
-                device=dev).index_add_(0, fidx, fvals), reps),
-            "bound_ms": bound_ms(nbytes),
-        })
-        return res
+        return fsum_shape(torch, dev, seg, B, fcols, reps)
 
     # the card's dependent f64 add latency: one thread, a chain of 2^20
     # adds in registers (0 + 1 - 0.5 + 1 - 0.5 ... = 2^18 exactly)
@@ -464,6 +453,51 @@ def kernel_phase(torch, np, dev, n: int, reps: int):
         emit({"kernel_shape": name, "rows": n, "B": B, "shape": "Q4",
               **results[(name, "Q4")]})
     return results
+
+
+def fsum_shape(torch, dev, seg, B: int, fcols, reps: int) -> dict:
+    """K2 on ``fcols`` over ``seg``'s buckets against its plain version
+    within 1e-9 of each bucket's sum of |x| (the atomics' order), NaN
+    where the plain version has NaN; timed beside its bytes bound and one
+    ``index_add_``, also behind a spin kernel (``dev_ms``) and on the
+    host (``host_ms``)."""
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+
+    n = seg.shape[0]
+    got = K.bucket_float_sum(seg, B, fcols)
+    exp = K.bucket_float_sum_plain(seg, B, fcols)
+    absx = K.bucket_float_sum_plain(seg, B, [(d.abs(), v) for d, v in fcols])
+    err = 0.0
+    for g, e, ax in zip(got, exp, absx):
+        both_nan = torch.isnan(g) & torch.isnan(e)
+        diff = torch.where(both_nan, 0.0, (g - e).abs())
+        if bool((torch.isnan(g) != torch.isnan(e)).any()) or bool(
+                (diff > 1e-9 * torch.where(torch.isnan(ax), 0.0, ax)
+                 + 1e-300).any()):
+            raise AssertionError(f"bucket_float_sum B={B}, {len(fcols)} "
+                                 "column(s): kernel != plain")
+        err = max(err, float(diff.max()))
+    res = {"max_abs_err": err, "replicas": K.plan_bucket_fsum(B, len(fcols))}
+    live = (seg >= 0) & (seg < B)
+    nbytes = 4 * n + int(live.sum()) * len(fcols) + 8 * sum(
+        int((v & live).sum()) for _, v in fcols) + 8 * B * len(fcols)
+    fidx = torch.where(live, seg.long(), B)
+    fvals = torch.stack([torch.where(v, d, 0.0) for d, v in fcols], 1)
+    res.update({
+        "ms": cuda_ms(torch, lambda: K.bucket_float_sum(seg, B, fcols),
+                      reps),
+        "dev_ms": dev_ms(torch, lambda: K.bucket_float_sum(seg, B, fcols),
+                         reps),
+        "host_ms": host_ms(torch, lambda: K.bucket_float_sum(seg, B, fcols),
+                           reps),
+        "plain_ms": cuda_ms(torch, lambda: K.bucket_float_sum_plain(
+            seg, B, fcols), reps),
+        "library_ms": cuda_ms(torch, lambda: torch.zeros(
+            (B + 1, len(fcols)), dtype=torch.float64,
+            device=dev).index_add_(0, fidx, fvals), reps),
+        "bound_ms": bound_ms(nbytes),
+    })
+    return res
 
 
 def sum_shape(torch, dev, seg, B: int, int_cols, cnt_cols,
@@ -1368,6 +1402,32 @@ def string_pool_rows(np, n: int):
     return idx, v, offsets, pool[src]
 
 
+def pool_dict_column(np, dev, pool, idx):
+    """The bench's dictionary layout of rows ``idx`` over ``pool``
+    (``bench.py:_dev_string_col``): the pool's distinct values, sorted
+    bytewise, as the dictionary, int32 codes, ``unique`` set, ``max_len``
+    the longest entry and ``mat_cap`` the rows' bytes bucketed."""
+    from spark_rapids_tpu_torch.columnar import (choose_capacity,
+                                                 dict_column_from_parts)
+
+    n = idx.size
+    cap = choose_capacity(n)
+    uniq, inv = np.unique(np.array([e.encode("utf-8") for e in pool],
+                                   dtype=object), return_inverse=True)
+    codes = np.zeros(cap, np.int32)
+    codes[:n] = inv[idx]
+    lens = np.array([len(b) for b in uniq], np.int64)
+    doff = np.zeros(len(uniq) + 1, np.int32)
+    np.cumsum(lens, out=doff[1:])
+    flat = b"".join(uniq)
+    valid = np.zeros(cap, bool)
+    valid[:n] = True
+    return dict_column_from_parts(
+        n, codes, doff, np.frombuffer(flat or b"\0", np.uint8), valid,
+        mat_cap=choose_capacity(max(1, int(lens[codes[:n]].sum())), 128),
+        max_len=int(lens.max()), unique=True, device=dev)
+
+
 def word_count_text(np, rng, n: int):
     """Q10's text column: each row has 0-16 words of 1-12 bytes of
     [a-z] (about 5% of words carry one 2-byte UTF-8 letter, U+00E0 to
@@ -1509,30 +1569,17 @@ def string_query_phase(torch, np, dev, log2_rows: int, wc_batches,
 
     per_query = {}
     conf = RapidsConf({})
-    # --- Q9: the bench string query --------------------------------------
+    # --- Q9: the bench string query, in the bench's layout (Q9) and
+    # expanded (Q9x) ----------------------------------------------------
     n = 1 << log2_rows
     idx, v, offsets, chars = string_pool_rows(np, n)
     schema9 = schema_of(s=T.STRING, v=T.LONG)
-    batch9 = ColumnarBatch([
-        DeviceColumn.from_string_arrays(T.STRING, n, offsets, chars,
-                                        np.ones(n, bool), dev),
-        DeviceColumn.from_host(HostColumn(T.LONG, v, np.ones(n, bool)), n,
-                               "v", dev)], schema9, n)
-
-    def q9_plan():
-        scan = InMemoryScanExec(conf, [[batch9]], schema9)
-        filt = TpuFilterExec(conf, E.Contains(col("s"), lit("X")), scan)
-        proj = TpuProjectExec(conf, [
-            E.Alias(E.Substring(E.Upper(col("s")), lit(1), lit(6)), "u"),
-            E.Alias(E.Length(col("s")), "ln"), col("v")], filt)
-        return TpuHashAggregateExec(conf, [], [
-            A.agg(A.Sum(E.Length(col("u"))), "ul"),
-            A.agg(A.Sum(col("ln")), "l"), A.agg(A.Count(None), "c"),
-            A.agg(A.Sum(col("v")), "sv")], proj)
-
-    reset_launches()
-    rows, ms9 = _run(torch, q9_plan(), conf)
-    per_query["Q9"] = launches()
+    vcol = DeviceColumn.from_host(HostColumn(T.LONG, v, np.ones(n, bool)),
+                                  n, "v", dev)
+    layouts = {
+        "Q9": pool_dict_column(np, dev, STRING_POOL, idx),
+        "Q9x": DeviceColumn.from_string_arrays(T.STRING, n, offsets, chars,
+                                               np.ones(n, bool), dev)}
     counts = np.bincount(idx, minlength=len(STRING_POOL))
     hit = np.array(["X" in e for e in STRING_POOL])
     want = [(sum(min(6, len(e)) * int(c) for e, c, h in
@@ -1540,10 +1587,47 @@ def string_query_phase(torch, np, dev, log2_rows: int, wc_batches,
              sum(len(e) * int(c) for e, c, h in
                  zip(STRING_POOL, counts, hit) if h),
              int(counts[hit].sum()), int(v[hit[idx]].sum()))]
-    if rows != want:
-        raise AssertionError(f"Q9: {rows} != {want}")
-    emit({"query": "Q9", "rows": n, "result": rows[0], "wall_ms": ms9,
-          "char_bytes": int(offsets[-1]), "launches": per_query["Q9"]})
+    for q, scol in layouts.items():
+        batch9 = ColumnarBatch([scol, vcol], schema9, n)
+
+        def q9_plan(batch9=batch9):
+            scan = InMemoryScanExec(conf, [[batch9]], schema9)
+            filt = TpuFilterExec(conf, E.Contains(col("s"), lit("X")), scan)
+            proj = TpuProjectExec(conf, [
+                E.Alias(E.Substring(E.Upper(col("s")), lit(1), lit(6)),
+                        "u"),
+                E.Alias(E.Length(col("s")), "ln"), col("v")], filt)
+            return TpuHashAggregateExec(conf, [], [
+                A.agg(A.Sum(E.Length(col("u"))), "ul"),
+                A.agg(A.Sum(col("ln")), "l"), A.agg(A.Count(None), "c"),
+                A.agg(A.Sum(col("v")), "sv")], proj)
+
+        def check(rows, q=q):
+            if rows != want:
+                raise AssertionError(f"{q}: {rows} != {want}")
+
+        cold, warm, per_query[q] = _walls(
+            torch, q, lambda: _run(torch, q9_plan(), conf)[0], check)
+        if any(per_query[q].values()):
+            raise AssertionError(f"{q} launched {per_query[q]}")
+        if scol.is_dict:
+            d = scol.dictv
+            # codes and validity per row, the 14-entry dictionary once
+            in_bytes = (5 * n + 4 * (d.dict_size + 1)
+                        + int(d.dictionary.offsets[-1]) + 9 * n)
+            layout = {"layout": "dictionary", "dict_size": d.dict_size,
+                      "dict_bytes": int(d.dictionary.offsets[-1])}
+        else:
+            # each input plane read once: offsets, live chars, validity,
+            # and the fixed-width column with its validity
+            in_bytes = 4 * (n + 1) + int(offsets[-1]) + n + 9 * n
+            layout = {"layout": "expanded"}
+        emit({"query": q, "rows": n, "result": want[0], **layout,
+              "cold_wall_ms": cold, "warm_wall_ms": warm,
+              "char_bytes": int(offsets[-1]), "bytes": in_bytes,
+              "bound_ms": bound_ms(in_bytes), "launches": per_query[q]})
+        # the two layouts' device busy time side by side, in every run
+        profile_plan(torch, q, q9_plan, conf, n, in_bytes)
 
     # --- Q10: the native-UDF word count -----------------------------------
     batches, schema10, k, words, valid = wc_batches
@@ -1578,10 +1662,6 @@ def string_query_phase(torch, np, dev, log2_rows: int, wc_batches,
           "pool_bytes": pool, "agg_strategy": agg._strategy_choice[0],
           "launches": per_query["Q10"]})
     if profile:
-        # each input plane read once: offsets, live chars, validity, and
-        # the fixed-width column with its validity
-        profile_plan(torch, "Q9", q9_plan, conf, n,
-                     4 * (n + 1) + int(offsets[-1]) + n + 9 * n)
         nrows = int(k.size)
         profile_plan(torch, "Q10", q10_plan, conf, nrows,
                      4 * (nrows + len(batches)) + live + nrows + 5 * nrows)
@@ -2296,6 +2376,86 @@ def q17_oracle(np, t: dict):
     return rows, int(keep.sum())
 
 
+@functools.lru_cache(maxsize=1)
+def lineitem_inputs(np, n: int):
+    """Q17's and Q20's shared inputs, made once: the table, its oracle
+    rows and kept-row count, and the three string columns' planes."""
+    t = lineitem_table(np, n)
+    want, kept = q17_oracle(np, t)
+    strs = {"l_returnflag": pool_planes(np, t["flag"], RETURN_FLAGS),
+            "l_linestatus": pool_planes(np, t["status"], LINE_STATUS),
+            "l_shipmode": pool_planes(np, t["mode"], SHIP_MODES)}
+    return t, want, kept, strs
+
+
+def tpch_q1_df(np, sess, pdir):
+    """TPC-H Q1 over the ``lineitem`` files under ``pdir``, as a port
+    DataFrame (Q17, Q20)."""
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    price = col("l_extendedprice")
+    disc_price = E.Multiply(price, E.Subtract(lit(1.0), col("l_discount")))
+    charge = E.Multiply(disc_price, E.Add(lit(1.0), col("l_tax")))
+    return (sess.read.parquet(pdir)
+            .where(E.LessThanOrEqual(col("l_shipdate"),
+                                     lit(_days(np, Q17_CUTOFF))))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(A.agg(A.Sum(col("l_quantity")), "sum_qty"),
+                 A.agg(A.Sum(price), "sum_base_price"),
+                 A.agg(A.Sum(disc_price), "sum_disc_price"),
+                 A.agg(A.Sum(charge), "sum_charge"),
+                 A.agg(A.Average(col("l_quantity")), "avg_qty"),
+                 A.agg(A.Average(price), "avg_price"),
+                 A.agg(A.Average(col("l_discount")), "avg_disc"),
+                 A.agg(A.Count(None), "count_order"),
+                 A.agg(A.Min(col("l_shipmode")), "min_mode"),
+                 A.agg(A.Max(col("l_shipmode")), "max_mode"))
+            .order_by("l_returnflag", "l_linestatus"))
+
+
+def tpch_q1_check(want, rows, what):
+    """Q1's rows against :func:`q17_oracle`'s: keys, counts and modes
+    exact, sums within 1e-12 of each group's sum of |x|."""
+    if len(rows) != len(want):
+        raise AssertionError(f"{what}: {len(rows)} groups, expected "
+                             f"{len(want)}")
+    for r, (f, st, sums, mags, avgs, cnt, mn, mx) in zip(rows, want):
+        if (r[0], r[1], r[9], r[10], r[11]) != (f, st, cnt, mn, mx):
+            raise AssertionError(f"{what}: row {r[:2]} {r[9:]} != "
+                                 f"{(f, st, cnt, mn, mx)}")
+        for got, exp, mag in zip(r[2:6], sums, mags):
+            if not _close(got, exp, mag, 1e-12):
+                raise AssertionError(f"{what} {f}{st}: sum {got} != {exp}")
+        for got, exp, mag in zip(r[6:9], avgs, [mags[0], mags[1],
+                                                 mags[1]]):
+            if not _close(got, exp, mag / cnt, 1e-12):
+                raise AssertionError(f"{what} {f}{st}: avg {got} != {exp}")
+
+
+def tpch_q1_chain(plan, what):
+    """The executed plan of Q1: sort <- aggregate <- filter <- file scan,
+    every exec on the device. Returns (aggregate, scan)."""
+    from spark_rapids_tpu_torch.exec import (RowToColumnarExec,
+                                             TpuFilterExec,
+                                             TpuHashAggregateExec)
+    from spark_rapids_tpu_torch.exec.scan import TpuFileSourceScanExec
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+
+    top = plan.tpu_child
+    chain = [top]
+    while chain[-1].children:
+        chain.append(chain[-1].children[0])
+    kinds = (TpuSortExec, TpuHashAggregateExec, TpuFilterExec,
+             TpuFileSourceScanExec)
+    if len(chain) != len(kinds) or not all(
+            isinstance(e, k) for e, k in zip(chain, kinds)) or any(
+            isinstance(e, RowToColumnarExec) for e in chain):
+        raise AssertionError(f"{what} plan: {top.tree_string()}")
+    return chain[1], chain[3]
+
+
 def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
                 profile: bool):
     """Q17, TPC-H Q1 (the pricing summary report) through a port
@@ -2311,30 +2471,18 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
     import pyarrow as pa
     import pyarrow.parquet as pq
 
-    from spark_rapids_tpu_torch.exec import (RowToColumnarExec,
-                                             TpuFilterExec,
-                                             TpuHashAggregateExec)
-    from spark_rapids_tpu_torch.exec.scan import TpuFileSourceScanExec
-    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
-    from spark_rapids_tpu_torch.expr import aggregates as A
-    from spark_rapids_tpu_torch.expr import expressions as E
-    from spark_rapids_tpu_torch.expr.expressions import col, lit
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
     from spark_rapids_tpu_torch.ops import groupby_kernels as K
     from spark_rapids_tpu_torch.sql import session as S
 
     n = 1 << log2_rows
-    t = lineitem_table(np, n)
+    t, want, kept, strs = lineitem_inputs(np, n)
     osum = None
-    want, kept = q17_oracle(np, t)
     here = os.path.dirname(os.path.abspath(__file__))
     pdir = os.path.join(here, PARQUET_DIR, "lineitem")
     shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
     os.makedirs(pdir)
     per_query = {}
-    strs = {"l_returnflag": pool_planes(np, t["flag"], RETURN_FLAGS),
-            "l_linestatus": pool_planes(np, t["status"], LINE_STATUS),
-            "l_shipmode": pool_planes(np, t["mode"], SHIP_MODES)}
     nums = {"l_quantity": t["qty"], "l_extendedprice": t["price"],
             "l_discount": t["disc"], "l_tax": t["tax"],
             "l_shipdate": t["ship"]}
@@ -2347,43 +2495,10 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
             use_dictionary=list(nums))  # strings PLAIN-encoded
 
         def q17(sess):
-            price = col("l_extendedprice")
-            disc_price = E.Multiply(price, E.Subtract(lit(1.0),
-                                                      col("l_discount")))
-            charge = E.Multiply(disc_price, E.Add(lit(1.0), col("l_tax")))
-            return (sess.read.parquet(pdir)
-                    .where(E.LessThanOrEqual(col("l_shipdate"),
-                                             lit(_days(np, Q17_CUTOFF))))
-                    .group_by("l_returnflag", "l_linestatus")
-                    .agg(A.agg(A.Sum(col("l_quantity")), "sum_qty"),
-                         A.agg(A.Sum(price), "sum_base_price"),
-                         A.agg(A.Sum(disc_price), "sum_disc_price"),
-                         A.agg(A.Sum(charge), "sum_charge"),
-                         A.agg(A.Average(col("l_quantity")), "avg_qty"),
-                         A.agg(A.Average(price), "avg_price"),
-                         A.agg(A.Average(col("l_discount")), "avg_disc"),
-                         A.agg(A.Count(None), "count_order"),
-                         A.agg(A.Min(col("l_shipmode")), "min_mode"),
-                         A.agg(A.Max(col("l_shipmode")), "max_mode"))
-                    .order_by("l_returnflag", "l_linestatus"))
+            return tpch_q1_df(np, sess, pdir)
 
         def check(rows, what):
-            if len(rows) != len(want):
-                raise AssertionError(f"{what}: {len(rows)} groups, "
-                                     f"expected {len(want)}")
-            for r, (f, st, sums, mags, avgs, cnt, mn, mx) in zip(rows, want):
-                if (r[0], r[1], r[9], r[10], r[11]) != (f, st, cnt, mn, mx):
-                    raise AssertionError(f"{what}: row {r[:2]} {r[9:]} != "
-                                         f"{(f, st, cnt, mn, mx)}")
-                for got, exp, mag in zip(r[2:6], sums, mags):
-                    if not _close(got, exp, mag, 1e-12):
-                        raise AssertionError(f"{what} {f}{st}: sum {got} "
-                                             f"!= {exp}")
-                for got, exp, mag in zip(r[6:9], avgs,
-                                         [mags[0], mags[1], mags[1]]):
-                    if not _close(got, exp, mag / cnt, 1e-12):
-                        raise AssertionError(f"{what} {f}{st}: avg {got} "
-                                             f"!= {exp}")
+            tpch_q1_check(want, rows, what)
 
         vfa = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
         for q, strategy in (("Q17", "SCATTER"), ("Q17v", "AUTO")):
@@ -2401,17 +2516,8 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
 
             cold, warm, counts = _walls(torch, q, run_once,
                                         lambda rows: check(rows, q))
-            top = plans[0].tpu_child  # the cold run's plan and metrics
-            chain = [top]
-            while chain[-1].children:
-                chain.append(chain[-1].children[0])
-            kinds = (TpuSortExec, TpuHashAggregateExec, TpuFilterExec,
-                     TpuFileSourceScanExec)
-            if len(chain) != len(kinds) or not all(
-                    isinstance(e, k) for e, k in zip(chain, kinds)) or any(
-                    isinstance(e, RowToColumnarExec) for e in chain):
-                raise AssertionError(f"{q} plan: {top.tree_string()}")
-            agg, scan = chain[1], chain[3]
+            # the cold run's plan and metrics
+            agg, scan = tpch_q1_chain(plans[0], q)
             batches = scan.metrics["numOutputBatches"].value
             # seven exact f64 sums (four sums, three averages) per partial
             # and once more in the merge, on the sort path of string keys
@@ -2461,6 +2567,125 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
     finally:
         shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
     return per_query, osum
+
+
+def q20_dict_tpch_q1(torch, np, dev, log2_rows: int, reps: int,
+                     profile: bool):
+    """Q20, TPC-H Q1 as files hold it: Q17's rows written by pyarrow with
+    its default dictionary encoding on every column, read through a port
+    ``TpuSession`` with default confs (``dictStrings`` on, so the three
+    string columns scan as DictVs of the file's dictionaries) and
+    variableFloatAgg, under SCATTER (Q20) and AUTO (Q20v, PALLAS on the
+    card). The unique dictionary keys group on their codes: the direct
+    tier, on K1 and K2 under PALLAS and on the plain reductions under
+    SCATTER; l_shipmode's min/max reduce over its dictionary's ranks (K3
+    under PALLAS). The merge of the four partials materializes their keys
+    (each row group has its own dictionary) and takes the string sort
+    path, its seven f64 sums on the ordered sum. Returns each run's
+    launches and K1's and K2's numbers on their first call over a scan
+    batch in Q20v."""
+    import shutil
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.ops import groupby as G
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+    from spark_rapids_tpu_torch.sql import session as S
+
+    n = 1 << log2_rows
+    t, want, kept, strs = lineitem_inputs(np, n)
+    here = os.path.dirname(os.path.abspath(__file__))
+    pdir = os.path.join(here, PARQUET_DIR, "lineitem_dict")
+    shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
+    os.makedirs(pdir)
+    per_query, shapes = {}, {}
+    nums = {"l_quantity": t["qty"], "l_extendedprice": t["price"],
+            "l_discount": t["disc"], "l_tax": t["tax"],
+            "l_shipdate": t["ship"]}
+    try:
+        t0 = time.perf_counter()
+        pq.write_table(
+            pa.table({**{k: _pa_strings(pa, np, v) for k, v in strs.items()},
+                      **nums}),
+            os.path.join(pdir, "t.parquet"),
+            row_group_size=n // Q17_ROW_GROUPS)  # pyarrow's defaults
+        write_s = time.perf_counter() - t0
+        vfa = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+        for q, strategy in (("Q20", "SCATTER"), ("Q20v", "AUTO")):
+            sess = S.TpuSession({**vfa, "spark.rapids.tpu.sql.agg.strategy":
+                                 strategy}, device=dev)
+            DeviceScanCache.reset()
+            S._SCANNER_CACHE.clear()
+            plans = []
+
+            def run_once():
+                rows = tpch_q1_df(np, sess, pdir).collect()
+                plans.append(sess.last_executed_plan)
+                return rows
+
+            cold, warm, counts = _walls(
+                torch, q, run_once,
+                lambda rows: tpch_q1_check(want, rows, q))
+            agg, scan = tpch_q1_chain(plans[0], q)
+            desc = agg.describe()
+            batches = scan.metrics["numOutputBatches"].value
+            if f"update: {G.DICT_CODE_ROUTE}" not in desc:
+                raise AssertionError(f"{q}: the keys did not group on their "
+                                     f"dictionary codes: {desc}")
+            kernels = ("bucket_sum", "bucket_float_sum", "bucket_winner")
+            if batches < 2 or counts["probe_ranges"] or (
+                    strategy == "AUTO" and not all(counts[k]
+                                                   for k in kernels)) or (
+                    strategy == "SCATTER" and any(counts[k]
+                                                  for k in kernels)):
+                raise AssertionError(f"{q}: {batches} scan batches, "
+                                     f"launches {counts}")
+            per_query[q] = counts
+            m = {k: v.value for k, v in scan.metrics.items()}
+            # the fixed-width columns, and int32 codes with validity per
+            # string row (the dictionaries are a few bytes)
+            in_bytes = n * (4 * 8 + 4) + 3 * 5 * n
+            emit({"query": q, "rows": n, "kept_rows": kept,
+                  "row_groups": Q17_ROW_GROUPS, "file_write_s": write_s,
+                  "scan_batches": batches, "groups": len(want),
+                  "cold_wall_ms": cold, "warm_wall_ms": warm,
+                  "host_fallback_chunks": m["hostFallbackChunks"],
+                  "upload_bytes": m["uploadBytes"],
+                  "bytes": in_bytes, "bound_ms": bound_ms(in_bytes),
+                  "agg": desc, "launches": counts})
+            if profile:
+                profile_plan(torch, q, lambda: sess._execute(
+                    tpch_q1_df(np, sess, pdir).node).tpu_child, sess.conf,
+                    n, in_bytes, SORT_KERNELS)
+            if q == "Q20v":
+                # K1 and K2 at Q20v's shape: one more run, recording each
+                # one's first call over a whole scan batch (a partial's
+                # direct tier over the two code keys)
+                def big(sg, *_):
+                    return sg.shape[0] >= n // Q17_ROW_GROUPS
+
+                with captured_calls(K, "bucket_sum", big) as c1, \
+                        captured_calls(K, "bucket_float_sum", big) as c2:
+                    tpch_q1_check(want, tpch_q1_df(np, sess, pdir)
+                                  .collect(), q)
+                if not c1 or not c2:
+                    raise AssertionError("Q20v: no K1 or K2 call over a "
+                                         "scan batch")
+                seg, B = c1[0][0], c1[0][1]
+                shapes[("bucket_sum", "Q20v")] = sum_shape(
+                    torch, dev, *c1[0], reps)
+                shapes[("bucket_float_sum", "Q20v")] = fsum_shape(
+                    torch, dev, *c2[0], reps)
+                for name in ("bucket_sum", "bucket_float_sum"):
+                    emit({"kernel_shape": name, "path": "Q20v",
+                          "rows": seg.shape[0], "B": B,
+                          **shapes[(name, "Q20v")]})
+                del c1, c2, seg
+    finally:
+        shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
+    return per_query, shapes
 
 
 def city_pool(np) -> list:
@@ -2734,6 +2959,7 @@ def q18_string_join(torch, np, dev, log2_fact: int, dim_rows: int,
 ITEM_PREFIX = b"AAAAAAAA"
 
 
+@functools.lru_cache(maxsize=1)
 def item_table(np, n: int) -> dict:
     """Q19's TPC-DS item-like rows (``rng(19)``): i_item_id is
     "AAAAAAAA" and eight letters A-P (dsdgen's business keys) spelling a
@@ -2919,6 +3145,164 @@ def q19_item_keys(torch, np, dev, log2_rows: int, reps: int,
     return per_query, k3, k1
 
 
+#: the syllables dsdgen builds TPC-DS names from
+SYLLABLES = ("able", "anti", "bar", "cally", "ation", "eing", "n st",
+             "ought", "pri", "ese")
+
+
+def brand_name(i: int) -> bytes:
+    """The i_brand of brand id ``i`` (1-1000), dsdgen-like: three
+    syllables from its digits and " #" and the id, so byte order is not
+    id order."""
+    return (SYLLABLES[i // 100 % 10] + SYLLABLES[i // 10 % 10]
+            + SYLLABLES[i % 10] + f" #{i}").encode()
+
+
+def q21_dict_item(torch, np, dev, log2_rows: int, reps: int,
+                  profile: bool):
+    """Q21: Q19's item table with i_category (TPC-DS's ten names) and
+    i_brand (one per i_brand_id, 1000 entries in id order) as
+    dictionary-encoded columns with ``unique`` set. (a) group by
+    i_category: min(i_brand), max(i_brand), count(*), sum(sales) under
+    AUTO (PALLAS on the card): the category codes on the direct tier (K1),
+    i_brand's min and max over the ranks of a sort of its 1000-entry
+    dictionary (K3); (b) order by i_category, i_brand, local limit 100:
+    the sort materializes both. Each against an exact numpy oracle.
+    Returns (per-path launches, K3's numbers on its first call over
+    Q21(a)'s rank column)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import (ColumnarBatch, DeviceColumn,
+                                                 HostColumn, choose_capacity,
+                                                 dict_column_from_parts,
+                                                 schema_of)
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuHashAggregateExec)
+    from spark_rapids_tpu_torch.exec.basic import TpuLocalLimitExec
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr.expressions import col
+    from spark_rapids_tpu_torch.ops import groupby as G
+    from spark_rapids_tpu_torch.ops import groupby_kernels as K
+
+    n = 1 << log2_rows
+    t = item_table(np, n)
+    cat, brand, sales = t["cat"], t["brand"], t["sales"]
+    cap = choose_capacity(n)
+    names = [brand_name(i) for i in range(1, 1001)]
+
+    def dict_col(codes, entries):
+        lens = np.array([len(e) for e in entries], np.int64)
+        doff = np.zeros(len(entries) + 1, np.int32)
+        np.cumsum(lens, out=doff[1:])
+        c = np.zeros(cap, np.int32)
+        c[:n] = codes
+        valid = np.arange(cap) < n
+        return dict_column_from_parts(
+            n, c, doff, np.frombuffer(b"".join(entries), np.uint8), valid,
+            mat_cap=choose_capacity(int(lens[codes].sum()), 128),
+            max_len=int(lens.max()), unique=True, device=dev)
+
+    schema = schema_of(i_category=T.STRING, i_brand=T.STRING,
+                       i_brand_id=T.INT, sales=T.LONG)
+    batch = ColumnarBatch([
+        dict_col(cat, list(CATEGORIES)), dict_col(brand - 1, names),
+        DeviceColumn.from_host(HostColumn(T.INT, brand, np.ones(n, bool)),
+                               cap, "i_brand_id", dev),
+        DeviceColumn.from_host(HostColumn(T.LONG, sales, np.ones(n, bool)),
+                               cap, "sales", dev)], schema, n)
+    conf = RapidsConf({})
+    # codes and validity of the two string columns, the fixed-width ones
+    # with their validity, and the two dictionaries
+    in_bytes = n * (5 + 5 + 5 + 9) + sum(len(e) for e in CATEGORIES) + sum(
+        len(e) for e in names) + 4 * (10 + 1000 + 2)
+
+    def scan():
+        return InMemoryScanExec(conf, [[batch]], schema)
+
+    # (a) group by i_category: min/max(i_brand), count(*), sum(sales)
+    by_rank = sorted(names)
+    rk = np.argsort(np.argsort(np.array(names, dtype=object)))[brand - 1]
+    want_a = []
+    for g in range(len(CATEGORIES)):
+        sel = cat == g
+        want_a.append((CATEGORIES[g].decode(),
+                       by_rank[int(rk[sel].min())].decode(),
+                       by_rank[int(rk[sel].max())].decode(),
+                       int(sel.sum()), int(sales[sel].sum())))
+
+    def plan_a():
+        return TpuHashAggregateExec(
+            conf, [col("i_category")],
+            [A.agg(A.Min(col("i_brand")), "mn"),
+             A.agg(A.Max(col("i_brand")), "mx"),
+             A.agg(A.Count(None), "n"), A.agg(A.Sum(col("sales")), "s")],
+            scan())
+
+    # (b) order by i_category, i_brand limit 100 (stable: row order breaks
+    # ties)
+    top = np.lexsort((np.arange(n), rk, cat))[:100]
+    want_b = [(CATEGORIES[cat[i]].decode(), names[brand[i] - 1].decode(),
+               int(brand[i]), int(sales[i])) for i in top]
+
+    def plan_b():
+        return TpuLocalLimitExec(conf, 100, TpuSortExec(
+            conf, [col("i_category"), col("i_brand")],
+            [(True, None), (True, None)], scan()))
+
+    aggs = []
+
+    def run_a():
+        agg = plan_a()
+        aggs.append(agg)
+        return sorted(_run(torch, agg, conf)[0])
+
+    per_query = {}
+    for q, run, want in (("Q21a", run_a, want_a),
+                         ("Q21b", lambda: _run(torch, plan_b(), conf)[0],
+                          want_b)):
+        def check(rows, q=q, want=want):
+            if rows != want:
+                raise AssertionError(f"{q}: rows differ from the numpy "
+                                     "oracle")
+
+        cold, warm, counts = _walls(torch, q, run, check)
+        per_query[q] = counts
+        line = {"query": q, "rows": n, "out_rows": len(want),
+                "cold_wall_ms": cold, "warm_wall_ms": warm,
+                "bytes": in_bytes, "bound_ms": bound_ms(in_bytes),
+                "launches": counts}
+        if q == "Q21a":
+            line["agg"] = aggs[0].describe()
+            if (f"update: {G.DICT_CODE_ROUTE}" not in line["agg"]
+                    or counts["bucket_sum"] <= 0
+                    or counts["bucket_winner"] <= 0
+                    or counts["ordered_segment_sum"]):
+                raise AssertionError(f"Q21a: launches {counts}, "
+                                     f"{line['agg']}")
+        elif any(counts.values()):
+            raise AssertionError(f"{q} launched {counts}")
+        emit(line)
+        if profile:
+            profile_plan(torch, q, {"Q21a": plan_a, "Q21b": plan_b}[q],
+                         conf, n, in_bytes, SORT_KERNELS)
+
+    # K3 on Q21(a)'s rank column: one more run, recording its first call
+    # over the whole batch (min(i_brand)'s order words of the ranks over
+    # the category codes' direct-tier buckets)
+    with captured_calls(K, "bucket_winner",
+                        lambda sg, B, op, w: sg.shape[0] >= n) as calls:
+        if run_a() != want_a:
+            raise AssertionError("Q21a: rows differ from the numpy oracle")
+    if not calls:
+        raise AssertionError("Q21a: K3 made no call over the batch")
+    seg, B, op, word = calls[0]
+    k3 = winner_shape(torch, dev, seg, B, op, word, reps)
+    emit({"kernel_shape": "bucket_winner", "path": "Q21a", "rows": n,
+          "B": B, "op": op, **k3})
+    return per_query, k3
+
+
 def string_key_phase(torch, np, dev, log2_rows: int, dim_rows: int,
                      reps: int, dadd_ns: float, profile: bool = False):
     """Q17-Q19 at ``log2_rows`` rows (Q18's dim: ``dim_rows``): each
@@ -2937,6 +3321,19 @@ def string_key_phase(torch, np, dev, log2_rows: int, dim_rows: int,
                        ("probe_ranges", "Q18"): k4,
                        ("bucket_sum", "Q19c"): k1,
                        ("bucket_winner", "Q19c"): k3}
+
+
+def dict_string_phase(torch, np, dev, log2_rows: int, reps: int,
+                      profile: bool = False):
+    """Q20 and Q21 at ``log2_rows`` rows: each path's launches, and K1's
+    and K2's numbers at Q20v's direct tier and K3's on Q21(a)'s
+    dictionary ranks, keyed as in ``kernels_line``."""
+    per_query, shapes = q20_dict_tpch_q1(torch, np, dev, log2_rows, reps,
+                                         profile)
+    q21, k3 = q21_dict_item(torch, np, dev, log2_rows, reps, profile)
+    per_query.update(q21)
+    shapes[("bucket_winner", "Q21a")] = k3
+    return per_query, shapes
 
 
 def build_all() -> dict:
@@ -2977,7 +3374,11 @@ def kernels_line(kres: dict, per_query: dict) -> list:
                 "Q18"),
                ("probe_ranges@Q18", "probe_ranges", "Q18", "Q18"),
                ("bucket_sum@Q19c", "bucket_sum", "Q19c", "Q19c"),
-               ("bucket_winner@Q19c", "bucket_winner", "Q19c", "Q19c")]
+               ("bucket_winner@Q19c", "bucket_winner", "Q19c", "Q19c"),
+               ("bucket_sum@Q20v", "bucket_sum", "Q20v", "Q20v"),
+               ("bucket_float_sum@Q20v", "bucket_float_sum", "Q20v",
+                "Q20v"),
+               ("bucket_winner@Q21a", "bucket_winner", "Q21a", "Q21a")]
     for entry, name, key, path in shapes:
         r = kres[(name, key)]
         line = {"name": entry, "route": "cuda", "source": SOURCES[name],
@@ -3011,9 +3412,10 @@ def main() -> int:
                     "the first batch), as a power of two")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Q1, Q2, Q5, Q6, Q7, Q9, Q10, Q11 "
-                    "(warm), Q13-Q17, Q18 (PALLAS and AUTO) and Q19 (a, b, "
-                    "c) with torch.profiler")
+                    help="also profile Q1, Q2, Q5, Q6, Q7, Q10, Q11 "
+                    "(warm), Q13-Q17, Q18 (PALLAS and AUTO), Q19 (a, b, "
+                    "c), Q20, Q20v and Q21 (a, b) with torch.profiler "
+                    "(Q9 and Q9x are profiled in every run)")
     args = ap.parse_args()
 
     import numpy as np
@@ -3036,7 +3438,17 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
 
+    phase_s = {}
+    last = [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+
     emit(build_all())
+    lap("build")
     kres = kernel_phase(torch, np, dev, 1 << args.kernel_log2_rows, args.reps)
     kres[("probe_ranges", 128)], kres[("probe_ranges", "Q8")] = (
         join_kernel_phase(torch, np, dev, 1 << args.join_log2_rows,
@@ -3045,23 +3457,36 @@ def main() -> int:
     first = wc_batches[0][0]
     kres[("word_counts", 128)] = udf_kernel_phase(
         torch, np, dev, first, wc_batches[3][:first.num_rows], args.reps)
+    lap("kernels")
     per_query = query_phase(torch, np, dev, args.log2_rows, 4,
                             args.profile)
+    lap("Q1-Q5")
     per_query.update(join_query_phase(torch, np, dev, args.join_log2_rows,
                                       DIM_ROWS, args.profile))
+    lap("Q6-Q8")
     per_query.update(string_query_phase(torch, np, dev,
                                         args.string_log2_rows, wc_batches,
                                         args.profile))
+    lap("Q9-Q10")
     per_query.update(sort_window_phase(torch, np, dev, SORT_LOG2_ROWS,
                                        args.profile))
+    lap("Q13-Q14")
     per_query.update(session_query_phase(torch, np, dev,
                                          PARQUET_LOG2_ROWS,
                                          UDF_LOG2_ROWS, args.profile))
+    lap("Q11-Q16")
     strings, shapes = string_key_phase(
         torch, np, dev, STRING_LOG2_ROWS, DIM_ROWS, args.reps,
         kres[("ordered_segment_sum", 128)]["dadd_ns"], args.profile)
     per_query.update(strings)
     kres.update(shapes)
+    lap("Q17-Q19")
+    strings, shapes = dict_string_phase(torch, np, dev, STRING_LOG2_ROWS,
+                                        args.reps, args.profile)
+    per_query.update(strings)
+    kres.update(shapes)
+    lap("Q20-Q21")
+    emit({"phase_s": phase_s})
     for q, counts in per_query.items():
         if q != "Q10" and counts["word_counts"]:
             raise AssertionError(f"{q} launched K5")

@@ -3,6 +3,8 @@ from .column import (  # noqa: F401
     HostColumn,
     choose_capacity,
     column_from_pylist,
+    dict_column_from_parts,
+    dict_column_from_pylist,
     resolve_device,
 )
 from .batch import (  # noqa: F401

@@ -5,8 +5,8 @@ a 0-d device tensor (a lazy length produced by a filter or an aggregate);
 the ``num_rows`` property syncs once and caches, ``num_rows_lazy`` never
 syncs. :func:`batch_from_host_arrays` carries a reference batch's planes
 across unchanged, padding included, so both engines see identical
-inputs. Row decoding (``to_rows``) turns string columns back into
-``str`` (``bytes`` for binary).
+inputs. Row decoding (``to_rows``) turns string columns, plain or
+dictionary-encoded, back into ``str`` (``bytes`` for binary).
 """
 from __future__ import annotations
 
@@ -81,7 +81,9 @@ class ColumnarBatch:
         return ColumnarBatch(cols, schema, n if n is not None else 0)
 
     def host_columns(self) -> List[HostColumn]:
-        """Every column's live rows on the host (one row-count sync)."""
+        """Every column's live rows on the host (one row-count sync; a
+        dictionary-encoded column copies its codes, validity and whole
+        dictionary and decodes each entry once)."""
         n = self.num_rows
         return [c.to_host(n) for c in self.columns]
 

@@ -8,7 +8,10 @@ up row for row. Padding slots hold validity False and zeroed data. A
 string (or binary) column is ``offsets`` (capacity+1 int32, flat past the
 last row) plus ``chars`` (the uint8 byte pool, padded with zeros to
 ``choose_capacity(total bytes)``) plus ``validity``; null rows hold no
-bytes. Dictionary-encoded columns are not ported yet.
+bytes. A dictionary-encoded string column holds a ``DictV`` (``dictv``:
+int32 codes, a small dictionary and the row validity, which ``validity``
+aliases); :meth:`DeviceColumn.materialize` expands it to the plain
+layout.
 """
 from __future__ import annotations
 
@@ -18,8 +21,9 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import BinaryType, DataType, NullType, check_storable, \
-    is_string, torch_dtype
+from ..expr.values import DictV, StrV, materialize_dict
+from ..types import STRING, BinaryType, DataType, NullType, \
+    check_storable, is_string, torch_dtype
 
 
 def resolve_device(device=None) -> torch.device:
@@ -140,22 +144,25 @@ class HostColumn:
 
 
 class DeviceColumn:
-    """A device-resident column (reference: DeviceColumn's fixed-width and
-    string layouts). ``data`` is None for a string column; ``offsets`` and
-    ``chars`` are None for a fixed-width one."""
+    """A device-resident column (reference: DeviceColumn's three layouts).
+    ``data`` is None for a string column; ``offsets`` and ``chars`` are
+    None for a fixed-width one and for a dictionary-encoded one, whose
+    ``dictv`` holds its planes."""
 
-    __slots__ = ("dtype", "length", "data", "validity", "offsets", "chars")
+    __slots__ = ("dtype", "length", "data", "validity", "offsets", "chars",
+                 "dictv")
 
     def __init__(self, dtype: DataType, length, data: Optional[torch.Tensor],
                  validity: torch.Tensor,
                  offsets: Optional[torch.Tensor] = None,
-                 chars: Optional[torch.Tensor] = None):
+                 chars: Optional[torch.Tensor] = None, dictv=None):
         self.dtype = dtype
         self.length = length  # logical rows; python int at batch boundaries
         self.data = data
         self.validity = validity
         self.offsets = offsets
         self.chars = chars
+        self.dictv = dictv
 
     @property
     def capacity(self) -> int:
@@ -164,6 +171,23 @@ class DeviceColumn:
     @property
     def is_string(self) -> bool:
         return is_string(self.dtype)
+
+    @property
+    def is_dict(self) -> bool:
+        return self.dictv is not None
+
+    @staticmethod
+    def dict_encoded(dtype: DataType, length, dictv) -> "DeviceColumn":
+        return DeviceColumn(dtype, length, None, dictv.validity, dictv=dictv)
+
+    def materialize(self) -> "DeviceColumn":
+        """A dictionary-encoded column in the plain string layout (itself
+        for any other column)."""
+        if not self.is_dict:
+            return self
+        s = materialize_dict(self.dictv)
+        return DeviceColumn(self.dtype, self.length, None, s.validity,
+                            s.offsets, s.chars)
 
     @staticmethod
     def from_host(host: HostColumn, capacity: Optional[int] = None,
@@ -233,6 +257,15 @@ class DeviceColumn:
         host."""
         n = int(self.length) if n is None else n
         validity = self.validity[:n].cpu().numpy().copy()
+        if self.is_dict:
+            # the codes and the whole dictionary: no byte-count sync
+            d = self.dictv
+            data = decode_dict_rows(
+                d.dictionary.chars.cpu().numpy(),
+                d.dictionary.offsets.cpu().numpy(),
+                d.codes[:n].cpu().numpy(), validity,
+                isinstance(self.dtype, BinaryType))
+            return HostColumn(self.dtype, data, validity)
         if self.is_string:
             offsets = self.offsets[:n + 1].cpu().numpy()
             chars = self.chars[:int(offsets[n]) if n else 0].cpu().numpy()
@@ -252,3 +285,84 @@ def column_from_pylist(values: Sequence[Any], dtype: DataType,
                        device=None) -> DeviceColumn:
     return HostColumn.from_pylist(values, dtype).to_device(
         name=name, device=device)
+
+
+#: test seam (the reference's ``column.DICT_MATERIALIZE_EAGERLY``): when
+#: True, dictionary-encoded columns expand to the plain layout as they
+#: enter the lowering, so a query runs the non-dictionary path everywhere
+DICT_MATERIALIZE_EAGERLY = False
+
+
+def decode_dict_rows(dict_chars: np.ndarray, dict_offsets: np.ndarray,
+                     codes: np.ndarray, validity: np.ndarray,
+                     binary: bool = False) -> np.ndarray:
+    """Rows of a dictionary-encoded column as Python objects: each entry
+    decoded ONCE, then indexed by the codes (reference
+    ``column.py:302``)."""
+    D = len(dict_offsets) - 1
+    raw = dict_chars[:int(dict_offsets[D])].tobytes()
+    bounds = zip(dict_offsets[:D].tolist(), dict_offsets[1:].tolist())
+    entries = np.empty(max(D, 1), dtype=object)
+    entries[:D] = [raw[a:b] if binary else raw[a:b].decode("utf-8")
+                   for a, b in bounds]
+    out = entries[np.clip(codes, 0, max(D - 1, 0))]
+    out[~validity] = None
+    return out
+
+
+def dict_column_from_parts(length, codes, dict_offsets, dict_chars,
+                           validity, mat_cap: int, max_len: int,
+                           unique: bool = False,
+                           dtype: DataType = STRING,
+                           device=None) -> DeviceColumn:
+    """A dictionary-encoded string column from numpy (or torch) planes:
+    ``codes`` and ``validity`` (cap,), the dictionary's ``dict_offsets``
+    (D+1,) and ``dict_chars``, on ``device``."""
+    dev = resolve_device(device)
+
+    def up(a, dt):  # a copy: never aliases the caller's numpy planes
+        if isinstance(a, torch.Tensor):
+            return a.to(device=dev, dtype=dt)
+        return torch.tensor(np.asarray(a), dtype=dt, device=dev)
+
+    doff = up(dict_offsets, torch.int32)
+    D = int(doff.shape[0]) - 1
+    dictionary = StrV(doff, up(dict_chars, torch.uint8),
+                      torch.ones(max(D, 0), dtype=torch.bool, device=dev))
+    dv = DictV(up(codes, torch.int32), dictionary, up(validity, torch.bool),
+               mat_cap, max_len, unique)
+    return DeviceColumn.dict_encoded(dtype, length, dv)
+
+
+def dict_column_from_pylist(values: Sequence[Any], dtype: DataType = STRING,
+                            capacity: Optional[int] = None,
+                            device=None) -> DeviceColumn:
+    """Dictionary-encode a Python string list (reference
+    ``column.py:350``): the distinct values, sorted bytewise, become the
+    dictionary (one empty entry when there is none), rows become int32
+    codes, ``unique`` is set and ``mat_cap`` is the bucketed byte total."""
+    n = len(values)
+    cap = capacity or choose_capacity(n)
+    binary = isinstance(dtype, BinaryType)
+    encoded = [None if v is None else (v if binary else str(v).encode(
+        "utf-8")) for v in values]
+    distinct = sorted({b for b in encoded if b is not None}) or [b""]
+    index = {b: k for k, b in enumerate(distinct)}
+    codes = np.zeros(cap, np.int32)
+    validity = np.zeros(cap, bool)
+    total = 0
+    for i, b in enumerate(encoded):
+        if b is not None:
+            codes[i] = index[b]
+            validity[i] = True
+            total += len(b)
+    doff = np.zeros(len(distinct) + 1, np.int32)
+    np.cumsum([len(b) for b in distinct], out=doff[1:])
+    pool = b"".join(distinct)
+    dch = (np.frombuffer(pool, np.uint8).copy() if pool
+           else np.zeros(1, np.uint8))
+    return dict_column_from_parts(
+        n, codes, doff, dch, validity,
+        mat_cap=choose_capacity(max(1, total), 128),
+        max_len=max(len(b) for b in distinct), unique=True, dtype=dtype,
+        device=device)

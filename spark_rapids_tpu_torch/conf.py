@@ -147,9 +147,9 @@ PARQUET_PIPELINE_MAX_IN_FLIGHT = conf(
 PARQUET_DICT_STRINGS = conf(
     "spark.rapids.tpu.sql.format.parquet.dictStrings.enabled", True,
     "Keep dictionary-encoded BYTE_ARRAY columns encoded on the device "
-    "(late materialization). Dictionary-encoded string columns are not "
-    "ported yet: with this on, such chunks raise; with it off, they "
-    "decode to the expanded Arrow layout.")
+    "(late materialization): int32 codes plus the file's dictionary, "
+    "string kernels running once per dictionary entry. With it off, such "
+    "chunks decode to the expanded Arrow layout.")
 SCAN_DEVICE_CACHE = conf(
     "spark.rapids.tpu.scan.deviceCache.enabled", True,
     "Keep decoded scan columns resident in device memory keyed by "

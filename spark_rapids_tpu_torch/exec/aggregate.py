@@ -8,10 +8,15 @@ with each function's merge ops, then the result projection. Modes
 
 String columns enter as grouping keys (the sort path, ``ops/groupby.py``),
 as min/max inputs (reduced as ranks), as counts and inside expressions
-(``sum(length(s))``). A string key's or min/max input's byte bound is
-measured per batch (one host sync for all of them), and partials that
-hold strings merge at their synced row and byte counts. ``first``/``last``
-over strings stay on the CPU, as the type matrix says.
+(``sum(length(s))``). A plain string key's or min/max input's byte bound
+is measured per batch (one host sync for all of them); a
+dictionary-encoded one's is its ``max_len``, with no sync (reference
+``aggregate.py:498-518``). A unique dictionary key groups on its codes
+(the hash tiers) and stays encoded in a single partial; partials that
+hold strings merge at their synced row and byte counts, dictionary keys
+materialized first, since each partial has its own dictionary
+(reference ``aggregate.py:293-298``). ``first``/``last`` over strings stay
+on the CPU, as the type matrix says.
 Left out of this slice (ROADMAP.md port queue): the fused plan/stage
 programs, OOM retry, null elision and the event/observability emitters.
 """
@@ -28,7 +33,7 @@ from ..conf import AGG_STRATEGY, IMPROVED_FLOAT_OPS, RapidsConf
 from ..expr import aggregates as A
 from ..expr import expressions as E
 from ..expr.eval import lower
-from ..expr.values import ColV, StrV, Val
+from ..expr.values import ColV, DictV, StrV, Val
 from ..ops import concat as concat_ops
 from ..ops import groupby as groupby_ops
 from ..ops.bucket_reduce import NOT_PORTED_TIERS, not_ported_tier
@@ -83,7 +88,7 @@ def choose_agg_strategy(conf: RapidsConf, cap: int,
 def _agg_input(op: str, v: Val) -> Val:
     """A counted string enters as its validity, all a count reads; a
     string min/max input stays a string (it reduces as ranks)."""
-    if isinstance(v, StrV) and op not in ("min", "max"):
+    if isinstance(v, (StrV, DictV)) and op not in ("min", "max"):
         return ColV(v.validity, v.validity)
     return v
 
@@ -191,6 +196,9 @@ class TpuHashAggregateExec(TpuExec):
         # mid-plan; the last pick shows in describe()
         self._strategy_by_cap: dict = {}
         self._strategy_choice: Optional[Tuple[str, str]] = None
+        # the string key routes the updates and the merge took
+        self._update_routes: List[str] = []
+        self._merge_routes: List[str] = []
 
     @property
     def output_schema(self):
@@ -202,7 +210,13 @@ class TpuHashAggregateExec(TpuExec):
         strat = (f", strategy={self._strategy_choice[0]}"
                  if self._strategy_choice is not None else "")
         if strat and any(T.is_string(f.dataType) for f in self._key_fields):
-            strat += f" ({groupby_ops.STRING_KEY_ROUTE})"
+            # the routes the string keys took (before a run: the plain
+            # string route)
+            upd = self._update_routes or [groupby_ops.STRING_KEY_ROUTE]
+            strat += f" (update: {'; '.join(upd)}"
+            if self._merge_routes:
+                strat += f"; merge: {'; '.join(self._merge_routes)}"
+            strat += ")"
         return (f"TpuHashAggregateExec(mode={self.mode}, keys=[{keys}], "
                 f"aggs=[{aggs}]{strat})")
 
@@ -226,11 +240,12 @@ class TpuHashAggregateExec(TpuExec):
     def _run_batch(self, batch: ColumnarBatch, ops: Sequence[str],
                    value_exprs: Sequence[Optional[E.Expression]],
                    key_exprs: Sequence[E.Expression], chain=(),
-                   live: Optional[torch.Tensor] = None) -> ColumnarBatch:
+                   live: Optional[torch.Tensor] = None,
+                   routes: Optional[List[str]] = None) -> ColumnarBatch:
         """Aggregate one batch into a [keys..., buffers...] batch, running
         the fusable ``chain`` below first. ``live`` overrides the batch's
-        prefix row count (the sync-free merge's mask). The group count
-        stays a device scalar."""
+        prefix row count (the sync-free merge's mask); ``routes`` receives
+        the string key route. The group count stays a device scalar."""
         cap = batch.capacity
         cols = vals_of_batch(batch)
         dev = cols[0].validity.device if cols else None
@@ -245,17 +260,19 @@ class TpuHashAggregateExec(TpuExec):
         vals = [None if e is None else _agg_input(op, lower(e, cols, cap, dev))
                 for op, e in zip(ops, value_exprs)]
         # byte bounds of the string keys, then of the string min/max
-        # inputs (reference aggregate.py:489-524): one host sync
-        str_keys = [k for k in keys if isinstance(k, StrV)]
+        # inputs (reference aggregate.py:489-524): one host sync for the
+        # plain ones, a DictV's max_len for the dictionary-encoded ones
+        strs = (StrV, DictV)
+        str_keys = [k for k in keys if isinstance(k, strs)]
         bounds = str_max_lens(str_keys + [v for v in vals
-                                          if isinstance(v, StrV)])
+                                          if isinstance(v, strs)])
         sml, svml = bounds[:len(str_keys)], bounds[len(str_keys):]
         if self.group_exprs:
             out_keys, out_aggs, nseg = groupby_ops.groupby_agg(
                 keys, self._key_dtypes(), vals, list(ops), live,
                 approx_float_sum=self.conf.get(IMPROVED_FLOAT_OPS),
                 strategy=self.resolved_strategy(cap, dev),
-                str_max_lens=sml, str_val_max_lens=svml)
+                str_max_lens=sml, str_val_max_lens=svml, routes=routes)
         else:
             out_keys, nseg = [], 1
             out_aggs = groupby_ops.reduce_no_keys(vals, list(ops), live, dev,
@@ -300,7 +317,8 @@ class TpuHashAggregateExec(TpuExec):
         merged_in = concat_batches(self._buffer_schema, partials,
                                     self.conf.shape_bucket_min)
         keys, vals = self._merge_inputs()
-        return self._run_batch(merged_in, self._merge_ops, vals, keys)
+        return self._run_batch(merged_in, self._merge_ops, vals, keys,
+                               routes=self._merge_routes)
 
     def _eval_exprs(self) -> List[E.Expression]:
         """Result projection over [keys..., buffers...]."""
@@ -344,7 +362,7 @@ class TpuHashAggregateExec(TpuExec):
             with self.op_timed("update"):
                 partials.append(self._run_batch(
                     batch, self._update_ops, self._update_exprs,
-                    self._bound_keys, chain))
+                    self._bound_keys, chain, routes=self._update_routes))
         if not partials:
             if self.group_exprs:
                 return  # grouped aggregate over empty input -> no rows

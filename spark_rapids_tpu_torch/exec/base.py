@@ -16,10 +16,10 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import torch
 
 from .. import types as T
-from ..columnar import ColumnarBatch, choose_capacity
+from ..columnar import ColumnarBatch, DeviceColumn, choose_capacity
 from ..conf import RapidsConf
 from ..expr.eval import column_of_val, val_of_column
-from ..expr.values import Val
+from ..expr.values import DictV, Val
 from ..ops import concat as concat_ops
 from ..ops import filter_gather
 from ..types import StructType
@@ -167,7 +167,20 @@ class TpuExec:
 
 
 def vals_of_batch(batch: ColumnarBatch) -> List[Val]:
+    """The batch's columns as lowering values (a dictionary-encoded one
+    as its DictV)."""
     return [val_of_column(c) for c in batch.columns]
+
+
+def materialized_batch(batch: ColumnarBatch) -> ColumnarBatch:
+    """The batch with every dictionary-encoded column expanded to the
+    plain string layout (reference ``exec/base.py:766``): the boundary of
+    the execs with no dictionary path (sort and window keys, a join's
+    build and its row-repeating expansion, a concat of batches)."""
+    if not any(c.is_dict for c in batch.columns):
+        return batch
+    return ColumnarBatch([c.materialize() for c in batch.columns],
+                         batch.schema, batch.num_rows_lazy)
 
 
 def batch_from_vals(vals: Sequence[Val], schema: StructType, num_rows,
@@ -204,11 +217,20 @@ def concat_batches(schema: StructType, batches: List[ColumnarBatch],
     """The live rows of ``batches`` in one batch (reference
     ``exec/join.py:213``). String columns splice their byte pools
     (``ops/concat.concat_batches_cols``): one host sync reads every
-    batch's row count and string byte counts."""
+    batch's row count and string byte counts. Dictionary-encoded columns
+    materialize first, since each batch has its own dictionary; a single
+    batch passes through as it is."""
     if not batches:
         return None
     if len(batches) == 1:
         return batches[0]
+    if any(c.is_dict for b in batches for c in b.columns):
+        # expand only each batch's live rows (one more sync, for the row
+        # counts): an aggregate's partial holds a few groups at its
+        # input's capacity
+        rows = host_ints([b.num_rows_lazy for b in batches])
+        batches = [materialized_batch(_head(b, n))
+                   for b, n in zip(batches, rows)]
     str_cols = [j for j, f in enumerate(schema.fields)
                 if T.is_string(f.dataType)]
     heads = [b.num_rows_lazy for b in batches]
@@ -231,6 +253,29 @@ def concat_batches(schema: StructType, batches: List[ColumnarBatch],
         [vals_of_batch(b) for b in batches], lengths, byte_lengths, out_cap,
         char_caps)
     return batch_from_vals(cols, schema, n)
+
+
+def _head(batch: ColumnarBatch, n: int) -> ColumnarBatch:
+    """The batch's first ``n`` rows (its live ones) at the capacity
+    bucket of ``n``, when that is smaller: views of each column's planes,
+    a string column's byte pool as it is."""
+    cap = choose_capacity(n)
+    if cap >= batch.capacity:
+        return batch
+    cols = []
+    for c in batch.columns:
+        if c.is_dict:
+            d = c.dictv
+            cols.append(DeviceColumn.dict_encoded(c.dtype, n, DictV(
+                d.codes[:cap], d.dictionary, d.validity[:cap], d.mat_cap,
+                d.max_len, d.unique)))
+        elif c.is_string:
+            cols.append(DeviceColumn(c.dtype, n, None, c.validity[:cap],
+                                     c.offsets[:cap + 1], c.chars))
+        else:
+            cols.append(DeviceColumn(c.dtype, n, c.data[:cap],
+                                     c.validity[:cap]))
+    return ColumnarBatch(cols, batch.schema, n)
 
 
 def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:

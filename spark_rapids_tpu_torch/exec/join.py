@@ -12,6 +12,12 @@ the string keys (the build once, each probe batch once), the byte counts
 of a multi-batch build's string columns, and the byte counts of an
 expansion's string payloads (one sync per probe batch).
 
+Dictionary-encoded columns (reference ``join.py:214-220``, ``:704-710``,
+``:778-783``): the build side materializes; probe keys enter the radix
+words as plain strings; probe payloads materialize before the expansion,
+which repeats rows, and stay encoded where the probe only drops rows
+(semi and anti joins, the fused fast paths).
+
 Right joins run as left joins with the sides swapped and the output
 columns put back in order.
 
@@ -33,14 +39,14 @@ from ..conf import (JOIN_PALLAS_PROBE, JOIN_STRATEGY, RapidsConf,
                     roofline_peak_bps)
 from ..expr import expressions as E
 from ..expr.eval import lower
-from ..expr.values import ColV, StrV, Val
+from ..expr.values import ColV, StrV, Val, as_plain_str
 from ..ops import concat as concat_ops
 from ..ops import filter_gather
 from ..ops import join as join_ops
 from ..ops.sort import SortOrder, sort_permutation, str_max_lens
 from ..types import StructField, StructType, torch_dtype
 from .base import (TpuExec, batch_from_vals, concat_all, host_ints,
-                   run_fused_chain, vals_of_batch)
+                   materialized_batch, run_fused_chain, vals_of_batch)
 
 _JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
 
@@ -247,7 +253,8 @@ class TpuShuffledHashJoinExec(TpuExec):
                 batch = ColumnarBatch.from_pydict(
                     {f.name: [] for f in bschema.fields}, bschema,
                     device=self._build.device)
-            self._build_batch = batch
+            # the build sorts and repeats rows: dictionaries expand
+            self._build_batch = materialized_batch(batch)
         return self._build_batch
 
     def _build_words(self, cols, cap, dev):
@@ -505,7 +512,8 @@ class TpuShuffledHashJoinExec(TpuExec):
 
         # count phase
         live = filter_gather.live_of(pbatch.num_rows_lazy, cap, dev)
-        keys = [lower(k, pvals, cap, dev) for k in self._probe_keys]
+        keys = [as_plain_str(lower(k, pvals, cap, dev))
+                for k in self._probe_keys]
         # the probe's string keys are bounded on their own (one sync);
         # each key's words on the narrower side are zero-padded
         psml = str_max_lens(keys)
@@ -548,11 +556,14 @@ class TpuShuffledHashJoinExec(TpuExec):
         p, build_row, slot_live = plan(ex_counts, lo, out_cap)
         pad_slot = slot_live & (counts[p.long()] == 0)
         build_live = slot_live & ~pad_slot
+        # the expansion repeats rows: dictionary payloads expand first
+        pvals = [as_plain_str(v) for v in pvals]
         pcaps, bcaps = _expanded_pools([(pvals, p, slot_live),
                                         (build_cols, build_row, build_live)])
-        probe_side = filter_gather.gather(pvals, p, slot_live, pcaps)
+        probe_side = filter_gather.gather(pvals, p, slot_live, pcaps,
+                                          repeats=True)
         build_side = filter_gather.gather(build_cols, build_row, build_live,
-                                          bcaps)
+                                          bcaps, repeats=True)
         left_side, right_side = ((build_side, probe_side) if self._swap
                                  else (probe_side, build_side))
         vals = list(left_side) + list(right_side)

@@ -22,7 +22,8 @@ from ..expr.eval import lower
 from ..ops import filter_gather
 from ..ops.sort import SortOrder, sort_permutation, str_max_lens
 from ..types import StructType
-from .base import TpuExec, batch_from_vals, concat_all, vals_of_batch
+from .base import (TpuExec, batch_from_vals, concat_all, materialized_batch,
+                   vals_of_batch)
 
 
 class TpuSortExec(TpuExec):
@@ -65,5 +66,6 @@ class TpuSortExec(TpuExec):
         if batch is None:
             return
         with self.op_timed():
-            out = self._sort_batch(batch)
+            # chunk keys want plain bytes (reference exec/sort.py:131)
+            out = self._sort_batch(materialized_batch(batch))
         yield self.record_batch(out)

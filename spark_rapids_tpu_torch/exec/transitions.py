@@ -62,7 +62,10 @@ class RowToColumnarExec(TpuExec):
 
 
 class ColumnarToRowExec(CpuExec):
-    """Device batches -> host rows (the collect boundary)."""
+    """Device batches -> host rows (the collect boundary), through
+    ``ColumnarBatch.host_columns``: a dictionary-encoded column copies
+    its codes, validity and whole dictionary, with no byte-count sync,
+    and decodes each entry once."""
 
     def __init__(self, conf: RapidsConf, tpu_child: TpuExec):
         super().__init__(conf)

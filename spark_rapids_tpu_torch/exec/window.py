@@ -30,7 +30,8 @@ from ..ops import filter_gather
 from ..ops import window as window_ops
 from ..ops.sort import SortOrder, sort_with_radix_keys, str_max_lens
 from ..types import StructField, StructType
-from .base import TpuExec, batch_from_vals, concat_all, vals_of_batch
+from .base import (TpuExec, batch_from_vals, concat_all, materialized_batch,
+                   vals_of_batch)
 
 _AGG_OPS = {A.Count: "count", A.Sum: "sum", A.Min: "min", A.Max: "max"}
 
@@ -83,6 +84,8 @@ class TpuWindowExec(TpuExec):
         batch = concat_all(self.children[0])
         if batch is None:
             return
+        # chunk keys want plain bytes, as in the sort
+        batch = materialized_batch(batch)
         with self.op_timed():
             vals = self.window_fn(vals_of_batch(batch), batch.capacity,
                                   batch.num_rows_lazy)

@@ -37,12 +37,15 @@ import torch
 
 from .. import types as T
 from ..columnar import ColumnarBatch, DeviceColumn
+from ..columnar import column as _colmod
 from ..ops import strings as S
 from ..ops.hashing import flush_subnormals
 from ..types import DataType, torch_dtype
 from . import expressions as E
-from .eval_strings import compare_strings, lower_strings
-from .values import ColV, StrV, UnsupportedExpressionError, Val
+from .eval_strings import (compare_strings, dict_compare_literal,
+                           lower_strings)
+from .values import (ColV, DictV, StrV, UnsupportedExpressionError, Val,
+                     as_plain_str, dict_gather_col)
 
 _INT_INFO = {
     "tinyint": (torch.int8, -(2**7), 2**7 - 1),
@@ -159,7 +162,7 @@ def _lower_in(expr: E.In, c: Val, cap: int, device) -> ColV:
     """Fixed-width IN: the comparison dtype is picked on the host so
     out-of-range literals widen instead of truncating (reference
     ``eval.py:469-506``)."""
-    if isinstance(c, StrV):
+    if isinstance(c, (StrV, DictV)):
         raise NotImplementedError(
             f"string In is {T.NOT_PORTED_STRING_EXPRS}")
     child_dt = expr.child.dtype
@@ -391,8 +394,11 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
 
     if isinstance(expr, E.NativeUDF):
         # the UDF's columnar function runs inside the projection
-        # (reference: RapidsUDF.evaluateColumnar)
-        return expr.columnar_fn(cap, *[ev(c) for c in expr.children_])
+        # (reference: RapidsUDF.evaluateColumnar); a dictionary-encoded
+        # input reaches it expanded, as the reference's do under
+        # DICT_MATERIALIZE_EAGERLY (its word count asserts a StrV)
+        return expr.columnar_fn(cap, *[as_plain_str(ev(c))
+                                       for c in expr.children_])
 
     if isinstance(expr, (E.Add, E.Subtract, E.Multiply)):
         out = expr.dtype
@@ -429,11 +435,20 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
 
     if isinstance(expr, E._BinaryComparison):
         l, r = ev(expr.left), ev(expr.right)
-        if isinstance(l, StrV) or isinstance(r, StrV):
-            if not (isinstance(l, StrV) and isinstance(r, StrV)):
+        strs = (StrV, DictV)
+        if isinstance(l, strs) or isinstance(r, strs):
+            if not (isinstance(l, strs) and isinstance(r, strs)):
                 raise UnsupportedExpressionError(
                     "comparison between string and non-string")
-            return compare_strings(expr, l, r, cap)
+            # a dictionary against a literal: one compare over the
+            # entries, then an int32 gather (reference eval.py:425-434)
+            if isinstance(l, DictV) and isinstance(expr.right, E.Literal):
+                return dict_compare_literal(expr, l, expr.right.value, cap)
+            if isinstance(r, DictV) and isinstance(expr.left, E.Literal):
+                return dict_compare_literal(expr, r, expr.left.value, cap,
+                                            flipped=True)
+            return compare_strings(expr, as_plain_str(l), as_plain_str(r),
+                                   cap)
         tgt = (T.promote(expr.left.dtype, expr.right.dtype)
                if expr.left.dtype != expr.right.dtype else expr.left.dtype)
         ld, rd = _promote2(l, expr.left.dtype, r, expr.right.dtype, tgt)
@@ -539,6 +554,10 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
 
     if isinstance(expr, E.Length):
         c = ev(expr.child)
+        if isinstance(c, DictV):
+            # count the entries' characters, gather through the codes
+            d = c.dictionary
+            return dict_gather_col(c, ColV(S.char_counts(d), d.validity))
         if not isinstance(c, StrV):
             raise UnsupportedExpressionError("length() on non-string")
         return ColV(S.char_counts(c), c.validity)
@@ -595,7 +614,13 @@ def _walk_expressions(expr: E.Expression):
 
 
 def val_of_column(c: DeviceColumn) -> Val:
-    """A column's planes as a lowering value."""
+    """A column's planes as a lowering value: a dictionary-encoded column
+    enters as its DictV, or expanded under the
+    ``column.DICT_MATERIALIZE_EAGERLY`` test seam."""
+    if c.is_dict:
+        if not _colmod.DICT_MATERIALIZE_EAGERLY:
+            return c.dictv
+        c = c.materialize()
     if c.is_string:
         return StrV(c.offsets, c.chars, c.validity)
     return ColV(c.data, c.validity)
@@ -603,6 +628,8 @@ def val_of_column(c: DeviceColumn) -> Val:
 
 def column_of_val(dtype: DataType, num_rows, v: Val) -> DeviceColumn:
     """A lowering value as a column of ``num_rows`` rows."""
+    if isinstance(v, DictV):
+        return DeviceColumn.dict_encoded(dtype, num_rows, v)
     if isinstance(v, StrV):
         return DeviceColumn(dtype, num_rows, None, v.validity, v.offsets,
                             v.chars)

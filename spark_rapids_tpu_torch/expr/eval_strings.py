@@ -4,10 +4,13 @@ Counterpart of ``spark_rapids_tpu/expr/eval_strings.py`` (same function
 names and results): case mapping, substring, concat, the trims, the
 literal predicates (StartsWith / EndsWith / Contains) and string
 comparisons, built from ``ops/strings.py``. Patterns, positions and
-lengths must be literals, as in the reference. The reference's other
-string nodes (``expressions.NOT_PORTED_STRING_NODES``), string selection
-in If / CaseWhen / Coalesce, and dictionary-encoded inputs raise
-``NotImplementedError`` naming their ROADMAP.md item.
+lengths must be literals, as in the reference. A dictionary-encoded input
+(``DictV``) runs each of these once over its dictionary
+(:func:`_on_dict`, :func:`dict_compare_literal`); concat materializes it.
+The reference's other string nodes
+(``expressions.NOT_PORTED_STRING_NODES``) and string selection in If /
+CaseWhen / Coalesce raise ``NotImplementedError`` naming their ROADMAP.md
+item; their dictionary routes come with that item.
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ import torch
 from .. import types as T
 from ..ops import strings as S
 from . import expressions as E
-from .values import ColV, StrV, UnsupportedExpressionError
+from .values import (ColV, DictV, StrV, UnsupportedExpressionError,
+                     clipped_codes, dict_gather_col, dict_rewrap,
+                     materialize_dict)
 
 _BIG = S.BIG
 
@@ -28,11 +33,64 @@ def _char_cap(v: StrV) -> int:
 
 
 def as_strv(v, cap: int) -> StrV:
-    """A string value as it is; a NULL-typed ColV (null literal) as an
+    """A string value as it is, a DictV materialized (per-row selection
+    needs the plain layout); a NULL-typed ColV (null literal) as an
     all-null empty StrV."""
+    if isinstance(v, DictV):
+        return materialize_dict(v)
     if isinstance(v, StrV):
         return v
     return _all_null_str(cap, v.validity.device)
+
+
+def _on_dict(c, cap: int, fn: Callable):
+    """Late materialization (reference ``eval_strings.py:59``): on a DictV
+    the kernel ``fn(strv, rows)`` runs ONCE over the dictionary and its
+    result comes back through the codes, a DictV for a string result
+    (``unique`` cleared) and an int32 gather for a column result; a plain
+    input runs it per row. Every kernel routed here keeps or shrinks its
+    bytes, so ``mat_cap`` carries over."""
+    if not isinstance(c, DictV):
+        return fn(c, cap)
+    out = fn(c.dictionary, c.dict_size)
+    if isinstance(out, StrV):
+        return dict_rewrap(c, out)
+    return dict_gather_col(c, out)
+
+
+_CMP = {E.EqualTo: "eq", E.EqualNullSafe: "eq", E.LessThan: "lt",
+        E.LessThanOrEqual: "le", E.GreaterThan: "gt",
+        E.GreaterThanOrEqual: "ge"}
+
+
+def dict_compare_literal(expr, c: DictV, value, cap: int,
+                         flipped: bool = False) -> ColV:
+    """A comparison of a DictV against a string literal (reference
+    ``eval_strings.py:76``): compare the dictionary's entries with the
+    literal, gather the verdicts by code. ``flipped``: the literal is
+    the LEFT operand."""
+    dev = c.validity.device
+    k = c.dict_size
+    lit_null = value is None
+    raw = b"" if lit_null else (
+        value if isinstance(value, bytes) else str(value).encode("utf-8"))
+    nb = torch.tensor(list(raw), dtype=torch.uint8, device=dev)
+    lit = StrV(torch.arange(k + 1, dtype=torch.int32, device=dev) * len(raw),
+               nb.repeat(k) if len(raw) else torch.zeros(
+                   1, dtype=torch.uint8, device=dev),
+               torch.ones(k, dtype=torch.bool, device=dev))
+    d = c.dictionary
+    lt, eq = S.compare(lit, d) if flipped else S.compare(d, lit)
+    res_d = {"eq": eq, "lt": lt, "le": lt | eq, "gt": ~(lt | eq),
+             "ge": ~lt}[_CMP[type(expr)]]
+    res = res_d[clipped_codes(c)]
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+    if isinstance(expr, E.EqualNullSafe):
+        if lit_null:
+            return ColV(~c.validity, ones)
+        return ColV(c.validity & res, ones)
+    valid = c.validity & (not lit_null)
+    return ColV(valid & res, valid)
 
 
 def lit_str(e: E.Expression, what: str) -> Optional[str]:
@@ -181,29 +239,32 @@ def _string_predicate(expr, c: StrV, cap: int) -> ColV:
     return ColV(res, c.validity)
 
 
-def _string_input(v, what: str) -> StrV:
-    if not isinstance(v, StrV):
+def _string_input(v, what: str):
+    if not isinstance(v, (StrV, DictV)):
         raise UnsupportedExpressionError(f"{what} takes a string input")
     return v
 
 
 def lower_strings(expr: E.Expression, ev: Callable, cap: int):
     """Lower a ported string-family expression; None if ``expr`` is not
-    one. The reference's other string nodes raise."""
+    one. Dictionary-encoded inputs go through :func:`_on_dict`; concat
+    materializes them. The reference's other string nodes raise."""
     if isinstance(expr, E.NOT_PORTED_STRING_NODES):
         raise NotImplementedError(
             f"{type(expr).__name__} is {T.NOT_PORTED_STRING_EXPRS}")
     if isinstance(expr, (E.Upper, E.Lower)):
-        c = _string_input(ev(expr.child), type(expr).__name__)
-        return _upper_lower(expr, c, isinstance(expr, E.Upper))
+        up = isinstance(expr, E.Upper)
+        return _on_dict(_string_input(ev(expr.child), type(expr).__name__),
+                        cap, lambda c, k: _upper_lower(expr, c, up))
     if isinstance(expr, E.Substring):
-        return _substring(expr, _string_input(ev(expr.str), "substring"),
-                          cap)
+        return _on_dict(_string_input(ev(expr.str), "substring"), cap,
+                        lambda c, k: _substring(expr, c, k))
     if isinstance(expr, E.Concat):
         return _concat([as_strv(ev(e), cap) for e in expr.children_])
     if isinstance(expr, (E.StringTrim, E.StringTrimLeft, E.StringTrimRight)):
-        return _trim(expr, _string_input(ev(expr.column), "trim"), cap)
+        return _on_dict(_string_input(ev(expr.column), "trim"), cap,
+                        lambda c, k: _trim(expr, c, k))
     if isinstance(expr, (E.StartsWith, E.EndsWith, E.Contains)):
         c = _string_input(ev(expr.left), type(expr).__name__)
-        return _string_predicate(expr, c, cap)
+        return _on_dict(c, cap, lambda c_, k: _string_predicate(expr, c_, k))
     return None

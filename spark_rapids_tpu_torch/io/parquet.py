@@ -346,7 +346,11 @@ def batch_device_bytes(batch) -> int:
     """Bytes a batch's tensors hold on the device (the cache's budget)."""
     n = 0
     for c in batch.columns:
-        for t in (c.data, c.validity, c.offsets, c.chars):
+        ts = [c.data, c.validity, c.offsets, c.chars]
+        if c.is_dict:  # codes plus the dictionary (validity counted)
+            d = c.dictv
+            ts += [d.codes, d.dictionary.offsets, d.dictionary.chars]
+        for t in ts:
             if t is not None:
                 n += t.numel() * t.element_size()
     return n

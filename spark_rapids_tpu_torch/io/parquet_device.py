@@ -22,12 +22,12 @@ Scope as in the reference: flat schemas, PLAIN int32/int64/float,
 RLE_DICTIONARY / PLAIN_DICTIONARY for int32/int64/float/double and
 BYTE_ARRAY, definition levels for nullable columns, v1 and v2 data pages,
 the codecs pyarrow builds. Anything else falls back to the host arrow
-decoder per column. Dictionary-encoded BYTE_ARRAY chunks decode to a
-dictionary-encoded column in the reference when
-``...parquet.dictStrings.enabled`` (the default); that layout is not
-ported yet (ROADMAP.md, queue A item 'Dictionary-encoded string
-columns'), so such chunks raise. With the conf off they decode to the
-expanded Arrow layout.
+decoder per column. Under ``...parquet.dictStrings.enabled`` (the
+default) a dictionary-encoded BYTE_ARRAY chunk stays encoded, as in the
+reference (``keep_dict``): the file's codes and its own dictionary upload
+as they are and become a ``DictV`` with ``unique`` set (a parquet
+dictionary holds distinct values), so no byte of the rows is expanded.
+With the conf off such chunks decode to the expanded Arrow layout.
 """
 from __future__ import annotations
 
@@ -42,8 +42,6 @@ import numpy as np
 import torch
 
 from .. import types as T
-
-DICT_STRINGS_ITEM = "Dictionary-encoded string columns"
 
 # thrift compact type ids
 _T_STOP = 0
@@ -592,12 +590,14 @@ def plan_decode(plan: ChunkPlan, dtype_tpu, cap: int,
     """The device half of one chunk decode, without running it: returns
     ``(args, run)``, where ``args`` are the host arrays to upload and
     ``run(dev_args)`` produces ``(data, validity)`` for a fixed-width
-    column or ``(offsets, chars, validity)`` for strings. Raises
-    ``_FallbackError`` for a chunk the host decoder must take, and
-    ``NotImplementedError`` for a dictionary-encoded BYTE_ARRAY chunk
-    under ``dict_strings``."""
+    column, ``(offsets, chars, validity)`` for strings, or under
+    ``dict_strings`` a ``DictV`` for a dictionary-encoded BYTE_ARRAY chunk
+    (reference ``parquet_device.py:696``): the codes and the file's
+    dictionary as they are, ``max_len`` the longest entry and ``mat_cap``
+    the rows' exact byte total, bucketed. Raises ``_FallbackError`` for a
+    chunk the host decoder must take."""
     from ..columnar.column import choose_capacity
-    from ..expr.values import StrV
+    from ..expr.values import DictV, StrV
     from ..ops.filter_gather import gather_string
 
     T.check_storable(dtype_tpu)
@@ -607,11 +607,6 @@ def plan_decode(plan: ChunkPlan, dtype_tpu, cap: int,
     is_str = plan.phys == "BYTE_ARRAY"
     if is_str and not is_dict:
         raise _FallbackError("PLAIN BYTE_ARRAY")
-    if is_str and dict_strings:
-        raise NotImplementedError(
-            "dictionary-encoded string columns are not ported yet: see "
-            f"ROADMAP.md, queue A item '{DICT_STRINGS_ITEM}' (or set "
-            "spark.rapids.tpu.sql.format.parquet.dictStrings.enabled=false)")
     if n == 0:
         if is_str:
             def run_empty_str(dev_args, device):
@@ -627,6 +622,7 @@ def plan_decode(plan: ChunkPlan, dtype_tpu, cap: int,
                     torch.zeros(cap, dtype=torch.bool, device=device))
         return [], run_empty
 
+    keep_dict = bool(dict_strings) and is_str and is_dict
     args: List[np.ndarray] = []
     if has_def:
         args.append(_pack_validity_words(plan.validity))
@@ -653,6 +649,7 @@ def plan_decode(plan: ChunkPlan, dtype_tpu, cap: int,
                 ) @ lens
             ) if plan.codes.shape[0] else 0
             ccap = choose_capacity(max(1, total_bytes), 128)
+            max_len = int(lens.max()) if D > 0 else 0
             args += [plan.dict_offsets.astype(np.int32), plan.dict_chars]
         else:
             args.append(plan.dict_values)
@@ -687,6 +684,9 @@ def plan_decode(plan: ChunkPlan, dtype_tpu, cap: int,
                 D_ = doff_.shape[0] - 1
                 dsv = StrV(doff_, dch_, torch.ones(D_, dtype=torch.bool,
                                                    device=device))
+                if keep_dict:
+                    return DictV(torch.clamp(codes_, 0, D_ - 1).to(
+                        torch.int32), dsv, validity, ccap, max_len, True)
                 out = gather_string(dsv, torch.clamp(codes_, 0, D_ - 1),
                                     validity, ccap)
                 return out.offsets, out.chars, validity
@@ -712,8 +712,12 @@ def _run_decode(plan: ChunkPlan, dtype_tpu, run, dev_args, device):
     as a DeviceColumn."""
     from ..columnar.column import DeviceColumn
 
+    from ..expr.values import DictV
+
     out = run(dev_args, device)
     n = plan.num_values
+    if isinstance(out, DictV):
+        return DeviceColumn.dict_encoded(dtype_tpu, n, out)
     if plan.phys == "BYTE_ARRAY":
         offsets, chars, validity = out
         return DeviceColumn(dtype_tpu, n, None, validity, offsets, chars)

@@ -10,7 +10,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ..expr.values import ColV, StrV, Val
+from ..expr.values import ColV, DictV, StrV, Val
 
 #: string offsets are int32: a concatenated byte pool stays below this
 MAX_POOL_BYTES = 2**31 - 1
@@ -32,7 +32,7 @@ def concat_padded_cols(col_parts: Sequence[Sequence[ColV]],
     total). String columns need their byte counts on the host, as in the
     reference, so they take :func:`concat_batches_cols`."""
     for cp in col_parts:
-        if any(isinstance(p, StrV) for p in cp):
+        if any(isinstance(p, (StrV, DictV)) for p in cp):
             raise NotImplementedError(
                 "the sync-free padded concat takes fixed-width columns "
                 "only, as the reference's; string columns concatenate "
@@ -102,11 +102,15 @@ def concat_batches_cols(col_parts: Sequence[Sequence[Val]],
     """Concatenate N batches column-wise (reference ``concat.py:180``).
     ``byte_lengths_per_col[i][j]`` is the byte count of string column j
     of batch i and ``out_char_caps[j]`` its output pool, host ints the
-    caller synced once per batch."""
+    caller synced once per batch. Dictionary-encoded columns must be
+    materialized first: each batch's dictionary is its own."""
     out: List[Val] = []
     si = 0
     for j in range(len(col_parts[0])):
         parts = [cp[j] for cp in col_parts]
+        if any(isinstance(p, DictV) for p in parts):
+            raise ValueError("concat_batches_cols takes dictionary-encoded "
+                             "columns materialized")
         if isinstance(parts[0], StrV):
             bl = [byte_lengths_per_col[i][si] for i in range(len(col_parts))]
             out.append(concat_string(parts, lengths, bl, out_cap,

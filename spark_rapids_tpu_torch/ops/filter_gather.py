@@ -5,7 +5,9 @@ the input capacity: selected rows are compacted to the front, tail slots
 zeroed with validity False, and the surviving row count stays a 0-d
 device tensor. String columns gather in two passes (new offsets, then
 the bytes) into a byte pool of a size fixed up front, as in the
-reference.
+reference. A dictionary-encoded column (``DictV``) moves only its int32
+codes, like a fixed-width column; its dictionary passes through as it
+is.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..expr.values import ColV, StrV, Val
+from ..expr.values import ColV, DictV, StrV, Val
 
 
 def live_of(num_rows_or_mask, cap: int, device=None) -> torch.Tensor:
@@ -123,14 +125,30 @@ def gather_string(col: StrV, indices: torch.Tensor,
 
 def gather(cols: Sequence[Val], indices: torch.Tensor,
            valid_slot: torch.Tensor,
-           char_caps: Optional[Sequence[int]] = None) -> List[Val]:
+           char_caps: Optional[Sequence[int]] = None,
+           repeats: bool = False) -> List[Val]:
     """Gather each column by row ``indices`` (same output rows for all).
-    ``char_caps`` sets the output byte pool per string column, in order
-    (default: the input pool's size, enough for a row subset)."""
+    ``char_caps`` sets the output byte pool per plain string column, in
+    order (default: the input pool's size, enough for a row subset).
+
+    A DictV gathers its codes and keeps its dictionary (reference
+    ``filter_gather.py:255-310``). Its ``mat_cap`` bounds the bytes of a
+    row SUBSET only, so a caller whose indices repeat rows (a join's
+    expansion) passes ``repeats=True`` and must materialize its DictVs
+    first: a DictV raises there."""
     out: List[Val] = []
     si = 0
     for c in cols:
-        if isinstance(c, StrV):
+        if isinstance(c, DictV):
+            if repeats:
+                raise ValueError("a gather that repeats rows needs "
+                                 "dictionary-encoded columns materialized "
+                                 "first (their mat_cap bounds row subsets "
+                                 "only)")
+            g = gather_fixed(ColV(c.codes, c.validity), indices, valid_slot)
+            out.append(DictV(g.data, c.dictionary, g.validity, c.mat_cap,
+                             c.max_len, c.unique))
+        elif isinstance(c, StrV):
             cc = (char_caps[si] if char_caps is not None
                   and si < len(char_caps) else int(c.chars.shape[0]))
             si += 1
@@ -232,7 +250,12 @@ def truncate_cols(cols: Sequence[Val], count) -> List[Val]:
         keep = torch.arange(c.validity.shape[0], dtype=torch.int32,
                             device=dev) < count
         validity = c.validity & keep
-        if isinstance(c, StrV):
+        if isinstance(c, DictV):
+            out.append(DictV(torch.where(keep, c.codes,
+                                         torch.zeros_like(c.codes)),
+                             c.dictionary, validity, c.mat_cap, c.max_len,
+                             c.unique))
+        elif isinstance(c, StrV):
             cap = c.offsets.shape[0] - 1
             at = torch.as_tensor(count, device=dev).clamp(0, cap).long()
             end = c.offsets[at]

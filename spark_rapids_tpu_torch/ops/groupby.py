@@ -19,7 +19,13 @@ plain string keys and values:
 String keys take :func:`sort_groupby` under every tier: the reference
 reduces that path through its RADIX tiled reduction under PALLAS and
 RADIX (``groupby.py:1023-1035``), which is not ported (ROADMAP.md, queue
-A item 1), so the segments reduce as under its SCATTER tier.
+A item 1), so the segments reduce as under its SCATTER tier. A
+dictionary-encoded key (``DictV``) whose dictionary is unique groups on
+its int32 codes through the hash tiers instead, and its output codes are
+wrapped back into a DictV; a non-unique one (after a transforming
+kernel) materializes and takes the sort path (``groupby.py:983-1017``).
+A DictV min/max input ranks by a sort of its dictionary alone
+(:func:`_dict_rank`).
 
 Each ``lax.cond`` of the reference becomes a host decision: a ``.item()``
 sync on the 0-d result, after which only the taken branch runs, as under
@@ -38,7 +44,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import types as T
-from ..expr.values import ColV, StrV, Val
+from ..columnar.column import choose_capacity
+from ..expr.values import (ColV, DictV, StrV, Val, dict_gather_col,
+                           materialize_dict, val_capacity)
 from . import groupby_kernels as K
 from .bucket_reduce import (
     bucket_equal_check,
@@ -55,6 +63,8 @@ from .sort import (SIGN64, SortOrder, fixed_radix_keys, next_bound,
 #: the describe() reason of a string-keyed aggregate's route
 STRING_KEY_ROUTE = ("string keys: sort path; the RADIX segment reduction "
                     "is queue A item 1")
+#: the describe() reason of a route on unique dictionary keys
+DICT_CODE_ROUTE = "dictionary keys: int32 codes on the hash tiers"
 
 
 def _seg_sum(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -98,7 +108,7 @@ def _plain_rank(v: StrV, num_rows, max_len: int
     """(perm, per-row rank) of a plain string column by one chunk-key
     sort (reference ``groupby.py:181``): ``perm[p]`` is the row holding
     the p-th smallest string, and row ``perm[p]`` has rank p."""
-    cap = v.offsets.shape[0] - 1
+    cap = val_capacity(v)
     perm = sort_permutation([v], [T.STRING], [SortOrder(True, True)],
                             num_rows, [max_len])
     rank = torch.empty(cap, dtype=torch.int32, device=perm.device)
@@ -106,30 +116,51 @@ def _plain_rank(v: StrV, num_rows, max_len: int
     return perm, ColV(rank, v.validity)
 
 
+def _dict_rank(v: DictV) -> Tuple[torch.Tensor, ColV]:
+    """(order, per-row rank) of a DictV (reference ``groupby.py:160``):
+    one chunk-key sort of the dictionary alone, bounded by ``max_len``
+    (no host sync); ``order[p]`` is the entry holding the p-th smallest
+    string, and each row's rank rides its code through one gather."""
+    d = v.dictionary
+    D = v.dict_size
+    order = sort_permutation([d], [T.STRING], [SortOrder(True, True)], D,
+                             [max(1, v.max_len)])
+    rank = torch.empty(D, dtype=torch.int32, device=order.device)
+    rank[order] = torch.arange(D, dtype=torch.int32, device=order.device)
+    return order, dict_gather_col(v, ColV(rank, d.validity))
+
+
 def string_minmax_ranks(value_cols: List[Optional[Val]],
                         agg_ops: Sequence[str], num_rows,
                         str_val_max_lens: Sequence[int] = ()
-                        ) -> Dict[int, Callable[[ColV], StrV]]:
+                        ) -> Dict[int, Callable[[ColV], Val]]:
     """Replace each string min/max input in ``value_cols`` (in place) by
     its rank column (reference ``groupby.py:192``); ``min(s)`` and
     ``max(s)`` over one column share one rank sort. Returns ``recover``:
     aggregate index -> a function from the reduced rank column to the
-    winning strings (a row gather). ``str_val_max_lens`` bounds each
-    string min/max input in turn (each must have one)."""
-    recover: Dict[int, Callable[[ColV], StrV]] = {}
+    winning strings (a row gather; for a DictV, the winning entries'
+    codes over its dictionary). ``str_val_max_lens`` bounds each string
+    min/max input in turn (each must have one; a DictV's goes unused)."""
+    recover: Dict[int, Callable[[ColV], Val]] = {}
     ranks: Dict[int, Tuple[torch.Tensor, ColV]] = {}
     lens = iter(str_val_max_lens)
     for ai, (op, v) in enumerate(zip(agg_ops, value_cols)):
-        if op not in ("min", "max") or not isinstance(v, StrV):
+        if op not in ("min", "max") or not isinstance(v, (StrV, DictV)):
             continue
         ml = next_bound(lens)
         if id(v) not in ranks:
-            ranks[id(v)] = _plain_rank(v, num_rows, ml)
+            ranks[id(v)] = (_dict_rank(v) if isinstance(v, DictV)
+                            else _plain_rank(v, num_rows, ml))
         perm, rank_rows = ranks[id(v)]
 
-        def rec(r: ColV, perm=perm, src=v) -> StrV:
-            cap = src.offsets.shape[0] - 1
-            rows = perm[r.data.long().clamp(0, cap - 1)]
+        def rec(r: ColV, perm=perm, src=v) -> Val:
+            if isinstance(src, DictV):
+                codes = perm[r.data.long().clamp(0, max(src.dict_size - 1,
+                                                        0))]
+                return DictV(codes.to(torch.int32), src.dictionary,
+                             r.validity, src.mat_cap, src.max_len,
+                             src.unique)
+            rows = perm[r.data.long().clamp(0, val_capacity(src) - 1)]
             # winners are distinct source rows: the source pool holds them
             return gather_string(src, rows, r.validity,
                                  int(src.chars.shape[0]))
@@ -540,14 +571,19 @@ def groupby_agg(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
                 num_rows, approx_float_sum: bool = False,
                 num_buckets: int = 8192, strategy: Optional[str] = None,
                 str_max_lens: Sequence[int] = (),
-                str_val_max_lens: Sequence[int] = ()
+                str_val_max_lens: Sequence[int] = (),
+                routes: Optional[List[str]] = None
                 ) -> Tuple[List[Val], List[Val], torch.Tensor]:
     """Adaptive group-by: narrow hash tiers first, escalating to wider
     ones and then the sort fallback only when the keys do not fit
     (``groupby.py:1040-1080``). Each tier's collision check is a host
-    decision; only the taken path runs. String keys take the sort path
-    (``str_max_lens`` bounds them); string min/max inputs reduce as rank
-    columns (``str_val_max_lens``) on whichever path runs."""
+    decision; only the taken path runs. Plain string keys take the sort
+    path (``str_max_lens`` bounds every string key in turn, dictionary
+    ones included); a unique DictV key groups on its codes and comes back
+    a DictV, a non-unique one materializes (``groupby.py:983-1017``).
+    String min/max inputs reduce as rank columns (``str_val_max_lens``)
+    on whichever path runs. ``routes``, when given, receives the string
+    key route taken (:data:`DICT_CODE_ROUTE`, :data:`STRING_KEY_ROUTE`)."""
     if strategy in NOT_PORTED_TIERS:
         raise not_ported_tier(strategy)
     for dt in key_dtypes:
@@ -559,6 +595,8 @@ def groupby_agg(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
     value_cols = list(value_cols)
     recover = string_minmax_ranks(value_cols, agg_ops, num_rows,
                                   str_val_max_lens)
+    key_cols, key_dtypes, code_keys, str_max_lens = _dict_keys(
+        key_cols, key_dtypes, str_max_lens)
     cap = key_cols[0].validity.shape[0]
     B2 = _pow2_floor(min(cap, num_buckets))
     B1 = min(1024, B2)
@@ -566,12 +604,64 @@ def groupby_agg(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
     tiers = [B0] + [b for b, below in ((B1, B0), (B2, B1)) if b > below]
     if any(isinstance(c, StrV) for c in key_cols):
         tiers = []  # string keys: the sort path
+    if routes is not None:
+        for route, taken in ((DICT_CODE_ROUTE, code_keys),
+                             (STRING_KEY_ROUTE, not tiers)):
+            if taken and route not in routes:
+                routes.append(route)
     for B in tiers:
         hk, ha, hn, ok = hash_groupby(
             list(key_cols), key_dtypes, value_cols, agg_ops, num_rows, B,
             approx_float_sum=approx_float_sum, reduce_strategy=strategy)
         if bool(ok.item()):  # host sync: groupby.py:1072
-            return hk, _recovered(ha, recover), hn
+            return _rewrapped(hk, code_keys), _recovered(ha, recover), hn
     keys, aggs, n = sort_groupby(key_cols, key_dtypes, value_cols, agg_ops,
                                  num_rows, str_max_lens)
-    return keys, _recovered(aggs, recover), n
+    return _rewrapped(keys, code_keys), _recovered(aggs, recover), n
+
+
+def _dict_keys(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
+               str_max_lens: Sequence[int]):
+    """The DictV keys made groupable (reference ``groupby.py:983-1001``):
+    a unique one becomes an INT key of its codes (null slots zeroed), a
+    non-unique one materializes. Returns the keys, their dtypes, the
+    code keys (key index -> DictV) and the byte bounds of the string
+    keys left."""
+    key_cols, key_dtypes = list(key_cols), list(key_dtypes)
+    code_keys: Dict[int, DictV] = {}
+    lens = iter(str_max_lens)
+    left: List[int] = []
+    for i, c in enumerate(key_cols):
+        if isinstance(c, DictV):
+            bound = next_bound(lens)
+            if c.unique:
+                key_cols[i] = ColV(torch.where(c.validity, c.codes, 0).to(
+                    torch.int32), c.validity)
+                key_dtypes[i] = T.INT
+                code_keys[i] = c
+            else:
+                key_cols[i] = materialize_dict(c)
+                left.append(bound)
+        elif isinstance(c, StrV):
+            left.append(next_bound(lens))
+    return key_cols, key_dtypes, code_keys, left
+
+
+def _rewrapped(keys: Sequence[Val], code_keys: Dict[int, DictV]
+               ) -> List[Val]:
+    """Code key outputs back as DictVs over their dictionaries
+    (reference ``groupby.py:1003``). The groups are a subset of the input
+    rows, so the input's ``mat_cap`` bounds the materialized pool; a sole
+    key holds each entry once, so the dictionary's bytes bound it too.
+    (The reference takes the dictionary's bytes beside other keys as
+    well, where one entry can head many groups: ROADMAP.md §C.)"""
+    keys = list(keys)
+    for i, t in code_keys.items():
+        k = keys[i]
+        mat_cap = t.mat_cap
+        if len(keys) == 1:
+            mat_cap = min(mat_cap, choose_capacity(
+                max(1, int(t.dictionary.chars.shape[0])), 128))
+        keys[i] = DictV(k.data.to(torch.int32), t.dictionary, k.validity,
+                        mat_cap, t.max_len, True)
+    return keys

@@ -28,7 +28,7 @@ import torch
 
 from .. import types as T
 from ..columnar.column import choose_capacity
-from ..expr.values import ColV, StrV, Val
+from ..expr.values import ColV, DictV, StrV, Val
 from .filter_gather import gather, live_of
 from .hashing import canonical_float, flush_subnormals
 
@@ -130,12 +130,16 @@ def max_string_len(col: StrV) -> torch.Tensor:
 def str_max_lens(vals: Sequence[Val]) -> Tuple[int, ...]:
     """The byte bound of each string value in ``vals``, in order: its
     longest row rounded up to a power of two of at least 4 (the
-    reference's ``max(4, choose_capacity(max(1, m), 4))``). One host sync
-    for all of them; none when there is no string."""
-    strs = [v for v in vals if isinstance(v, StrV)]
-    if not strs:
-        return ()
-    ms = torch.stack([max_string_len(v) for v in strs]).tolist()
+    reference's ``max(4, choose_capacity(max(1, m), 4))``), where a
+    dictionary-encoded value's longest row is its ``max_len`` (reference
+    ``aggregate.py:503``). One host sync for all the plain ones; none
+    when there is none."""
+    strs = [v for v in vals if isinstance(v, (StrV, DictV))]
+    plain = [v for v in strs if isinstance(v, StrV)]
+    synced = iter(torch.stack([max_string_len(v) for v in plain]).tolist()
+                  if plain else ())
+    ms = [v.max_len if isinstance(v, DictV) else next(synced)
+          for v in strs]
     return tuple(max(4, choose_capacity(max(1, int(m)), 4)) for m in ms)
 
 

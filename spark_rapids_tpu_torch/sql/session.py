@@ -69,9 +69,10 @@ def _make_scanner(fmt: str, path: str, opts: tuple, conf: RapidsConf,
     )
 
     # the reference keys on the planning confs only; the scanner also
-    # reads the decode confs when it runs, and in the port a
-    # dictStrings-on scanner raises where an off one decodes, so a later
-    # session must not inherit an earlier session's scanner through them
+    # reads the decode confs when it runs (a dictStrings-on scanner hands
+    # out dictionary-encoded columns where an off one expands them), so a
+    # later session must not inherit an earlier session's scanner
+    # through them
     key = (fmt, path, opts, pushed, conf.get(PARQUET_READER_TYPE),
            conf.get(MAX_READER_BATCH_SIZE_BYTES), conf.get(CLOUD_SCHEMES),
            conf.get(PARQUET_DEVICE_DECODE), conf.get(PARQUET_DICT_STRINGS),

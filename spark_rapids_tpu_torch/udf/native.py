@@ -5,7 +5,10 @@ Counterpart of ``spark_rapids_tpu/udf/native.py`` (reference analog:
 the plugin runs that instead of row-by-row code). The user registers a
 COLUMNAR function over the engine's column values (``ColV`` fixed width,
 ``StrV`` Arrow offsets + bytes), plus the ordinary row function for the
-CPU fallback; the columnar function runs inside the projection.
+CPU fallback; the columnar function runs inside the projection. A
+dictionary-encoded input reaches it materialized as a ``StrV``
+(``expr/eval.py``): the reference hands the ``DictV`` itself, and its
+word count asserts on one (ROADMAP.md §C).
 
 In-tree example: :func:`string_word_count`, the UDF the reference ships
 (``string_word_count.cu``): the reference's per-byte Pallas pass and its

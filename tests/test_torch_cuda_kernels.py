@@ -987,3 +987,71 @@ def test_string_key_join_on_the_card_matches_the_cpu(dev, how, strategy):
         return rows, sorted(agg.collect(), key=repr)
 
     assert run(dev) == run("cpu")
+
+
+def _dict_batch(device, n, seed):
+    """A batch of a dictionary-encoded key ``s`` (12 entries, 10% null),
+    a dictionary-encoded ``m`` (300 names), a long and a double."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import (ColumnarBatch,
+                                                 column_from_pylist,
+                                                 dict_column_from_pylist,
+                                                 schema_of)
+
+    rng = np.random.default_rng(seed)
+    pool = ["alpha", "", "beta-X", "ü-mixed", "gamma", "X", "tail-9", "42",
+            "  pad ", "delta-long-value", "zeta", "a.b"]
+    s = [None if r < 0.1 else pool[i] for r, i in
+         zip(rng.random(n), rng.integers(0, len(pool), n))]
+    m = ["name-%03d" % i for i in rng.integers(0, 300, n)]
+    v = [int(x) for x in rng.integers(-10**6, 10**6, n)]
+    f = [float(x) for x in rng.normal(size=n)]
+    return ColumnarBatch(
+        [dict_column_from_pylist(s, device=device),
+         dict_column_from_pylist(m, device=device),
+         column_from_pylist(v, T.LONG, device=device),
+         column_from_pylist(f, T.DOUBLE, device=device)],
+        schema_of(s=T.STRING, m=T.STRING, v=T.LONG, f=T.DOUBLE), n)
+
+
+def test_dict_key_aggregate_on_the_card_matches_the_cpu(dev):
+    """Dictionary keys on their codes under PALLAS on the card (K1, K2
+    and K3 on the direct tier, the merge of three batches' partials on
+    the string sort path) give the CPU's rows, and filter -> project
+    over the dictionary the CPU's strings."""
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec, TpuFilterExec,
+                                             TpuHashAggregateExec,
+                                             TpuProjectExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    conf = RapidsConf({"spark.rapids.tpu.sql.agg.strategy": "PALLAS",
+                       "spark.rapids.tpu.sql.variableFloatAgg.enabled":
+                       True})
+
+    def run(device):
+        bs = [_dict_batch(device, 4000, s) for s in range(3)]
+        scan = InMemoryScanExec(conf, [bs], bs[0].schema)
+        agg = TpuHashAggregateExec(conf, [col("s")], [
+            A.agg(A.Count(None), "n"), A.agg(A.Sum(col("v")), "sv"),
+            A.agg(A.Sum(col("f")), "sf"), A.agg(A.Min(col("m")), "mn"),
+            A.agg(A.Max(col("m")), "mx")], scan)
+        rows = sorted(agg.collect(), key=repr)
+        proj = TpuProjectExec(conf, [
+            E.Alias(E.Substring(E.Upper(col("s")), lit(1), lit(4)), "u"),
+            E.Alias(E.Length(col("s")), "ln"), col("m")],
+            TpuFilterExec(conf, E.Contains(col("s"), lit("a")),
+                          InMemoryScanExec(conf, [bs], bs[0].schema)))
+        return rows, proj.collect()
+
+    before = dict(K.LAUNCHES)
+    (got, got_p), (want, want_p) = run(dev), run("cpu")
+    assert all(K.LAUNCHES[k] > before[k] for k in
+               ("bucket_sum", "bucket_float_sum", "bucket_winner"))
+    assert got_p == want_p
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g[:3] == w[:3] and g[4:] == w[4:]
+        assert abs(g[3] - w[3]) <= 1e-9 * 4000 * 5

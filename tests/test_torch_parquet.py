@@ -140,25 +140,77 @@ def test_chunk_decode_matches_reference(tmp_path, name):
     assert device_chunks > 0
 
 
+def _dict_chunks(mod, path, device=None):
+    """Every row group's ``s`` chunk through ``mod``'s decode under
+    dictStrings: {rg: (codes, dict offsets, dict chars, validity,
+    mat_cap, max_len, unique)} as numpy and host ints."""
+    pf = pq.ParquetFile(path)
+    with open(path, "rb") as f:
+        raw = f.read()
+    ci = pf.schema_arrow.get_field_index("s")
+    col = pf.schema.column(ci)
+    out = {}
+    for rg in range(pf.metadata.num_row_groups):
+        rgmd = pf.metadata.row_group(rg)
+        plan = mod.plan_chunk(raw, rgmd.column(ci), col.max_definition_level,
+                              col.max_repetition_level)
+        cap = 1 << max(7, (rgmd.num_rows - 1).bit_length())
+        kw = {} if mod is JPD else {"device": device}
+        dc = mod.chunk_to_device_column(
+            plan, JT.STRING if mod is JPD else T.STRING, cap,
+            dict_strings=True, **kw)
+        assert dc.is_dict, rg
+        d = dc.dictv
+        out[rg] = tuple(np.asarray(x if mod is JPD else x.cpu()) for x in (
+            d.codes, d.dictionary.offsets, d.dictionary.chars,
+            d.validity)) + (d.mat_cap, d.max_len, d.unique)
+    return out
+
+
 def test_dictionary_strings(tmp_path):
-    """Dictionary-encoded BYTE_ARRAY: under dictStrings (the default) the
-    reference keeps a dictionary column, which the port has not ported,
-    so the scan raises; with it off both decode to the same expanded
-    strings."""
+    """Dictionary-encoded BYTE_ARRAY: under dictStrings (the default) each
+    chunk scans to a DictV holding the file's own dictionary, with the
+    reference's codes, validity and metadata; with it on and off the port's
+    session gives the reference's rows."""
     rng = np.random.default_rng(2)
     words = np.array(["", "a", "bb", "ccc", "é€", "z" * 40], dtype=object)
     s = words[rng.integers(0, len(words), 2000)]
     t = pa.table({"s": pa.array(s, mask=rng.random(2000) < 0.1),
                   "k": pa.array(rng.integers(0, 5, 2000).astype(np.int32))})
     path = _write(tmp_path, "strings", {}, t, rg=700)
-    psess = PSession({}, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="Dictionary-encoded string columns"):
-        psess.read.parquet(path).collect()
-    off = {"spark.rapids.tpu.sql.format.parquet.dictStrings.enabled": False}
-    ref = JSession(off).read.parquet(path).collect()
-    got = PSession(off, device="cpu").read.parquet(path).collect()
-    assert got == ref
+    ref = _dict_chunks(JPD, path)
+    got = _dict_chunks(PPD, path, "cpu")
+    pf = pq.ParquetFile(path, read_dictionary=["s"])
+    assert ref.keys() == got.keys()
+    for rg, (rc, roff, rch, rv, rmat, rlen, runiq) in ref.items():
+        gc, goff, gch, gv, gmat, glen, guniq = got[rg]
+        np.testing.assert_array_equal(gv, rv)
+        np.testing.assert_array_equal(gc[gv], rc[rv])
+        np.testing.assert_array_equal(goff, roff)
+        np.testing.assert_array_equal(gch[:goff[-1]], rch[:roff[-1]])
+        assert (gmat, glen, guniq) == (rmat, rlen, runiq) and guniq
+        # the dictionary is the file's own, in the file's order
+        fd = pf.read_row_group(rg, columns=["s"]).column(0).chunk(0)
+        entries = [gch[a:b].tobytes().decode() for a, b in
+                   zip(goff[:-1], goff[1:])]
+        assert entries == fd.dictionary.to_pylist()
+    for on in (True, False):
+        conf = {"spark.rapids.tpu.sql.format.parquet.dictStrings.enabled":
+                on}
+        DeviceScanCache.reset()
+        want = JSession(conf).read.parquet(path).collect()
+        DeviceScanCache.reset()
+        df = PSession(conf, device="cpu").read.parquet(path)
+        assert df.collect() == want, on
+        # the scan hands out the layout the conf asks for
+        sc = PPQ.ParquetScanner(path, RapidsConf(conf))
+        scan = TpuFileSourceScanExec(RapidsConf(conf), sc, "parquet", "cpu")
+        batches = [b for p in range(scan.num_partitions)
+                   for b in scan.execute_partition(p)]
+        si = scan.output_schema.field_index("s")
+        assert len(batches) == 3
+        assert all(b.columns[si].is_dict == on for b in batches)
+    DeviceScanCache.reset()
 
 
 FILTERS = [

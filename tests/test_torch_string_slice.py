@@ -127,6 +127,38 @@ def test_q9_matches_reference_and_pool_oracle():
     assert got == [(ul, ln, int(mask.sum()), int(v[mask].sum()))]
 
 
+def test_q9_in_the_bench_layout_matches_the_reference():
+    """Q9 over the bench's own dictionary column in both packages
+    (``bench._dev_string_col`` and the chip check's ``pool_dict_column``:
+    the same codes, dictionary and metadata), rows equal; the filtered
+    projection keeps ``u`` dictionary-encoded over the 14 entries."""
+    idx, v, jb = _q9_inputs()
+    dcol = bench._dev_string_col(chip_smoke.STRING_POOL, idx, N, JT.STRING)
+    pcol = chip_smoke.pool_dict_column(np, "cpu", chip_smoke.STRING_POOL,
+                                       idx)
+    jd, pd = dcol.dictv, pcol.dictv
+    for part in ("codes", "validity"):
+        np.testing.assert_array_equal(getattr(pd, part).numpy(),
+                                      np.asarray(getattr(jd, part)))
+    for part in ("offsets", "chars"):
+        np.testing.assert_array_equal(getattr(pd.dictionary, part).numpy(),
+                                      np.asarray(getattr(jd.dictionary,
+                                                         part)))
+    assert (pd.mat_cap, pd.max_len, pd.unique, pd.dict_size) == (
+        jd.mat_cap, jd.max_len, jd.unique, 14)
+    pschema = schema_of(s=T.STRING, v=T.LONG)
+    pb = ColumnarBatch([pcol, _port_batch(jb, pschema).columns[1]],
+                       pschema, N)
+    jdb = JBatch([dcol, jb.columns[1]], jb.schema, N)
+    jproj, jagg = _q9(JX, JE, JA, JConf({}), [jdb], jb.schema)
+    pproj, pagg = _q9(X, E, A, RapidsConf({}), [pb], pschema)
+    assert X.ColumnarToRowExec(pagg.conf, pagg).collect() == jagg.collect()
+    [out] = list(pproj.execute_partition(0))
+    assert out.columns[0].is_dict and out.columns[0].dictv.dict_size == 14
+    assert X.ColumnarToRowExec(pproj.conf, pproj).collect() == \
+        jproj.collect()
+
+
 def test_q9_projection_emits_compacted_strings_like_reference():
     """The filtered projection on its own: rows compact once at the end
     of the fused chain, string columns through the string gather."""
