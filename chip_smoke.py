@@ -10,8 +10,9 @@ Phases, each failing the run on any error or mismatch:
 
 1. set-up: the card is present; the kernel libraries are built from
    ``spark_rapids_tpu_torch/csrc/groupby_kernels.cu``,
-   ``csrc/join_kernels.cu`` and ``csrc/udf_kernels.cu`` (one ``nvcc``
-   each for ``sm_90a``, started together; ptxas' register and spill lines
+   ``csrc/join_kernels.cu``, ``csrc/udf_kernels.cu`` and
+   ``csrc/regex_kernels.cu`` (one ``nvcc`` each for ``sm_90a``, started
+   together; ptxas' register and spill lines
    are printed); the card's name and power limit are read;
 2. kernels: each hand-written kernel's wrapper runs on card tensors at the
    main path's shapes (2^24 rows; B = 128, 1024, 8192) and is held
@@ -209,11 +210,49 @@ Phases, each failing the run on any error or mismatch:
         call over the batch, held to its plain version and timed beside
         ``scatter_reduce_``.
 
+8. the other string expressions (item 15), over TPC-H's ``orders`` (2^23
+   rows: o_comment a dbgen-like 19-78-byte slice of a seeded text pool
+   of the spec's grammar) and ``customer`` (838 861 rows), written by
+   pyarrow with its defaults under ``_chip_data/`` (four row groups of
+   orders; removed after):
+     the DFA row matcher: over o_comment's 2^23 rows as one column, each
+        pattern's kernel (Q22d's, an anchored one, a '$' over rows that
+        end in '\n' and a class that takes multi-byte UTF-8, the last
+        three on a copy with '\n' endings, 'é's and nulls) held to its
+        plain version bit for bit over the whole column, its first 2^20
+        rows and a 2^16-row slice whose offsets start mid-pool, and
+        timed beside its bytes bound; ``special.*requests`` must be
+        refused by the compiler (more than 16 DFA states), as the
+        reference's refuses it;
+     Q22 TPC-H Q13 through the session: customer left outer join the
+        orders whose comment is not like '%special%requests%' (join
+        strategy PALLAS: K4), count(o_orderkey) per customer (838 861
+        groups), count(*) per c_count (K1), by custdist desc, c_count
+        desc; Q22r the same with ``not rlike 'special.*requests'``,
+        which no device route takes: the planner runs that filter on the
+        CPU engine and the rows must be Q22's (one cold run); Q22d with
+        ``not rlike '^[a-z]+ (sly|furious)'``, which runs on the DFA
+        kernel; each against a numpy oracle from the text pool's word
+        positions (itself held to Python's ``re`` on a sample);
+     Q23 TPC-H Q22: the scalar subquery's average first, then the
+        customers of seven country codes (``substring(c_phone, 1, 2)
+        in (...)``) above it with no orders (an anti join), count and
+        sum(c_acctbal) by code, against numpy;
+     Q24 the item-15 functions as one projection over Q19's item table
+        (initcap, locate, replace, regexp_replace, lpad, rpad,
+        substring_index, split_part, like with '_', string In, the casts
+        to bigint and double, coalesce and case when), each on a plain
+        and on a dictionary-encoded column, held to Python's string
+        functions on a seeded 2^16-row sample; Q24c cast(c_custkey as
+        string), its cast back (which must give c_custkey) and
+        cast(substring(c_phone, 1, 2) as int) over every customer.
+
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
 K1 and K3 at that shape, K4 at Q8's and Q18's, the ordered sum at
 Q17's and Q18's, K1 and K3 at Q19(c)'s, K1 and K2 at Q20v's and K3 at
-Q21(a)'s have their own entries in the ``kernels`` line.
+Q21(a)'s have their own entries in the ``kernels`` line; the DFA row
+matcher's entry is its time at Q22's shape with Q22d's pattern.
 
 Output: one JSON line per kernel shape and per query, then one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` are those of its
@@ -239,14 +278,17 @@ DIM_ROWS = 100_000
 GROUPBY_SOURCE = "spark_rapids_tpu_torch/csrc/groupby_kernels.cu"
 JOIN_SOURCE = "spark_rapids_tpu_torch/csrc/join_kernels.cu"
 UDF_SOURCE = "spark_rapids_tpu_torch/csrc/udf_kernels.cu"
+REGEX_SOURCE = "spark_rapids_tpu_torch/csrc/regex_kernels.cu"
 SOURCES = {"bucket_sum": GROUPBY_SOURCE, "bucket_float_sum": GROUPBY_SOURCE,
            "bucket_winner": GROUPBY_SOURCE,
            "ordered_segment_sum": GROUPBY_SOURCE,
-           "probe_ranges": JOIN_SOURCE, "word_counts": UDF_SOURCE}
+           "probe_ranges": JOIN_SOURCE, "word_counts": UDF_SOURCE,
+           "dfa_accept_rows": REGEX_SOURCE}
 #: the query whose run each kernel's ``launches`` and timed shape stand for
 PATH = {"bucket_sum": "Q1", "bucket_float_sum": "Q1",
         "bucket_winner": "Q2", "ordered_segment_sum": "Q5",
-        "probe_ranges": "Q6", "word_counts": "Q10"}
+        "probe_ranges": "Q6", "word_counts": "Q10",
+        "dfa_accept_rows": "Q22d"}
 REPLACES = {
     "bucket_sum": "spark_rapids_tpu/ops/pallas_groupby.py:76",
     "bucket_float_sum": "spark_rapids_tpu/ops/pallas_groupby.py:115",
@@ -255,20 +297,23 @@ REPLACES = {
     "ordered_segment_sum": "spark_rapids_tpu/ops/groupby.py:910",
     "probe_ranges": "spark_rapids_tpu/ops/pallas_join.py:36",
     "word_counts": "spark_rapids_tpu/udf/native.py:52",
+    # not a Pallas kernel: the XLA associative scan of the regex DFA
+    "dfa_accept_rows": "spark_rapids_tpu/ops/regex.py:563",
 }
 #: Q10's text comes in this many batches
 WORD_COUNT_BATCHES = 4
 #: the CUDA symbols of the kernels, for the profiles' per-kernel time
 KERNEL_SYMBOLS = ("bucket_sum_kernel", "bucket_fsum_kernel",
                   "bucket_winner_kernel", "ordered_segment_sum_kernel",
-                  "probe_ranges_kernel", "word_counts_kernel")
+                  "probe_ranges_kernel", "word_counts_kernel",
+                  "dfa_accept_rows_kernel")
 
 
 def _kernel_modules():
     from spark_rapids_tpu_torch.ops import (groupby_kernels, join_kernels,
-                                            udf_kernels)
+                                            regex_kernels, udf_kernels)
 
-    return groupby_kernels, join_kernels, udf_kernels
+    return groupby_kernels, join_kernels, udf_kernels, regex_kernels
 
 
 def reset_launches() -> None:
@@ -687,6 +732,15 @@ def _run(torch, plan_root, conf):
     return rows, (time.perf_counter() - t0) * 1e3
 
 
+def _timed(torch, fn) -> float:
+    """Wall milliseconds of ``fn()``, device work included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def _close(got, exp, scale, rtol=1e-9):
     return abs(got - exp) <= rtol * scale + 1e-12
 
@@ -954,7 +1008,14 @@ def profile_q1(torch, conf, batches, schema, n):
 
 
 def profile_plan(torch, name, plan, conf, rows, nbytes, sort_kernels=()):
-    """One query (``plan()`` builds a fresh exec tree) three times
+    """:func:`profile_run` of one query collected through a fresh exec
+    tree (``plan()`` builds it)."""
+    profile_run(torch, name, lambda: _run(torch, plan(), conf)[1], rows,
+                nbytes, sort_kernels)
+
+
+def profile_run(torch, name, once, rows, nbytes, sort_kernels=()):
+    """``once()`` (which runs a query and returns its wall ms) three times
     unprofiled, then once under torch.profiler: device time by kernel,
     the device's busy and idle share of the wall time, beside the
     query's bytes bound (``nbytes`` at the card's peak rate); with
@@ -963,10 +1024,10 @@ def profile_plan(torch, name, plan, conf, rows, nbytes, sort_kernels=()):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    walls = [_run(torch, plan(), conf)[1] for _ in range(3)]
+    walls = [once() for _ in range(3)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = _run(torch, plan(), conf)
+        wall = once()
     # kernel rows only: an operator row (aten::cat) carries the device
     # time of the kernels it launched, which have rows of their own
     events = [e for e in prof.key_averages()
@@ -1680,14 +1741,14 @@ SORT_LOG2_ROWS = 23
 SORT_KERNELS = ("RadixSort", "sortKeyValue", "radix_sort")
 
 
-def _walls(torch, what, run_once, check):
-    """The cold wall (first run) and three warm walls of ``run_once()``
-    (which returns rows), each result checked, and the first run's launch
-    counts: they are set to 0 just before each run and read just after
-    it, and every run must repeat the first one's."""
+def _walls(torch, what, run_once, check, runs: int = 4):
+    """The cold wall (first run) and ``runs - 1`` warm walls of
+    ``run_once()`` (which returns rows), each result checked, and the
+    first run's launch counts: they are set to 0 just before each run
+    and read just after it, and every run must repeat the first one's."""
     walls = []
     counts = []
-    for _ in range(4):
+    for _ in range(runs):
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -2058,7 +2119,8 @@ Q15_LIMIT = 100
 #: fallback at 18 000 groups
 Q15_LAUNCHES = {"bucket_sum": 15, "bucket_float_sum": 15,
                 "bucket_winner": 15, "ordered_segment_sum": 5,
-                "probe_ranges": 0, "word_counts": 0}
+                "probe_ranges": 0, "word_counts": 0,
+                "dfa_accept_rows": 0}
 
 
 def q15_top_n(torch, np, sess, pdir, item, qty, cost, date,
@@ -2992,7 +3054,8 @@ def item_id(i: int) -> str:
 #: 1024-bucket direct tier (K1 once, K3 for min and max)
 Q19C_LAUNCHES = {"bucket_sum": 2, "bucket_float_sum": 0,
                  "bucket_winner": 5, "ordered_segment_sum": 0,
-                 "probe_ranges": 0, "word_counts": 0}
+                 "probe_ranges": 0, "word_counts": 0,
+                 "dfa_accept_rows": 0}
 
 
 def q19_item_keys(torch, np, dev, log2_rows: int, reps: int,
@@ -3173,7 +3236,6 @@ def q21_dict_item(torch, np, dev, log2_rows: int, reps: int,
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.columnar import (ColumnarBatch, DeviceColumn,
                                                  HostColumn, choose_capacity,
-                                                 dict_column_from_parts,
                                                  schema_of)
     from spark_rapids_tpu_torch.conf import RapidsConf
     from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
@@ -3191,22 +3253,11 @@ def q21_dict_item(torch, np, dev, log2_rows: int, reps: int,
     cap = choose_capacity(n)
     names = [brand_name(i) for i in range(1, 1001)]
 
-    def dict_col(codes, entries):
-        lens = np.array([len(e) for e in entries], np.int64)
-        doff = np.zeros(len(entries) + 1, np.int32)
-        np.cumsum(lens, out=doff[1:])
-        c = np.zeros(cap, np.int32)
-        c[:n] = codes
-        valid = np.arange(cap) < n
-        return dict_column_from_parts(
-            n, c, doff, np.frombuffer(b"".join(entries), np.uint8), valid,
-            mat_cap=choose_capacity(int(lens[codes].sum()), 128),
-            max_len=int(lens.max()), unique=True, device=dev)
-
     schema = schema_of(i_category=T.STRING, i_brand=T.STRING,
                        i_brand_id=T.INT, sales=T.LONG)
     batch = ColumnarBatch([
-        dict_col(cat, list(CATEGORIES)), dict_col(brand - 1, names),
+        dict_item_col(np, dev, cat, list(CATEGORIES), n, cap),
+        dict_item_col(np, dev, brand - 1, names, n, cap),
         DeviceColumn.from_host(HostColumn(T.INT, brand, np.ones(n, bool)),
                                cap, "i_brand_id", dev),
         DeviceColumn.from_host(HostColumn(T.LONG, sales, np.ones(n, bool)),
@@ -3336,6 +3387,890 @@ def dict_string_phase(torch, np, dev, log2_rows: int, reps: int,
     return per_query, shapes
 
 
+# ---------------------------------------------------------------------------
+# the other string expressions (item 15): the DFA kernel, Q22-Q24
+# ---------------------------------------------------------------------------
+#: TPC-H's text grammar (spec 4.2.2.12-13), the word lists as kept here
+TEXT_NOUNS = (
+    "foxes", "ideas", "theodolites", "pinto beans", "instructions",
+    "dependencies", "excuses", "platelets", "asymptotes", "courts",
+    "dolphins", "multipliers", "sauternes", "warthogs", "frets", "dinos",
+    "attainments", "somas", "Tiresias", "patterns", "forges", "braids",
+    "hockey players", "frays", "warhorses", "dugouts", "notornis",
+    "epitaphs", "pearls", "tithes", "waters", "orbits", "gifts", "sheaves",
+    "depths", "sentiments", "decoys", "realms", "pains", "grouches",
+    "escapades", "packages", "requests", "accounts", "deposits")
+TEXT_VERBS = (
+    "sleep", "wake", "are", "cajole", "haggle", "nag", "use", "boost",
+    "affix", "detect", "integrate", "maintain", "nod", "was", "lose",
+    "sublate", "solve", "thrash", "promise", "engage", "hinder", "print",
+    "x-ray", "breach", "eat", "grow", "impress", "mold", "poach", "serve",
+    "run", "dazzle", "snooze", "doze", "unwind", "kindle", "play", "hang",
+    "believe", "doubt")
+TEXT_ADJECTIVES = (
+    "special", "pending", "unusual", "express", "furious", "sly",
+    "careful", "blithe", "quick", "fluffy", "slow", "quiet", "ruthless",
+    "thin", "close", "dogged", "daring", "brave", "stealthy", "permanent",
+    "enticing", "idle", "busy", "regular", "final", "ironic", "even",
+    "bold", "silent")
+TEXT_ADVERBS = (
+    "sometimes", "always", "never", "furiously", "slyly", "carefully",
+    "blithely", "quickly", "fluffily", "slowly", "quietly", "ruthlessly",
+    "thinly", "closely", "doggedly", "daringly", "bravely", "stealthily",
+    "permanently", "enticingly", "idly", "busily", "regularly", "finally",
+    "ironically", "evenly", "boldly", "silently")
+TEXT_PREPOSITIONS = (
+    "about", "above", "according to", "across", "after", "against",
+    "along", "alongside of", "among", "around", "at", "atop", "before",
+    "behind", "beneath", "beside", "besides", "between", "beyond", "by",
+    "despite", "during", "except", "for", "from", "in place of", "inside",
+    "instead of", "into", "near", "of", "on", "outside", "over", "past",
+    "since", "through", "throughout", "to", "toward", "under", "until",
+    "up", "upon", "without", "with", "within")
+TEXT_AUXILIARIES = (
+    "do", "may", "might", "shall", "will", "would", "can", "could",
+    "should", "ought to", "must", "will have to", "shall have to",
+    "could have to", "should have to", "must have to", "need to", "try to")
+TEXT_TERMINATORS = (".", ";", ":", "?", "!", "--")
+#: bytes of the text pool the comments are cut from (dbgen's is 300 MB)
+TEXT_POOL_BYTES = 1 << 21
+#: Q22-Q24's orders (2^23: TPC-H SF 5.59 at 1.5M orders a unit; its
+#: customers are a tenth of them, 838 861), in four row groups
+ORDERS_LOG2_ROWS = 23
+ORDERS_ROW_GROUPS = 4
+#: Q22's LIKE (TPC-H Q13's WORD1 = special, WORD2 = requests), Q22r's
+#: RLIKE of the same words (beyond the 16-state DFA: it falls back), and
+#: Q22d's pattern, which the DFA takes
+Q22_LIKE = "%special%requests%"
+Q22R_REGEX = "special.*requests"
+Q22D_REGEX = "^[a-z]+ (sly|furious)"
+#: TPC-H Q22's country codes (its default substitution parameters)
+Q23_CODES = ("13", "31", "23", "29", "30", "18", "17")
+#: the kernel phase's patterns beside Q22D_REGEX: anchored, '$' over rows
+#: that end in '\n', and a class that takes multi-byte UTF-8
+DFA_PATTERNS = ("^[a-z]+ [0-9]", "s$", "[^ -~]")
+
+
+def text_pool(np) -> bytes:
+    """Sentences of TPC-H's text grammar (spec 4.2.2.12: noun phrase,
+    verb phrase, optional prepositional or noun phrase, terminator),
+    seeded (``rng(22)``), to ``TEXT_POOL_BYTES`` bytes."""
+    rng = np.random.default_rng(22)
+    out, size = [], 0
+
+    def pick(words):
+        return words[int(rng.integers(0, len(words)))]
+
+    def noun_phrase():
+        form = int(rng.integers(0, 4))
+        if form == 0:
+            return pick(TEXT_NOUNS)
+        if form == 1:
+            return f"{pick(TEXT_ADJECTIVES)} {pick(TEXT_NOUNS)}"
+        if form == 2:
+            return (f"{pick(TEXT_ADJECTIVES)}, {pick(TEXT_ADJECTIVES)} "
+                    f"{pick(TEXT_NOUNS)}")
+        return f"{pick(TEXT_ADVERBS)} {pick(TEXT_ADJECTIVES)} " \
+               f"{pick(TEXT_NOUNS)}"
+
+    def verb_phrase():
+        form = int(rng.integers(0, 4))
+        v = pick(TEXT_VERBS)
+        if form == 1:
+            v = f"{pick(TEXT_AUXILIARIES)} {v}"
+        elif form == 2:
+            v = f"{v} {pick(TEXT_ADVERBS)}"
+        elif form == 3:
+            v = f"{pick(TEXT_AUXILIARIES)} {v} {pick(TEXT_ADVERBS)}"
+        return v
+
+    def prep_phrase():
+        return f"{pick(TEXT_PREPOSITIONS)} the {noun_phrase()}"
+
+    while size < TEXT_POOL_BYTES:
+        form = int(rng.integers(0, 5))
+        parts = [noun_phrase()]
+        if form >= 3:
+            parts.append(prep_phrase())
+        parts.append(verb_phrase())
+        if form in (1, 4):
+            parts.append(prep_phrase())
+        elif form in (2, 3):
+            parts.append(noun_phrase())
+        s = " ".join(parts) + pick(TEXT_TERMINATORS) + " "
+        out.append(s)
+        size += len(s)
+    return "".join(out).encode()[:TEXT_POOL_BYTES]
+
+
+@functools.lru_cache(maxsize=1)
+def tpch_orders_customers(np, n: int) -> dict:
+    """TPC-H's ``orders`` (o_orderkey 1..n, o_custkey never a multiple of
+    3, so one customer in three has no orders, spec 4.2.3) and
+    ``customer`` (n / 10 rows, as TPC-H's ratio: c_nationkey 0-24, c_phone
+    "CC-NNN-NNN-NNNN" with CC = nationkey + 10, c_acctbal uniform over
+    -999.99..9999.99 in cents; decimals as f64), seeded (``rng(23)``).
+    o_comment is dbgen-like: a random 19-78-byte slice of
+    :func:`text_pool` (dbgen cuts its comments from a text pool too).
+    Returns the columns, the comments as (offsets, slice start, length)
+    into the pool, and the pool."""
+    rng = np.random.default_rng(23)
+    pool = np.frombuffer(text_pool(np), np.uint8)
+    nc = int(round(n / 10))
+    m = rng.integers(0, nc - nc // 3, n)
+    custkey = (m // 2) * 3 + 1 + m % 2
+    lens = rng.integers(19, 79, n)
+    start = rng.integers(0, pool.size - 79, n)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    nation = rng.integers(0, 25, nc)
+    parts = [nation + 10, rng.integers(100, 1000, nc),
+             rng.integers(100, 1000, nc),
+             rng.integers(1000, 10000, nc)]
+    phone = np.full((nc, 15), ord("-"), np.uint8)
+    at = 0
+    for p, w in zip(parts, (2, 3, 3, 4)):
+        phone[:, at:at + w] = (p[:, None] // 10 ** np.arange(w - 1, -1, -1)
+                               ) % 10 + ord("0")
+        at += w + 1
+    acctbal = rng.integers(-99_999, 1_000_000, nc) / 100
+    return {"n": n, "customers": nc,
+            "orderkey": np.arange(1, n + 1, dtype=np.int64),
+            "custkey": custkey.astype(np.int64), "offsets": offsets,
+            "start": start, "lens": lens, "pool": pool,
+            "c_custkey": np.arange(1, nc + 1, dtype=np.int64),
+            "nation": nation.astype(np.int32),
+            "phone": (np.arange(nc + 1, dtype=np.int64) * 15,
+                      phone.ravel()),
+            "acctbal": acctbal}
+
+
+def comment_chars(torch, t, dev):
+    """o_comment's bytes on ``dev``: each row's slice of the text pool,
+    one gather."""
+    pool = torch.from_numpy(t["pool"].copy()).to(dev)
+    lens = torch.from_numpy(t["lens"]).to(dev)
+    off = torch.from_numpy(t["offsets"]).to(dev)
+    start = torch.from_numpy(t["start"]).to(dev)
+    total = int(t["offsets"][-1])
+    src = torch.repeat_interleave(start - off[:-1], lens, output_size=total)
+    return pool[src + torch.arange(total, device=dev)]
+
+
+def _starts_of(np, pool, word: bytes):
+    """Sorted positions where ``word`` starts in ``pool``."""
+    m = pool.size - len(word) + 1
+    hits = np.ones(m, bool)
+    for k, b in enumerate(word):
+        hits &= pool[k:k + m] == b
+    return np.flatnonzero(hits)
+
+
+def like_oracle(np, t):
+    """Per order: does o_comment match Q22_LIKE (``special`` then, not
+    overlapping, ``requests``)? From the pool positions of the two words:
+    the first ``special`` at or after the row's start must end before
+    the last ``requests`` that ends inside the row."""
+    o, end = t["start"], t["start"] + t["lens"]
+    ps = _starts_of(np, t["pool"], b"special")
+    pr = _starts_of(np, t["pool"], b"requests")
+    i = np.searchsorted(ps, o, "left")
+    first = np.where(i < ps.size, ps[np.minimum(i, ps.size - 1)], 2**62)
+    j = np.searchsorted(pr, end - 8, "right") - 1
+    last = np.where(j >= 0, pr[np.maximum(j, 0)], -1)
+    return first + 7 <= last
+
+
+def anchored_oracle(np, t):
+    """Per order: does o_comment match Q22D_REGEX? Its first word must be
+    lowercase letters, and the next bytes " sly" or " furious" inside the
+    row."""
+    pool = t["pool"]
+    o, end = t["start"], t["start"] + t["lens"]
+    stop = np.flatnonzero((pool < ord("a")) | (pool > ord("z")))
+    q = stop[np.minimum(np.searchsorted(stop, o, "left"), stop.size - 1)]
+    sly = np.isin(q, _starts_of(np, pool, b" sly")) & (q + 4 <= end)
+    fur = np.isin(q, _starts_of(np, pool, b" furious")) & (q + 8 <= end)
+    return (q > o) & (sly | fur)
+
+
+def check_text_oracles(np, t, like, anchored, rows: int = 4096) -> None:
+    """The two oracles against Python's ``re`` on a seeded sample."""
+    import re
+
+    rng = np.random.default_rng(25)
+    for i in rng.integers(0, t["n"], rows):
+        s = t["pool"][t["start"][i]:t["start"][i] + t["lens"][i]].tobytes(
+        ).decode()
+        if (bool(re.search("special.*requests", s)) != bool(like[i])
+                or bool(re.match(Q22D_REGEX, s)) != bool(anchored[i])):
+            raise AssertionError(f"text oracle disagrees with re on {s!r}")
+
+
+def q13_oracle(np, t, excluded) -> list:
+    """TPC-H Q13's rows: (c_count, custdist) by custdist DESC, c_count
+    DESC, the orders whose comment matched left out."""
+    nc = t["customers"]
+    cnt = np.bincount(t["custkey"][~excluded], minlength=nc + 1)[1:]
+    dist = np.bincount(cnt)
+    return sorted(((c, int(d)) for c, d in enumerate(dist) if d),
+                  key=lambda r: (-r[1], -r[0]))
+
+
+def dfa_kernel_phase(torch, np, dev, t, chars, reps: int) -> dict:
+    """The DFA row matcher at Q22's shape: o_comment's 2^23 rows as one
+    column (its offsets, its pool, every row valid). Each pattern's
+    kernel is held to its plain version bit for bit over the whole
+    column, its first 2^20 rows (the pool's later rows are garbage past
+    the last offset) and a 2^16-row slice whose offsets start mid-pool;
+    ``DFA_PATTERNS`` also run on a copy where every 5th row ends in
+    '\\n', every 7th starts with 'é' and 3% are null. Q22D_REGEX's times
+    are the kernel's entry; Q22R_REGEX must be refused by the compiler,
+    as the reference's."""
+    from spark_rapids_tpu_torch.ops import regex as RX
+    from spark_rapids_tpu_torch.ops import regex_kernels as RK
+
+    n = t["n"]
+    off = torch.from_numpy(t["offsets"].astype(np.int32)).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    rows = torch.arange(n, device=dev)
+    var = chars.clone()
+    var[off[1:][rows % 5 == 0].long() - 1] = 0x0A
+    seven = off[:-1][rows % 7 == 0].long()
+    var[seven] = 0xC3
+    var[seven + 1] = 0xA9
+    vvalid = torch.from_numpy(np.random.default_rng(24).random(n) > 0.03
+                              ).to(dev)
+    try:
+        RX.compile_search_dfa(Q22R_REGEX)
+        raise AssertionError(f"{Q22R_REGEX!r} compiled: the reference's "
+                             "compiler refuses it")
+    except RX.RegexUnsupported as e:
+        emit({"kernel_shape": "dfa_accept_rows", "pattern": Q22R_REGEX,
+              "refused": str(e)})
+    mid = n // 2 + min(12345, n // 8)
+    spans = ((0, n), (0, min(n, 1 << 20)), (mid, min(n, mid + (1 << 16))))
+    live = int(t["offsets"][-1])
+    nbytes = live + 4 * (n + 1) + 2 * n
+    out = None
+    for pat, pool, vld in [(Q22D_REGEX, chars, valid)] + [
+            (p, var, vvalid) for p in DFA_PATTERNS]:
+        d = RX.compile_search_dfa(pat)
+        for a, b in spans:
+            o, v = off[a:b + 1], vld[a:b]
+            got = RK.dfa_accept_rows(o, pool, v, d)
+            want = RK.dfa_accept_rows_plain(o, pool, v, d)
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"dfa_accept_rows {pat!r} rows "
+                                     f"[{a}, {b}): {bad} rows differ from "
+                                     "the plain version")
+        matches = int(RK.dfa_accept_rows(off, pool, vld, d).sum())
+
+        def run(pool=pool, vld=vld, d=d):
+            return RK.dfa_accept_rows(off, pool, vld, d)
+
+        res = {"ms": cuda_ms(torch, run, reps),
+               "dev_ms": dev_ms(torch, run, reps),
+               "host_ms": host_ms(torch, run, reps),
+               "plain_ms": cuda_ms(torch, lambda: RK.dfa_accept_rows_plain(
+                   off, pool, vld, d), max(1, reps // 10)),
+               "bound_ms": bound_ms(nbytes), "library_ms": None,
+               "library": "none: no torch call computes a DFA",
+               "max_abs_err": 0.0}
+        emit({"kernel_shape": "dfa_accept_rows", "pattern": pat, "rows": n,
+              "bytes": nbytes, "states": d.nstates,
+              "absorbing": d.absorbing, "matches": matches, **res})
+        if out is None:
+            out = res
+    return out
+
+
+def _orders_df(sess, opath, pred):
+    from spark_rapids_tpu_torch.expr.expressions import col
+
+    return (sess.read.parquet(opath, ["o_orderkey", "o_custkey",
+                                      "o_comment"])
+            .where(pred(col("o_comment"))).select("o_orderkey", "o_custkey"))
+
+
+def tpch_q13_df(sess, opath, cpath, pred):
+    """TPC-H Q13 (spec 2.4.13) as a port DataFrame: customer left outer
+    join the orders whose comment passes ``pred``, count(o_orderkey) per
+    customer, count(*) per c_count, by custdist DESC, c_count DESC. The
+    join's extra condition on orders alone is the orders' filter, as
+    Spark pushes it down."""
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr.expressions import col
+
+    cust = sess.read.parquet(cpath, ["c_custkey"])
+    return (cust.join(_orders_df(sess, opath, pred),
+                      [("c_custkey", "o_custkey")], how="left")
+            .group_by("c_custkey")
+            .agg(A.agg(A.Count(col("o_orderkey")), "c_count"))
+            .group_by("c_count").agg(A.agg(A.Count(None), "custdist"))
+            .order_by("custdist", "c_count", ascending=False))
+
+
+def _not_like(c):
+    from spark_rapids_tpu_torch.expr import expressions as E
+
+    return E.Not(E.Like(c, E.lit(Q22_LIKE)))
+
+
+def _not_rlike(pattern):
+    from spark_rapids_tpu_torch.expr import expressions as E
+
+    return lambda c: E.Not(E.RLike(c, E.lit(pattern)))
+
+
+def q22_queries(torch, np, dev, t, opath, cpath, like, anchored,
+                profile: bool) -> dict:
+    """Q22 (TPC-H Q13 with its LIKE), Q22r (the same words as an RLIKE
+    the DFA refuses: the planner runs that filter on the CPU engine, and
+    the rows must be Q22's) and Q22d (an RLIKE the DFA takes), through a
+    port ``TpuSession`` over the parquet files, join strategy PALLAS (K4),
+    aggregates AUTO; each against its numpy oracle. Returns each path's
+    launches."""
+    from spark_rapids_tpu_torch.exec.scan import TpuFileSourceScanExec
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.sql import session as S
+
+    n, nc = t["n"], t["customers"]
+    want = q13_oracle(np, t, like)
+    want_d = q13_oracle(np, t, anchored)
+    conf = {"spark.rapids.tpu.sql.join.strategy": "PALLAS"}
+    per_query = {}
+    live = int(t["offsets"][-1])
+    in_bytes = live + n * (4 + 8 + 8 + 3) + nc * 9
+    for q, pred, rows_want, runs in (
+            ("Q22", _not_like, want, 4),
+            ("Q22r", _not_rlike(Q22R_REGEX), want, 1),
+            ("Q22d", _not_rlike(Q22D_REGEX), want_d, 4)):
+        sess = S.TpuSession(conf, device=dev)
+        DeviceScanCache.reset()
+        S._SCANNER_CACHE.clear()
+        plans = []
+
+        def run_once(sess=sess, pred=pred):
+            rows = tpch_q13_df(sess, opath, cpath, pred).collect()
+            plans.append(sess.last_executed_plan)
+            return rows
+
+        def check(rows, q=q, rows_want=rows_want):
+            if rows != rows_want:
+                raise AssertionError(f"{q}: {len(rows)} rows differ from "
+                                     f"the numpy oracle's {len(rows_want)}")
+
+        cold, warm, counts = _walls(torch, q, run_once, check, runs)
+        tree = plans[0].tree_string()
+        text = tpch_q13_df(sess, opath, cpath, pred).explain()
+        fallback = "CpuFilterExec" in tree
+        dfa = counts["dfa_accept_rows"]
+        if (counts["probe_ranges"] <= 0 or counts["bucket_sum"] <= 0
+                or (q == "Q22d") != (dfa > 0) or fallback != (q == "Q22r")
+                or (q == "Q22r" and "RLike: pattern not supported by the "
+                    "byte DFA" not in text)):
+            raise AssertionError(f"{q}: launches {counts}, plan {tree}")
+        per_query[q] = counts
+        scans = [{k: v.value for k, v in e.metrics.items()}
+                 for e in _device_tree(plans[-1].tpu_child)
+                 if isinstance(e, TpuFileSourceScanExec)]
+        emit({"query": q, "orders": n, "customers": nc,
+              "rows": len(rows_want), "last_run_scans": scans,
+              "excluded_orders": int((like if q != "Q22d"
+                                      else anchored).sum()),
+              "cpu_filter": fallback, "cold_wall_ms": cold,
+              "warm_wall_ms": warm, "bytes": in_bytes,
+              "bound_ms": bound_ms(in_bytes), "launches": counts})
+        if profile and q != "Q22r":
+            profile_plan(torch, q, lambda sess=sess, pred=pred: sess._execute(
+                tpch_q13_df(sess, opath, cpath, pred).node).tpu_child,
+                sess.conf, n, in_bytes, SORT_KERNELS)
+    return per_query
+
+
+def tpch_q22_rows(sess, opath, cpath):
+    """TPC-H Q22 (spec 2.4.22) through a port session: the scalar
+    subquery (avg(c_acctbal) over the chosen country codes with
+    c_acctbal > 0) runs first and its value becomes the literal, as
+    Spark's plan does; then customers of those codes above it with no
+    orders (an anti join), count(*) and sum(c_acctbal) by country code.
+    Returns (the average, the rows)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    def code():
+        return E.Substring(col("c_phone"), lit(1), lit(2))
+
+    def cust():
+        return sess.read.parquet(cpath, ["c_custkey", "c_phone",
+                                         "c_acctbal"])
+
+    in_codes = E.In(code(), Q23_CODES)
+    [(avg,)] = (cust().where(E.And(E.GreaterThan(
+        col("c_acctbal"), E.Literal(0.0, T.DOUBLE)), in_codes))
+        .agg(A.agg(A.Average(col("c_acctbal")), "avg")).collect())
+    df = (cust().where(E.And(in_codes, E.GreaterThan(
+        col("c_acctbal"), E.Literal(avg, T.DOUBLE))))
+        .join(sess.read.parquet(opath, ["o_custkey"]),
+              [("c_custkey", "o_custkey")], how="anti")
+        .select(E.Alias(code(), "cntrycode"), col("c_acctbal"))
+        .group_by("cntrycode")
+        .agg(A.agg(A.Count(None), "numcust"),
+             A.agg(A.Sum(col("c_acctbal")), "totacctbal"))
+        .order_by("cntrycode"))
+    return avg, df
+
+
+def q23_tpch_q22(torch, np, dev, t, opath, cpath, profile: bool) -> dict:
+    """Q23: TPC-H Q22 (:func:`tpch_q22_rows`) under AUTO with
+    variableFloatAgg, against numpy: the average within 1e-12 of the
+    sum of |x| over the count, counts exact, sums within 1e-12 of each
+    group's sum of |x|."""
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.sql import session as S
+
+    nc = t["customers"]
+    codes = np.array([int(c) for c in Q23_CODES])
+    cc, bal = t["nation"] + 10, t["acctbal"]
+    sel = np.isin(cc, codes)
+    pos = sel & (bal > 0)
+    avg_want = bal[pos].sum() / pos.sum()
+    has_orders = np.bincount(t["custkey"], minlength=nc + 1)[1:] > 0
+    sess = S.TpuSession({"spark.rapids.tpu.sql.variableFloatAgg.enabled":
+                         True}, device=dev)
+    DeviceScanCache.reset()
+    S._SCANNER_CACHE.clear()
+    avgs = []
+
+    def run_once():
+        avg, df = tpch_q22_rows(sess, opath, cpath)
+        avgs.append(avg)
+        return df.collect()
+
+    def check(rows):
+        avg = avgs[-1]
+        if not _close(avg, avg_want, np.abs(bal[pos]).sum() / pos.sum(),
+                      1e-12):
+            raise AssertionError(f"Q23: avg {avg} != {avg_want}")
+        keep = sel & (bal > avg) & ~has_orders
+        want = []
+        for c in sorted(set(cc[keep].tolist())):
+            g = keep & (cc == c)
+            want.append((str(c), int(g.sum()), bal[g].sum(),
+                         np.abs(bal[g]).sum()))
+        if len(rows) != len(want) or any(
+                r[:2] != w[:2] or not _close(r[2], w[2], w[3], 1e-12)
+                for r, w in zip(rows, want)):
+            raise AssertionError(f"Q23: rows {rows} != {want}")
+
+    cold, warm, counts = _walls(torch, "Q23", run_once, check)
+    in_bytes = nc * (8 + 15 + 4 + 8 + 3) + t["n"] * 9
+    emit({"query": "Q23", "customers": nc, "orders": t["n"],
+          "avg_acctbal": avgs[0], "cold_wall_ms": cold,
+          "warm_wall_ms": warm, "bytes": in_bytes,
+          "bound_ms": bound_ms(in_bytes), "launches": counts})
+    if profile:
+        profile_plan(torch, "Q23", lambda: sess._execute(tpch_q22_rows(
+            sess, opath, cpath)[1].node).tpu_child, sess.conf, nc,
+            in_bytes, SORT_KERNELS)
+    return {"Q23": counts}
+
+
+def price_planes(np, cents, valid):
+    """Arrow planes of "D.CC" price strings (no leading zeros) for
+    ``cents``, null rows empty."""
+    dollars = cents // 100
+    nd = np.where(dollars >= 100, 3, np.where(dollars >= 10, 2, 1))
+    mat = np.zeros((cents.size, 6), np.uint8)
+    for k in range(3):  # dollar digits, right-aligned in the first 3
+        mat[:, 2 - k] = (dollars // 10 ** k) % 10 + ord("0")
+    mat[:, 3] = ord(".")
+    mat[:, 4] = (cents // 10) % 10 + ord("0")
+    mat[:, 5] = cents % 10 + ord("0")
+    keep = (np.arange(6)[None, :] >= 3 - nd[:, None]) & valid[:, None]
+    lens = keep.sum(1)
+    off = np.zeros(cents.size + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    return off, mat[keep]
+
+
+def _py_initcap(s):
+    out, up = [], True
+    for ch in s.lower():
+        out.append(ch.upper() if up else ch)
+        up = ch == " "
+    return "".join(out)
+
+
+def _py_pad(s, n, p, left):
+    if len(s) >= n:
+        return s[:n]
+    fill = (p * n)[:n - len(s)]
+    return fill + s if left else s + fill
+
+
+def _py_substring_index(s, d, k):
+    parts = s.split(d)
+    return d.join(parts[:k] if k > 0 else parts[k:])
+
+
+def _py_split_part(s, d, k):
+    parts = s.split(d)
+    return parts[k] if k < len(parts) else None
+
+
+def _nn(f):
+    """``f`` over non-null inputs; NULL in, NULL out."""
+    return lambda *a: None if any(x is None for x in a) else f(*a)
+
+
+def q24_projections():
+    """(name, build(col, lit, E, T), Python function of the row dict) of
+    Q24's item projection: each function on the plain i_item_id or
+    i_price and on the dictionaries i_brand, i_category or i_wholesale."""
+    import re
+
+    return [
+        ("initcap_dict", lambda c, l, E, T: E.InitCap(c("i_brand")),
+         lambda r: _nn(_py_initcap)(r["i_brand"])),
+        ("initcap_plain", lambda c, l, E, T: E.InitCap(c("i_item_id")),
+         lambda r: _nn(_py_initcap)(r["i_item_id"])),
+        ("locate_dict", lambda c, l, E, T: E.StringLocate(
+            l("an"), c("i_brand"), l(1)),
+         lambda r: _nn(lambda s: s.find("an") + 1)(r["i_brand"])),
+        ("locate_plain", lambda c, l, E, T: E.StringLocate(
+            l("B"), c("i_item_id"), l(10)),
+         lambda r: _nn(lambda s: s.find("B", 9) + 1)(r["i_item_id"])),
+        ("replace_dict", lambda c, l, E, T: E.StringReplace(
+            c("i_brand"), l("a"), l("AA")),
+         lambda r: _nn(lambda s: s.replace("a", "AA"))(r["i_brand"])),
+        ("replace_plain", lambda c, l, E, T: E.StringReplace(
+            c("i_item_id"), l("AB"), l("x")),
+         lambda r: _nn(lambda s: s.replace("AB", "x"))(r["i_item_id"])),
+        ("regexp_replace_dict", lambda c, l, E, T: E.RegExpReplace(
+            c("i_brand"), l(" #"), l("-")),
+         lambda r: _nn(lambda s: s.replace(" #", "-"))(r["i_brand"])),
+        ("regexp_replace_plain", lambda c, l, E, T: E.RegExpReplace(
+            c("i_price"), l("\\."), l(",")),
+         lambda r: _nn(lambda s: s.replace(".", ","))(r["i_price"])),
+        ("lpad_dict", lambda c, l, E, T: E.StringLPad(
+            c("i_brand"), l(20), l("*")),
+         lambda r: _nn(lambda s: _py_pad(s, 20, "*", True))(r["i_brand"])),
+        ("lpad_plain", lambda c, l, E, T: E.StringLPad(
+            c("i_price"), l(8), l("0")),
+         lambda r: _nn(lambda s: _py_pad(s, 8, "0", True))(r["i_price"])),
+        ("rpad_plain", lambda c, l, E, T: E.StringRPad(
+            c("i_item_id"), l(20), l(".-")),
+         lambda r: _nn(lambda s: _py_pad(s, 20, ".-", False))(
+             r["i_item_id"])),
+        ("rpad_dict", lambda c, l, E, T: E.StringRPad(
+            c("i_category"), l(12), l("_")),
+         lambda r: _nn(lambda s: _py_pad(s, 12, "_", False))(
+             r["i_category"])),
+        ("substring_index_dict", lambda c, l, E, T: E.SubstringIndex(
+            c("i_brand"), l(" "), l(1)),
+         lambda r: _nn(lambda s: _py_substring_index(s, " ", 1))(
+             r["i_brand"])),
+        ("substring_index_plain", lambda c, l, E, T: E.SubstringIndex(
+            c("i_price"), l("."), l(-1)),
+         lambda r: _nn(lambda s: _py_substring_index(s, ".", -1))(
+             r["i_price"])),
+        ("split_part_dict", lambda c, l, E, T: E.StringSplitPart(
+            c("i_brand"), l("#"), l(1)),
+         lambda r: _nn(lambda s: _py_split_part(s, "#", 1))(r["i_brand"])),
+        ("split_part_plain", lambda c, l, E, T: E.StringSplitPart(
+            c("i_price"), l("."), l(0)),
+         lambda r: _nn(lambda s: _py_split_part(s, ".", 0))(r["i_price"])),
+        ("like_dict", lambda c, l, E, T: E.Like(c("i_category"), l("_ome")),
+         lambda r: _nn(lambda s: re.fullmatch(".ome", s) is not None)(
+             r["i_category"])),
+        ("like_plain", lambda c, l, E, T: E.Like(
+            c("i_item_id"), l("AAAAAAAA_A______")),
+         lambda r: _nn(lambda s: re.fullmatch("AAAAAAAA.A......", s)
+                       is not None)(r["i_item_id"])),
+        ("in_dict", lambda c, l, E, T: E.In(
+            c("i_category"), ("Books", "Home", "Music")),
+         lambda r: _nn(lambda s: s in ("Books", "Home", "Music"))(
+             r["i_category"])),
+        ("in_plain", lambda c, l, E, T: E.In(
+            c("i_price"), ("1.00", "12.50", "999.99")),
+         lambda r: _nn(lambda s: s in ("1.00", "12.50", "999.99"))(
+             r["i_price"])),
+        ("cast_dict_to_bigint", lambda c, l, E, T: E.Cast(
+            E.StringSplitPart(c("i_brand"), l("#"), l(1)), T.LONG),
+         lambda r: r["i_brand_id"]),
+        ("cast_plain_to_double", lambda c, l, E, T: E.Cast(
+            c("i_price"), T.DOUBLE),
+         lambda r: _nn(float)(r["i_price"])),
+        ("cast_dict_to_double", lambda c, l, E, T: E.Cast(
+            c("i_wholesale"), T.DOUBLE),
+         lambda r: _nn(float)(r["i_wholesale"])),
+        ("coalesce", lambda c, l, E, T: E.Coalesce(
+            (c("i_price"), c("i_category"))),
+         lambda r: r["i_price"] if r["i_price"] is not None
+         else r["i_category"]),
+        ("case_when", lambda c, l, E, T: E.CaseWhen(
+            ((E.Contains(c("i_category"), l("o")), c("i_brand")),
+             (E.IsNull(c("i_price")), c("i_item_id"))), c("i_price")),
+         lambda r: r["i_brand"] if "o" in r["i_category"]
+         else (r["i_item_id"] if r["i_price"] is None else r["i_price"])),
+    ]
+
+
+def dict_item_col(np, dev, codes, entries, n: int, cap: int):
+    """A dictionary-encoded column of ``n`` rows (capacity ``cap``) whose
+    row i holds ``entries[codes[i]]``; ``unique`` set."""
+    from spark_rapids_tpu_torch.columnar import (choose_capacity,
+                                                 dict_column_from_parts)
+
+    lens = np.array([len(e) for e in entries], np.int64)
+    doff = np.zeros(len(entries) + 1, np.int32)
+    np.cumsum(lens, out=doff[1:])
+    c = np.zeros(cap, np.int32)
+    c[:n] = codes
+    return dict_column_from_parts(
+        n, c, doff, np.frombuffer(b"".join(entries), np.uint8),
+        np.arange(cap) < n,
+        mat_cap=choose_capacity(int(lens[codes].sum()), 128),
+        max_len=int(lens.max()), unique=True, device=dev)
+
+
+def _plain_col(np, dev, planes, valid, cap: int):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import DeviceColumn
+
+    off, chars = planes
+    n = off.size - 1
+    full = np.full(cap + 1, off[-1], np.int64)
+    full[:n + 1] = off
+    v = np.zeros(cap, bool)
+    v[:n] = valid
+    return DeviceColumn.from_string_arrays(T.STRING, n, full, chars, v, dev)
+
+
+def _sample_rows(torch, batch, idx):
+    """The batch's rows at ``idx`` on the host, one list per column."""
+    from spark_rapids_tpu_torch.exec.base import batch_from_vals, vals_of_batch
+    from spark_rapids_tpu_torch.ops import filter_gather
+
+    m = idx.numel()
+    g = filter_gather.gather(vals_of_batch(batch), idx,
+                             torch.ones(m, dtype=torch.bool,
+                                        device=idx.device))
+    sb = batch_from_vals(g, batch.schema, m)
+    return [c.to_host().to_pylist() for c in sb.columns]
+
+
+def q24_string_functions(torch, np, dev, t, log2_rows: int,
+                         profile: bool) -> dict:
+    """Q24: the item-15 string functions as one projection over Q19's
+    item table (2^23 rows; i_item_id and i_price plain, i_category,
+    i_brand and i_wholesale dictionaries; :func:`q24_projections`), and
+    Q24c: cast(c_custkey as string), its cast back to bigint and
+    cast(substring(c_phone, 1, 2) as int) over Q22's customers. Q24's
+    outputs are held row for row to Python's own string functions on a
+    seeded 2^16-row sample (floats within 1e-12: the reference's parse is
+    not correctly rounded), and its row count in full; Q24c's casts in
+    full (the round trip gives c_custkey, the code nationkey + 10)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import (ColumnarBatch, DeviceColumn,
+                                                 HostColumn, choose_capacity,
+                                                 schema_of)
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import InMemoryScanExec, TpuProjectExec
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    n = 1 << log2_rows
+    it = item_table(np, n)
+    cap = choose_capacity(n)
+    rng = np.random.default_rng(26)
+    cents = rng.integers(0, 100_000, n)
+    pvalid = rng.random(n) > 0.05
+    wcents = np.unique(rng.integers(0, 100_000, 500))
+    woff, wchars = price_planes(np, wcents, np.ones(wcents.size, bool))
+    wentries = sorted(wchars[woff[i]:woff[i + 1]].tobytes()
+                      for i in range(wcents.size))
+    wcodes = rng.integers(0, len(wentries), n)
+    names = [brand_name(i) for i in range(1, 1001)]
+    ones = np.ones(n, bool)
+    schema = schema_of(i_item_id=T.STRING, i_category=T.STRING,
+                       i_brand=T.STRING, i_brand_id=T.INT,
+                       i_price=T.STRING, i_wholesale=T.STRING)
+    batch = ColumnarBatch([
+        _plain_col(np, dev, item_id_planes(np, it["id"]), ones, cap),
+        dict_item_col(np, dev, it["cat"], list(CATEGORIES), n, cap),
+        dict_item_col(np, dev, it["brand"] - 1, names, n, cap),
+        DeviceColumn.from_host(HostColumn(T.INT, it["brand"], ones), cap,
+                               "i_brand_id", dev),
+        _plain_col(np, dev, price_planes(np, cents, pvalid), pvalid, cap),
+        dict_item_col(np, dev, wcodes, wentries, n, cap)], schema, n)
+    conf = RapidsConf({})
+    projs = q24_projections()
+    exprs = [E.Alias(build(col, lit, E, T), name)
+             for name, build, _ in projs]
+    in_bytes = n * (16 + 5 + 5 + 4 + 1 + 5 + 5 + 5) + int(pvalid.sum()) * 6
+
+    def scan():
+        return InMemoryScanExec(conf, [[batch]], schema)
+
+    outs = []
+
+    def run_once():
+        out = list(TpuProjectExec(conf, exprs, scan()).execute_partition(0))
+        outs[:] = out
+        return sum(int(b.num_rows) for b in out)
+
+    def check(rows):
+        if rows != n:
+            raise AssertionError(f"Q24: {rows} rows, expected {n}")
+
+    per_query = {}
+    cold, warm, counts = _walls(torch, "Q24", run_once, check)
+    if any(counts.values()):
+        raise AssertionError(f"Q24 launched {counts}")
+    idx = np.sort(rng.choice(n, min(n, 1 << 16), replace=False))
+    got = _sample_rows(torch, outs[0], torch.from_numpy(idx).to(dev))
+    for i, k in enumerate(idx.tolist()):
+        row = {"i_item_id": item_id(int(it["id"][k])),
+               "i_category": CATEGORIES[it["cat"][k]].decode(),
+               "i_brand": names[it["brand"][k] - 1].decode(),
+               "i_brand_id": int(it["brand"][k]),
+               "i_price": (None if not pvalid[k] else
+                           f"{cents[k] // 100}.{cents[k] % 100:02d}"),
+               "i_wholesale": wentries[wcodes[k]].decode()}
+        for (name, _, fn), column in zip(projs, got):
+            want, g = fn(row), column[i]
+            if isinstance(want, float) and g is not None:
+                ok = abs(g - want) <= 1e-12 * abs(want)
+            else:
+                ok = g == want
+            if not ok:
+                raise AssertionError(f"Q24 {name} row {k}: {g!r} != "
+                                     f"{want!r} ({row})")
+    del outs[:]
+    per_query["Q24"] = counts
+    emit({"query": "Q24", "rows": n, "functions": [p[0] for p in projs],
+          "sample_rows": int(idx.size), "cold_wall_ms": cold,
+          "warm_wall_ms": warm, "bytes": in_bytes,
+          "bound_ms": bound_ms(in_bytes), "launches": counts})
+    if profile:
+        profile_run(torch, "Q24", lambda: _timed(torch, run_once), n,
+                    in_bytes)
+        del outs[:]
+
+    # Q24c: the integer casts over the customers
+    nc = t["customers"]
+    ccap = choose_capacity(nc)
+    cschema = schema_of(c_custkey=T.LONG, c_phone=T.STRING)
+    cbatch = ColumnarBatch([
+        DeviceColumn.from_host(HostColumn(T.LONG, t["c_custkey"],
+                                          np.ones(nc, bool)), ccap,
+                               "c_custkey", dev),
+        _plain_col(np, dev, t["phone"], np.ones(nc, bool), ccap)],
+        cschema, nc)
+    key_str = E.Cast(col("c_custkey"), T.STRING)
+    cexprs = [E.Alias(key_str, "k_str"),
+              E.Alias(E.Cast(key_str, T.LONG), "k_back"),
+              E.Alias(E.Cast(E.Substring(col("c_phone"), lit(1), lit(2)),
+                             T.INT), "cc")]
+    want_k = torch.from_numpy(t["c_custkey"]).to(dev)
+    want_cc = torch.from_numpy(t["nation"] + 10).to(dev)
+
+    def run_c():
+        [b] = list(TpuProjectExec(conf, cexprs, InMemoryScanExec(
+            conf, [[cbatch]], cschema)).execute_partition(0))
+        outs[:] = [b]
+        return b
+
+    def check_c(b):
+        k, c = b.columns[1], b.columns[2]
+        if not (torch.equal(k.data[:nc], want_k)
+                and torch.equal(c.data[:nc], want_cc)
+                and bool(k.validity[:nc].all()) and bool(
+                    c.validity[:nc].all())):
+            raise AssertionError("Q24c: the casts differ from c_custkey "
+                                 "and nationkey + 10")
+
+    cold, warm, counts = _walls(torch, "Q24c", run_c, check_c)
+    cidx = np.sort(rng.choice(nc, min(nc, 1 << 16), replace=False))
+    [ks, _, _] = _sample_rows(torch, outs[0], torch.from_numpy(cidx).to(dev))
+    if ks != [str(int(t["c_custkey"][k])) for k in cidx]:
+        raise AssertionError("Q24c: cast(c_custkey as string) differs")
+    del outs[:]
+    if any(counts.values()):
+        raise AssertionError(f"Q24c launched {counts}")
+    per_query["Q24c"] = counts
+    emit({"query": "Q24c", "rows": nc, "cold_wall_ms": cold,
+          "warm_wall_ms": warm, "bytes": nc * 24,
+          "bound_ms": bound_ms(nc * 24), "launches": counts})
+    if profile:
+        profile_run(torch, "Q24c", lambda: _timed(torch, run_c), nc,
+                    nc * 24)
+        del outs[:]
+    return per_query
+
+
+def string_expr_phase(torch, np, dev, log2_rows: int, reps: int,
+                      profile: bool = False):
+    """The DFA kernel and Q22-Q24 at ``log2_rows`` orders: TPC-H's orders
+    and customers written by pyarrow with its defaults under
+    ``_chip_data/`` (removed after), then :func:`dfa_kernel_phase`,
+    :func:`q22_queries`, :func:`q23_tpch_q22` and
+    :func:`q24_string_functions`. Returns each path's launches and the
+    DFA kernel's numbers, keyed as ``kernels_line`` reads them."""
+    import shutil
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n = 1 << log2_rows
+    t = tpch_orders_customers(np, n)
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, PARQUET_DIR)
+    opath = os.path.join(base, "orders")
+    cpath = os.path.join(base, "customer")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(opath)
+    os.makedirs(cpath)
+    try:
+        chars = comment_chars(torch, t, dev)
+        t0 = time.perf_counter()
+        pq.write_table(pa.table({
+            "o_orderkey": t["orderkey"], "o_custkey": t["custkey"],
+            "o_comment": _pa_strings(pa, np, (t["offsets"],
+                                              chars.cpu().numpy()))}),
+            os.path.join(opath, "t.parquet"),
+            row_group_size=n // ORDERS_ROW_GROUPS)  # pyarrow's defaults
+        pq.write_table(pa.table({
+            "c_custkey": t["c_custkey"], "c_nationkey": t["nation"],
+            "c_phone": _pa_strings(pa, np, t["phone"]),
+            "c_acctbal": t["acctbal"]}), os.path.join(cpath, "t.parquet"))
+        write_s = time.perf_counter() - t0
+        like, anchored = like_oracle(np, t), anchored_oracle(np, t)
+        check_text_oracles(np, t, like, anchored)
+        emit({"tables": "orders, customer", "orders": n,
+              "customers": t["customers"], "file_write_s": write_s,
+              "comment_bytes": int(t["offsets"][-1]),
+              "like_match_share": float(like.mean()),
+              "dfa_match_share": float(anchored.mean())})
+        dfa = dfa_kernel_phase(torch, np, dev, t, chars, reps)
+        del chars
+        per_query = q22_queries(torch, np, dev, t, opath, cpath, like,
+                                anchored, profile)
+        per_query.update(q23_tpch_q22(torch, np, dev, t, opath, cpath,
+                                      profile))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    per_query.update(q24_string_functions(torch, np, dev, t, log2_rows,
+                                          profile))
+    return per_query, {("dfa_accept_rows", 128): dfa}
+
+
 def build_all() -> dict:
     """Build every kernel library from the sources beside this script,
     one ``nvcc`` per source, all started together."""
@@ -3414,8 +4349,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile Q1, Q2, Q5, Q6, Q7, Q10, Q11 "
                     "(warm), Q13-Q17, Q18 (PALLAS and AUTO), Q19 (a, b, "
-                    "c), Q20, Q20v and Q21 (a, b) with torch.profiler "
-                    "(Q9 and Q9x are profiled in every run)")
+                    "c), Q20, Q20v, Q21 (a, b), Q22, Q22d, Q23, Q24 and "
+                    "Q24c with torch.profiler (Q9 and Q9x are profiled in "
+                    "every run)")
     args = ap.parse_args()
 
     import numpy as np
@@ -3486,10 +4422,17 @@ def main() -> int:
     per_query.update(strings)
     kres.update(shapes)
     lap("Q20-Q21")
+    strings, shapes = string_expr_phase(torch, np, dev, ORDERS_LOG2_ROWS,
+                                        args.reps, args.profile)
+    per_query.update(strings)
+    kres.update(shapes)
+    lap("Q22-Q24")
     emit({"phase_s": phase_s})
     for q, counts in per_query.items():
         if q != "Q10" and counts["word_counts"]:
             raise AssertionError(f"{q} launched K5")
+        if q != "Q22d" and counts["dfa_accept_rows"]:
+            raise AssertionError(f"{q} launched the DFA kernel")
 
     emit({"kernels": kernels_line(kres, per_query)})
     print(smi, flush=True)

@@ -110,12 +110,17 @@ class TpuWindowExec(TpuExec):
         dev = cols[0].validity.device
         live = filter_gather.live_of(num_rows, cap, dev)
         all_keys = self._part_keys + self._order_keys
-        keys = [lower(k, cols, cap, dev) for k in all_keys]
-        orders = ([SortOrder(True, True)] * len(self._part_keys)
-                  + list(self._orders))
-        perm, radix = sort_with_radix_keys(
-            keys, [k.dtype for k in all_keys], orders, live,
-            str_max_lens(keys))
+        if all_keys:
+            keys = [lower(k, cols, cap, dev) for k in all_keys]
+            orders = ([SortOrder(True, True)] * len(self._part_keys)
+                      + list(self._orders))
+            perm, radix = sort_with_radix_keys(
+                keys, [k.dtype for k in all_keys], orders, live,
+                str_max_lens(keys))
+        else:
+            # OVER (): the live rows (a prefix) are one partition in their
+            # own order; the reference's sort of no keys raises here
+            perm, radix = torch.arange(cap, device=dev), []
         live_s = live[perm]
         sorted_cols = filter_gather.gather(cols, perm, live_s)
         npart = len(self._part_keys)

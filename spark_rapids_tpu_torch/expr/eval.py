@@ -42,8 +42,9 @@ from ..ops import strings as S
 from ..ops.hashing import flush_subnormals
 from ..types import DataType, torch_dtype
 from . import expressions as E
-from .eval_strings import (compare_strings, dict_compare_literal,
-                           lower_strings)
+from .eval_strings import (as_strv, compare_strings, dict_compare_literal,
+                           lower_cast_to_string, lower_string_cast,
+                           lower_strings, select_strings, string_in)
 from .values import (ColV, DictV, StrV, UnsupportedExpressionError, Val,
                      as_plain_str, dict_gather_col)
 
@@ -84,13 +85,8 @@ _LOG_FNS = {E.Log: torch.log, E.Log10: torch.log10, E.Log2: torch.log2,
 
 
 def _check_fixed(dt: DataType) -> None:
-    """Raise for a type this lowering cannot take here: string casts and
-    string selection (If / CaseWhen / Coalesce) are among the other string
-    expressions not ported yet."""
-    if T.is_string(dt):
-        raise NotImplementedError(
-            f"{dt.simpleString} casts and selection are "
-            f"{T.NOT_PORTED_STRING_EXPRS}")
+    """Raise for a type the fixed-width lowering cannot take (strings
+    take their own routes before it is called)."""
     if not T.is_fixed_width(dt):
         raise NotImplementedError(
             f"{dt.simpleString} expressions are {T.NOT_PORTED_TYPES}")
@@ -161,10 +157,13 @@ def _logical_shift_right(x: torch.Tensor, sh: torch.Tensor,
 def _lower_in(expr: E.In, c: Val, cap: int, device) -> ColV:
     """Fixed-width IN: the comparison dtype is picked on the host so
     out-of-range literals widen instead of truncating (reference
-    ``eval.py:469-506``)."""
-    if isinstance(c, (StrV, DictV)):
-        raise NotImplementedError(
-            f"string In is {T.NOT_PORTED_STRING_EXPRS}")
+    ``eval.py:469-506``); a string column takes :func:`string_in`, over
+    the dictionary for a DictV."""
+    if isinstance(c, DictV):
+        return dict_gather_col(c, string_in(c.dictionary, expr.values,
+                                            c.dict_size))
+    if isinstance(c, StrV):
+        return string_in(c, expr.values, cap)
     child_dt = expr.child.dtype
     _check_fixed(child_dt)
     non_null = [v for v in expr.values if v is not None]
@@ -494,6 +493,15 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
 
     if isinstance(expr, E.Coalesce):
         out = expr.dtype
+        if T.is_string(out):
+            vals = [as_strv(ev(e), cap) for e in expr.exprs]
+            valid = vals[0].validity
+            for v in vals[1:]:
+                valid = valid | v.validity
+            sel = full(len(vals) - 1, torch.int32)
+            for k in reversed(range(len(vals))):
+                sel = torch.where(vals[k].validity, k, sel)
+            return select_strings(vals, sel, valid, cap)
         _check_fixed(out)
         acc = None
         for e in expr.exprs:
@@ -509,8 +517,15 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
 
     if isinstance(expr, E.If):
         out = expr.dtype
-        _check_fixed(out)
         p = ev(expr.predicate)
+        if T.is_string(out):
+            t = as_strv(ev(expr.true_value), cap)
+            f = as_strv(ev(expr.false_value), cap)
+            cond = p.validity & p.data
+            sel = torch.where(cond, 0, 1).to(torch.int32)
+            return select_strings([t, f], sel, torch.where(
+                cond, t.validity, f.validity), cap)
+        _check_fixed(out)
         t, f = ev(expr.true_value), ev(expr.false_value)
         td = _cast_data(t.data, expr.true_value.dtype, out)
         fd = _cast_data(f.data, expr.false_value.dtype, out)
@@ -520,6 +535,22 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
 
     if isinstance(expr, E.CaseWhen):
         out = expr.dtype
+        if T.is_string(out):
+            vals = [as_strv(ev(v), cap) for _, v in expr.branches]
+            vals.append(as_strv(ev(expr.else_value)
+                                if expr.else_value is not None else None,
+                                cap, device))
+            k_else = len(expr.branches)
+            sel = full(k_else, torch.int32)
+            valid = vals[k_else].validity
+            taken = full(False, torch.bool)
+            for k, (cond_e, _) in enumerate(expr.branches):
+                c = ev(cond_e)
+                fire = ~taken & c.validity & c.data
+                sel = torch.where(fire, k, sel)
+                valid = torch.where(fire, vals[k].validity, valid)
+                taken = taken | fire
+            return select_strings(vals, sel, valid, cap)
         _check_fixed(out)
         if expr.else_value is not None:
             e = ev(expr.else_value)
@@ -540,13 +571,25 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
         return ColV(data, valid)
 
     if isinstance(expr, E.Cast):
-        if expr.child.dtype == expr.to:
+        frm, to = expr.child.dtype, expr.to
+        if frm == to:
             return ev(expr.child)
-        _check_fixed(expr.child.dtype)
-        _check_fixed(expr.to)
         c = ev(expr.child)
-        return ColV(_cast_data(c.data, expr.child.dtype, expr.to),
-                    c.validity)
+        if isinstance(c, DictV):
+            if T.is_string(to):
+                return c
+            # cast the dictionary once, gather the per-row result
+            # (reference eval.py:648-660)
+            return dict_gather_col(c, lower_string_cast(c.dictionary, to,
+                                                        c.dict_size))
+        if isinstance(c, StrV):
+            return lower_string_cast(c, to, cap)
+        if T.is_string(to):
+            _check_fixed(frm)
+            return lower_cast_to_string(c, frm, cap)
+        _check_fixed(frm)
+        _check_fixed(to)
+        return ColV(_cast_data(c.data, frm, to), c.validity)
 
     mv = _lower_math(expr, ev, cap, device)
     if mv is not None:

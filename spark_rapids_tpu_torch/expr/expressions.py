@@ -539,13 +539,6 @@ class StringSplitPart(_ThreeArgString):
     index: Expression
 
 
-#: string nodes the port does not lower yet (ROADMAP.md, queue A item
-#: 'Other string expressions')
-NOT_PORTED_STRING_NODES = (InitCap, Like, RLike, StringLocate, StringReplace,
-                           RegExpReplace, StringLPad, StringRPad,
-                           SubstringIndex, StringSplitPart)
-
-
 @dataclasses.dataclass(frozen=True)
 class NativeUDF(Expression):
     """A native UDF (reference: RapidsUDF.java:22): a COLUMNAR function

@@ -1,7 +1,7 @@
 """Window expressions (own copy of ``spark_rapids_tpu/expr/windows.py``).
 
-The classes exist for the session planner and the CPU engine; the device
-window exec is not ported yet (ROADMAP.md, queue A item 'Window').
+The classes serve the session planner, the CPU engine and the device
+window exec (``exec/window.py``).
 
 Reference analog: GpuWindowExpression.scala:784 — window function + spec
 (partition/order/frame) with frame validation; GpuRowNumber (:712),

@@ -1,0 +1,160 @@
+"""The regex row matcher's hand-written Hopper kernel and its plain
+PyTorch version.
+
+Counterpart of ``dfa_accept_rows`` in ``spark_rapids_tpu/ops/regex.py``
+(``:563``), which is XLA, not Pallas: a segmented ``lax.associative_scan``
+that composes packed 16-state transition vectors along the byte pool. The
+CUDA C++ lives in ``csrc/regex_kernels.cu``; it is compiled for ``sm_90a``
+by ``nvcc`` on first use into ``_build/`` and loaded with ``ctypes``
+(``ops/_cuda_build.py``).
+
+Dispatch: the wrapper runs the plain version ONLY for tensors on the CPU
+(the tests, and the comparison on the card). For CUDA tensors it launches
+the kernel or raises; no fallback. Each launch adds one to
+:data:`LAUNCHES`; nothing else does.
+
+Bound on an H100: bytes. The live rows' bytes are read once, plus 4
+bytes of offsets, 1 of validity and 1 of output a row.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from . import _cuda_build
+
+SOURCE = _cuda_build.PKG / "csrc" / "regex_kernels.cu"
+BUILD_DIR = _cuda_build.BUILD_DIR
+
+#: kernel launches per wrapper (see module docstring)
+LAUNCHES: Dict[str, int] = {"dfa_accept_rows": 0}
+#: nvcc's output (``-Xptxas -v``) from the build this process loaded
+BUILD_LOG: List[str] = []
+
+_LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Compile (once per source content) and load the kernel library."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
+        so = _cuda_build.build_library(SOURCE, BUILD_DIR, BUILD_LOG)
+        lib = ctypes.CDLL(str(so))
+        vp = ctypes.c_void_p
+        lib.srt_dfa_accept_rows.argtypes = [
+            vp, ctypes.c_int64, vp, ctypes.c_int64, vp, vp, vp,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_int, vp, vp]
+        lib.srt_dfa_accept_rows.restype = ctypes.c_int
+        lib.srt_regex_error_string.argtypes = [ctypes.c_int]
+        lib.srt_regex_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+        return lib
+
+
+def transition_table(dfa) -> np.ndarray:
+    """(256, 16) uint8 next states, unpacked on the host from the
+    compiler's packed ``lut_lo``/``lut_hi`` (torch has no unsigned 32-bit
+    shifts on every backend)."""
+    shifts = np.arange(8, dtype=np.uint32) * 4
+    lo = (dfa.lut_lo[:, None] >> shifts[None, :]) & 15
+    hi = (dfa.lut_hi[:, None] >> shifts[None, :]) & 15
+    return np.concatenate([lo, hi], axis=1).astype(np.uint8)
+
+
+def _check(offsets, chars, validity) -> None:
+    if chars.dtype != torch.uint8 or chars.dim() != 1:
+        raise ValueError(f"dfa_accept_rows takes a 1-D uint8 pool, got "
+                         f"{chars.dtype} of shape {tuple(chars.shape)}")
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 or (
+            offsets.shape[0] < 1):
+        raise ValueError(f"dfa_accept_rows takes (cap+1,) int32 offsets, "
+                         f"got {offsets.dtype} of shape "
+                         f"{tuple(offsets.shape)}")
+    if validity.dtype != torch.bool or validity.shape != (
+            offsets.shape[0] - 1,):
+        raise ValueError(f"dfa_accept_rows takes (cap,) bool validity, got "
+                         f"{validity.dtype} of shape "
+                         f"{tuple(validity.shape)}")
+    if not (offsets.device == chars.device == validity.device):
+        raise ValueError(f"offsets on {offsets.device}, chars on "
+                         f"{chars.device}, validity on {validity.device}")
+
+
+def dfa_accept_rows_plain(offsets: torch.Tensor, chars: torch.Tensor,
+                          validity: torch.Tensor, dfa) -> torch.Tensor:
+    """Plain version: walk byte column ``j = 0 .. max_len-1`` of every row
+    at once through the unpacked (256, 16) table, a row keeping its state
+    once ``j`` passes its length; the state before the last byte gives
+    Java's ``$`` rule, as in the kernel. Offsets clamp to the pool."""
+    dev = chars.device
+    cap = offsets.shape[0] - 1
+    nch = chars.shape[0]
+    lo = offsets[:-1].clamp(0, nch).long()
+    hi = torch.maximum(offsets[1:].clamp(0, nch).long(), lo)
+    lens = hi - lo
+    tbl = torch.from_numpy(transition_table(dfa).reshape(-1)).to(dev).long()
+    acc_tbl = torch.tensor([(dfa.accept_mask >> s) & 1 for s in range(16)],
+                           dtype=torch.bool, device=dev)
+    st = torch.zeros(cap, dtype=torch.long, device=dev)
+    prev = st
+    last = torch.zeros(cap, dtype=torch.long, device=dev)
+    max_len = int(lens.max()) if cap else 0
+    for j in range(max_len):
+        live = j < lens
+        b = chars[(lo + j).clamp(max=max(nch - 1, 0))].long()
+        prev = torch.where(live, st, prev)
+        last = torch.where(live, b, last)
+        st = torch.where(live, tbl[b * 16 + st], st)
+    acc = acc_tbl[st]
+    if not dfa.absorbing:
+        acc = acc | ((last == 0x0A) & acc_tbl[prev])
+    acc = torch.where(lens > 0, acc, dfa.start_accept)
+    return acc & validity
+
+
+def dfa_accept_rows(offsets: torch.Tensor, chars: torch.Tensor,
+                    validity: torch.Tensor, dfa) -> torch.Tensor:
+    """(cap,) bool: each row's DFA verdict ANDed with ``validity``
+    (``offsets`` (cap+1,) int32, ``chars`` the uint8 pool, ``dfa`` an
+    ``ops.regex.Dfa``). Bytes outside ``[offsets[i], offsets[i+1])`` are
+    never read for row ``i``."""
+    _check(offsets, chars, validity)
+    dev = chars.device
+    if dev.type == "cpu":
+        return dfa_accept_rows_plain(offsets, chars, validity, dfa)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    lib = build_kernels()
+    cap, nch = offsets.shape[0] - 1, chars.shape[0]
+    out = torch.empty(cap, dtype=torch.bool, device=dev)
+    if cap == 0:
+        return out
+    off = offsets.contiguous()
+    chars = chars.contiguous()
+    if chars.data_ptr() % 4:  # the kernel loads 4 bytes at a time
+        chars = chars.clone()
+    valid = validity.contiguous()
+    lut_lo = np.ascontiguousarray(dfa.lut_lo, dtype=np.uint32)
+    lut_hi = np.ascontiguousarray(dfa.lut_hi, dtype=np.uint32)
+    with torch.cuda.device(dev):
+        rc = lib.srt_dfa_accept_rows(
+            off.data_ptr(), cap, chars.data_ptr(), nch, valid.data_ptr(),
+            lut_lo.ctypes.data, lut_hi.ctypes.data,
+            dfa.accept_mask & 0xFFFF, int(dfa.absorbing),
+            int(dfa.start_accept), out.data_ptr(), _cuda_build.stream(dev))
+    _cuda_build.check_launch(lib.srt_regex_error_string, rc,
+                             "dfa_accept_rows")
+    LAUNCHES["dfa_accept_rows"] += 1
+    return out

@@ -170,6 +170,22 @@ def _seg_scan(values: torch.Tensor, seg: torch.Tensor,
     return out
 
 
+def _first_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """max of an earlier ``a`` and a later ``b`` that keeps ``a`` on a tie
+    (0.0 against -0.0), as the CPU engine's strict compare does; NaN is
+    the largest value."""
+    if not a.is_floating_point():
+        return torch.maximum(a, b)
+    return torch.where((b > a) | (torch.isnan(b) & ~torch.isnan(a)), b, a)
+
+
+def _first_min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """min keeping the earlier ``a`` on a tie (NaN is +inf by then)."""
+    if not a.is_floating_point():
+        return torch.minimum(a, b)
+    return torch.where(b < a, b, a)
+
+
 def _fills(dtype: torch.dtype):
     """(lowest, highest) of a dtype: -inf/inf, False/True or the integer
     range."""
@@ -219,11 +235,11 @@ def bounded_row_agg(op: str, col: Optional[ColV], part_start: torch.Tensor,
         lowest, highest = _fills(col.data.dtype)
         if op == "max":
             fill = lowest
-            combine = torch.maximum
+            combine = _first_max
             x = torch.where(valid, col.data, fill)
         else:
             fill = highest
-            combine = torch.minimum
+            combine = _first_min
             x = col.data
             if isfloat:
                 # Spark min skips NaN unless the frame is all NaN
@@ -393,7 +409,7 @@ def running_agg(op: str, col: Optional[ColV], seg: torch.Tensor,
         if op == "max":
             x = torch.where(valid, col.data, torch.tensor(
                 lowest, dtype=col.data.dtype, device=col.data.device))
-            scan = _seg_scan(x, seg, torch.maximum)
+            scan = _seg_scan(x, seg, _first_max)
         else:
             x = col.data
             if isfloat:
@@ -401,7 +417,7 @@ def running_agg(op: str, col: Optional[ColV], seg: torch.Tensor,
                 x = torch.where(torch.isnan(x), math.inf, x)
             x = torch.where(valid, x, torch.tensor(
                 highest, dtype=col.data.dtype, device=col.data.device))
-            scan = _seg_scan(x, seg, torch.minimum)
+            scan = _seg_scan(x, seg, _first_min)
         r = frame_value(scan)
         has = (frame_count(valid) > 0) & live
         if op == "min" and isfloat:

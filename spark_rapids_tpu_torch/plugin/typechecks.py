@@ -1,14 +1,10 @@
 """Static per-operator type-support matrices.
 
 Own copy of ``spark_rapids_tpu/plugin/typechecks.py``: the same TypeSig,
-ExprChecks and CastChecks tables, so the port's planner gives the
-reference's fallback reasons word for word. Where the port differs: the
-regex-dependent value tags (Like, RLike, RegExpReplace) raise
-``NotImplementedError`` for a literal pattern, because the reference would
-run such a node on its device and the port has no regex engine yet
-(ROADMAP.md, queue A item 'Other string expressions'); and a
-``NotImplementedError`` from a node's result type (a decimal aggregate,
-for one) propagates instead of reading as a fallback reason.
+ExprChecks and CastChecks tables and value tags, so the port's planner
+gives the reference's fallback reasons word for word. Where the port
+differs: a ``NotImplementedError`` from a node's result type (a decimal
+aggregate, for one) propagates instead of reading as a fallback reason.
 
 Reference analog: TypeChecks.scala — every rule declares, per parameter
 and per expression context, which input types it accepts, and ONE checker
@@ -398,19 +394,49 @@ def _tag_binary_arith(node, conf) -> List[str]:
     return []
 
 
-def _tag_regex_not_ported(node, conf) -> List[str]:
-    """Like/RLike/RegExpReplace: the reference parses a literal pattern
-    (its LIKE tokenizer, its byte-DFA compiler) to decide the device
-    route; the port has neither yet, so a literal pattern raises. A
-    non-literal pattern falls back on the parameter check, as in the
-    reference."""
-    if _lit_value(node.pattern) is None:
+def _tag_like(node: E.Like, conf) -> List[str]:
+    pat = _lit_value(node.pattern)
+    if pat is None:
         return []
-    raise NotImplementedError(
-        f"{type(node).__name__} is {T.NOT_PORTED_STRING_EXPRS}")
+    from ..expr.eval_strings import _parse_like
+
+    try:
+        toks = _parse_like(pat, node.escape)
+    except ValueError as e:
+        return [f"Like: {e}"]
+    if "%" in toks and "_" in toks:
+        return ["Like: patterns mixing % and _ are not supported on TPU"]
+    return []
 
 
-_tag_like = _tag_rlike = _tag_regexp_replace = _tag_regex_not_ported
+def _tag_rlike(node: E.RLike, conf) -> List[str]:
+    pat = _lit_value(node.pattern)
+    if pat is None:
+        return []
+    from ..ops import regex as RX
+
+    try:
+        RX.compile_search_dfa(pat)
+    except Exception as e:  # noqa: BLE001 — any compile failure = fallback
+        return [f"RLike: pattern not supported by the byte DFA: {e}"]
+    return []
+
+
+def _tag_regexp_replace(node: E.RegExpReplace, conf) -> List[str]:
+    pat = _lit_value(node.pattern)
+    repl = _lit_value(node.replacement)
+    reasons = []
+    if pat is not None:
+        from ..ops import regex as RX
+
+        literal = RX.regex_as_literal(pat)
+        if literal is None or literal == "":
+            reasons.append(
+                "RegExpReplace: pattern is not literal-equivalent")
+    if repl is not None and ("$" in repl or "\\" in repl):
+        reasons.append(
+            "RegExpReplace: replacement with group references")
+    return reasons
 
 
 def _tag_split_part(node: E.StringSplitPart, conf) -> List[str]:

@@ -20,11 +20,6 @@ import torch
 #: the ROADMAP items the not-yet-ported parts name in their errors
 NOT_PORTED_TYPES = ("not ported yet: see ROADMAP.md, queue A item "
                     "'Decimals and dates'")
-NOT_PORTED_STRING_EXPRS = ("not ported yet: see ROADMAP.md, queue A item "
-                           "'Other string expressions'")
-NOT_PORTED_STRING_LAYERS = ("not ported yet: see ROADMAP.md, queue A item "
-                            "'Strings in joins, grouping keys, min/max and "
-                            "concat'")
 
 
 class DataType:

@@ -7,9 +7,6 @@ raises ``UnsupportedUDF`` inside, and :func:`compile_udf` returns None:
 the UDF stays a PythonUDF node and runs row by row on the CPU engine).
 The walk reads the bytecode of the running interpreter (the opcode set
 of CPython 3.12), so its trees equal the reference's on the same Python.
-A compiled tree can hold a string expression the port has not ported
-(``.replace`` -> ``StringReplace``): it raises when the planner lowers
-it (ROADMAP.md, queue A item 'Other string expressions'), not here.
 
 Reference analog: the udf-compiler module (udf-compiler/.../Instruction.scala
 :198-934 abstract interpretation of ~200 JVM opcodes, CFG.scala:44-141 basic

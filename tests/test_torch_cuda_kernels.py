@@ -8,8 +8,9 @@ so agreeing with them here holds the kernels to the reference. The join
 exec runs here on the card and on the CPU under every strategy and must
 give the same rows in the same order; so do the string expressions and
 the word-count query (K5, whose plain version is held against the
-reference's kernel in ``tests/test_torch_udf.py``). Run on a card, without the
-JAX-side conftest:
+reference's kernel in ``tests/test_torch_udf.py``), and the regex row
+matcher (whose plain version ``tests/test_torch_regex.py`` holds to the
+reference's scan). Run on a card, without the JAX-side conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -1055,3 +1056,41 @@ def test_dict_key_aggregate_on_the_card_matches_the_cpu(dev):
     for g, w in zip(got, want):
         assert g[:3] == w[:3] and g[4:] == w[4:]
         assert abs(g[3] - w[3]) <= 1e-9 * 4000 * 5
+
+
+#: DFA patterns on the card: absorbing, anchored, Java '$' (non-absorbing)
+#: and a class that takes multi-byte UTF-8
+DFA_PATTERNS = ("^[a-z]+ (sly|furious)", "ts$", "s\\.$", "[^ -~]", "é.",
+                "(ab|c)+x?", "^$")
+
+
+@pytest.mark.parametrize("pat", DFA_PATTERNS)
+def test_dfa_accept_rows_matches_its_plain_version(dev, pat):
+    """The regex row matcher's kernel against its plain version (held to
+    the reference's scan in ``tests/test_torch_regex.py``), on random
+    UTF-8 rows with '\\n' endings, empty and null rows, on the whole
+    column, on a slice whose offsets start mid-pool and with garbage past
+    the last offset."""
+    from spark_rapids_tpu_torch.ops import regex as RX
+    from spark_rapids_tpu_torch.ops import regex_kernels as RK
+
+    rng = np.random.default_rng(len(pat))
+    alphabet = ["a", "b", "c", "s", "t", "x", ".", " ", "\n", "é", "日",
+                "sly", "furious", "ab"]
+    rows = ["".join(rng.choice(alphabet, int(rng.integers(0, 9))))
+            for _ in range(5000)]
+    bs = [r.encode() for r in rows]
+    off = (3 + np.concatenate([[0], np.cumsum([len(b) for b in bs])])
+           ).astype(np.int32)
+    pool = np.frombuffer(b"xs\n" + b"".join(bs) + b"ts\nsly" * 5,
+                         np.uint8).copy()
+    valid = rng.random(len(rows)) > 0.1
+    d = RX.compile_search_dfa(pat)
+    for a, b in ((0, len(rows)), (1234, 3999)):
+        o, v = off[a:b + 1], valid[a:b]
+        want = RK.dfa_accept_rows_plain(*_on("cpu", o, pool, v), d)
+        before = RK.LAUNCHES["dfa_accept_rows"]
+        got = RX.dfa_accept_rows(*_on(dev, o, pool, v), d)
+        torch.cuda.synchronize()
+        assert RK.LAUNCHES["dfa_accept_rows"] == before + 1
+        assert torch.equal(got.cpu(), want)

@@ -7,8 +7,8 @@ mixed dictionary/plain concat; filter -> project keeping the dictionary;
 and the native UDF over a dictionary column.
 
 Strings, validity, codes and dictionaries must be equal bit for bit, and
-the rows must equal the port's CPU engine. The port's unported string
-nodes (item 15) raise on a dictionary input as on a plain one.
+the rows must equal the port's CPU engine, for the item-15 nodes too
+(``tests/test_torch_string_exprs.py`` holds the rest of them).
 """
 import os
 import random
@@ -175,7 +175,7 @@ def test_string_op_matches_reference(build, dict_mode):
     check(build, seed=7)
 
 
-#: string nodes of item 15: they raise on a dictionary input too
+#: string nodes of item 15, on a dictionary input
 NOT_PORTED = [
     ("in_list", lambda M, TT: M.In(M.col("s"), ("X", "", "nope"))),
     ("cast_int", lambda M, TT: M.Cast(M.col("s"), TT.INT)),
@@ -190,10 +190,10 @@ NOT_PORTED = [
 @pytest.mark.parametrize("build", [b for _, b in NOT_PORTED],
                          ids=[k for k, _ in NOT_PORTED])
 def test_item_15_nodes_raise_on_a_dictionary(build, dict_mode):
-    _, pb = batches(*make_rows(3))
-    bound = E.bind_references(build(E, T), pb.schema)
-    with pytest.raises(NotImplementedError, match="Other string"):
-        evaluate_projection([bound], pb)
+    """Named for when these nodes raised (item 15): each now takes the
+    reference's dictionary route and gives its column and the CPU
+    engine's rows."""
+    check(build, seed=3)
 
 
 @pytest.mark.parametrize("null_prob", [1.0, 0.0], ids=["all_null",

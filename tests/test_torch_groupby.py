@@ -262,3 +262,43 @@ def test_min_max_keep_the_sign_of_zero_as_the_reference(d, grouped, op,
     if rv is not None:
         assert gv == rv or (np.isnan(gv) and np.isnan(rv))
         assert np.signbit(gv) == np.signbit(rv), (rv, gv)
+
+
+def test_c4_pallas_min_max_zero_differs_after_the_sort_fallback():
+    """ROADMAP.md §C, C4 (open, pinned until item 1 closes it): under
+    PALLAS with a NULL row the hash tiers fail their check and both
+    packages fall back to the sort path. The reference reduces it on its
+    RADIX tier, whose ties give max -0.0 and min 0.0 for the group
+    (5, 0.0); the port reduces it as SCATTER does and gives max 0.0 and
+    min -0.0, the SCATTER answer of both packages."""
+    from spark_rapids_tpu import types as JT
+    from spark_rapids_tpu.expr import aggregates as JA
+    from spark_rapids_tpu.expr import expressions as JE
+    from spark_rapids_tpu.sql.session import TpuSession as JSession
+    from spark_rapids_tpu_torch import types as PT
+    from spark_rapids_tpu_torch.expr import aggregates as PA
+    from spark_rapids_tpu_torch.expr import expressions as PE
+    from spark_rapids_tpu_torch.sql.session import TpuSession as PSession
+
+    def q(TT, EE, AA, sess):
+        sch = TT.StructType((TT.StructField("k", TT.INT),
+                             TT.StructField("d", TT.DOUBLE)))
+        df = sess.create_dataframe(
+            {"k": [0, 5, 5, -3], "d": [3.0, 0.0, -0.0, None]}, sch)
+        return df.group_by("k", "d").agg(AA.agg(AA.Max(EE.col("d")), "mx"),
+                                         AA.agg(AA.Min(EE.col("d")), "mn"))
+
+    def zero_group(rows):
+        [r] = [r for r in rows if r[0] == 5]
+        return repr(r[2]), repr(r[3])
+
+    def conf(tier):
+        return {"spark.rapids.tpu.sql.agg.strategy": tier}
+
+    assert zero_group(q(JT, JE, JA, JSession(conf("PALLAS"))).collect()) \
+        == ("-0.0", "0.0")
+    assert zero_group(q(JT, JE, JA, JSession(conf("SCATTER"))).collect()) \
+        == ("0.0", "-0.0")
+    for tier in ("PALLAS", "SCATTER"):
+        got = q(PT, PE, PA, PSession(conf(tier), device="cpu")).collect()
+        assert zero_group(got) == ("0.0", "-0.0")

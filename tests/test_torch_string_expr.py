@@ -6,8 +6,8 @@ ASCII-only and one with multi-byte UTF-8) go through the reference's
 ``expr/eval.lower`` and the port's. String results must be equal plane
 for plane (offsets, chars pool, validity); other results in validity and
 in data on every valid row. ``evaluate_projection`` is compared at the
-batch level, and the string expressions the port has not ported must
-raise ``NotImplementedError`` naming their ROADMAP item.
+batch level; the item-15 nodes (``test_string_expressions_not_ported_raise``,
+named for when they raised) lower to the reference's planes too.
 """
 import numpy as np
 import pytest
@@ -170,41 +170,39 @@ def test_evaluate_projection_matches_reference():
                     getattr(g, part).numpy(), np.asarray(getattr(r, part)))
 
 
+#: the string expressions of ROADMAP.md item 15, which now lower
 NOT_PORTED = {
-    "like": lambda: E.Like(E.BoundReference(0, T.STRING), E.lit("a%")),
-    "rlike": lambda: E.RLike(E.BoundReference(0, T.STRING), E.lit("a+")),
-    "initcap": lambda: E.InitCap(E.BoundReference(0, T.STRING)),
-    "locate": lambda: E.StringLocate(E.lit("a"), E.BoundReference(0, T.STRING),
-                                     E.lit(1)),
-    "replace": lambda: E.StringReplace(E.BoundReference(0, T.STRING),
-                                       E.lit("a"), E.lit("b")),
-    "regexp_replace": lambda: E.RegExpReplace(E.BoundReference(0, T.STRING),
-                                              E.lit("a"), E.lit("b")),
-    "lpad": lambda: E.StringLPad(E.BoundReference(0, T.STRING), E.lit(5),
-                                 E.lit("*")),
-    "rpad": lambda: E.StringRPad(E.BoundReference(0, T.STRING), E.lit(5),
-                                 E.lit("*")),
-    "substring_index": lambda: E.SubstringIndex(
-        E.BoundReference(0, T.STRING), E.lit(","), E.lit(1)),
-    "split_part": lambda: E.StringSplitPart(E.BoundReference(0, T.STRING),
-                                            E.lit(","), E.lit(0)),
-    "cast_to_int": lambda: E.Cast(E.BoundReference(0, T.STRING), T.INT),
-    "cast_to_string": lambda: E.Cast(E.BoundReference(2, T.LONG), T.STRING),
-    "if_string": lambda: E.If(E.IsNull(E.BoundReference(2, T.LONG)),
-                              E.BoundReference(0, T.STRING),
-                              E.BoundReference(1, T.STRING)),
-    "coalesce_string": lambda: E.Coalesce((E.BoundReference(0, T.STRING),
-                                           E.lit("x"))),
+    "like": lambda M, TT: M.Like(s0(M, TT), M.lit("a%")),
+    "rlike": lambda M, TT: M.RLike(s0(M, TT), M.lit("a+")),
+    "initcap": lambda M, TT: M.InitCap(s0(M, TT)),
+    "locate": lambda M, TT: M.StringLocate(M.lit("a"), s0(M, TT),
+                                           M.lit(1)),
+    "replace": lambda M, TT: M.StringReplace(s0(M, TT), M.lit("a"),
+                                             M.lit("b")),
+    "regexp_replace": lambda M, TT: M.RegExpReplace(s0(M, TT), M.lit("a"),
+                                                    M.lit("b")),
+    "lpad": lambda M, TT: M.StringLPad(s0(M, TT), M.lit(5), M.lit("*")),
+    "rpad": lambda M, TT: M.StringRPad(s0(M, TT), M.lit(5), M.lit("*")),
+    "substring_index": lambda M, TT: M.SubstringIndex(s0(M, TT), M.lit(","),
+                                                      M.lit(1)),
+    "split_part": lambda M, TT: M.StringSplitPart(s0(M, TT), M.lit(","),
+                                                  M.lit(0)),
+    "cast_to_int": lambda M, TT: M.Cast(s0(M, TT), TT.INT),
+    "cast_to_string": lambda M, TT: M.Cast(M.BoundReference(2, TT.LONG),
+                                           TT.STRING),
+    "if_string": lambda M, TT: M.If(M.IsNull(M.BoundReference(2, TT.LONG)),
+                                    s0(M, TT), s1(M, TT)),
+    "coalesce_string": lambda M, TT: M.Coalesce((s0(M, TT), M.lit("x"))),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_string_expressions_not_ported_raise(case):
-    _, pcols = _inputs(True)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue A item 'Other string "
-                             "expressions'"):
-        EV.lower(NOT_PORTED[case](), pcols, CAP)
+    """These nodes raised, naming ROADMAP.md item 15, until it was
+    ported; each now lowers to the reference's planes, ASCII and UTF-8."""
+    for ascii_only in (True, False):
+        ref, got = _lower_both(NOT_PORTED[case], ascii_only)
+        _assert_same(ref, got)
 
 
 def test_non_literal_patterns_are_unsupported_as_in_the_reference():

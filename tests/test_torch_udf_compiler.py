@@ -197,11 +197,18 @@ def test_session_rows_and_explain_match_reference(name):
                                                       "string_if"])
 def test_unported_string_expression_raises_naming_its_item(fn):
     """``.replace`` compiles to StringReplace, and ``f_tag`` to an If that
-    selects strings; neither is ported: the planner raises naming the
-    item, as for any unported node."""
-    u = udf(fn)
-    df = _guarded(PORT, PSession(ON, device="cpu"), "s").select(
-        E.Alias(u(E.col("s")), "r"))
-    with pytest.raises(NotImplementedError,
-                       match="item 'Other string expressions'"):
-        df.collect()
+    selects strings. Both raised, naming ROADMAP.md item 15, until it was
+    ported; now the compiled trees run on the device and give the
+    reference's rows and the Python function's."""
+    def query(m, sess):
+        u = m["udf"](fn)
+        return _guarded(m, sess, "s").select(
+            m["E"].Alias(u(m["E"].col("s")), "r"))
+
+    ref = query(REF, JSession(ON)).collect()
+    sess = PSession(ON, device="cpu")
+    got = query(PORT, sess).collect()
+    assert got == ref
+    assert "CpuProjectExec" not in sess.last_executed_plan.tree_string()
+    want = [(fn(s),) for s in _data()["s"] if s is not None]
+    assert got == want

@@ -349,6 +349,95 @@ def test_running_min_keeps_the_sign_of_zero_as_the_cpu_engine():
     assert repr({r[1]: r[3] for r in got}[6]) == "-0.0"
 
 
+CPU_ONLY = {"spark.rapids.tpu.sql.enabled": False}
+
+
+def _zeros_df(m, sess, d):
+    T_ = m["T"]
+    n = len(d)
+    return sess.create_dataframe(
+        {"k": [0] * n, "o": list(range(n)), "d": d},
+        T_.StructType((T_.StructField("k", T_.INT),
+                       T_.StructField("o", T_.INT),
+                       T_.StructField("d", T_.DOUBLE))))
+
+
+#: frame -> window frame builder (None: the default running RANGE frame)
+C3_FRAMES = {
+    "running": None,
+    "rows_2_preceding_1_following": lambda W: W.WindowFrame(W.ROWS, -2, 1),
+    "whole": lambda W: W.WindowFrame(W.ROWS, W.UNBOUNDED_PRECEDING,
+                                     W.UNBOUNDED_FOLLOWING),
+}
+
+
+@pytest.mark.parametrize("zeros", [(0.0, -0.0), (-0.0, 0.0)],
+                         ids=["pos_first", "neg_first"])
+@pytest.mark.parametrize("op", ["Min", "Max"])
+@pytest.mark.parametrize("frame", sorted(C3_FRAMES))
+def test_min_max_ties_keep_the_earlier_row_as_the_cpu_engine(frame, op,
+                                                            zeros):
+    """ROADMAP.md §C, C3: on a tie (0.0 against -0.0) window min and max
+    keep the value of the earlier row in frame order, as the CPU engine's
+    strict compare does: running, bounded ROWS and whole frames."""
+    d = [zeros[0], zeros[1], 1.5, zeros[1], -2.0, zeros[0]]
+    if op == "Min":
+        d = [zeros[0], zeros[1], 3.0, zeros[1], zeros[0], 2.5]
+
+    def q(m, sess):
+        W, E, A = m["W"], m["E"], m["A"]
+        fb = C3_FRAMES[frame]
+        spec = _spec(m, "k", "o", frame=None if fb is None else fb(W))
+        return _win(m, _zeros_df(m, sess, d), spec,
+                    ("r", getattr(A, op)(E.col("d"))))
+
+    got = q(PORT, PSession({}, device="cpu")).collect()
+    cpu = q(PORT, PSession(CPU_ONLY, device="cpu")).collect()
+    assert [repr(r[3]) for r in got] == [repr(r[3]) for r in cpu]
+
+
+def _empty_spec_df(m, sess):
+    T_ = m["T"]
+    return sess.create_dataframe(
+        {"k": [1, 2, None, 4], "x": [5, None, -3, 8]},
+        T_.StructType((T_.StructField("k", T_.INT),
+                       T_.StructField("x", T_.LONG))))
+
+
+#: C5: functions over an empty window spec
+C5_FUNCS = {
+    "count": lambda W, E, A: A.Count(E.col("x")),
+    "sum": lambda W, E, A: A.Sum(E.col("x")),
+    "min": lambda W, E, A: A.Min(E.col("x")),
+    "row_number": lambda W, E, A: W.RowNumber(),
+    "rank": lambda W, E, A: W.Rank(),
+    "lag": lambda W, E, A: W.Lag(E.col("x"), 1),
+    "lead": lambda W, E, A: W.Lead(E.col("x"), 1),
+}
+
+
+def _q_over_empty(m, sess, fn):
+    W, E, A = m["W"], m["E"], m["A"]
+    return _win(m, _empty_spec_df(m, sess), W.WindowSpec(),
+                ("w", C5_FUNCS[fn](W, E, A)))
+
+
+@pytest.mark.parametrize("fn", sorted(C5_FUNCS))
+def test_window_over_an_empty_spec_is_the_cpu_engines(fn):
+    """ROADMAP.md §C, C5: ``f() OVER ()`` runs on the device as one
+    partition of the live rows in their own order (no sort), and gives
+    the CPU engine's rows; the reference's device window raises
+    ``IndexError`` on its sort of no keys."""
+    sess = PSession({}, device="cpu")
+    got = _q_over_empty(PORT, sess, fn).collect()
+    assert "TpuWindowExec" in sess.last_executed_plan.tree_string()
+    cpu = _q_over_empty(PORT, PSession(CPU_ONLY, device="cpu"),
+                        fn).collect()
+    assert got == cpu
+    with pytest.raises(IndexError):
+        _q_over_empty(REF, JSession({}), fn).collect()
+
+
 # ---------------------------------------------------------------------------
 # the scan helpers
 # ---------------------------------------------------------------------------
