@@ -247,6 +247,34 @@ Phases, each failing the run on any error or mismatch:
         string), its cast back (which must give c_custkey) and
         cast(substring(c_phone, 1, 2) as int) over every customer.
 
+9. the exchanges (items 10 and 9): earlier tables written as several
+   parquet files (one row group each) under ``_chip_data/`` (removed
+   after), so that the session's plans run over several partitions;
+   each query with a cold and three warm walls (launches set to 0 before
+   each run, every run repeating the first's, device memory after each
+   warm run equal within 16 MiB: the exchanges release their pieces), a
+   profiled run (busy time, idle share), its exchanges' metrics
+   (``partitionSize``, ``dataSize``, ``shuffleBytesWritten``) and its
+   plan from ``explain_metrics()``, which must name the exchange:
+     Q11m Q11's table as 8 files: partial -> hash exchange -> AQE
+        coalescing read -> final, K1 and K2 in both halves (more
+        launches than files); Q11mh the same under
+        ``shuffle.transport.class=host`` (the wire format on the path);
+     Q20m TPC-H Q1 over Q20's lineitem as 4 dictionary-encoded files
+        under AUTO (K1, K2 in the partials) and Q20ms under SCATTER (the
+        ordered sum only); the dictionaries materialize at the map side
+        and the ORDER BY runs through a range exchange with string
+        bounds; ``q17_oracle``;
+     Q22m TPC-H Q13 over Q22's orders (4 files) and customer (2 files):
+        the left join through two hash exchanges and the AQE join pair
+        (K4 under PALLAS), both aggregates and the sort through
+        exchanges; Q22's oracle;
+     Q18m Q18's zip join: the 2^23 fact rows as 4 files, the 100 000-row
+        dimension as one file below the 10 MB broadcast threshold, so
+        the broadcast exchange and hash join (K4 once per probe batch,
+        4), the group by city through a hash exchange; ``q18_oracle``;
+     Q14m Q14's window over 4 files: the window gathers the partitions.
+
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
 K1 and K3 at that shape, K4 at Q8's and Q18's, the ordered sum at
@@ -1014,9 +1042,10 @@ def profile_plan(torch, name, plan, conf, rows, nbytes, sort_kernels=()):
                 nbytes, sort_kernels)
 
 
-def profile_run(torch, name, once, rows, nbytes, sort_kernels=()):
-    """``once()`` (which runs a query and returns its wall ms) three times
-    unprofiled, then once under torch.profiler: device time by kernel,
+def profile_run(torch, name, once, rows, nbytes, sort_kernels=(),
+                unprofiled: int = 3):
+    """``once()`` (which runs a query and returns its wall ms)
+    ``unprofiled`` times, then once under torch.profiler: device time by kernel,
     the device's busy and idle share of the wall time, beside the
     query's bytes bound (``nbytes`` at the card's peak rate); with
     ``sort_kernels`` (name substrings) also the device time of the
@@ -1024,7 +1053,7 @@ def profile_run(torch, name, once, rows, nbytes, sort_kernels=()):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    walls = [once() for _ in range(3)]
+    walls = [once() for _ in range(unprofiled)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = once()
@@ -1908,6 +1937,27 @@ def bench_parquet_table(np, n: int):
     return item, qty, cost, date
 
 
+def q11_check(np, qty, cost, date):
+    """``check(rows, what)`` of Q11's rows against numpy: per
+    ss_quantity of the rows sold on or after day 2452015, the count
+    exactly and the sum within 1e-9 of the group's sum of |x|."""
+    keep = date >= 2_452_015
+    want_c = np.bincount(qty[keep], minlength=101)
+    want_s = np.bincount(qty[keep], weights=cost[keep], minlength=101)
+    want_abs = np.bincount(qty[keep], weights=np.abs(cost[keep]),
+                           minlength=101)
+
+    def check(rows, what):
+        if len(rows) != int((want_c > 0).sum()):
+            raise AssertionError(f"{what}: {len(rows)} groups")
+        for g, s_, c_ in rows:
+            if c_ != int(want_c[g]) or not _close(s_, want_s[g],
+                                                  want_abs[g]):
+                raise AssertionError(f"{what} group {g}: ({s_}, {c_}) != "
+                                     f"({want_s[g]}, {want_c[g]})")
+    return check
+
+
 def udf_times_three_plus_one(v) -> int:
     """Q12's Python UDF (annotated ``-> int``: a LONG result)."""
     return None if v is None else v * 3 + 1
@@ -1981,21 +2031,7 @@ def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
                     .agg(A.agg(A.Sum(col("ss_wholesale_cost")), "s"),
                          A.agg(A.Count(col("ss_item_sk")), "c")))
 
-        keep = date >= 2_452_015
-        want_c = np.bincount(qty[keep], minlength=101)
-        want_s = np.bincount(qty[keep], weights=cost[keep], minlength=101)
-        want_abs = np.bincount(qty[keep], weights=np.abs(cost[keep]),
-                               minlength=101)
-
-        def check(rows, what):
-            if len(rows) != int((want_c > 0).sum()):
-                raise AssertionError(f"{what}: {len(rows)} groups")
-            for g, s_, c_ in rows:
-                if c_ != int(want_c[g]) or not _close(
-                        s_, want_s[g], want_abs[g]):
-                    raise AssertionError(
-                        f"{what} group {g}: ({s_}, {c_}) != "
-                        f"({want_s[g]}, {want_c[g]})")
+        check = q11_check(np, qty, cost, date)
 
         # cold: a fresh process-level scan cache and scanner cache
         DeviceScanCache.reset()
@@ -4271,6 +4307,313 @@ def string_expr_phase(torch, np, dev, log2_rows: int, reps: int,
     return per_query, {("dfa_accept_rows", 128): dfa}
 
 
+# ---------------------------------------------------------------------------
+# exchange phase (Q11m, Q20m, Q22m, Q18m, Q14m): multi-file tables
+# ---------------------------------------------------------------------------
+#: Q11m's table is written as this many files (one row group each)
+Q11M_FILES = 8
+#: Q20m's, Q22m's orders, Q18m's fact and Q14m's tables: this many files
+MULTI_FILES = 4
+
+
+def _write_files(pa, pq, path: str, table, files: int) -> float:
+    """``table`` as ``files`` parquet files of one row group each under
+    ``path`` (pyarrow's other defaults: dictionary pages, snappy);
+    returns the seconds taken."""
+    t0 = time.perf_counter()
+    os.makedirs(path)
+    per = -(-table.num_rows // files)
+    for i in range(files):
+        pq.write_table(table.slice(i * per, per),
+                       os.path.join(path, f"part-{i}.parquet"),
+                       row_group_size=per)
+    return time.perf_counter() - t0
+
+
+def _pa_nullable_strings(pa, np, planes, valid):
+    """An Arrow string array of (offsets, chars) planes whose rows are
+    null where ``valid`` is false."""
+    off, chars = planes
+    return pa.Array.from_buffers(
+        pa.string(), off.size - 1,
+        [pa.py_buffer(np.packbits(valid, bitorder="little")),
+         pa.py_buffer(off.astype(np.int32)), pa.py_buffer(chars)])
+
+
+def exchange_report(plan) -> list:
+    """Each exchange of a device plan with its metrics."""
+    from spark_rapids_tpu_torch.exec.exchange import (
+        TpuBroadcastExchangeExec, TpuShuffleExchangeExec)
+
+    out = []
+    for e in _device_tree(plan):
+        if isinstance(e, (TpuShuffleExchangeExec, TpuBroadcastExchangeExec)):
+            out.append({"exec": e.describe(), **{
+                k: e.metrics[k].value for k in (
+                    "partitionSize", "dataSize", "shuffleBytesWritten",
+                    "shuffleBytesFetched", "codecEncodeTime",
+                    "codecDecodeTime", "totalTime") if k in e.metrics}})
+    return out
+
+
+def exchange_query(torch, q: str, sess, df_of, check, need: str, rows: int,
+                   nbytes: int, expect=lambda counts: True) -> dict:
+    """One query of the exchange phase through the session: a cold and
+    three warm walls (the launch counts set to 0 before each run and read
+    after, every run repeating the first's), ``expect(counts)`` asserted,
+    ``explain_metrics()`` required to name the exchange ``need``, the
+    exchanges' metrics, and a profiled run (busy time, idle share).
+    Returns the launches."""
+    plans = []
+    mem = []
+
+    def run_once():
+        rows_ = df_of().collect()
+        plans[:] = [sess.last_executed_plan]
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated())
+        return rows_
+
+    cold, warm, counts = _walls(torch, q, run_once, check)
+    text = sess.explain_metrics()
+    if need not in text or not expect(counts):
+        raise AssertionError(f"{q}: launches {counts}, plan\n{text}")
+    # the exchanges release their pieces after the last reduce partition:
+    # the warm runs leave the same memory behind (the scan cache's and the
+    # last plan's)
+    if mem and max(mem[1:]) - min(mem[1:]) > 16 << 20:
+        raise AssertionError(f"{q}: device memory grew between warm runs: "
+                             f"{mem}")
+    emit({"query": q, "rows": rows, "cold_wall_ms": cold,
+          "warm_wall_ms": warm, "bytes": nbytes,
+          "bound_ms": bound_ms(nbytes), "launches": counts,
+          "exchanges": exchange_report(plans[-1].tpu_child),
+          "memory_allocated_after_each_run": mem,
+          "plan": text.splitlines()})
+    profile_run(torch, q, lambda: _timed(torch, lambda: df_of().collect()),
+                rows, nbytes, SORT_KERNELS, unprofiled=0)
+    return counts
+
+
+def exchange_phase(torch, np, dev) -> dict:
+    """Q11m, Q20m (and Q20ms), Q22m, Q18m and Q14m: earlier tables written
+    as several parquet files (several splits, so several partitions)
+    under ``_chip_data/`` (removed after) and driven through the port
+    session, so that their aggregates, sorts, joins and windows run
+    through the exchanges (``exec/exchange.py``); each against its
+    oracle, with :func:`exchange_query`'s walls, launch checks, plan,
+    exchange metrics and profile. Q11m also runs under
+    ``shuffle.transport.class=host`` (Q11mh: the serializer on the path)
+    and checks that device memory does not grow from run to run (the
+    pieces are released). Returns each path's launches."""
+    import shutil
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr import windows as W
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.sql import session as S
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, PARQUET_DIR)
+    shutil.rmtree(base, ignore_errors=True)
+    per_query = {}
+    vfa = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+
+    def fresh(settings):
+        DeviceScanCache.reset()
+        S._SCANNER_CACHE.clear()
+        return S.TpuSession(settings, device=dev)
+
+    try:
+        # --- Q11m: Q11's table as 8 files -----------------------------------
+        n = 1 << PARQUET_LOG2_ROWS
+        item, qty, cost, date = bench_parquet_table(np, n)
+        path = os.path.join(base, "store_sales")
+        write_s = _write_files(pa, pq, path, pa.table({
+            "ss_item_sk": item, "ss_quantity": qty,
+            "ss_wholesale_cost": cost, "ss_sold_date_sk": date}), Q11M_FILES)
+        emit({"table": "store_sales", "files": Q11M_FILES, "rows": n,
+              "write_s": write_s})
+        check11 = q11_check(np, qty, cost, date)
+        for q, transport in (("Q11m", "device"), ("Q11mh", "host")):
+            sess = fresh({**vfa, "spark.rapids.tpu.shuffle.transport.class":
+                          transport})
+
+            def q11(sess=sess):
+                return (sess.read.parquet(path)
+                        .where(E.GreaterThanOrEqual(col("ss_sold_date_sk"),
+                                                    lit(2_452_015)))
+                        .group_by("ss_quantity")
+                        .agg(A.agg(A.Sum(col("ss_wholesale_cost")), "s"),
+                             A.agg(A.Count(col("ss_item_sk")), "c")))
+
+            # K1 and K2 in both halves: each file's partial, and the final
+            per_query[q] = exchange_query(
+                torch, q, sess, q11, lambda rows, q=q: check11(rows, q),
+                "TpuShuffleExchangeExec HashPartitioning", n, n * 20,
+                lambda c: all(c[k] > Q11M_FILES for k in (
+                    "bucket_sum", "bucket_float_sum")))
+        shutil.rmtree(path)
+
+        # --- Q20m: TPC-H Q1 over lineitem as 4 dictionary-encoded files -----
+        n = 1 << STRING_LOG2_ROWS
+        t, want, kept, strs = lineitem_inputs(np, n)
+        path = os.path.join(base, "lineitem")
+        write_s = _write_files(pa, pq, path, pa.table({
+            **{k: _pa_strings(pa, np, v) for k, v in strs.items()},
+            "l_quantity": t["qty"], "l_extendedprice": t["price"],
+            "l_discount": t["disc"], "l_tax": t["tax"],
+            "l_shipdate": t["ship"]}), MULTI_FILES)
+        emit({"table": "lineitem", "files": MULTI_FILES, "rows": n,
+              "write_s": write_s})
+        for q, strategy in (("Q20m", "AUTO"), ("Q20ms", "SCATTER")):
+            sess = fresh({**vfa, "spark.rapids.tpu.sql.agg.strategy":
+                          strategy})
+            kernels = ("bucket_sum", "bucket_float_sum")
+
+            def expect(c, strategy=strategy):
+                if strategy == "AUTO":
+                    return all(c[k] >= MULTI_FILES for k in kernels)
+                return (not any(c[k] for k in kernels)
+                        and c["ordered_segment_sum"] > 0)
+
+            per_query[q] = exchange_query(
+                torch, q, sess, lambda sess=sess: tpch_q1_df(np, sess, path),
+                lambda rows, q=q: tpch_q1_check(want, rows, q),
+                "TpuShuffleExchangeExec RangePartitioning", n,
+                n * (4 * 8 + 4) + 3 * 5 * n, expect)
+        shutil.rmtree(path)
+
+        # --- Q22m: TPC-H Q13 over orders (4 files) and customer (2 files) ---
+        n = 1 << ORDERS_LOG2_ROWS
+        t = tpch_orders_customers(np, n)
+        chars = comment_chars(torch, t, dev).cpu().numpy()
+        opath = os.path.join(base, "orders")
+        cpath = os.path.join(base, "customer")
+        write_s = _write_files(pa, pq, opath, pa.table({
+            "o_orderkey": t["orderkey"], "o_custkey": t["custkey"],
+            "o_comment": _pa_strings(pa, np, (t["offsets"], chars))}),
+            MULTI_FILES)
+        write_s += _write_files(pa, pq, cpath, pa.table({
+            "c_custkey": t["c_custkey"]}), 2)
+        del chars
+        want22 = q13_oracle(np, t, like_oracle(np, t))
+        emit({"table": "orders, customer", "files": [MULTI_FILES, 2],
+              "orders": n, "customers": t["customers"], "write_s": write_s})
+        sess = fresh({"spark.rapids.tpu.sql.join.strategy": "PALLAS"})
+
+        def check22(rows):
+            if rows != want22:
+                raise AssertionError("Q22m: rows differ from the numpy "
+                                     "oracle")
+
+        per_query["Q22m"] = exchange_query(
+            torch, "Q22m", sess,
+            lambda: tpch_q13_df(sess, opath, cpath, _not_like), check22,
+            "TpuLazyAQEReadExec -> TpuAQEShuffleReadExec", n,
+            int(t["offsets"][-1]) + n * 20 + t["customers"] * 8,
+            lambda c: c["probe_ranges"] > 0 and c["bucket_sum"] > 0)
+        shutil.rmtree(opath)
+        shutil.rmtree(cpath)
+
+        # --- Q18m: Q18's zip join, the dim broadcast ------------------------
+        n = 1 << STRING_LOG2_ROWS
+        z = zip_tables(np, n, DIM_ROWS)
+        cities = city_pool(np)
+        want18 = q18_oracle(np, z, cities, DIM_ROWS)
+        zips = zip_pool(DIM_ROWS)
+        fpath = os.path.join(base, "fact")
+        dpath = os.path.join(base, "dim")
+        write_s = _write_files(pa, pq, fpath, pa.table({
+            "zip": _pa_nullable_strings(
+                pa, np, pool_planes(np, z["fzip"], zips, ~z["fnull"]),
+                ~z["fnull"]),
+            "net_paid": z["paid"]}), MULTI_FILES)
+        write_s += _write_files(pa, pq, dpath, pa.table({
+            "dzip": _pa_strings(pa, np, pool_planes(np, z["dzip"], zips)),
+            "city": _pa_strings(pa, np, pool_planes(np, z["dcity"], cities)),
+            "state": _pa_strings(pa, np, pool_planes(np, z["dstate"],
+                                                     STATES))}), 1)
+        emit({"table": "fact, dim", "files": [MULTI_FILES, 1],
+              "fact_rows": n, "dim_rows": DIM_ROWS, "write_s": write_s,
+              "dim_bytes": sum(os.path.getsize(os.path.join(dpath, f))
+                               for f in os.listdir(dpath))})
+        sess = fresh({**vfa, "spark.rapids.tpu.sql.join.strategy": "PALLAS"})
+
+        def q18():
+            return (sess.read.parquet(fpath)
+                    .join(sess.read.parquet(dpath), [("zip", "dzip")])
+                    .group_by("city")
+                    .agg(A.agg(A.Count(None), "n"),
+                         A.agg(A.Sum(col("net_paid")), "s"),
+                         A.agg(A.Min(col("state")), "mn"),
+                         A.agg(A.Max(col("state")), "mx")))
+
+        def check18(rows):
+            rows = sorted(rows)
+            if len(rows) != len(want18):
+                raise AssertionError(f"Q18m: {len(rows)} cities")
+            for r, (c, k, s_, mag, mn, mx) in zip(rows, want18):
+                if (r[0], r[1], r[3], r[4]) != (c, k, mn, mx) or not _close(
+                        r[2], s_, mag, 1e-12):
+                    raise AssertionError(f"Q18m: {r} != {(c, k, s_, mn, mx)}")
+
+        per_query["Q18m"] = exchange_query(
+            torch, "Q18m", sess, q18, check18, "TpuBroadcastExchangeExec", n,
+            n * 19 + DIM_ROWS * 30,
+            lambda c: c["probe_ranges"] == MULTI_FILES)
+        shutil.rmtree(fpath)
+        shutil.rmtree(dpath)
+
+        # --- Q14m: bench.py shape_window over 4 files -----------------------
+        n = 1 << SORT_LOG2_ROWS
+        rng = np.random.default_rng(13)
+        k = rng.integers(0, 64, n).astype(np.int32)
+        ts = rng.permutation(n).astype(np.int64)
+        v = rng.integers(0, 1000, n).astype(np.int64)
+        order = np.lexsort((ts, k))
+        want14 = []
+        for g in range(64):
+            rows = order[k[order] == g][:3]
+            rs = np.cumsum(v[rows])
+            want14 += [(g, int(ts[r]), int(v[r]), int(s_), i + 1)
+                       for i, (r, s_) in enumerate(zip(rows, rs))]
+        path = os.path.join(base, "window")
+        write_s = _write_files(pa, pq, path, pa.table({"k": k, "ts": ts,
+                                                       "v": v}), MULTI_FILES)
+        emit({"table": "window", "files": MULTI_FILES, "rows": n,
+              "write_s": write_s})
+        sess = fresh({})
+        spec = W.WindowSpec(partition_by=(col("k"),), order_by=(col("ts"),),
+                            orders=((True, True),))
+
+        def q14():
+            return (sess.read.parquet(path)
+                    .with_windows(W.WindowExpression(A.Sum(col("v")), spec,
+                                                     "rs"),
+                                  W.WindowExpression(W.RowNumber(), spec,
+                                                     "rn"))
+                    .where(E.LessThanOrEqual(col("rn"), lit(3))))
+
+        def check14(rows):
+            if rows != want14:
+                raise AssertionError("Q14m: rows differ from the numpy "
+                                     "oracle")
+
+        per_query["Q14m"] = exchange_query(
+            torch, "Q14m", sess, q14, check14, "TpuWindowExec", n, n * 20,
+            lambda c: not any(c.values()))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return per_query
+
+
 def build_all() -> dict:
     """Build every kernel library from the sources beside this script,
     one ``nvcc`` per source, all started together."""
@@ -4427,6 +4770,8 @@ def main() -> int:
     per_query.update(strings)
     kres.update(shapes)
     lap("Q22-Q24")
+    per_query.update(exchange_phase(torch, np, dev))
+    lap("Q11m-Q14m")
     emit({"phase_s": phase_s})
     for q, counts in per_query.items():
         if q != "Q10" and counts["word_counts"]:

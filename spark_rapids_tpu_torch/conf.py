@@ -103,14 +103,56 @@ MAX_READER_BATCH_SIZE_BYTES = conf(
 AUTO_BROADCAST_JOIN_THRESHOLD = conf(
     "spark.rapids.tpu.sql.autoBroadcastJoinThreshold", 10 * 1024 * 1024,
     "Build sides estimated below this size broadcast instead of paying two "
-    "hash exchanges. -1 disables. Read by the planner to name the route a "
-    "partitioned join would take; neither route is ported yet.",
+    "hash exchanges: a join with a side of more than one partition runs "
+    "as a broadcast hash join (exec/exchange.TpuBroadcastExchangeExec) "
+    "when its build side's estimate is at most this, else co-partitions "
+    "both sides through hash exchanges. -1 disables.",
     conf_type=int)
 SHUFFLE_PARTITIONS = conf(
     "spark.rapids.tpu.sql.shuffle.partitions", 0,
     "Number of reduce partitions for exchanges; 0 keeps the child's "
-    "partition count. Registered so a session takes the reference's "
-    "settings; the exchange that reads it is not ported yet.")
+    "partition count (reference: spark.sql.shuffle.partitions).")
+AQE_ENABLED = conf(
+    "spark.rapids.tpu.sql.adaptive.enabled", True,
+    "Re-plan exchange reads from materialized per-partition stats: "
+    "coalesce small partitions, split skewed join probes (reference: "
+    "GpuCustomShuffleReaderExec + ShuffledBatchRDD partition specs).")
+AQE_TARGET_ROWS = conf(
+    "spark.rapids.tpu.sql.adaptive.targetPartitionRows", 1 << 20,
+    "Advisory rows per post-AQE partition (coalesce/split target).",
+    check=_positive)
+AQE_SKEW_FACTOR = conf(
+    "spark.rapids.tpu.sql.adaptive.skewedPartitionFactor", 4.0,
+    "A join probe partition is skewed when its rows exceed this multiple "
+    "of the median (and the target rows).")
+SHUFFLE_MODE = conf(
+    "spark.rapids.tpu.shuffle.mode", "auto",
+    "Exchange lowering: 'host' uses the single-process exchange "
+    "(exec/exchange.py), 'ici' the multi-device mesh stages, which are not "
+    "ported yet and raise where a plan would take them (ROADMAP.md, queue "
+    "A item 'Multi-device execution'). 'auto' takes the host exchange: "
+    "the reference picks its mesh only when more than one device is "
+    "visible, and the port runs on one card.",
+    valid_values=("auto", "host", "ici"))
+SHUFFLE_TRANSPORT_CLASS = conf(
+    "spark.rapids.tpu.shuffle.transport.class", "device",
+    "Transport for exchange pieces: 'device' (pieces stay on the card as "
+    "slices of the partitioned batch), 'host' (serialized host bytes in "
+    "the TPUB wire format, the fallback-serializer analog), or 'network' "
+    "(the TCP block server of a multi-process cluster: not ported yet, "
+    "it raises naming ROADMAP.md, queue A item 'Multi-device "
+    "execution').",
+    valid_values=("device", "host", "network"))
+SHUFFLE_COMPRESSION_CODEC = conf(
+    "spark.rapids.tpu.shuffle.compression.codec", "none",
+    "Codec for host-path shuffle payloads: none/zstd/lz4. zstd needs the "
+    "zstandard module; lz4 is the reference's native C++ block codec and "
+    "raises until the port binds native/ (ROADMAP.md, queue A item 'The "
+    "native host decoders').",
+    valid_values=("none", "zstd", "lz4"))
+SHUFFLE_PARTITIONING_MAX_PARTITIONS = conf(
+    "spark.rapids.tpu.shuffle.maxPartitions", 1 << 16,
+    "Upper bound on shuffle partitions.", check=_positive)
 TEST_CONF = conf(
     "spark.rapids.tpu.sql.test.enabled", False,
     "Fail instead of falling back to CPU when an operator is unsupported.")

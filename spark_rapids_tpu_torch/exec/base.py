@@ -10,6 +10,7 @@ and run as one eager chain of torch calls per batch
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -29,8 +30,28 @@ NUM_OUTPUT_BATCHES = "numOutputBatches"
 TOTAL_TIME = "totalTime"
 
 
+_PLANNING = threading.local()
+
+
+@contextlib.contextmanager
+def planning_mode():
+    """Marks plan construction: adaptive reads report their static
+    partition count instead of materializing their stage (reference
+    ``exec/base.py:242``)."""
+    prev = getattr(_PLANNING, "on", False)
+    _PLANNING.on = True
+    try:
+        yield
+    finally:
+        _PLANNING.on = prev
+
+
+def in_planning() -> bool:
+    return getattr(_PLANNING, "on", False)
+
+
 class Metric:
-    """One named counter; 'ns' metrics render as ms."""
+    """One named counter; 'ns' metrics render as ms, 'bytes' as MB."""
 
     __slots__ = ("name", "value", "kind")
 
@@ -43,6 +64,16 @@ class Metric:
 
     def add(self, v: int) -> None:
         self.value += v
+
+    def set(self, v: int) -> None:
+        self.value = v
+
+    def pretty(self) -> str:
+        if self.kind == "ns":
+            return f"{self.value / 1e6:.1f}ms"
+        if self.kind == "bytes":
+            return f"{self.value / 1e6:.1f}MB"
+        return str(self.value)
 
     def __repr__(self):
         return f"{self.name}={self.value}"
@@ -166,6 +197,25 @@ class TpuExec:
         return self.tree_string()
 
 
+def format_metrics(plan: TpuExec) -> str:
+    """One line per exec: its ``describe()`` and its non-zero metrics
+    (reference ``exec/base.py:611`` without the device-lane, XLA-cost,
+    compile-cache and memory columns, which have no port yet)."""
+    lines: List[str] = []
+
+    def walk(node: TpuExec, depth: int) -> None:
+        parts = [f"{m.name}={m.pretty()}" for m in node.metrics.values()
+                 if m.value]
+        lines.append("  " * depth + node.describe()
+                     + (": " + ", ".join(parts) if parts else ""))
+        for c in node.children:
+            if isinstance(c, TpuExec):
+                walk(c, depth + 1)
+
+    walk(plan, 0)
+    return "\n".join(lines)
+
+
 def vals_of_batch(batch: ColumnarBatch) -> List[Val]:
     """The batch's columns as lowering values (a dictionary-encoded one
     as its DictV)."""
@@ -229,7 +279,7 @@ def concat_batches(schema: StructType, batches: List[ColumnarBatch],
         # counts): an aggregate's partial holds a few groups at its
         # input's capacity
         rows = host_ints([b.num_rows_lazy for b in batches])
-        batches = [materialized_batch(_head(b, n))
+        batches = [materialized_batch(head_rows(b, n))
                    for b, n in zip(batches, rows)]
     str_cols = [j for j, f in enumerate(schema.fields)
                 if T.is_string(f.dataType)]
@@ -255,7 +305,7 @@ def concat_batches(schema: StructType, batches: List[ColumnarBatch],
     return batch_from_vals(cols, schema, n)
 
 
-def _head(batch: ColumnarBatch, n: int) -> ColumnarBatch:
+def head_rows(batch: ColumnarBatch, n: int) -> ColumnarBatch:
     """The batch's first ``n`` rows (its live ones) at the capacity
     bucket of ``n``, when that is smaller: views of each column's planes,
     a string column's byte pool as it is."""

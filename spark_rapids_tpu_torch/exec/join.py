@@ -21,10 +21,15 @@ which repeats rows, and stay encoded where the probe only drops rows
 Right joins run as left joins with the sides swapped and the output
 columns put back in order.
 
-Left out of this slice (ROADMAP.md, queue A): ``partitioned=True`` builds
-(they need the exchange), the spillable build and OOM retry, buffer
-donation, the join events and observability counters, and the
-nested-loop and cartesian execs.
+With ``partitioned=True`` (both sides co-partitioned by the join keys
+through hash exchanges) the build and probe stay per partition: one
+build per reduce partition, and a full outer join emits its unmatched
+build rows once per partition (reference ``join.py:262-327``). A build
+side read through a broadcast exchange is read once and kept.
+
+Left out of this slice (ROADMAP.md, queue A): the spillable build and
+OOM retry, buffer donation, the join events and observability counters,
+and the nested-loop and cartesian execs.
 """
 from __future__ import annotations
 
@@ -45,8 +50,9 @@ from ..ops import filter_gather
 from ..ops import join as join_ops
 from ..ops.sort import SortOrder, sort_permutation, str_max_lens
 from ..types import StructField, StructType, torch_dtype
-from .base import (TpuExec, batch_from_vals, concat_all, host_ints,
-                   materialized_batch, run_fused_chain, vals_of_batch)
+from .base import (TpuExec, batch_from_vals, concat_all, concat_batches,
+                   host_ints, materialized_batch, run_fused_chain,
+                   vals_of_batch)
 
 _JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
 
@@ -157,12 +163,10 @@ class TpuShuffledHashJoinExec(TpuExec):
                 "cross joins run in TpuCartesianProductExec, not ported "
                 "yet: see ROADMAP.md, queue A item 'Nested-loop and "
                 "cartesian joins'")
-        if partitioned:
-            raise NotImplementedError(
-                "co-partitioned join builds need the exchange, not ported "
-                "yet: see ROADMAP.md, queue A item 'Partitioned join "
-                "builds'")
         self.join_type = join_type
+        #: both sides co-partitioned by the join keys (the planner put
+        #: hash exchanges below): builds and probes stay per partition
+        self.partitioned = partitioned
         self.condition = condition
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
@@ -198,8 +202,7 @@ class TpuShuffledHashJoinExec(TpuExec):
                                            StructType(tuple(lf) + tuple(rf)))
         else:
             self._cond = None
-        self._built = None  # general path: the sorted build
-        self._build_widths: Tuple[int, ...] = ()  # words per build key
+        self._built: dict = {}  # general path: sorted builds by partition
         self._fast_built = None  # fused fast path state (None = untried)
         self._build_batch = None  # concatenated build input, shared
         # strategy memoized per build capacity so AUTO never flips
@@ -213,8 +216,9 @@ class TpuShuffledHashJoinExec(TpuExec):
 
     @property
     def num_partitions(self):
-        # full outer needs one global unmatched-build pass
-        if self.join_type == "full":
+        # full outer needs a global unmatched-build pass: one partition
+        # unless the sides are co-partitioned (unmatched rows stay local)
+        if self.join_type == "full" and not self.partitioned:
             return 1
         return self._probe.num_partitions
 
@@ -272,13 +276,27 @@ class TpuShuffledHashJoinExec(TpuExec):
             keys, [k.dtype for k in self._build_keys],
             [SortOrder(True, True) for _ in keys], ok, sml)
 
-    def _get_build(self):
+    def _partition_build(self, index: int) -> ColumnarBatch:
+        """One partition of a co-partitioned build side in one batch."""
+        batch = concat_batches(self._build.output_schema, [
+            b for b in self._build.execute_partition(index)
+            if b.num_rows > 0])
+        if batch is None:
+            bschema = self._build.output_schema
+            batch = ColumnarBatch.from_pydict(
+                {f.name: [] for f in bschema.fields}, bschema,
+                device=self._build.device)
+        return materialized_batch(batch)
+
+    def _get_build(self, index: Optional[int] = None):
         """(sorted cols, sorted words, joinable count, live mask in sorted
-        order, capacity) — reference ``_get_build`` (``join.py:386``), kept
-        as plain tensors."""
-        if self._built is not None:
-            return self._built
-        batch = self._concat_build()
+        order, capacity, words per key) — reference ``_get_build``
+        (``join.py:386``), kept as plain tensors; ``index`` keys the
+        per-partition builds of a co-partitioned join."""
+        if index in self._built:
+            return self._built[index]
+        batch = (self._concat_build() if index is None
+                 else self._partition_build(index))
         cap = batch.capacity
         dev = batch.columns[0].validity.device
         cols = vals_of_batch(batch)
@@ -293,10 +311,12 @@ class TpuShuffledHashJoinExec(TpuExec):
         sorted_cols = filter_gather.gather(cols, perm, live_all)
         sorted_words = [w[perm] for w in words]
         count = int(ok.sum())  # host sync: the build's joinable rows
-        self._build_widths = join_ops.key_word_widths(keys, sml)
-        self._built = (sorted_cols, sorted_words, count, live_all, cap)
-        self._build_batch = None
-        return self._built
+        built = (sorted_cols, sorted_words, count, live_all, cap,
+                 join_ops.key_word_widths(keys, sml))
+        self._built[index] = built
+        if index is None:
+            self._build_batch = None
+        return built
 
     # -- fused fast paths ------------------------------------------------------
     # When the probe is a pure masked transform (each probe row owns at
@@ -312,7 +332,8 @@ class TpuShuffledHashJoinExec(TpuExec):
     # Each syncs one feasibility check per build (fits + unique for
     # DIRECT, unique for RADIX inner/left).
     def _fast_static_ok(self, strategy: str = "DIRECT") -> bool:
-        if self._jt not in ("inner", "left", "semi", "anti"):
+        if self.partitioned or self._jt not in ("inner", "left", "semi",
+                                                "anti"):
             return False
         if not self._build_keys:
             return False
@@ -477,19 +498,21 @@ class TpuShuffledHashJoinExec(TpuExec):
         if self._try_fast_build():
             yield from run_fused_chain(self, index)
             return
-        build_cols, build_words, build_count, build_live_all, build_cap = \
-            self._get_build()
+        (build_cols, build_words, build_count, build_live_all, build_cap,
+         build_widths) = self._get_build(index if self.partitioned
+                                         else None)
         matched_any = (torch.zeros(build_cap, dtype=torch.bool,
                                    device=build_live_all.device)
                        if self.join_type == "full" else None)
         probe_parts = (range(self._probe.num_partitions)
-                       if self.join_type == "full" else [index])
+                       if self.join_type == "full" and not self.partitioned
+                       else [index])
         for pi in probe_parts:
             for pbatch in self._probe.execute_partition(pi):
                 with self.op_timed("probe"):
                     batch, matched = self._probe_batch(
                         pbatch, build_cols, build_words, build_count,
-                        build_cap)
+                        build_cap, build_widths)
                 if matched is not None and matched_any is not None:
                     matched_any = matched_any | matched
                 if batch is not None and batch.num_rows > 0:
@@ -499,7 +522,7 @@ class TpuShuffledHashJoinExec(TpuExec):
                                              matched_any)
 
     def _probe_batch(self, pbatch, build_cols, build_words, build_count,
-                     build_cap):
+                     build_cap, build_widths):
         """One probe batch: the count phase (ranges per probe row), then
         for inner/left/full the expand phase (reference ``join.py:808``).
         Returns (output batch or None, matched-build mask or None)."""
@@ -520,7 +543,7 @@ class TpuShuffledHashJoinExec(TpuExec):
         words, any_null = join_ops.radix_key_words(
             keys, [k.dtype for k in self._probe_keys], psml)
         build_words, words = join_ops.pad_key_words(
-            build_words, words, self._build_widths,
+            build_words, words, build_widths,
             join_ops.key_word_widths(keys, psml))
         ok = live & ~any_null
         matched = None

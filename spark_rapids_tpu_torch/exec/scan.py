@@ -8,10 +8,13 @@ cache); otherwise, or when no column of a split takes the device path,
 the split is read as a pyarrow table and uploaded buffer by buffer
 (``io/arrow_convert.arrow_to_batch``). Hive partition values append as
 constant string columns. The MULTITHREADED reader reads every split on a
-thread pool at first touch. The reference's mesh staging
+thread pool at first touch. A directory of several files is several
+splits, so several partitions, and the planner puts exchanges above it
+where an aggregate, sort, join or window needs them
+(``exec/exchange.py``). The reference's mesh staging
 (``MeshShardedScanExec``, the sharded row-group staging) and its serving
-prefetch are not ported (ROADMAP.md, queue A items 'Partitioned join
-builds' and 'The remaining modules').
+prefetch are not ported (ROADMAP.md, queue A items 'Multi-device
+execution' and 'The remaining modules').
 
 Metrics: ``scanTime`` (host read of the plain route), ``tpuDecodeTime``
 (the device-decode route's wall: planning, uploads and the decode ops

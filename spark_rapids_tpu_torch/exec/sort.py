@@ -1,10 +1,10 @@
 """Sort exec.
 
 Counterpart of ``spark_rapids_tpu/exec/sort.py`` (``TpuSortExec``): a
-global sort concatenates every partition of its child into one batch
-(the reference's single-partition route; its range exchange and mesh
-sort, and the local sort per partition they feed, are not ported,
-ROADMAP.md queue A item 'Partitioned join builds'); then one sort
+global sort concatenates every partition of its child into one batch;
+a local sort (``global_sort=False``, the planner's route over a range
+or single exchange, whose partitions are already in key order)
+concatenates the batches of its own partition only. Then one sort
 permutation (``ops/sort.py``) and one gather of every column, string payloads
 through the two-pass string gather. The reference's OOM split-and-retry
 around the sort is not ported ('OOM retry and split-and-retry'): the
@@ -22,17 +22,18 @@ from ..expr.eval import lower
 from ..ops import filter_gather
 from ..ops.sort import SortOrder, sort_permutation, str_max_lens
 from ..types import StructType
-from .base import (TpuExec, batch_from_vals, concat_all, materialized_batch,
-                   vals_of_batch)
+from .base import (TpuExec, batch_from_vals, concat_all, concat_batches,
+                   materialized_batch, vals_of_batch)
 
 
 class TpuSortExec(TpuExec):
     def __init__(self, conf: RapidsConf, sort_exprs: Sequence[E.Expression],
                  orders: Sequence[Tuple[bool, object]],
-                 child: TpuExec):
+                 child: TpuExec, global_sort: bool = True):
         super().__init__(conf, [child])
         self.sort_exprs = list(sort_exprs)
         self.orders = [SortOrder(a, nf) for a, nf in orders]
+        self.global_sort = global_sort
         self._bound = [E.bind_references(e, child.output_schema)
                        for e in self.sort_exprs]
 
@@ -42,12 +43,13 @@ class TpuSortExec(TpuExec):
 
     @property
     def num_partitions(self) -> int:
-        return 1
+        return 1 if self.global_sort else self.children[0].num_partitions
 
     def describe(self):
         ks = ", ".join(f"{e}{'' if o.ascending else ' DESC'}"
                        for e, o in zip(self.sort_exprs, self.orders))
-        return f"TpuSortExec [{ks}]"
+        return f"TpuSortExec [{ks}]" + ("" if self.global_sort
+                                        else " (local)")
 
     def _sort_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
         cap = batch.capacity
@@ -62,7 +64,12 @@ class TpuSortExec(TpuExec):
         return batch_from_vals(vals, self.output_schema, nr)
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
-        batch = concat_all(self.children[0])
+        child = self.children[0]
+        if self.global_sort:
+            batch = concat_all(child)
+        else:
+            batch = concat_batches(child.output_schema, [
+                b for b in child.execute_partition(index) if b.num_rows > 0])
         if batch is None:
             return
         with self.op_timed():

@@ -2,14 +2,16 @@
 
 Counterpart of ``spark_rapids_tpu/exec/window.py`` (``TpuWindowExec``):
 one exec per (partition by, order by) spec, computing every window
-expression over it. The exec gathers its input into one batch, sorts it
-once by (partition keys, order keys) and derives partition and peer
-boundaries from the co-sorted radix keys; each function is then O(n)
-scan arithmetic (``ops/window.py``). A string partition or order key
-sorts by its chunk words, bounded by its longest row (one host sync for
-all string keys), and its boundaries come from the sorted words. The
-reference's mesh window (``exec/mesh.TpuMeshWindowExec``) is not ported
-(ROADMAP.md, queue A item 'Partitioned join builds').
+expression over it. The exec gathers its input into one batch (every
+partition of a partitioned child, as the reference's ``_concat_all``,
+``exec/window.py:92-114``), sorts it once by (partition keys, order
+keys) and derives partition and peer boundaries from the co-sorted radix
+keys; each function is then O(n) scan arithmetic (``ops/window.py``). A
+string partition or order key sorts by its chunk words, bounded by its
+longest row (one host sync for all string keys), and its boundaries come
+from the sorted words. The reference's mesh window
+(``exec/mesh.TpuMeshWindowExec``), its hash-exchanged route over more
+than one device, is ROADMAP.md, queue A item 'Multi-device execution'.
 """
 from __future__ import annotations
 

@@ -10,7 +10,8 @@ plain string keys and values:
   * :func:`groupby_agg` — the B0/B1/B2 escalation (128, 1024, 8192
     buckets) and then :func:`sort_groupby`, which reduces sorted segments
     with torch scatter ops (its segment-reduce path; the reference's
-    RADIX tiled reduction is not ported);
+    RADIX tiled reduction is not ported). Under PALLAS its min/max follow
+    that reduction's tie rule (:func:`radix_winner`);
   * :func:`reduce_no_keys` — the grand aggregate;
   * :func:`string_minmax_ranks` — string min/max reduce over int32 rank
     columns (one rank sort per column, shared by its min and max), and
@@ -19,7 +20,9 @@ plain string keys and values:
 String keys take :func:`sort_groupby` under every tier: the reference
 reduces that path through its RADIX tiled reduction under PALLAS and
 RADIX (``groupby.py:1023-1035``), which is not ported (ROADMAP.md, queue
-A item 1), so the segments reduce as under its SCATTER tier. A
+A item 1), so the segments reduce with torch segment ops; under PALLAS
+min/max pick the reference's winner row, zeros folded (ROADMAP.md §C,
+C4). A
 dictionary-encoded key (``DictV``) whose dictionary is unique groups on
 its int32 codes through the hash tiers instead, and its output codes are
 wrapped back into a DictV; a non-unique one (after a transforming
@@ -57,8 +60,9 @@ from .bucket_reduce import (
 )
 from .filter_gather import gather, gather_string, live_of
 from .hashing import murmur3
+from .radix_bin import default_tile_rows
 from .sort import (SIGN64, SortOrder, fixed_radix_keys, next_bound,
-                   sort_permutation, sort_with_radix_keys)
+                   radix_of, sort_permutation, sort_with_radix_keys)
 
 #: the describe() reason of a string-keyed aggregate's route
 STRING_KEY_ROUTE = ("string keys: sort path; the RADIX segment reduction "
@@ -238,14 +242,77 @@ def segment_reduce(op: str, col: Optional[ColV], seg: torch.Tensor,
     raise ValueError(f"unknown aggregation op {op!r}")
 
 
+def _radix_stream_count(agg_ops: Sequence[str],
+                        value_cols: Sequence[Optional[ColV]]) -> int:
+    """The streams of the reference's tiled reduction for these ops
+    (``groupby.py:345-420``): the representative row's position, one
+    count shared by every count(*), one count per count and per sum,
+    an integer sum's limb stream or a float sum's three, two per winner
+    and one per first/last."""
+    n = 1
+    star = False
+    for op, v in zip(agg_ops, value_cols):
+        if op == "count_star":
+            n += 0 if star else 1
+            star = True
+        elif op == "count":
+            n += 1
+        elif op == "sum":
+            n += 4 if v.data.is_floating_point() else 2
+        elif op in ("min", "max"):
+            n += 2
+        else:
+            n += 1
+    return n
+
+
+def radix_winner(op: str, col: ColV, seg: torch.Tensor, ncap: int,
+                 live: torch.Tensor, tile: int) -> ColV:
+    """min/max over sorted segments with the tie rule of the reference's
+    tiled RADIX reduction (``radix_bin.py:386-412``), which its PALLAS
+    tier's sort fallback runs: rows compare by the sort's order word
+    (NaN largest, -0.0 folded into 0.0), the winner is the earliest tied
+    row for min; for max it is the last tied row of the first tile
+    (``tile`` sorted rows) that holds one, since a tile's stable sort
+    puts its max winner last and an earlier tile's winner keeps a tie.
+    The winner row's own value is returned, sign of zero included."""
+    data = col.data
+    valid = col.validity & live
+    cap = data.shape[0]
+    dev = data.device
+    word = radix_of(data) ^ SIGN64  # unsigned order as signed order
+    if op == "min":
+        best = _seg_extreme(torch.where(valid, word, 2**63 - 1), seg, ncap,
+                            "min", 2**63 - 1)
+    else:
+        best = _seg_extreme(torch.where(valid, word, -2**63), seg, ncap,
+                            "max", -2**63)
+    tie = valid & (word == best[seg.long().clamp(0, ncap - 1)])
+    pos = torch.arange(cap, dtype=torch.int64, device=dev)
+    if op == "min":
+        win = _seg_extreme(torch.where(tie, pos, cap), seg, ncap, "min", cap)
+    else:
+        t = pos // tile
+        first_t = _seg_extreme(torch.where(tie, t, cap), seg, ncap, "min",
+                               cap)
+        tie = tie & (t == first_t[seg.long().clamp(0, ncap - 1)])
+        win = _seg_extreme(torch.where(tie, pos, -1), seg, ncap, "max", -1)
+    has = (win >= 0) & (win < cap)
+    r = data[win.clamp(0, cap - 1)]
+    return ColV(torch.where(has, r, torch.zeros_like(r)), has)
+
+
 def sort_groupby(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
                  value_cols: Sequence[Optional[ColV]],
                  agg_ops: Sequence[str], num_rows,
-                 str_max_lens: Sequence[int] = ()
+                 str_max_lens: Sequence[int] = (),
+                 radix_reduce: bool = False
                  ) -> Tuple[List[Val], List[ColV], torch.Tensor]:
     """Group-by via sort: sort by keys (``str_max_lens`` bounds the
     string keys in turn), segment, reduce. Outputs are compacted to the
-    front at the input capacity."""
+    front at the input capacity. ``radix_reduce`` (the PALLAS tier, whose
+    reference reduces this path on its RADIX tiles) gives min/max the
+    reference's winner rows (:func:`radix_winner`)."""
     cap = key_cols[0].validity.shape[0]
     dev = key_cols[0].validity.device
     orders = [SortOrder(True, True) for _ in key_cols]
@@ -263,7 +330,12 @@ def sort_groupby(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
                              cap).clamp(0, cap - 1)
     out_live = torch.arange(cap, dtype=torch.int32, device=dev) < nseg
     out_keys = gather(sorted_keys, first_row, out_live)
-    out_aggs = [segment_reduce(op, v, seg, cap, live, seg_sorted=True)
+    tile = (min(default_tile_rows(cap, _radix_stream_count(agg_ops,
+                                                            value_cols)),
+                max(8, cap)) if radix_reduce else 0)
+    out_aggs = [radix_winner(op, v, seg, cap, live, tile)
+                if radix_reduce and op in ("min", "max")
+                else segment_reduce(op, v, seg, cap, live, seg_sorted=True)
                 for op, v in zip(agg_ops, sorted_vals)]
     out_aggs = [ColV(torch.where(out_live, a.data, torch.zeros_like(a.data)),
                      a.validity & out_live) for a in out_aggs]
@@ -616,7 +688,8 @@ def groupby_agg(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
         if bool(ok.item()):  # host sync: groupby.py:1072
             return _rewrapped(hk, code_keys), _recovered(ha, recover), hn
     keys, aggs, n = sort_groupby(key_cols, key_dtypes, value_cols, agg_ops,
-                                 num_rows, str_max_lens)
+                                 num_rows, str_max_lens,
+                                 radix_reduce=strategy == "PALLAS")
     return _rewrapped(keys, code_keys), _recovered(aggs, recover), n
 
 

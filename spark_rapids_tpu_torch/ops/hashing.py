@@ -155,3 +155,11 @@ def murmur3(cols: Sequence[Val], dtypes: Sequence[T.DataType],
         h = hash_column(c, dt, h,
                         next(lens, None) if isinstance(c, StrV) else None)
     return (((h + 2**31) & _M32) - 2**31).to(torch.int32)
+
+
+def partition_ids(hashes: torch.Tensor, num_partitions: int) -> torch.Tensor:
+    """Spark's ``pmod(hash, n)`` partition assignment (HashPartitioning;
+    reference ``hashing.py:158``): int32 ids in [0, n), also for negative
+    hashes."""
+    return torch.remainder(hashes.to(torch.int64),
+                           num_partitions).to(torch.int32)

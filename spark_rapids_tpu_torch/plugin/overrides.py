@@ -12,12 +12,17 @@ reference would not make).
 
 Converted on the device: the in-memory scan, the file scan, range,
 project, filter, union, both limits, expand (and explode through it),
-and, over one partition, the aggregate, the sort, the window and the
-equi-join (one partition a side). The reference's other conversions
-raise ``NotImplementedError`` naming their ROADMAP.md items: the
-exchange and mesh routes of a partitioned aggregate, sort, window or
-join ('Partitioned join builds', 'Broadcast exchange') and nested-loop
-joins ('Nested-loop and cartesian joins').
+the aggregate, the sort, the window and the equi-join. Over a child of
+more than one partition they take the reference's single-process
+routes (``exec/exchange.py``): partial -> hash (or single) exchange ->
+adaptive read -> final aggregate; range (or single) exchange -> local
+sort; a broadcast hash join under ``autoBroadcastJoinThreshold``, else
+co-partitioning hash exchanges with the adaptive join pair; a window
+over every partition gathered. The reference's mesh routes, which it
+takes under ``spark.rapids.tpu.shuffle.mode=ici``, raise
+``NotImplementedError`` naming ROADMAP.md's item 'Multi-device
+execution', and nested-loop joins name 'Nested-loop and cartesian
+joins'.
 
 Device rule: the plan's device (``None``: the CUDA card) is threaded to
 every leaf the pass builds: the in-memory scan, the file scan and the
@@ -331,8 +336,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet: see ROADMAP.md, queue A item '{item}'")
 
 
-EXCHANGE_ITEM = "Partitioned join builds"
-BROADCAST_ITEM = "Broadcast exchange"
 NESTED_LOOP_ITEM = "Nested-loop and cartesian joins"
 
 
@@ -476,15 +479,86 @@ def _tag_aggregate(meta: "PlanMeta") -> None:
     _tag_output_types(meta)
 
 
+def _shuffle_partitions(conf, child) -> int:
+    from ..conf import SHUFFLE_PARTITIONS
+
+    n = conf.get(SHUFFLE_PARTITIONS)
+    return n if n > 0 else child.num_partitions
+
+
+def _mesh_eligible(conf, *schemas) -> bool:
+    """True where the reference would lower the exchange-bounded stage to
+    its device mesh (reference ``overrides.py:575``): under
+    ``shuffle.mode=ici`` over fixed-width and string columns. The port's
+    ``auto`` takes the host exchange (``conf.SHUFFLE_MODE``)."""
+    from ..conf import SHUFFLE_MODE
+
+    return conf.get(SHUFFLE_MODE) == "ici" and all(
+        T.is_fixed_width(f.dataType) or isinstance(f.dataType, T.StringType)
+        for s in schemas for f in s.fields)
+
+
+def _mesh_not_ported(name: str) -> NotImplementedError:
+    from ..exec.exchange import multi_device_not_ported
+
+    return multi_device_not_ported(
+        f"{name} (spark.rapids.tpu.shuffle.mode=ici)")
+
+
 def _convert_aggregate(cpu: C.CpuHashAggregateExec, conf, children, device):
     child = children[0]
     if child.num_partitions == 1:
         return XA.TpuHashAggregateExec(
             conf, cpu.group_exprs, cpu.agg_exprs, child, A.COMPLETE)
-    # the reference runs partial -> exchange -> final (or its mesh stage)
-    raise not_ported(
-        f"an aggregate over {child.num_partitions} partitions (the "
-        "exchange between its partial and final halves)", EXCHANGE_ITEM)
+
+    def _string_agg_input() -> bool:
+        for ae in cpu.agg_exprs:
+            f = ae.func
+            if f.input is None:
+                continue
+            try:
+                b = E.bind_references(f.child, child.output_schema)
+            except (ValueError, KeyError):
+                return True
+            if isinstance(b.dtype, (T.StringType, T.BinaryType)):
+                return True
+        return False
+
+    if cpu.group_exprs and _mesh_eligible(conf, child.output_schema) \
+            and not _string_agg_input():
+        try:
+            bound_keys = [E.bind_references(g, child.output_schema)
+                          for g in cpu.group_exprs]
+        except (ValueError, KeyError):
+            bound_keys = None
+        if bound_keys is not None and all(
+                T.is_fixed_width(b.dtype)
+                or (T.is_string(b.dtype) and isinstance(b, E.BoundReference))
+                for b in bound_keys):
+            raise _mesh_not_ported("TpuMeshAggregateExec")
+    # partial per partition -> key-hash exchange -> final merge per reduce
+    # partition (reference overrides.py:631-659): group keys are
+    # partition-disjoint after the hash exchange
+    from ..exec.exchange import TpuLazyAQEReadExec, TpuShuffleExchangeExec
+    from ..shuffle.partition import HashPartitioning, SinglePartitioning
+    from ..conf import AQE_ENABLED
+
+    partial = XA.TpuHashAggregateExec(
+        conf, cpu.group_exprs, cpu.agg_exprs, child, A.PARTIAL)
+    nk = len(cpu.group_exprs)
+    if nk == 0:
+        part = SinglePartitioning()
+    else:
+        part = HashPartitioning(list(range(nk)),
+                                _shuffle_partitions(conf, child))
+    exchanged = TpuShuffleExchangeExec(conf, partial, part)
+    final_child: TpuExec = exchanged
+    if conf.get(AQE_ENABLED) and nk > 0:
+        # the coalesce plan needs the map side's stats: planned on first
+        # touch
+        final_child = TpuLazyAQEReadExec(conf, exchanged)
+    return XA.TpuHashAggregateExec(
+        conf, cpu.group_exprs, cpu.agg_exprs, final_child, A.FINAL)
 
 
 def _sortable(dt: T.DataType) -> bool:
@@ -510,16 +584,36 @@ def _tag_sort(meta: "PlanMeta") -> None:
 
 
 def _convert_sort(cpu: C.CpuSortExec, conf, children, device):
+    from ..exec.exchange import TpuShuffleExchangeExec
     from ..exec.sort import TpuSortExec
+    from ..ops.sort import SortOrder
+    from ..shuffle.partition import RangePartitioning, SinglePartitioning
 
     child = children[0]
     if child.num_partitions == 1:
         return TpuSortExec(conf, cpu.sort_exprs, cpu.orders, child)
-    # the reference range-partitions (or runs its mesh sort), then sorts
-    # each partition locally
-    raise not_ported(
-        f"a sort over {child.num_partitions} partitions (the range "
-        "exchange or the mesh sort)", EXCHANGE_ITEM)
+    # a global sort over a partitioned child: range-exchange so that the
+    # partitions are in key order, then sort each locally (reference
+    # overrides.py:676-722)
+    schema = child.output_schema
+    try:
+        bound = [E.bind_references(e, schema) for e in cpu.sort_exprs]
+    except (ValueError, KeyError):
+        bound = []
+    refs = bool(bound) and all(isinstance(b, E.BoundReference)
+                               for b in bound)
+    P = _shuffle_partitions(conf, child)
+    if refs and _mesh_eligible(conf, schema):
+        raise _mesh_not_ported("TpuMeshSortExec")
+    if refs and P > 1:
+        part = RangePartitioning([b.ordinal for b in bound],
+                                 [SortOrder(a, nf) for a, nf in cpu.orders],
+                                 P)
+    else:
+        part = SinglePartitioning()
+    exchanged = TpuShuffleExchangeExec(conf, child, part)
+    return TpuSortExec(conf, cpu.sort_exprs, cpu.orders, exchanged,
+                       global_sort=False)
 
 
 def _tag_join(meta: "PlanMeta") -> None:
@@ -553,32 +647,80 @@ def _tag_join(meta: "PlanMeta") -> None:
 
 
 def _convert_join(cpu: C.CpuJoinExec, conf, children, device):
-    from ..conf import AUTO_BROADCAST_JOIN_THRESHOLD
+    from ..conf import AQE_ENABLED, AUTO_BROADCAST_JOIN_THRESHOLD
+    from ..exec.exchange import (TpuBroadcastExchangeExec,
+                                 TpuShuffleExchangeExec, lazy_aqe_join_pair)
     from ..exec.join import TpuShuffledHashJoinExec
+    from ..shuffle.partition import HashPartitioning, SinglePartitioning
 
     if not cpu.left_keys:
         raise not_ported(
             "TpuCartesianProductExec" if cpu.condition is None
             else "TpuBroadcastNestedLoopJoinExec", NESTED_LOOP_ITEM)
     left, right = children
-    if left.num_partitions > 1 or right.num_partitions > 1:
-        # the reference broadcasts a side under autoBroadcastJoinThreshold,
-        # else co-partitions both sides through hash exchanges
-        thresh = conf.get(AUTO_BROADCAST_JOIN_THRESHOLD)
+    # the size-thresholded broadcast hash join (reference
+    # overrides.py:776-799): the small side broadcasts and the other
+    # side's partitions probe in place, with no exchange
+    thresh = conf.get(AUTO_BROADCAST_JOIN_THRESHOLD)
+    if (thresh >= 0 and cpu.condition is None
+            and (left.num_partitions > 1 or right.num_partitions > 1)):
         lsz = cpu.children[0].estimated_size_bytes()
         rsz = cpu.children[1].estimated_size_bytes()
-        if thresh >= 0 and cpu.condition is None and (
-                (cpu.join_type in ("inner", "left", "semi", "anti")
-                 and rsz is not None and rsz <= thresh)
-                or (cpu.join_type == "right" and lsz is not None
-                    and lsz <= thresh)):
-            raise not_ported("a broadcast hash join", BROADCAST_ITEM)
-        raise not_ported(
-            "a join over partitioned sides (hash exchanges)", EXCHANGE_ITEM)
+        # the exec builds from the right side (the left for right joins)
+        if cpu.join_type in ("inner", "left", "semi", "anti") \
+                and rsz is not None and rsz <= thresh:
+            return TpuShuffledHashJoinExec(
+                conf, left, TpuBroadcastExchangeExec(conf, right),
+                cpu.left_keys, cpu.right_keys, cpu.join_type, None)
+        if cpu.join_type == "right" and lsz is not None and lsz <= thresh:
+            return TpuShuffledHashJoinExec(
+                conf, TpuBroadcastExchangeExec(conf, left), right,
+                cpu.left_keys, cpu.right_keys, cpu.join_type, None)
+    if left.num_partitions > 1 or right.num_partitions > 1:
+        # co-partition both sides by the join keys through hash exchanges
+        # (reference overrides.py:800-864); computed keys and keys of
+        # different dtypes fall back to a single partition
+        lb = rb = None
+        try:
+            lb = [E.bind_references(k, left.output_schema)
+                  for k in cpu.left_keys]
+            rb = [E.bind_references(k, right.output_schema)
+                  for k in cpu.right_keys]
+        except (ValueError, KeyError):
+            pass
+        P = max(_shuffle_partitions(conf, left),
+                _shuffle_partitions(conf, right))
+        plain = (lb is not None and rb is not None
+                 and all(isinstance(b, E.BoundReference) for b in lb)
+                 and all(isinstance(b, E.BoundReference) for b in rb)
+                 and all(lt.dtype == rt.dtype for lt, rt in zip(lb, rb)))
+        if (plain and cpu.join_type == "inner" and cpu.condition is None
+                and _mesh_eligible(conf, left.output_schema,
+                                   right.output_schema)):
+            raise _mesh_not_ported("TpuMeshHashJoinExec")
+        partitioned = plain and P > 1
+        if partitioned:
+            lpart = HashPartitioning([b.ordinal for b in lb], P)
+            rpart = HashPartitioning([b.ordinal for b in rb], P)
+        else:
+            lpart, rpart = SinglePartitioning(), SinglePartitioning()
+        left = TpuShuffleExchangeExec(conf, left, lpart)
+        right = TpuShuffleExchangeExec(conf, right, rpart)
+        if partitioned and conf.get(AQE_ENABLED) \
+                and cpu.join_type != "full":
+            # skew-split the probe side and coalesce small pairs; full
+            # outer is left out: its unmatched-build pass would run once
+            # per probe slice
+            left, right = lazy_aqe_join_pair(
+                conf, left, right, probe_left=cpu.join_type != "right")
+        return TpuShuffledHashJoinExec(
+            conf, left, right, cpu.left_keys, cpu.right_keys,
+            cpu.join_type, cpu.condition, partitioned=partitioned)
     return TpuShuffledHashJoinExec(
         conf, left, right, cpu.left_keys, cpu.right_keys,
         cpu.join_type, cpu.condition,
     )
+
 
 def _tag_window(meta: "PlanMeta") -> None:
     from ..expr import windows as W
@@ -662,13 +804,24 @@ def _convert_window(cpu: C.CpuWindowExec, conf, children, device):
     from ..exec.window import TpuWindowExec
 
     child = children[0]
-    if child.num_partitions == 1:
-        return TpuWindowExec(conf, cpu.window_exprs, child)
-    # the reference hash-exchanges by the partition keys (its mesh window)
-    # or gathers every partition first
-    raise not_ported(
-        f"a window over {child.num_partitions} partitions (the mesh window "
-        "or the gather of its partitions)", EXCHANGE_ITEM)
+    spec = cpu.window_exprs[0].spec if cpu.window_exprs else None
+    if (spec is not None and spec.partition_by
+            and child.num_partitions > 1
+            and _mesh_eligible(conf, child.output_schema)
+            and all(T.is_fixed_width(f.dataType)
+                    for f in child.output_schema.fields)):
+        try:
+            bound = [E.bind_references(k, child.output_schema)
+                     for k in spec.partition_by]
+        except (ValueError, KeyError):
+            bound = None
+        if bound is not None and all(
+                isinstance(b, E.BoundReference) and T.is_fixed_width(b.dtype)
+                for b in bound):
+            raise _mesh_not_ported("TpuMeshWindowExec")
+    # the window gathers every partition of its child into one batch
+    # (reference overrides.py:973)
+    return TpuWindowExec(conf, cpu.window_exprs, child)
 
 
 _exec_rule(C.CpuScanExec, "ScanExec", "in-memory data source", _tag_scan, _convert_scan)
@@ -834,4 +987,7 @@ class TpuOverrides:
                     f"(fell back to CPU): {bad}\n"
                     + "\n".join(meta.explain_lines())
                 )
-        return meta.convert_if_needed()
+        from ..exec.base import planning_mode
+
+        with planning_mode():  # adaptive reads must not run stages here
+            return meta.convert_if_needed()

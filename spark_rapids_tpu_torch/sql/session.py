@@ -4,8 +4,11 @@ Own copy of ``spark_rapids_tpu/sql/session.py``'s planning core: a
 DataFrame is an immutable logical node tree; ``collect()`` lowers it to a
 CPU physical plan (``cpu/plan.py``, what Spark would hand us), runs the
 override pass (``plugin/overrides.py``) and executes the result behind a
-``ColumnarToRowExec``. ``last_executed_plan`` and ``last_explain`` expose
-what happened, for the differential tests.
+``ColumnarToRowExec``. ``last_executed_plan``, ``last_explain`` and
+``explain_metrics()`` expose what happened, for the differential tests.
+A plan over several partitions (``from_rows(..., num_partitions=n)``, a
+parquet directory of several files) runs through the exchanges
+(``exec/exchange.py``).
 
 Device rule: ``TpuSession(settings, device=None)`` runs on the CUDA card,
 and raises without one unless the caller passes ``device="cpu"``.
@@ -289,6 +292,22 @@ class TpuSession:
 
     def _collect(self, node: LNode) -> List[tuple]:
         return self._execute(node).collect()
+
+    def explain_metrics(self) -> str:
+        """Per-operator report of the last executed plan (reference
+        ``session.py:692``): one line per device exec with its
+        ``describe()`` (the exchanges and adaptive reads as planned and
+        resolved) and its metrics, such as an exchange's
+        ``partitionSize``, ``dataSize`` and ``shuffleBytesWritten``."""
+        from ..exec.base import TpuExec, format_metrics
+
+        plan = self.last_executed_plan
+        if plan is None:
+            return "<no plan executed yet>"
+        node = plan.tpu_child if isinstance(plan, ColumnarToRowExec) else plan
+        if not isinstance(node, TpuExec):
+            return "<last plan ran on CPU; no device metrics>"
+        return format_metrics(node)
 
 
 class GroupedData:

@@ -264,41 +264,108 @@ def test_min_max_keep_the_sign_of_zero_as_the_reference(d, grouped, op,
         assert np.signbit(gv) == np.signbit(rv), (rv, gv)
 
 
+def _c4_rows(kind, data, keys, tier, aggs=("max", "min")):
+    """(rows by repr) of a PALLAS/SCATTER group-by with max(d)/min(d)
+    through ``kind``'s session, over (k int, g string, d double) rows."""
+    if kind == "jax":
+        from spark_rapids_tpu import types as TT
+        from spark_rapids_tpu.expr import aggregates as AA
+        from spark_rapids_tpu.expr import expressions as EE
+        from spark_rapids_tpu.sql.session import TpuSession as S
+
+        sess = S({"spark.rapids.tpu.sql.agg.strategy": tier})
+    else:
+        from spark_rapids_tpu_torch import types as TT
+        from spark_rapids_tpu_torch.expr import aggregates as AA
+        from spark_rapids_tpu_torch.expr import expressions as EE
+        from spark_rapids_tpu_torch.sql.session import TpuSession as S
+
+        sess = S({"spark.rapids.tpu.sql.agg.strategy": tier}, device="cpu")
+    sch = TT.StructType((TT.StructField("k", TT.INT),
+                         TT.StructField("g", TT.STRING),
+                         TT.StructField("d", TT.DOUBLE)))
+    fns = {"max": AA.Max, "min": AA.Min}
+    df = sess.create_dataframe(data, sch).group_by(*keys).agg(
+        *[AA.agg(fns[a](EE.col("d")), a) for a in aggs])
+    return sorted(tuple(map(repr, r)) for r in df.collect())
+
+
 def test_c4_pallas_min_max_zero_differs_after_the_sort_fallback():
-    """ROADMAP.md §C, C4 (open, pinned until item 1 closes it): under
-    PALLAS with a NULL row the hash tiers fail their check and both
-    packages fall back to the sort path. The reference reduces it on its
-    RADIX tier, whose ties give max -0.0 and min 0.0 for the group
-    (5, 0.0); the port reduces it as SCATTER does and gives max 0.0 and
-    min -0.0, the SCATTER answer of both packages."""
-    from spark_rapids_tpu import types as JT
-    from spark_rapids_tpu.expr import aggregates as JA
-    from spark_rapids_tpu.expr import expressions as JE
-    from spark_rapids_tpu.sql.session import TpuSession as JSession
-    from spark_rapids_tpu_torch import types as PT
-    from spark_rapids_tpu_torch.expr import aggregates as PA
-    from spark_rapids_tpu_torch.expr import expressions as PE
-    from spark_rapids_tpu_torch.sql.session import TpuSession as PSession
+    """ROADMAP.md §C, C4 (closed; the name is the fault's): under PALLAS
+    with a NULL row the hash tiers fail their check and both packages
+    fall back to the sort path, which the reference reduces on its RADIX
+    tiles: max -0.0 and min 0.0 for the group (5, 0.0). The port now
+    gives the same (``ops/groupby.radix_winner``), with and without the
+    NULL row; SCATTER keeps the signed zero in both packages (C1)."""
+    def data(with_null):
+        return {"k": [0, 5, 5] + ([-3] if with_null else []),
+                "g": ["x"] * (4 if with_null else 3),
+                "d": [3.0, 0.0, -0.0] + ([None] if with_null else [])}
 
-    def q(TT, EE, AA, sess):
-        sch = TT.StructType((TT.StructField("k", TT.INT),
-                             TT.StructField("d", TT.DOUBLE)))
-        df = sess.create_dataframe(
-            {"k": [0, 5, 5, -3], "d": [3.0, 0.0, -0.0, None]}, sch)
-        return df.group_by("k", "d").agg(AA.agg(AA.Max(EE.col("d")), "mx"),
-                                         AA.agg(AA.Min(EE.col("d")), "mn"))
+    for with_null in (True, False):
+        for tier in ("PALLAS", "SCATTER"):
+            ref = _c4_rows("jax", data(with_null), ("k", "d"), tier)
+            got = _c4_rows("torch", data(with_null), ("k", "d"), tier)
+            assert got == ref, (with_null, tier)
+    zero = [r for r in _c4_rows("torch", data(True), ("k", "d"), "PALLAS")
+            if r[0] == "5"]
+    assert zero == [("5", "0.0", "-0.0", "0.0")]
+    zero = [r for r in _c4_rows("torch", data(True), ("k", "d"), "SCATTER")
+            if r[0] == "5"]
+    assert zero == [("5", "0.0", "0.0", "-0.0")]
 
-    def zero_group(rows):
-        [r] = [r for r in rows if r[0] == 5]
-        return repr(r[2]), repr(r[3])
 
-    def conf(tier):
-        return {"spark.rapids.tpu.sql.agg.strategy": tier}
+#: string-keyed groups (the sort path under PALLAS): (d values of group
+#: "a", forced tile rows or 0 for the reference's own)
+C4_CASES = {
+    "nan_beside_zeros": ([0.0, -0.0, float("nan"), -0.0, 0.0], 0),
+    "zeros_then_negative_zero": ([-0.0, 0.0, -0.0], 0),
+    # tile 0's last tie (row 6, 0.0) is neither the first tie (row 5)
+    # nor the last (row 12), both -0.0
+    "max_ties_across_tiles": (
+        [-1.0] * 5 + [-0.0, 0.0] + [-1.0] * 4 + [0.0, -0.0], 8),
+    "min_ties_across_tiles": (
+        [1.0] * 6 + [0.0] * 1 + [1.0] * 5 + [-0.0, 0.0], 8),
+    "nulls_and_ties_across_tiles": (
+        [None] * 7 + [-0.0] + [None] * 7 + [0.0, -0.0], 8),
+}
 
-    assert zero_group(q(JT, JE, JA, JSession(conf("PALLAS"))).collect()) \
-        == ("-0.0", "0.0")
-    assert zero_group(q(JT, JE, JA, JSession(conf("SCATTER"))).collect()) \
-        == ("0.0", "-0.0")
-    for tier in ("PALLAS", "SCATTER"):
-        got = q(PT, PE, PA, PSession(conf(tier), device="cpu")).collect()
-        assert zero_group(got) == ("0.0", "-0.0")
+
+@pytest.mark.parametrize("case", sorted(C4_CASES))
+def test_c4_pallas_sort_fallback_min_max_are_the_references(case):
+    """C4's tie rule beyond its first input: NaN beside ±0.0, and tied
+    zeros in different tiles of the reference's tiled reduction (its
+    ``radix_bin.FORCE_TILE_ROWS`` hook and the port's copy both set to
+    8), where max keeps the last tie of the first tile that holds one.
+    A second group "b" follows in sorted order."""
+    from spark_rapids_tpu.exec import base as JB
+    from spark_rapids_tpu.ops import radix_bin as JR
+    from spark_rapids_tpu_torch.ops import radix_bin as PR
+
+    d, tile = C4_CASES[case]
+    n = len(d)
+    data = {"k": [1] * (n + 2), "g": ["a"] * n + ["b", "b"],
+            "d": d + [2.0, -0.0]}
+    JB.clear_pipeline_caches()
+    JR.FORCE_TILE_ROWS, PR.FORCE_TILE_ROWS = tile, tile
+    try:
+        for aggs in (("max",), ("min",), ("max", "min")):
+            ref = _c4_rows("jax", data, ("g",), "PALLAS", aggs)
+            got = _c4_rows("torch", data, ("g",), "PALLAS", aggs)
+            assert got == ref, aggs
+    finally:
+        JR.FORCE_TILE_ROWS, PR.FORCE_TILE_ROWS = 0, 0
+        JB.clear_pipeline_caches()
+
+
+def test_c4_max_tie_across_the_references_own_tiles():
+    """One max over 40 000 rows of one string group: the reference's tile
+    is 2^15 rows there (three streams over a 2^16 capacity). The tied
+    zeros at rows 30 000 and 32 767 lie in the first tile, the 0.0 at row
+    33 000 in the second: the answer is row 32 767's -0.0."""
+    d = [-1.0] * 40000
+    d[30000], d[32767], d[33000] = -0.0, -0.0, 0.0
+    data = {"k": [1] * 40000, "g": ["a"] * 40000, "d": d}
+    ref = _c4_rows("jax", data, ("g",), "PALLAS", ("max",))
+    got = _c4_rows("torch", data, ("g",), "PALLAS", ("max",))
+    assert got == ref == [("'a'", "-0.0")]

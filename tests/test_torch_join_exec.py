@@ -113,9 +113,11 @@ def test_left_out_join_shapes_raise():
     conf = RapidsConf({})
     scans = [InMemoryScanExec(conf, [[ColumnarBatch.from_pydict(
         d, s, device="cpu")]], s) for d, s in ((ld, pl), (rd, pr))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TpuShuffledHashJoinExec(conf, *scans, [E.col("k")], [E.col("k2")],
-                                "inner", partitioned=True)
+    # co-partitioned builds are ported: a full outer join keeps its
+    # probe side's partitions (one unmatched-build pass each)
+    full = TpuShuffledHashJoinExec(conf, *scans, [E.col("k")],
+                                   [E.col("k2")], "full", partitioned=True)
+    assert full.num_partitions == scans[0].num_partitions
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TpuShuffledHashJoinExec(conf, *scans, [E.col("k")], [E.col("k2")],
                                 "cross")

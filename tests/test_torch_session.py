@@ -370,11 +370,14 @@ def _order_by_partitioned(m, sess):
     return _df(m, sess, parts=3).order_by("k")
 
 
+ICI = {"spark.rapids.tpu.shuffle.mode": "ici"}
+
 NOT_PORTED = {
-    "order_by_partitioned": (_order_by_partitioned, {},
-                             "Partitioned join builds"),
-    "partitioned_aggregate": (_partitioned_agg, {},
-                              "Partitioned join builds"),
+    "ici_aggregate": (_partitioned_agg, ICI, "Multi-device execution"),
+    "ici_sort": (_order_by_partitioned, ICI, "Multi-device execution"),
+    "network_transport": (
+        _partitioned_agg, {"spark.rapids.tpu.shuffle.transport.class":
+                           "network"}, "Multi-device execution"),
     "cross_join": (_cross, {}, "Nested-loop and cartesian joins"),
 }
 
