@@ -275,6 +275,41 @@ Phases, each failing the run on any error or mismatch:
         4), the group by city through a hash exchange; ``q18_oracle``;
      Q14m Q14's window over 4 files: the window gathers the partitions.
 
+10. decimals, dates and timestamps (item 6), over TPC-DS ``store_sales``
+   with its spec types: 2^23 rows (SF ~2.9) seeded from dsdgen's pricing
+   (wholesale 1.00-100.00, markup, discount, quantity 1-100;
+   ``ss_ext_sales_price`` and ``ss_net_profit`` decimal(7,2)), sold-date
+   keys uniform over the sales window 2450816-2452642 with 4% NULL,
+   12 stores, plus ``ss_sold_date`` (DATE, the key's d_date) and
+   ``ss_sold_ts`` (TIMESTAMP, that date plus a seeded time of day),
+   written as 4 files of one row group with ``store_decimal_as_integer``
+   (INT32 decimals, Spark's layout); all 73 049 ``date_dim`` rows and
+   the 12 ``store`` rows with pyarrow's defaults. Each query with a cold
+   and three warm walls, a profiled run, launches set to 0 before each
+   run, and ``explain()`` with no CPU node:
+     Q25 TPC-DS q5's store channel (sales and profit by s_store_id over
+        the 15 days from cast('2000-08-23' as date) to its date_add of
+        14) under join PALLAS (K4 twice per store_sales partition) and
+        Q25a under AUTO; s_store_id leaves the broadcast join expanded,
+        so the decimal sums run on the string sort path (no K1);
+        decimal(17,2) results exact against numpy;
+     Q26 every item-6 function in one projection over the 2^23 rows: the
+        date and time fields, date_add/date_sub/datediff/last_day,
+        trunc by year and month, unix_timestamp/from_unixtime, timestamp
+        + interval, the date <-> timestamp and date/timestamp -> string
+        -> back casts, decimal + - * / across scales, decimal casts to
+        and from int, bigint, double and decimal, compares with decimal
+        literals, IN, unary minus and abs; every output held on the card
+        to its numpy / ``datetime`` oracle (dates computed over the
+        distinct days and gathered), the strings by their lengths, byte
+        sums or round trips and a 2^12-row sample against Python's
+        formatting; no kernel launches;
+     Q27 group by ss_sold_date: count(*), sum(ss_ext_sales_price),
+        avg(ss_net_profit) (decimal(11,6), HALF_UP), min(ss_net_profit),
+        max(ss_sold_ts), order by the date: 1 827 date keys on the direct
+        tier, K1 on the sums and K3 on the min and max, exact against
+        numpy and Python's ``Decimal``.
+
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
 K1 and K3 at that shape, K4 at Q8's and Q18's, the ordered sum at
@@ -4316,17 +4351,17 @@ Q11M_FILES = 8
 MULTI_FILES = 4
 
 
-def _write_files(pa, pq, path: str, table, files: int) -> float:
+def _write_files(pa, pq, path: str, table, files: int, **kw) -> float:
     """``table`` as ``files`` parquet files of one row group each under
-    ``path`` (pyarrow's other defaults: dictionary pages, snappy);
-    returns the seconds taken."""
+    ``path`` (pyarrow's other defaults, unless ``kw`` sets them:
+    dictionary pages, snappy); returns the seconds taken."""
     t0 = time.perf_counter()
     os.makedirs(path)
     per = -(-table.num_rows // files)
     for i in range(files):
         pq.write_table(table.slice(i * per, per),
                        os.path.join(path, f"part-{i}.parquet"),
-                       row_group_size=per)
+                       row_group_size=per, **kw)
     return time.perf_counter() - t0
 
 
@@ -4614,6 +4649,576 @@ def exchange_phase(torch, np, dev) -> dict:
     return per_query
 
 
+# ---------------------------------------------------------------------------
+# decimal and date phase (Q25-Q27): TPC-DS store_sales with its spec types
+# ---------------------------------------------------------------------------
+#: store_sales rows of Q25-Q27, as a power of two (TPC-DS SF 1 has
+#: 2 880 404)
+SALES_LOG2_ROWS = 23
+#: d_date_sk of the first date_dim row (1900-01-02) and the row count
+DATE_DIM_FIRST_SK = 2_415_022
+DATE_DIM_ROWS = 73_049
+#: d_date_sk - JULIAN_EPOCH = days since 1970-01-01 (a Julian day number)
+JULIAN_EPOCH = 2_440_588
+#: the d_date_sk range dsdgen draws store_sales' sold dates from
+SALES_FIRST_SK, SALES_LAST_SK = 2_450_816, 2_452_642
+STORES = 12
+US_PER_DAY = 86_400_000_000
+#: q5's first day and its width (date_add(cast('2000-08-23' as date), 14))
+Q25_FIRST = "2000-08-23"
+Q25_DAYS = 14
+
+
+def store_sales_table(np, n: int) -> dict:
+    """TPC-DS store_sales rows (``rng(25)``): row ids (ss_ticket_number),
+    sold-date keys (4% NULL), stores, quantities and the two decimal(7,2)
+    amounts in cents from dsdgen's pricing (wholesale 1.00-100.00, a
+    markup of 0-200%, a discount of 0-100%; profit = ext sales price -
+    ext wholesale cost; 2% NULL each), the sold date in days and a sold
+    timestamp in microseconds (NULL with the date key)."""
+    rng = np.random.default_rng(25)
+    sk = rng.integers(SALES_FIRST_SK, SALES_LAST_SK + 1, n).astype(np.int32)
+    dvalid = rng.random(n) >= 0.04
+    store = rng.integers(1, STORES + 1, n).astype(np.int32)
+    qty = rng.integers(1, 101, n).astype(np.int32)
+    wholesale = rng.integers(100, 10_001, n)
+    listed = wholesale * (100 + rng.integers(0, 201, n)) // 100
+    sold = listed * (100 - rng.integers(0, 101, n)) // 100
+    price = sold * qty
+    profit = price - wholesale * qty
+    days = sk.astype(np.int64) - JULIAN_EPOCH
+    return {"id": np.arange(n, dtype=np.int64), "sk": sk, "dvalid": dvalid,
+            "store": store, "qty": qty, "price": price,
+            "pvalid": rng.random(n) >= 0.02, "profit": profit,
+            "fvalid": rng.random(n) >= 0.02, "days": days,
+            "ts": days * US_PER_DAY + rng.integers(0, US_PER_DAY, n)}
+
+
+def _pa_decimal(pa, np, unscaled, valid, precision: int, scale: int):
+    """A decimal128 Arrow array from int64 unscaled values (the 16-byte
+    little-endian words: the value and its sign extension)."""
+    words = np.stack([unscaled, unscaled >> 63], axis=1).astype(np.int64)
+    return pa.Array.from_buffers(
+        pa.decimal128(precision, scale), unscaled.size,
+        [pa.py_buffer(np.packbits(valid, bitorder="little")),
+         pa.py_buffer(words.tobytes())])
+
+
+def tpcds_sales_tables(pa, np, t: dict) -> dict:
+    """The three tables of Q25-Q27 as pyarrow tables."""
+    dv = t["dvalid"]
+    sales = pa.table({
+        "ss_ticket_number": t["id"],
+        "ss_sold_date_sk": pa.array(t["sk"], mask=~dv),
+        "ss_store_sk": t["store"], "ss_quantity": t["qty"],
+        "ss_ext_sales_price": _pa_decimal(pa, np, t["price"], t["pvalid"],
+                                          7, 2),
+        "ss_net_profit": _pa_decimal(pa, np, t["profit"], t["fvalid"], 7, 2),
+        "ss_sold_date": pa.array(t["days"].astype(np.int32), pa.date32(),
+                                 mask=~dv),
+        "ss_sold_ts": pa.array(t["ts"], pa.timestamp("us"), mask=~dv)})
+    dsk = np.arange(DATE_DIM_FIRST_SK, DATE_DIM_FIRST_SK + DATE_DIM_ROWS,
+                    dtype=np.int32)
+    ddays = dsk.astype(np.int64) - JULIAN_EPOCH
+    years = ddays.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+    date_dim = pa.table({
+        "d_date_sk": dsk,
+        "d_date": pa.array(ddays.astype(np.int32), pa.date32()),
+        "d_year": years.astype(np.int32)})
+    store = pa.table({
+        "s_store_sk": np.arange(1, STORES + 1, dtype=np.int32),
+        "s_store_id": [item_id(i) for i in range(1, STORES + 1)]})
+    return {"store_sales": sales, "date_dim": date_dim, "store": store}
+
+
+def _iso_days(iso: str) -> int:
+    import datetime
+
+    return (datetime.date.fromisoformat(iso)
+            - datetime.date(1970, 1, 1)).days
+
+
+def q25_df(sess, paths: dict, E, A, T):
+    """Q25, TPC-DS q5's store channel, as a DataFrame of ``sess`` over
+    the tables at ``paths`` (E, A, T: the expression, aggregate and type
+    modules of the session's package)."""
+    first = E.Cast(E.lit(Q25_FIRST), T.DATE)
+    dd = sess.read.parquet(paths["date_dim"]).where(E.And(
+        E.GreaterThanOrEqual(E.col("d_date"), first),
+        E.LessThanOrEqual(E.col("d_date"),
+                          E.DateAdd(first, E.lit(Q25_DAYS)))))
+    return (sess.read.parquet(paths["store_sales"])
+            .join(dd, [("ss_sold_date_sk", "d_date_sk")])
+            .join(sess.read.parquet(paths["store"]),
+                  [("ss_store_sk", "s_store_sk")])
+            .group_by("s_store_id")
+            .agg(A.agg(A.Sum(E.col("ss_ext_sales_price")), "sales"),
+                 A.agg(A.Sum(E.col("ss_net_profit")), "profit"))
+            .order_by("s_store_id"))
+
+
+def q27_df(sess, path: str, E, A):
+    """Q27, the per-day rollup, as a DataFrame of ``sess`` over the
+    store_sales files at ``path``."""
+    return (sess.read.parquet(path)
+            .group_by("ss_sold_date")
+            .agg(A.agg(A.Count(None), "n"),
+                 A.agg(A.Sum(E.col("ss_ext_sales_price")), "sales"),
+                 A.agg(A.Average(E.col("ss_net_profit")), "avg"),
+                 A.agg(A.Min(E.col("ss_net_profit")), "lo"),
+                 A.agg(A.Max(E.col("ss_sold_ts")), "last"))
+            .order_by("ss_sold_date"))
+
+
+def q25_oracle(np, t: dict) -> list:
+    """Q25's rows: (s_store_id, sales, profit) by store id, the sums as
+    ``Decimal`` (None where every input is NULL)."""
+    from decimal import Decimal
+
+    d0 = _iso_days(Q25_FIRST)
+    keep = t["dvalid"] & (t["days"] >= d0) & (t["days"] <= d0 + Q25_DAYS)
+    out = []
+    for s in range(1, STORES + 1):
+        m = keep & (t["store"] == s)
+        sums = []
+        for v, ok in (("price", "pvalid"), ("profit", "fvalid")):
+            mm = m & t[ok]
+            sums.append(Decimal(int(t[v][mm].sum())).scaleb(-2)
+                        if mm.any() else None)
+        if m.any():
+            out.append((item_id(s), *sums))
+    return sorted(out)
+
+
+def q27_oracle(np, t: dict) -> list:
+    """Q27's rows by sold date (NULL first): count(*), sum of the price,
+    avg of the profit at scale 6 HALF_UP, min of the profit, max of the
+    timestamp."""
+    import decimal
+    from decimal import Decimal
+
+    ctx = decimal.Context(prec=50, rounding=decimal.ROUND_HALF_UP)
+    key = np.where(t["dvalid"], t["days"], np.iinfo(np.int64).min)
+    order = np.argsort(key, kind="stable")
+    bounds = np.flatnonzero(np.diff(key[order])) + 1
+    rows = []
+    for g in np.split(order, bounds):
+        k = None if not t["dvalid"][g[0]] else int(t["days"][g[0]])
+        p = g[t["pvalid"][g]]
+        f = g[t["fvalid"][g]]
+        ts = g[t["dvalid"][g]]
+        avg = None
+        if f.size:
+            avg = (Decimal(int(t["profit"][f].sum())).scaleb(-2, ctx)
+                   / Decimal(f.size)).quantize(Decimal("1e-6"), context=ctx)
+        rows.append((k, int(g.size),
+                     Decimal(int(t["price"][p].sum())).scaleb(-2)
+                     if p.size else None, avg,
+                     Decimal(int(t["profit"][f].min())).scaleb(-2)
+                     if f.size else None,
+                     int(t["ts"][ts].max()) if ts.size else None))
+    return rows
+
+
+def _half_up(np, num, den):
+    """round_half_up(num / den) on int64 arrays, den > 0."""
+    q = np.where(num < 0, -((-num) // den), num // den)
+    rem = num - q * den
+    return q + np.where(np.abs(rem) * 2 >= den, np.sign(num), 0)
+
+
+def _ts_text_lens(np, us):
+    """Lengths of cast(timestamp as string): 19, plus a '.' and the
+    fraction's digits without trailing zeros when it is not 0."""
+    frac = us % 1_000_000
+    zeros = np.zeros(us.size, np.int64)
+    for k in range(1, 6):
+        zeros = np.where(frac % 10 ** k == 0, k, zeros)
+    return 19 + np.where(frac != 0, 7 - zeros, 0)
+
+
+def q26_projections(np, t: dict):
+    """(name, build(col, lit, E, T), oracle) of Q26's projection. An
+    oracle returns ``(data, valid)`` per row (data None: only the
+    validity is checked), or for a string ``("text", lens, byte_sums or
+    None, valid)``. Date fields come from ``datetime`` over the distinct
+    days, gathered."""
+    import calendar
+    import datetime
+    from decimal import Decimal
+
+    days, dv, ts = t["days"], t["dvalid"], t["ts"]
+    qty = t["qty"].astype(np.int64)
+    pu, pv, fu, fv = t["price"], t["pvalid"], t["profit"], t["fvalid"]
+    uniq, inv = np.unique(days, return_inverse=True)
+    dates = [datetime.date(1970, 1, 1) + datetime.timedelta(int(d))
+             for d in uniq]
+
+    def per_day(fn, dtype=np.int64):
+        return np.array([fn(d) for d in dates], dtype)[inv]
+
+    def days_of(d):
+        return (d - datetime.date(1970, 1, 1)).days
+
+    d2000 = _iso_days("2000-01-01")
+    sod = (ts - days * US_PER_DAY) // 1_000_000
+    ones = np.ones(days.size, bool)
+    both = pv & fv
+    text = [s.isoformat().encode() for s in dates]
+    D = Decimal
+    return [
+        ("year", lambda c, l, E, T: E.Year(c("ss_sold_date")),
+         lambda: (per_day(lambda d: d.year), dv)),
+        ("quarter", lambda c, l, E, T: E.Quarter(c("ss_sold_date")),
+         lambda: (per_day(lambda d: (d.month - 1) // 3 + 1), dv)),
+        ("month", lambda c, l, E, T: E.Month(c("ss_sold_date")),
+         lambda: (per_day(lambda d: d.month), dv)),
+        ("dayofmonth", lambda c, l, E, T: E.DayOfMonth(c("ss_sold_date")),
+         lambda: (per_day(lambda d: d.day), dv)),
+        ("dayofyear", lambda c, l, E, T: E.DayOfYear(c("ss_sold_ts")),
+         lambda: (per_day(lambda d: d.timetuple().tm_yday), dv)),
+        ("dayofweek", lambda c, l, E, T: E.DayOfWeek(c("ss_sold_date")),
+         lambda: (per_day(lambda d: d.isoweekday() % 7 + 1), dv)),
+        ("weekday", lambda c, l, E, T: E.WeekDay(c("ss_sold_date")),
+         lambda: (per_day(lambda d: d.weekday()), dv)),
+        ("hour", lambda c, l, E, T: E.Hour(c("ss_sold_ts")),
+         lambda: (sod // 3600, dv)),
+        ("minute", lambda c, l, E, T: E.Minute(c("ss_sold_ts")),
+         lambda: (sod // 60 % 60, dv)),
+        ("second", lambda c, l, E, T: E.Second(c("ss_sold_ts")),
+         lambda: (sod % 60, dv)),
+        ("date_add", lambda c, l, E, T: E.DateAdd(c("ss_sold_date"),
+                                                   l(30)),
+         lambda: (days + 30, dv)),
+        ("date_sub", lambda c, l, E, T: E.DateSub(c("ss_sold_date"),
+                                                   c("ss_quantity")),
+         lambda: (days - qty, dv)),
+        ("datediff", lambda c, l, E, T: E.DateDiff(
+            c("ss_sold_date"), E.Cast(l("2000-01-01"), T.DATE)),
+         lambda: (days - d2000, dv)),
+        ("last_day", lambda c, l, E, T: E.LastDay(c("ss_sold_date")),
+         lambda: (per_day(lambda d: days_of(d.replace(
+             day=calendar.monthrange(d.year, d.month)[1]))), dv)),
+        ("trunc_year", lambda c, l, E, T: E.TruncDate(c("ss_sold_date"),
+                                                       l("year")),
+         lambda: (per_day(lambda d: days_of(d.replace(month=1, day=1))),
+                  dv)),
+        ("trunc_month", lambda c, l, E, T: E.TruncDate(c("ss_sold_date"),
+                                                        l("MM")),
+         lambda: (per_day(lambda d: days_of(d.replace(day=1))), dv)),
+        ("unix_timestamp", lambda c, l, E, T: E.UnixTimestamp(
+            c("ss_sold_ts")),
+         lambda: (ts // 1_000_000, dv)),
+        ("unix_date", lambda c, l, E, T: E.ToUnixTimestamp(
+            c("ss_sold_date")),
+         lambda: (days * 86_400, dv)),
+        ("from_unixtime", lambda c, l, E, T: E.FromUnixTime(
+            E.UnixTimestamp(c("ss_sold_ts")), l("yyyy-MM-dd HH:mm:ss")),
+         lambda: ("text", np.full(days.size, 19), None, dv)),
+        ("time_add", lambda c, l, E, T: E.TimeAdd(c("ss_sold_ts"), 1,
+                                                   3_600_000_000),
+         lambda: (ts + US_PER_DAY + 3_600_000_000, dv)),
+        ("date_to_ts", lambda c, l, E, T: E.Cast(c("ss_sold_date"),
+                                                  T.TIMESTAMP),
+         lambda: (days * US_PER_DAY, dv)),
+        ("ts_to_date", lambda c, l, E, T: E.Cast(c("ss_sold_ts"), T.DATE),
+         lambda: (days, dv)),
+        ("date_text", lambda c, l, E, T: E.Cast(c("ss_sold_date"),
+                                                 T.STRING),
+         lambda: ("text", np.full(days.size, 10),
+                  np.array([sum(b) for b in text], np.int64)[inv], dv)),
+        ("date_text_back", lambda c, l, E, T: E.Cast(E.Cast(
+            c("ss_sold_date"), T.STRING), T.DATE),
+         lambda: (days, dv)),
+        ("ts_text", lambda c, l, E, T: E.Cast(c("ss_sold_ts"), T.STRING),
+         lambda: ("text", _ts_text_lens(np, ts), None, dv)),
+        ("ts_text_back", lambda c, l, E, T: E.Cast(E.Cast(
+            c("ss_sold_ts"), T.STRING), T.TIMESTAMP),
+         lambda: (ts, dv)),
+        ("price_plus_profit", lambda c, l, E, T: E.Add(
+            c("ss_ext_sales_price"), c("ss_net_profit")),
+         lambda: (pu + fu, both)),
+        ("price_minus_qty", lambda c, l, E, T: E.Subtract(
+            c("ss_ext_sales_price"), c("ss_quantity")),
+         lambda: (pu - qty * 100, pv)),
+        ("price_times_qty", lambda c, l, E, T: E.Multiply(
+            c("ss_ext_sales_price"), c("ss_quantity")),
+         lambda: (pu * qty, pv)),
+        ("price_times_profit", lambda c, l, E, T: E.Multiply(
+            c("ss_ext_sales_price"), c("ss_net_profit")),
+         lambda: (pu * fu, both)),
+        ("price_over_qty", lambda c, l, E, T: E.Divide(
+            c("ss_ext_sales_price"), c("ss_quantity")),
+         lambda: (_half_up(np, pu * 10 ** 11, qty), pv)),
+        ("price_over_profit", lambda c, l, E, T: E.Divide(
+            c("ss_ext_sales_price"), c("ss_net_profit")),
+         lambda: (_half_up(np, np.where(fu < 0, -pu, pu) * 10 ** 10,
+                           np.maximum(np.abs(fu), 1)), both & (fu != 0))),
+        ("price_to_int", lambda c, l, E, T: E.Cast(c("ss_ext_sales_price"),
+                                                    T.INT),
+         lambda: (pu // 100, pv)),
+        ("profit_to_bigint", lambda c, l, E, T: E.Cast(
+            c("ss_net_profit"), T.LONG),
+         lambda: (np.where(fu < 0, -((-fu) // 100), fu // 100), fv)),
+        ("profit_to_double", lambda c, l, E, T: E.Cast(
+            c("ss_net_profit"), T.DOUBLE),
+         lambda: (fu / 100.0, fv)),
+        ("price_to_dec9_4", lambda c, l, E, T: E.Cast(
+            c("ss_ext_sales_price"), T.DecimalType(9, 4)),
+         lambda: (pu * 100, pv)),
+        ("profit_to_dec5_0", lambda c, l, E, T: E.Cast(
+            c("ss_net_profit"), T.DecimalType(5, 0)),
+         lambda: (_half_up(np, fu, 100), fv)),
+        ("qty_to_dec5_2", lambda c, l, E, T: E.Cast(c("ss_quantity"),
+                                                     T.DecimalType(5, 2)),
+         lambda: (qty * 100, ones)),
+        ("price_gt_lit", lambda c, l, E, T: E.GreaterThan(
+            c("ss_ext_sales_price"), l(D("100.50"))),
+         lambda: (pu > 10_050, pv)),
+        ("profit_le_lit", lambda c, l, E, T: E.LessThanOrEqual(
+            c("ss_net_profit"), l(D("-12.3"))),
+         lambda: (fu <= -1_230, fv)),
+        ("price_gt_profit_dec9_4", lambda c, l, E, T: E.GreaterThan(
+            c("ss_ext_sales_price"), E.Cast(c("ss_net_profit"),
+                                            T.DecimalType(9, 4))),
+         lambda: (pu > fu, both)),
+        ("minus_profit", lambda c, l, E, T: E.UnaryMinus(
+            c("ss_net_profit")),
+         lambda: (-fu, fv)),
+        ("abs_profit", lambda c, l, E, T: E.Abs(c("ss_net_profit")),
+         lambda: (np.abs(fu), fv)),
+    ]
+
+
+def _byte_sums(torch, offsets, chars, n: int):
+    """Per-row sums of a string column's bytes."""
+    cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=chars.device),
+                    torch.cumsum(chars.to(torch.int64), 0)])
+    o = offsets[: n + 1].long()
+    return cs[o[1:]] - cs[o[:-1]]
+
+
+def q26_check(torch, np, batches, projs, wants, dev):
+    """Hold every output of Q26's batches to its oracle on the card:
+    validity and (valid) values equal, doubles bit for bit; a string's
+    lengths and, where given, byte sums. Returns each output's checksum
+    (the sum of its valid values, or of a string's lengths)."""
+    sums = {name: 0 for name, _, _ in projs}
+    rows = 0
+    for b in batches:
+        n = int(b.num_rows)
+        rows += n
+        ids = b.columns[0].data[:n]
+        for (name, _, _), col, want in zip(projs, b.columns[1:], wants):
+            v = col.validity[:n]
+            if not torch.equal(v, want[-1][ids]):
+                raise AssertionError(f"Q26 {name}: validity differs")
+            if isinstance(want[0], str):
+                lens = (col.offsets[1:n + 1] - col.offsets[:n]).to(torch.int64)
+                got = torch.where(v, lens, 0)
+                if not torch.equal(got, torch.where(v, want[1][ids], 0)):
+                    raise AssertionError(f"Q26 {name}: lengths differ")
+                if want[2] is not None and not torch.equal(
+                        torch.where(v, _byte_sums(torch, col.offsets,
+                                                  col.chars, n), 0),
+                        torch.where(v, want[2][ids], 0)):
+                    raise AssertionError(f"Q26 {name}: bytes differ")
+                sums[name] += int(got.sum())
+                continue
+            got = col.data[:n]
+            exp = want[0][ids].to(got.dtype)
+            if got.is_floating_point():
+                got, exp = got.view(torch.int64), exp.view(torch.int64)
+            got = torch.where(v, got, torch.zeros_like(got))
+            if not torch.equal(got, torch.where(v, exp, torch.zeros_like(
+                    exp))):
+                bad = int(torch.nonzero(got != torch.where(
+                    v, exp, torch.zeros_like(exp)))[0])
+                raise AssertionError(
+                    f"Q26 {name}: row {int(ids[bad])}: {got[bad].item()} != "
+                    f"{exp[bad].item()}")
+            sums[name] += int(got.to(torch.int64).sum())
+    return rows, sums
+
+
+def dates_query(torch, q: str, sess, df_of, check, rows: int, nbytes: int,
+                expect) -> dict:
+    """One query of the item-6 phase through the session: ``explain()``
+    must show no CPU node, then :func:`exchange_query`'s walls, launch
+    check (``expect(counts)``), exchanges and profile."""
+    text = df_of().explain()
+    if any(ln.lstrip().startswith("!") for ln in text.splitlines()):
+        raise AssertionError(f"{q}: part of the plan falls back:\n{text}")
+    counts = exchange_query(torch, q, sess, df_of, check, "Tpu", rows,
+                            nbytes, expect)
+    emit({"query": q, "explain": text.splitlines()})
+    return counts
+
+
+def decimal_date_phase(torch, np, dev) -> dict:
+    """Q25, Q25a, Q26 and Q27 (see the module docstring) over the tables
+    of :func:`tpcds_sales_tables`, written under ``_chip_data/`` and
+    removed after. Returns each path's launches."""
+    import datetime
+    import shutil
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.sql import session as S
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, PARQUET_DIR)
+    shutil.rmtree(base, ignore_errors=True)
+    n = 1 << SALES_LOG2_ROWS
+    t = store_sales_table(np, n)
+    tables = tpcds_sales_tables(pa, np, t)
+    paths = {k: os.path.join(base, k) for k in tables}
+    per_query = {}
+
+    def fresh(settings):
+        DeviceScanCache.reset()
+        S._SCANNER_CACHE.clear()
+        return S.TpuSession(settings, device=dev)
+
+    try:
+        write_s = _write_files(pa, pq, paths["store_sales"],
+                               tables["store_sales"], MULTI_FILES,
+                               store_decimal_as_integer=True)
+        write_s += _write_files(pa, pq, paths["date_dim"],
+                                tables["date_dim"], 1)
+        write_s += _write_files(pa, pq, paths["store"], tables["store"], 1)
+        emit({"table": "store_sales, date_dim, store",
+              "files": [MULTI_FILES, 1, 1], "rows": n,
+              "date_dim_rows": DATE_DIM_ROWS, "stores": STORES,
+              "write_s": write_s})
+
+        # --- Q25 / Q25a: TPC-DS q5's store channel --------------------------
+        want25 = q25_oracle(np, t)
+
+        def check25(rows, q):
+            if rows != want25:
+                raise AssertionError(f"{q}: {rows[:3]} != {want25[:3]}")
+
+        for q, strategy in (("Q25", "PALLAS"), ("Q25a", "AUTO")):
+            sess = fresh({"spark.rapids.tpu.sql.join.strategy": strategy})
+
+            def expect(c, strategy=strategy):
+                return strategy != "PALLAS" or c["probe_ranges"] > 0
+
+            per_query[q] = dates_query(
+                torch, q, sess,
+                lambda sess=sess: q25_df(sess, paths, E, A, T),
+                lambda rows, q=q: check25(rows, q), n, n * 20 + 73_049 * 12,
+                expect)
+
+        # --- Q26: every item-6 function in one projection -------------------
+        projs = q26_projections(np, t)
+        sess = fresh({"spark.rapids.tpu.sql.castStringToTimestamp.enabled":
+                      True})
+        wants = [tuple(a if a is None or isinstance(a, str)
+                       else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in oracle()) for _, _, oracle in projs]
+
+        def q26_df():
+            return sess.read.parquet(paths["store_sales"]).select(
+                col("ss_ticket_number"),
+                *[E.Alias(build(col, lit, E, T), name)
+                  for name, build, _ in projs])
+
+        outs = []
+
+        def run26():
+            plan = sess._execute(q26_df().node).tpu_child
+            outs[:] = [b for p in range(plan.num_partitions)
+                       for b in plan.execute_partition(p)]
+            return outs
+
+        def check26(batches):
+            got, sums = q26_check(torch, np, batches, projs, wants, dev)
+            if got != n:
+                raise AssertionError(f"Q26: {got} rows, expected {n}")
+            outs.append(sums)
+
+        text = q26_df().explain()
+        if any(ln.lstrip().startswith("!") for ln in text.splitlines()):
+            raise AssertionError(f"Q26: part of the plan falls back:\n"
+                                 f"{text}")
+        cold, warm, counts = _walls(torch, "Q26", run26, check26)
+        if any(counts.values()):
+            raise AssertionError(f"Q26 launched {counts}")
+        sums = outs[-1]
+        rng = np.random.default_rng(26)
+        b0 = outs[0]
+        m = int(b0.num_rows)
+        idx = np.sort(rng.choice(m, min(m, 1 << 12), replace=False))
+        sample = _sample_rows(torch, b0, torch.from_numpy(idx).to(dev))
+        names = [p[0] for p in projs]
+        for i in range(idx.size):
+            r = int(sample[0][i])
+            for name, fmt in (("date_text", "%Y-%m-%d"),
+                              ("ts_text", None),
+                              ("from_unixtime", "%Y-%m-%d %H:%M:%S")):
+                g = sample[1 + names.index(name)][i]
+                if not t["dvalid"][r]:
+                    want = None
+                else:
+                    dt = datetime.datetime(1970, 1, 1) + datetime.timedelta(
+                        microseconds=int(t["ts"][r]))
+                    if name == "date_text":
+                        want = dt.date().isoformat()
+                    elif name == "from_unixtime":
+                        want = dt.strftime(fmt)
+                    else:
+                        want = dt.isoformat(" ")
+                        if "." in want:
+                            want = want.rstrip("0")
+                if g != want:
+                    raise AssertionError(f"Q26 {name} row {r}: {g!r} != "
+                                         f"{want!r}")
+        del outs[:]
+        nbytes = n * (8 + 4 + 4 + 8 + 8 + 4 + 8)
+        per_query["Q26"] = counts
+        emit({"query": "Q26", "rows": n, "functions": names,
+              "checksums": sums, "sample_rows": int(idx.size),
+              "cold_wall_ms": cold, "warm_wall_ms": warm, "bytes": nbytes,
+              "bound_ms": bound_ms(nbytes), "launches": counts,
+              "explain": text.splitlines()})
+        profile_run(torch, "Q26", lambda: _timed(torch, run26), n, nbytes,
+                    unprofiled=0)
+        del outs[:]
+
+        # --- Q27: a date-keyed decimal aggregate ----------------------------
+        want27 = q27_oracle(np, t)
+        sess = fresh({})
+
+        def q27():
+            return q27_df(sess, paths["store_sales"], E, A)
+
+        def check27(rows):
+            if rows != want27:
+                bad = next(i for i, (a, b) in enumerate(zip(rows, want27))
+                           if a != b) if len(rows) == len(want27) else None
+                raise AssertionError(
+                    f"Q27: {len(rows)} rows (want {len(want27)}), first "
+                    f"difference at {bad}: "
+                    f"{rows[bad] if bad is not None else ''} != "
+                    f"{want27[bad] if bad is not None else ''}")
+
+        per_query["Q27"] = dates_query(
+            torch, "Q27", sess, q27, check27, n, n * (4 + 4 + 4 + 8),
+            lambda c: c["bucket_sum"] > 0 and c["bucket_winner"] > 0)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return per_query
+
+
 def build_all() -> dict:
     """Build every kernel library from the sources beside this script,
     one ``nvcc`` per source, all started together."""
@@ -4772,6 +5377,8 @@ def main() -> int:
     lap("Q22-Q24")
     per_query.update(exchange_phase(torch, np, dev))
     lap("Q11m-Q14m")
+    per_query.update(decimal_date_phase(torch, np, dev))
+    lap("Q25-Q27")
     emit({"phase_s": phase_s})
     for q, counts in per_query.items():
         if q != "Q10" and counts["word_counts"]:

@@ -4,7 +4,8 @@ Counterpart of ``spark_rapids_tpu/columnar/column.py``. A fixed-width
 column is a ``data`` tensor of the storage dtype plus a bool ``validity``
 tensor, both of length ``capacity`` — the same power-of-two bucket the
 reference picks (:func:`choose_capacity`), so capacities and padding line
-up row for row. Padding slots hold validity False and zeroed data. A
+up row for row. A decimal column holds int64 unscaled values, a DATE int32
+days and a TIMESTAMP int64 microseconds (UTC), as the reference's. Padding slots hold validity False and zeroed data. A
 string (or binary) column is ``offsets`` (capacity+1 int32, flat past the
 last row) plus ``chars`` (the uint8 byte pool, padded with zeros to
 ``choose_capacity(total bytes)``) plus ``validity``; null rows hold no
@@ -16,13 +17,14 @@ layout.
 from __future__ import annotations
 
 import dataclasses
+import decimal as _dec
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..expr.values import DictV, StrV, materialize_dict
-from ..types import STRING, BinaryType, DataType, NullType, \
+from ..types import STRING, BinaryType, DataType, DecimalType, NullType, \
     check_storable, is_string, torch_dtype
 
 
@@ -122,19 +124,35 @@ class HostColumn:
             data[:] = list(values)
             return HostColumn(dtype, data, validity)
         data = np.zeros(n, dtype=dtype.to_numpy())
+        if isinstance(dtype, DecimalType):
+            # DECIMAL64: a Decimal, str or int -> its unscaled int64,
+            # quantized HALF_UP to the scale (reference column.py:85-96)
+            q = _dec.Decimal(1).scaleb(-dtype.scale)
+            for i, v in enumerate(values):
+                if v is not None:
+                    data[i] = int(_dec.Decimal(str(v)).quantize(
+                        q, rounding=_dec.ROUND_HALF_UP).scaleb(dtype.scale))
+            return HostColumn(dtype, data, validity)
         for i, v in enumerate(values):
             if v is not None:
                 data[i] = v
         return HostColumn(dtype, data, validity)
 
     def to_pylist(self) -> List[Any]:
+        """Python values: ints for DATE (days) and TIMESTAMP (µs), a
+        ``Decimal`` for a decimal, as the reference's ``to_pylist``."""
+        scale = (self.dtype.scale if isinstance(self.dtype, DecimalType)
+                 else None)
         out: List[Any] = []
         for i in range(len(self.data)):
             if not self.validity[i]:
                 out.append(None)
             else:
                 v = self.data[i]
-                out.append(v.item() if isinstance(v, np.generic) else v)
+                v = v.item() if isinstance(v, np.generic) else v
+                if scale is not None:
+                    v = _dec.Decimal(v).scaleb(-scale)
+                out.append(v)
         return out
 
     def to_device(self, capacity: Optional[int] = None,

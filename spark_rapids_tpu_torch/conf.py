@@ -88,7 +88,7 @@ ENABLE_CAST_STRING_TO_INTEGER = conf(
 DECIMAL_ENABLED = conf(
     "spark.rapids.tpu.sql.decimalType.enabled", True,
     "Enable DECIMAL(<=18) columns on the device (stored as int64 "
-    "unscaled). The port's decimal columns are not ported yet and raise.")
+    "unscaled).")
 UDF_COMPILER_ENABLED = conf(
     "spark.rapids.tpu.sql.udfCompiler.enabled", False,
     "Compile Python scalar UDF bytecode into engine expression trees. "

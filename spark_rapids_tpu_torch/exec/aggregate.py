@@ -132,8 +132,8 @@ class TpuHashAggregateExec(TpuExec):
             if f.input is not None:
                 if self.mode == A.FINAL:
                     bf = child_schema.fields[bufpos]
-                    f = dataclasses.replace(
-                        f, child=E.BoundReference(bufpos, bf.dataType, True))
+                    f = dataclasses.replace(f, child=E.BoundReference(
+                        bufpos, A.merge_input_type(f, bf.dataType), True))
                 else:
                     f = dataclasses.replace(
                         f, child=E.bind_references(f.child, child_schema))

@@ -4,8 +4,11 @@ Counterpart of ``spark_rapids_tpu/expr/aggregates.py``: Count, Sum,
 Average, Min, Max, First and Last with the same ``update_ops``,
 ``merge_ops``, buffer schemas and ``evaluate`` projections, and the
 PARTIAL/FINAL/COMPLETE modes. The kernel op names are the ones
-``ops/groupby.segment_reduce`` understands. Decimal inputs are not ported
-yet.
+``ops/groupby.segment_reduce`` understands. A decimal ``sum`` buffers in
+``decimal(p+10, s)`` (int64 unscaled, so the integer sum tiers take it)
+and finishes through ``_DecimalSumCheck``; a decimal ``avg`` finishes as
+``decimal(p+4, s+4)`` through ``_DecimalAvgEval``. Past DECIMAL64 either
+raises ``TypeError``, which the planner reads as a fallback reason.
 """
 from __future__ import annotations
 
@@ -82,10 +85,32 @@ class Count(AggregateFunction):
 
 def _sum_result_type(dt: DataType) -> DataType:
     if isinstance(dt, T.DecimalType):
-        raise NotImplementedError(f"sum({dt}) is {T.NOT_PORTED_TYPES}")
+        # Spark: sum(decimal(p,s)) = decimal(p+10, s). Past DECIMAL64 the
+        # aggregate tags unsupported and falls back (an int64 buffer
+        # could wrap into a wrong non-null answer), as in the reference
+        if dt.precision + 10 > T.DecimalType.MAX_PRECISION:
+            raise TypeError(
+                f"sum({dt}) buffer needs precision {dt.precision + 10} > "
+                f"DECIMAL64 cap {T.DecimalType.MAX_PRECISION}")
+        return T.DecimalType(dt.precision + 10, dt.scale)
     if dt.is_integral or isinstance(dt, T.BooleanType):
         return T.LONG
     return T.DOUBLE
+
+
+def merge_input_type(f: "AggregateFunction", buffer_dtype: DataType
+                     ) -> DataType:
+    """The input type a FINAL aggregate binds its function to, given its
+    first buffer column's type: that type itself, except that a decimal
+    sum or average buffers ``decimal(p+10, s)`` for an input
+    ``decimal(p, s)``, which it stands for here. Bound to the buffer
+    type, the merge would widen it by 10 digits again and pass DECIMAL64;
+    the reference does, so its partitioned decimal sums raise
+    (ROADMAP.md §C)."""
+    if isinstance(f, (Sum, Average)) and isinstance(buffer_dtype,
+                                                    T.DecimalType):
+        return T.DecimalType(buffer_dtype.precision - 10, buffer_dtype.scale)
+    return buffer_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +136,9 @@ class Sum(AggregateFunction):
         return ("sum",)
 
     def evaluate(self, refs):
+        if isinstance(self.dtype, T.DecimalType):
+            # Spark wraps decimal sums in CheckOverflow (nullOnOverflow)
+            return E._DecimalSumCheck(refs[0], self.dtype)
         return refs[0]
 
 
@@ -164,25 +192,40 @@ class Max(AggregateFunction):
 
 @dataclasses.dataclass(frozen=True)
 class Average(AggregateFunction):
-    """avg(expr) -> double; buffer = (sum: double, count: long) like Spark."""
+    """avg(expr) -> double (decimal(p+4, s+4) for decimal input, Spark's
+    rule); buffer = (sum, count: long) like Spark."""
 
     child: E.Expression = None  # type: ignore[assignment]
     num_buffers = 2
 
+    def _decimal_in(self):
+        dt = self.child.dtype
+        return dt if isinstance(dt, T.DecimalType) else None
+
     @property
     def dtype(self):
-        if isinstance(self.child.dtype, T.DecimalType):
-            raise NotImplementedError(
-                f"avg({self.child.dtype}) is {T.NOT_PORTED_TYPES}")
+        d = self._decimal_in()
+        if d is not None:
+            if d.precision + 4 > T.DecimalType.MAX_PRECISION:
+                raise TypeError(
+                    f"avg({d}) result precision {d.precision + 4} > "
+                    f"DECIMAL64 cap")
+            return T.DecimalType(d.precision + 4, d.scale + 4)
+        return T.DOUBLE
+
+    def _sum_type(self):
+        d = self._decimal_in()
+        if d is not None:
+            return _sum_result_type(d)  # raises past DECIMAL64: fallback
         return T.DOUBLE
 
     @property
     def buffer_schema(self):
-        return (self.dtype, T.LONG)
+        return (self._sum_type(), T.LONG)
 
     @property
     def update_ops(self):
-        return (("sum", E.Cast(self.child, self.dtype)),
+        return (("sum", E.Cast(self.child, self._sum_type())),
                 ("count", self.child))
 
     @property
@@ -190,6 +233,8 @@ class Average(AggregateFunction):
         return ("sum", "sum")
 
     def evaluate(self, refs):
+        if self._decimal_in() is not None:
+            return E._DecimalAvgEval(refs[0], refs[1], self.dtype)
         # sum/count with count==0 -> null (Divide already nulls on 0)
         return E.Divide(refs[0], refs[1])
 

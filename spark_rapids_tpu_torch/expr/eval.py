@@ -20,16 +20,27 @@ kept exactly:
     as the compares do (ROADMAP.md §C, C2);
   * ``Round`` is HALF_UP (away from zero at .5), ``Pmod``'s result takes
     the divisor's sign, shift counts are masked to the value's width,
-    and ``Abs``/``UnaryMinus`` of MIN wrap to MIN, as in Java.
+    and ``Abs``/``UnaryMinus`` of MIN wrap to MIN, as in Java;
+  * DECIMAL64 (int64 unscaled): rescales round HALF_UP (away from zero at
+    .5, ``java.math.RoundingMode.HALF_UP``), a decimal -> integral cast
+    truncates toward zero, and a result past its precision is NULL
+    (Spark's non-ANSI nullOnOverflow); the plan-time precision checks
+    (``types.decimal_binary_result``) keep every intermediate in int64.
+    Decimal -> double (and timestamp -> double) divides by an exact power
+    of ten in f64, correctly rounded (:func:`_f64_div`; the reference
+    blocks XLA's reciprocal rewrite for its decimals);
+  * DATE is int32 days and TIMESTAMP int64 microseconds, UTC; the date
+    and time family lowers in ``expr/eval_datetime.py``.
 
-The date/time and nondeterministic nodes are not lowered yet and raise
-``NotImplementedError`` naming their ROADMAP.md items; a node the
+The nondeterministic and metadata nodes are not lowered yet and raise
+``NotImplementedError`` naming their ROADMAP.md item; a node the
 reference itself cannot lower (``PythonUDF``) raises
 ``UnsupportedExpressionError``, which the planner reads as a fallback
 (:func:`tpu_supports`).
 """
 from __future__ import annotations
 
+import decimal as _dec
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,6 +53,7 @@ from ..ops import strings as S
 from ..ops.hashing import flush_subnormals
 from ..types import DataType, torch_dtype
 from . import expressions as E
+from .eval_datetime import lower_datetime
 from .eval_strings import (as_strv, compare_strings, dict_compare_literal,
                            lower_cast_to_string, lower_string_cast,
                            lower_strings, select_strings, string_in)
@@ -59,10 +71,6 @@ _INT_INFO = {
 #: nodes the reference lowers on its device and the port not yet, by the
 #: ROADMAP.md item that brings them
 _NOT_PORTED_NODES = (
-    ((E._DateUnary, E.DateAdd, E.DateSub, E.DateDiff, E.LastDay,
-      E.UnixTimestamp, E.ToUnixTimestamp, E.FromUnixTime, E.TimeAdd,
-      E.TruncDate, E._DecimalSumCheck, E._DecimalAvgEval),
-     T.NOT_PORTED_TYPES),
     ((E.Rand, E.MonotonicallyIncreasingID, E.SparkPartitionID,
       E.InputFileName, E.Murmur3Hash),
      "not ported yet: see ROADMAP.md, queue A item 'Nondeterministic and "
@@ -88,18 +96,48 @@ def _check_fixed(dt: DataType) -> None:
     """Raise for a type the fixed-width lowering cannot take (strings
     take their own routes before it is called)."""
     if not T.is_fixed_width(dt):
-        raise NotImplementedError(
-            f"{dt.simpleString} expressions are {T.NOT_PORTED_TYPES}")
+        raise UnsupportedExpressionError(
+            f"{dt.simpleString} expressions are not supported")
 
 
 def _cast_data(data: torch.Tensor, frm: DataType, to: DataType) -> torch.Tensor:
-    """Value cast with Java/Spark numeric semantics."""
+    """Value cast with Java/Spark numeric semantics (reference
+    ``eval.py:60-120``, its date/time and decimal rows included)."""
     if frm == to:
         return data
     _check_fixed(frm)
     _check_fixed(to)
     if isinstance(frm, T.NullType):
         return torch.zeros_like(data, dtype=torch_dtype(to))
+    # date/timestamp pairs: DATE = int32 days, TIMESTAMP = int64 µs, UTC
+    if isinstance(frm, T.DateType) and isinstance(to, T.TimestampType):
+        return data.to(torch.int64) * 86_400_000_000
+    if isinstance(frm, T.TimestampType) and isinstance(to, T.DateType):
+        return torch.div(data, 86_400_000_000,
+                         rounding_mode="floor").to(torch.int32)
+    if isinstance(frm, T.TimestampType):
+        if isinstance(to, T.BooleanType):
+            return data != 0  # µs != 0 (Spark timestampToBoolean)
+        if to.is_floating:
+            return _f64_div(data, 1e6).to(torch_dtype(to))
+        return torch.div(data, 1_000_000,
+                         rounding_mode="floor").to(torch_dtype(to))
+    if isinstance(to, T.TimestampType):
+        if frm.is_floating:
+            # Scala (d * 1e6).toLong saturates; the Cast lowering nulls
+            # the non-finite rows
+            x = data.to(torch.float64) * 1e6
+            in_range = torch.isfinite(x) & (torch.abs(x) < float(2**63))
+            i = torch.where(in_range, x, 0.0).to(torch.int64)
+            i = torch.where(x >= float(2**63), 2**63 - 1, i)
+            return torch.where(torch.isfinite(x) & (x <= float(-(2**63))),
+                               -(2**63), i)
+        if isinstance(frm, T.BooleanType):
+            return data.to(torch.int64)  # Spark: true -> 1 microsecond
+        return data.to(torch.int64) * 1_000_000  # integral seconds
+    if isinstance(frm, T.DateType) or isinstance(to, T.DateType):
+        raise UnsupportedExpressionError(
+            f"cast {frm.simpleString} -> {to.simpleString} is not supported")
     if isinstance(to, T.BooleanType):
         # a subnormal reads as zero, as on the reference's backends
         return flush_subnormals(data) != 0
@@ -120,8 +158,142 @@ def _cast_data(data: torch.Tensor, frm: DataType, to: DataType) -> torch.Tensor:
         low = torch.where(torch.isneginf(d) | (fin & (t <= float(lo))),
                           lo, 0).to(wdt)
         return (sat + mid + low).to(torch_dtype(to))
+    if isinstance(to, T.DecimalType):
+        # comparison / promote coercion: upscale to the common (max)
+        # scale, exact by promote()'s precision check
+        fs = frm.scale if isinstance(frm, T.DecimalType) else 0
+        return _dec_upscale(data.to(torch.int64), max(0, to.scale - fs))
+    if isinstance(frm, T.DecimalType):
+        if to.is_floating:
+            return _f64_div(data, float(_pow10(frm.scale))).to(
+                torch_dtype(to))
+        return data.to(torch_dtype(to))  # unscaled passthrough
     # int->int wraps (Java), int/float->float round to nearest
     return data.to(torch_dtype(to))
+
+
+# ---------------------------------------------------------------------------
+# DECIMAL64: int64 unscaled values (reference eval.py:141-255). The
+# plan-time precision checks keep every intermediate in int64; a result
+# past its precision nulls the row (Spark's non-ANSI nullOnOverflow).
+# ---------------------------------------------------------------------------
+def _pow10(k: int) -> int:
+    return 10 ** k
+
+
+def _dec_upscale(data: torch.Tensor, delta: int) -> torch.Tensor:
+    """unscaled * 10^delta (delta >= 0; plan-time bounds keep it exact)."""
+    if delta == 0:
+        return data
+    return data * _pow10(delta)
+
+
+def _div_half_up(num: torch.Tensor, den) -> torch.Tensor:
+    """round_half_up(num / den) on int64, den > 0, sign-correct (HALF_UP:
+    away from zero at .5, ``java.math.RoundingMode.HALF_UP``)."""
+    den = torch.as_tensor(den, dtype=torch.int64, device=num.device)
+    q = _trunc_div(num, den)
+    rem = num - q * den
+    bump = (torch.abs(rem) * 2) >= den
+    return torch.where(bump, q + torch.sign(num), q)
+
+
+def _dec_rescale(data: torch.Tensor, frm_scale: int,
+                 to_scale: int) -> torch.Tensor:
+    if to_scale >= frm_scale:
+        return _dec_upscale(data, to_scale - frm_scale)
+    return _div_half_up(data, _pow10(frm_scale - to_scale))
+
+
+def _dec_fits(data: torch.Tensor, precision: int) -> torch.Tensor:
+    if precision >= 19:
+        return torch.ones_like(data, dtype=torch.bool)
+    bound = _pow10(precision)
+    return (data < bound) & (data > -bound)
+
+
+def _overflow_null(res: torch.Tensor, valid: torch.Tensor,
+                   precision: int) -> ColV:
+    ok = _dec_fits(res, precision)
+    return ColV(torch.where(ok, res, 0), valid & ok)
+
+
+def _decimal_arith(expr, l: ColV, r: ColV, out: T.DecimalType) -> ColV:
+    lt, rt = T.as_decimal(expr.left.dtype), T.as_decimal(expr.right.dtype)
+    ld = l.data.to(torch.int64)
+    rd = r.data.to(torch.int64)
+    if isinstance(expr, E.Multiply):
+        res = ld * rd  # scale s1 + s2 == out.scale by construction
+    else:
+        ld = _dec_upscale(ld, out.scale - lt.scale)
+        rd = _dec_upscale(rd, out.scale - rt.scale)
+        res = ld + rd if isinstance(expr, E.Add) else ld - rd
+    return _overflow_null(res, l.validity & r.validity, out.precision)
+
+
+def _decimal_divide(expr, l: ColV, r: ColV, out: T.DecimalType) -> ColV:
+    lt, rt = T.as_decimal(expr.left.dtype), T.as_decimal(expr.right.dtype)
+    # result = round(l_unscaled * 10^(out.scale - s1 + s2) / r_unscaled)
+    shift = out.scale - lt.scale + rt.scale
+    # |l_unscaled| < 10^p1: the shifted numerator is exact in int64 only
+    # while p1 + shift <= 18
+    if lt.precision + shift > 18:
+        raise UnsupportedExpressionError(
+            f"decimal divide needs {lt.precision + shift} digits > DECIMAL64")
+    ld = _dec_upscale(l.data.to(torch.int64), shift)
+    rd = r.data.to(torch.int64)
+    valid = l.validity & r.validity & (rd != 0)
+    safe_r = torch.where(rd == 0, 1, rd)
+    num = torch.where(rd < 0, -ld, ld)  # a positive denominator
+    return _overflow_null(_div_half_up(num, torch.abs(safe_r)), valid,
+                          out.precision)
+
+
+def _decimal_cast(c: ColV, frm: DataType, to: DataType) -> ColV:
+    data = c.data
+    valid = c.validity
+    if isinstance(frm, T.DecimalType) and isinstance(to, T.DecimalType):
+        delta = to.scale - frm.scale
+        if delta > 0 and frm.precision + delta > 18:
+            raise UnsupportedExpressionError(
+                "decimal rescale exceeds DECIMAL64 headroom")
+        res = _dec_rescale(data.to(torch.int64), frm.scale, to.scale)
+        return _overflow_null(res, valid, to.precision)
+    if isinstance(to, T.DecimalType):
+        if frm.is_floating:
+            raise UnsupportedExpressionError(
+                "float->decimal cast not supported (string-mediated in "
+                "Spark; falls back like the reference's gated casts)")
+        d = data.to(torch.int64)
+        if to.scale > 0:
+            # values needing more than 18 - scale integer digits are
+            # NULL: tested BEFORE multiplying
+            limit = _pow10(18 - to.scale)
+            pre_ok = (d < limit) & (d > -limit)
+            res = torch.where(pre_ok, d, 0) * _pow10(to.scale)
+        else:
+            pre_ok = torch.ones_like(d, dtype=torch.bool)
+            res = d
+        return _overflow_null(res, valid & pre_ok, to.precision)
+    if to.is_floating:
+        f = _f64_div(data, float(_pow10(frm.scale)))
+        return ColV(f.to(torch_dtype(to)), valid)
+    if isinstance(to, T.BooleanType):
+        return ColV(data != 0, valid)
+    # integral: truncate toward zero on the scaled value, then
+    # wrap-narrow (Scala BigDecimal.toLong)
+    whole = _trunc_div(data.to(torch.int64),
+                       torch.as_tensor(_pow10(frm.scale), device=data.device))
+    return ColV(whole.to(torch_dtype(to)), valid)
+
+
+def _f64_div(data: torch.Tensor, d: float) -> torch.Tensor:
+    """``data`` in f64 divided by the constant ``d``, correctly rounded
+    on every device (Java's ``/``): the divisor rides as a device tensor,
+    because CUDA turns a division by a host scalar into a multiply by
+    its reciprocal, one ulp off on some values."""
+    return data.to(torch.float64) / torch.tensor(d, dtype=torch.float64,
+                                                 device=data.device)
 
 
 def _trunc_div(l: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -172,6 +344,15 @@ def _lower_in(expr: E.In, c: Val, cap: int, device) -> ColV:
     if child_dt.is_floating or any(isinstance(v, float) for v in non_null):
         cmp_dt = T.DOUBLE if child_dt != T.FLOAT or any(
             isinstance(v, float) for v in non_null) else T.FLOAT
+    elif isinstance(child_dt, T.DecimalType):
+        # the column holds UNSCALED values: each literal scales to match;
+        # one with more fractional digits than the scale never matches
+        conv = []
+        for v in non_null:
+            d = _dec.Decimal(str(v)).scaleb(child_dt.scale)
+            if d == d.to_integral_value() and abs(int(d)) < 10 ** 18:
+                conv.append(int(d))
+        non_null = conv
     elif child_dt.name in _INT_INFO:
         _, lo, hi = _INT_INFO[child_dt.name]
         if any(not (lo <= v <= hi) for v in non_null):
@@ -388,8 +569,31 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
         if isinstance(dt, T.NullType):
             return ColV(full(False, torch.bool), full(False, torch.bool))
         v = expr.value
+        if v is not None and isinstance(dt, T.DecimalType):
+            v = int(_dec.Decimal(str(v)).scaleb(dt.scale).to_integral_value(
+                rounding=_dec.ROUND_HALF_UP))
         return ColV(full(v if v is not None else 0, torch_dtype(dt)),
                     full(v is not None, torch.bool))
+
+    if isinstance(expr, E._DecimalSumCheck):
+        c = ev(expr.child)
+        return _overflow_null(c.data.to(torch.int64), c.validity,
+                              expr.result.precision)
+
+    if isinstance(expr, E._DecimalAvgEval):
+        s, cnt = ev(expr.sum), ev(expr.count)
+        out = expr.result
+        sd = s.data.to(torch.int64)
+        cd = cnt.data.to(torch.int64)
+        valid = s.validity & cnt.validity & (cd > 0)
+        safe_c = torch.where(cd <= 0, 1, cd)
+        shift = _pow10(out.scale - expr.sum.dtype.scale)
+        # avg = round(sum * 10^shift / count) without overflow:
+        # q * 10^shift + round(rem * 10^shift / count), |rem| < count
+        q = _trunc_div(sd, safe_c)
+        rem = sd - q * safe_c
+        res = q * shift + _div_half_up(rem * shift, safe_c)
+        return _overflow_null(res, valid, out.precision)
 
     if isinstance(expr, E.NativeUDF):
         # the UDF's columnar function runs inside the projection
@@ -402,6 +606,8 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
     if isinstance(expr, (E.Add, E.Subtract, E.Multiply)):
         out = expr.dtype
         l, r = ev(expr.left), ev(expr.right)
+        if isinstance(out, T.DecimalType):
+            return _decimal_arith(expr, l, r, out)
         ld, rd = _promote2(l, expr.left.dtype, r, expr.right.dtype, out)
         op = {E.Add: torch.add, E.Subtract: torch.sub,
               E.Multiply: torch.mul}[type(expr)]
@@ -411,6 +617,8 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
         # subnormal operands read as zero, as on the reference's backends:
         # x / 5e-324 is NULL there
         l, r = ev(expr.left), ev(expr.right)
+        if isinstance(expr.dtype, T.DecimalType):
+            return _decimal_divide(expr, l, r, expr.dtype)
         ld = flush_subnormals(_cast_data(l.data, expr.left.dtype, T.DOUBLE))
         rd = flush_subnormals(_cast_data(r.data, expr.right.dtype, T.DOUBLE))
         valid = l.validity & r.validity & (rd != 0)
@@ -589,7 +797,12 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
             return lower_cast_to_string(c, frm, cap)
         _check_fixed(frm)
         _check_fixed(to)
-        return ColV(_cast_data(c.data, frm, to), c.validity)
+        if isinstance(frm, T.DecimalType) or isinstance(to, T.DecimalType):
+            return _decimal_cast(c, frm, to)
+        valid = c.validity
+        if frm.is_floating and isinstance(to, T.TimestampType):
+            valid = valid & torch.isfinite(c.data)  # Spark: NaN/inf -> null
+        return ColV(_cast_data(c.data, frm, to), valid)
 
     mv = _lower_math(expr, ev, cap, device)
     if mv is not None:
@@ -608,6 +821,10 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
     sv = lower_strings(expr, ev, cap)
     if sv is not None:
         return sv
+
+    dv = lower_datetime(expr, ev, cap)
+    if dv is not None:
+        return dv
 
     for classes, why in _NOT_PORTED_NODES:
         if isinstance(expr, classes):

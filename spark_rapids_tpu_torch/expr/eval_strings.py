@@ -24,6 +24,8 @@ from .. import types as T
 from ..columnar.column import choose_capacity
 from ..ops import strings as S
 from . import expressions as E
+from .eval_datetime import (format_date, format_timestamp, parse_date,
+                            parse_timestamp)
 from .values import (ColV, DictV, StrV, UnsupportedExpressionError,
                      clipped_codes, dict_gather_col, dict_rewrap,
                      materialize_dict)
@@ -1096,9 +1098,10 @@ def lower_string_cast(c: StrV, to: T.DataType, cap: int):
         return cast_string_to_int(c, cap, to)
     if to.is_floating:
         return cast_string_to_float(c, cap, to)
-    if isinstance(to, (T.DateType, T.TimestampType)):
-        raise NotImplementedError(
-            f"cast string -> {to.simpleString} is {T.NOT_PORTED_TYPES}")
+    if isinstance(to, T.DateType):
+        return parse_date(c, cap)
+    if isinstance(to, T.TimestampType):
+        return parse_timestamp(c, cap)
     raise UnsupportedExpressionError(
         f"cast string -> {to.simpleString} is not supported on TPU")
 
@@ -1110,9 +1113,10 @@ def lower_cast_to_string(c: ColV, frm: T.DataType, cap: int):
         return cast_bool_to_string(c, cap)
     if frm.name in _INTEGRAL:
         return cast_int_to_string(c, cap, frm)
-    if isinstance(frm, (T.DateType, T.TimestampType)):
-        raise NotImplementedError(
-            f"cast {frm.simpleString} -> string is {T.NOT_PORTED_TYPES}")
+    if isinstance(frm, T.DateType):
+        return format_date(c, cap)
+    if isinstance(frm, T.TimestampType):
+        return format_timestamp(c, cap)
     if frm.is_floating:
         raise UnsupportedExpressionError(
             "cast float -> string is not supported on TPU (would require "

@@ -1,16 +1,17 @@
 """Expression trees, the ported subset of the reference.
 
 Counterpart of ``spark_rapids_tpu/expr/expressions.py``: the same frozen
-dataclasses, names and result-type rules for the nodes the port lowers
-(``expr/eval.py``, ``expr/eval_strings.py``), plus the reference's other
-nodes (string, date/time, nondeterministic), which exist so plans and the
-CPU engine can name them and raise ``NotImplementedError`` when lowered
-to the device. Structural equality and hashing
-come from the dataclasses, as in the reference.
+dataclasses, names and result-type rules (the decimal ones included) for
+the nodes the port lowers (``expr/eval.py``, ``expr/eval_strings.py``,
+``expr/eval_datetime.py``), plus the nondeterministic and metadata nodes,
+which exist so plans and the CPU engine can name them and raise
+``NotImplementedError`` when lowered to the device. Structural equality
+and hashing come from the dataclasses, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import decimal as _dec
 from typing import Any, Optional, Tuple
 
 from .. import types as T
@@ -105,8 +106,13 @@ class Literal(Expression):
             return Literal(value, T.STRING)
         if isinstance(value, bytes):
             return Literal(value, T.BINARY)
-        raise NotImplementedError(
-            f"literal of {type(value).__name__} is {T.NOT_PORTED_TYPES}")
+        if isinstance(value, _dec.Decimal):
+            # Spark literal decimals take their written precision/scale
+            t = value.as_tuple()
+            scale = max(0, -t.exponent)
+            digits = max(len(t.digits) + max(0, t.exponent), scale + 1)
+            return Literal(value, T.DecimalType(min(digits, 18), scale))
+        raise TypeError(f"cannot make literal from {type(value)}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,7 +160,11 @@ class _BinaryNumeric(Expression):
 
     @property
     def dtype(self):
-        return T.promote(self.left.dtype, self.right.dtype)
+        lt, rt = self.left.dtype, self.right.dtype
+        if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
+            op = {"+": "add", "-": "sub", "*": "mul"}[self.symbol]
+            return T.decimal_binary_result(op, lt, rt)
+        return T.promote(lt, rt)
 
 
 class Add(_BinaryNumeric):
@@ -171,13 +181,17 @@ class Multiply(_BinaryNumeric):
 
 @dataclasses.dataclass(frozen=True)
 class Divide(Expression):
-    """Spark `/`: floating point; x/0 -> NULL (non-ANSI)."""
+    """Spark `/`: floating point, except decimal/decimal which follows
+    DecimalPrecision division rules; x/0 -> NULL (non-ANSI)."""
 
     left: Expression
     right: Expression
 
     @property
     def dtype(self):
+        lt, rt = self.left.dtype, self.right.dtype
+        if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
+            return T.decimal_binary_result("div", lt, rt)
         return T.DOUBLE
 
 

@@ -7,9 +7,10 @@ numpy buffer reshaping plus one upload per batch, never a per-row loop.
 a CUDA target) and crosses to the device in one ``non_blocking`` copy on
 the current stream; the consumer runs on the same stream, so no wait is
 needed. Date, timestamp and decimal columns convert on the host as in the
-reference, and raise where a device column would be built (ROADMAP.md,
-queue A item 'Decimals and dates'). The reference's fault, OOM and event
-hooks around the upload are not ported.
+reference: ``date32`` to int32 days, a ``timestamp`` of any unit cast to
+int64 microseconds, a ``decimal128`` (precision <= 18) to the low int64
+word of its unscaled value. :func:`batch_to_arrow` is the way back. The
+reference's fault, OOM and event hooks around the upload are not ported.
 """
 from __future__ import annotations
 
@@ -222,3 +223,43 @@ def arrow_to_batch(table_or_rb, schema: Optional[T.StructType] = None,
             i += 2
             cols.append(DeviceColumn(dt, n, d, v))
     return ColumnarBatch(cols, schema, n, capacity=cap)
+
+
+def batch_to_arrow(batch: ColumnarBatch):
+    """Device ColumnarBatch -> pyarrow Table (reference
+    ``arrow_convert.batch_to_arrow``): DATE as ``date32``, TIMESTAMP as
+    ``timestamp[us, UTC]``, a decimal as ``decimal128(p, s)`` built from
+    its unscaled ints."""
+    import decimal as _d
+
+    import pyarrow as pa
+
+    hosts = batch.host_columns()
+    n = batch.num_rows
+    arrays = []
+    names = []
+    for f, h in zip(batch.schema.fields, hosts):
+        names.append(f.name)
+        dt = f.dataType
+        mask = ~h.validity[:n]
+        if isinstance(dt, (T.StringType, T.BinaryType)):
+            at = pa.string() if isinstance(dt, T.StringType) else pa.binary()
+            arrays.append(pa.array(list(h.data[:n]), type=at))
+        elif isinstance(dt, T.DateType):
+            arrays.append(pa.array(
+                h.data[:n].astype(np.int32), type=pa.int32(),
+                mask=mask).cast(pa.date32()))
+        elif isinstance(dt, T.TimestampType):
+            arrays.append(pa.array(
+                h.data[:n].astype(np.int64), type=pa.int64(),
+                mask=mask).cast(pa.timestamp("us", tz="UTC")))
+        elif isinstance(dt, T.DecimalType):
+            # from the unscaled ints: a numeric int64 -> decimal128 cast
+            # would scale the value by 10^scale
+            arrays.append(pa.array(
+                [None if m else _d.Decimal(int(v)).scaleb(-dt.scale)
+                 for v, m in zip(h.data[:n], mask)],
+                type=pa.decimal128(dt.precision, dt.scale)))
+        else:
+            arrays.append(pa.array(h.data[:n], mask=mask))
+    return pa.table(dict(zip(names, arrays)))

@@ -28,6 +28,14 @@ reference (``keep_dict``): the file's codes and its own dictionary upload
 as they are and become a ``DictV`` with ``unique`` set (a parquet
 dictionary holds distinct values), so no byte of the rows is expanded.
 With the conf off such chunks decode to the expanded Arrow layout.
+
+DATE (INT32) and DECIMAL chunks stored as INT32 or INT64 (Spark's layout
+for precision <= 9 / <= 18) take the device route like any integer chunk;
+an INT32 decimal widens to its int64 storage. An INT64 TIMESTAMP chunk
+of unit MILLIS or NANOS becomes microseconds on the device
+(:func:`column_time_unit`), where the reference keeps the raw values. A
+FIXED_LEN_BYTE_ARRAY decimal (pyarrow's default layout) takes the host
+decoder, as in the reference.
 """
 from __future__ import annotations
 
@@ -361,6 +369,41 @@ class ChunkPlan:
     # PLAIN page payloads (concatenated raw value bytes, present only)
     plain_bytes: Optional[bytes] = None
     n_present: int = 0
+    # the unit of an INT64 TIMESTAMP chunk's values ("ms", "us" or "ns")
+    time_unit: str = "us"
+
+
+_TIME_UNITS = {"milliseconds": "ms", "microseconds": "us",
+               "nanoseconds": "ns"}
+
+
+def column_time_unit(pqcol) -> str:
+    """The unit of a parquet TIMESTAMP column's int64 values (its logical
+    type, or the legacy converted type), "us" for any other column. The
+    reference's ``plan_decode`` never reads it and keeps millisecond and
+    nanosecond values raw (ROADMAP.md §C); the port converts them."""
+    import json
+
+    lt = pqcol.logical_type
+    if lt is not None and lt.type == "TIMESTAMP":
+        unit = json.loads(lt.to_json()).get("timeUnit")
+        if unit not in _TIME_UNITS:
+            raise _FallbackError(f"timestamp unit {unit}")
+        return _TIME_UNITS[unit]
+    if pqcol.converted_type == "TIMESTAMP_MILLIS":
+        return "ms"
+    return "us"
+
+
+def _timestamp_to_us(data: torch.Tensor, unit: str) -> torch.Tensor:
+    """int64 values of ``unit`` as microseconds: milliseconds multiply by
+    1000; nanoseconds floor-divide by 1000, right for pre-epoch values
+    too (the host route's ``cast(pa.timestamp("us"))`` gives the same)."""
+    if unit == "ms":
+        return data * 1000
+    if unit == "ns":
+        return torch.div(data, 1000, rounding_mode="floor")
+    return data
 
 
 def _decompress(codec: str, data: bytes, out_size: int) -> bytes:
@@ -377,9 +420,11 @@ def _decompress(codec: str, data: bytes, out_size: int) -> bytes:
 
 
 def plan_chunk(
-    file_bytes: bytes, col_meta, max_def: int, max_rep: int
+    file_bytes: bytes, col_meta, max_def: int, max_rep: int,
+    time_unit: str = "us",
 ) -> ChunkPlan:
     """Parse one column chunk's pages into a ChunkPlan (host side).
+    ``time_unit`` is the column's :func:`column_time_unit`.
 
     Raises _FallbackError for unsupported shapes/encodings."""
     if max_rep != 0:
@@ -399,7 +444,8 @@ def plan_chunk(
     off = doff if doff is not None and doff > 0 else col_meta.data_page_offset
     end = off + col_meta.total_compressed_size
 
-    plan = ChunkPlan(phys=phys, num_values=n, nullable=max_def > 0)
+    plan = ChunkPlan(phys=phys, num_values=n, nullable=max_def > 0,
+                     time_unit=time_unit)
     pos = off
     values_seen = 0
     code_pages: List[np.ndarray] = []
@@ -601,6 +647,9 @@ def plan_decode(plan: ChunkPlan, dtype_tpu, cap: int,
     from ..ops.filter_gather import gather_string
 
     T.check_storable(dtype_tpu)
+    # an INT64 TIMESTAMP chunk of another unit becomes microseconds
+    unit = (plan.time_unit if isinstance(dtype_tpu, T.TimestampType)
+            else "us")
     n = plan.num_values
     has_def = plan.validity is not None
     is_dict = plan.codes is not None
@@ -692,7 +741,9 @@ def plan_decode(plan: ChunkPlan, dtype_tpu, cap: int,
                 return out.offsets, out.chars, validity
             dvals_ = dev_args[ai]
             data = dvals_[torch.clamp(codes_, 0, dvals_.shape[0] - 1)]
-            return torch.where(validity, data, 0).to(tdt), validity
+            data = _timestamp_to_us(torch.where(validity, data, 0).to(tdt),
+                                    unit)
+            return data, validity
         words_ = dev_args[ai]  # int32 words (an even count)
         arr = words_.view(_PHYS_TORCH[phys])
         if arr.shape[0] < cap:
@@ -701,7 +752,8 @@ def plan_decode(plan: ChunkPlan, dtype_tpu, cap: int,
             arr = arr[:cap]
         if vidx is not None:
             arr = arr[vidx]
-        return torch.where(validity, arr, 0).to(tdt), validity
+        return _timestamp_to_us(torch.where(validity, arr, 0).to(tdt),
+                                unit), validity
 
     tdt = None if is_str else T.torch_dtype(dtype_tpu)
     return args, run
@@ -828,7 +880,8 @@ def read_row_groups_pipelined(
         try:
             plan = plan_chunk(
                 file_bytes, rgmd.column(ci),
-                pqcol.max_definition_level, pqcol.max_repetition_level)
+                pqcol.max_definition_level, pqcol.max_repetition_level,
+                column_time_unit(pqcol))
         except Exception:
             return name, None, 0
         return name, plan, time.perf_counter_ns() - t0

@@ -659,9 +659,7 @@ def groupby_agg(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
     if strategy in NOT_PORTED_TIERS:
         raise not_ported_tier(strategy)
     for dt in key_dtypes:
-        if not (T.is_fixed_width(dt) or T.is_string(dt)):
-            raise NotImplementedError(
-                f"{dt.simpleString} group keys are {T.NOT_PORTED_TYPES}")
+        T.check_storable(dt)
     if not key_cols:
         raise ValueError("groupby_agg needs keys; use reduce_no_keys")
     value_cols = list(value_cols)

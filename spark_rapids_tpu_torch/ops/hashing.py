@@ -131,13 +131,13 @@ def hash_column(col: Val, dtype: T.DataType, seed: torch.Tensor,
         h = hash_int(canonical_float(data).view(torch.int32), seed)
     elif isinstance(dtype, T.DoubleType):
         h = hash_long(canonical_float(data).view(torch.int64), seed)
-    elif isinstance(dtype, T.LongType):
+    elif isinstance(dtype, (T.LongType, T.TimestampType, T.DecimalType)):
         h = hash_long(data, seed)
-    elif isinstance(dtype, (T.ByteType, T.ShortType, T.IntegerType)):
+    elif isinstance(dtype, (T.ByteType, T.ShortType, T.IntegerType,
+                            T.DateType)):
         h = hash_int(data, seed)
     else:
-        raise NotImplementedError(
-            f"hashing {dtype.simpleString} is {T.NOT_PORTED_TYPES}")
+        raise TypeError(f"hashing {dtype.simpleString} is not supported")
     return torch.where(col.validity, h, seed)
 
 

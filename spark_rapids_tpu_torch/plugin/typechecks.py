@@ -3,8 +3,8 @@
 Own copy of ``spark_rapids_tpu/plugin/typechecks.py``: the same TypeSig,
 ExprChecks and CastChecks tables and value tags, so the port's planner
 gives the reference's fallback reasons word for word. Where the port
-differs: a ``NotImplementedError`` from a node's result type (a decimal
-aggregate, for one) propagates instead of reading as a fallback reason.
+differs: a ``NotImplementedError`` from a node's result type propagates
+instead of reading as a fallback reason.
 
 Reference analog: TypeChecks.scala — every rule declares, per parameter
 and per expression context, which input types it accepts, and ONE checker

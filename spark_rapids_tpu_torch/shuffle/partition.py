@@ -181,16 +181,14 @@ class RangePartitioning(Partitioning):
 def _fixed_bound_keys(bvals: Sequence[object], dt: T.DataType,
                       order: SortOrder, device) -> List[torch.Tensor]:
     """Radix-encode host bound values as the rows are (reference
-    ``partition.py:185``)."""
-    nb = len(bvals)
-    data = np.zeros(nb, dt.to_numpy())
-    valid = np.zeros(nb, bool)
-    for i, v in enumerate(bvals):
-        if v is not None:
-            data[i] = v
-            valid[i] = True
-    col = ColV(torch.tensor(data, device=device),
-               torch.tensor(valid, device=device))
+    ``partition.py:185``). The bounds are the sample's Python values, a
+    ``Decimal`` for a decimal key: they take its unscaled int64, as the
+    column holds it."""
+    from ..columnar.column import HostColumn
+
+    host = HostColumn.from_pylist(list(bvals), dt)
+    col = ColV(torch.tensor(host.data, device=device),
+               torch.tensor(host.validity, device=device))
     return fixed_radix_keys(col, dt, order)
 
 

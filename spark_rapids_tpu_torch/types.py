@@ -5,10 +5,14 @@ promotion rules), kept as an own copy: the port imports nothing of the
 JAX package. Each fixed-width type maps onto one torch dtype
 (:func:`torch_dtype`); string and binary columns are stored in the Arrow
 layout (int32 offsets + uint8 chars + validity, :func:`is_string`).
-Decimal, date and timestamp types exist so schemas can name them, but
-columns of those types are not ported yet and raise
-:class:`NotImplementedError` where they are built (ROADMAP.md, queue A:
-"Decimals and dates").
+Storage follows the reference exactly:
+
+  * ``DecimalType(p <= 18, s)`` -> int64 unscaled values (DECIMAL64);
+  * ``DateType``                -> int32 days since the unix epoch;
+  * ``TimestampType``           -> int64 microseconds since the epoch, UTC.
+
+Array and struct types exist so plans can name them; no column holds
+them, as in the reference.
 """
 from __future__ import annotations
 
@@ -16,11 +20,6 @@ import dataclasses
 
 import numpy as np
 import torch
-
-#: the ROADMAP items the not-yet-ported parts name in their errors
-NOT_PORTED_TYPES = ("not ported yet: see ROADMAP.md, queue A item "
-                    "'Decimals and dates'")
-
 
 class DataType:
     """Base of all SQL types. Instances are value objects."""
@@ -277,14 +276,52 @@ _BY_NAME = {t.name: t for t in (NULL, BOOLEAN, BYTE, SHORT, INT, LONG,
 _TORCH = {
     "null": torch.bool, "boolean": torch.bool, "tinyint": torch.int8,
     "smallint": torch.int16, "int": torch.int32, "bigint": torch.int64,
-    "float": torch.float32, "double": torch.float64,
+    "float": torch.float32, "double": torch.float64, "date": torch.int32,
+    "timestamp": torch.int64,
 }
 
 
+def as_decimal(dt: DataType) -> DecimalType:
+    """The decimal a numeric type widens to for mixed decimal arithmetic
+    (Spark DecimalPrecision). LONG needs decimal(20,0) > DECIMAL64, so
+    mixed long/decimal arithmetic is rejected, as in the reference."""
+    if isinstance(dt, DecimalType):
+        return dt
+    widths = {"tinyint": 3, "smallint": 5, "int": 10}
+    if dt.name in widths:
+        return DecimalType(widths[dt.name], 0)
+    raise TypeError(f"{dt} does not widen to a DECIMAL64 decimal")
+
+
+def decimal_binary_result(op: str, a: DataType, b: DataType) -> DecimalType:
+    """Spark's decimal result types for +,-,*,/ (DecimalPrecision), with
+    the reference's DECIMAL64 rejection when the precision exceeds 18:
+    the planner reads the TypeError as a fallback reason."""
+    da, db = as_decimal(a), as_decimal(b)
+    if op in ("add", "sub"):
+        s = max(da.scale, db.scale)
+        p = max(da.precision - da.scale, db.precision - db.scale) + s + 1
+    elif op == "mul":
+        p, s = da.precision + db.precision + 1, da.scale + db.scale
+    elif op == "div":
+        s = max(6, da.scale + db.precision + 1)
+        p = da.precision - da.scale + db.scale + s
+    else:
+        raise ValueError(op)
+    if p > DecimalType.MAX_PRECISION:
+        raise TypeError(
+            f"decimal result {op}({da},{db}) needs precision {p} > "
+            f"DECIMAL64 cap {DecimalType.MAX_PRECISION}")
+    return DecimalType(p, min(s, p))
+
+
 def is_fixed_width(dt: DataType) -> bool:
-    """True for the types this slice stores as one torch tensor."""
-    return type(dt) in (NullType, BooleanType, ByteType, ShortType,
-                        IntegerType, LongType, FloatType, DoubleType)
+    """True for the types stored as one torch tensor. Unlike the
+    reference's (``types.py:397``), NullType counts: the port stores a
+    NULL column as an all-invalid bool tensor, so every path that takes
+    a fixed-width column takes it."""
+    return not isinstance(dt, (StringType, BinaryType, ArrayType,
+                               StructType))
 
 
 def is_string(dt: DataType) -> bool:
@@ -293,10 +330,11 @@ def is_string(dt: DataType) -> bool:
 
 
 def check_storable(dt: DataType) -> None:
-    """Raise for a type no port column can hold yet."""
+    """Raise for a type no column can hold (arrays and structs, as in the
+    reference)."""
     if not (is_fixed_width(dt) or is_string(dt)):
-        raise NotImplementedError(f"{dt.simpleString} columns are "
-                                  f"{NOT_PORTED_TYPES}")
+        raise TypeError(f"{dt.simpleString} columns are not representable "
+                        "on the engine")
 
 
 def torch_dtype(dt: DataType) -> torch.dtype:
@@ -305,6 +343,8 @@ def torch_dtype(dt: DataType) -> torch.dtype:
     if is_string(dt):
         raise TypeError(f"{dt.simpleString} columns are offsets + chars, "
                         "not one tensor")
+    if isinstance(dt, DecimalType):
+        return torch.int64
     return _TORCH[dt.name]
 
 
@@ -313,11 +353,28 @@ _PROMOTION_ORDER = ["tinyint", "smallint", "int", "bigint", "float", "double"]
 
 def promote(a: DataType, b: DataType) -> DataType:
     """Smallest common numeric type (Spark's findTightestCommonType,
-    simplified), as in the reference."""
+    simplified), as in the reference: a decimal against a float compares
+    as double; two decimals widen per DecimalPrecision, shedding
+    fractional digits (down to 6) rather than integer digits when the
+    result would pass DECIMAL64."""
     if a == b:
         return a
-    if isinstance(a, DecimalType) or isinstance(b, DecimalType):
-        raise NotImplementedError(f"decimal promotion is {NOT_PORTED_TYPES}")
+    if isinstance(a, DecimalType) != isinstance(b, DecimalType):
+        other = b if isinstance(a, DecimalType) else a
+        if other.is_floating:
+            return DOUBLE
+        a, b = as_decimal(a), as_decimal(b)  # raises for bigint
+    if isinstance(a, DecimalType) and isinstance(b, DecimalType):
+        scale = max(a.scale, b.scale)
+        intd = max(a.precision - a.scale, b.precision - b.scale)
+        if intd + scale > DecimalType.MAX_PRECISION:
+            min_scale = min(scale, 6)
+            scale = max(DecimalType.MAX_PRECISION - intd, min_scale)
+            if intd + scale > DecimalType.MAX_PRECISION:
+                raise TypeError(
+                    f"decimal promotion of {a} and {b} needs {intd} integer "
+                    f"digits + {scale} fractional > DECIMAL64 capacity 18")
+        return DecimalType(intd + scale, scale)
     if a.is_numeric and b.is_numeric:
         ia, ib = _PROMOTION_ORDER.index(a.name), _PROMOTION_ORDER.index(b.name)
         return _BY_NAME[_PROMOTION_ORDER[max(ia, ib)]]

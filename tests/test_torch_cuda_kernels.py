@@ -1094,3 +1094,64 @@ def test_dfa_accept_rows_matches_its_plain_version(dev, pat):
         torch.cuda.synchronize()
         assert RK.LAUNCHES["dfa_accept_rows"] == before + 1
         assert torch.equal(got.cpu(), want)
+
+
+def test_date_keyed_decimal_aggregate_on_the_card_matches_the_cpu(
+        dev, tmp_path):
+    """The chip check's Q27 at 2^16 rows (TPC-DS store_sales with INT32
+    decimals in 4 files): group by a DATE, count, a decimal sum (K1), a
+    decimal avg (HALF_UP at scale 6), a decimal min and a timestamp max
+    (K3) through the session on the card give the CPU's rows and the
+    oracle's."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    import chip_smoke as CS
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+
+    t = CS.store_sales_table(np, 1 << 16)
+    path = str(tmp_path / "store_sales")
+    CS._write_files(pa, pq, path,
+                    CS.tpcds_sales_tables(pa, np, t)["store_sales"], 4,
+                    store_decimal_as_integer=True)
+    before = dict(K.LAUNCHES)
+    got = CS.q27_df(TpuSession({}, device=dev), path, E, A).collect()
+    assert all(K.LAUNCHES[k] > before[k]
+               for k in ("bucket_sum", "bucket_winner"))
+    want = CS.q27_df(TpuSession({}, device="cpu"), path, E, A).collect()
+    assert got == want == CS.q27_oracle(np, t)
+
+
+def test_decimal_and_timestamp_to_double_on_the_card_are_exact(dev):
+    """decimal -> double and timestamp -> double divide by a power of ten
+    correctly rounded on the card too (CUDA makes a division by a host
+    scalar a reciprocal multiply, one ulp off on some values): the card's
+    bits equal the CPU's and Python's ``/``."""
+    from decimal import Decimal
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, schema_of
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.eval import evaluate_projection
+
+    rng = np.random.default_rng(3)
+    cents = rng.integers(-10**9, 10**9, 1 << 14)
+    us = rng.integers(-4 * 10**15, 4 * 10**15, 1 << 14)
+    data = {"m": [Decimal(int(c)).scaleb(-2) for c in cents],
+            "t": [int(u) for u in us]}
+    schema = schema_of(m=T.DecimalType(11, 2), t=T.TIMESTAMP)
+    exprs = [E.Cast(E.col("m"), T.DOUBLE), E.Cast(E.col("t"), T.DOUBLE)]
+
+    def run(device):
+        b = ColumnarBatch.from_pydict(data, schema, device=device)
+        return [c.data.cpu().view(torch.int64) for c in evaluate_projection(
+            [E.bind_references(e, schema) for e in exprs], b)]
+
+    got, want = run(dev), run("cpu")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0][: cents.size].view(torch.float64).tolist() == [
+        int(c) / 100 for c in cents]
+    assert got[1][: us.size].view(torch.float64).tolist() == [
+        int(u) / 1e6 for u in us]

@@ -183,12 +183,22 @@ def test_cast_matches_reference(frm, to, idx):
 
 
 def test_types_not_ported_raise():
+    """Dates, timestamps and decimals are storable (ROADMAP item 6 is
+    ported); what the reference cannot hold or cast still raises: an
+    array column, and int -> date, which the reference's lowering refuses
+    with the same reason."""
     from spark_rapids_tpu_torch.columnar import ColumnarBatch, schema_of
+    from spark_rapids_tpu_torch.expr.values import UnsupportedExpressionError
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ColumnarBatch.from_pydict({"d": [1]}, schema_of(d=T.DATE),
+    b = ColumnarBatch.from_pydict({"d": [1, None]}, schema_of(d=T.DATE),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert b.to_rows() == [(1,), (None,)]
+    with pytest.raises(TypeError, match="not representable"):
+        ColumnarBatch.from_pydict({"a": [[1]]},
+                                  schema_of(a=T.ArrayType(T.INT)),
+                                  device="cpu")
+    with pytest.raises(UnsupportedExpressionError,
+                       match="cast int -> date is not supported"):
         EV.lower(E.Cast(E.BoundReference(0, T.INT), T.DATE),
                  [ColV(torch.zeros(4, dtype=torch.int32),
                        torch.ones(4, dtype=torch.bool))], 4)

@@ -226,15 +226,27 @@ def test_interpreter_matches_reference(case):
 
 
 def test_not_ported_nodes_raise_naming_their_items():
-    """Date/time and nondeterministic nodes lower on the reference's
-    device; the port raises NotImplementedError naming the ROADMAP item,
-    and tpu_supports lets it propagate instead of reporting a fallback."""
+    """Nondeterministic nodes lower on the reference's device; the port
+    raises NotImplementedError naming the ROADMAP item, and tpu_supports
+    lets it propagate instead of reporting a fallback. The date/time
+    nodes are ported (item 6): DateAdd is supported, and a cast the
+    reference refuses falls back with the reference's reason."""
     schema = T.StructType((T.StructField("x", T.LONG),))
     with pytest.raises(NotImplementedError, match="Nondeterministic"):
         EV.tpu_supports(E.Rand(3), schema)
-    with pytest.raises(NotImplementedError, match="Decimals and dates"):
-        EV.tpu_supports(E.DateAdd(E.Cast(E.col("x"), T.DATE),
-                                  E.Literal(1, T.INT)), schema)
+    dschema = T.StructType((T.StructField("d", T.DATE),
+                            T.StructField("x", T.LONG)))
+    jschema = JT.StructType((JT.StructField("d", JT.DATE),
+                             JT.StructField("x", JT.LONG)))
+    for M, TT, sch, ev in ((E, T, dschema, EV), (JE, JT, jschema, JEV)):
+        assert ev.tpu_supports(M.DateAdd(M.col("d"), M.Literal(1, TT.INT)),
+                               sch) == (True, "")
+    cast = EV.tpu_supports(E.DateAdd(E.Cast(E.col("x"), T.DATE),
+                                     E.Literal(1, T.INT)), schema)
+    assert cast == JEV.tpu_supports(
+        JE.DateAdd(JE.Cast(JE.col("x"), JT.DATE), JE.Literal(1, JT.INT)),
+        JT.StructType((JT.StructField("x", JT.LONG),)))
+    assert cast == (False, "cast bigint -> date is not supported")
     ok, why = EV.tpu_supports(E.PythonUDF(lambda v: v, (E.col("x"),)),
                               schema)
     assert not ok and "PythonUDF" in why

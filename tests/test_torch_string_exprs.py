@@ -245,12 +245,26 @@ def test_cast_int_to_string_edges():
         None if v is None else str(v) for v in vals]
 
 
-def test_cast_from_and_to_dates_names_its_item():
-    pb = ColumnarBatch.from_pydict({"s": ["2020-01-01"]},
+DATE_STRINGS = ["2020-01-01", " 2019-2-9 ", "2020-02-30", None, "x",
+                "2020-12-31 23:59:59.5", "1969-12-31T00:00:01"]
+
+
+@pytest.mark.parametrize("to", ["DATE", "TIMESTAMP"])
+def test_cast_from_and_to_dates_matches_reference(to):
+    """string -> date/timestamp -> string (ROADMAP item 6) on the same
+    rows as the reference: every value and validity equal."""
+    jb = JBatch.from_pydict({"s": DATE_STRINGS}, jschema_of(s=JT.STRING))
+    pb = ColumnarBatch.from_pydict({"s": DATE_STRINGS},
                                    schema_of(s=T.STRING), device="cpu")
-    with pytest.raises(NotImplementedError, match="Decimals and dates"):
-        evaluate_projection([E.bind_references(
-            E.Cast(E.col("s"), T.DATE), pb.schema)], pb)
+    exprs = [(M.Cast(M.col("s"), getattr(TT, to)),
+              M.Cast(M.Cast(M.col("s"), getattr(TT, to)), TT.STRING))
+             for M, TT in ((JE, JT), (E, T))]
+    ref = jevaluate([jbind(e, jb.schema) for e in exprs[0]], jb)
+    got = evaluate_projection([E.bind_references(e, pb.schema)
+                               for e in exprs[1]], pb)
+    for r, g in zip(ref, got):
+        assert g.to_host().to_pylist() == r.to_pylist()
+    assert got[1].to_host().to_pylist()[0].startswith("2020-01-01")
 
 
 def test_float_to_string_stays_unsupported():
