@@ -12,7 +12,8 @@ Phases, each failing the run on any error or mismatch:
    ``spark_rapids_tpu_torch/csrc/groupby_kernels.cu``,
    ``csrc/join_kernels.cu``, ``csrc/udf_kernels.cu`` and
    ``csrc/regex_kernels.cu`` (one ``nvcc`` each for ``sm_90a``, started
-   together; ptxas' register and spill lines
+   together with the ``g++`` build of the native host library from
+   ``native/src``; ptxas' register and spill lines
    are printed); the card's name and power limit are read;
 2. kernels: each hand-written kernel's wrapper runs on card tensors at the
    main path's shapes (2^24 rows; B = 128, 1024, 8192) and is held
@@ -273,7 +274,56 @@ Phases, each failing the run on any error or mismatch:
         dimension as one file below the 10 MB broadcast threshold, so
         the broadcast exchange and hash join (K4 once per probe batch,
         4), the group by city through a hash exchange; ``q18_oracle``;
-     Q14m Q14's window over 4 files: the window gathers the partitions.
+     Q14m Q14's window over 4 files: the window gathers the partitions;
+     Q11mz Q11mh under ``shuffle.compression.codec=lz4`` (the native
+        block codec on the wire format: its bytes and encode/decode times);
+     Q28 (item 25) TPC-H Q1 over Q20m's 4 files, sampled as Spark's
+        ``sample``: a projection appends ``rand(42)`` and a filter keeps
+        ``rand < 0.25`` (the filter and the aggregate run on the card; K1
+        and K2 must launch), against a numpy oracle whose rand is the
+        reference's splitmix64 stream over (seed, partition, row) in
+        ``np.uint64``, bit for bit; Q28i a second projection of
+        ``monotonically_increasing_id()``, ``spark_partition_id()``,
+        ``input_file_name()`` and ``hash(l_returnflag, l_linestatus,
+        l_quantity)`` grouped by file: count, min/max id and partition
+        id, and the int64 sum of the hash, exact against numpy (a numpy
+        murmur3), and the hashes of a 4096-row sample against the port's
+        scalar murmur3.
+
+   Item 27 (the native host decoders): Q11's, Q17's, Q20's and Q22's
+   cold runs report their scans' ``hostDecodeTime`` and the hybrid
+   streams decoded by route (``parquet_device.DECODE_ROUTES``); the run
+   fails if any query's stream took the numpy route. Each of those files
+   is also planned on the host alone (every column chunk decompressed and
+   decoded, no device): the C++ decoder on 1 to 8 threads and the numpy
+   decoder (the library hidden, as on a host without a compiler) on one,
+   every pass of each planning the same number of chunks (a chunk the
+   device route refuses goes to the host reader and is not counted);
+   and Q11 runs cold with a host-decode pool of 1, 2, 4 and 8 threads
+   (the measurement behind ``parquet_device.DECODE_THREADS``).
+
+11. the memory plane (items 4 and 11), each run against its own
+   un-faulted run's rows, with its wall and its peak device memory
+   (``torch.cuda.max_memory_allocated`` above what was allocated before):
+     Q29a Q20v's TPC-H Q1 (AUTO: K1, K2, K3) with
+        ``test.faults.oom`` firing while the aggregate update's batch
+        capacity exceeds 2^20 rows: each 2^21-row batch fails twice and
+        splits once (the harness's attempts and split depth reported);
+        keys, counts and min/max exact, sums within 1e-12 of sum|x|
+        (the split changes the order of the float sums under
+        ``variableFloatAgg``, so their last bits may differ);
+     Q29b the bench join Q6's join under a real
+        ``torch.cuda.OutOfMemoryError``, its output reduced on the card
+        batch by batch (``_reduce_join``): its unsplit peak measured, then
+        the process capped (``set_per_process_memory_fraction``) at what
+        was reserved plus a factor of that peak, found on the card, so
+        that the probe's first attempt cannot fit; the probe must split
+        (depth >= 1), K4 launch on the halves and the reduction equal the
+        unsplit run's; the cap is lifted after;
+     Q29c Q6 with ``memory.hbm.budgetBytes`` at 1 MiB: the sorted build
+        spills to the host as it registers and comes back for the probe,
+        which holds it pinned: two spills and two unspills exactly
+        (spilled bytes reported), K4 once and Q6's rows.
 
 10. decimals, dates and timestamps (item 6), over TPC-DS ``store_sales``
    with its spec types: 2^23 rows (SF ~2.9) seeded from dsdgen's pricing
@@ -1363,25 +1413,19 @@ def _join_oracle(np, fk, fv, fnull, dk, dv, dnull, how, thresh=None,
     return (rows,) + tuple(out)
 
 
-def join_query_phase(torch, np, dev, log2_fact: int, dim_rows: int,
-                     profile: bool = False):
-    """Q6-Q8 through the exec tree, each checked against a numpy oracle,
-    with the launch counts set to 0 just before each query and read just
-    after it (see the module docstring)."""
+def bench_join(torch, np, dev, n: int, dim_rows: int):
+    """The bench join query's inputs (bench.py ``shape_join``: ``n``
+    fact rows join ``dim_rows`` dim rows on fk = dk, then group by fv:
+    sum(dv), count(*)): the fact and dim batches, the numpy oracle's
+    rows and ``plan(conf) -> (join, aggregate)``."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.columnar import schema_of
-    from spark_rapids_tpu_torch.conf import RapidsConf
     from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
                                              TpuHashAggregateExec,
                                              TpuShuffledHashJoinExec)
     from spark_rapids_tpu_torch.expr import aggregates as A
-    from spark_rapids_tpu_torch.expr import expressions as E
-    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.expr.expressions import col
 
-    per_query = {}
-    report = []
-    # --- Q6/Q7: the bench join query (bench.py shape_join) -----------------
-    n = 1 << log2_fact
     rng = np.random.default_rng(11)
     fk = rng.integers(0, dim_rows, n).astype(np.int64)
     fv = rng.integers(0, 100, n).astype(np.int64)
@@ -1398,7 +1442,7 @@ def join_query_phase(torch, np, dev, log2_fact: int, dim_rows: int,
     want = sorted((g, int(s_exp[g]), int(c_exp[g])) for g in range(100)
                   if c_exp[g])
 
-    def bench_plan(conf):
+    def plan(conf):
         join = TpuShuffledHashJoinExec(
             conf, InMemoryScanExec(conf, [fact], fs),
             InMemoryScanExec(conf, [dim], ds), [col("fk")], [col("dk")],
@@ -1406,6 +1450,28 @@ def join_query_phase(torch, np, dev, log2_fact: int, dim_rows: int,
         return join, TpuHashAggregateExec(
             conf, [col("fv")],
             [A.agg(A.Sum(col("dv")), "s"), A.agg(A.Count(None), "c")], join)
+
+    return fact, dim, want, plan
+
+
+def join_query_phase(torch, np, dev, log2_fact: int, dim_rows: int,
+                     profile: bool = False):
+    """Q6-Q8 through the exec tree, each checked against a numpy oracle,
+    with the launch counts set to 0 just before each query and read just
+    after it (see the module docstring)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import schema_of
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuShuffledHashJoinExec)
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    per_query = {}
+    report = []
+    # --- Q6/Q7: the bench join query (bench.py shape_join) -----------------
+    n = 1 << log2_fact
+    fact, dim, want, bench_plan = bench_join(torch, np, dev, n, dim_rows)
 
     for q, strategy in (("Q6", "PALLAS"), ("Q7", "AUTO")):
         conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy": strategy})
@@ -1442,6 +1508,8 @@ def join_query_phase(torch, np, dev, log2_fact: int, dim_rows: int,
     del fact, dim
 
     # --- Q8: every join type, dup and null keys, PALLAS and AUTO ------------
+    fs = schema_of(fk=T.LONG, fv=T.LONG)
+    ds = schema_of(dk=T.LONG, dv=T.LONG)
     n8, d8 = 1 << (log2_fact - 3), 1 << (log2_fact - 7)
     r8 = np.random.default_rng(8)
     fk8 = r8.integers(0, 150_000, n8).astype(np.int64)
@@ -2072,8 +2140,10 @@ def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
         DeviceScanCache.reset()
         S._SCANNER_CACHE.clear()
         reset_launches()
+        routes = decode_routes()
         rows, cold_ms = timed_collect(q11())
         per_query["Q11"] = launches()
+        routes = query_routes("Q11", routes)
         check(rows, "Q11 cold")
         top = sess.last_executed_plan
         agg = top.tpu_child if isinstance(top, ColumnarToRowExec) else None
@@ -2115,10 +2185,24 @@ def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
               "scan_read_ms": m["scanTime"] / 1e6,
               "upload_bytes": m["uploadBytes"],
               "host_fallback_chunks": m["hostFallbackChunks"],
+              "decode_routes": routes,
               "decoded_bytes": decoded, "bound_ms": bound_ms(decoded),
               "scan_cache": cache,
               "agg_strategy": agg._strategy_choice[0],
               "launches": per_query["Q11"]})
+        emit({"host_decode": "Q11", **host_decode_timing(
+            np, os.path.join(pdir, "t.parquet"), DECODE_SWEEP)})
+        # Q11's cold wall by the size of the scan's host-decode pool
+        cold_by_threads = {}
+        for th in DECODE_SWEEP * 2:
+            with decode_pool_size(th):
+                DeviceScanCache.reset()
+                S._SCANNER_CACHE.clear()
+                rows, ms = timed_collect(q11())
+                check(rows, f"Q11 cold, {th} decode threads")
+            cold_by_threads[th] = min(ms, cold_by_threads.get(th, ms))
+        emit({"query": "Q11", "cold_wall_ms_by_decode_threads":
+              cold_by_threads})
         if profile:
             profile_plan(torch, "Q11", lambda: sess._execute(
                 q11().node).tpu_child, sess.conf, n, decoded)
@@ -2521,9 +2605,9 @@ def lineitem_inputs(np, n: int):
     return t, want, kept, strs
 
 
-def tpch_q1_df(np, sess, pdir):
-    """TPC-H Q1 over the ``lineitem`` files under ``pdir``, as a port
-    DataFrame (Q17, Q20)."""
+def tpch_q1_df(np, sess, pdir, source=None):
+    """TPC-H Q1 over the ``lineitem`` files under ``pdir`` (or over the
+    DataFrame ``source``), as a port DataFrame (Q17, Q20, Q28)."""
     from spark_rapids_tpu_torch.expr import aggregates as A
     from spark_rapids_tpu_torch.expr import expressions as E
     from spark_rapids_tpu_torch.expr.expressions import col, lit
@@ -2531,7 +2615,9 @@ def tpch_q1_df(np, sess, pdir):
     price = col("l_extendedprice")
     disc_price = E.Multiply(price, E.Subtract(lit(1.0), col("l_discount")))
     charge = E.Multiply(disc_price, E.Add(lit(1.0), col("l_tax")))
-    return (sess.read.parquet(pdir)
+    if source is None:
+        source = sess.read.parquet(pdir)
+    return (source
             .where(E.LessThanOrEqual(col("l_shipdate"),
                                      lit(_days(np, Q17_CUTOFF))))
             .group_by("l_returnflag", "l_linestatus")
@@ -2647,8 +2733,10 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
                 plans.append(sess.last_executed_plan)
                 return rows
 
+            routes = decode_routes()
             cold, warm, counts = _walls(torch, q, run_once,
                                         lambda rows: check(rows, q))
+            routes = query_routes(q, routes)
             # the cold run's plan and metrics
             agg, scan = tpch_q1_chain(plans[0], q)
             batches = scan.metrics["numOutputBatches"].value
@@ -2673,6 +2761,8 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
                   "scan_batches": batches, "groups": len(want),
                   "cold_wall_ms": cold, "warm_wall_ms": warm,
                   "host_fallback_chunks": m["hostFallbackChunks"],
+                  "host_decode_ms": m["hostDecodeTime"] / 1e6,
+                  "decode_routes": routes,
                   "upload_bytes": m["uploadBytes"],
                   "bytes": in_bytes, "bound_ms": bound_ms(in_bytes),
                   "agg": agg.describe(), "launches": counts})
@@ -2697,6 +2787,8 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
                 emit({"kernel_shape": "ordered_segment_sum", "path": "Q17",
                       "rows": sseg.shape[0], "B": nseg, **osum})
                 del calls, sv, sseg
+        emit({"host_decode": "Q17", **host_decode_timing(
+            np, os.path.join(pdir, "t.parquet"))})
     finally:
         shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
     return per_query, osum
@@ -2758,9 +2850,11 @@ def q20_dict_tpch_q1(torch, np, dev, log2_rows: int, reps: int,
                 plans.append(sess.last_executed_plan)
                 return rows
 
+            routes = decode_routes()
             cold, warm, counts = _walls(
                 torch, q, run_once,
                 lambda rows: tpch_q1_check(want, rows, q))
+            routes = query_routes(q, routes)
             agg, scan = tpch_q1_chain(plans[0], q)
             desc = agg.describe()
             batches = scan.metrics["numOutputBatches"].value
@@ -2785,6 +2879,8 @@ def q20_dict_tpch_q1(torch, np, dev, log2_rows: int, reps: int,
                   "scan_batches": batches, "groups": len(want),
                   "cold_wall_ms": cold, "warm_wall_ms": warm,
                   "host_fallback_chunks": m["hostFallbackChunks"],
+                  "host_decode_ms": m["hostDecodeTime"] / 1e6,
+                  "decode_routes": routes,
                   "upload_bytes": m["uploadBytes"],
                   "bytes": in_bytes, "bound_ms": bound_ms(in_bytes),
                   "agg": desc, "launches": counts})
@@ -2816,6 +2912,8 @@ def q20_dict_tpch_q1(torch, np, dev, log2_rows: int, reps: int,
                           "rows": seg.shape[0], "B": B,
                           **shapes[(name, "Q20v")]})
                 del c1, c2, seg
+        emit({"host_decode": "Q20", **host_decode_timing(
+            np, os.path.join(pdir, "t.parquet"))})
     finally:
         shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
     return per_query, shapes
@@ -3833,7 +3931,12 @@ def q22_queries(torch, np, dev, t, opath, cpath, like, anchored,
                 raise AssertionError(f"{q}: {len(rows)} rows differ from "
                                      f"the numpy oracle's {len(rows_want)}")
 
+        routes = decode_routes()
         cold, warm, counts = _walls(torch, q, run_once, check, runs)
+        routes = query_routes(q, routes)
+        cold_scans = [e.metrics["hostDecodeTime"].value / 1e6
+                      for e in _device_tree(plans[0].tpu_child)
+                      if isinstance(e, TpuFileSourceScanExec)]
         tree = plans[0].tree_string()
         text = tpch_q13_df(sess, opath, cpath, pred).explain()
         fallback = "CpuFilterExec" in tree
@@ -3852,8 +3955,11 @@ def q22_queries(torch, np, dev, t, opath, cpath, like, anchored,
               "excluded_orders": int((like if q != "Q22d"
                                       else anchored).sum()),
               "cpu_filter": fallback, "cold_wall_ms": cold,
-              "warm_wall_ms": warm, "bytes": in_bytes,
+              "warm_wall_ms": warm, "cold_host_decode_ms": cold_scans,
+              "decode_routes": routes, "bytes": in_bytes,
               "bound_ms": bound_ms(in_bytes), "launches": counts})
+        if q == "Q22":
+            emit({"host_decode": "Q22", **host_decode_timing(np, opath)})
         if profile and q != "Q22r":
             profile_plan(torch, q, lambda sess=sess, pred=pred: sess._execute(
                 tpch_q13_df(sess, opath, cpath, pred).node).tpu_child,
@@ -4476,9 +4582,13 @@ def exchange_phase(torch, np, dev) -> dict:
         emit({"table": "store_sales", "files": Q11M_FILES, "rows": n,
               "write_s": write_s})
         check11 = q11_check(np, qty, cost, date)
-        for q, transport in (("Q11m", "device"), ("Q11mh", "host")):
+        for q, transport, codec in (("Q11m", "device", "none"),
+                                    ("Q11mh", "host", "none"),
+                                    ("Q11mz", "host", "lz4")):
             sess = fresh({**vfa, "spark.rapids.tpu.shuffle.transport.class":
-                          transport})
+                          transport,
+                          "spark.rapids.tpu.shuffle.compression.codec":
+                          codec})
 
             def q11(sess=sess):
                 return (sess.read.parquet(path)
@@ -4523,6 +4633,7 @@ def exchange_phase(torch, np, dev) -> dict:
                 lambda rows, q=q: tpch_q1_check(want, rows, q),
                 "TpuShuffleExchangeExec RangePartitioning", n,
                 n * (4 * 8 + 4) + 3 * 5 * n, expect)
+        q28_queries(torch, np, fresh(vfa), path, t, strs, per_query)
         shutil.rmtree(path)
 
         # --- Q22m: TPC-H Q13 over orders (4 files) and customer (2 files) ---
@@ -5219,15 +5330,494 @@ def decimal_date_phase(torch, np, dev) -> dict:
     return per_query
 
 
+# ---------------------------------------------------------------------------
+# item 27: the native host decoders
+# ---------------------------------------------------------------------------
+#: decode-pool sizes of Q11's host-only timing (DECODE_THREADS' sweep)
+DECODE_SWEEP = (1, 2, 4, 8)
+#: hybrid streams the queries decoded, by route (``query_routes``)
+QUERY_ROUTES = {"native": 0, "numpy": 0}
+
+
+def decode_routes() -> dict:
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    return dict(PD.DECODE_ROUTES)
+
+
+def query_routes(q: str, before: dict) -> dict:
+    """The hybrid streams decoded by route since ``before``, added to
+    :data:`QUERY_ROUTES`; a stream of a query on the numpy route fails
+    the run (the card's machine has a C++ compiler)."""
+    now = decode_routes()
+    got = {k: now[k] - before[k] for k in now}
+    for k, v in got.items():
+        QUERY_ROUTES[k] += v
+    if got["numpy"]:
+        raise AssertionError(f"{q}: {got['numpy']} hybrid streams took the "
+                             "numpy decoder")
+    return got
+
+
+@contextlib.contextmanager
+def decode_pool_size(threads: int):
+    """The parquet scan's host-decode pool at ``threads`` threads."""
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    def fresh(n):
+        if PD._PQDEC_POOL is not None:
+            PD._PQDEC_POOL.shutdown(wait=True)
+        PD._PQDEC_POOL = None
+        PD.DECODE_THREADS = n
+
+    old = PD.DECODE_THREADS
+    fresh(threads)
+    try:
+        yield
+    finally:
+        fresh(old)
+
+
+def host_decode_timing(np, path: str, sweep=(1, 8)) -> dict:
+    """Every column chunk of the parquet file(s) at ``path`` planned on
+    the host alone (``parquet_device.plan_chunk``: decompress, the hybrid
+    streams, the dictionary pages; no upload): through the C++ decoder on
+    each pool size of ``sweep``, and through the numpy decoder (the
+    library hidden, as on a host without a compiler) on one thread.
+    Seconds, best of two passes each (the file in the page cache)."""
+    import glob
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    files = sorted(glob.glob(os.path.join(path, "*.parquet"))) \
+        if os.path.isdir(path) else [path]
+    chunks = []
+    for f in files:
+        with open(f, "rb") as fh:
+            data = fh.read()
+        pf = pq.ParquetFile(f)
+        md = pf.metadata
+        for rg in range(md.num_row_groups):
+            for ci in range(md.num_columns):
+                col = pf.schema.column(ci)
+                chunks.append((data, md.row_group(rg).column(ci), col))
+
+    def plan(c):
+        data, cmd, col = c
+        try:
+            PD.plan_chunk(data, cmd, col.max_definition_level,
+                          col.max_repetition_level, PD.column_time_unit(col))
+            return 1
+        except PD._FallbackError:  # chunks the host reader takes
+            return 0
+
+    #: chunks planned on the device route, per pass of every timing: each
+    #: pass must do the same work, or the times compare different things
+    planned = []
+
+    def best(threads: int) -> float:
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            if threads == 1:
+                planned.append(sum(map(plan, chunks)))
+            else:
+                with ThreadPoolExecutor(threads) as pool:
+                    planned.append(sum(pool.map(plan, chunks)))
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    out = {"files": len(files), "chunks": len(chunks),
+           "file_bytes": sum(os.path.getsize(f) for f in files)}
+    out["native_s"] = {t: best(t) for t in sweep}
+    hidden = (native.pq_hybrid_decode, native.pq_binary_dict)
+    before = decode_routes()
+    native.pq_hybrid_decode = native.pq_binary_dict = (
+        lambda *a, **k: None)
+    try:
+        out["numpy_s"] = best(1)
+    finally:
+        native.pq_hybrid_decode, native.pq_binary_dict = hidden
+    after = decode_routes()
+    out["numpy_streams"] = after["numpy"] - before["numpy"]
+    out["planned_chunks"] = planned[0]
+    if not out["numpy_streams"] or after["native"] != before["native"]:
+        raise AssertionError(f"host decode timing of {path}: routes "
+                             f"{before} -> {after}")
+    if len(set(planned)) != 1:
+        raise AssertionError(f"host decode timing of {path}: chunks "
+                             f"planned per pass {planned}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# item 25: rand, ids, partition ids, file names and hash (Q28)
+# ---------------------------------------------------------------------------
+_U64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+
+
+def _splitmix_int(z: int) -> int:
+    z = (z + _GOLDEN) & _U64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _U64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _U64
+    return z ^ (z >> 31)
+
+
+def rand_oracle(np, seed: int, pid: int, n: int):
+    """rand(seed) of rows 0..n-1 of partition ``pid``: splitmix64 over
+    (seed, partition, row), top 53 bits / 2^53 (the reference's stream),
+    in ``np.uint64``."""
+    base = _splitmix_int((seed & _U64) ^ ((pid * _GOLDEN) & _U64))
+    z = np.arange(n, dtype=np.uint64) ^ np.uint64(base)
+    z = z + np.uint64(_GOLDEN)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    return (z >> np.uint64(11)).astype(np.float64) * (1.0 / (1 << 53))
+
+
+def _m3_mixk1(np, k):
+    k = k * np.uint32(0xCC9E2D51)
+    k = (k << np.uint32(15)) | (k >> np.uint32(17))
+    return k * np.uint32(0x1B873593)
+
+
+def _m3_mixh1(np, h, k):
+    h = h ^ k
+    h = (h << np.uint32(13)) | (h >> np.uint32(19))
+    return h * np.uint32(5) + np.uint32(0xE6546B64)
+
+
+def _m3_fmix(np, h, length: int):
+    h = h ^ np.uint32(length)
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def murmur3_oracle(np, one_byte_strings, doubles, seed: int = 42):
+    """Spark's hash(s1, ..., d) per row (int32) for non-null one-byte
+    strings (uint8 arrays) then a double, in numpy uint32 arithmetic."""
+    h = np.full(doubles.shape[0], seed, np.uint32)
+    for b in one_byte_strings:
+        k = b.astype(np.int8).astype(np.int32).astype(np.uint32)
+        h = _m3_fmix(np, _m3_mixh1(np, h, _m3_mixk1(np, k)), 1)
+    d = np.where(doubles == 0.0, 0.0, doubles)
+    bits = d.view(np.uint64)
+    h = _m3_mixh1(np, h, _m3_mixk1(np, (bits & np.uint64(0xFFFFFFFF))
+                                   .astype(np.uint32)))
+    h = _m3_mixh1(np, h, _m3_mixk1(np, (bits >> np.uint64(32))
+                                   .astype(np.uint32)))
+    return _m3_fmix(np, h, 8).view(np.int32)
+
+
+def q28_queries(torch, np, sess, path: str, t: dict, strs: dict,
+                per_query: dict) -> None:
+    """Q28 and Q28i over the lineitem files at ``path`` (see the module
+    docstring), each through :func:`exchange_query`."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec.scan import TpuFileSourceScanExec
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.expr.nondet import murmur3_scalar
+
+    n = t["qty"].shape[0]
+    names = ["l_returnflag", "l_linestatus", "l_shipmode", "l_quantity",
+             "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+    # the partitions in split order: each file's rows, numbered in the file
+    probe = sess.read.parquet(path).select(col("l_quantity"))
+    probe.collect()
+    scan = next(e for e in _device_tree(sess.last_executed_plan.tpu_child)
+                if isinstance(e, TpuFileSourceScanExec))
+    per = -(-n // MULTI_FILES)
+    parts = []
+    for pid, sp in enumerate(scan.scanner.splits()):
+        i = int(os.path.basename(sp.path)[len("part-"):-len(".parquet")])
+        parts.append((pid, sp.path, i * per, min(n, (i + 1) * per)))
+    keep = np.zeros(n, bool)
+    for pid, _, a, b in parts:
+        keep[a:b] = rand_oracle(np, 42, pid, b - a) < 0.25
+    sub = {k: v[keep] for k, v in t.items()}
+    want, _ = q17_oracle(np, sub)
+
+    def q28():
+        sampled = (sess.read.parquet(path)
+                   .select(*[col(c) for c in names],
+                           E.Alias(E.Rand(42), "r"))
+                   .where(E.LessThan(col("r"), lit(0.25))))
+        return tpch_q1_df(np, sess, path, source=sampled)
+
+    per_query["Q28"] = exchange_query(
+        torch, "Q28", sess, q28, lambda rows: tpch_q1_check(want, rows,
+                                                            "Q28"),
+        "TpuShuffleExchangeExec", n, n * (4 * 8 + 4) + 3 * 5 * n,
+        lambda c: c["bucket_sum"] > 0 and c["bucket_float_sum"] > 0)
+    emit({"query": "Q28", "sampled_rows": int(keep.sum()),
+          "partitions": [(pid, os.path.basename(f), b - a)
+                         for pid, f, a, b in parts]})
+
+    codes = {k: strs[k][1][strs[k][0][:-1]] for k in
+             ("l_returnflag", "l_linestatus")}  # one byte a row
+    h = murmur3_oracle(np, [codes["l_returnflag"], codes["l_linestatus"]],
+                       t["qty"])
+    want_i = sorted(
+        (f, b - a, (pid << 33), (pid << 33) + (b - a) - 1, pid, pid,
+         int(h[a:b].astype(np.int64).sum())) for pid, f, a, b in parts)
+
+    def ids():
+        return sess.read.parquet(path).select(
+            E.Alias(E.MonotonicallyIncreasingID(), "id"),
+            E.Alias(E.SparkPartitionID(), "pid"),
+            E.Alias(E.InputFileName(), "f"),
+            E.Alias(E.Murmur3Hash((col("l_returnflag"), col("l_linestatus"),
+                                   col("l_quantity"))), "h"))
+
+    def q28i():
+        return (ids().group_by("f")
+                .agg(A.agg(A.Count(None), "n"),
+                     A.agg(A.Min(col("id")), "min_id"),
+                     A.agg(A.Max(col("id")), "max_id"),
+                     A.agg(A.Min(col("pid")), "min_pid"),
+                     A.agg(A.Max(col("pid")), "max_pid"),
+                     A.agg(A.Sum(E.Cast(col("h"), T.LONG)), "sum_h"))
+                .order_by("f"))
+
+    def check_i(rows):
+        if sorted(rows) != want_i:
+            raise AssertionError(f"Q28i: {sorted(rows)} != {want_i}")
+
+    per_query["Q28i"] = exchange_query(
+        torch, "Q28i", sess, q28i, check_i, "TpuShuffleExchangeExec", n,
+        n * 17, lambda c: True)
+    # the hashes of a 4096-row sample (partition 0's first rows) against
+    # the port's scalar murmur3
+    pid0, f0, a0, _ = parts[0]
+    sample = sorted(ids().where(E.LessThan(col("id"), lit(4096)))
+                    .select(col("id"), col("h")).collect())
+    flags = strs["l_returnflag"]
+    status = strs["l_linestatus"]
+
+    def s_of(planes, r):
+        off, chars = planes
+        return bytes(chars[off[r]:off[r + 1]]).decode()
+
+    exp = [(r, murmur3_scalar(float(t["qty"][a0 + r]), T.DOUBLE,
+                              murmur3_scalar(s_of(status, a0 + r), T.STRING,
+                                             murmur3_scalar(
+                                                 s_of(flags, a0 + r),
+                                                 T.STRING, 42))))
+           for r in range(4096)]
+    if sample != exp or any(g != int(h[a0 + r]) for r, g in sample):
+        raise AssertionError("Q28i: the sample's hashes differ from the "
+                             "scalar murmur3")
+    emit({"query": "Q28i", "files": want_i, "hash_sample_rows": 4096})
+
+
+# ---------------------------------------------------------------------------
+# the memory plane (Q29): OOM retry, split-and-retry and spill
+# ---------------------------------------------------------------------------
+#: Q29b's cap factors, tried in order until the probe splits and recovers
+Q29B_FACTORS = (0.8, 0.7, 0.9, 0.6)
+
+
+def memory_phase(torch, np, dev) -> dict:
+    """Q29a-c (see the module docstring). Returns each path's launches."""
+    import gc
+    import shutil
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.memory import retry as R
+    from spark_rapids_tpu_torch.memory.catalog import BufferCatalog
+    from spark_rapids_tpu_torch.sql import session as S
+
+    per_query = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    base_dir = os.path.join(here, PARQUET_DIR)
+    no_backoff = {"spark.rapids.tpu.memory.oomRetry.backoffMs": 0}
+
+    def measured(run):
+        """(result, wall ms, peak bytes above what was allocated before,
+        launches, the harness's stats)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_launches()
+        R.reset_stats()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (out, ms, torch.cuda.max_memory_allocated() - before,
+                launches(), R.stats())
+
+    # --- Q29a: Q20v's TPC-H Q1, a fault at every full-size update --------
+    n = 1 << STRING_LOG2_ROWS
+    t, want, kept, strs = lineitem_inputs(np, n)
+    pdir = os.path.join(base_dir, "lineitem_dict")
+    shutil.rmtree(base_dir, ignore_errors=True)
+    os.makedirs(pdir)
+    try:
+        pq.write_table(pa.table({
+            **{k: _pa_strings(pa, np, v) for k, v in strs.items()},
+            "l_quantity": t["qty"], "l_extendedprice": t["price"],
+            "l_discount": t["disc"], "l_tax": t["tax"],
+            "l_shipdate": t["ship"]}), os.path.join(pdir, "t.parquet"),
+            row_group_size=n // Q17_ROW_GROUPS)
+        vfa = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+               **no_backoff}
+        sess = S.TpuSession(vfa, device=dev)
+        DeviceScanCache.reset()
+        S._SCANNER_CACHE.clear()
+        tpch_q1_check(want, tpch_q1_df(np, sess, pdir).collect(), "Q29a")
+        rows0, ms0, peak0, c0, _ = measured(
+            lambda: tpch_q1_df(np, sess, pdir).collect())
+        threshold = (n // Q17_ROW_GROUPS) // 2
+        spec = f"TpuHashAggregateExec>{threshold}"
+        try:
+            fsess = S.TpuSession({**vfa, "spark.rapids.tpu.test.faults.oom":
+                                  spec}, device=dev)
+            rows1, ms1, peak1, c1, st = measured(
+                lambda: tpch_q1_df(np, fsess, pdir).collect())
+            fired = len(faults.active().fired())
+        finally:
+            faults.uninstall()
+        tpch_q1_check(want, rows1, "Q29a")
+        agg = st.get("TpuHashAggregateExec", {})
+        if not (agg.get("max_depth") == 1 and agg.get("splits") ==
+                Q17_ROW_GROUPS and fired == agg.get("retries")) or any(
+                c1[k] <= 0 for k in ("bucket_sum", "bucket_float_sum",
+                                     "bucket_winner")) or [
+                r[:2] + r[9:] for r in rows1] != [r[:2] + r[9:]
+                                                  for r in rows0]:
+            raise AssertionError(f"Q29a: stats {st}, {fired} faults, "
+                                 f"launches {c1}")
+        per_query["Q29a"] = c1
+        emit({"query": "Q29a", "rows": n, "fault_spec": spec,
+              "unfaulted_wall_ms": ms0, "wall_ms": ms1,
+              "unfaulted_peak_bytes": peak0, "peak_bytes": peak1,
+              "faults_fired": fired, "retry_stats": st,
+              "rows_bitwise_equal": rows1 == rows0, "launches": c1})
+    finally:
+        shutil.rmtree(base_dir, ignore_errors=True)
+        del t, strs
+
+    # --- Q29b: the bench join under a real OOM -----------------------------
+    fact, dim, want6, plan = bench_join(torch, np, dev, 1 << 23, DIM_ROWS)
+    conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy": "PALLAS",
+                       **no_backoff})
+
+    def q6(conf=conf):
+        return sorted(_run(torch, plan(conf)[1], conf)[0])
+
+    def q6_join():
+        # the join alone, its output reduced on the card batch by batch:
+        # under the cap only the probe holds memory that scales with it
+        return _reduce_join(torch, plan(conf)[0])
+
+    if q6() != want6:
+        raise AssertionError("Q29b: Q6's rows differ from the oracle")
+    join0 = q6_join()
+    rows0, ms0, peak0, c0, _ = measured(q6_join)
+    if rows0 != join0 or rows0[0] != 1 << 23 or c0["probe_ranges"] != 1:
+        raise AssertionError(f"Q29b unsplit: {rows0}, launches {c0}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    tries = []
+    found = None
+    for f in Q29B_FACTORS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cap = torch.cuda.memory_reserved() + int(f * peak0)
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            rows1, ms1, peak1, c1, st = measured(q6_join)
+            outcome = None
+        except (R.TpuOOMError, torch.cuda.OutOfMemoryError) as e:
+            outcome = f"{type(e).__name__}: {str(e)[:200]}"
+            st = R.stats()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        join = st.get("TpuShuffledHashJoinExec", {})
+        tries.append({"factor": f, "cap_bytes": cap, "stats": st,
+                      "error": outcome})
+        if outcome is None and join.get("max_depth", 0) >= 1:
+            if rows1 != rows0 or c1["probe_ranges"] < 2:
+                raise AssertionError(f"Q29b: launches {c1}, stats {st}")
+            found = (f, cap, rows1, ms1, peak1, c1, st)
+            break
+    gc.collect()
+    torch.cuda.empty_cache()
+    if found is None:
+        raise AssertionError(f"Q29b: no cap split the probe: {tries}")
+    f, cap, rows1, ms1, peak1, c1, st = found
+    per_query["Q29b"] = c1
+    emit({"query": "Q29b", "fact_rows": 1 << 23, "dim_rows": DIM_ROWS,
+          "unsplit_wall_ms": ms0, "unsplit_peak_bytes": peak0,
+          "factor": f, "cap_bytes": cap, "wall_ms": ms1, "peak_bytes": peak1,
+          "retry_stats": st, "tries": tries, "launches": c1})
+
+    # --- Q29c: the build spilled to the host and brought back --------------
+    # twice, each with a fresh catalog: the first run of a new plan, then
+    # one whose allocator is warm
+    budget = 1 << 20
+    walls = []
+    for _ in range(2):
+        try:
+            cat = BufferCatalog.reset(RapidsConf(
+                {"spark.rapids.tpu.memory.hbm.budgetBytes": budget}), dev)
+            rows2, ms2, peak2, c2, _ = measured(q6)
+            spill = dict(vars(cat.metrics))
+        finally:
+            BufferCatalog.reset()
+        # the build's two handles spill once each, at registration, and
+        # come back once each for the probe, which holds them pinned: a
+        # spill while the probe holds them would free nothing
+        if rows2 != want6 or c2["probe_ranges"] != 1 or not (
+                spill["device_to_host"] == 2 and spill["unspills"] == 2
+                and spill["spilled_bytes"] >= DIM_ROWS * 18):
+            raise AssertionError(f"Q29c: spill {spill}, launches {c2}")
+        walls.append(ms2)
+    per_query["Q29c"] = c2
+    emit({"query": "Q29c", "budget_bytes": budget, "wall_ms": walls,
+          "peak_bytes": peak2, "spill": spill, "launches": c2})
+    del fact, dim
+    return per_query
+
+
+def _decode_threads() -> int:
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    return PD.DECODE_THREADS
+
+
 def build_all() -> dict:
     """Build every kernel library from the sources beside this script,
-    one ``nvcc`` per source, all started together."""
+    one ``nvcc`` per source, and the native host library (one ``g++``),
+    all started together."""
     from concurrent.futures import ThreadPoolExecutor
+
+    from spark_rapids_tpu_torch import native
 
     t0 = time.perf_counter()
     mods = _kernel_modules()
-    with ThreadPoolExecutor(len(mods)) as pool:
+    with ThreadPoolExecutor(len(mods) + 1) as pool:
+        host = pool.submit(native.available)  # the C++ host decoders (g++)
         list(pool.map(lambda mod: mod.build_kernels(), mods))
+        if not host.result():
+            raise RuntimeError(f"native library: {native.BUILD_ERROR}")
     return {"build_s": time.perf_counter() - t0,
             "ptxas": {mod.SOURCE.name: [
                 ln.strip() for ln in "".join(mod.BUILD_LOG).splitlines()
@@ -5379,6 +5969,12 @@ def main() -> int:
     lap("Q11m-Q14m")
     per_query.update(decimal_date_phase(torch, np, dev))
     lap("Q25-Q27")
+    per_query.update(memory_phase(torch, np, dev))
+    lap("Q29")
+    if QUERY_ROUTES["numpy"] or not QUERY_ROUTES["native"]:
+        raise AssertionError(f"hybrid streams by route: {QUERY_ROUTES}")
+    emit({"native_decode": {"query_streams": QUERY_ROUTES,
+                            "decode_threads": _decode_threads()}})
     emit({"phase_s": phase_s})
     for q, counts in per_query.items():
         if q != "Q10" and counts["word_counts"]:

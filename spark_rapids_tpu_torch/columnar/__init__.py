@@ -13,3 +13,4 @@ from .batch import (  # noqa: F401
     batch_from_rows,
     schema_of,
 )
+from .split import split_batch  # noqa: F401,E402

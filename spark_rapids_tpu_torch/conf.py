@@ -146,9 +146,9 @@ SHUFFLE_TRANSPORT_CLASS = conf(
 SHUFFLE_COMPRESSION_CODEC = conf(
     "spark.rapids.tpu.shuffle.compression.codec", "none",
     "Codec for host-path shuffle payloads: none/zstd/lz4. zstd needs the "
-    "zstandard module; lz4 is the reference's native C++ block codec and "
-    "raises until the port binds native/ (ROADMAP.md, queue A item 'The "
-    "native host decoders').",
+    "zstandard module; lz4 is the native C++ block codec "
+    "(native/src/lz4.cpp, the nvcomp-LZ4 analog) and requires the "
+    "g++-built library (spark_rapids_tpu_torch/native.py).",
     valid_values=("none", "zstd", "lz4"))
 SHUFFLE_PARTITIONING_MAX_PARTITIONS = conf(
     "spark.rapids.tpu.shuffle.maxPartitions", 1 << 16,
@@ -290,6 +290,96 @@ def roofline_peak_bps(rconf: "RapidsConf", device_type: str) -> float:
     gbps = rconf.get(ROOFLINE_PEAK_HBM_GBPS) or DEVICE_PEAKS.get(
         device_type, DEVICE_PEAKS["cpu"])
     return gbps * 1e9
+
+
+# ---------------------------------------------------------------------------
+# Memory: the semaphore, the spill catalog, the ledger, OOM retry and the
+# fault injector (reference ``conf.py:188-265``, ``memory/catalog.py``,
+# ``memory/ledger.py``, ``memory/retry.py`` and ``faults.py``)
+# ---------------------------------------------------------------------------
+def _fraction(v) -> Optional[str]:
+    return None if 0.0 <= v <= 1.0 else "must be in [0, 1]"
+
+
+CONCURRENT_TPU_TASKS = conf(
+    "spark.rapids.tpu.sql.concurrentTpuTasks", 1,
+    "Number of tasks that may hold the TPU concurrently "
+    "(reference GpuSemaphore: GpuSemaphore.scala:27-66).", check=_positive)
+SEMAPHORE_ACQUIRE_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.sql.semaphore.acquireTimeoutMs", 0,
+    "Give up acquiring the TPU concurrency semaphore after this many "
+    "milliseconds and raise TpuSemaphoreTimeout naming the current "
+    "holder threads and the wait duration, instead of blocking forever. "
+    "0 (the default) waits indefinitely, matching the reference "
+    "GpuSemaphore.", conf_type=int, check=_non_negative)
+HBM_POOL_FRACTION = conf(
+    "spark.rapids.tpu.memory.hbm.allocFraction", 0.9,
+    "Fraction of HBM to consider available to the pool.", check=_fraction)
+HBM_RESERVE = conf(
+    "spark.rapids.tpu.memory.hbm.reserve", 1 << 28,
+    "Bytes of HBM to hold back from the pool for XLA scratch.",
+    check=_positive)
+HOST_SPILL_STORAGE_SIZE = conf(
+    "spark.rapids.tpu.memory.host.spillStorageSize", 1 << 30,
+    "Bytes of host memory for spilled buffers before going to disk.",
+    check=_positive)
+SPILL_ENABLED = conf(
+    "spark.rapids.tpu.memory.spill.enabled", True,
+    "Enable tiered DEVICE->HOST->DISK spill of cached batches.")
+MEMORY_DEBUG = conf(
+    "spark.rapids.tpu.memory.debug", False,
+    "Log allocation/spill events (reference: spark.rapids.memory.gpu.debug).")
+HBM_BUDGET_BYTES = conf(
+    "spark.rapids.tpu.memory.hbm.budgetBytes", 0,
+    "Explicit spill budget for catalog-tracked device buffers; 0 derives "
+    "it from allocFraction * device memory (or unlimited when the backend "
+    "reports no memory stats).")
+LEAK_SENTINEL_ENABLED = conf(
+    "spark.rapids.tpu.memory.ledger.leakSentinel.enabled", True,
+    "Flag spillable buffers that outlive their owning query at query "
+    "end. Requires the ledger.")
+OOM_RETRY_ENABLED = conf(
+    "spark.rapids.tpu.memory.oomRetry.enabled", True,
+    "Wrap per-batch exec dispatches in the OOM retry + split-and-retry "
+    "harness (memory/retry.py): a device allocation failure spills "
+    "spillable buffers, drops scan-cache residency, and re-attempts "
+    "with backoff; exhausted retries split the input batch in half and "
+    "recurse (bounded depth), so operators complete on half-capacity "
+    "batches instead of dying. Off restores the raw-failure behavior.")
+OOM_RETRY_MAX_ATTEMPTS = conf(
+    "spark.rapids.tpu.memory.oomRetry.maxAttempts", 2,
+    "Attempts per split level before the harness escalates to "
+    "split-and-retry (each failed attempt spills + backs off first).",
+    check=_positive)
+OOM_RETRY_BACKOFF_MS = conf(
+    "spark.rapids.tpu.memory.oomRetry.backoffMs", 5,
+    "Base backoff before re-attempting after an OOM (doubles per "
+    "attempt; gives concurrent queries a window to release memory). "
+    "0 disables the sleep.", conf_type=int, check=_non_negative)
+OOM_RETRY_MAX_SPLIT_DEPTH = conf(
+    "spark.rapids.tpu.memory.oomRetry.maxSplitDepth", 4,
+    "Split-and-retry recursion bound: each level halves the batch, so "
+    "depth 4 reaches 1/16 capacity before TpuSplitAndRetryOOM surfaces.",
+    check=_non_negative)
+FAULTS_ENABLED = conf(
+    "spark.rapids.tpu.test.faults.enabled", False,
+    "Install the deterministic fault injector (chaos testing; see the "
+    "channel confs test.faults.oom/transfer). Off, the default, keeps "
+    "every injection site a single module-global boolean read. Setting "
+    "any channel spec implies this key.")
+FAULTS_SEED = conf(
+    "spark.rapids.tpu.test.faults.seed", 0,
+    "Seed for the '?K' spec form: the firing arrival is derived "
+    "deterministically from (seed, channel, site), so a chaos schedule "
+    "replays exactly.")
+FAULTS_OOM = conf(
+    "spark.rapids.tpu.test.faults.oom", "",
+    "Synthetic device-OOM specs for the retry-harness channel: "
+    "'site[@N|%K|>C|?K]' entries, comma-separated; sites are exec node "
+    "names (fnmatch patterns allowed).")
+FAULTS_TRANSFER = conf(
+    "spark.rapids.tpu.test.faults.transfer", "",
+    "Host-link transfer failure specs (site 'packed_upload').")
 
 
 class RapidsConf:

@@ -17,8 +17,11 @@ hold strings merge at their synced row and byte counts, dictionary keys
 materialized first, since each partial has its own dictionary
 (reference ``aggregate.py:293-298``). ``first``/``last`` over strings stay
 on the CPU, as the type matrix says.
-Left out of this slice (ROADMAP.md port queue): the fused plan/stage
-programs, OOM retry, null elision and the event/observability emitters.
+The per-batch update runs under the OOM retry harness with
+split-and-retry (one partial per piece), the merge under the retry-only
+harness (``memory/retry.py``). Left out (ROADMAP.md port queue): the
+fused plan/stage programs, null elision and the event/observability
+emitters.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from ..ops import groupby as groupby_ops
 from ..ops.bucket_reduce import NOT_PORTED_TIERS, not_ported_tier
 from ..ops.filter_gather import live_of
 from ..ops.sort import str_max_lens
+from ..memory.retry import with_oom_retry, with_oom_retry_nosplit
 from ..types import StructField, StructType
 from .base import TpuExec, batch_from_vals, concat_batches, vals_of_batch
 
@@ -354,15 +358,24 @@ class TpuHashAggregateExec(TpuExec):
             # would bound its rank sort by the source batch's strings)
             source, chain = child, []
         partials: List[ColumnarBatch] = []
+
+        def update(piece):
+            return self._run_batch(
+                piece, self._update_ops, self._update_exprs,
+                self._bound_keys, chain, routes=self._update_routes)
+
         for batch in source.execute_partition(index):
             nr = batch.num_rows_lazy
             if isinstance(nr, int) and nr == 0 and self.group_exprs \
                     and not chain:
                 continue
             with self.op_timed("update"):
-                partials.append(self._run_batch(
-                    batch, self._update_ops, self._update_exprs,
-                    self._bound_keys, chain, routes=self._update_routes))
+                # the update under the OOM harness (reference
+                # ``aggregate.py:1003``): a split gives one partial per
+                # half, which the merge consumes as it consumes any
+                partials.extend(with_oom_retry(
+                    self.node_name, update, batch, self.conf,
+                    combine="list"))
         if not partials:
             if self.group_exprs:
                 return  # grouped aggregate over empty input -> no rows
@@ -374,7 +387,14 @@ class TpuHashAggregateExec(TpuExec):
             partials = [self._run_batch(zb, self._update_ops,
                                         self._update_exprs,
                                         self._bound_keys)]
-        with self.op_timed("merge"):
+        def merge_and_eval():
             merged = self._merge(partials)
-            out = merged if self.mode == A.PARTIAL else self._evaluate(merged)
+            return merged if self.mode == A.PARTIAL \
+                else self._evaluate(merged)
+
+        with self.op_timed("merge"):
+            # the merge reads compacted partials (group-sized): retried,
+            # not split (reference ``aggregate.py:1083``)
+            out = with_oom_retry_nosplit(self.node_name + ".merge",
+                                         merge_and_eval, self.conf)
         yield self.record_batch(out)

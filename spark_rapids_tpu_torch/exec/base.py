@@ -115,9 +115,18 @@ class TpuExec:
         raise NotImplementedError(type(self).__name__)
 
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
-        """All partitions, serially (driver-side collect path)."""
+        """All partitions, serially (driver-side collect path). Each
+        partition holds the device concurrency semaphore while its work
+        runs (reference ``exec/base.py:386``: GpuSemaphore)."""
+        from ..memory.semaphore import TpuSemaphore
+
+        sem = TpuSemaphore.initialize(self.conf)
         for p in range(self.num_partitions):
-            yield from self.execute_partition(p)
+            sem.acquire_if_necessary()
+            try:
+                yield from self.execute_partition(p)
+            finally:
+                sem.release_if_necessary()
 
     # -- fusion --------------------------------------------------------------
     def lower_batch(self, cols, live, cap, side=()):
@@ -333,21 +342,33 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
     including) ``exec_self`` runs eagerly per batch, threading a liveness
     mask; if any stage sparsified it, rows compact once at the end (string
     columns through the two-pass string gather), and the row count stays
-    a device scalar (no host sync)."""
+    a device scalar (no host sync).
+
+    Each batch runs under the OOM retry harness (``memory/retry.py``,
+    reference ``exec/base.py:872``): a device OOM spills and re-attempts,
+    and when the attempts run out the batch splits in half and the
+    pieces' outputs re-join row-wise (exact: the chain is row-local)."""
+    from ..memory.retry import with_oom_retry
+
     source, chain = exec_self.fused_source_chain()
     out_schema = exec_self.output_schema
     needs_compact = any(e.sparsifies for e in chain)
     sides = [e.side_vals() for e in chain]
+
+    def attempt(b: ColumnarBatch) -> ColumnarBatch:
+        cols = vals_of_batch(b)
+        cap = b.capacity
+        nr = b.num_rows_lazy
+        dev = cols[0].validity.device if cols else None
+        live = filter_gather.live_of(nr, cap, dev)
+        for e, side in zip(chain, sides):
+            cols, live = e.lower_batch(cols, live, cap, side)
+        if needs_compact:
+            cols, nr = filter_gather.filter_cols(cols, live)
+        return batch_from_vals(cols, out_schema, nr, capacity=cap)
+
     for b in source.execute_partition(index):
         with exec_self.op_timed():
-            cols = vals_of_batch(b)
-            cap = b.capacity
-            nr = b.num_rows_lazy
-            dev = cols[0].validity.device if cols else None
-            live = filter_gather.live_of(nr, cap, dev)
-            for e, side in zip(chain, sides):
-                cols, live = e.lower_batch(cols, live, cap, side)
-            if needs_compact:
-                cols, nr = filter_gather.filter_cols(cols, live)
-            out = batch_from_vals(cols, out_schema, nr, capacity=cap)
+            out = with_oom_retry(exec_self.node_name, attempt, b,
+                                 exec_self.conf)
         yield exec_self.record_batch(out)

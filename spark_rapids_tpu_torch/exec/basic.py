@@ -21,7 +21,7 @@ from ..columnar import ColumnarBatch, DeviceColumn, resolve_device
 from ..columnar.column import choose_capacity
 from ..conf import MAX_READER_BATCH_SIZE_ROWS, RapidsConf
 from ..expr import expressions as E
-from ..expr.eval import lower
+from ..expr.eval import lower, val_of_column
 from ..ops import filter_gather
 from ..types import StructField, StructType
 from .base import (TpuExec, batch_from_vals, concat_batches, run_fused_chain,
@@ -82,7 +82,13 @@ class InMemoryScanExec(TpuExec):
 
 
 class TpuProjectExec(TpuExec):
-    fusable = True
+    """reference ``exec/basic.py:196`` (GpuProjectExec). Fusable, unless
+    it holds partition-context expressions (rand,
+    monotonically_increasing_id, spark_partition_id, input_file_name, and
+    hash() over strings, which needs a host-synced byte bound): those
+    evaluate at the exec boundary as appended input columns, as Spark
+    pins nondeterministic expressions in their own Project, and such a
+    project does not fuse."""
 
     def __init__(self, conf: RapidsConf, exprs: Sequence[E.Expression],
                  child: TpuExec):
@@ -91,6 +97,31 @@ class TpuProjectExec(TpuExec):
         self._schema = _output_schema_for(self.exprs, child.output_schema)
         self._bound = tuple(E.bind_references(e, child.output_schema)
                             for e in self.exprs)
+        self._ctx_exprs = self._collect_ctx_exprs()
+
+    def _collect_ctx_exprs(self) -> tuple:
+        """Distinct context subexpressions in first-appearance order.
+        Equal nodes share one column, so two rand(5) calls draw the same
+        sequence (Spark's one seeded generator)."""
+        out: list = []
+
+        def walk(e):
+            if isinstance(e, E.NONDETERMINISTIC_CONTEXT_EXPRS) or (
+                    isinstance(e, E.Murmur3Hash)
+                    and any(T.is_string(c.dtype) for c in e.exprs)):
+                if e not in out:
+                    out.append(e)
+                return
+            for c in e.children:
+                walk(c)
+
+        for b in self._bound:
+            walk(b)
+        return tuple(out)
+
+    @property
+    def fusable(self):  # type: ignore[override]
+        return not self._ctx_exprs
 
     @property
     def output_schema(self):
@@ -103,7 +134,99 @@ class TpuProjectExec(TpuExec):
         return [lower(e, cols, cap, live.device) for e in self._bound], live
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
-        yield from run_fused_chain(self, index)
+        if self._ctx_exprs:
+            yield from self._execute_with_context(index)
+        else:
+            yield from run_fused_chain(self, index)
+
+    # -- partition-context evaluation ------------------------------------------
+    def _source_file(self, index: int) -> str:
+        """The file of input_file_name: single-child row-preserving execs
+        are walked down to a file scan (partition indices pass through
+        1:1); any other source gives "" (Spark's value)."""
+        node: TpuExec = self.children[0]
+        while True:
+            scanner = getattr(node, "scanner", None)
+            if scanner is not None and hasattr(scanner, "splits"):
+                splits = scanner.splits()
+                return splits[index].path if index < len(splits) else ""
+            kids = node.children
+            if len(kids) != 1 or not getattr(node, "fusable", False):
+                return ""
+            node = kids[0]
+
+    def _ctx_columns(self, batch: ColumnarBatch, index: int, row_base,
+                     fpath: str) -> List[DeviceColumn]:
+        """One column per context expression (reference
+        ``exec/basic.py:271``). ``row_base``: the partition's rows before
+        this batch (a host int or a 0-d device tensor)."""
+        from ..expr.nondet import rand_double_torch
+        from ..expr.values import DictV, StrV, as_plain_str
+        from ..ops import hashing
+        from ..ops.sort import max_string_len
+        from .base import host_ints
+        from .scan import constant_string_column
+
+        cap = batch.capacity
+        n = batch.num_rows_lazy
+        dev = self.device
+        ones = torch.ones(cap, dtype=torch.bool, device=dev)
+        idx = torch.arange(cap, dtype=torch.int64, device=dev)
+        base = (row_base.to(torch.int64) if isinstance(row_base, torch.Tensor)
+                else row_base)
+        cols = []
+        for e in self._ctx_exprs:
+            if isinstance(e, E.SparkPartitionID):
+                c = DeviceColumn(T.INT, n, torch.full(
+                    (cap,), index, dtype=torch.int32, device=dev), ones)
+            elif isinstance(e, E.MonotonicallyIncreasingID):
+                c = DeviceColumn(T.LONG, n, (index << 33) + base + idx, ones)
+            elif isinstance(e, E.Rand):
+                c = DeviceColumn(T.DOUBLE, n, rand_double_torch(
+                    e.seed, index, base + idx), ones)
+            elif isinstance(e, E.InputFileName):
+                c = constant_string_column(
+                    fpath, n if isinstance(n, int) else cap, cap, dev)
+            else:  # Murmur3Hash with string children
+                vals = [lower(x, vals_of_batch(batch), cap, dev)
+                        for x in e.exprs]
+                vals = [as_plain_str(v) if isinstance(v, DictV) else v
+                        for v in vals]
+                smls = [max(4, m) for m in host_ints(
+                    [max_string_len(v) for v in vals
+                     if isinstance(v, StrV)])]
+                c = DeviceColumn(T.INT, n, hashing.murmur3(
+                    vals, [x.dtype for x in e.exprs], e.seed, smls), ones)
+            cols.append(c)
+        return cols
+
+    def _execute_with_context(self, index: int) -> Iterator[ColumnarBatch]:
+        child = self.children[0]
+        nbase = len(child.output_schema.fields)
+        subst = {e: i for i, e in enumerate(self._ctx_exprs)}
+
+        def rewrite(node):
+            i = subst.get(node)
+            if i is not None:
+                return E.BoundReference(nbase + i, node.dtype, node.nullable)
+            return node
+
+        rewritten = tuple(b.transform(rewrite) for b in self._bound)
+        fpath = self._source_file(index)
+        row_base = 0
+        for batch in child.execute_partition(index):
+            with self.op_timed("ctx"):
+                cap = batch.capacity
+                extra = self._ctx_columns(batch, index, row_base, fpath)
+                cols = vals_of_batch(batch) + [val_of_column(c)
+                                               for c in extra]
+                nr = batch.num_rows_lazy
+                out = batch_from_vals(
+                    [lower(e, cols, cap, self.device) for e in rewritten],
+                    self._schema, nr, capacity=cap)
+            yield self.record_batch(out)
+            row_base = row_base + (nr.to(torch.int64)
+                                   if isinstance(nr, torch.Tensor) else nr)
 
 
 class TpuFilterExec(TpuExec):

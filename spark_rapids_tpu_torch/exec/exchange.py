@@ -20,12 +20,16 @@ each into a power-of-two capacity to reuse its compiled programs; the
 reduce side's concat gives every partition its capacity bucket. The
 pieces keep the ordered batch alive until ``release()``.
 
-Left out (ROADMAP.md, queue A): the reference's ``named_oom`` wrapping
-(item 'OOM retry and split-and-retry': a ``torch.cuda.OutOfMemoryError``
-propagates), the spillable pieces and broadcast batch (item 'The
-spillable build and OOM retry around the probe'), the network transport
-(item 'Multi-device execution') and the exchange events and
-observability counters (items 7, 13 and 26).
+The map side's staging and the reduce side's concat run outside the
+per-batch retry harness: a device OOM there surfaces as the named
+``TpuOutOfDeviceMemory`` (``memory/retry.named_oom``). The broadcast
+batch, like the device transport's pieces, is registered spillable
+(``memory/spillable.py``), so memory pressure can move it to the host
+between its reads.
+
+Left out (ROADMAP.md, queue A): the network transport (item
+'Multi-device execution') and the exchange events and observability
+counters (items 7, 13 and 26).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from ..columnar import ColumnarBatch, choose_capacity
 from ..conf import (AQE_SKEW_FACTOR, AQE_TARGET_ROWS, RapidsConf,
                     SHUFFLE_COMPRESSION_CODEC, SHUFFLE_TRANSPORT_CLASS)
 from ..expr.values import ColV, StrV, Val
+from ..memory.retry import named_oom
 from ..ops import concat as concat_ops
 from ..ops import filter_gather
 from ..ops.sort import str_max_lens
@@ -274,7 +279,7 @@ class TpuShuffleExchangeExec(TpuExec):
                 batch_iter = ((p, b) for p in range(child.num_partitions)
                               for b in child.execute_partition(p))
             self.partition_rows = [0] * self.num_partitions
-            with self.op_timed():
+            with self.op_timed(), named_oom(f"{self.node_name}.map"):
                 for map_id, batch in batch_iter:
                     if batch.columns:
                         self._map_batch(map_id, batch, schema)
@@ -313,7 +318,9 @@ class TpuShuffleExchangeExec(TpuExec):
         self.release_after(self._consumed, index, self.num_partitions)
         if not pieces:
             return
-        yield self.record_batch(concat_pieces(pieces, self.output_schema))
+        with named_oom(f"{self.node_name}.reduce"):
+            out = concat_pieces(pieces, self.output_schema)
+        yield self.record_batch(out)
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +373,9 @@ class TpuAQEShuffleReadExec(TpuExec):
         ex.release_after(self._consumed, index, len(self.specs))
         if not pieces:
             return
-        yield self.record_batch(concat_pieces(pieces, self.output_schema))
+        with named_oom(f"{self.node_name}.reduce"):
+            out = concat_pieces(pieces, self.output_schema)
+        yield self.record_batch(out)
 
 
 def _slice_pieces_by_rows(pieces: List[ShufflePiece], j: int,
@@ -529,7 +538,7 @@ class TpuBroadcastExchangeExec(TpuExec):
 
     def __init__(self, conf: RapidsConf, child: TpuExec):
         super().__init__(conf, [child])
-        self._built: Optional[ColumnarBatch] = None
+        self._spillable = None
         self._done = False
         self._lock = threading.Lock()
 
@@ -558,9 +567,18 @@ class TpuBroadcastExchangeExec(TpuExec):
                             built, self.conf.get(SHUFFLE_COMPRESSION_CODEC))
                         self.metric(DATA_SIZE, "bytes").set(len(data))
                         built = deserialize_batch(data, self.device)
-                self._built = built
+                if built is not None:
+                    # registered spillable, as the reference's broadcast
+                    # batch (exchange.py:725); only the handle keeps it,
+                    # so a spill frees the device copy between reads
+                    from ..memory import SpillableColumnarBatch
+
+                    self._spillable = SpillableColumnarBatch(
+                        built, ledger_kind="plan_state")
                 self._done = True
-            return self._built
+            if self._spillable is None:
+                return None
+            return self._spillable.get_batch()
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
         b = self.materialize()

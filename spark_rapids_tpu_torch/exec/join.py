@@ -27,13 +27,18 @@ build per reduce partition, and a full outer join emits its unmatched
 build rows once per partition (reference ``join.py:262-327``). A build
 side read through a broadcast exchange is read once and kept.
 
-Left out of this slice (ROADMAP.md, queue A): the spillable build and
-OOM retry, buffer donation, the join events and observability counters,
-and the nested-loop and cartesian execs.
+The sorted build is registered spillable (:class:`_SpillableBuild`,
+reference ``join.py:34``) and each probe batch runs under the OOM retry
+harness with split-and-retry, each half's output its own batch. Left out
+(ROADMAP.md, queue A): buffer donation (eager PyTorch donates nothing),
+the join events and observability counters, and the nested-loop and
+cartesian execs.
 """
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -45,6 +50,7 @@ from ..conf import (JOIN_PALLAS_PROBE, JOIN_STRATEGY, RapidsConf,
 from ..expr import expressions as E
 from ..expr.eval import lower
 from ..expr.values import ColV, StrV, Val, as_plain_str
+from ..memory.retry import with_oom_retry
 from ..ops import concat as concat_ops
 from ..ops import filter_gather
 from ..ops import join as join_ops
@@ -55,6 +61,56 @@ from .base import (TpuExec, batch_from_vals, concat_all, concat_batches,
                    vals_of_batch)
 
 _JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
+
+
+class _SpillableBuild:
+    """The join's sorted build side as catalog-registered spillable
+    buffers (reference ``join.py:34``): the sorted build columns, the
+    radix key words and the liveness move device <-> host under pressure
+    and come back at probe time. Declared plan state: the build is kept
+    with the exec for a re-execution, so the leak sentinel skips it."""
+
+    def __init__(self, cols, words, live):
+        from ..memory import (ACTIVE_BATCHING_PRIORITY, SpillableHandle,
+                              SpillableVals)
+
+        self._cols = SpillableVals(cols, ACTIVE_BATCHING_PRIORITY,
+                                   ledger_kind="plan_state")
+        aux = {f"w{i}": w for i, w in enumerate(words)}
+        aux["live"] = live
+        self._aux = SpillableHandle(aux, ACTIVE_BATCHING_PRIORITY,
+                                    ledger_kind="plan_state")
+        self._nw = len(words)
+        self._pins = 0
+        self._pin_lock = threading.Lock()
+
+    def _pin(self, delta: int) -> None:
+        with self._pin_lock:
+            self._pins += delta
+            for h in (self._cols.handle, self._aux):
+                h.pinned = self._pins > 0
+
+    @contextmanager
+    def pinned(self):
+        """(cols, words, live) on the device, out of the catalog's reach
+        until the block ends. A spill of tensors the probe still holds
+        would copy them to the host and free nothing, and the catalog
+        would count them off the device while they are on it; so
+        neither bringing the other half back nor an OOM's emergency
+        spill may take them. Unlike the reference, which leaves them
+        spillable."""
+        self._pin(1)
+        try:
+            cols = self._cols.get_vals()
+            a = self._aux.materialize()
+            yield cols, [a[f"w{i}"] for i in range(self._nw)], a["live"]
+        finally:
+            self._pin(-1)
+
+    @property
+    def tiers(self) -> tuple:
+        return self._cols.tier, self._aux.tier
+
 
 #: CPU AUTO: below this build capacity the direct-address tables are
 #: cheap and the join fuses into its consumer; at or above it RADIX
@@ -289,9 +345,9 @@ class TpuShuffledHashJoinExec(TpuExec):
         return materialized_batch(batch)
 
     def _get_build(self, index: Optional[int] = None):
-        """(sorted cols, sorted words, joinable count, live mask in sorted
-        order, capacity, words per key) — reference ``_get_build``
-        (``join.py:386``), kept as plain tensors; ``index`` keys the
+        """(the spillable sorted cols, sorted words and live mask in
+        sorted order, the joinable count, capacity, words per key) —
+        reference ``_get_build`` (``join.py:386``); ``index`` keys the
         per-partition builds of a co-partitioned join."""
         if index in self._built:
             return self._built[index]
@@ -311,8 +367,8 @@ class TpuShuffledHashJoinExec(TpuExec):
         sorted_cols = filter_gather.gather(cols, perm, live_all)
         sorted_words = [w[perm] for w in words]
         count = int(ok.sum())  # host sync: the build's joinable rows
-        built = (sorted_cols, sorted_words, count, live_all, cap,
-                 join_ops.key_word_widths(keys, sml))
+        built = (_SpillableBuild(sorted_cols, sorted_words, live_all),
+                 count, cap, join_ops.key_word_widths(keys, sml))
         self._built[index] = built
         if index is None:
             self._build_batch = None
@@ -498,25 +554,39 @@ class TpuShuffledHashJoinExec(TpuExec):
         if self._try_fast_build():
             yield from run_fused_chain(self, index)
             return
-        (build_cols, build_words, build_count, build_live_all, build_cap,
-         build_widths) = self._get_build(index if self.partitioned
-                                         else None)
+        sb, build_count, build_cap, build_widths = self._get_build(
+            index if self.partitioned else None)
+        with sb.pinned() as (build_cols, build_words, build_live_all):
+            yield from self._probe_partition(
+                index, build_cols, build_words, build_live_all,
+                build_count, build_cap, build_widths)
+
+    def _probe_partition(self, index, build_cols, build_words,
+                         build_live_all, build_count, build_cap,
+                         build_widths) -> Iterator[ColumnarBatch]:
         matched_any = (torch.zeros(build_cap, dtype=torch.bool,
                                    device=build_live_all.device)
                        if self.join_type == "full" else None)
         probe_parts = (range(self._probe.num_partitions)
                        if self.join_type == "full" and not self.partitioned
                        else [index])
+        def probe_attempt(b):
+            return self._probe_batch(b, build_cols, build_words,
+                                     build_count, build_cap, build_widths)
+
         for pi in probe_parts:
             for pbatch in self._probe.execute_partition(pi):
+                # probe rows are row-local against the intact build, so a
+                # split streams each half's output as its own batch
+                # (reference join.py:775)
                 with self.op_timed("probe"):
-                    batch, matched = self._probe_batch(
-                        pbatch, build_cols, build_words, build_count,
-                        build_cap, build_widths)
-                if matched is not None and matched_any is not None:
-                    matched_any = matched_any | matched
-                if batch is not None and batch.num_rows > 0:
-                    yield self.record_batch(batch)
+                    outs = with_oom_retry(self.node_name, probe_attempt,
+                                          pbatch, self.conf, combine="list")
+                for batch, matched in outs:
+                    if matched is not None and matched_any is not None:
+                        matched_any = matched_any | matched
+                    if batch is not None and batch.num_rows > 0:
+                        yield self.record_batch(batch)
         if self.join_type == "full":
             yield from self._unmatched_build(build_cols, build_live_all,
                                              matched_any)

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from typing import Iterator
 
-import numpy as np
 import torch
 
 from .. import types as T
@@ -36,6 +35,7 @@ from ..columnar.column import DeviceColumn, choose_capacity
 from ..conf import RapidsConf
 from ..io.parquet_device import (HOST_DECODE_TIME, HOST_FALLBACK_CHUNKS,
                                  UPLOAD_BYTES)
+from ..memory.retry import named_oom
 from ..types import StructType
 from .base import TpuExec
 
@@ -44,7 +44,9 @@ DECODE_TIME = "tpuDecodeTime"
 
 
 def constant_string_column(value, n: int, cap: int, device) -> DeviceColumn:
-    """One value repeated n times (a partition-value column)."""
+    """One value repeated n times (a partition-value column, a file
+    name), built on ``device``: the value's bytes cross once."""
+    valid = torch.arange(cap, device=device) < n
     if value is None:
         return DeviceColumn(
             T.STRING, n, None, torch.zeros(cap, dtype=torch.bool,
@@ -53,18 +55,15 @@ def constant_string_column(value, n: int, cap: int, device) -> DeviceColumn:
             chars=torch.zeros(1, dtype=torch.uint8, device=device))
     b = str(value).encode("utf-8")
     L = len(b)
-    ccap = choose_capacity(max(1, L * n), 128)
-    offsets = np.minimum(np.arange(cap + 1, dtype=np.int64) * L,
-                         L * n).astype(np.int32)
-    chars = np.zeros(ccap, np.uint8)
-    if L:
-        chars[: L * n] = np.frombuffer(b * n, np.uint8)
-    valid = np.zeros(cap, bool)
-    valid[:n] = True
-    return DeviceColumn(
-        T.STRING, n, None, torch.from_numpy(valid).to(device),
-        offsets=torch.from_numpy(offsets).to(device),
-        chars=torch.from_numpy(chars).to(device))
+    offsets = (torch.arange(cap + 1, dtype=torch.int64, device=device) * L
+               ).clamp_(max=L * n).to(torch.int32)
+    chars = torch.zeros(choose_capacity(max(1, L * n), 128),
+                        dtype=torch.uint8, device=device)
+    if L and n:
+        one = torch.frombuffer(bytearray(b), dtype=torch.uint8).to(device)
+        chars[: L * n] = one.repeat(n)
+    return DeviceColumn(T.STRING, n, None, valid, offsets=offsets,
+                        chars=chars)
 
 
 class TpuFileSourceScanExec(TpuExec):
@@ -148,19 +147,25 @@ class TpuFileSourceScanExec(TpuExec):
 
         if index >= self.scanner.num_splits():
             return
+        # the scan's uploads and decodes sit outside the per-batch retry
+        # harness (no input batch to split yet): a device OOM there is the
+        # named TpuOutOfDeviceMemory (reference exec/scan.py:433)
         if hasattr(self.scanner, "read_split_device"):
-            with self.op_timed("decode", DECODE_TIME):
+            with self.op_timed("decode", DECODE_TIME), \
+                    named_oom(f"{self.node_name}.decode"):
                 self._consumed_splits.add(index)
                 dev, pvals = self.scanner.read_split_device(
                     index, self._device, self.metrics)
             if dev is not None:
-                for b in dev:
-                    yield self.record_batch(
-                        self._attach_partition_cols(b, pvals))
+                with named_oom(f"{self.node_name}.decode"):
+                    for b in dev:
+                        yield self.record_batch(
+                            self._attach_partition_cols(b, pvals))
                 return
         with self.op_timed("read", SCAN_TIME):
             table, pvals = self._read_split(index)
-        with self.op_timed("decode", DECODE_TIME):
+        with self.op_timed("decode", DECODE_TIME), \
+                named_oom(f"{self.node_name}.decode"):
             schema = self.output_schema
             pkeys = list(getattr(self.scanner, "partition_cols", ()))
             file_fields = schema.fields[: len(schema.fields) - len(pkeys)]

@@ -6,10 +6,10 @@ a local sort (``global_sort=False``, the planner's route over a range
 or single exchange, whose partitions are already in key order)
 concatenates the batches of its own partition only. Then one sort
 permutation (``ops/sort.py``) and one gather of every column, string payloads
-through the two-pass string gather. The reference's OOM split-and-retry
-around the sort is not ported ('OOM retry and split-and-retry'): the
-port sorts without it, as its aggregate does. A string key's byte bound
-is measured on the key (one host sync for all of them).
+through the two-pass string gather, under the OOM retry harness
+(``memory/retry.py``): split halves sort alone and their concatenation
+sorts again. A string key's byte bound is measured on the key (one host
+sync for all of them).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from ..columnar import ColumnarBatch
 from ..conf import RapidsConf
 from ..expr import expressions as E
 from ..expr.eval import lower
+from ..memory.retry import with_oom_retry
 from ..ops import filter_gather
 from ..ops.sort import SortOrder, sort_permutation, str_max_lens
 from ..types import StructType
@@ -72,7 +73,16 @@ class TpuSortExec(TpuExec):
                 b for b in child.execute_partition(index) if b.num_rows > 0])
         if batch is None:
             return
+        batch = materialized_batch(batch)  # chunk keys want plain bytes
+
+        def combine(pieces):
+            # the halves are each sorted but their stitch is not: the
+            # concatenation sorts again (stable, so equal keys keep their
+            # piece order; reference exec/sort.py:136)
+            return self._sort_batch(concat_batches(
+                self.output_schema, pieces, self.conf.shape_bucket_min))
+
         with self.op_timed():
-            # chunk keys want plain bytes (reference exec/sort.py:131)
-            out = self._sort_batch(materialized_batch(batch))
+            out = with_oom_retry(self.node_name, self._sort_batch, batch,
+                                 self.conf, combine=combine)
         yield self.record_batch(out)

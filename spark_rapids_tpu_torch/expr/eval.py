@@ -68,15 +68,6 @@ _INT_INFO = {
 }
 
 
-#: nodes the reference lowers on its device and the port not yet, by the
-#: ROADMAP.md item that brings them
-_NOT_PORTED_NODES = (
-    ((E.Rand, E.MonotonicallyIncreasingID, E.SparkPartitionID,
-      E.InputFileName, E.Murmur3Hash),
-     "not ported yet: see ROADMAP.md, queue A item 'Nondeterministic and "
-     "metadata expressions'"),
-)
-
 #: the unary double functions of ``E._UnaryMathDouble`` (Log* are guarded
 #: separately)
 _MATH_FNS = {
@@ -443,7 +434,10 @@ def _lower_math(expr: E.Expression, ev, cap: int, device) -> Optional[ColV]:
         if dt.is_floating:
             f = 10.0 ** s
             x = flush_subnormals(c.data).to(torch.float64)
-            r = torch.sign(x) * torch.floor(torch.abs(x) * f + 0.5) / f
+            # a device-tensor divisor: CUDA's division by a host scalar
+            # is a multiply by its reciprocal (:func:`_f64_div`)
+            r = _f64_div(torch.sign(x) * torch.floor(torch.abs(x) * f + 0.5),
+                         f)
             return ColV(r.to(torch_dtype(dt)), c.validity)
         if s >= 0:
             return c
@@ -574,6 +568,16 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
                 rounding=_dec.ROUND_HALF_UP))
         return ColV(full(v if v is not None else 0, torch_dtype(dt)),
                     full(v is not None, torch.bool))
+
+    if isinstance(expr, E.Murmur3Hash):
+        # fixed-width children lower inline; string children take the
+        # project exec's context path, which syncs their byte bound
+        # (reference ``eval.py:316``)
+        from ..ops import hashing
+
+        h = hashing.murmur3([ev(c) for c in expr.exprs],
+                            [c.dtype for c in expr.exprs], expr.seed)
+        return ColV(h, full(True, torch.bool))
 
     if isinstance(expr, E._DecimalSumCheck):
         c = ev(expr.child)
@@ -826,9 +830,6 @@ def lower(expr: E.Expression, cols: Sequence[Val], cap: int,
     if dv is not None:
         return dv
 
-    for classes, why in _NOT_PORTED_NODES:
-        if isinstance(expr, classes):
-            raise NotImplementedError(f"{type(expr).__name__} is {why}")
     raise UnsupportedExpressionError(
         f"no lowering for {type(expr).__name__}")
 

@@ -1,11 +1,13 @@
-"""Host (scalar) half of the nondeterministic expressions.
+"""Nondeterministic expressions: the counter-based ``rand`` and Spark's
+Murmur3_x86_32.
 
-Own copy of the two scalar functions of ``spark_rapids_tpu/expr/nondet.py``
-that the CPU interpreter evaluates: the counter-based ``rand`` (splitmix64
-over seed, partition and row, top 53 bits / 2^53) and Spark's
-Murmur3_x86_32. The device half (vectorized rand, the hash kernel) is not
-ported yet (ROADMAP.md, queue A item 'Nondeterministic and metadata
-expressions').
+Own copy of ``spark_rapids_tpu/expr/nondet.py``. ``rand`` is a
+counter-based generator, value = mix(seed, partition, row): splitmix64
+over the three, the top 53 bits / 2^53 (the reference's design, so a
+seed and a partitioning give the same doubles in both packages and on
+the CPU engine). The scalar functions are what the CPU interpreter
+evaluates; :func:`rand_double_torch` is the device half, bit for bit the
+same. The hash's device half is ``ops/hashing.murmur3``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,36 @@ def rand_double_scalar(seed: int, pid: int, row: int) -> float:
     base = _splitmix64_scalar((seed & _MASK64) ^ ((pid & _MASK64) * _GOLDEN))
     h = _splitmix64_scalar(base ^ (row & _MASK64))
     return (h >> 11) * _INV53
+
+
+def _i64(u: int) -> int:
+    """The int64 holding the bits of the uint64 ``u``."""
+    u &= _MASK64
+    return u - (1 << 64) if u >= (1 << 63) else u
+
+
+def _shr(z, k: int):
+    """Logical right shift of int64 bits: ``>>`` on int64 is arithmetic,
+    so the bits shifted in from the sign are masked off."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def rand_double_torch(seed: int, pid: int, rows):
+    """Uniform doubles for the int64 row indices ``rows``, bit for bit
+    :func:`rand_double_scalar` (reference ``rand_double_jax``). torch has
+    no full uint64 arithmetic, so splitmix64 runs on int64 bits: an add or
+    a multiply wraps to the uint64 result's bits, every shift is masked
+    to a logical one, and the top 53 bits are a non-negative int64, so
+    their conversion to f64 is exact."""
+    import torch
+
+    base = _splitmix64_scalar((seed & _MASK64) ^ ((pid & _MASK64) * _GOLDEN))
+    z = rows.to(torch.int64) ^ _i64(base)
+    z = z + _i64(_GOLDEN)
+    z = (z ^ _shr(z, 30)) * _i64(_MIX1)
+    z = (z ^ _shr(z, 27)) * _i64(_MIX2)
+    z = z ^ _shr(z, 31)
+    return _shr(z, 11).to(torch.float64) * _INV53
 
 
 _M32 = 0xFFFFFFFF

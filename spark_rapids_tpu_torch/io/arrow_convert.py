@@ -10,7 +10,9 @@ needed. Date, timestamp and decimal columns convert on the host as in the
 reference: ``date32`` to int32 days, a ``timestamp`` of any unit cast to
 int64 microseconds, a ``decimal128`` (precision <= 18) to the low int64
 word of its unscaled value. :func:`batch_to_arrow` is the way back. The
-reference's fault, OOM and event hooks around the upload are not ported.
+upload consults the fault injector's ``transfer`` channel and names a
+device OOM (``memory/retry.named_oom``), as the reference's does; its
+transfer events are not ported (ROADMAP.md items 7, 13 and 26).
 """
 from __future__ import annotations
 
@@ -155,7 +157,16 @@ def packed_upload(host_arrays: List[np.ndarray], device=None
     buf = host.numpy()
     for a, (off, nb, _) in zip(host_arrays, layout):
         buf[off: off + nb] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
-    staged = host.to(dev, non_blocking=pin) if dev.type != "cpu" else host
+    from .. import faults as _faults
+
+    if _faults.enabled():
+        # an injected host-to-device transfer failure (chaos testing)
+        _faults.check("transfer", "packed_upload")
+    from ..memory.retry import named_oom
+
+    with named_oom("packed_upload"):
+        staged = (host.to(dev, non_blocking=pin) if dev.type != "cpu"
+                  else host)
     return [staged[off: off + nb].view(_TORCH_VIEW[dt])
             for off, nb, dt in layout]
 

@@ -3,12 +3,16 @@
 Own copy of ``spark_rapids_tpu/io/parquet_device.py``. The split between
 the two sides is the reference's:
 
-  * HOST (vectorized numpy, no per-value Python): thrift page headers,
-    codec decompress (pyarrow), RLE/bit-packed hybrid expansion of
-    dictionary INDICES to the narrowest integer (u8/u16/i32 by bit
-    width), definition levels re-packed to validity words. The reference
-    runs its C++ hybrid decoder here when built; the port runs the numpy
-    decoder ``hybrid_decode_np``.
+  * HOST (no per-value Python): thrift page headers, codec decompress
+    (pyarrow), RLE/bit-packed hybrid expansion of dictionary INDICES to
+    the narrowest integer (u8/u16/i32 by bit width), definition levels
+    re-packed to validity words, BYTE_ARRAY dictionary pages split into
+    offsets and bytes. The hybrid streams and the dictionary pages go
+    through the repo's C++ decoders (``native.py``), which release the
+    GIL for the decode, on the scan's host-decode thread; only a host
+    without a C++ compiler takes the vectorized numpy decoder
+    ``hybrid_decode_np`` (and a Python loop for the dictionary pages),
+    as in the reference.
   * WIRE: the narrow codes, the packed validity words and the dictionary
     (or the PLAIN value bytes), staged into one host buffer per flush and
     copied to the device in one transfer (``arrow_convert.packed_upload``).
@@ -325,18 +329,42 @@ def _code_dtype(bw: int):
             np.uint16 if bw <= 16 else np.int32)
 
 
+#: hybrid streams decoded by route since the process started ("native":
+#: the C++ decoder; "numpy": :func:`hybrid_decode_np`, taken only when
+#: the native library cannot be built), as the kernels count launches
+DECODE_ROUTES = {"native": 0, "numpy": 0}
+_ROUTES_LOCK = threading.Lock()
+
+
+def _count_route(route: str) -> None:
+    with _ROUTES_LOCK:
+        DECODE_ROUTES[route] += 1
+
+
 def hybrid_decode(data, pos: int, end: int, bw: int,
                   n: int) -> Tuple[np.ndarray, int]:
-    """Hybrid-stream decode to the narrowest dtype holding the bit width.
-    The reference calls the repo's C++ decoder here when it is built; the
-    port runs the vectorized numpy decoder (binding ``native/src`` for the
-    port is a ROADMAP.md item of its own)."""
+    """Hybrid-stream decode to the narrowest dtype holding the bit width,
+    through the C++ decoder (reference ``parquet_device.py:289``), which
+    releases the GIL while it decodes. A malformed stream falls back to
+    the host reader; without the native library the numpy decoder
+    runs."""
     if bw == 0:
         return np.zeros(n, np.uint8), pos
     if bw > 24:
         raise _FallbackError(f"bit width {bw}")
-    vals, newpos = hybrid_decode_np(data, pos, end, bw, n)
-    return vals.astype(_code_dtype(bw), copy=False), newpos
+    from ..native import pq_hybrid_decode
+
+    out = np.empty(n, _code_dtype(bw))
+    try:
+        newpos = pq_hybrid_decode(data, pos, end, bw, n, out)
+    except ValueError as e:
+        raise _FallbackError(str(e))
+    if newpos is None:  # no C++ compiler on this host
+        _count_route("numpy")
+        vals, newpos = hybrid_decode_np(data, pos, end, bw, n)
+        return vals.astype(out.dtype, copy=False), newpos
+    _count_route("native")
+    return out, newpos
 
 
 # ---------------------------------------------------------------------------
@@ -560,6 +588,19 @@ def plan_chunk(
 
 def _load_dictionary(plan: ChunkPlan, raw: bytes, count: int) -> None:
     if plan.phys == "BYTE_ARRAY":
+        from ..native import pq_binary_dict
+
+        offs32 = np.empty(count + 1, np.int32)
+        chars_buf = np.empty(max(1, len(raw) - 4 * count), np.uint8)
+        try:
+            total = pq_binary_dict(raw, count, offs32, chars_buf)
+        except ValueError:
+            raise _FallbackError("malformed binary dictionary")
+        if total is not None:
+            plan.dict_offsets = offs32.astype(np.int64)
+            plan.dict_chars = (chars_buf[:total].copy() if total
+                               else np.zeros(1, np.uint8))
+            return
         offs = np.zeros(count + 1, np.int64)
         chars = []
         p = 0
@@ -797,12 +838,15 @@ _PQDEC_POOL_LOCK = threading.Lock()
 
 
 #: host-decode threads. The reference sizes its pool min(8, cores)
-#: because its C++ decoder releases the GIL; the numpy decoder holds it
-#: for most of a page (small arrays), and more threads only contend: the
-#: bench file's 16 chunks of 2^21 values decoded in 0.59-0.81 s with one
-#: thread and 1.57 s with eight (an 8-core Intel Xeon host). One
-#: thread still overlaps the host decode with the consumer's uploads
-#: and device decode.
+#: because its C++ decoder releases the GIL. The port's C++ route
+#: releases it for the hybrid streams and dictionary pages only: the
+#: page headers, the decompression calls and the numpy around them hold
+#: it. Measured on an H100 machine with 8 host cores (chip_smoke.py's
+#: host-only planning of Q11's 16 chunks of 2^21 values): 0.149 s on one
+#: thread, 0.244 s on two, 0.308 s on four and 0.339 s on eight, the
+#: numpy route 0.520 s on one; Q11's cold wall 229, 270, 444 and 434 ms
+#: with a pool of 1, 2, 4 and 8 (PERF.md §5). One thread still overlaps
+#: the host decode with the consumer's uploads and device decode.
 DECODE_THREADS = 1
 
 

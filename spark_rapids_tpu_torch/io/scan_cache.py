@@ -4,8 +4,10 @@ Own copy of ``DeviceScanCache`` of ``spark_rapids_tpu/io/scan_cache.py``:
 a plain LRU by bytes over device tensors (whatever the scanner stores per
 row group, with its byte count), keyed by :func:`file_key`, whose
 (path, mtime, size) makes a rewritten file miss instead of serving stale
-data. The reference's memory-catalog ledger, ordered locks, events and
-observability are not ported; one lock guards the entries.
+data. One lock guards the entries; under device memory pressure the
+OOM retry drops them all (:meth:`DeviceScanCache.drop_under_pressure`).
+The reference's ledger records of the entries, ordered locks, events and
+observability are not ported (ROADMAP.md items 7, 13 and 26).
 
 The process singleton follows the reference: a later session's
 ``scan.deviceCache.maxBytes`` resizes it (evicting when it shrank) instead
@@ -83,6 +85,18 @@ class DeviceScanCache:
             self._entries.move_to_end(key)
             self.hits += 1
             return hit[0]
+
+    def drop_under_pressure(self) -> int:
+        """Drop every resident entry (OOM recovery, ``memory/retry.py``;
+        reference ``scan_cache.py:165``): cached scan columns are
+        re-derivable device residency, the first thing to give back.
+        Returns the bytes released; entries refill on the next scan."""
+        with self._lock:
+            freed = self._bytes
+            self.evictions += len(self._entries)
+            self._entries.clear()
+            self._bytes = 0
+            return freed
 
     def put(self, key: tuple, value: Any, nbytes: int) -> None:
         with self._lock:

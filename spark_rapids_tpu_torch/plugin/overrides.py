@@ -277,9 +277,30 @@ def check_expression(
         # the matrix accepts it, so the reference lowers it on its
         # device: the port must lower it too. A node, type or layer the
         # port lacks raises NotImplementedError here (tpu_supports lets
-        # it through), never a fallback.
-        tpu_supports(expr, schema)
+        # it through), never a fallback. Context expressions evaluate at
+        # the project's boundary, not in eval.py: they are probed as
+        # typed placeholders (reference ``overrides.py:321-333``).
+        tpu_supports(_context_placeholders(expr, schema), schema)
     return reasons
+
+
+def _context_placeholders(expr: E.Expression,
+                          schema: StructType) -> E.Expression:
+    """``expr`` with each partition-context node (and each hash over
+    strings) replaced by a literal of its type."""
+    if not (E.has_context_expr(expr) or _has_string_hash(expr, schema)):
+        return expr
+
+    def placeholder(node):
+        if isinstance(node, E.NONDETERMINISTIC_CONTEXT_EXPRS) or (
+                isinstance(node, E.Murmur3Hash)
+                and _has_string_hash(node, schema)):
+            zero = {T.DOUBLE: 0.0, T.LONG: 0, T.INT: 0,
+                    T.STRING: ""}.get(node.dtype, 0)
+            return E.Literal(zero, node.dtype)
+        return node
+
+    return expr.transform(placeholder)
 
 
 def check_aggregate(

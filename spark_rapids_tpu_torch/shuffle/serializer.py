@@ -20,7 +20,9 @@ The reference builds a string column's bytes row by row from its host
 objects; the port takes them from the device planes in one gather,
 which gives the same bytes. Codec ``none`` is always there; ``zstd``
 imports ``zstandard`` (a plain ``ImportError`` without it); ``lz4`` is the
-reference's native codec and raises until the port binds ``native/``.
+repo's native C++ block codec (``native.py``), framed as the reference
+frames it (flag bit1, the raw size as a u64, then the block), and raises
+``RuntimeError`` on a host where the library cannot be built.
 """
 from __future__ import annotations
 
@@ -35,9 +37,6 @@ from ..columnar.column import (DeviceColumn, HostColumn, choose_capacity,
                                encode_strings)
 
 MAGIC = 0x54505542
-
-#: the item that ports the reference's native host code (lz4 included)
-NATIVE_ITEM = "The native host decoders"
 
 _TYPE_CODES = [
     (T.NullType, 0),
@@ -56,12 +55,6 @@ _TYPE_CODES = [
 ]
 _CODE_OF = {cls: code for cls, code in _TYPE_CODES}
 _CLS_OF = {code: cls for cls, code in _TYPE_CODES}
-
-
-def _lz4_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "the lz4 shuffle codec (the reference's native C++ block codec) is "
-        f"not ported yet: see ROADMAP.md, queue A item '{NATIVE_ITEM}'")
 
 
 def _dtype_header(dt: T.DataType, name: str) -> bytes:
@@ -95,7 +88,12 @@ def _frame(dtypes: List[T.DataType], names: List[str], n: int,
 
         payload = zstandard.ZstdCompressor(level=1).compress(payload)
     elif codec == "lz4":
-        raise _lz4_not_ported()
+        # the native block codec (native/src/lz4.cpp); the raw size rides
+        # in front so decompression sizes exactly
+        from .. import native
+
+        payload = struct.pack("<Q", len(payload)) + native.lz4_compress(
+            payload)
     return head + payload
 
 
@@ -179,7 +177,10 @@ def deserialize_with_byte_lens(data: bytes, device=None
 
         payload = zstandard.ZstdDecompressor().decompress(payload)
     elif flags & 2:
-        raise _lz4_not_ported()
+        from .. import native
+
+        (raw_size,) = struct.unpack_from("<Q", payload, 0)
+        payload = native.lz4_decompress(payload[8:], raw_size)
 
     p = 0
     nvbytes = (n + 7) // 8

@@ -4,20 +4,19 @@ bytes.
 Counterpart of ``spark_rapids_tpu/shuffle/transport.py``: map tasks
 write pieces through a transport, reduce tasks fetch them by
 (shuffle id, reduce id) in map order, and the transport decides where
-they live. ``DeviceShuffleTransport`` keeps each piece as the plain
-tensors of its slice of the partition-sorted batch, as the port keeps a
-join build (the reference registers them spillable with its buffer
-catalog: ROADMAP.md, queue A item 'The spillable build and OOM retry
-around the probe'); ``SerializedShuffleTransport`` round-trips every
-piece through the host wire format (``serializer.py``). The shuffle
-events and observability counters are items 7 and 26.
+they live. ``DeviceShuffleTransport`` keeps each piece on the device,
+registered spillable with the buffer catalog (``memory/spillable.py``,
+at the shuffle-input spill priority), so memory pressure can move it to
+the host until its fetch; ``SerializedShuffleTransport`` round-trips
+every piece through the host wire format (``serializer.py``). The
+shuffle events and observability counters are items 7 and 26.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Tuple
 
 from .. import types as T
 from ..expr.values import Val
@@ -32,15 +31,6 @@ class ShufflePiece:
     vals: List[Val]
     n: int
     byte_lens: Tuple[int, ...] = ()
-
-
-def piece_bytes(vals: Sequence[Val]) -> int:
-    """The device bytes of a piece's planes."""
-    total = 0
-    for v in vals:
-        for t in v:
-            total += t.numel() * t.element_size()
-    return total
 
 
 class ShuffleTransport:
@@ -72,28 +62,37 @@ class ShuffleTransport:
 
 
 class DeviceShuffleTransport(ShuffleTransport):
-    """Pieces stay on the device (the UCX device-cache path analog)."""
+    """Pieces stay on the device, registered spillable with the buffer
+    catalog (reference ``transport.py:71``: the UCX device-cache path
+    analog, RapidsShuffleInternalManager.scala:90-150): under memory
+    pressure a piece moves to the host or disk and comes back at its
+    fetch. A piece is a view of its rows of the partition-ordered batch,
+    so its device memory is freed once every piece of that batch is off
+    the device."""
 
     def __init__(self):
-        self._catalog: Dict[Tuple[int, int], List[Tuple[int, ShufflePiece]]] \
-            = {}
+        self._catalog: Dict[Tuple[int, int], List[tuple]] = {}
         self._lock = threading.Lock()
         self._bytes = 0
         self._fetched = 0
 
     def write(self, shuffle_id, map_id, reduce_id, piece, schema):
-        nb = piece_bytes(piece.vals)
+        from ..memory import INPUT_FROM_SHUFFLE_PRIORITY, SpillableVals
+
+        sv = SpillableVals(piece.vals, INPUT_FROM_SHUFFLE_PRIORITY)
         with self._lock:
             self._catalog.setdefault((shuffle_id, reduce_id), []).append(
-                (map_id, piece))
-            self._bytes += nb
+                (map_id, (sv, piece.n, piece.byte_lens)))
+            self._bytes += sv.size_bytes
 
     def fetch(self, shuffle_id, reduce_id):
         with self._lock:
             entries = sorted(self._catalog.get((shuffle_id, reduce_id), ()),
                              key=lambda e: e[0])
-            self._fetched += sum(piece_bytes(p.vals) for _, p in entries)
-        return [p for _, p in entries]
+            self._fetched += sum(sv.size_bytes for _, (sv, _n, _b)
+                                 in entries)
+        return [ShufflePiece(sv.get_vals(), n, bl)
+                for _, (sv, n, bl) in entries]
 
     def bytes_written(self):
         return self._bytes
@@ -104,8 +103,10 @@ class DeviceShuffleTransport(ShuffleTransport):
 
     def release(self, shuffle_id):
         with self._lock:
-            for k in [k for k in self._catalog if k[0] == shuffle_id]:
-                del self._catalog[k]
+            victims = [k for k in self._catalog if k[0] == shuffle_id]
+            entries = [e for k in victims for e in self._catalog.pop(k)]
+        for _, (sv, _n, _bl) in entries:
+            sv.close(reason="shuffle_release")
 
     def held(self, shuffle_id: int) -> int:
         """Pieces still held for ``shuffle_id``."""

@@ -13,6 +13,12 @@ parquet directory of several files) runs through the exchanges
 Device rule: ``TpuSession(settings, device=None)`` runs on the CUDA card,
 and raises without one unless the caller passes ``device="cpu"``.
 
+Memory plane: a session installs the fault injector from its
+``test.faults.*`` confs, rebuilds the process's spill catalog when its
+``memory.*`` confs differ from the catalog's, and, with the ledger armed,
+runs each collect in a query scope that the leak sentinel sweeps at its
+end (``last_leaks``).
+
 Left out, as later ROADMAP.md items: plan analysis (so ``explain()``
 returns the tagging lines only), the event log, the observability plane,
 serving and the XLA cost and HLO planes, and ``DataFrameWriter`` and the
@@ -28,16 +34,50 @@ import dataclasses
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+from .. import faults as _faults
 from ..columnar import resolve_device
-from ..conf import RapidsConf
+from ..conf import (HBM_BUDGET_BYTES, HBM_POOL_FRACTION, HBM_RESERVE,
+                    HOST_SPILL_STORAGE_SIZE, LEAK_SENTINEL_ENABLED,
+                    MEMORY_DEBUG, SPILL_ENABLED, RapidsConf)
 from ..cpu import plan as C
 from ..exec.transitions import ColumnarToRowExec
+from ..memory.catalog import BufferCatalog
+from ..memory.ledger import query_scope
 from ..expr import aggregates as A
 from ..expr import expressions as E
 from ..plugin.overrides import TpuOverrides, not_ported as _not_ported
 from ..types import StructType
 
 REMAINING_ITEM = "The remaining modules"
+
+_QUERY_SEQ = [0]
+_QUERY_SEQ_LOCK = threading.Lock()
+
+
+def _next_query_id() -> int:
+    """Process-unique query ids (reference ``session.py:246``)."""
+    with _QUERY_SEQ_LOCK:
+        _QUERY_SEQ[0] += 1
+        return _QUERY_SEQ[0]
+
+
+#: the conf keys the spill catalog is built from
+_CATALOG_KEYS = (HBM_BUDGET_BYTES, HBM_POOL_FRACTION, HBM_RESERVE,
+                 HOST_SPILL_STORAGE_SIZE, SPILL_ENABLED, MEMORY_DEBUG,
+                 LEAK_SENTINEL_ENABLED)
+
+
+def _configure_catalog(conf: RapidsConf, device) -> None:
+    """Reset the process's spill catalog when this session's memory confs
+    or device type differ from the ones it was built for (the catalog is
+    a process singleton; a session with another budget gets a catalog of
+    its own, and buffers registered with the old one keep their accounts
+    there)."""
+    cat = BufferCatalog._instance
+    want = tuple(conf.get(k) for k in _CATALOG_KEYS)
+    if cat is None or cat.device_type != device.type or tuple(
+            cat.conf.get(k) for k in _CATALOG_KEYS) != want:
+        BufferCatalog.reset(conf, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,6 +284,14 @@ class TpuSession:
         self.overrides = TpuOverrides(self.conf, self.device)
         self.last_executed_plan = None
         self.last_cpu_plan = None
+        #: the leak sentinel's finds at the last query's end (the ledger
+        #: is armed only by ``memory.ledger.force_arm``)
+        self.last_leaks: List[dict] = []
+        # the deterministic fault injector (faults.py): installs nothing
+        # with the test.faults.* confs off; tests pair an install with
+        # faults.uninstall() (reference session.py:282-287)
+        _faults.install(self.conf)
+        _configure_catalog(self.conf, self.device)
 
     @property
     def last_explain(self) -> str:
@@ -291,7 +339,20 @@ class TpuSession:
         return final
 
     def _collect(self, node: LNode) -> List[tuple]:
-        return self._execute(node).collect()
+        """Execute and collect. With the ledger armed, the buffers the
+        query registers are owned by it, and at its end the sweep folds
+        its peak and flags what it leaked (reference
+        ``session.py:525-555``)."""
+        final = self._execute(node)
+        ledger = BufferCatalog.get().ledger
+        if not ledger.armed():
+            return final.collect()
+        qid = _next_query_id()
+        try:
+            with query_scope(qid):
+                return final.collect()
+        finally:
+            self.last_leaks = ledger.sweep_query(qid)
 
     def explain_metrics(self) -> str:
         """Per-operator report of the last executed plan (reference

@@ -1155,3 +1155,48 @@ def test_decimal_and_timestamp_to_double_on_the_card_are_exact(dev):
         int(c) / 100 for c in cents]
     assert got[1][: us.size].view(torch.float64).tolist() == [
         int(u) / 1e6 for u in us]
+
+
+@pytest.mark.parametrize("scale", list(range(-2, 7)))
+def test_round_of_doubles_on_the_card_is_the_cpus(dev, scale):
+    """round(x, s) over doubles divides by 10^s as a device tensor, so the
+    card's bits equal the CPU's (a host-scalar divisor would be a
+    reciprocal multiply on CUDA): random doubles over many magnitudes,
+    exact halves, +-0.0, NaN and +-inf."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, schema_of
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.eval import evaluate_projection
+
+    rng = np.random.default_rng(100 + scale)
+    x = (rng.standard_normal(1 << 14)
+         * 10.0 ** rng.integers(-8, 12, 1 << 14)).tolist()
+    halves = [(k + 0.5) / 10.0 ** scale for k in range(-50, 50)]
+    x += halves + [0.0, -0.0, float("nan"), float("inf"), -float("inf"),
+                   5e-324, -1.7976931348623157e308]
+    schema = schema_of(x=T.DOUBLE)
+    expr = E.bind_references(E.Round(E.col("x"), scale), schema)
+
+    def run(device):
+        b = ColumnarBatch.from_pydict({"x": x}, schema, device=device)
+        (c,) = evaluate_projection([expr], b)
+        return c.data.cpu().view(torch.int64)[: len(x)]
+
+    assert torch.equal(run(dev), run("cpu"))
+
+
+@pytest.mark.parametrize("scale", list(range(1, 7)))
+def test_round_with_a_host_scalar_divisor_differs_on_the_card(dev, scale):
+    """Why Round divides by a device tensor: the same rounding with a
+    host-scalar divisor (a reciprocal multiply on CUDA) gives other bits
+    on the card than on the CPU for these doubles."""
+    rng = np.random.default_rng(100 + scale)
+    x = torch.tensor((rng.standard_normal(1 << 14)
+                      * 10.0 ** rng.integers(-8, 12, 1 << 14)).tolist(),
+                     dtype=torch.float64)
+    f = 10.0 ** scale
+
+    def host_scalar(t):
+        return torch.sign(t) * torch.floor(torch.abs(t) * f + 0.5) / f
+
+    assert not torch.equal(host_scalar(x.to(dev)).cpu(), host_scalar(x))

@@ -226,14 +226,19 @@ def test_interpreter_matches_reference(case):
 
 
 def test_not_ported_nodes_raise_naming_their_items():
-    """Nondeterministic nodes lower on the reference's device; the port
-    raises NotImplementedError naming the ROADMAP item, and tpu_supports
-    lets it propagate instead of reporting a fallback. The date/time
-    nodes are ported (item 6): DateAdd is supported, and a cast the
-    reference refuses falls back with the reference's reason."""
+    """The nondeterministic nodes are ported (item 25): as in the
+    reference, a bare context node has no lowering of its own (the
+    project evaluates it at its boundary) and hash() over a fixed-width
+    column lowers inline. The date/time nodes are ported (item 6):
+    DateAdd is supported, and a cast the reference refuses falls back
+    with the reference's reason."""
     schema = T.StructType((T.StructField("x", T.LONG),))
-    with pytest.raises(NotImplementedError, match="Nondeterministic"):
-        EV.tpu_supports(E.Rand(3), schema)
+    jx = JT.StructType((JT.StructField("x", JT.LONG),))
+    assert EV.tpu_supports(E.Rand(3), schema) == (
+        False, "no lowering for Rand")
+    assert JEV.tpu_supports(JE.Rand(3), jx)[0] is False
+    assert EV.tpu_supports(E.Murmur3Hash((E.col("x"),)), schema) == \
+        JEV.tpu_supports(JE.Murmur3Hash((JE.col("x"),)), jx) == (True, "")
     dschema = T.StructType((T.StructField("d", T.DATE),
                             T.StructField("x", T.LONG)))
     jschema = JT.StructType((JT.StructField("d", JT.DATE),

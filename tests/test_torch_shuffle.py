@@ -242,8 +242,13 @@ def test_serializer_round_trip(case):
 def test_codecs():
     pb = _wire_batches(T, ColumnarBatch, WIRE_ROWS["nulls_utf8"],
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="native host decoders"):
-        PS.serialize_batch(pb, "lz4")
+    # lz4: the native codec, byte for byte the reference's frame
+    data = PS.serialize_batch(pb, "lz4")
+    assert data[4] == 2 and data == JS.serialize_batch(
+        _wire_batches(JT, JBatch, WIRE_ROWS["nulls_utf8"]), "lz4")
+    assert [tuple(map(repr, r)) for r in
+            PS.deserialize_batch(data, "cpu").to_rows()] == \
+        [tuple(map(repr, r)) for r in WIRE_ROWS["nulls_utf8"]]
     try:
         import zstandard  # noqa: F401
     except ImportError:
