@@ -222,7 +222,10 @@ Phases, each failing the run on any error or mismatch:
         three on a copy with '\n' endings, 'é's and nulls) held to its
         plain version bit for bit over the whole column, its first 2^20
         rows and a 2^16-row slice whose offsets start mid-pool, and
-        timed beside its bytes bound; ``special.*requests`` must be
+        timed beside its whole-row bytes bound, the bytes its walk must
+        read up to its stop (``dfa_exit_plain``) and the 32-byte sectors
+        holding them; then over 12 288 rows of 1-64 KB;
+        ``special.*requests`` must be
         refused by the compiler (more than 16 DFA states), as the
         reference's refuses it;
      Q22 TPC-H Q13 through the session: customer left outer join the
@@ -3786,6 +3789,101 @@ def q13_oracle(np, t, excluded) -> list:
                   key=lambda r: (-r[1], -r[0]))
 
 
+#: rows of the DFA kernel's uneven shape, each 2^10..2^16 bytes of the
+#: text pool (about Q22's 407 MB of comments in all)
+DFA_UNEVEN_ROWS = 3 << 12
+DFA_UNEVEN_LENS = (1 << 10, 1 << 16)
+
+
+def dfa_ptxas() -> list:
+    """ptxas' lines for the DFA kernel from the build this process
+    loaded: registers, shared memory, spills."""
+    from spark_rapids_tpu_torch.ops import regex_kernels as RK
+
+    return [ln.strip() for ln in "".join(RK.BUILD_LOG).splitlines()
+            if "dfa_accept_rows" in ln or "registers" in ln
+            or "spill" in ln]
+
+
+def walked_sectors(torch, offsets, steps) -> int:
+    """Distinct 32-byte sectors of the pool that hold a walked byte (each
+    row's first ``steps`` bytes from its offset): what device memory must
+    move for them, since it moves whole sectors."""
+    lo = offsets[:-1].long()
+    m = steps > 0
+    first = lo[m] >> 5
+    cnt = ((lo[m] + steps[m] - 1) >> 5) - first + 1
+    if not int(cnt.numel()):
+        return 0
+    total = int(cnt.sum())
+    start = torch.cumsum(cnt, 0) - cnt
+    ids = (torch.repeat_interleave(first - start, cnt, output_size=total)
+           + torch.arange(total, device=lo.device))
+    return int(torch.unique(ids).numel())
+
+
+def dfa_bounds(live: int, walked: int, sectors: int, other: int) -> dict:
+    """The DFA kernel's bounds over a column of ``live`` pool bytes whose
+    walks must read ``walked`` of them, held in ``sectors`` 32-byte
+    sectors, beside ``other`` bytes of offsets, validity and verdicts:
+    ``bound_ms`` counts the walked bytes (what this run's data needs),
+    ``bound_whole_ms`` every live byte, ``bound_sectors_ms`` the walked
+    bytes' whole sectors."""
+    return {"walked_bytes": walked, "walked_sectors": sectors,
+            "bound_ms": bound_ms(walked + other),
+            "bound_whole_ms": bound_ms(live + other),
+            "bound_sectors_ms": bound_ms(32 * sectors + other)}
+
+
+def dfa_uneven_phase(torch, np, dev, t, reps: int) -> None:
+    """The DFA kernel over ``DFA_UNEVEN_ROWS`` rows of uneven lengths
+    (uniform over ``DFA_UNEVEN_LENS`` bytes, slices of the text pool,
+    seeded): every pattern held bit for bit to its plain version and
+    timed beside its bounds."""
+    from spark_rapids_tpu_torch.ops import regex as RX
+    from spark_rapids_tpu_torch.ops import regex_kernels as RK
+
+    rng = np.random.default_rng(26)
+    n = DFA_UNEVEN_ROWS
+    lens = rng.integers(DFA_UNEVEN_LENS[0], DFA_UNEVEN_LENS[1] + 1, n)
+    start = rng.integers(0, t["pool"].size - DFA_UNEVEN_LENS[1], n)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    chars = comment_chars(torch, {"pool": t["pool"], "lens": lens,
+                                  "offsets": offsets, "start": start}, dev)
+    off = torch.from_numpy(offsets.astype(np.int32)).to(dev)
+    vld = torch.ones(n, dtype=torch.bool, device=dev)
+    live = int(offsets[-1])
+    for pat in (Q22D_REGEX,) + DFA_PATTERNS:
+        d = RX.compile_search_dfa(pat)
+        before = RK.LAUNCHES["dfa_accept_rows"]
+        got = RK.dfa_accept_rows(off, chars, vld, d)
+        want = RK.dfa_accept_rows_plain(off, chars, vld, d)
+        if RK.LAUNCHES["dfa_accept_rows"] != before + 1 or not torch.equal(
+                got, want):
+            raise AssertionError(f"dfa_accept_rows {pat!r} on uneven rows: "
+                                 f"{int((got != want).sum())} rows differ "
+                                 "from the plain version")
+        steps = torch.from_numpy(lens).to(dev)  # no stop state: every byte
+        if RK.stop_states(d):
+            steps, verdict = RK.dfa_exit_plain(off, chars, vld, d)
+            if not torch.equal(verdict, want):
+                raise AssertionError(f"dfa_exit_plain {pat!r} on uneven "
+                                     "rows: verdicts differ")
+        walked = int(steps.sum())
+        sectors = walked_sectors(torch, off, steps)
+
+        def run(d=d):
+            return RK.dfa_accept_rows(off, chars, vld, d)
+
+        emit({"kernel_shape": "dfa_accept_rows@uneven", "pattern": pat,
+              "rows": n, "lens": list(DFA_UNEVEN_LENS),
+              "live_bytes": live, "matches": int(got.sum()),
+              "ms": cuda_ms(torch, run, reps),
+              "dev_ms": dev_ms(torch, run, reps),
+              **dfa_bounds(live, walked, sectors, 6 * n + 4)})
+
+
 def dfa_kernel_phase(torch, np, dev, t, chars, reps: int) -> dict:
     """The DFA row matcher at Q22's shape: o_comment's 2^23 rows as one
     column (its offsets, its pool, every row valid). Each pattern's
@@ -3793,9 +3891,14 @@ def dfa_kernel_phase(torch, np, dev, t, chars, reps: int) -> dict:
     column, its first 2^20 rows (the pool's later rows are garbage past
     the last offset) and a 2^16-row slice whose offsets start mid-pool;
     ``DFA_PATTERNS`` also run on a copy where every 5th row ends in
-    '\\n', every 7th starts with 'é' and 3% are null. Q22D_REGEX's times
-    are the kernel's entry; Q22R_REGEX must be refused by the compiler,
-    as the reference's."""
+    '\\n', every 7th starts with 'é' and 3% are null. Each pattern also
+    gives the bytes its walk must read (``walked_bytes``, from
+    ``dfa_exit_plain``, whose verdicts must be the plain version's) and
+    that bound, and the 32-byte sectors holding those bytes
+    (:func:`walked_sectors`; device memory moves whole sectors) and their
+    bound. Q22D_REGEX's times are the kernel's entry; Q22R_REGEX
+    must be refused by the compiler, as the reference's. Then
+    :func:`dfa_uneven_phase`."""
     from spark_rapids_tpu_torch.ops import regex as RX
     from spark_rapids_tpu_torch.ops import regex_kernels as RK
 
@@ -3834,7 +3937,15 @@ def dfa_kernel_phase(torch, np, dev, t, chars, reps: int) -> dict:
                 raise AssertionError(f"dfa_accept_rows {pat!r} rows "
                                      f"[{a}, {b}): {bad} rows differ from "
                                      "the plain version")
-        matches = int(RK.dfa_accept_rows(off, pool, vld, d).sum())
+            if (a, b) == (0, n):
+                whole = want
+        steps, verdict = RK.dfa_exit_plain(off, pool, vld, d)
+        if not torch.equal(verdict, whole):
+            raise AssertionError(f"dfa_exit_plain {pat!r}: verdicts differ "
+                                 "from the plain version")
+        walked = int(steps.sum())
+        sectors = walked_sectors(torch, off, steps)
+        matches = int(whole.sum())
 
         def run(pool=pool, vld=vld, d=d):
             return RK.dfa_accept_rows(off, pool, vld, d)
@@ -3844,14 +3955,19 @@ def dfa_kernel_phase(torch, np, dev, t, chars, reps: int) -> dict:
                "host_ms": host_ms(torch, run, reps),
                "plain_ms": cuda_ms(torch, lambda: RK.dfa_accept_rows_plain(
                    off, pool, vld, d), max(1, reps // 10)),
-               "bound_ms": bound_ms(nbytes), "library_ms": None,
+               **dfa_bounds(live, walked, sectors, nbytes - live),
+               "library_ms": None,
                "library": "none: no torch call computes a DFA",
                "max_abs_err": 0.0}
+        if out is None:  # the kernels line's entry
+            res["ptxas"] = dfa_ptxas()
         emit({"kernel_shape": "dfa_accept_rows", "pattern": pat, "rows": n,
               "bytes": nbytes, "states": d.nstates,
-              "absorbing": d.absorbing, "matches": matches, **res})
+              "absorbing": d.absorbing,
+              "stop_states": RK.stop_states(d), "matches": matches, **res})
         if out is None:
             out = res
+    dfa_uneven_phase(torch, np, dev, t, reps)
     return out
 
 
@@ -5865,7 +5981,8 @@ def kernels_line(kres: dict, per_query: dict) -> list:
         for extra in ("dev_ms", "host_ms", "plain_rows", "bound_abi_ms",
                       "log2_buckets", "library", "passes", "replicas",
                       "bound_chain_ms", "longest_segment", "segments",
-                      "dadd_ns"):
+                      "dadd_ns", "bound_whole_ms", "walked_bytes",
+                      "walked_sectors", "bound_sectors_ms", "ptxas"):
             if extra in r:
                 line[extra] = r[extra]
         kernels.append(line)

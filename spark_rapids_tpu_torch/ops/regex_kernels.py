@@ -14,13 +14,19 @@ the kernel or raises; no fallback. Each launch adds one to
 :data:`LAUNCHES`; nothing else does.
 
 Bound on an H100: bytes. The live rows' bytes are read once, plus 4
-bytes of offsets, 1 of validity and 1 of output a row.
+bytes of offsets, 1 of validity and 1 of output a row; a walk that stops
+early (:func:`stop_states`) needs only the bytes up to its stop
+(:func:`dfa_exit_plain` counts them).
+
+The kernel takes the DFA as a (16, 256) table of next states laid out
+[state][byte] on the card and a mask of stop states; both are made once
+per DFA and device (:func:`device_table`).
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +43,9 @@ BUILD_LOG: List[str] = []
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
+#: (id(dfa), device) -> (the dfa, its [state][byte] table there, its stop
+#: mask); the dfa is held so that its id is not reused
+_TABLES: Dict[Tuple[int, torch.device], Tuple[object, torch.Tensor, int]] = {}
 
 
 def reset_launches() -> None:
@@ -54,8 +63,9 @@ def build_kernels() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         vp = ctypes.c_void_p
         lib.srt_dfa_accept_rows.argtypes = [
-            vp, ctypes.c_int64, vp, ctypes.c_int64, vp, vp, vp,
-            ctypes.c_uint32, ctypes.c_int, ctypes.c_int, vp, vp]
+            vp, ctypes.c_int64, vp, ctypes.c_int64, vp, vp,
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+            vp, vp]
         lib.srt_dfa_accept_rows.restype = ctypes.c_int
         lib.srt_regex_error_string.argtypes = [ctypes.c_int]
         lib.srt_regex_error_string.restype = ctypes.c_char_p
@@ -71,6 +81,40 @@ def transition_table(dfa) -> np.ndarray:
     lo = (dfa.lut_lo[:, None] >> shifts[None, :]) & 15
     hi = (dfa.lut_hi[:, None] >> shifts[None, :]) & 15
     return np.concatenate([lo, hi], axis=1).astype(np.uint8)
+
+
+def dead_states(dfa) -> int:
+    """Bit mask of the DFA's dead states: reachable ids (below
+    ``nstates``) that do not accept and that every byte leads back to."""
+    tbl = transition_table(dfa)
+    ids = np.arange(16)
+    dead = (tbl == ids[None, :]).all(axis=0) & (ids < dfa.nstates)
+    dead &= ((dfa.accept_mask >> ids) & 1) == 0
+    return int((dead.astype(np.int64) << ids).sum())
+
+
+def stop_states(dfa) -> int:
+    """Bit mask of the states where a walk may stop with its verdict
+    known: the dead states, and in an absorbing DFA the accepting ones
+    (every byte leads from them to an accepting state). No byte leads out
+    of the set."""
+    acc = dfa.accept_mask & 0xFFFF if dfa.absorbing else 0
+    return dead_states(dfa) | acc
+
+
+def device_table(dfa, dev: torch.device) -> Tuple[torch.Tensor, int]:
+    """The kernel's DFA on ``dev``: (4096,) uint8 next states at
+    ``state * 256 + byte``, and :func:`stop_states`. Made once per DFA and
+    device."""
+    key = (id(dfa), dev)
+    hit = _TABLES.get(key)
+    if hit is None or hit[0] is not dfa:
+        tbl = np.ascontiguousarray(transition_table(dfa).T).reshape(-1)
+        if len(_TABLES) > 256:
+            _TABLES.clear()
+        hit = (dfa, torch.from_numpy(tbl).to(dev), stop_states(dfa))
+        _TABLES[key] = hit
+    return hit[1], hit[2]
 
 
 def _check(offsets, chars, validity) -> None:
@@ -124,6 +168,49 @@ def dfa_accept_rows_plain(offsets: torch.Tensor, chars: torch.Tensor,
     return acc & validity
 
 
+def dfa_exit_plain(offsets: torch.Tensor, chars: torch.Tensor,
+                   validity: torch.Tensor, dfa):
+    """Where each row's walk may stop, and its verdict there: (steps,
+    verdict), ``steps`` (cap,) int64 the bytes stepped up to and including
+    the first that brings the state into :func:`stop_states` (the row's
+    length if none does; 0 for null and empty rows). A row that stops
+    before its last byte takes its stop state's verdict; one that stops on
+    its last byte or never takes the full walk's (Java's '\\n' rule
+    included). The sum of ``steps`` is the bytes a walk must read."""
+    dev = chars.device
+    cap = offsets.shape[0] - 1
+    nch = chars.shape[0]
+    lo = offsets[:-1].clamp(0, nch).long()
+    hi = torch.maximum(offsets[1:].clamp(0, nch).long(), lo)
+    lens = torch.where(validity, hi - lo, torch.zeros_like(lo))
+    tbl = torch.from_numpy(transition_table(dfa).reshape(-1)).to(dev).long()
+    bits = torch.arange(16, device=dev)
+    acc_tbl = ((dfa.accept_mask >> bits) & 1).bool()
+    stop_tbl = ((stop_states(dfa) >> bits) & 1).bool()
+    st = torch.zeros(cap, dtype=torch.long, device=dev)
+    prev = st
+    last = torch.zeros(cap, dtype=torch.long, device=dev)
+    steps = lens.clone()
+    stopped = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for j in range(int(lens.max()) if cap else 0):
+        if j % 256 == 255 and not bool(((j < lens) & ~stopped).any()):
+            break  # every row has stopped
+        live = (j < lens) & ~stopped
+        b = chars[(lo + j).clamp(max=max(nch - 1, 0))].long()
+        prev = torch.where(live, st, prev)
+        last = torch.where(live, b, last)
+        st = torch.where(live, tbl[b * 16 + st], st)
+        now = live & stop_tbl[st]
+        steps = torch.where(now, j + 1, steps)
+        stopped |= now
+    acc = acc_tbl[st]
+    if not dfa.absorbing:
+        full = acc | ((last == 0x0A) & acc_tbl[prev])
+        acc = torch.where(stopped & (steps < lens), acc, full)
+    acc = torch.where(lens > 0, acc, dfa.start_accept)
+    return steps, acc & validity
+
+
 def dfa_accept_rows(offsets: torch.Tensor, chars: torch.Tensor,
                     validity: torch.Tensor, dfa) -> torch.Tensor:
     """(cap,) bool: each row's DFA verdict ANDed with ``validity``
@@ -141,18 +228,15 @@ def dfa_accept_rows(offsets: torch.Tensor, chars: torch.Tensor,
     out = torch.empty(cap, dtype=torch.bool, device=dev)
     if cap == 0:
         return out
+    table, stop = device_table(dfa, dev)
     off = offsets.contiguous()
-    chars = chars.contiguous()
-    if chars.data_ptr() % 4:  # the kernel loads 4 bytes at a time
-        chars = chars.clone()
+    chars = chars.contiguous()  # any alignment: the kernel shifts to 16
     valid = validity.contiguous()
-    lut_lo = np.ascontiguousarray(dfa.lut_lo, dtype=np.uint32)
-    lut_hi = np.ascontiguousarray(dfa.lut_hi, dtype=np.uint32)
     with torch.cuda.device(dev):
         rc = lib.srt_dfa_accept_rows(
             off.data_ptr(), cap, chars.data_ptr(), nch, valid.data_ptr(),
-            lut_lo.ctypes.data, lut_hi.ctypes.data,
-            dfa.accept_mask & 0xFFFF, int(dfa.absorbing),
+            table.data_ptr(),
+            dfa.accept_mask & 0xFFFF, stop, int(dfa.absorbing),
             int(dfa.start_accept), out.data_ptr(), _cuda_build.stream(dev))
     _cuda_build.check_launch(lib.srt_regex_error_string, rc,
                              "dfa_accept_rows")

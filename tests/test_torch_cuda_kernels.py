@@ -1096,6 +1096,132 @@ def test_dfa_accept_rows_matches_its_plain_version(dev, pat):
         assert torch.equal(got.cpu(), want)
 
 
+#: anchored patterns with a dead state, and two that walk every byte
+DFA_EDGE_PATTERNS = ("^[a-z]+ (sly|furious)", "^$", "^ab$", "s$", "[^ -~]")
+#: row starts written over the random bytes, one row in three
+DFA_EDGE_HEADS = (b"ab", b"ab sly", b"xy furious", b"\n", b"ab\n", b"s\n")
+DFA_EDGE_BYTES = np.frombuffer(
+    b"abcdefghijklmnopqrstuvwxyz     sly\n.\xc3\xa9", np.uint8)
+
+
+def _dfa_column(rng, lens, nl_rows=()):
+    """Offsets and a pool of random bytes for rows of ``lens`` bytes, one
+    row in three starting with one of ``DFA_EDGE_HEADS`` and the rows
+    ``nl_rows`` ending in '\n'."""
+    lens = np.asarray(lens, np.int64)
+    off = np.zeros(lens.size + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    pool = rng.choice(DFA_EDGE_BYTES, int(off[-1]) + 1)
+    for i in range(0, lens.size, 3):
+        head = DFA_EDGE_HEADS[(i // 3) % len(DFA_EDGE_HEADS)][:lens[i]]
+        pool[off[i]:off[i] + len(head)] = np.frombuffer(head, np.uint8)
+    for i in nl_rows:
+        if lens[i]:
+            pool[off[i + 1] - 1] = 0x0A
+    return off.astype(np.int32), pool
+
+
+def _dfa_edge_case(case):
+    """(offsets, pool, validity, pool start in the view, rows the plain
+    version leaves to :func:`_dfa_walk_maps`) for one edge case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "lengths_0_5000":
+        lens = rng.integers(0, 5001, 3000)
+    elif case == "long_rows":
+        lens = rng.integers(0, 80, 2000)
+        lens[700], lens[1500] = 1 << 16, 1 << 20
+        off, pool = _dfa_column(rng, lens)
+        return off, pool, rng.random(lens.size) > 0.1, 0, (700, 1500)
+    elif case == "unaligned_view":
+        lens = rng.integers(0, 90, 5000)
+        off, pool = _dfa_column(rng, lens)
+        return off, np.concatenate([pool[:3], pool]), np.ones(
+            lens.size, bool), 3, ()
+    elif case == "cap_odd":
+        lens = rng.integers(0, 70, 3 * 1024 + 17)
+    elif case == "cap_255":
+        lens = rng.integers(0, 70, 255)
+    elif case == "all_null":
+        lens = rng.integers(0, 70, 4000)
+        off, pool = _dfa_column(rng, lens)
+        return off, pool, np.zeros(lens.size, bool), 0, ()
+    elif case == "all_empty":
+        return (np.full(3000, 5, np.int32), rng.choice(DFA_EDGE_BYTES, 9),
+                np.ones(2999, bool), 0, ())
+    else:  # "newline_at_warp_edges": 2^20 + 5 rows
+        n = (1 << 20) + 5
+        lens = rng.integers(1, 40, n)
+        edge = np.flatnonzero(np.isin(np.arange(n) % 32, (0, 31)))
+        off, pool = _dfa_column(rng, lens, edge)
+        return off, pool, rng.random(n) > 0.05, 0, ()
+    off, pool = _dfa_column(rng, lens)
+    return off, pool, rng.random(lens.size) > 0.1, 0, ()
+
+
+def _dfa_walk_maps(table, row: np.ndarray) -> int:
+    """The DFA's state after ``row`` from state 0, by composing the bytes'
+    16-state maps pairwise (the reference's method; a step a byte would
+    take a million torch calls on a 1 MB row)."""
+    maps = table[row] if row.size else np.arange(16)[None]
+    while len(maps) > 1:
+        if len(maps) % 2:
+            maps = np.concatenate([maps, np.arange(16)[None]])
+        maps = np.take_along_axis(maps[1::2], maps[0::2].astype(np.int64),
+                                  axis=1)
+    return int(maps[0][0])
+
+
+DFA_EDGE_CASES = ("lengths_0_5000", "long_rows", "unaligned_view", "cap_odd",
+                  "cap_255", "all_null", "all_empty", "newline_at_warp_edges")
+
+
+@pytest.mark.parametrize("pat", DFA_EDGE_PATTERNS)
+@pytest.mark.parametrize("case", DFA_EDGE_CASES)
+def test_dfa_accept_rows_edge_columns_match_the_plain_version(dev, case,
+                                                              pat):
+    """The regex row matcher's kernel against its plain version, bit for
+    bit, one launch each: row lengths 0-5000; a 64 KB and a 1 MB row
+    among short ones (those two held to a composition of the same table);
+    a pool view whose pointer is 3 bytes past 16-byte alignment; columns
+    of 3 x 1024 + 17 and 255 rows (neither a multiple of the kernel's
+    256-thread block); all null; all empty; '\n'-ended rows on both sides
+    of every 32-row boundary (a warp's rows; the blocks and the grid
+    stride are multiples of 32) over 2^20 + 5 rows. Anchored patterns die
+    in a dead state, where the walk stops."""
+    from spark_rapids_tpu_torch.ops import regex as RX
+    from spark_rapids_tpu_torch.ops import regex_kernels as RK
+
+    off, pool, valid, at, long_rows = _dfa_edge_case(case)
+    d = RX.compile_search_dfa(pat)
+    o_d, v_d, whole = _on(dev, off, valid, pool)
+    pool_d = whole[at:]
+    assert pool_d.data_ptr() % 16 == at
+    before = RK.LAUNCHES["dfa_accept_rows"]
+    got = RK.dfa_accept_rows(o_d, pool_d, v_d, d).cpu()
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES["dfa_accept_rows"] == before + 1
+    o_p, p_p = off, pool[at:]
+    if long_rows:  # the plain version walks the short rows only
+        lens = np.diff(off.astype(np.int64))
+        cut = np.ones(p_p.size, bool)
+        for i in long_rows:
+            cut[off[i]:off[i + 1]] = False
+            lens[i] = 0
+        o_p = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        p_p = p_p[cut]
+    want = RK.dfa_accept_rows_plain(*_on(dev, o_p, p_p, valid), d).cpu()
+    keep = np.ones(valid.size, bool)
+    keep[list(long_rows)] = False
+    assert torch.equal(got[keep], want[keep])
+    tbl = RK.transition_table(d)
+    for i in long_rows:
+        row = pool[at + off[i]:at + off[i + 1]]
+        acc = bool((d.accept_mask >> _dfa_walk_maps(tbl, row)) & 1)
+        if not d.absorbing and row[-1] == 0x0A:
+            acc |= bool((d.accept_mask >> _dfa_walk_maps(tbl, row[:-1])) & 1)
+        assert bool(got[i]) == (acc and bool(valid[i]))
+
+
 def test_date_keyed_decimal_aggregate_on_the_card_matches_the_cpu(
         dev, tmp_path):
     """The chip check's Q27 at 2^16 rows (TPC-DS store_sales with INT32
