@@ -10,8 +10,9 @@ Phases, each failing the run on any error or mismatch:
 
 1. set-up: the card is present; the kernel libraries are built from
    ``spark_rapids_tpu_torch/csrc/groupby_kernels.cu``,
-   ``csrc/join_kernels.cu``, ``csrc/udf_kernels.cu`` and
-   ``csrc/regex_kernels.cu`` (one ``nvcc`` each for ``sm_90a``, started
+   ``csrc/join_kernels.cu``, ``csrc/udf_kernels.cu``,
+   ``csrc/regex_kernels.cu`` and ``csrc/radix_kernels.cu`` (one ``nvcc``
+   each for ``sm_90a``, started
    together with the ``g++`` build of the native host library from
    ``native/src``; ptxas' register and spill lines
    are printed); the card's name and power limit are read;
@@ -153,14 +154,23 @@ Phases, each failing the run on any error or mismatch:
         count(*), min and max of l_shipmode -> order by both keys;
         ``dictStrings`` off and variableFloatAgg on (the planner keeps a
         float sum on the CPU without it), under SCATTER (Q17) and AUTO
-        (Q17v, PALLAS on the card). String keys take the sort path: the
-        ordered segment sum runs 7 times per scan batch and once more per
-        sum in the merge, and no hash-tier kernel; the plan must be sort
-        <- aggregate <- filter <- file scan, on the device. Then one more
+        (Q17v, PALLAS on the card) and RADIX (Q17r). String keys take
+        the sort path: under SCATTER the ordered segment sum runs 7 times
+        per scan batch and once more per sum in the merge; under PALLAS
+        and RADIX the RADIX kernel runs once per scan batch and once in
+        the merge; no hash-tier kernel; the plan must be sort <-
+        aggregate <- filter <- file scan, on the device. Then one more
         Q17 run records the ordered sum's first call over a whole scan
         batch (its four skewed segments), which is held to numpy's serial
         ``bincount`` and its plain version and timed beside
-        ``index_add_``, its bytes bound and its chain bound;
+        ``index_add_``, its bytes bound and its chain bound; one more
+        Q17v run records the RADIX kernel's first call over a scan batch
+        (2^21 rows, four groups, TPC-H Q1's aggregates), held to its
+        plain version (counts, sums, positions and winner rows exactly,
+        float sums within 1e-12 of Σ|x|), also on its first 2^17 rows at
+        a forced 1000-row reference tile with max and min winners over
+        the float columns (ties across tiles), and timed beside its
+        bytes bound and one ``torch.segment_reduce``;
      Q18 a string-keyed equi-join with string payloads (TPC-DS q8/q24's
         join on a 5-digit zip): 2^23 fact rows in 4 probe batches (5%
         null zips, 2% absent from the dim) join 100 000 dim rows (unique
@@ -362,6 +372,29 @@ Phases, each failing the run on any error or mismatch:
         max(ss_sold_ts), order by the date: 1 827 date keys on the direct
         tier, K1 on the sums and K3 on the min and max, exact against
         numpy and Python's ``Decimal``.
+12. nested-loop and cartesian joins (item 8), through the session over
+   parquet files, each against a numpy oracle with its walls, launches,
+   exchanges and a profiled run:
+     Q30 TPC-DS q88: Q25's 2^23 store_sales rows (4 files) with
+        ss_sold_time_sk and ss_hdemo_sk, time_dim (86 400 seconds),
+        household_demographics (7 200 rows) and store (12, two named
+        'ese'); eight count(*) subqueries, one per half-hour slot from
+        8:30 to 12:30, each store_sales joined to the three filtered
+        dimensions, cross-joined into one row: seven
+        ``TpuCartesianProductExec``s over broadcast exchanges;
+     Q31 a band join: 2^23 incomes uniform in [0, 200 000] (4 files: 4
+        probe batches of 2^21 rows) against TPC-DS's income_band (20
+        rows), ``v between ib_lower_bound and ib_upper_bound`` (4.2e7
+        pairs a batch in ``TpuBroadcastNestedLoopJoinExec``), group by
+        ib_income_band_sk: count, sum(v) (K1).
+
+Q1r, Q1m and Q1s are Q1 under a forced RADIX (the RADIX kernel once
+per batch and in the merge), MATMUL (the f32 one-hot limb products, no
+hand kernel; the average within the hi/lo split's rtol 1e-4) and SORT
+(prefix differences, the float sum on the ordered sum), each against
+Q1's oracle. Q4's sort fallback (and Q15's, Q20v's merge) reduce on the
+RADIX kernel; Q4's call is recorded and held to the plain version and
+timed as Q17v's is, with its own ``kernels`` entry.
 
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
@@ -395,16 +428,19 @@ GROUPBY_SOURCE = "spark_rapids_tpu_torch/csrc/groupby_kernels.cu"
 JOIN_SOURCE = "spark_rapids_tpu_torch/csrc/join_kernels.cu"
 UDF_SOURCE = "spark_rapids_tpu_torch/csrc/udf_kernels.cu"
 REGEX_SOURCE = "spark_rapids_tpu_torch/csrc/regex_kernels.cu"
+RADIX_SOURCE = "spark_rapids_tpu_torch/csrc/radix_kernels.cu"
 SOURCES = {"bucket_sum": GROUPBY_SOURCE, "bucket_float_sum": GROUPBY_SOURCE,
            "bucket_winner": GROUPBY_SOURCE,
            "ordered_segment_sum": GROUPBY_SOURCE,
            "probe_ranges": JOIN_SOURCE, "word_counts": UDF_SOURCE,
-           "dfa_accept_rows": REGEX_SOURCE}
+           "dfa_accept_rows": REGEX_SOURCE,
+           "radix_segment_reduce": RADIX_SOURCE}
 #: the query whose run each kernel's ``launches`` and timed shape stand for
+#: (the RADIX kernel's timed shape is one Q17v partial's call, keyed so)
 PATH = {"bucket_sum": "Q1", "bucket_float_sum": "Q1",
         "bucket_winner": "Q2", "ordered_segment_sum": "Q5",
         "probe_ranges": "Q6", "word_counts": "Q10",
-        "dfa_accept_rows": "Q22d"}
+        "dfa_accept_rows": "Q22d", "radix_segment_reduce": "Q17v"}
 REPLACES = {
     "bucket_sum": "spark_rapids_tpu/ops/pallas_groupby.py:76",
     "bucket_float_sum": "spark_rapids_tpu/ops/pallas_groupby.py:115",
@@ -415,6 +451,8 @@ REPLACES = {
     "word_counts": "spark_rapids_tpu/udf/native.py:52",
     # not a Pallas kernel: the XLA associative scan of the regex DFA
     "dfa_accept_rows": "spark_rapids_tpu/ops/regex.py:563",
+    # not a Pallas kernel: the XLA fori_loop of the RADIX tiles
+    "radix_segment_reduce": "spark_rapids_tpu/ops/radix_bin.py:221",
 }
 #: Q10's text comes in this many batches
 WORD_COUNT_BATCHES = 4
@@ -422,14 +460,17 @@ WORD_COUNT_BATCHES = 4
 KERNEL_SYMBOLS = ("bucket_sum_kernel", "bucket_fsum_kernel",
                   "bucket_winner_kernel", "ordered_segment_sum_kernel",
                   "probe_ranges_kernel", "word_counts_kernel",
-                  "dfa_accept_rows_kernel")
+                  "dfa_accept_rows_kernel", "radix_tiles_kernel",
+                  "radix_fold_kernel")
 
 
 def _kernel_modules():
     from spark_rapids_tpu_torch.ops import (groupby_kernels, join_kernels,
-                                            regex_kernels, udf_kernels)
+                                            radix_kernels, regex_kernels,
+                                            udf_kernels)
 
-    return groupby_kernels, join_kernels, udf_kernels, regex_kernels
+    return (groupby_kernels, join_kernels, udf_kernels, regex_kernels,
+            radix_kernels)
 
 
 def reset_launches() -> None:
@@ -796,6 +837,151 @@ def winner_shape(torch, dev, seg, B: int, op: str, word, reps: int) -> dict:
     }
 
 
+def timed_once(torch, fn):
+    """(milliseconds, result) of one call of ``fn``, CUDA events around
+    it: for a call too slow to repeat."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _radix_check(torch, perm, seg, streams, got, want, what: str) -> float:
+    """The RADIX kernel's outputs ``got`` against its plain version's
+    ``want``: counts, integer sums, positions and winner rows exactly,
+    the presence flags exactly, the NORMAL and BIG float sums within
+    1e-12 of each segment's sum of |x| over the rows of that stream; all
+    over the segments the live rows reach (the kernel writes no others).
+    Returns the largest float difference."""
+    cap = perm.shape[0]
+    live = (seg >= 0) & (seg < cap)
+    sid = torch.where(live, seg.long(), cap)
+    k = int(sid[live].max()) + 1 if bool(live.any()) else 0
+    if k == 0:
+        return 0.0
+    got = [tuple(x[:k] for x in g) for g in got]
+    want = [tuple(x[:k] for x in w) for w in want]
+    worst = 0.0
+    for i, (s, g, w) in enumerate(zip(streams, got, want)):
+        if s.kind != "fsum":
+            if not torch.equal(g[0].to(torch.int64), w[0].to(torch.int64)):
+                bad = int((g[0].to(torch.int64)
+                           != w[0].to(torch.int64)).sum())
+                raise AssertionError(f"{what}: stream {i} ({s.kind} "
+                                     f"{s.op}) differs in {bad} segments")
+            continue
+        x = torch.where(s.valid, s.data.to(torch.float64), 0.0)[perm]
+        big = x.abs() > 2.0 ** 500
+        fin = torch.isfinite(x)
+        for j, part in enumerate((torch.where(fin & ~big, x.abs(), 0.0),
+                                  torch.where(fin & big,
+                                              x.abs() * 2.0 ** -600, 0.0))):
+            scale = torch.zeros(cap + 1, dtype=torch.float64,
+                                device=x.device).index_add_(0, sid,
+                                                            part)[:k]
+            d = (g[j] - w[j]).abs()
+            same = g[j] == w[j]
+            if bool(((d > 1e-12 * scale) & ~same).any()):
+                raise AssertionError(f"{what}: stream {i} float part {j} "
+                                     "differs past 1e-12 of sum |x|")
+            worst = max(worst, float(torch.where(same, 0.0, d).max()))
+        if not torch.equal(g[2], w[2]):
+            raise AssertionError(f"{what}: stream {i} flags differ")
+    return worst
+
+
+def _radix_subproblem(torch, perm, seg, streams, m: int):
+    """The first ``m`` sorted rows of a captured call as a problem of its
+    own (their columns gathered into a new row order, a seeded shuffle),
+    plus a max and a min winner over each float column's order words:
+    tied values then fall across small tiles."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops import radix_bin as RB
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
+
+    dev = perm.device
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    q = torch.randperm(m, generator=gen).to(dev)
+    rows = perm[:m]
+    new = []
+    for s in streams:
+        def moved(t):
+            if t is None:
+                return None
+            out = torch.empty(m, dtype=t.dtype, device=dev)
+            out[q] = t[rows]
+            return out
+
+        new.append(RK.Stream(s.kind, moved(s.data), moved(s.valid), s.op))
+    for s in list(new):
+        if s.kind == "fsum":
+            for op in ("max", "min"):
+                word = RB.order_word(s.data, s.valid, T.DOUBLE, op)
+                new.append(RK.Stream("win", word, s.valid, op))
+    return q, seg[:m].clone(), new
+
+
+def radix_shape(torch, np, dev, perm, seg, streams, ref_tile: int,
+                reps: int, what: str, forced_tile: int = 1000) -> dict:
+    """The RADIX segment kernel on one call's arguments (captured from a
+    query), held to its plain version (:func:`_radix_check`) and timed
+    beside its bytes bound; the plain version's time is its one checking
+    call. Then the first 2^17 sorted rows as a problem of their own, with
+    winners over tied values, at a forced ``forced_tile``-row reference
+    tile. ``library_ms``: one ``torch.segment_reduce`` sum over the first
+    float stream already in sorted order (none where no stream is a
+    float sum)."""
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
+
+    cap = perm.shape[0]
+    got = RK.segment_reduce(perm, seg, streams, ref_tile)
+    plain_ms, want = timed_once(torch, lambda: RK.segment_reduce_plain(
+        perm, seg, streams, ref_tile))
+    err = _radix_check(torch, perm, seg, streams, got, want, what)
+    del got, want
+    m = min(cap, 1 << 17)
+    sp, ss, sst = _radix_subproblem(torch, perm, seg, streams, m)
+    _radix_check(torch, sp, ss, sst,
+                 RK.segment_reduce(sp, ss, sst, forced_tile),
+                 RK.segment_reduce_plain(sp, ss, sst, forced_tile),
+                 f"{what} at {forced_tile}-row tiles")
+    live = (seg >= 0) & (seg < cap)
+    nlive = int(live.sum())
+    nseg = int(seg[:nlive].max()) + 1 if nlive else 0
+
+    def run():
+        return RK.segment_reduce(perm, seg, streams, ref_tile)
+
+    fs = next((s for s in streams if s.kind == "fsum"), None)
+    library_ms = None
+    if fs is not None and nlive:
+        sv = torch.where(fs.valid, fs.data.to(torch.float64),
+                         0.0)[perm[:nlive]]
+        lengths = torch.bincount(seg[:nlive].long(), minlength=nseg)
+        library_ms = cuda_ms(torch, lambda: torch.segment_reduce(
+            sv, "sum", lengths=lengths), reps)
+    nbytes = RK.bound_bytes(perm, streams, nlive, nseg)
+    # the kernel gathers each distinct column and validity at the
+    # permutation: one 32-byte sector a live row for each, where the
+    # sorted rows are scattered in the original order
+    gathers = len(RK.distinct_inputs(streams))
+    sectors = nlive * (32 * gathers + perm.element_size() + 4)
+    return {"max_abs_err": err, "ms": cuda_ms(torch, run, reps),
+            "dev_ms": dev_ms(torch, run, reps),
+            "host_ms": host_ms(torch, run, reps), "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "torch.segment_reduce sum of one f64 stream, sorted "
+                       "(none for the winner and position streams)",
+            "bound_ms": bound_ms(nbytes), "bytes": nbytes,
+            "bound_sectors_ms": bound_ms(sectors), "rows": cap,
+            "segments": nseg, "streams": [s.kind for s in streams],
+            "ref_tile": ref_tile, "forced_tile_checked": forced_tile}
+
+
 # ---------------------------------------------------------------------------
 # query phase
 # ---------------------------------------------------------------------------
@@ -862,7 +1048,7 @@ def _close(got, exp, scale, rtol=1e-9):
 
 
 def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
-                profile: bool = False):
+                profile: bool = False, reps: int = 20):
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.columnar import schema_of
     from spark_rapids_tpu_torch.conf import RapidsConf
@@ -872,6 +1058,7 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
     from spark_rapids_tpu_torch.expr import aggregates as A
     from spark_rapids_tpu_torch.expr import expressions as E
     from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
     from spark_rapids_tpu_torch.ops.hashing import murmur3
     from spark_rapids_tpu_torch.expr.values import ColV
 
@@ -899,14 +1086,16 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
         return rows, ms, launches()
 
     # --- Q1: the bench query ----------------------------------------------
-    scan = InMemoryScanExec(approx, [batches], schema)
-    filt = TpuFilterExec(approx, E.GreaterThanOrEqual(col("a"), lit(0)), scan)
-    proj = TpuProjectExec(approx, [col("k"), E.Alias(
-        E.Multiply(col("a"), lit(2)), "a2"), col("b")], filt)
-    agg = TpuHashAggregateExec(approx, [col("k")], [
-        A.agg(A.Sum(col("a2")), "s"), A.agg(A.Average(col("b")), "m"),
-        A.agg(A.Count(col("b")), "c")], proj)
-    rows, ms, per_query["Q1"] = drive(agg, approx)
+    def q1_plan(conf):
+        scan = InMemoryScanExec(conf, [batches], schema)
+        filt = TpuFilterExec(conf, E.GreaterThanOrEqual(col("a"), lit(0)),
+                             scan)
+        proj = TpuProjectExec(conf, [col("k"), E.Alias(
+            E.Multiply(col("a"), lit(2)), "a2"), col("b")], filt)
+        return TpuHashAggregateExec(conf, [col("k")], [
+            A.agg(A.Sum(col("a2")), "s"), A.agg(A.Average(col("b")), "m"),
+            A.agg(A.Count(col("b")), "c")], proj)
+
     m = a >= 0
     mb = m & ~b_null
     s_exp = np.bincount(k[m], weights=(2 * a[m]).astype(np.float64),
@@ -915,19 +1104,49 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
     bsum = np.bincount(k[mb], weights=b[mb], minlength=64)
     babs = np.bincount(k[mb], weights=np.abs(b[mb]), minlength=64)
     groups = set(np.unique(k[m]).tolist())
-    got = {r[0]: r[1:] for r in rows}
-    if set(got) != groups:
-        raise AssertionError("Q1: group set differs from the oracle")
-    for g, (s, mean, c) in got.items():
-        if s != int(s_exp[g]) or c != int(c_exp[g]):
-            raise AssertionError(f"Q1 group {g}: {s},{c} != "
-                                 f"{int(s_exp[g])},{int(c_exp[g])}")
-        if not _close(mean, bsum[g] / c_exp[g], babs[g] / c_exp[g]):
-            raise AssertionError(f"Q1 group {g}: avg {mean} != "
-                                 f"{bsum[g] / c_exp[g]}")
+
+    def check_q1(rows, what, rtol=1e-9):
+        got = {r[0]: r[1:] for r in rows}
+        if set(got) != groups:
+            raise AssertionError(f"{what}: group set differs from the "
+                                 "oracle")
+        for g, (s, mean, c) in got.items():
+            if s != int(s_exp[g]) or c != int(c_exp[g]):
+                raise AssertionError(f"{what} group {g}: {s},{c} != "
+                                     f"{int(s_exp[g])},{int(c_exp[g])}")
+            if not _close(mean, bsum[g] / c_exp[g], babs[g] / c_exp[g],
+                          rtol):
+                raise AssertionError(f"{what} group {g}: avg {mean} != "
+                                     f"{bsum[g] / c_exp[g]}")
+
+    agg = q1_plan(approx)
+    rows, ms, per_query["Q1"] = drive(agg, approx)
+    check_q1(rows, "Q1")
     report.append({"query": "Q1", "rows": len(rows), "wall_ms": ms,
                    "strategy": agg._strategy_choice[0],
                    "launches": per_query["Q1"]})
+
+    # --- Q1r, Q1m, Q1s: Q1 under forced RADIX, MATMUL and SORT: RADIX on
+    # the RADIX kernel, one launch per partial and one in the merge;
+    # MATMUL's f32 limb products (its float sums within the hi/lo
+    # contract, rtol 1e-4); SORT's prefix differences with the float sum
+    # on the ordered sum -------------------------------------------------
+    for q, tier, rtol in (("Q1r", "RADIX", 1e-9), ("Q1m", "MATMUL", 1e-4),
+                          ("Q1s", "SORT", 1e-9)):
+        conf = RapidsConf({"spark.rapids.tpu.sql.variableFloatAgg.enabled":
+                           True, "spark.rapids.tpu.sql.agg.strategy": tier})
+        agg = q1_plan(conf)
+        rows, ms, per_query[q] = drive(agg, conf)
+        check_q1(rows, q, rtol)
+        c = per_query[q]
+        want = {"Q1r": {"radix_segment_reduce": nbatches + 1},
+                "Q1m": {},
+                "Q1s": {"ordered_segment_sum": nbatches + 1}}[q]
+        if {name: v for name, v in c.items() if v} != want:
+            raise AssertionError(f"{q}: launches {c}, expected {want}")
+        report.append({"query": q, "rows": len(rows), "wall_ms": ms,
+                       "strategy": agg._strategy_choice[0],
+                       "launches": c})
 
     # --- Q2: min/max/first/last on the direct tier ------------------------
     def q2_plan():
@@ -1033,7 +1252,10 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
         A.agg(A.Sum(col("a")), "s"), A.agg(A.Count(col("b")), "c"),
         A.agg(A.Max(col("b")), "mx")],
         InMemoryScanExec(exact, [b4s], schema4))
-    rows, ms, per_query["Q4"] = drive(agg, exact)
+    # the sort fallback's RADIX reduction: its arguments are recorded for
+    # the kernel check at Q4's shape (2^24 rows, 2^20 segments)
+    with captured_calls(RK, "segment_reduce", lambda *a: True) as calls:
+        rows, ms, per_query["Q4"] = drive(agg, exact)
     s4 = np.bincount(key4, weights=a4.astype(np.float64), minlength=ng)
     c4 = np.bincount(key4[~bn4], minlength=ng)
     mx4 = np.full(ng, -np.inf)
@@ -1045,13 +1267,20 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
         if s != int(s4[g]) or c != int(c4[g]) or mx != exp_mx:
             raise AssertionError(f"Q4 group {g}: {(s, c, mx)} != "
                                  f"{(int(s4[g]), int(c4[g]), exp_mx)}")
-    if per_query["Q4"]["bucket_sum"] != 3:
+    if (per_query["Q4"]["bucket_sum"] != 3
+            or per_query["Q4"]["radix_segment_reduce"] != 1
+            or per_query["Q4"]["ordered_segment_sum"]):
         raise AssertionError("Q4: expected all three hash tiers to collide "
-                             "before the sort fallback")
+                             "before the sort fallback, reduced on the "
+                             f"RADIX kernel: {per_query['Q4']}")
     report.append({"query": "Q4", "rows": len(rows), "wall_ms": ms,
                    "strategy": agg._strategy_choice[0],
                    "answered_by": "sort fallback",
                    "launches": per_query["Q4"]})
+    radix_q4 = radix_shape(torch, np, dev, *calls[0], reps, "Q4")
+    emit({"kernel_shape": "radix_segment_reduce", "path": "Q4",
+          **radix_q4})
+    del calls
 
     # --- Q5: exact float sum, order-preserving and deterministic: the
     # path's counts are those of its first run; the second run is only
@@ -1080,7 +1309,7 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
     expect = {"Q1": ("bucket_sum", "bucket_float_sum"),
               "Q2": ("bucket_sum", "bucket_winner"),
               "Q3": ("bucket_sum", "bucket_winner"),
-              "Q4": ("bucket_sum",),
+              "Q4": ("bucket_sum", "radix_segment_reduce"),
               "Q5": ("ordered_segment_sum",)}
     for q, names in expect.items():
         for name in names:
@@ -1097,7 +1326,7 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
             exact, [col("k")], [A.agg(A.Sum(col("b")), "s")],
             InMemoryScanExec(exact, [batches], schema)), exact, n,
             n * (4 + 8 + 2))
-    return per_query
+    return per_query, {("radix_segment_reduce", "Q4"): radix_q4}
 
 
 def profile_q1(torch, conf, batches, schema, n):
@@ -2272,13 +2501,13 @@ def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
 #: Q15's date cut (Q11's) and row limit
 Q15_DATE = 2_452_015
 Q15_LIMIT = 100
-#: Q15's launches at Q11's full size (PARQUET_LOG2_ROWS), as the H100 run
-#: of this script reports them: the aggregate's hash tiers and sort
-#: fallback at 18 000 groups
+#: Q15's launches at Q11's full size (PARQUET_LOG2_ROWS): the aggregate's
+#: three hash tiers at 18 000 groups, then the sort fallback on the RADIX
+#: kernel, in each of four partials and the merge
 Q15_LAUNCHES = {"bucket_sum": 15, "bucket_float_sum": 15,
-                "bucket_winner": 15, "ordered_segment_sum": 5,
+                "bucket_winner": 15, "ordered_segment_sum": 0,
                 "probe_ranges": 0, "word_counts": 0,
-                "dfa_accept_rows": 0}
+                "dfa_accept_rows": 0, "radix_segment_reduce": 5}
 
 
 def q15_top_n(torch, np, sess, pdir, item, qty, cost, date,
@@ -2685,9 +2914,12 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
     variableFloatAgg (without it the planner keeps a float sum on the
     CPU, as the reference's type matrix does). Returns each run's
     launches (``Q17`` forces the SCATTER tier, ``Q17v`` takes AUTO, which
-    resolves PALLAS on the card; string keys take the sort path under
-    both, with order-preserving f64 sums) and the ordered sum's numbers
-    on the inputs one partial over a scan batch hands it in ``Q17``."""
+    resolves PALLAS on the card, ``Q17r`` forces RADIX: string keys take
+    the sort path under all three, reduced with the order-preserving f64
+    sums under SCATTER and on the RADIX kernel under PALLAS and RADIX),
+    the ordered sum's numbers on the inputs one partial over a scan batch
+    hands it in ``Q17`` and the RADIX kernel's on one partial's call in
+    ``Q17v``."""
     import shutil
 
     import pyarrow as pa
@@ -2695,11 +2927,12 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
 
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
     from spark_rapids_tpu_torch.ops import groupby_kernels as K
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
     from spark_rapids_tpu_torch.sql import session as S
 
     n = 1 << log2_rows
     t, want, kept, strs = lineitem_inputs(np, n)
-    osum = None
+    osum = radix = None
     here = os.path.dirname(os.path.abspath(__file__))
     pdir = os.path.join(here, PARQUET_DIR, "lineitem")
     shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
@@ -2723,7 +2956,8 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
             tpch_q1_check(want, rows, what)
 
         vfa = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
-        for q, strategy in (("Q17", "SCATTER"), ("Q17v", "AUTO")):
+        for q, strategy in (("Q17", "SCATTER"), ("Q17v", "AUTO"),
+                            ("Q17r", "RADIX")):
             sess = S.TpuSession({Q17_DICT_OFF: False, **vfa,
                                  "spark.rapids.tpu.sql.agg.strategy":
                                  strategy}, device=dev)
@@ -2743,14 +2977,18 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
             # the cold run's plan and metrics
             agg, scan = tpch_q1_chain(plans[0], q)
             batches = scan.metrics["numOutputBatches"].value
-            # seven exact f64 sums (four sums, three averages) per partial
-            # and once more in the merge, on the sort path of string keys
-            want_sums = 7 * (batches + 1)
-            if batches < 2 or counts["ordered_segment_sum"] != want_sums:
+            # under SCATTER seven exact f64 sums (four sums, three
+            # averages) per partial and once more in the merge, on the sort
+            # path of string keys; under PALLAS and RADIX one RADIX
+            # reduction each instead
+            expected = ({"ordered_segment_sum": 7 * (batches + 1)}
+                        if q == "Q17" else
+                        {"radix_segment_reduce": batches + 1})
+            if batches < 2 or {k: v for k, v in counts.items()
+                               if v} != expected:
                 raise AssertionError(
-                    f"{q}: {batches} scan batches and "
-                    f"{counts['ordered_segment_sum']} ordered sums "
-                    f"(expected at least 2 and {want_sums})")
+                    f"{q}: {batches} scan batches and launches {counts} "
+                    f"(expected at least 2 and {expected})")
             if any(counts[k] for k in ("bucket_sum", "bucket_float_sum",
                                        "bucket_winner", "probe_ranges")):
                 raise AssertionError(f"{q}: a hash-tier or join kernel "
@@ -2790,11 +3028,26 @@ def q17_tpch_q1(torch, np, dev, log2_rows: int, reps: int, dadd_ns: float,
                 emit({"kernel_shape": "ordered_segment_sum", "path": "Q17",
                       "rows": sseg.shape[0], "B": nseg, **osum})
                 del calls, sv, sseg
+            if q == "Q17v":
+                # the RADIX kernel at Q17v's shape: one more run, recording
+                # the first call over a whole scan batch (a partial: four
+                # groups, TPC-H Q1's eight aggregates)
+                with captured_calls(RK, "segment_reduce",
+                                    lambda p, *a: p.shape[0] >= n
+                                    // Q17_ROW_GROUPS) as calls:
+                    check(q17(sess).collect(), q)
+                if not calls:
+                    raise AssertionError("Q17v: no RADIX reduction over a "
+                                         "scan batch")
+                radix = radix_shape(torch, np, dev, *calls[0], reps, q)
+                emit({"kernel_shape": "radix_segment_reduce", "path": q,
+                      **radix})
+                del calls
         emit({"host_decode": "Q17", **host_decode_timing(
             np, os.path.join(pdir, "t.parquet"))})
     finally:
         shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
-    return per_query, osum
+    return per_query, osum, radix
 
 
 def q20_dict_tpch_q1(torch, np, dev, log2_rows: int, reps: int,
@@ -2864,7 +3117,10 @@ def q20_dict_tpch_q1(torch, np, dev, log2_rows: int, reps: int,
             if f"update: {G.DICT_CODE_ROUTE}" not in desc:
                 raise AssertionError(f"{q}: the keys did not group on their "
                                      f"dictionary codes: {desc}")
-            kernels = ("bucket_sum", "bucket_float_sum", "bucket_winner")
+            # AUTO: the partials on the hash tiers' kernels, the merge's
+            # materialized keys on the RADIX kernel
+            kernels = ("bucket_sum", "bucket_float_sum", "bucket_winner",
+                       "radix_segment_reduce")
             if batches < 2 or counts["probe_ranges"] or (
                     strategy == "AUTO" and not all(counts[k]
                                                    for k in kernels)) or (
@@ -3227,7 +3483,7 @@ def item_id(i: int) -> str:
 Q19C_LAUNCHES = {"bucket_sum": 2, "bucket_float_sum": 0,
                  "bucket_winner": 5, "ordered_segment_sum": 0,
                  "probe_ranges": 0, "word_counts": 0,
-                 "dfa_accept_rows": 0}
+                 "dfa_accept_rows": 0, "radix_segment_reduce": 0}
 
 
 def q19_item_keys(torch, np, dev, log2_rows: int, reps: int,
@@ -3532,14 +3788,15 @@ def string_key_phase(torch, np, dev, log2_rows: int, dim_rows: int,
     path's launches, and the kernels' numbers at the shapes these paths
     give them, keyed as in ``kernels_line``: the ordered sum's at Q17's
     and Q18's, K4's at Q18's, K1's and K3's at Q19(c)'s."""
-    per_query, osum = q17_tpch_q1(torch, np, dev, log2_rows, reps, dadd_ns,
-                                  profile)
+    per_query, osum, radix = q17_tpch_q1(torch, np, dev, log2_rows, reps,
+                                         dadd_ns, profile)
     q18, k4, osum18 = q18_string_join(torch, np, dev, log2_rows, dim_rows,
                                       reps, dadd_ns, profile)
     q19, k3, k1 = q19_item_keys(torch, np, dev, log2_rows, reps, profile)
     per_query.update(q18)
     per_query.update(q19)
     return per_query, {("ordered_segment_sum", "Q17"): osum,
+                       ("radix_segment_reduce", 128): radix,
                        ("ordered_segment_sum", "Q18"): osum18,
                        ("probe_ranges", "Q18"): k4,
                        ("bucket_sum", "Q19c"): k1,
@@ -4161,6 +4418,9 @@ def q23_tpch_q22(torch, np, dev, t, opath, cpath, profile: bool) -> dict:
             raise AssertionError(f"Q23: rows {rows} != {want}")
 
     cold, warm, counts = _walls(torch, "Q23", run_once, check)
+    # the string keys' sort path under AUTO (PALLAS): the RADIX kernel
+    if not counts["radix_segment_reduce"] or counts["ordered_segment_sum"]:
+        raise AssertionError(f"Q23: launches {counts}")
     in_bytes = nc * (8 + 15 + 4 + 8 + 3) + t["n"] * 9
     emit({"query": "Q23", "customers": nc, "orders": t["n"],
           "avg_acctbal": avgs[0], "cold_wall_ms": cold,
@@ -5337,7 +5597,9 @@ def decimal_date_phase(torch, np, dev) -> dict:
             sess = fresh({"spark.rapids.tpu.sql.join.strategy": strategy})
 
             def expect(c, strategy=strategy):
-                return strategy != "PALLAS" or c["probe_ranges"] > 0
+                # s_store_id groups on the sort path: the RADIX kernel
+                return c["radix_segment_reduce"] > 0 and (
+                    strategy != "PALLAS" or c["probe_ranges"] > 0)
 
             per_query[q] = dates_query(
                 torch, q, sess,
@@ -5441,6 +5703,239 @@ def decimal_date_phase(torch, np, dev) -> dict:
         per_query["Q27"] = dates_query(
             torch, "Q27", sess, q27, check27, n, n * (4 + 4 + 4 + 8),
             lambda c: c["bucket_sum"] > 0 and c["bucket_winner"] > 0)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return per_query
+
+
+# ---------------------------------------------------------------------------
+# item 8: nested-loop and cartesian joins
+# ---------------------------------------------------------------------------
+#: TPC-DS q88's eight half-hour slots: (hour, 0 for :00-:29, 1 for :30-:59)
+Q30_SLOTS = ((8, 1), (9, 0), (9, 1), (10, 0), (10, 1), (11, 0), (11, 1),
+             (12, 0))
+#: TPC-DS q88's household filter: (hd_dep_count, largest hd_vehicle_count)
+Q30_HOUSEHOLDS = ((4, 6), (2, 4), (0, 2))
+TIME_DIM_ROWS = 86_400
+HOUSEHOLD_ROWS = 7_200
+#: s_store_name of stores 1-12 (dsdgen draws them from these syllables)
+STORE_NAMES = ("able", "ought", "ese", "anti", "cally", "bar", "eing",
+               "pri", "ation", "n st", "ese", "ought")
+#: TPC-DS income_band: 20 bands of 10 000 up to 200 000
+INCOME_BANDS = 20
+INCOME_BAND_WIDTH = 10_000
+
+
+def q30_tables(pa, np, n: int) -> tuple:
+    """TPC-DS q88's four tables: store_sales (Q25's rows and stores,
+    ``rng(30)`` sold times and household keys, 3% NULL each), time_dim
+    (one row a second), household_demographics (7 200 rows: dependents
+    0-9 by the key's last digit, vehicles -1 to 4) and store (the names
+    of :data:`STORE_NAMES`). Returns (pyarrow tables, the numpy columns
+    the oracle reads)."""
+    t = store_sales_table(np, n)
+    rng = np.random.default_rng(30)
+    tsk = rng.integers(0, TIME_DIM_ROWS, n).astype(np.int32)
+    tvalid = rng.random(n) >= 0.03
+    hsk = rng.integers(1, HOUSEHOLD_ROWS + 1, n).astype(np.int32)
+    hvalid = rng.random(n) >= 0.03
+    tables = {
+        "store_sales": pa.table({
+            "ss_sold_time_sk": pa.array(tsk, mask=~tvalid),
+            "ss_hdemo_sk": pa.array(hsk, mask=~hvalid),
+            "ss_store_sk": t["store"]}),
+        "time_dim": pa.table({
+            "t_time_sk": np.arange(TIME_DIM_ROWS, dtype=np.int32),
+            "t_hour": (np.arange(TIME_DIM_ROWS) // 3600).astype(np.int32),
+            "t_minute": (np.arange(TIME_DIM_ROWS) // 60 % 60).astype(
+                np.int32)}),
+        "household_demographics": pa.table({
+            "hd_demo_sk": np.arange(1, HOUSEHOLD_ROWS + 1, dtype=np.int32),
+            "hd_dep_count": (np.arange(HOUSEHOLD_ROWS) % 10).astype(
+                np.int32),
+            "hd_vehicle_count": (np.arange(HOUSEHOLD_ROWS) // 10 % 6
+                                 - 1).astype(np.int32)}),
+        "store": pa.table({
+            "s_store_sk": np.arange(1, STORES + 1, dtype=np.int32),
+            "s_store_name": list(STORE_NAMES)})}
+    return tables, {"tsk": tsk, "tvalid": tvalid, "hsk": hsk,
+                    "hvalid": hvalid, "store": t["store"]}
+
+
+def q30_oracle(np, c: dict) -> list:
+    """Q30's one row: each slot's count of store_sales rows at an 'ese'
+    store, in the slot, of a household the filter keeps."""
+    hour, minute = c["tsk"] // 3600, c["tsk"] // 60 % 60
+    dep, veh = (c["hsk"] - 1) % 10, (c["hsk"] - 1) // 10 % 6 - 1
+    hh = np.zeros(c["hsk"].size, bool)
+    for d, v in Q30_HOUSEHOLDS:
+        hh |= (dep == d) & (veh <= v)
+    ese = np.array([nm == "ese" for nm in STORE_NAMES])[c["store"] - 1]
+    keep = c["tvalid"] & c["hvalid"] & hh & ese
+    return [tuple(int((keep & (hour == h) & ((minute >= 30) == bool(half)))
+                      .sum()) for h, half in Q30_SLOTS)]
+
+
+def q30_df(sess, paths: dict, E, A):
+    """Q30, TPC-DS q88: eight count(*) subqueries over store_sales joined
+    to household_demographics, time_dim and store, each filtered to one
+    half-hour slot, cross-joined into one row (seven cartesian
+    products). The dimension filters sit on their scans, where Spark's
+    optimizer pushes them."""
+    col, lit = E.col, E.lit
+    hd_cond = None
+    for d, v in Q30_HOUSEHOLDS:
+        c = E.And(E.EqualTo(col("hd_dep_count"), lit(d)),
+                  E.LessThanOrEqual(col("hd_vehicle_count"), lit(v)))
+        hd_cond = c if hd_cond is None else E.Or(hd_cond, c)
+    hd = sess.read.parquet(paths["household_demographics"]).where(hd_cond)
+    st = sess.read.parquet(paths["store"]).where(
+        E.EqualTo(col("s_store_name"), lit("ese")))
+    out = None
+    for h, half in Q30_SLOTS:
+        minute = (E.GreaterThanOrEqual(col("t_minute"), lit(30)) if half
+                  else E.LessThan(col("t_minute"), lit(30)))
+        td = sess.read.parquet(paths["time_dim"]).where(
+            E.And(E.EqualTo(col("t_hour"), lit(h)), minute))
+        one = (sess.read.parquet(paths["store_sales"])
+               .join(hd, [("ss_hdemo_sk", "hd_demo_sk")])
+               .join(td, [("ss_sold_time_sk", "t_time_sk")])
+               .join(st, [("ss_store_sk", "s_store_sk")])
+               .agg(A.agg(A.Count(None), f"h{h}_{30 * half}")))
+        out = one if out is None else out.cross_join(one)
+    return out
+
+
+def q31_df(sess, paths: dict, E, A):
+    """Q31, a band join: every income row against TPC-DS income_band on
+    ``v between ib_lower_bound and ib_upper_bound``, then count and sum
+    per band."""
+    col = E.col
+    cond = E.And(E.GreaterThanOrEqual(col("v"), col("ib_lower_bound")),
+                 E.LessThanOrEqual(col("v"), col("ib_upper_bound")))
+    return (sess.read.parquet(paths["incomes"])
+            .cross_join(sess.read.parquet(paths["income_band"]), cond)
+            .group_by("ib_income_band_sk")
+            .agg(A.agg(A.Count(None), "n"), A.agg(A.Sum(col("v")), "s"))
+            .order_by("ib_income_band_sk"))
+
+
+def q31_oracle(np, v) -> list:
+    """Q31's rows: (band, count, sum) of the incomes in each band
+    (0-10 000, 10 001-20 000, ...)."""
+    band = np.where(v == 0, 1, (v - 1) // INCOME_BAND_WIDTH + 1)
+    cnt = np.bincount(band, minlength=INCOME_BANDS + 1)
+    tot = np.bincount(band, weights=v.astype(np.float64),
+                      minlength=INCOME_BANDS + 1)
+    return [(b, int(cnt[b]), int(tot[b]))
+            for b in range(1, INCOME_BANDS + 1) if cnt[b]]
+
+
+def nested_loop_phase(torch, np, dev) -> dict:
+    """Q30 (TPC-DS q88, seven cartesian products of one-row counts) and
+    Q31 (a band join of 2^23 incomes against income_band's 20 rows, 4
+    probe batches of 4.2e7 pairs each) through the port session over
+    parquet files under ``_chip_data/`` (removed after), each against its
+    numpy oracle. Returns each path's launches."""
+    import shutil
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.exec.join import (
+        TpuBroadcastNestedLoopJoinExec, TpuCartesianProductExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.sql import session as S
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, PARQUET_DIR)
+    shutil.rmtree(base, ignore_errors=True)
+    n = 1 << SALES_LOG2_ROWS
+    per_query = {}
+
+    def fresh():
+        DeviceScanCache.reset()
+        S._SCANNER_CACHE.clear()
+        return S.TpuSession({}, device=dev)
+
+    def no_fallback(q, df):
+        text = df.explain()
+        if any(ln.lstrip().startswith("!") for ln in text.splitlines()):
+            raise AssertionError(f"{q}: part of the plan falls back:\n"
+                                 f"{text}")
+
+    def count_execs(sess, cls) -> int:
+        return sum(isinstance(e, cls) for e in _device_tree(
+            sess.last_executed_plan.tpu_child))
+
+    try:
+        tables, cols = q30_tables(pa, np, n)
+        paths = {k: os.path.join(base, k) for k in tables}
+        write_s = sum(_write_files(pa, pq, paths[k], tb,
+                                   MULTI_FILES if k == "store_sales" else 1)
+                      for k, tb in tables.items())
+        rng = np.random.default_rng(31)
+        v = rng.integers(0, INCOME_BANDS * INCOME_BAND_WIDTH + 1,
+                         n).astype(np.int32)
+        lower = np.arange(INCOME_BANDS) * INCOME_BAND_WIDTH + 1
+        lower[0] = 0
+        paths["incomes"] = os.path.join(base, "incomes")
+        paths["income_band"] = os.path.join(base, "income_band")
+        write_s += _write_files(pa, pq, paths["incomes"], pa.table({"v": v}),
+                                MULTI_FILES)
+        write_s += _write_files(pa, pq, paths["income_band"], pa.table({
+            "ib_income_band_sk": np.arange(1, INCOME_BANDS + 1,
+                                           dtype=np.int32),
+            "ib_lower_bound": lower.astype(np.int32),
+            "ib_upper_bound": (np.arange(1, INCOME_BANDS + 1)
+                               * INCOME_BAND_WIDTH).astype(np.int32)}), 1)
+        emit({"table": "q88 store_sales, time_dim, household_demographics, "
+              "store; incomes, income_band", "rows": n,
+              "files": MULTI_FILES, "write_s": write_s})
+
+        # --- Q30: TPC-DS q88 ----------------------------------------------
+        want30 = q30_oracle(np, cols)
+        sess = fresh()
+
+        def q30():
+            return q30_df(sess, paths, E, A)
+
+        def check30(rows):
+            if rows != want30:
+                raise AssertionError(f"Q30: {rows} != {want30}")
+
+        no_fallback("Q30", q30())
+        per_query["Q30"] = exchange_query(
+            torch, "Q30", sess, q30, check30, "TpuCartesianProductExec", n,
+            n * 12 + TIME_DIM_ROWS * 12 + HOUSEHOLD_ROWS * 12)
+        cart = count_execs(sess, TpuCartesianProductExec)
+        if cart != len(Q30_SLOTS) - 1:
+            raise AssertionError(f"Q30: {cart} cartesian products")
+        emit({"query": "Q30", "cartesian_products": cart,
+              "counts": want30[0]})
+
+        # --- Q31: a band join ----------------------------------------------
+        want31 = q31_oracle(np, v)
+        sess = fresh()
+
+        def q31():
+            return q31_df(sess, paths, E, A)
+
+        def check31(rows):
+            if rows != want31:
+                raise AssertionError(f"Q31: {rows[:3]} != {want31[:3]}")
+
+        no_fallback("Q31", q31())
+        per_query["Q31"] = exchange_query(
+            torch, "Q31", sess, q31, check31,
+            "TpuBroadcastNestedLoopJoinExec", n, n * 4 + INCOME_BANDS * 12,
+            lambda c: c["bucket_sum"] > 0)
+        emit({"query": "Q31", "probe_batches": MULTI_FILES,
+              "pairs_per_batch": (n // MULTI_FILES) * INCOME_BANDS,
+              "nested_loop_joins": count_execs(
+                  sess, TpuBroadcastNestedLoopJoinExec)})
     finally:
         shutil.rmtree(base, ignore_errors=True)
     return per_query
@@ -5947,8 +6442,9 @@ def kernels_line(kres: dict, per_query: dict) -> list:
     kernels at the direct tier of Q1's table; K4 at the bench join's
     shape; K5 on a Q10 batch); then K1 and K3 at Q4's shape, K4 at Q8's
     and on Q18's string chunk words, the ordered sum on one partial of
-    Q17 and of Q18, and K1 and K3 on Q19(c)'s direct tier (K3 on its
-    string ranks), each with its own path. Every bound is
+    Q17 and of Q18, K1 and K3 on Q19(c)'s direct tier (K3 on its
+    string ranks), and the RADIX kernel at Q4's shape (its main entry:
+    one Q17v partial's call), each with its own path. Every bound is
     bytes; the ordered sum also gives its chain bound
     (``bound_chain_ms``)."""
     kernels = []
@@ -5967,7 +6463,9 @@ def kernels_line(kres: dict, per_query: dict) -> list:
                ("bucket_sum@Q20v", "bucket_sum", "Q20v", "Q20v"),
                ("bucket_float_sum@Q20v", "bucket_float_sum", "Q20v",
                 "Q20v"),
-               ("bucket_winner@Q21a", "bucket_winner", "Q21a", "Q21a")]
+               ("bucket_winner@Q21a", "bucket_winner", "Q21a", "Q21a"),
+               ("radix_segment_reduce@Q4", "radix_segment_reduce", "Q4",
+                "Q4")]
     for entry, name, key, path in shapes:
         r = kres[(name, key)]
         line = {"name": entry, "route": "cuda", "source": SOURCES[name],
@@ -5982,7 +6480,9 @@ def kernels_line(kres: dict, per_query: dict) -> list:
                       "log2_buckets", "library", "passes", "replicas",
                       "bound_chain_ms", "longest_segment", "segments",
                       "dadd_ns", "bound_whole_ms", "walked_bytes",
-                      "walked_sectors", "bound_sectors_ms", "ptxas"):
+                      "walked_sectors", "bound_sectors_ms", "ptxas",
+                      "rows", "streams", "ref_tile",
+                      "forced_tile_checked"):
             if extra in r:
                 line[extra] = r[extra]
         kernels.append(line)
@@ -6049,8 +6549,9 @@ def main() -> int:
     kres[("word_counts", 128)] = udf_kernel_phase(
         torch, np, dev, first, wc_batches[3][:first.num_rows], args.reps)
     lap("kernels")
-    per_query = query_phase(torch, np, dev, args.log2_rows, 4,
-                            args.profile)
+    per_query, shapes = query_phase(torch, np, dev, args.log2_rows, 4,
+                                    args.profile, args.reps)
+    kres.update(shapes)
     lap("Q1-Q5")
     per_query.update(join_query_phase(torch, np, dev, args.join_log2_rows,
                                       DIM_ROWS, args.profile))
@@ -6086,6 +6587,8 @@ def main() -> int:
     lap("Q11m-Q14m")
     per_query.update(decimal_date_phase(torch, np, dev))
     lap("Q25-Q27")
+    per_query.update(nested_loop_phase(torch, np, dev))
+    lap("Q30-Q31")
     per_query.update(memory_phase(torch, np, dev))
     lap("Q29")
     if QUERY_ROUTES["numpy"] or not QUERY_ROUTES["native"]:

@@ -221,13 +221,16 @@ SHAPE_BUCKET_MIN = conf(
     check=_positive)
 AGG_STRATEGY = conf(
     "spark.rapids.tpu.sql.agg.strategy", "AUTO",
-    "Lowering strategy for grouped-aggregation reductions. The port has "
-    "SCATTER (torch index_add_/scatter_reduce_ over the hash-bucket "
-    "tiers) and PALLAS (the hand-written bucket kernels K1-K3 over the "
-    "same tiers; their plain versions on the CPU). MATMUL, SORT and "
-    "RADIX are not ported yet and raise. AUTO picks PALLAS on a CUDA "
-    "device when the plan has no exact float sum, else SCATTER; on the "
-    "CPU it picks SCATTER below 2^21 rows, as the reference does.",
+    "Lowering strategy for grouped-aggregation reductions. SCATTER "
+    "(torch index_add_/scatter_reduce_), MATMUL (one-hot limb matmuls in "
+    "full f32) and PALLAS (the hand-written bucket kernels K1-K3) reduce "
+    "over the hash-bucket tiers; SORT radix-sorts by the keys and "
+    "reduces sums and counts as prefix differences; RADIX reduces every "
+    "aggregate over the sorted order on the hand-written RADIX segment "
+    "kernel, which PALLAS's sort fallback runs too. AUTO picks PALLAS on "
+    "a CUDA device when the plan has no exact float sum, else SCATTER; "
+    "on the CPU it picks RADIX at or above 2^21 rows with no exact float "
+    "sum, else SCATTER, as the reference does.",
     valid_values=("AUTO", "MATMUL", "SCATTER", "SORT", "RADIX", "PALLAS"))
 
 

@@ -39,7 +39,6 @@ from ..expr.eval import lower
 from ..expr.values import ColV, DictV, StrV, Val
 from ..ops import concat as concat_ops
 from ..ops import groupby as groupby_ops
-from ..ops.bucket_reduce import NOT_PORTED_TIERS, not_ported_tier
 from ..ops.filter_gather import live_of
 from ..ops.sort import str_max_lens
 from ..memory.retry import with_oom_retry, with_oom_retry_nosplit
@@ -57,19 +56,20 @@ def choose_agg_strategy(conf: RapidsConf, cap: int,
                         device) -> Tuple[str, str]:
     """Pick the grouped-aggregation tier for one plan shape from its
     static layout and the device (reference ``aggregate.py:93``). Returns
-    ``(strategy, reason)``. AUTO resolves:
+    ``(strategy, reason)``. A forced tier (MATMUL, SCATTER, SORT, RADIX,
+    PALLAS) is taken as it is. AUTO resolves:
 
-      * CUDA device -> PALLAS (the hand-written bucket kernels) when the
-        plan has no exact float sum — the reference's ``radix_ok`` rule
+      * CUDA device -> PALLAS (the hand-written bucket kernels, with the
+        RADIX segment reduction on their sort fallback) when the plan
+        has no exact float sum — the reference's ``radix_ok`` rule
         (``aggregate.py:149``): exact float sums must stay
-        order-preserving — else SCATTER;
-      * CPU -> SCATTER below 2^21 rows, as the reference; at or above it
-        the reference picks RADIX, which is not ported yet and raises.
+        order-preserving — else SCATTER. The reference's cost model
+        prices a TPU's MXU and HBM; the port has none for the card;
+      * CPU -> RADIX at or above 2^21 rows with no exact float sum, as
+        the reference, else SCATTER.
     """
     mode = conf.get(AGG_STRATEGY)
     if mode != "AUTO":
-        if mode in NOT_PORTED_TIERS:
-            raise not_ported_tier(mode)
         return mode, "forced by spark.rapids.tpu.sql.agg.strategy"
     approx = conf.get(IMPROVED_FLOAT_OPS)
     n_fexact = sum(
@@ -79,7 +79,12 @@ def choose_agg_strategy(conf: RapidsConf, cap: int,
     radix_ok = n_fexact == 0
     if torch.device(device).type == "cpu":
         if cap >= _RADIX_CPU_MIN_CAP and radix_ok:
-            raise not_ported_tier("RADIX")
+            return ("RADIX",
+                    "AUTO: CPU backend at cap>=2^21 — the scatter "
+                    "dialect's while-loop accumulator amplifies "
+                    "XLA-charged bytes ~25x past the layout bound "
+                    "(BENCH_r09); the tiled radix lowering is sized to "
+                    "the bound")
         return ("SCATTER", "AUTO: CPU device below 2^21 rows (or with "
                 "exact float sums) — torch scatter ops")
     if radix_ok:

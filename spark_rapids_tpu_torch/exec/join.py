@@ -1,4 +1,5 @@
-"""Equi-join exec (hash-join family) and its strategy chooser.
+"""The join execs: the equi-join (hash-join family) with its strategy
+chooser, and the nested-loop and cartesian joins.
 
 Counterpart of ``spark_rapids_tpu/exec/join.py``. The build side is
 concatenated and sorted once by its radix key words (``ops/join.py``);
@@ -30,9 +31,14 @@ side read through a broadcast exchange is read once and kept.
 The sorted build is registered spillable (:class:`_SpillableBuild`,
 reference ``join.py:34``) and each probe batch runs under the OOM retry
 harness with split-and-retry, each half's output its own batch. Left out
-(ROADMAP.md, queue A): buffer donation (eager PyTorch donates nothing),
-the join events and observability counters, and the nested-loop and
-cartesian execs.
+(ROADMAP.md, queue A): buffer donation (eager PyTorch donates nothing)
+and the join events and observability counters.
+
+:class:`TpuBroadcastNestedLoopJoinExec` and
+:class:`TpuCartesianProductExec` (reference ``join.py:1009``, ``:1110``)
+join without keys, inner only: the build side is concatenated once, held
+spillable and pinned while a probe batch uses it, and every probe batch
+expands to its ``np x nb`` pairs, filtered by the bound condition.
 """
 from __future__ import annotations
 
@@ -70,16 +76,19 @@ class _SpillableBuild:
     and come back at probe time. Declared plan state: the build is kept
     with the exec for a re-execution, so the leak sentinel skips it."""
 
-    def __init__(self, cols, words, live):
+    def __init__(self, cols, words=(), live=None):
         from ..memory import (ACTIVE_BATCHING_PRIORITY, SpillableHandle,
                               SpillableVals)
 
         self._cols = SpillableVals(cols, ACTIVE_BATCHING_PRIORITY,
                                    ledger_kind="plan_state")
         aux = {f"w{i}": w for i, w in enumerate(words)}
-        aux["live"] = live
-        self._aux = SpillableHandle(aux, ACTIVE_BATCHING_PRIORITY,
-                                    ledger_kind="plan_state")
+        if live is not None:
+            aux["live"] = live
+        # a nested-loop build has no key words and no live mask
+        self._aux = (SpillableHandle(aux, ACTIVE_BATCHING_PRIORITY,
+                                     ledger_kind="plan_state")
+                     if aux else None)
         self._nw = len(words)
         self._pins = 0
         self._pin_lock = threading.Lock()
@@ -88,7 +97,8 @@ class _SpillableBuild:
         with self._pin_lock:
             self._pins += delta
             for h in (self._cols.handle, self._aux):
-                h.pinned = self._pins > 0
+                if h is not None:
+                    h.pinned = self._pins > 0
 
     @contextmanager
     def pinned(self):
@@ -102,14 +112,16 @@ class _SpillableBuild:
         self._pin(1)
         try:
             cols = self._cols.get_vals()
-            a = self._aux.materialize()
-            yield cols, [a[f"w{i}"] for i in range(self._nw)], a["live"]
+            a = {} if self._aux is None else self._aux.materialize()
+            yield (cols, [a[f"w{i}"] for i in range(self._nw)],
+                   a.get("live"))
         finally:
             self._pin(-1)
 
     @property
     def tiers(self) -> tuple:
-        return self._cols.tier, self._aux.tier
+        return (self._cols.tier,) + (
+            () if self._aux is None else (self._aux.tier,))
 
 
 #: CPU AUTO: below this build capacity the direct-address tables are
@@ -214,11 +226,6 @@ class TpuShuffledHashJoinExec(TpuExec):
         super().__init__(conf, [left, right])
         if join_type not in _JOIN_TYPES:
             raise ValueError(f"unknown join type {join_type}")
-        if join_type == "cross":
-            raise NotImplementedError(
-                "cross joins run in TpuCartesianProductExec, not ported "
-                "yet: see ROADMAP.md, queue A item 'Nested-loop and "
-                "cartesian joins'")
         self.join_type = join_type
         #: both sides co-partitioned by the join keys (the planner put
         #: hash exchanges below): builds and probes stay per partition
@@ -707,3 +714,119 @@ def _expanded_pools(sides) -> List[List[int]]:
     got = iter(synced)
     return [[choose_capacity(max(1, next(got)), 128)
              for c in cols if isinstance(c, StrV)] for cols, _, _ in sides]
+
+
+class TpuBroadcastNestedLoopJoinExec(TpuExec):
+    """Cartesian or conditioned nested-loop join, inner only (reference
+    ``join.py:1009``): every (probe, build) pair is generated and the
+    bound condition filters it.
+
+    The build side is concatenated ONCE (dictionaries expanded), held as
+    a spillable buffer and pinned while a probe batch expands against
+    it. A probe batch of ``np`` rows against ``nb`` build rows expands to
+    ``np x nb`` slots at a power-of-two capacity: probe row ``j // nb``
+    beside build row ``j % nb``; a string column's pool is sized from its
+    live bytes times the other side's rows (reference ``join.py:1056``),
+    and a pool past int32 offsets raises. Each probe batch runs under the
+    OOM retry harness with split-and-retry, each piece's output its own
+    batch."""
+
+    def __init__(self, conf: RapidsConf, left: TpuExec, right: TpuExec,
+                 condition: Optional[E.Expression] = None):
+        super().__init__(conf, [left, right])
+        lf, rf = left.output_schema.fields, right.output_schema.fields
+        self._schema = StructType(tuple(lf) + tuple(rf))
+        self.condition = condition
+        self._cond = (E.bind_references(condition, self._schema)
+                      if condition is not None else None)
+        self._build_lock = threading.Lock()
+        self._built = None  # (spillable build or None, rows, string bytes)
+
+    @property
+    def output_schema(self):
+        return self._schema
+
+    @property
+    def num_partitions(self):
+        return self.children[0].num_partitions
+
+    def describe(self):
+        return self.node_name
+
+    def _get_build(self):
+        """(the spillable build or None, its rows, each string column's
+        live bytes), made once: one host sync for the counts."""
+        with self._build_lock:
+            if self._built is None:
+                batch = concat_all(self.children[1])
+                if batch is None:
+                    self._built = (None, 0, [])
+                else:
+                    batch = materialized_batch(batch)
+                    cols = vals_of_batch(batch)
+                    nb_t = batch.num_rows_lazy
+                    counts = host_ints([nb_t] + [
+                        c.offsets[nb_t] for c in cols
+                        if isinstance(c, StrV)])
+                    self._built = (_SpillableBuild(cols), counts[0],
+                                   counts[1:])
+            return self._built
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        sb, nb, bbytes = self._get_build()
+        if sb is None:
+            return
+        with sb.pinned() as (build_cols, _, _):
+            for pbatch in self.children[0].execute_partition(index):
+                with self.op_timed("probe"):
+                    outs = with_oom_retry(
+                        self.node_name,
+                        lambda b: self._expand(b, build_cols, nb, bbytes),
+                        pbatch, self.conf, combine="list")
+                for out in outs:
+                    if out is not None and out.num_rows > 0:
+                        yield self.record_batch(out)
+
+    def _expand(self, pbatch: ColumnarBatch, build_cols, nb: int,
+                bbytes: Sequence[int]) -> Optional[ColumnarBatch]:
+        """One probe batch's pairs, filtered by the condition (reference
+        ``join.py:1042-1070``); None when either side is empty."""
+        pbatch = materialized_batch(pbatch)
+        pcols = vals_of_batch(pbatch)
+        np_t = pbatch.num_rows_lazy
+        counts = host_ints([np_t] + [c.offsets[np_t] for c in pcols
+                                     if isinstance(c, StrV)])
+        np_, pbytes = counts[0], counts[1:]
+        if np_ == 0 or nb == 0:
+            return None
+        pairs = np_ * nb
+        need = [b * nb for b in pbytes] + [b * np_ for b in bbytes]
+        if any(x > concat_ops.MAX_POOL_BYTES for x in need):
+            raise ValueError(
+                f"a nested-loop join of {np_} x {nb} rows expands a string "
+                f"pool to {max(need)} bytes, past its int32 offsets")
+        caps = [choose_capacity(max(1, x), 128) for x in need]
+        pcaps, bcaps = caps[:len(pbytes)], caps[len(pbytes):]
+        out_cap = choose_capacity(pairs, self.conf.shape_bucket_min)
+        dev = build_cols[0].validity.device
+        j = torch.arange(out_cap, dtype=torch.int64, device=dev)
+        slot_live = j < pairs
+        left_side = filter_gather.gather(pcols, j // nb, slot_live, pcaps,
+                                         repeats=True)
+        right_side = filter_gather.gather(build_cols, j % nb, slot_live,
+                                          bcaps, repeats=True)
+        vals = list(left_side) + list(right_side)
+        if self._cond is None:
+            return batch_from_vals(vals, self._schema, pairs)
+        c = lower(self._cond, vals, out_cap, dev)
+        vals, count = filter_gather.filter_cols(
+            vals, slot_live & c.data & c.validity)
+        return batch_from_vals(vals, self._schema, count)
+
+
+class TpuCartesianProductExec(TpuBroadcastNestedLoopJoinExec):
+    """Unconditioned cross join (reference ``join.py:1110``): the
+    nested-loop expansion with no condition."""
+
+    def __init__(self, conf: RapidsConf, left: TpuExec, right: TpuExec):
+        super().__init__(conf, left, right, condition=None)

@@ -1,4 +1,4 @@
-"""Group-by aggregation: the hash-bucket tiers and the sort fallback.
+"""Group-by aggregation: the hash-bucket tiers and the sort path.
 
 Counterpart of ``spark_rapids_tpu/ops/groupby.py`` for fixed-width and
 plain string keys and values:
@@ -7,22 +7,25 @@ plain string keys and values:
     construction, keys rebuilt from the bucket id) and tier 2 (murmur3
     buckets + an exact collision check against each bucket's
     representative row), reducing through ``ops/bucket_reduce.py``;
-  * :func:`groupby_agg` — the B0/B1/B2 escalation (128, 1024, 8192
-    buckets) and then :func:`sort_groupby`, which reduces sorted segments
-    with torch scatter ops (its segment-reduce path; the reference's
-    RADIX tiled reduction is not ported). Under PALLAS its min/max follow
-    that reduction's tie rule (:func:`radix_winner`);
+  * :func:`groupby_agg` — the tier dispatch (``groupby.py:1021-1035``):
+    RADIX and SORT skip the hash tiers and take :func:`sort_groupby`;
+    the others try the B0/B1/B2 escalation (128, 1024, 8192 buckets)
+    and then the sort path;
+  * :func:`sort_groupby` — sort by keys, segment, reduce: under RADIX
+    and PALLAS every aggregate reduces on the RADIX segment reduction
+    (:func:`_radix_groupby`: ``ops/radix_kernels.py``, a hand-written
+    kernel on the card, the reference's tile loop in
+    ``ops/radix_bin.py`` on the CPU); under SORT sums and counts reduce
+    as prefix differences (:func:`_sorted_segment_aggs`); otherwise with
+    torch segment ops;
   * :func:`reduce_no_keys` — the grand aggregate;
   * :func:`string_minmax_ranks` — string min/max reduce over int32 rank
     columns (one rank sort per column, shared by its min and max), and
     the winning rows' strings are gathered back.
 
-String keys take :func:`sort_groupby` under every tier: the reference
-reduces that path through its RADIX tiled reduction under PALLAS and
-RADIX (``groupby.py:1023-1035``), which is not ported (ROADMAP.md, queue
-A item 1), so the segments reduce with torch segment ops; under PALLAS
-min/max pick the reference's winner row, zeros folded (ROADMAP.md §C,
-C4). A
+String keys take :func:`sort_groupby` under every tier, so under PALLAS
+and RADIX they reduce on the RADIX segment reduction, as the
+reference's do. A
 dictionary-encoded key (``DictV``) whose dictionary is unique groups on
 its int32 codes through the hash tiers instead, and its output codes are
 wrapped back into a DictV; a non-unique one (after a transforming
@@ -35,10 +38,12 @@ sync on the 0-d result, after which only the taken branch runs, as under
 XLA — ``direct_ok`` (``groupby.py:715`` and ``:858``, one sync) and the
 collision check per tier (``:1072``, one sync per tier tried).
 
-Exact float sums (no variableFloatAgg) stay order-preserving and
-deterministic on the card: rows are stably sorted by bucket and each
-segment is summed serially in row order (``ordered_segment_sum``), since
-``index_add_`` runs on atomics there.
+Exact float sums (no variableFloatAgg) under SCATTER, MATMUL and SORT
+stay order-preserving and deterministic on the card: rows are stably
+sorted by bucket and each segment is summed serially in row order
+(``ordered_segment_sum``), since ``index_add_`` runs on atomics there.
+Under RADIX and PALLAS the sort path's float sums take the NORMAL/BIG
+streams, as in the reference.
 """
 from __future__ import annotations
 
@@ -51,22 +56,17 @@ from ..columnar.column import choose_capacity
 from ..expr.values import (ColV, DictV, StrV, Val, dict_gather_col,
                            materialize_dict, val_capacity)
 from . import groupby_kernels as K
-from .bucket_reduce import (
-    bucket_equal_check,
-    bucket_min_max,
-    bucket_reduce,
-    not_ported_tier,
-    NOT_PORTED_TIERS,
-)
+from . import radix_bin as RB
+from . import radix_kernels as RK
+from .bucket_reduce import (bucket_equal_check, bucket_min_max,
+                            bucket_reduce, contiguous_segment_reduce)
 from .filter_gather import gather, gather_string, live_of
 from .hashing import murmur3
-from .radix_bin import default_tile_rows
 from .sort import (SIGN64, SortOrder, fixed_radix_keys, next_bound,
-                   radix_of, sort_permutation, sort_with_radix_keys)
+                   sort_permutation, sort_with_radix_keys)
 
 #: the describe() reason of a string-keyed aggregate's route
-STRING_KEY_ROUTE = ("string keys: sort path; the RADIX segment reduction "
-                    "is queue A item 1")
+STRING_KEY_ROUTE = "string keys: sort path"
 #: the describe() reason of a route on unique dictionary keys
 DICT_CODE_ROUTE = "dictionary keys: int32 codes on the hash tiers"
 
@@ -242,101 +242,200 @@ def segment_reduce(op: str, col: Optional[ColV], seg: torch.Tensor,
     raise ValueError(f"unknown aggregation op {op!r}")
 
 
-def _radix_stream_count(agg_ops: Sequence[str],
-                        value_cols: Sequence[Optional[ColV]]) -> int:
-    """The streams of the reference's tiled reduction for these ops
-    (``groupby.py:345-420``): the representative row's position, one
-    count shared by every count(*), one count per count and per sum,
-    an integer sum's limb stream or a float sum's three, two per winner
-    and one per first/last."""
-    n = 1
-    star = False
-    for op, v in zip(agg_ops, value_cols):
+def _radix_reduce_dtype(dtype: torch.dtype) -> T.DataType:
+    """The engine type standing in for a value dtype when only the radix
+    encoding family matters (reference ``groupby.py:298``)."""
+    if dtype.is_floating_point:
+        return T.DOUBLE
+    if dtype == torch.bool:
+        return T.BOOLEAN
+    return T.LONG
+
+
+def _radix_groupby(key_cols: Sequence[Val],
+                   value_cols: Sequence[Optional[ColV]],
+                   agg_ops: Sequence[str], perm: torch.Tensor,
+                   seg: torch.Tensor, nseg: torch.Tensor, cap: int
+                   ) -> Tuple[List[Val], List[ColV], torch.Tensor]:
+    """RADIX reduction of the sorted segments (reference
+    ``groupby.py:310``): every aggregate is a stream of one
+    :func:`radix_kernels.segment_reduce` call over the sort's order, the
+    columns staying in ORIGINAL row order. Integer sums and counts are
+    bit for bit the other tiers'; float sums take the NORMAL/BIG/flag
+    split; min/max/first/last reduce as winner rows by the sort's order
+    words; the group keys are gathered at each segment's first row.
+    The streams are those of the reference's plan, in its order, so the
+    reference's tile length (:func:`radix_bin.default_tile_rows`), which
+    decides max's ties across tiles, is computed from the same count."""
+    streams: List[RK.Stream] = []
+    plan: List[tuple] = []
+    cnt_idx: dict = {}
+    n_ref = 0  # the reference's stream count (radix_bin.py:249)
+
+    def stream(s: RK.Stream, ref_streams: int) -> int:
+        nonlocal n_ref
+        streams.append(s)
+        n_ref += ref_streams
+        return len(streams) - 1
+
+    def want_count(valid, key):
+        if key not in cnt_idx:
+            cnt_idx[key] = stream(RK.Stream("count", valid=valid), 1)
+        return cnt_idx[key]
+
+    # the group-representative (first live) row, for key output
+    stream(RK.Stream("pos", op="min"), 1)
+    for ai, (op, v) in enumerate(zip(agg_ops, value_cols)):
         if op == "count_star":
-            n += 0 if star else 1
-            star = True
+            plan.append(("cnt", want_count(None, ("star",))))
         elif op == "count":
-            n += 1
+            plan.append(("cnt", want_count(v.validity, ("c", ai))))
+        elif op == "sum" and not v.data.is_floating_point():
+            ci = want_count(v.validity, ("c", ai))
+            si = stream(RK.Stream("isum", v.data, v.validity), 1)
+            plan.append(("isum", (si, ci, v.data.dtype)))
         elif op == "sum":
-            n += 4 if v.data.is_floating_point() else 2
+            ci = want_count(v.validity, ("c", ai))
+            # normal, big and the flag stream: three of the reference's
+            fi = stream(RK.Stream("fsum", v.data, v.validity), 3)
+            plan.append(("fsum", (fi, ci, v.data.dtype)))
         elif op in ("min", "max"):
-            n += 2
+            word = RB.order_word(v.data, v.validity,
+                                 _radix_reduce_dtype(v.data.dtype), op)
+            wi = stream(RK.Stream("win", word, v.validity, op), 2)
+            plan.append(("row", (wi, v)))
+        elif op in ("first", "last", "first_ignorenulls",
+                    "last_ignorenulls"):
+            cons = v.validity if op.endswith("ignorenulls") else None
+            pi = stream(RK.Stream("pos", None, cons, "min" if
+                                  op.startswith("first") else "max"), 1)
+            plan.append(("row", (pi, v)))
         else:
-            n += 1
-    return n
+            raise ValueError(f"unknown aggregation op {op!r}")
+
+    tile = min(RB.default_tile_rows(cap, n_ref), max(8, cap))
+    out = RK.segment_reduce(perm, seg, streams, tile)
+    dev = perm.device
+    out_live = torch.arange(cap, dtype=torch.int32, device=dev) < nseg
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+
+    def row_col(rw: torch.Tensor, v: ColV) -> ColV:
+        safe = rw.to(torch.int64).clamp(0, max(cap - 1, 0))
+        vv = v.validity[safe] & (rw >= 0)
+        vals = v.data[safe]
+        return ColV(torch.where(vv, vals, torch.zeros_like(vals)), vv)
+
+    out_aggs: List[ColV] = []
+    for kind, payload in plan:
+        if kind == "cnt":
+            out_aggs.append(ColV(out[payload][0], ones))
+        elif kind == "isum":
+            si, ci, dt = payload
+            has = out[ci][0] > 0
+            data = out[si][0].to(dt)  # mod 2^32 of a mod 2^64 sum: exact
+            out_aggs.append(ColV(torch.where(has, data,
+                                             torch.zeros_like(data)), has))
+        elif kind == "fsum":
+            fi, ci, dt = payload
+            has = out[ci][0] > 0
+            sm = RB.combine_float_sum(*out[fi]).to(dt)
+            out_aggs.append(ColV(torch.where(has, sm, torch.zeros_like(sm)),
+                                 has))
+        else:
+            ri, v = payload
+            out_aggs.append(row_col(out[ri][0], v))
+    rep = out[0][0].to(torch.int64).clamp(0, max(cap - 1, 0))
+    out_keys = gather(key_cols, rep, out_live)
+    out_aggs = [ColV(torch.where(out_live, a.data, torch.zeros_like(a.data)),
+                     a.validity & out_live) for a in out_aggs]
+    return out_keys, out_aggs, nseg
 
 
-def radix_winner(op: str, col: ColV, seg: torch.Tensor, ncap: int,
-                 live: torch.Tensor, tile: int) -> ColV:
-    """min/max over sorted segments with the tie rule of the reference's
-    tiled RADIX reduction (``radix_bin.py:386-412``), which its PALLAS
-    tier's sort fallback runs: rows compare by the sort's order word
-    (NaN largest, -0.0 folded into 0.0), the winner is the earliest tied
-    row for min; for max it is the last tied row of the first tile
-    (``tile`` sorted rows) that holds one, since a tile's stable sort
-    puts its max winner last and an earlier tile's winner keeps a tie.
-    The winner row's own value is returned, sign of zero included."""
-    data = col.data
-    valid = col.validity & live
-    cap = data.shape[0]
-    dev = data.device
-    word = radix_of(data) ^ SIGN64  # unsigned order as signed order
-    if op == "min":
-        best = _seg_extreme(torch.where(valid, word, 2**63 - 1), seg, ncap,
-                            "min", 2**63 - 1)
-    else:
-        best = _seg_extreme(torch.where(valid, word, -2**63), seg, ncap,
-                            "max", -2**63)
-    tie = valid & (word == best[seg.long().clamp(0, ncap - 1)])
-    pos = torch.arange(cap, dtype=torch.int64, device=dev)
-    if op == "min":
-        win = _seg_extreme(torch.where(tie, pos, cap), seg, ncap, "min", cap)
-    else:
-        t = pos // tile
-        first_t = _seg_extreme(torch.where(tie, t, cap), seg, ncap, "min",
-                               cap)
-        tie = tie & (t == first_t[seg.long().clamp(0, ncap - 1)])
-        win = _seg_extreme(torch.where(tie, pos, -1), seg, ncap, "max", -1)
-    has = (win >= 0) & (win < cap)
-    r = data[win.clamp(0, cap - 1)]
-    return ColV(torch.where(has, r, torch.zeros_like(r)), has)
+def _sorted_segment_aggs(agg_ops: Sequence[str],
+                         sorted_vals: Sequence[Optional[ColV]],
+                         seg: torch.Tensor, ncap: int,
+                         live: torch.Tensor) -> List[ColV]:
+    """The SORT tier's reduction over already-sorted segment ids
+    (reference ``groupby.py:242``): integer sums, counts and count(*)
+    in one prefix-difference pass (``bucket_reduce.
+    contiguous_segment_reduce``), bit for bit :func:`segment_reduce`'s;
+    float sums and min/max/first/last keep the segment path."""
+    int_specs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    cnt_specs: List[torch.Tensor] = []
+    plan: List[tuple] = []
+    for op, v in zip(agg_ops, sorted_vals):
+        if op == "count_star":
+            plan.append(("cnt", len(cnt_specs)))
+            cnt_specs.append(live)
+        elif op == "count":
+            plan.append(("cnt", len(cnt_specs)))
+            cnt_specs.append(v.validity & live)
+        elif op == "sum" and not v.data.is_floating_point():
+            ci = len(cnt_specs)
+            cnt_specs.append(v.validity & live)
+            plan.append(("isum", (len(int_specs), ci, v.data.dtype)))
+            int_specs.append((v.data, v.validity & live))
+        else:
+            plan.append(("seg", (op, v)))
+    isums, counts, _ = contiguous_segment_reduce(seg, ncap, int_specs,
+                                                 cnt_specs, ())
+    ones = torch.ones(ncap, dtype=torch.bool, device=seg.device)
+    out: List[ColV] = []
+    for kind, payload in plan:
+        if kind == "cnt":
+            out.append(ColV(counts[payload], ones))
+        elif kind == "isum":
+            si, ci, dt = payload
+            has = counts[ci] > 0
+            data = isums[si].to(dt)
+            out.append(ColV(torch.where(has, data, torch.zeros_like(data)),
+                            has))
+        else:
+            op, v = payload
+            out.append(segment_reduce(op, v, seg, ncap, live,
+                                      seg_sorted=True))
+    return out
 
 
 def sort_groupby(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
                  value_cols: Sequence[Optional[ColV]],
                  agg_ops: Sequence[str], num_rows,
                  str_max_lens: Sequence[int] = (),
+                 prefix_reduce: bool = False,
                  radix_reduce: bool = False
                  ) -> Tuple[List[Val], List[ColV], torch.Tensor]:
     """Group-by via sort: sort by keys (``str_max_lens`` bounds the
-    string keys in turn), segment, reduce. Outputs are compacted to the
-    front at the input capacity. ``radix_reduce`` (the PALLAS tier, whose
-    reference reduces this path on its RADIX tiles) gives min/max the
-    reference's winner rows (:func:`radix_winner`)."""
+    string keys in turn), segment, reduce (reference ``groupby.py:466``).
+    Outputs are compacted to the front at the input capacity.
+    ``prefix_reduce`` (SORT) reduces sums and counts as prefix
+    differences (:func:`_sorted_segment_aggs`); ``radix_reduce`` (RADIX,
+    and PALLAS's fallback) reduces every aggregate on the RADIX segment
+    reduction (:func:`_radix_groupby`)."""
     cap = key_cols[0].validity.shape[0]
     dev = key_cols[0].validity.device
     orders = [SortOrder(True, True) for _ in key_cols]
     perm, radix = sort_with_radix_keys(key_cols, key_dtypes, orders, num_rows,
                                        str_max_lens)
     live = live_of(num_rows, cap, dev)[perm]
+    seg, nseg = segment_ids_from_radix_keys(
+        [k for ks in radix for k in ks], live)
+    if radix_reduce:
+        return _radix_groupby(key_cols, value_cols, agg_ops, perm, seg,
+                              nseg, cap)
     sorted_keys = gather(key_cols, perm, live)
     sorted_vals = [None if v is None else gather([v], perm, live)[0]
                    for v in value_cols]
-    seg, nseg = segment_ids_from_radix_keys(
-        [k for ks in radix for k in ks], live)
     # representative (first) row of each segment, for key output
     idx = torch.arange(cap, dtype=torch.int64, device=dev)
     first_row = _seg_extreme(torch.where(live, idx, cap), seg, cap, "min",
                              cap).clamp(0, cap - 1)
     out_live = torch.arange(cap, dtype=torch.int32, device=dev) < nseg
     out_keys = gather(sorted_keys, first_row, out_live)
-    tile = (min(default_tile_rows(cap, _radix_stream_count(agg_ops,
-                                                            value_cols)),
-                max(8, cap)) if radix_reduce else 0)
-    out_aggs = [radix_winner(op, v, seg, cap, live, tile)
-                if radix_reduce and op in ("min", "max")
-                else segment_reduce(op, v, seg, cap, live, seg_sorted=True)
-                for op, v in zip(agg_ops, sorted_vals)]
+    if prefix_reduce:
+        out_aggs = _sorted_segment_aggs(agg_ops, sorted_vals, seg, cap, live)
+    else:
+        out_aggs = [segment_reduce(op, v, seg, cap, live, seg_sorted=True)
+                    for op, v in zip(agg_ops, sorted_vals)]
     out_aggs = [ColV(torch.where(out_live, a.data, torch.zeros_like(a.data)),
                      a.validity & out_live) for a in out_aggs]
     return out_keys, out_aggs, nseg
@@ -649,15 +748,14 @@ def groupby_agg(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
     """Adaptive group-by: narrow hash tiers first, escalating to wider
     ones and then the sort fallback only when the keys do not fit
     (``groupby.py:1040-1080``). Each tier's collision check is a host
-    decision; only the taken path runs. Plain string keys take the sort
+    decision; only the taken path runs. RADIX and SORT skip the hash
+    tiers (``groupby.py:1021-1035``). Plain string keys take the sort
     path (``str_max_lens`` bounds every string key in turn, dictionary
     ones included); a unique DictV key groups on its codes and comes back
     a DictV, a non-unique one materializes (``groupby.py:983-1017``).
     String min/max inputs reduce as rank columns (``str_val_max_lens``)
     on whichever path runs. ``routes``, when given, receives the string
     key route taken (:data:`DICT_CODE_ROUTE`, :data:`STRING_KEY_ROUTE`)."""
-    if strategy in NOT_PORTED_TIERS:
-        raise not_ported_tier(strategy)
     for dt in key_dtypes:
         T.check_storable(dt)
     if not key_cols:
@@ -672,11 +770,12 @@ def groupby_agg(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
     B1 = min(1024, B2)
     B0 = min(128, B1)
     tiers = [B0] + [b for b, below in ((B1, B0), (B2, B1)) if b > below]
-    if any(isinstance(c, StrV) for c in key_cols):
-        tiers = []  # string keys: the sort path
+    str_keys = any(isinstance(c, StrV) for c in key_cols)
+    if str_keys or strategy in ("RADIX", "SORT"):
+        tiers = []  # string keys, RADIX and SORT: the sort path
     if routes is not None:
         for route, taken in ((DICT_CODE_ROUTE, code_keys),
-                             (STRING_KEY_ROUTE, not tiers)):
+                             (STRING_KEY_ROUTE, str_keys)):
             if taken and route not in routes:
                 routes.append(route)
     for B in tiers:
@@ -685,9 +784,13 @@ def groupby_agg(key_cols: Sequence[Val], key_dtypes: Sequence[T.DataType],
             approx_float_sum=approx_float_sum, reduce_strategy=strategy)
         if bool(ok.item()):  # host sync: groupby.py:1072
             return _rewrapped(hk, code_keys), _recovered(ha, recover), hn
+    # PALLAS's string and fallback path reduces on the RADIX tiles, so the
+    # plan stays scatter-free (groupby.py:1023-1026)
     keys, aggs, n = sort_groupby(key_cols, key_dtypes, value_cols, agg_ops,
                                  num_rows, str_max_lens,
-                                 radix_reduce=strategy == "PALLAS")
+                                 prefix_reduce=strategy == "SORT",
+                                 radix_reduce=strategy in ("RADIX",
+                                                           "PALLAS"))
     return _rewrapped(keys, code_keys), _recovered(aggs, recover), n
 
 

@@ -21,8 +21,9 @@ co-partitioning hash exchanges with the adaptive join pair; a window
 over every partition gathered. The reference's mesh routes, which it
 takes under ``spark.rapids.tpu.shuffle.mode=ici``, raise
 ``NotImplementedError`` naming ROADMAP.md's item 'Multi-device
-execution', and nested-loop joins name 'Nested-loop and cartesian
-joins'.
+execution'. A join without keys reads its build side through a broadcast
+exchange into the nested-loop join, or the cartesian product when it has
+no condition.
 
 Device rule: the plan's device (``None``: the CUDA card) is threaded to
 every leaf the pass builds: the in-memory scan, the file scan and the
@@ -357,9 +358,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet: see ROADMAP.md, queue A item '{item}'")
 
 
-NESTED_LOOP_ITEM = "Nested-loop and cartesian joins"
-
-
 def _tag_output_types(meta: "PlanMeta") -> None:
     for f in meta.wrapped.output_schema.fields:
         err = _check_type(f.dataType, meta.conf)
@@ -671,13 +669,19 @@ def _convert_join(cpu: C.CpuJoinExec, conf, children, device):
     from ..conf import AQE_ENABLED, AUTO_BROADCAST_JOIN_THRESHOLD
     from ..exec.exchange import (TpuBroadcastExchangeExec,
                                  TpuShuffleExchangeExec, lazy_aqe_join_pair)
-    from ..exec.join import TpuShuffledHashJoinExec
+    from ..exec.join import (TpuBroadcastNestedLoopJoinExec,
+                             TpuCartesianProductExec,
+                             TpuShuffledHashJoinExec)
     from ..shuffle.partition import HashPartitioning, SinglePartitioning
 
     if not cpu.left_keys:
-        raise not_ported(
-            "TpuCartesianProductExec" if cpu.condition is None
-            else "TpuBroadcastNestedLoopJoinExec", NESTED_LOOP_ITEM)
+        # the build side flows through a broadcast exchange; no condition
+        # is the cartesian product (reference overrides.py:755-773)
+        bcast = TpuBroadcastExchangeExec(conf, children[1])
+        if cpu.condition is None:
+            return TpuCartesianProductExec(conf, children[0], bcast)
+        return TpuBroadcastNestedLoopJoinExec(conf, children[0], bcast,
+                                              cpu.condition)
     left, right = children
     # the size-thresholded broadcast hash join (reference
     # overrides.py:776-799): the small side broadcasts and the other

@@ -1326,3 +1326,151 @@ def test_round_with_a_host_scalar_divisor_differs_on_the_card(dev, scale):
         return torch.sign(t) * torch.floor(torch.abs(t) * f + 0.5) / f
 
     assert not torch.equal(host_scalar(x.to(dev)).cpu(), host_scalar(x))
+
+
+def _radix_case(rng, n, nseg, ndead, tie_words, lengths=None):
+    """A sorted order of ``n`` rows: ``nseg`` segments (or the given
+    ``lengths``), then ``ndead`` dead rows (id n), a random permutation,
+    and columns for every stream kind."""
+    live = n - ndead
+    if lengths is None:
+        seg = np.sort(rng.integers(0, nseg, live))
+        _, seg = np.unique(seg, return_inverse=True)
+    else:
+        seg = np.repeat(np.arange(len(lengths)), lengths)
+    seg = np.concatenate([seg, np.full(ndead, n)]).astype(np.int32)
+    perm = rng.permutation(n).astype(np.int64)
+    fl = rng.normal(size=n) * 1e6
+    for val, p in ((1e300, 0.002), (np.inf, 0.001), (-np.inf, 0.001),
+                   (np.nan, 0.001)):
+        fl[rng.random(n) < p] = val
+    return dict(seg=seg, perm=perm,
+                ints=rng.integers(-(2 ** 63), 2 ** 63 - 1, n,
+                                  dtype=np.int64),
+                i32=rng.integers(-(2 ** 31), 2 ** 31 - 1, n).astype(np.int32),
+                fl=fl, f32=rng.normal(size=n).astype(np.float32),
+                words=rng.integers(0, 3 if tie_words else 1 << 62, n),
+                valid=rng.random(n) > 0.1)
+
+
+#: (rows, segments, dead rows, tied words, reference tile, lengths)
+RADIX_CASES = {
+    "ties_ref_tile_8": (5000, 37, 300, True, 8, None),
+    "ties_ref_tile_1000": (70_000, 3, 10, True, 1000, None),
+    "one_segment_many_warp_tiles": (300_000, 1, 0, True, 4096, None),
+    "segments_on_warp_tile_edges": (8192, 0, 0, True, 64,
+                                    [1024, 1, 1023, 2048, 1, 4095]),
+    "all_dead": (3000, 1, 3000, False, 256, None),
+    "one_row_segments": (4096, 4096, 0, False, 4096, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RADIX_CASES))
+def test_radix_segment_reduce_matches_its_plain_version(dev, case):
+    """The RADIX segment kernel against its plain version (the reference's
+    tile loop) on the card: counts, integer sums, positions and winner
+    rows exactly (max ties broken by the reference's tiles); float NORMAL
+    and BIG sums within 1e-12 of each segment's sum of |x|; the presence
+    flags exactly; all over the segments the ids reach (the kernel leaves
+    the outputs past them unwritten). One counted call of the wrapper."""
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
+
+    n, nseg, ndead, ties, ref_tile, lengths = RADIX_CASES[case]
+    c = _radix_case(np.random.default_rng(n + ndead), n, nseg, ndead, ties,
+                    lengths)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in c.items()}
+    vd = t["valid"]
+    streams = [RK.Stream("pos", op="min"), RK.Stream("count"),
+               RK.Stream("count", valid=vd),
+               RK.Stream("isum", t["ints"], vd),
+               RK.Stream("isum", t["i32"], vd),
+               RK.Stream("pos", None, vd, "max"),
+               RK.Stream("win", t["words"], vd, "max"),
+               RK.Stream("win", t["words"], vd, "min"),
+               RK.Stream("fsum", t["fl"], vd),
+               RK.Stream("fsum", t["f32"], vd)]
+    before = RK.LAUNCHES["radix_segment_reduce"]
+    got = RK.segment_reduce(t["perm"], t["seg"], streams, ref_tile)
+    assert RK.LAUNCHES["radix_segment_reduce"] - before == 1
+    want = RK.segment_reduce_plain(t["perm"], t["seg"], streams, ref_tile)
+    live = c["seg"][c["seg"] < n]
+    k = int(live.max()) + 1 if live.size else 0
+    got = [tuple(x[:k] for x in g) for g in got]
+    want = [tuple(x[:k] for x in w) for w in want]
+    for s, g, w in zip(streams, got, want):
+        if s.kind != "fsum":
+            assert torch.equal(g[0].to(torch.int64), w[0].to(torch.int64)), s
+            continue
+        absum = [x[:k] for x in RK.segment_reduce_plain(
+            t["perm"], t["seg"], [RK.Stream("fsum", s.data.abs(), vd)],
+            ref_tile)[0]]
+        for j in range(2):
+            tol = 1e-12 * absum[j]
+            assert bool((((g[j] - w[j]).abs() <= tol)
+                         | (g[j] == w[j])).all()), (s.kind, j)
+        assert torch.equal(g[2], w[2])
+
+
+@pytest.mark.parametrize("tier", ["RADIX", "SORT", "MATMUL", "PALLAS"])
+def test_forced_tier_aggregate_on_the_card_matches_the_cpu(dev, tier):
+    """Each forced tier on the card gives the CPU's rows: RADIX (and
+    PALLAS's string sort path in the merge) on the RADIX kernel, SORT's
+    prefix differences and MATMUL's limb products; float sums within
+    1e-12 of each group's sum of |x| (f64 on RADIX, SORT and PALLAS),
+    1e-4 of it on MATMUL (its f32 hi/lo split)."""
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuHashAggregateExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
+
+    conf = RapidsConf({"spark.rapids.tpu.sql.agg.strategy": tier,
+                       "spark.rapids.tpu.sql.variableFloatAgg.enabled":
+                       True})
+    # PALLAS: the three partials merge on the string sort path; the
+    # others group the 300 dictionary codes of m
+    key = "s" if tier == "PALLAS" else "m"
+
+    def run(device):
+        bs = [_dict_batch(device, 4000, s) for s in range(3)]
+        scan = InMemoryScanExec(conf, [bs], bs[0].schema)
+        agg = TpuHashAggregateExec(conf, [col(key)], [
+            A.agg(A.Count(None), "n"), A.agg(A.Sum(col("v")), "sv"),
+            A.agg(A.Min(col("m")), "mn"), A.agg(A.Max(col("m")), "mx"),
+            A.agg(A.Sum(col("f")), "sf"),
+            A.agg(A.Sum(E.Abs(col("f"))), "sa")], scan)
+        return sorted(agg.collect(), key=repr)
+
+    before = RK.LAUNCHES["radix_segment_reduce"]
+    got, want = run(dev), run("cpu")
+    launched = RK.LAUNCHES["radix_segment_reduce"] - before
+    assert (launched > 0) == (tier in ("RADIX", "PALLAS")), launched
+    assert len(got) == len(want)
+    rtol = 1e-4 if tier == "MATMUL" else 1e-12
+    for g, w in zip(got, want):
+        assert g[:5] == w[:5]
+        assert abs(g[5] - w[5]) <= rtol * w[6], (g, w)
+
+
+def test_matmul_tier_refuses_tf32_on_the_card(dev):
+    """The MATMUL tier's limb sums are exact only in full f32: with TF32
+    on it raises, naming the flag, and leaves the flag set."""
+    from spark_rapids_tpu_torch.ops import bucket_reduce as BR
+
+    seg = torch.zeros(8, dtype=torch.int32, device=dev)
+    valid = torch.ones(8, dtype=torch.bool, device=dev)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            BR.bucket_reduce(seg, 4, (), [valid], (), strategy="MATMUL")
+        assert torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _, cnt, _ = BR.bucket_reduce(seg, 4, (), [valid], (),
+                                     strategy="MATMUL")
+        assert cnt[0].tolist() == [8, 0, 0, 0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

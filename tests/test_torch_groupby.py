@@ -295,7 +295,8 @@ def test_c4_pallas_min_max_zero_differs_after_the_sort_fallback():
     with a NULL row the hash tiers fail their check and both packages
     fall back to the sort path, which the reference reduces on its RADIX
     tiles: max -0.0 and min 0.0 for the group (5, 0.0). The port now
-    gives the same (``ops/groupby.radix_winner``), with and without the
+    gives the same (``ops/groupby._radix_groupby``, the RADIX segment
+    reduction), with and without the
     NULL row; SCATTER keeps the signed zero in both packages (C1)."""
     def data(with_null):
         return {"k": [0, 5, 5] + ([-3] if with_null else []),

@@ -24,7 +24,7 @@ from spark_rapids_tpu.expr import expressions as JE
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar import ColumnarBatch, schema_of
 from spark_rapids_tpu_torch.conf import RapidsConf
-from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+from spark_rapids_tpu_torch.exec import (ColumnarToRowExec, InMemoryScanExec,
                                          TpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch.expr import expressions as E
 
@@ -118,9 +118,13 @@ def test_left_out_join_shapes_raise():
     full = TpuShuffledHashJoinExec(conf, *scans, [E.col("k")],
                                    [E.col("k2")], "full", partitioned=True)
     assert full.num_partitions == scans[0].num_partitions
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TpuShuffledHashJoinExec(conf, *scans, [E.col("k")], [E.col("k2")],
-                                "cross")
+    # a keyed "cross" join runs as the reference's does: like inner
+    cross = TpuShuffledHashJoinExec(conf, *scans, [E.col("k")],
+                                    [E.col("k2")], "cross")
+    inner = TpuShuffledHashJoinExec(conf, *scans, [E.col("k")],
+                                    [E.col("k2")], "inner")
+    assert sorted(map(repr, ColumnarToRowExec(conf, cross).collect())) == \
+        sorted(map(repr, ColumnarToRowExec(conf, inner).collect()))
     with pytest.raises(ValueError, match="inner joins"):
         TpuShuffledHashJoinExec(conf, *scans, [E.col("k")], [E.col("k2")],
                                 "left", E.GreaterThan(E.col("b"),

@@ -238,6 +238,7 @@ QUERIES = {
     "window_string_key": (_window_string_key, {}),
     "udf_compiler": (_q_udf, {"spark.rapids.tpu.sql.udfCompiler.enabled":
                               True}),
+    "cross_join": (_cross, {}),
 }
 #: cases whose row order is the query's result (compared unsorted too)
 ORDERED = ("order_by", "window", "limit", "union", "order_by_string",
@@ -378,7 +379,6 @@ NOT_PORTED = {
     "network_transport": (
         _partitioned_agg, {"spark.rapids.tpu.shuffle.transport.class":
                            "network"}, "Multi-device execution"),
-    "cross_join": (_cross, {}, "Nested-loop and cartesian joins"),
 }
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))

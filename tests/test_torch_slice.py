@@ -149,13 +149,26 @@ def test_chooser_picks_kernel_tier_on_cuda_without_exact_float_sums():
     assert X.choose_agg_strategy(exact.conf, 4096, exact._update_ops,
                                  exact._update_exprs, (T.INT,),
                                  cuda)[0] == "SCATTER"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        X.choose_agg_strategy(plan.conf, 1 << 21, ops, exprs, (T.INT,),
-                              torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        X.choose_agg_strategy(RapidsConf(
-            {"spark.rapids.tpu.sql.agg.strategy": "MATMUL"}), 4096, ops,
-            exprs, (T.INT,), cuda)
+    # the CPU at 2^21 rows picks RADIX with the reference's reason; with
+    # an exact float sum it stays on SCATTER
+    jbatches, jschema = _reference_batches()
+    ref = _plan(JX, JE, JA, JConf(
+        {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}), jbatches,
+        jschema)
+    got = X.choose_agg_strategy(plan.conf, 1 << 21, ops, exprs, (T.INT,),
+                                torch.device("cpu"))
+    assert got == JX.aggregate.choose_agg_strategy(
+        ref.conf, 1 << 21, ref._update_ops, ref._update_exprs, (JT.INT,),
+        backend="cpu")
+    assert got[0] == "RADIX"
+    assert X.choose_agg_strategy(exact.conf, 1 << 21, exact._update_ops,
+                                 exact._update_exprs, (T.INT,),
+                                 torch.device("cpu"))[0] == "SCATTER"
+    for tier in ("MATMUL", "SORT", "RADIX"):
+        assert X.choose_agg_strategy(RapidsConf(
+            {"spark.rapids.tpu.sql.agg.strategy": tier}), 4096, ops, exprs,
+            (T.INT,), cuda) == (tier, "forced by "
+                                "spark.rapids.tpu.sql.agg.strategy")
 
 
 def test_grand_aggregate_over_empty_input_matches_reference():
