@@ -460,8 +460,8 @@ WORD_COUNT_BATCHES = 4
 KERNEL_SYMBOLS = ("bucket_sum_kernel", "bucket_fsum_kernel",
                   "bucket_winner_kernel", "ordered_segment_sum_kernel",
                   "probe_ranges_kernel", "word_counts_kernel",
-                  "dfa_accept_rows_kernel", "radix_tiles_kernel",
-                  "radix_fold_kernel")
+                  "dfa_accept_rows_kernel", "radix_staged_tiles_kernel",
+                  "radix_span_fold_kernel")
 
 
 def _kernel_modules():
@@ -850,6 +850,25 @@ def timed_once(torch, fn):
     return start.elapsed_time(end), out
 
 
+def launch_device_ms(torch, fn, symbols, calls: int = 5) -> dict:
+    """Device milliseconds a call of ``fn`` spends in each kernel whose
+    name holds one of ``symbols`` (torch.profiler over ``calls`` calls,
+    after one unprofiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return {k: sum(e.self_device_time_total for e in events
+                   if k in e.key) / 1e3 / calls for k in symbols}
+
+
 def _radix_check(torch, perm, seg, streams, got, want, what: str) -> float:
     """The RADIX kernel's outputs ``got`` against its plain version's
     ``want``: counts, integer sums, positions and winner rows exactly,
@@ -933,8 +952,10 @@ def radix_shape(torch, np, dev, perm, seg, streams, ref_tile: int,
     call. Then the first 2^17 sorted rows as a problem of their own, with
     winners over tied values, at a forced ``forced_tile``-row reference
     tile. ``library_ms``: one ``torch.segment_reduce`` sum over the first
-    float stream already in sorted order (none where no stream is a
-    float sum)."""
+    float stream already in sorted order, or where there is none over the
+    first count or integer stream (in f64: the card refuses int64).
+    ``launch_dev_ms``: the device time of each of the kernel's two
+    launches."""
     from spark_rapids_tpu_torch.ops import radix_kernels as RK
 
     cap = perm.shape[0]
@@ -956,14 +977,21 @@ def radix_shape(torch, np, dev, perm, seg, streams, ref_tile: int,
     def run():
         return RK.segment_reduce(perm, seg, streams, ref_tile)
 
-    fs = next((s for s in streams if s.kind == "fsum"), None)
-    library_ms = None
+    # the library call: one segment_reduce sum over the first float
+    # stream, else the first count or integer stream, already sorted, in
+    # f64 (the call takes no int64 on the card)
+    fs = next((s for s in streams if s.kind == "fsum"), None) or next(
+        (s for s in streams if s.kind in ("count", "isum")), None)
+    library_ms = library = None
     if fs is not None and nlive:
-        sv = torch.where(fs.valid, fs.data.to(torch.float64),
-                         0.0)[perm[:nlive]]
+        valid = (torch.ones(cap, dtype=torch.bool, device=perm.device)
+                 if fs.valid is None else fs.valid)
+        data = valid if fs.kind == "count" else fs.data
+        sv = torch.where(valid, data.to(torch.float64), 0.0)[perm[:nlive]]
         lengths = torch.bincount(seg[:nlive].long(), minlength=nseg)
         library_ms = cuda_ms(torch, lambda: torch.segment_reduce(
             sv, "sum", lengths=lengths), reps)
+        library = f"torch.segment_reduce sum of one sorted {fs.kind} stream"
     nbytes = RK.bound_bytes(perm, streams, nlive, nseg)
     # the kernel gathers each distinct column and validity at the
     # permutation: one 32-byte sector a live row for each, where the
@@ -973,9 +1001,8 @@ def radix_shape(torch, np, dev, perm, seg, streams, ref_tile: int,
     return {"max_abs_err": err, "ms": cuda_ms(torch, run, reps),
             "dev_ms": dev_ms(torch, run, reps),
             "host_ms": host_ms(torch, run, reps), "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "library": "torch.segment_reduce sum of one f64 stream, sorted "
-                       "(none for the winner and position streams)",
+            "launch_dev_ms": launch_device_ms(torch, run, KERNEL_SYMBOLS[-2:]),
+            "library_ms": library_ms, "library": library,
             "bound_ms": bound_ms(nbytes), "bytes": nbytes,
             "bound_sectors_ms": bound_ms(sectors), "rows": cap,
             "segments": nseg, "streams": [s.kind for s in streams],

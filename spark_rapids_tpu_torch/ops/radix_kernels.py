@@ -11,9 +11,13 @@ C++ lives in ``csrc/radix_kernels.cu``; it is compiled for ``sm_90a`` by
 The caller hands over the sort's permutation, the NONDECREASING segment
 id of every sorted position (dead rows last, outside ``[0, cap)``, as
 ``ops/groupby.segment_ids_from_radix_keys`` gives them) and a list of
-:class:`Stream` s over the columns in ORIGINAL row order; the kernel
-gathers each row at the permutation and splits float rows into their
-NORMAL/BIG/flag streams in registers.
+:class:`Stream` s over the columns in ORIGINAL row order.
+:func:`pack_arguments` turns the streams into a table of their distinct
+inputs (a validity or a column that several streams read is in it once)
+and four ints a stream; the kernel gathers each distinct input once a
+row, at the permutation, and every stream reduces from that stage (float
+rows split into their NORMAL/BIG/flag streams in registers). All outputs
+are views of one allocation.
 
 Dispatch: :func:`segment_reduce` runs the plain version
 (:func:`segment_reduce_plain`, the reference's tile loop in
@@ -31,9 +35,10 @@ once, and each segment's outputs once (:func:`bound_bytes`).
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import threading
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,8 +53,8 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 LAUNCHES: Dict[str, int] = {"radix_segment_reduce": 0}
 #: nvcc's output (``-Xptxas -v``) from the build this process loaded
 BUILD_LOG: List[str] = []
-#: sorted rows a warp of the kernel owns (WARP_TILE in the .cu)
-WARP_TILE = 1024
+#: sorted rows a block of the kernel owns (TILE in the .cu)
+TILE_ROWS = 1024
 
 _KINDS = {"count": 0, "isum": 1, "fsum": 2, "pos": 3, "win": 4}
 
@@ -91,31 +96,129 @@ def build_kernels() -> ctypes.CDLL:
         so = _cuda_build.build_library(SOURCE, BUILD_DIR, BUILD_LOG)
         lib = ctypes.CDLL(str(so))
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        ip = ctypes.POINTER(ctypes.c_int)
+        # the arrays go as the addresses of array.array buffers
         lib.srt_radix_segment_reduce.argtypes = [
-            vp, vp, i64, i32, i32, ip, ip, ip, pp, pp, pp, pp, pp, vp, vp]
+            vp, vp, i64, i32, i32, vp, vp, i32, vp, vp, vp, vp]
         lib.srt_radix_segment_reduce.restype = i32
+        if lib.srt_radix_tile_rows() != TILE_ROWS:
+            raise RuntimeError(f"{so} has tiles of "
+                               f"{lib.srt_radix_tile_rows()} rows, the "
+                               f"wrapper {TILE_ROWS}")
         lib.srt_radix_error_string.argtypes = [i32]
         lib.srt_radix_error_string.restype = ctypes.c_char_p
         _LIB = lib
         return lib
 
 
-def _outputs(streams: Sequence[Stream], cap: int, dev) -> List[tuple]:
-    """Each stream's output tensors, unwritten (the kernel writes every
-    segment the live rows reach)."""
-    outs: List[tuple] = []
+class Packed(NamedTuple):
+    """A call's arguments as the kernel takes them: each distinct column
+    and validity once, in the dtype the kernel reads (``inputs``), and
+    per stream its kind, ``is_min`` and the indices of its data and its
+    validity in ``inputs`` (:data:`NONE` for none), four ints a stream
+    (``sargs``)."""
+
+    inputs: List[torch.Tensor]
+    sargs: List[int]
+
+
+#: the index of a stream's absent data or validity in :attr:`Packed.sargs`
+NONE = -1
+
+
+def _target_dtype(kind: str, t: torch.Tensor) -> torch.dtype:
+    """The dtype the kernel reads a stream's data in: float sums f32 or
+    f64, integer sums int32 or int64, order words int64."""
+    if kind == "fsum":
+        return t.dtype if t.dtype in (torch.float32, torch.float64) \
+            else torch.float64
+    if kind == "isum" and t.dtype == torch.int32:
+        return torch.int32
+    return torch.int64
+
+
+def _check(t: torch.Tensor, cap: int, device: torch.device) -> None:
+    if t.device != device or t.shape[0] != cap:
+        raise ValueError(f"stream tensor of shape {tuple(t.shape)} on "
+                         f"{t.device} for {cap} rows on {device}")
+
+
+def pack_arguments(streams: Sequence[Stream], cap: int,
+                   device: torch.device) -> Packed:
+    """The streams' distinct inputs and per-stream indices (see
+    :class:`Packed`). A tensor two streams share (an aggregate's count
+    and its sum read one validity, sum and avg one column) is one input;
+    a conversion is made only where a dtype needs one, once per tensor.
+    Raises on a tensor on another device or of another length."""
+    by_obj: Dict[tuple, int] = {}  # (id, dtype read) -> input
+    by_mem: Dict[tuple, int] = {}  # (address, dtype, dtype read) -> input
+    inputs: List[torch.Tensor] = []
+    sargs: List[int] = []
+
+    def slot(t: torch.Tensor, dtype: torch.dtype) -> int:
+        i = by_obj.get((id(t), dtype))
+        if i is not None:
+            return i
+        key = (t.data_ptr(), t.dtype, dtype)
+        i = by_mem.get(key)
+        if i is None:
+            _check(t, cap, device)
+            i = by_mem[key] = len(inputs)
+            inputs.append((t if t.dtype == dtype else t.to(dtype))
+                          .contiguous())
+        by_obj[id(t), dtype] = i
+        return i
+
     for s in streams:
-        if s.kind in ("count", "isum"):
-            outs.append((torch.empty(cap, dtype=torch.int64, device=dev),))
-        elif s.kind == "fsum":
-            outs.append((torch.empty(cap, dtype=torch.float64, device=dev),
-                         torch.empty(cap, dtype=torch.float64, device=dev),
-                         torch.empty(cap, dtype=torch.uint8, device=dev)))
+        kind = _KINDS.get(s.kind)
+        if kind is None:
+            raise ValueError(f"unknown stream kind {s.kind!r}")
+        sargs += (kind, int(s.op == "min"),
+                  NONE if s.data is None else
+                  slot(s.data, _target_dtype(s.kind, s.data)),
+                  NONE if s.valid is None else slot(s.valid, torch.bool))
+    return Packed(inputs, sargs)
+
+
+def _outputs(streams: Sequence[Stream], cap: int, dev) -> Tuple[
+        List[tuple], List[int]]:
+    """Each stream's output tensors, rows of one unwritten allocation
+    (the kernel writes every segment the live rows reach), and their
+    device addresses, three a stream (0 where a kind has fewer): count
+    and isum one int64 row, fsum two f64 rows (normal, big) and a uint8
+    row (flags), pos and win one int32 row. The 8-byte rows come first,
+    so every row is aligned."""
+    kinds = [s.kind for s in streams]
+    nf = kinds.count("fsum")
+    n64 = kinds.count("count") + kinds.count("isum")
+    n32 = len(kinds) - nf - n64
+    a = 8 * cap * n64
+    b = a + 16 * cap * nf
+    c = b + 4 * cap * n32
+    buf = torch.empty(max(1, c + cap * nf), dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    i64 = buf[:a].view(torch.int64).view(n64, cap).unbind(0) if n64 else ()
+    f64 = (buf[a:b].view(torch.float64).view(2 * nf, cap).unbind(0)
+           if nf else ())
+    i32 = buf[b:c].view(torch.int32).view(n32, cap).unbind(0) if n32 else ()
+    u8 = buf[c:].view(nf, cap).unbind(0) if nf else ()
+    outs: List[tuple] = []
+    addrs: List[int] = []
+    j64 = jf = j32 = 0
+    for k in kinds:
+        if k == "fsum":
+            outs.append((f64[2 * jf], f64[2 * jf + 1], u8[jf]))
+            o = base + a + 16 * cap * jf
+            addrs += (o, o + 8 * cap, base + c + cap * jf)
+            jf += 1
+        elif k == "count" or k == "isum":
+            outs.append((i64[j64],))
+            addrs += (base + 8 * cap * j64, 0, 0)
+            j64 += 1
         else:
-            outs.append((torch.empty(cap, dtype=torch.int32, device=dev),))
-    return outs
+            outs.append((i32[j32],))
+            addrs += (base + b + 4 * cap * j32, 0, 0)
+            j32 += 1
+    return outs, addrs
 
 
 def segment_reduce_plain(perm: torch.Tensor, seg: torch.Tensor,
@@ -219,19 +322,17 @@ def segment_reduce(perm: torch.Tensor, seg: torch.Tensor,
     :class:`Stream` and :func:`segment_reduce_plain` for the outputs).
     ``ref_tile`` is the reference's tile length, which decides max's tie
     across tiles. On the card a call makes two launches (the tiles, then
-    the fold of the segments that span them) for each block of up to 32
-    streams, and counts one in :data:`LAUNCHES`."""
+    the fold of the segments that span them) for each group of up to 32
+    streams whose distinct inputs fit the kernel's stage, and counts one
+    in :data:`LAUNCHES`."""
     cap = perm.shape[0]
-    for s in streams:
-        for t in (s.data, s.valid):
-            if t is not None and (t.device != perm.device
-                                  or t.shape[0] != cap):
-                raise ValueError(f"stream tensor of shape {tuple(t.shape)} "
-                                 f"on {t.device} for {cap} rows on "
-                                 f"{perm.device}")
     if seg.device != perm.device or seg.shape[0] != cap:
         raise ValueError("seg must match perm's device and length")
     if perm.device.type == "cpu":
+        for s in streams:
+            for t in (s.data, s.valid):
+                if t is not None:
+                    _check(t, cap, perm.device)
         return segment_reduce_plain(perm, seg, streams, ref_tile)
     if perm.device.type != "cuda":
         raise ValueError(f"no kernel for device {perm.device}")
@@ -240,48 +341,27 @@ def segment_reduce(perm: torch.Tensor, seg: torch.Tensor,
                          f"got {cap}")
     lib = build_kernels()
     dev = perm.device
-    outs = _outputs(streams, cap, dev)
+    packed = pack_arguments(streams, cap, dev)
+    outs, addrs = _outputs(streams, cap, dev)
     if cap == 0 or not streams:
         return outs
     p64 = perm.to(torch.int64).contiguous()
     s32 = seg.to(torch.int32).contiguous()
-    kinds, is_min, esizes, datas, valids, o0, o1, o2 = ([] for _ in range(8))
-    for s, o in zip(streams, outs):
-        d = s.data
-        if d is not None:
-            if s.kind == "fsum" and d.dtype not in (torch.float32,
-                                                     torch.float64):
-                d = d.to(torch.float64)
-            elif s.kind != "fsum" and d.dtype not in (torch.int32,
-                                                      torch.int64):
-                d = d.to(torch.int64)
-            d = d.contiguous()
-        v = None if s.valid is None else s.valid.to(torch.bool).contiguous()
-        kinds.append(_KINDS[s.kind])
-        is_min.append(int(s.op == "min"))
-        esizes.append(0 if d is None else d.element_size())
-        datas.append(d)
-        valids.append(v)
-        o0.append(o[0])
-        o1.append(o[1] if len(o) > 1 else None)
-        o2.append(o[2] if len(o) > 2 else None)
-    ntiles = -(-cap // WARP_TILE)
-    scratch = torch.empty((len(streams), ntiles, 6), dtype=torch.int64,
-                          device=dev)
-
-    def vptrs(ts):
-        return (ctypes.c_void_p * len(ts))(
-            *[None if t is None else t.data_ptr() for t in ts])
-
-    ints = ctypes.c_int * len(streams)
+    sargs = array.array("i", packed.sargs)
+    outp = array.array("Q", addrs)
+    inp = array.array("Q", [t.data_ptr() for t in packed.inputs] or [0])
+    ins = array.array("i", [t.element_size() for t in packed.inputs] or [0])
+    ni = len(packed.inputs)
+    # the tile partials: (streams, tiles, 6) u64
+    scratch = torch.empty(len(streams) * -(-cap // TILE_ROWS) * 6,
+                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = lib.srt_radix_segment_reduce(
-            p64.data_ptr(), s32.data_ptr(), cap, int(ref_tile),
-            len(streams), ints(*kinds), ints(*is_min), ints(*esizes),
-            vptrs(datas), vptrs(valids), vptrs(o0), vptrs(o1), vptrs(o2),
-            scratch.data_ptr(), _stream(dev))
+            p64.data_ptr(), s32.data_ptr(), cap,
+            int(ref_tile), len(streams), sargs.buffer_info()[0],
+            outp.buffer_info()[0], ni, inp.buffer_info()[0],
+            ins.buffer_info()[0], scratch.data_ptr(), _stream(dev))
     _cuda_build.check_launch(lib.srt_radix_error_string, rc,
                              "radix_segment_reduce")
     LAUNCHES["radix_segment_reduce"] += 1
     return outs
-

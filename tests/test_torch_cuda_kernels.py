@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from spark_rapids_tpu_torch.ops import groupby_kernels as K
+from spark_rapids_tpu_torch.ops.radix_kernels import TILE_ROWS as _RT
 
 pytestmark = pytest.mark.cuda
 
@@ -1362,6 +1363,11 @@ RADIX_CASES = {
                                     [1024, 1, 1023, 2048, 1, 4095]),
     "all_dead": (3000, 1, 3000, False, 256, None),
     "one_row_segments": (4096, 4096, 0, False, 4096, None),
+    # a segment on the last row of one kernel tile and the first of the
+    # next, a one-row segment on a tile's last row, one exactly a tile
+    "segment_across_one_tile_edge": (
+        _RT * 3 + 5, 0, 5, True, 100,
+        [_RT - 1, 2, _RT - 2, 1, _RT]),
 }
 
 
@@ -1373,29 +1379,43 @@ def test_radix_segment_reduce_matches_its_plain_version(dev, case):
     and BIG sums within 1e-12 of each segment's sum of |x|; the presence
     flags exactly; all over the segments the ids reach (the kernel leaves
     the outputs past them unwritten). One counted call of the wrapper."""
-    from spark_rapids_tpu_torch.ops import radix_kernels as RK
-
     n, nseg, ndead, ties, ref_tile, lengths = RADIX_CASES[case]
     c = _radix_case(np.random.default_rng(n + ndead), n, nseg, ndead, ties,
                     lengths)
     t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
          for k, v in c.items()}
+    _assert_radix_matches_plain(t, _radix_streams(t), ref_tile)
+
+
+def _radix_streams(t):
+    """Every stream kind over the columns of :func:`_radix_case`."""
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
+
     vd = t["valid"]
-    streams = [RK.Stream("pos", op="min"), RK.Stream("count"),
-               RK.Stream("count", valid=vd),
-               RK.Stream("isum", t["ints"], vd),
-               RK.Stream("isum", t["i32"], vd),
-               RK.Stream("pos", None, vd, "max"),
-               RK.Stream("win", t["words"], vd, "max"),
-               RK.Stream("win", t["words"], vd, "min"),
-               RK.Stream("fsum", t["fl"], vd),
-               RK.Stream("fsum", t["f32"], vd)]
+    return [RK.Stream("pos", op="min"), RK.Stream("count"),
+            RK.Stream("count", valid=vd),
+            RK.Stream("isum", t["ints"], vd),
+            RK.Stream("isum", t["i32"], vd),
+            RK.Stream("pos", None, vd, "max"),
+            RK.Stream("win", t["words"], vd, "max"),
+            RK.Stream("win", t["words"], vd, "min"),
+            RK.Stream("fsum", t["fl"], vd),
+            RK.Stream("fsum", t["f32"], vd)]
+
+
+def _assert_radix_matches_plain(t, streams, ref_tile):
+    """One counted kernel call against the plain version: exact but for
+    the float sums (1e-12 of each segment's sum of |x|), over the
+    segments the live ids reach. Returns the kernel's outputs there."""
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
+
+    n = t["perm"].shape[0]
     before = RK.LAUNCHES["radix_segment_reduce"]
     got = RK.segment_reduce(t["perm"], t["seg"], streams, ref_tile)
     assert RK.LAUNCHES["radix_segment_reduce"] - before == 1
     want = RK.segment_reduce_plain(t["perm"], t["seg"], streams, ref_tile)
-    live = c["seg"][c["seg"] < n]
-    k = int(live.max()) + 1 if live.size else 0
+    live = t["seg"][(t["seg"] >= 0) & (t["seg"] < n)]
+    k = int(live.max()) + 1 if live.numel() else 0
     got = [tuple(x[:k] for x in g) for g in got]
     want = [tuple(x[:k] for x in w) for w in want]
     for s, g, w in zip(streams, got, want):
@@ -1403,13 +1423,75 @@ def test_radix_segment_reduce_matches_its_plain_version(dev, case):
             assert torch.equal(g[0].to(torch.int64), w[0].to(torch.int64)), s
             continue
         absum = [x[:k] for x in RK.segment_reduce_plain(
-            t["perm"], t["seg"], [RK.Stream("fsum", s.data.abs(), vd)],
+            t["perm"], t["seg"], [RK.Stream("fsum", s.data.abs(), s.valid)],
             ref_tile)[0]]
         for j in range(2):
             tol = 1e-12 * absum[j]
             assert bool((((g[j] - w[j]).abs() <= tol)
                          | (g[j] == w[j])).all()), (s.kind, j)
         assert torch.equal(g[2], w[2])
+    return got
+
+
+def test_radix_segment_reduce_q17v_like_order(dev):
+    """Q17v's order: a stable sort of 4 interleaved, skewed group keys
+    over 2^21 rows (the permutation rises within each segment, and each
+    segment spans hundreds of kernel tiles), 2% of rows filtered out (dead,
+    last)."""
+    rng = np.random.default_rng(17)
+    n = (1 << 21) + 37
+    key = rng.choice(4, n, p=[0.25, 0.25, 0.49, 0.01])
+    key[rng.random(n) < 0.02] = 4
+    perm = np.argsort(key, kind="stable").astype(np.int64)
+    skey = key[perm]
+    seg = np.where(skey == 4, n, skey).astype(np.int32)
+    c = _radix_case(rng, n, 1, 0, True)
+    c.update(seg=seg, perm=perm)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in c.items()}
+    _assert_radix_matches_plain(t, _radix_streams(t), 4096)
+
+
+def test_radix_segment_reduce_more_than_32_streams(dev):
+    """40 streams in one call (the kernel takes them in groups of at most
+    32): every group against the plain version."""
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
+
+    c = _radix_case(np.random.default_rng(40), 60_000, 300, 77, True)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in c.items()}
+    streams = _radix_streams(t) * 4
+    assert len(streams) == 40
+    streams += [RK.Stream("count", valid=t["valid"].clone())]
+    _assert_radix_matches_plain(t, streams, 256)
+
+
+def test_radix_segment_reduce_shared_inputs_match_copies(dev):
+    """A count and a sum that share a validity and a sum and an avg that
+    share a column (one input each in the kernel's table) give what the
+    same call gives with a copy of every tensor, bit for bit."""
+    from spark_rapids_tpu_torch.ops import radix_kernels as RK
+
+    c = _radix_case(np.random.default_rng(5), 100_000, 1000, 100, True)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in c.items()}
+    vd, fl = t["valid"], t["fl"]
+
+    def streams(v1, v2, v3, f1, f2):
+        return [RK.Stream("count", valid=v1), RK.Stream("fsum", f1, v2),
+                RK.Stream("count", valid=v3), RK.Stream("fsum", f2, v3),
+                RK.Stream("win", t["words"], v1, "max")]
+
+    shared = streams(vd, vd, vd, fl, fl)
+    assert len(RK.pack_arguments(shared, fl.shape[0], fl.device).inputs) == 3
+    copies = streams(vd.clone(), vd.clone(), vd.clone(), fl.clone(),
+                     fl.clone())
+    assert len(RK.pack_arguments(copies, fl.shape[0], fl.device).inputs) == 6
+    a = _assert_radix_matches_plain(t, shared, 512)
+    b = _assert_radix_matches_plain(t, copies, 512)
+    for x, y in zip(a, b):
+        for u, v in zip(x, y):
+            assert torch.equal(u, v)
 
 
 @pytest.mark.parametrize("tier", ["RADIX", "SORT", "MATMUL", "PALLAS"])

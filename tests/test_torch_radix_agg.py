@@ -422,3 +422,72 @@ def test_bytes_bound_counts_each_shared_input_once():
     outs = 2 * (8 + 3 * 17)  # two segments: a count and three sums
     assert RK.bound_bytes(perm, streams, nlive, 2) == (
         nlive * (8 + 4) + nlive * (1 + 8 + 8) + outs)
+
+
+def test_packed_arguments_hold_each_shared_input_once():
+    """The kernel's argument packing, without a card: the distinct-input
+    table holds each shared tensor once (a count and a sum read one
+    validity, a sum and an avg one column), each stream's indices point
+    at its own data and validity, streams without either get the 'none'
+    index, and a dtype the kernel does not read is converted once."""
+    n = 64
+    rng = np.random.default_rng(3)
+    valid = torch.from_numpy(rng.random(n) > 0.2)
+    other = torch.from_numpy(rng.random(n) > 0.5)
+    x = torch.from_numpy(rng.normal(size=n))
+    i16 = torch.from_numpy(rng.integers(-9, 9, n).astype(np.int16))
+    words = torch.from_numpy(rng.integers(0, 1 << 40, n))
+    streams = [RK.Stream("pos", op="min"),
+               RK.Stream("count", valid=valid), RK.Stream("fsum", x, valid),
+               RK.Stream("count", valid=other), RK.Stream("fsum", x, other),
+               RK.Stream("isum", i16, valid), RK.Stream("isum", i16, other),
+               RK.Stream("win", words, valid, "max"),
+               RK.Stream("pos", None, other, "max"), RK.Stream("count")]
+    packed = RK.pack_arguments(streams, n, torch.device("cpu"))
+    assert len(packed.sargs) == 4 * len(streams)
+    ptrs = [t.data_ptr() for t in packed.inputs]
+    assert len(set(ptrs)) == len(ptrs) == 5
+    kinds = {"count": 0, "isum": 1, "fsum": 2, "pos": 3, "win": 4}
+    for i, s in enumerate(streams):
+        kind, is_min, di, vi = packed.sargs[4 * i:4 * i + 4]
+        assert kind == kinds[s.kind] and is_min == int(s.op == "min")
+        for t, j in ((s.data, di), (s.valid, vi)):
+            if t is None:
+                assert j == RK.NONE
+            else:
+                got = packed.inputs[j]
+                assert torch.equal(got, t.to(got.dtype))
+                if t.dtype == got.dtype:
+                    assert got.data_ptr() == t.data_ptr()
+    # the int16 column is converted once, to int64, for both of its sums
+    assert packed.sargs[4 * 5 + 2] == packed.sargs[4 * 6 + 2]
+    assert packed.inputs[packed.sargs[4 * 5 + 2]].dtype == torch.int64
+    with pytest.raises(ValueError, match="for 64 rows"):
+        RK.pack_arguments([RK.Stream("count", valid=valid[:10])], n,
+                          torch.device("cpu"))
+
+
+def test_output_rows_are_where_the_kernel_writes():
+    """The wrapper's outputs, without a card: each stream's tensors are
+    rows of one allocation, of its kind's dtypes, and the addresses the
+    kernel is handed are those rows' (three a stream, 0 where a kind
+    has fewer), so the kernel's writes land in the tensors returned."""
+    cap = 37
+    kinds = ["pos", "count", "fsum", "isum", "fsum", "win", "count", "pos"]
+    streams = [RK.Stream(k) for k in kinds]
+    outs, addrs = RK._outputs(streams, cap, torch.device("cpu"))
+    dtypes = {"count": [torch.int64], "isum": [torch.int64],
+              "fsum": [torch.float64, torch.float64, torch.uint8],
+              "pos": [torch.int32], "win": [torch.int32]}
+    assert len(addrs) == 3 * len(kinds)
+    seen = set()
+    for i, (k, out) in enumerate(zip(kinds, outs)):
+        assert [t.dtype for t in out] == dtypes[k]
+        assert all(t.shape == (cap,) and t.is_contiguous() for t in out)
+        want = [t.data_ptr() for t in out] + [0] * (3 - len(out))
+        assert addrs[3 * i:3 * i + 3] == want
+        for t in out:
+            assert t.data_ptr() % t.element_size() == 0
+            seen.update(range(t.data_ptr(), t.data_ptr() + t.nbytes))
+    # the rows do not overlap and fill the allocation
+    assert len(seen) == sum(t.nbytes for out in outs for t in out)
