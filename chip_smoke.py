@@ -272,7 +272,8 @@ Phases, each failing the run on any error or mismatch:
    plan from ``explain_metrics()``, which must name the exchange:
      Q11m Q11's table as 8 files: partial -> hash exchange -> AQE
         coalescing read -> final, K1 and K2 in both halves (more
-        launches than files); Q11mh the same under
+        launches than files); Q11mo the same with both fused aggregate
+        routes off; Q11mh the same under
         ``shuffle.transport.class=host`` (the wire format on the path);
      Q20m TPC-H Q1 over Q20's lineitem as 4 dictionary-encoded files
         under AUTO (K1, K2 in the partials) and Q20ms under SCATTER (the
@@ -336,7 +337,8 @@ Phases, each failing the run on any error or mismatch:
      Q29c Q6 with ``memory.hbm.budgetBytes`` at 1 MiB: the sorted build
         spills to the host as it registers and comes back for the probe,
         which holds it pinned: two spills and two unspills exactly
-        (spilled bytes reported), K4 once and Q6's rows.
+        (spilled bytes reported), K4 once and Q6's rows; run with both
+        fused routes off, twice under AUTO, and off again.
 
 10. decimals, dates and timestamps (item 6), over TPC-DS ``store_sales``
    with its spec types: 2^23 rows (SF ~2.9) seeded from dsdgen's pricing
@@ -396,6 +398,21 @@ Q1's oracle. Q4's sort fallback (and Q15's, Q20v's merge) reduce on the
 RADIX kernel; Q4's call is recorded and held to the plain version and
 timed as Q17v's is, with its own ``kernels`` entry.
 
+The fused aggregate routes (items 3 and 5): Q1p is Q1's query over Q1's
+first 2^24 rows in 8 batches (the fused plan's row guard) under AUTO
+(the fused plan), under ``sql.agg.fusedPlan=OFF`` and under AUTO with an
+``oom`` fault at the plan site (the fallback to the streaming path),
+each a cold and three warm walls with its peak device memory, K1 and K2
+9 times each on every route. Q11's AUTO run must take the fused stage;
+Q11o repeats it with ``sql.stageFusion=OFF`` (the fused plan over the
+scan's batches) and Q11u with both off (the streaming route), Q11mo is
+Q11m with both off, each with Q11's launches. Q29b adds Q6 whole under
+AUTO and with both off, Q29c a run with both off before and after its
+AUTO runs, each with its peak memory. Every query line whose path ran an aggregate carries
+``agg_route``: its aggregate partitions by route (``stage``, ``plan``,
+``update``; :data:`AGG_ROUTES`, from the aggregates' ``op_timed``
+sections).
+
 The kernel phase also runs K1 and K3 at Q4's shape (B = 8192 buckets
 filled evenly, K1 with Q4's five columns: a 192 KB shared-memory table);
 K1 and K3 at that shape, K4 at Q8's and Q18's, the ordered sum at
@@ -419,6 +436,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -473,16 +491,61 @@ def _kernel_modules():
             radix_kernels)
 
 
+class Launches(dict):
+    """Every kernel wrapper's launch count, read just after a path ran,
+    with the routes its aggregates took (``agg_route``: partitions by
+    route, :data:`AGG_ROUTES`; empty when no aggregate ran)."""
+
+    agg_route: dict = {}
+
+
+#: aggregate partitions by route since the last :func:`reset_launches`,
+#: counted as the aggregates enter their ``op_timed`` sections (the
+#: sections ``TpuExec.sections`` counts per exec): ``stage`` and ``plan``
+#: once for each partition on a fused route, ``update`` once for each
+#: partition that ends in the streaming merge (its ``merge`` section; a
+#: fused plan that fell back counts ``plan`` and ``update``)
+AGG_ROUTES = {"stage": 0, "plan": 0, "update": 0}
+ROUTE_OF_SECTION = {"stage": "stage", "plan": "plan", "merge": "update"}
+_ROUTES_LOCK = threading.Lock()
+
+
+def count_agg_routes() -> None:
+    """Count :data:`AGG_ROUTES` in this process: each aggregate's
+    ``op_timed`` also adds its section's route (once; the partitions of
+    a query may run on other threads)."""
+    from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
+
+    if "op_timed" in vars(TpuHashAggregateExec):
+        return
+    timed = TpuHashAggregateExec.op_timed
+
+    def op_timed(self, section: str = "", *args, **kwargs):
+        route = ROUTE_OF_SECTION.get(section)
+        if route:
+            with _ROUTES_LOCK:
+                AGG_ROUTES[route] += 1
+        return timed(self, section, *args, **kwargs)
+
+    TpuHashAggregateExec.op_timed = op_timed
+
+
 def reset_launches() -> None:
+    count_agg_routes()
     for mod in _kernel_modules():
         mod.reset_launches()
+    with _ROUTES_LOCK:
+        for k in AGG_ROUTES:
+            AGG_ROUTES[k] = 0
 
 
 def launches() -> dict:
-    """Every kernel wrapper's launch count."""
-    out = {}
+    """Every kernel wrapper's launch count (a :class:`Launches`)."""
+    out = Launches()
     for mod in _kernel_modules():
         out.update(mod.LAUNCHES)
+    with _ROUTES_LOCK:
+        out.agg_route = {k: v for k, v in AGG_ROUTES.items() if v}
     return out
 
 
@@ -542,6 +605,13 @@ def bound_ms(nbytes: float) -> float:
 
 
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line. A query line whose ``launches``
+    were read by :func:`launches` gets its ``agg_route`` when an
+    aggregate ran on that path."""
+    c = obj.get("launches") if isinstance(obj, dict) else None
+    if (isinstance(c, Launches) and "query" in obj and c.agg_route
+            and "agg_route" not in obj):
+        obj = {**obj, "agg_route": c.agg_route}
     print(json.dumps(obj), flush=True)
 
 
@@ -1152,6 +1222,7 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
     report.append({"query": "Q1", "rows": len(rows), "wall_ms": ms,
                    "strategy": agg._strategy_choice[0],
                    "launches": per_query["Q1"]})
+    q1p_phase(torch, np, dev, k, a, b_val, b_null, schema, report, per_query)
 
     # --- Q1r, Q1m, Q1s: Q1 under forced RADIX, MATMUL and SORT: RADIX on
     # the RADIX kernel, one launch per partial and one in the merge;
@@ -1354,6 +1425,158 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
             InMemoryScanExec(exact, [batches], schema)), exact, n,
             n * (4 + 8 + 2))
     return per_query, {("radix_segment_reduce", "Q4"): radix_q4}
+
+
+#: both fused aggregate routes off: the streaming updates and merge
+FUSION_OFF = {"spark.rapids.tpu.sql.stageFusion": "OFF",
+              "spark.rapids.tpu.sql.agg.fusedPlan": "OFF"}
+#: Q1p: Q1's first 2^24 rows (the fused plan's row guard) in 8 batches
+Q1P_LOG2_ROWS = 24
+Q1P_BATCHES = 8
+Q1P_FAULT = "TpuHashAggregateExec@1"
+
+
+def q1p_phase(torch, np, dev, k, a, b_val, b_null, schema, report,
+              per_query):
+    """Q1p: Q1's query (AUTO + variableFloatAgg) over the first 2^24 rows
+    of Q1's table as 8 in-memory batches, the most the fused plan's row
+    guard admits, run three ways, each checked against a numpy oracle:
+    under AUTO (the fused plan: every update, the padded merge and the
+    result projection in one call), with ``sql.agg.fusedPlan=OFF`` (the
+    streaming updates and merge) and under AUTO with an ``oom`` fault at
+    the plan site (the fallback to the streaming path). Q1p-nn and
+    Q1p-nn-noelide (twice each, alternating) run AUTO with k and a
+    declared non-null, with ``analysis.nullElision`` on and off: the
+    elision's reading, its keys, sums and counts the same. Each reports
+    its cold and three warm walls, the peak device memory above what the
+    batches hold, its route and its launches: K1 and K2 once per batch
+    and once in the merge on every route, never a plain version."""
+    import gc
+
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.conf import ANALYSIS_NULL_ELISION as \
+        NULL_ELISION
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec, TpuFilterExec,
+                                             TpuHashAggregateExec,
+                                             TpuProjectExec)
+    from spark_rapids_tpu_torch.types import StructField, StructType
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.memory import retry as R
+
+    m = min(k.shape[0], 1 << Q1P_LOG2_ROWS)
+    k, a, b_val, b_null = k[:m], a[:m], b_val[:m], b_null[:m]
+    ones = np.ones(m, bool)
+    batches = _batches(np, torch, schema, [k, a, b_val],
+                       [ones, ones, ~b_null], Q1P_BATCHES, dev)
+    keep = a >= 0
+    kb = keep & ~b_null
+    s_exp = np.bincount(k[keep], weights=(2 * a[keep]).astype(np.float64),
+                        minlength=64)
+    c_exp = np.bincount(k[kb], minlength=64)
+    bsum = np.bincount(k[kb], weights=b_val[kb], minlength=64)
+    babs = np.bincount(k[kb], weights=np.abs(b_val[kb]), minlength=64)
+    groups = set(np.unique(k[keep]).tolist())
+
+    def check(rows, what):
+        got = {r[0]: r[1:] for r in rows}
+        if set(got) != groups:
+            raise AssertionError(f"{what}: group set differs from the "
+                                 "oracle")
+        for g, (sv, mean, c) in got.items():
+            if sv != int(s_exp[g]) or c != int(c_exp[g]) or not _close(
+                    mean, bsum[g] / c_exp[g], babs[g] / c_exp[g]):
+                raise AssertionError(f"{what} group {g}: {sv}, {mean}, {c}")
+
+    # the same batches with k and a declared non-null (their planes hold
+    # no null): the null elision's reading, on and off
+    nn_schema = StructType((StructField("k", T.INT, False),
+                            StructField("a", T.LONG, False),
+                            schema.fields[2]))
+
+    def plan(conf, sch=schema):
+        scan = InMemoryScanExec(conf, [batches], sch)
+        filt = TpuFilterExec(conf, E.GreaterThanOrEqual(col("a"), lit(0)),
+                             scan)
+        proj = TpuProjectExec(conf, [col("k"), E.Alias(
+            E.Multiply(col("a"), lit(2)), "a2"), col("b")], filt)
+        return TpuHashAggregateExec(conf, [col("k")], [
+            A.agg(A.Sum(col("a2")), "s"), A.agg(A.Average(col("b")), "m"),
+            A.agg(A.Count(col("b")), "c")], proj)
+
+    vfa = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+           "spark.rapids.tpu.memory.oomRetry.backoffMs": 0}
+    no_elide = {"spark.rapids.tpu.sql.analysis.nullElision.enabled": False}
+    runs = (("Q1p", vfa, None, {"plan": 1}, schema),
+            ("Q1p-off", {**vfa, "spark.rapids.tpu.sql.agg.fusedPlan":
+                         "OFF"}, None, {"update": 1}, schema),
+            ("Q1p-oom", {**vfa, "spark.rapids.tpu.test.faults.oom":
+                         Q1P_FAULT}, Q1P_FAULT, {"plan": 1, "update": 1},
+             schema),
+            ("Q1p-nn", vfa, None, {"plan": 1}, nn_schema),
+            ("Q1p-nn-noelide", {**vfa, **no_elide}, None, {"plan": 1},
+             nn_schema),
+            ("Q1p-nn2", vfa, None, {"plan": 1}, nn_schema),
+            ("Q1p-nn-noelide2", {**vfa, **no_elide}, None, {"plan": 1},
+             nn_schema))
+    want = {"bucket_sum": Q1P_BATCHES + 1,
+            "bucket_float_sum": Q1P_BATCHES + 1}
+    nn_rows = []
+    for q, settings, fault, route, sch in runs:
+        conf = RapidsConf(settings)
+        walls, peaks, counts, stats = [], [], None, {}
+        for _ in range(4):
+            agg = plan(conf, sch)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            R.reset_stats()
+            if fault:
+                faults.install(conf)
+            try:
+                reset_launches()
+                rows, ms = _run(torch, agg, conf)
+                c = launches()
+            finally:
+                faults.uninstall()
+            peaks.append(torch.cuda.max_memory_allocated() - before)
+            check(rows, q)
+            if c.agg_route != route or {n: v for n, v in c.items()
+                                        if v} != want:
+                raise AssertionError(f"{q}: route {c.agg_route}, "
+                                     f"launches {dict(c)}")
+            stats = R.stats().get("TpuHashAggregateExec", {})
+            if bool(fault) != (stats.get("fused_plan_fallback") == 1):
+                raise AssertionError(f"{q}: retry stats {stats}")
+            walls.append(ms)
+            counts = c
+        if sch is nn_schema:
+            # elision is bit for bit: every run gives the same keys, sums
+            # and counts (the means sum through K2's atomics, whose order
+            # varies run to run: check() holds them to the oracle)
+            exact = sorted((r[0], r[1], r[3]) for r in rows)
+            nn_rows.append(exact)
+            if exact != nn_rows[0]:
+                raise AssertionError(f"{q}: keys, sums or counts differ "
+                                     "from Q1p-nn's")
+        per_query[q] = counts
+        report.append({"query": q, "rows": m, "batches": Q1P_BATCHES,
+                       "cold_wall_ms": walls[0], "warm_wall_ms": walls[1:],
+                       "peak_bytes_above_inputs": peaks,
+                       "input_bytes": sum(
+                           c.data.numel() * c.data.element_size()
+                           + c.validity.numel() for bt in batches
+                           for c in bt.columns),
+                       "strategy": agg._strategy_choice[0],
+                       "fault_spec": fault, "retry_stats": stats,
+                       "non_null_columns": [f.name for f in sch.fields
+                                            if not f.nullable],
+                       "null_elision": conf.get(NULL_ELISION),
+                       "launches": counts})
 
 
 def profile_q1(torch, conf, batches, schema, n):
@@ -2136,7 +2359,8 @@ def _walls(torch, what, run_once, check, runs: int = 4):
     """The cold wall (first run) and ``runs - 1`` warm walls of
     ``run_once()`` (which returns rows), each result checked, and the
     first run's launch counts: they are set to 0 just before each run
-    and read just after it, and every run must repeat the first one's."""
+    and read just after it, and every run must repeat the first one's
+    (the aggregates' routes too)."""
     walls = []
     counts = []
     for _ in range(runs):
@@ -2148,9 +2372,10 @@ def _walls(torch, what, run_once, check, runs: int = 4):
         walls.append((time.perf_counter() - t0) * 1e3)
         counts.append(launches())
         check(rows)
-    if any(c != counts[0] for c in counts[1:]):
-        raise AssertionError(f"{what} launches changed between runs: "
-                             f"{counts}")
+    if any(c != counts[0] or c.agg_route != counts[0].agg_route
+           for c in counts[1:]):
+        raise AssertionError(f"{what} launches or routes changed between "
+                             f"runs: {[(c, c.agg_route) for c in counts]}")
     return walls[0], walls[1:], counts[0]
 
 
@@ -2428,6 +2653,10 @@ def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
                 f"Q11 left the device-decode route: {m['hostFallbackChunks']}"
                 f" chunks on the host, read {m['scanTime']} ns, uploaded "
                 f"{m['uploadBytes']} of {decoded} bytes")
+        route = per_query["Q11"].agg_route
+        if dev.type == "cuda" and route != {"stage": 1}:
+            raise AssertionError(f"Q11 under AUTO took {route}, not the "
+                                 "fused stage")
         warm = []
         for _ in range(3):
             rows, ms = timed_collect(q11())
@@ -2449,6 +2678,40 @@ def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
               "scan_cache": cache,
               "agg_strategy": agg._strategy_choice[0],
               "launches": per_query["Q11"]})
+        # Q11o: stageFusion OFF (the scan's decoded batches, then the
+        # fused plan); Q11u: both fusions OFF (the streaming route)
+        for q, extra, want_route in (
+                ("Q11o", {"spark.rapids.tpu.sql.stageFusion": "OFF"},
+                 {"plan": 1}),
+                ("Q11u", FUSION_OFF, {"update": 1})):
+            sess_o = S.TpuSession(
+                {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+                 **extra}, device=dev)
+
+            def q11o(sess_o=sess_o):
+                return (sess_o.read.parquet(pdir)
+                        .where(E.GreaterThanOrEqual(col("ss_sold_date_sk"),
+                                                    lit(2_452_015)))
+                        .group_by("ss_quantity")
+                        .agg(A.agg(A.Sum(col("ss_wholesale_cost")), "s"),
+                             A.agg(A.Count(col("ss_item_sk")), "c")))
+
+            DeviceScanCache.reset()
+            S._SCANNER_CACHE.clear()
+            cold_o, warm_o, per_query[q] = _walls(
+                torch, q, lambda: timed_collect(q11o())[0],
+                lambda rows, q=q: check(rows, q))
+            route = per_query[q].agg_route
+            if dev.type == "cuda" and route != want_route:
+                raise AssertionError(f"{q} took {route}, not {want_route}")
+            if per_query[q] != per_query["Q11"]:
+                raise AssertionError(f"{q} launches {dict(per_query[q])} "
+                                     f"!= Q11's {dict(per_query['Q11'])}")
+            emit({"query": q, "settings": extra, "cold_wall_ms": cold_o,
+                  "warm_wall_ms": warm_o,
+                  "scan_cache": DeviceScanCache.get_instance(
+                      sess_o.conf).stats(),
+                  "launches": per_query[q]})
         emit({"host_decode": "Q11", **host_decode_timing(
             np, os.path.join(pdir, "t.parquet"), DECODE_SWEEP)})
         # Q11's cold wall by the size of the scan's host-decode pool
@@ -4985,13 +5248,21 @@ def exchange_phase(torch, np, dev) -> dict:
         emit({"table": "store_sales", "files": Q11M_FILES, "rows": n,
               "write_s": write_s})
         check11 = q11_check(np, qty, cost, date)
-        for q, transport, codec in (("Q11m", "device", "none"),
-                                    ("Q11mh", "host", "none"),
-                                    ("Q11mz", "host", "lz4")):
+        # Q11mo: Q11m with both fusions off (each file's decoded batches
+        # through the scan cache, the streaming updates and merges). On
+        # the card AUTO fuses each file's partial stage and the final
+        # side's plan; Q11mo streams every partition
+        fused = {"stage": Q11M_FILES, "plan": 1}
+        for q, transport, codec, extra, want_route in (
+                ("Q11m", "device", "none", {}, fused),
+                ("Q11mo", "device", "none", FUSION_OFF,
+                 {"update": Q11M_FILES + 1}),
+                ("Q11mh", "host", "none", {}, fused),
+                ("Q11mz", "host", "lz4", {}, fused)):
             sess = fresh({**vfa, "spark.rapids.tpu.shuffle.transport.class":
                           transport,
                           "spark.rapids.tpu.shuffle.compression.codec":
-                          codec})
+                          codec, **extra})
 
             def q11(sess=sess):
                 return (sess.read.parquet(path)
@@ -5005,8 +5276,10 @@ def exchange_phase(torch, np, dev) -> dict:
             per_query[q] = exchange_query(
                 torch, q, sess, q11, lambda rows, q=q: check11(rows, q),
                 "TpuShuffleExchangeExec HashPartitioning", n, n * 20,
-                lambda c: all(c[k] > Q11M_FILES for k in (
-                    "bucket_sum", "bucket_float_sum")))
+                lambda c, want_route=want_route: all(
+                    c[k] > Q11M_FILES for k in ("bucket_sum",
+                                                "bucket_float_sum"))
+                and (dev.type != "cuda" or c.agg_route == want_route))
         shutil.rmtree(path)
 
         # --- Q20m: TPC-H Q1 over lineitem as 4 dictionary-encoded files -----
@@ -6368,6 +6641,17 @@ def memory_phase(torch, np, dev) -> dict:
 
     if q6() != want6:
         raise AssertionError("Q29b: Q6's rows differ from the oracle")
+    # Q6 whole (the aggregate over the join) under AUTO (the fused plan)
+    # and with both fused routes off: peak memory and route of each
+    conf_off = RapidsConf({"spark.rapids.tpu.sql.join.strategy": "PALLAS",
+                           **no_backoff, **FUSION_OFF})
+    q6_peaks = {}
+    for mode, cf in (("AUTO", conf), ("OFF", conf_off)):
+        rows_m, ms_m, peak_m, c_m, _ = measured(lambda cf=cf: q6(cf))
+        if rows_m != want6:
+            raise AssertionError(f"Q29b: Q6 under {mode}: rows differ")
+        q6_peaks[mode] = {"peak_bytes": peak_m, "wall_ms": ms_m,
+                          "agg_route": c_m.agg_route}
     join0 = q6_join()
     rows0, ms0, peak0, c0, _ = measured(q6_join)
     if rows0 != join0 or rows0[0] != 1 << 23 or c0["probe_ranges"] != 1:
@@ -6405,18 +6689,22 @@ def memory_phase(torch, np, dev) -> dict:
     emit({"query": "Q29b", "fact_rows": 1 << 23, "dim_rows": DIM_ROWS,
           "unsplit_wall_ms": ms0, "unsplit_peak_bytes": peak0,
           "factor": f, "cap_bytes": cap, "wall_ms": ms1, "peak_bytes": peak1,
-          "retry_stats": st, "tries": tries, "launches": c1})
+          "retry_stats": st, "tries": tries, "q6_by_route": q6_peaks,
+          "launches": c1})
 
     # --- Q29c: the build spilled to the host and brought back --------------
-    # twice, each with a fresh catalog: the first run of a new plan, then
-    # one whose allocator is warm
+    # each run with a fresh catalog; a run with both fused routes off
+    # first and last, so that neither route alone pays the allocator's
+    # refill after Q29b's cap
     budget = 1 << 20
     walls = []
-    for _ in range(2):
+    off = {"wall_ms": []}
+    for mode in ("OFF", "AUTO", "AUTO", "OFF"):
         try:
             cat = BufferCatalog.reset(RapidsConf(
                 {"spark.rapids.tpu.memory.hbm.budgetBytes": budget}), dev)
-            rows2, ms2, peak2, c2, _ = measured(q6)
+            rows2, ms2, peak2, c2, _ = measured(
+                q6 if mode == "AUTO" else lambda: q6(conf_off))
             spill = dict(vars(cat.metrics))
         finally:
             BufferCatalog.reset()
@@ -6427,10 +6715,18 @@ def memory_phase(torch, np, dev) -> dict:
                 spill["device_to_host"] == 2 and spill["unspills"] == 2
                 and spill["spilled_bytes"] >= DIM_ROWS * 18):
             raise AssertionError(f"Q29c: spill {spill}, launches {c2}")
+        if mode == "OFF":
+            off.update(peak_bytes=peak2, spill=spill,
+                       agg_route=c2.agg_route)
+            off["wall_ms"].append(ms2)
+            continue
         walls.append(ms2)
+        auto = (peak2, spill, c2)
+    peak2, spill, c2 = auto
     per_query["Q29c"] = c2
     emit({"query": "Q29c", "budget_bytes": budget, "wall_ms": walls,
-          "peak_bytes": peak2, "spill": spill, "launches": c2})
+          "peak_bytes": peak2, "spill": spill, "fusion_off": off,
+          "launches": c2})
     del fact, dim
     return per_query
 

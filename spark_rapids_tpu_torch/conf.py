@@ -232,6 +232,34 @@ AGG_STRATEGY = conf(
     "on the CPU it picks RADIX at or above 2^21 rows with no exact float "
     "sum, else SCATTER, as the reference does.",
     valid_values=("AUTO", "MATMUL", "SCATTER", "SORT", "RADIX", "PALLAS"))
+AGG_FUSED_PLAN = conf(
+    "spark.rapids.tpu.sql.agg.fusedPlan", "AUTO",
+    "Run the aggregate's whole update+merge(+result projection) over all "
+    "of a partition's input batches as ONE call: every batch's update, a "
+    "padded concat of the partials at capacity and the merge, with no "
+    "host sync between them beyond the tiers' own. ON always fuses "
+    "(fixed-width buffer schemas only), OFF runs one update per batch "
+    "plus a separate merge, AUTO fuses except multi-batch runs on the "
+    "CPU (the fused merge stacks partials at capacity to stay sync-free, "
+    "the right trade only on a device; the CPU merges at real row "
+    "counts instead).", valid_values=("AUTO", "ON", "OFF"))
+STAGE_FUSION = conf(
+    "spark.rapids.tpu.sql.stageFusion", "AUTO",
+    "Fuse parquet scan->aggregate stages into ONE call: each row group's "
+    "page decode runs inside the aggregate's fused update+merge. ON "
+    "always fuses, OFF never does, AUTO fuses except on the CPU: the "
+    "fusion saves the separate decode's batches and dispatches, but it "
+    "decodes the pages again on EVERY execution (the stage cache holds "
+    "the staged arguments, not decoded batches). On the CPU the separate "
+    "decode plus the device scan cache decode once and reuse, so AUTO "
+    "prefers that.", valid_values=("AUTO", "ON", "OFF"))
+ANALYSIS_NULL_ELISION = conf(
+    "spark.rapids.tpu.sql.analysis.nullElision.enabled", True,
+    "Elide validity-plane reads for statically NON_NULL columns at "
+    "fused-pipeline entries: a declared non-null column's validity is "
+    "exactly the liveness mask (padding rows invalid, live rows valid), "
+    "so the mask derived from the row count replaces the stored plane "
+    "bit for bit. Disable to force the mask-carrying path.")
 
 
 JOIN_PALLAS_PROBE = conf(

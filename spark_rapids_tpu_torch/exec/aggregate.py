@@ -19,9 +19,30 @@ materialized first, since each partial has its own dictionary
 on the CPU, as the type matrix says.
 The per-batch update runs under the OOM retry harness with
 split-and-retry (one partial per piece), the merge under the retry-only
-harness (``memory/retry.py``). Left out (ROADMAP.md port queue): the
-fused plan/stage programs, null elision and the event/observability
-emitters.
+harness (``memory/retry.py``). The source's statically non-null columns
+enter the update with the liveness mask as their validity, as do the
+buffers' non-null key columns in the result projection
+(``plugin/plananalysis.entry_nonnull_flags``, reference
+``aggregate.py:553-555, 712-718, 1000-1002``).
+
+The fused routes (reference ``aggregate.py:260-315, 723-945, 980-1071``)
+share one core, :meth:`TpuHashAggregateExec._fused_agg_trace`, built on
+the streaming path's own functions (``_run_batch``,
+``_merge_fixed_width``, ``_evaluate``) with one strategy resolved at the
+largest capacity: the fused STAGE decodes each parquet row group
+(``exec/scan.fused_stage_plans``) and updates it, the fused PLAN buffers a
+partition's input batches and updates each; both then concatenate the
+partials padded at capacity, merge them and (not PARTIAL) apply the
+result projection, all in one Python call. They run as eager torch calls
+with the same kernels as the streaming path: there is no compiled
+program, so the reference's program cache (``cached_pipeline``, its
+compile-miss counts) and its buffer donation (``_donation``,
+``mark_exclusive``) have no counterpart, and the port syncs inside them
+only where its tiers already do (``PERF.md`` §3). The plan analyzer's
+``fusedPlan``/``stageFusion`` report lines and the event/observability
+emitters are not ported (ROADMAP.md item 26). The route a partition took
+shows in the aggregate's ``sections`` (``stage``, ``plan``, or
+``update`` and ``merge``).
 """
 from __future__ import annotations
 
@@ -39,15 +60,16 @@ from ..expr.eval import lower
 from ..expr.values import ColV, DictV, StrV, Val
 from ..ops import concat as concat_ops
 from ..ops import groupby as groupby_ops
-from ..ops.filter_gather import live_of
+from ..ops.filter_gather import elide_validity, live_of
 from ..ops.sort import str_max_lens
 from ..memory.retry import with_oom_retry, with_oom_retry_nosplit
+from ..plugin.plananalysis import entry_nonnull_flags
 from ..types import StructField, StructType
-from .base import TpuExec, batch_from_vals, concat_batches, vals_of_batch
+from .base import (TpuExec, batch_bytes, batch_from_vals, concat_batches,
+                   vals_of_batch)
 
 #: the reference's CPU rule: AUTO picks RADIX at or above this capacity
 _RADIX_CPU_MIN_CAP = 1 << 21
-
 
 def choose_agg_strategy(conf: RapidsConf, cap: int,
                         update_ops: Sequence[str],
@@ -107,6 +129,18 @@ class TpuHashAggregateExec(TpuExec):
     #: stacked rows the merge concatenates at real row counts instead
     #: (one host sync for all counts)
     _SYNC_FREE_MERGE_MAX_ROWS = 1 << 24
+    #: fused-plan guard: above this many stacked capacity rows the padded
+    #: merge's dead rows outweigh the saved dispatches, so the per-batch
+    #: path (and its merge choice) takes over
+    _FUSED_PLAN_MAX_ROWS = 1 << 24
+    #: fused-plan guard: past this many buffered batches the streaming
+    #: path takes over (the reference's compile blowup; here it bounds
+    #: the buffered window)
+    _FUSED_PLAN_MAX_BATCHES = 16
+    #: fused-plan guard: buffered INPUT batches (which may hold wide
+    #: string columns even when the buffer schema is fixed-width) may pin
+    #: at most this many bytes of device memory
+    _FUSED_PLAN_MAX_BYTES = 2 << 30
 
     def __init__(self, conf: RapidsConf, group_exprs: Sequence[E.Expression],
                  agg_exprs: Sequence[A.AggregateExpression], child: TpuExec,
@@ -250,16 +284,24 @@ class TpuHashAggregateExec(TpuExec):
                    value_exprs: Sequence[Optional[E.Expression]],
                    key_exprs: Sequence[E.Expression], chain=(),
                    live: Optional[torch.Tensor] = None,
-                   routes: Optional[List[str]] = None) -> ColumnarBatch:
+                   routes: Optional[List[str]] = None,
+                   nonnull: Optional[tuple] = None,
+                   strategy: Optional[str] = None) -> ColumnarBatch:
         """Aggregate one batch into a [keys..., buffers...] batch, running
         the fusable ``chain`` below first. ``live`` overrides the batch's
         prefix row count (the sync-free merge's mask); ``routes`` receives
-        the string key route. The group count stays a device scalar."""
+        the string key route; ``nonnull``: the source's elision flags
+        (None: the batch schema's, reference ``aggregate.py:552-555``);
+        ``strategy``: the fused routes' one tier (None: resolved at this
+        batch's capacity). The group count stays a device scalar."""
         cap = batch.capacity
         cols = vals_of_batch(batch)
         dev = cols[0].validity.device if cols else None
         if live is None:
             live = live_of(batch.num_rows_lazy, cap, dev)
+        if nonnull is None:
+            nonnull = entry_nonnull_flags(batch.schema, self.conf)
+        cols = elide_validity(cols, live, nonnull)
         # each chain member's side tensors (a fused join's build table)
         # enter with its lowering, as in the reference (aggregate.py:556)
         for e in chain:
@@ -280,7 +322,7 @@ class TpuHashAggregateExec(TpuExec):
             out_keys, out_aggs, nseg = groupby_ops.groupby_agg(
                 keys, self._key_dtypes(), vals, list(ops), live,
                 approx_float_sum=self.conf.get(IMPROVED_FLOAT_OPS),
-                strategy=self.resolved_strategy(cap, dev),
+                strategy=strategy or self.resolved_strategy(cap, dev),
                 str_max_lens=sml, str_val_max_lens=svml, routes=routes)
         else:
             out_keys, nseg = [], 1
@@ -297,10 +339,11 @@ class TpuHashAggregateExec(TpuExec):
                 for j, f in enumerate(self._buf_fields)]
         return keys, vals
 
-    def _merge_fixed_width(self, partials: List[ColumnarBatch]
-                           ) -> ColumnarBatch:
+    def _merge_fixed_width(self, partials: List[ColumnarBatch],
+                           strategy: Optional[str] = None) -> ColumnarBatch:
         """Sync-free merge: partials stack at capacity on the device with
-        a live mask, so row counts never leave the device."""
+        a live mask, so row counts never leave the device. ``strategy``:
+        as in :meth:`_run_batch`."""
         caps = [max(1, b.capacity) for b in partials]
         out_cap = choose_capacity(sum(caps), self.conf.shape_bucket_min)
         cols, mask, total = concat_ops.concat_padded_cols(
@@ -309,7 +352,7 @@ class TpuHashAggregateExec(TpuExec):
         merged_in = batch_from_vals(cols, self._buffer_schema, total)
         keys, vals = self._merge_inputs()
         return self._run_batch(merged_in, self._merge_ops, vals, keys,
-                               live=mask)
+                               live=mask, strategy=strategy)
 
     def _merge(self, partials: List[ColumnarBatch]) -> ColumnarBatch:
         """Concat the partials and re-aggregate with the merge ops."""
@@ -343,14 +386,128 @@ class TpuHashAggregateExec(TpuExec):
         return exprs
 
     def _evaluate(self, buffers: ColumnarBatch) -> ColumnarBatch:
-        """Final projection from [keys..., buffers...] to results."""
+        """Final projection from [keys..., buffers...] to results, the
+        buffers' non-null key columns elided."""
         cols = vals_of_batch(buffers)
         dev = cols[0].validity.device
-        vals = [lower(e, cols, buffers.capacity, dev)
-                for e in self._eval_exprs()]
-        return batch_from_vals(vals, self._schema, buffers.num_rows_lazy)
+        cap, n = buffers.capacity, buffers.num_rows_lazy
+        nonnull = entry_nonnull_flags(buffers.schema, self.conf)
+        if nonnull:
+            cols = elide_validity(cols, live_of(n, cap, dev), nonnull)
+        vals = [lower(e, cols, cap, dev) for e in self._eval_exprs()]
+        return batch_from_vals(vals, self._schema, n)
+
+    def _result(self, merged: ColumnarBatch) -> ColumnarBatch:
+        """The merged buffers as this mode's output: PARTIAL emits them,
+        the other modes their result projection."""
+        return merged if self.mode == A.PARTIAL else self._evaluate(merged)
+
+    # -- the fused routes ----------------------------------------------------
+    def _fixed_width_buffers(self) -> bool:
+        return not any(T.is_string(f.dataType)
+                       for f in self._buffer_schema.fields)
+
+    def _can_fuse_stage(self) -> bool:
+        """A fused scan->agg stage covers fixed-width keys and buffers
+        updating straight from a source; FINAL consumes exchanged
+        partials, not a scan (reference ``aggregate.py:723``)."""
+        return self.mode != A.FINAL and self._fixed_width_buffers()
+
+    def _stage_fusion_on(self) -> bool:
+        """``sql.stageFusion``: AUTO fuses except on the CPU, where the
+        separate decode and the device scan cache decode once and reuse
+        (reference ``aggregate.py:734``, its CPU backend being the plan's
+        CPU device here)."""
+        from ..conf import STAGE_FUSION
+
+        mode = self.conf.get(STAGE_FUSION)
+        if mode != "AUTO":
+            return mode == "ON"
+        return torch.device(self.device).type != "cpu"
+
+    def _can_fuse_plan(self) -> bool:
+        """The fused plan covers fixed-width keys and buffers (the padded
+        concat splices no byte pools), FINAL mode included (reference
+        ``aggregate.py:824``)."""
+        return self._fixed_width_buffers()
+
+    def _fused_plan_on(self, nbatches: int) -> bool:
+        """``sql.agg.fusedPlan``: AUTO declines only multi-batch runs on
+        the CPU, where the streaming merge works at real row counts
+        (reference ``aggregate.py:834``)."""
+        from ..conf import AGG_FUSED_PLAN
+
+        mode = self.conf.get(AGG_FUSED_PLAN)
+        if mode != "AUTO":
+            return mode == "ON"
+        return nbatches == 1 or torch.device(self.device).type != "cpu"
+
+    def _fused_agg_trace(self, chain, cap: int, device):
+        """The shared core of BOTH fused routes (reference
+        ``aggregate.py:260``): returns ``(update_batch, finish)`` over the
+        streaming path's own functions, with one strategy resolved at
+        ``cap``, the largest input capacity, for the updates and the merge
+        alike: a small first batch must not pick the tier for the big
+        ones. ``update_batch(batch, nonnull)`` runs one batch's fused
+        chain, key and value projection and update; ``finish(partials)``
+        concatenates the partials padded at capacity, merges them and
+        gives this mode's output. The two routes differ only in what they
+        feed it (decoded row groups or input batches)."""
+        strategy = self.resolved_strategy(cap, device)
+
+        def update_batch(batch, nonnull):
+            return self._run_batch(batch, self._update_ops,
+                                   self._update_exprs, self._bound_keys,
+                                   chain, nonnull=nonnull, strategy=strategy)
+
+        def finish(partials):
+            merged = (partials[0] if len(partials) == 1
+                      else self._merge_fixed_width(partials, strategy))
+            return self._result(merged)
+
+        return update_batch, finish
+
+    def _run_fused_stage(self, stage, chain, schema) -> ColumnarBatch:
+        """The whole stage in one call (reference ``aggregate.py:748``):
+        per row group the page decode, the fused chain and the update,
+        then the padded merge and the result projection. A row group's
+        decoded columns (``schema``, the source's) are dropped once its
+        partial exists. A dictionary-retaining string decode enters the
+        chain as a ``DictV``."""
+        dev = self.device
+        update_batch, finish = self._fused_agg_trace(
+            chain, max(cap for (_, cap, _) in stage), dev)
+        nonnull = entry_nonnull_flags(schema, self.conf)
+        partials = []
+        for n, cap, entries in stage:
+            cols: List[Val] = []
+            for args, run, _ in entries:
+                out = run(args, dev)
+                if isinstance(out, DictV):
+                    cols.append(out)
+                else:
+                    cols.append(ColV(*out) if len(out) == 2 else StrV(*out))
+            partials.append(update_batch(
+                batch_from_vals(cols, schema, n, capacity=cap), nonnull))
+            del cols
+        return finish(partials)
+
+    def _run_fused_plan(self, batches: List[ColumnarBatch], chain,
+                        nonnull) -> ColumnarBatch:
+        """The whole aggregate over its buffered input batches in one call
+        (reference ``aggregate.py:848``): each batch's fused chain and
+        update, the padded concat of the partials, the merge and (not
+        PARTIAL) the result projection. Group counts stay device
+        scalars."""
+        update_batch, finish = self._fused_agg_trace(
+            chain, max(b.capacity for b in batches), self.device)
+        return finish([update_batch(b, nonnull) for b in batches])
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        from .. import faults as _faults
+        from ..conf import AGG_FUSED_PLAN, OOM_RETRY_ENABLED
+        from ..memory.retry import is_device_oom, note_fallback
+
         child = self.children[0]
         source, chain = (child.fused_source_chain() if child.fusable
                          else (child, []))
@@ -362,25 +519,90 @@ class TpuHashAggregateExec(TpuExec):
             # reference does (aggregate.py:955-970, where a fused chain
             # would bound its rank sort by the source batch's strings)
             source, chain = child, []
+        fsp = getattr(source, "fused_stage_plans", None)
+        if (fsp is not None and self._can_fuse_stage()
+                and self._stage_fusion_on()):
+            stage = fsp(index)
+            if stage:
+                with self.op_timed("stage"):
+                    out = self._run_fused_stage(stage, chain,
+                                                source.output_schema)
+                yield self.record_batch(out)
+                return
         partials: List[ColumnarBatch] = []
+        # the source's elision flags: one schema walk per partition
+        src_nonnull = entry_nonnull_flags(source.output_schema, self.conf)
 
         def update(piece):
             return self._run_batch(
                 piece, self._update_ops, self._update_exprs,
-                self._bound_keys, chain, routes=self._update_routes)
+                self._bound_keys, chain, routes=self._update_routes,
+                nonnull=src_nonnull)
 
+        def update_with_retry(b):
+            # the update under the OOM harness (reference
+            # ``aggregate.py:1003``): a split gives one partial per half,
+            # which the merge consumes as it consumes any
+            partials.extend(with_oom_retry(self.node_name, update, b,
+                                           self.conf, combine="list"))
+
+        # fused-plan buffering is incremental (reference
+        # aggregate.py:980-986): an ineligible plan never buffers, and an
+        # eligible one that outgrows a guard flushes its buffer into
+        # streaming updates, so the window stays bounded
+        batches: List[ColumnarBatch] = []
+
+        def flush_buffered():
+            for b in batches:
+                with self.op_timed("update"):
+                    update_with_retry(b)
+            batches.clear()
+
+        use_fused = (self.conf.get(AGG_FUSED_PLAN) != "OFF"
+                     and self._can_fuse_plan())
+        cap_sum = byte_sum = 0
         for batch in source.execute_partition(index):
             nr = batch.num_rows_lazy
             if isinstance(nr, int) and nr == 0 and self.group_exprs \
                     and not chain:
                 continue
-            with self.op_timed("update"):
-                # the update under the OOM harness (reference
-                # ``aggregate.py:1003``): a split gives one partial per
-                # half, which the merge consumes as it consumes any
-                partials.extend(with_oom_retry(
-                    self.node_name, update, batch, self.conf,
-                    combine="list"))
+            if not use_fused:
+                with self.op_timed("update"):
+                    update_with_retry(batch)
+                continue
+            batches.append(batch)
+            cap_sum += max(1, batch.capacity)
+            byte_sum += batch_bytes(batch)
+            if (cap_sum > self._FUSED_PLAN_MAX_ROWS
+                    or byte_sum > self._FUSED_PLAN_MAX_BYTES
+                    or len(batches) > self._FUSED_PLAN_MAX_BATCHES
+                    or not self._fused_plan_on(len(batches))):
+                use_fused = False
+                flush_buffered()
+        if use_fused and batches:
+            out = None
+            try:
+                with self.op_timed("plan"):
+                    if _faults.enabled():
+                        # the fused plan is the aggregate's dispatch
+                        # boundary when it runs: injected OOMs reach it
+                        # (reference aggregate.py:1043-1052)
+                        _faults.check("oom", self.node_name,
+                                      cap=max(b.capacity for b in batches))
+                    out = self._run_fused_plan(batches, chain, src_nonnull)
+            except Exception as e:  # noqa: BLE001 - filtered below
+                if not is_device_oom(e) \
+                        or not self.conf.get(OOM_RETRY_ENABLED):
+                    raise  # oomRetry off: the raw failure, fallback included
+            if out is not None:
+                yield self.record_batch(out)
+                return
+            # the fused plan exhausted device memory: degrade to the
+            # streaming path, whose updates run under the retry harness
+            # one by one (after the handler, so the failed attempt's
+            # tensors are released)
+            note_fallback(self.node_name, "fused_plan_fallback")
+            flush_buffered()
         if not partials:
             if self.group_exprs:
                 return  # grouped aggregate over empty input -> no rows
@@ -389,17 +611,16 @@ class TpuHashAggregateExec(TpuExec):
             cs = self.children[0].output_schema
             zb = ColumnarBatch.from_pydict({f.name: [] for f in cs.fields},
                                            cs, device=self.device)
-            partials = [self._run_batch(zb, self._update_ops,
-                                        self._update_exprs,
-                                        self._bound_keys)]
-        def merge_and_eval():
-            merged = self._merge(partials)
-            return merged if self.mode == A.PARTIAL \
-                else self._evaluate(merged)
+            with self.op_timed("update"):
+                partials = [self._run_batch(zb, self._update_ops,
+                                            self._update_exprs,
+                                            self._bound_keys)]
 
         with self.op_timed("merge"):
             # the merge reads compacted partials (group-sized): retried,
             # not split (reference ``aggregate.py:1083``)
             out = with_oom_retry_nosplit(self.node_name + ".merge",
-                                         merge_and_eval, self.conf)
+                                         lambda: self._result(
+                                             self._merge(partials)),
+                                         self.conf)
         yield self.record_batch(out)

@@ -93,6 +93,10 @@ class TpuExec:
         self.metrics: Dict[str, Metric] = {}
         for name in (NUM_OUTPUT_ROWS, NUM_OUTPUT_BATCHES, TOTAL_TIME):
             self.metrics[name] = Metric(name)
+        #: named :meth:`op_timed` sections entered, with their counts (an
+        #: aggregate's "stage", "plan", "update" and "merge" say which
+        #: route it took)
+        self.sections: Dict[str, int] = {}
 
     @property
     def output_schema(self) -> StructType:
@@ -169,6 +173,8 @@ class TpuExec:
         """Host wall-clock of a hot section into ``metric_name``. Kernel
         launches are asynchronous, so this is enqueue time plus the time
         of the host syncs inside the section, not device time."""
+        if section:
+            self.sections[section] = self.sections.get(section, 0) + 1
         start = time.perf_counter_ns()
         try:
             yield
@@ -316,25 +322,52 @@ def concat_batches(schema: StructType, batches: List[ColumnarBatch],
 
 def head_rows(batch: ColumnarBatch, n: int) -> ColumnarBatch:
     """The batch's first ``n`` rows (its live ones) at the capacity
-    bucket of ``n``, when that is smaller: views of each column's planes,
-    a string column's byte pool as it is."""
+    bucket of ``n``, when that is smaller: views of each column's data
+    planes, a string column's byte pool as it is. The validity planes are
+    cut to the ``n`` live rows, so the slots past them are invalid (the
+    batch invariant that null elision rests on)."""
     cap = choose_capacity(n)
     if cap >= batch.capacity:
         return batch
     cols = []
+    live = None
     for c in batch.columns:
+        if live is None:
+            live = torch.arange(cap, device=c.validity.device) < n
         if c.is_dict:
             d = c.dictv
             cols.append(DeviceColumn.dict_encoded(c.dtype, n, DictV(
-                d.codes[:cap], d.dictionary, d.validity[:cap], d.mat_cap,
-                d.max_len, d.unique)))
+                d.codes[:cap], d.dictionary, d.validity[:cap] & live,
+                d.mat_cap, d.max_len, d.unique)))
         elif c.is_string:
-            cols.append(DeviceColumn(c.dtype, n, None, c.validity[:cap],
+            cols.append(DeviceColumn(c.dtype, n, None,
+                                     c.validity[:cap] & live,
                                      c.offsets[:cap + 1], c.chars))
         else:
             cols.append(DeviceColumn(c.dtype, n, c.data[:cap],
-                                     c.validity[:cap]))
+                                     c.validity[:cap] & live))
     return ColumnarBatch(cols, batch.schema, n)
+
+
+def batch_bytes(batch: ColumnarBatch) -> int:
+    """capacity x row-bytes from the batch layout (reference
+    ``exec/base.py:582``, its ``rows`` left at the padded capacity, so
+    the count needs no sync): a fixed-width column counts its storage
+    width plus 1 validity byte a row, a string column 4 offset bytes plus
+    1 validity byte a row and its byte pool, a dictionary column 4 code
+    bytes plus 1 validity byte a row and its dictionary."""
+    total = 0
+    for c in batch.columns:
+        r = c.capacity
+        if c.is_dict:
+            d = c.dictv
+            total += r * 5 + int(d.dictionary.chars.shape[0])
+            total += 4 * int(d.dictionary.offsets.shape[0])
+        elif c.is_string:
+            total += r * 5 + int(c.chars.shape[0])
+        else:
+            total += r * (c.data.element_size() + 1)
+    return total
 
 
 def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
@@ -342,18 +375,24 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
     including) ``exec_self`` runs eagerly per batch, threading a liveness
     mask; if any stage sparsified it, rows compact once at the end (string
     columns through the two-pass string gather), and the row count stays
-    a device scalar (no host sync).
+    a device scalar (no host sync). The source's statically non-null
+    columns enter with the liveness mask as their validity
+    (``ops/filter_gather.elide_validity``, reference
+    ``exec/base.py:835-878``) unless ``...analysis.nullElision.enabled``
+    is off.
 
     Each batch runs under the OOM retry harness (``memory/retry.py``,
     reference ``exec/base.py:872``): a device OOM spills and re-attempts,
     and when the attempts run out the batch splits in half and the
     pieces' outputs re-join row-wise (exact: the chain is row-local)."""
     from ..memory.retry import with_oom_retry
+    from ..plugin.plananalysis import entry_nonnull_flags
 
     source, chain = exec_self.fused_source_chain()
     out_schema = exec_self.output_schema
     needs_compact = any(e.sparsifies for e in chain)
     sides = [e.side_vals() for e in chain]
+    nonnull = entry_nonnull_flags(source.output_schema, exec_self.conf)
 
     def attempt(b: ColumnarBatch) -> ColumnarBatch:
         cols = vals_of_batch(b)
@@ -361,6 +400,7 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
         nr = b.num_rows_lazy
         dev = cols[0].validity.device if cols else None
         live = filter_gather.live_of(nr, cap, dev)
+        cols = filter_gather.elide_validity(cols, live, nonnull)
         for e, side in zip(chain, sides):
             cols, live = e.lower_batch(cols, live, cap, side)
         if needs_compact:

@@ -7,8 +7,9 @@ and a filter only clears liveness bits there — rows compact only where a
 dense batch is emitted (``base.run_fused_chain``). A limit keeps its
 batch's capacity and cuts the row count (``filter_gather.truncate_cols``);
 it syncs for the row counts of the batches it takes and no others. The
-reference's null elision in the expand (``entry_nonnull_flags``) is not
-ported (ROADMAP.md, queue A item 'Null elision').
+expand's statically non-null input columns enter with the liveness mask
+as their validity (``plugin/plananalysis.entry_nonnull_flags``), as the
+reference's ``_project_pipeline`` has them.
 """
 from __future__ import annotations
 
@@ -412,11 +413,18 @@ class TpuExpandExec(TpuExec):
         return self._schema
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        from ..plugin.plananalysis import entry_nonnull_flags
+
+        nonnull = entry_nonnull_flags(self.children[0].output_schema,
+                                      self.conf)
         for batch in self.children[0].execute_partition(index):
             cap = batch.capacity
             cols = vals_of_batch(batch)
             dev = batch.columns[0].validity.device if batch.columns \
                 else self.device
+            if nonnull:  # reference exec/basic.py:177-185, :578-581
+                live = filter_gather.live_of(batch.num_rows_lazy, cap, dev)
+                cols = filter_gather.elide_validity(cols, live, nonnull)
             for bound in self._bound:
                 with self.op_timed():
                     vals = [lower(e, cols, cap, dev) for e in bound]

@@ -8,9 +8,11 @@ cache); otherwise, or when no column of a split takes the device path,
 the split is read as a pyarrow table and uploaded buffer by buffer
 (``io/arrow_convert.arrow_to_batch``). Hive partition values append as
 constant string columns. The MULTITHREADED reader reads every split on a
-thread pool at first touch. A directory of several files is several
-splits, so several partitions, and the planner puts exchanges above it
-where an aggregate, sort, join or window needs them
+thread pool at first touch. A fused scan->aggregate stage takes each
+split's staged row-group decodes instead (:meth:`fused_stage_plans`). A
+directory of several files is several splits, so several partitions, and
+the planner puts exchanges above it where an aggregate, sort, join or
+window needs them
 (``exec/exchange.py``). The reference's mesh staging
 (``MeshShardedScanExec``, the sharded row-group staging) and its serving
 prefetch are not ported (ROADMAP.md, queue A items 'Multi-device
@@ -141,6 +143,24 @@ class TpuFileSourceScanExec(TpuExec):
             cols.append(constant_string_column(pmap.get(k), n, cap,
                                                self._device))
         return ColumnarBatch(cols, schema, n)
+
+    def fused_stage_plans(self, index: int):
+        """Stage fusion (reference ``exec/scan.py:357-368``): the consumer
+        exec gets split ``index``'s per-row-group staged decodes and runs
+        them inside its fused scan->aggregate stage. None: use
+        :meth:`execute_partition`. The host planning and the uploads
+        count in ``tpuDecodeTime`` (the reference bills them to its
+        ``scanTime``, which here is the plain route's host read), with
+        ``hostDecodeTime`` and ``uploadBytes``."""
+        if index >= self.scanner.num_splits():
+            return None
+        fn = getattr(self.scanner, "device_stage_plans", None)
+        if fn is None:
+            return None
+        with self.op_timed("plan", DECODE_TIME), \
+                named_oom(f"{self.node_name}.decode"):
+            self._consumed_splits.add(index)
+            return fn(index, self._device, self.metrics)
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
         from ..io.arrow_convert import arrow_to_batch

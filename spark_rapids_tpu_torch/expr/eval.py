@@ -898,11 +898,32 @@ def column_of_val(dtype: DataType, num_rows, v: Val) -> DeviceColumn:
 
 
 def evaluate_projection(bound_exprs: Sequence[E.Expression],
-                        batch: ColumnarBatch) -> List[DeviceColumn]:
-    """Evaluate bound expressions against a batch (reference:
-    ``eval.evaluate_projection``), eagerly on the batch's device."""
+                        batch: ColumnarBatch,
+                        nonnull: Optional[Tuple[bool, ...]] = None,
+                        conf=None) -> List[DeviceColumn]:
+    """Evaluate bound expressions against a batch (reference
+    ``eval.py:933-965``), eagerly on the batch's device. ``nonnull``:
+    per-column validity-elision flags (a flagged column's stored validity
+    is replaced by the liveness mask, bit-identical, see
+    ``ops/filter_gather.elide_validity``). When not given, the flags
+    derive from the batch schema through
+    ``plugin/plananalysis.entry_nonnull_flags`` if a ``conf`` is passed,
+    which honours ``...analysis.nullElision.enabled``; with neither, the
+    mask-carrying path runs."""
+    from ..ops.filter_gather import elide_validity, live_of
+
+    if nonnull is None:
+        if conf is not None:
+            from ..plugin.plananalysis import entry_nonnull_flags
+
+            nonnull = entry_nonnull_flags(batch.schema, conf)
+        else:
+            nonnull = ()
     cols = [val_of_column(c) for c in batch.columns]
     dev = cols[0].validity.device if cols else None
     n = batch.num_rows_lazy
+    if nonnull and any(nonnull):
+        cols = elide_validity(cols, live_of(n, batch.capacity, dev),
+                              tuple(nonnull))
     return [column_of_val(e.dtype, n, lower(e, cols, batch.capacity, dev))
             for e in bound_exprs]

@@ -8,9 +8,9 @@ MULTITHREADED through the scan exec's thread pool) and
 in the reference, pyarrow does the host half (footers, the host decode of
 the columns the device decoder cannot take). The writer
 (``write_parquet``) is not ported yet (ROADMAP.md, queue A item 'The
-remaining modules'); neither is the reference's stage-fusion entry
-(``device_stage_plans``), which feeds the fused scan→aggregate programs
-(item 'The aggregate's fused plan/stage programs').
+remaining modules'). The stage-fusion entry, :meth:`ParquetScanner.
+device_stage_plans`, hands the fused scan->aggregate stage each row
+group's staged decode (``exec/aggregate.py``).
 """
 from __future__ import annotations
 
@@ -320,6 +320,91 @@ class ParquetScanner:
                 cache.put(keys[j], b, batch_device_bytes(b))
             batches[j] = b
         return batches, s.partition_values
+
+
+    def device_stage_plans(self, i: int, device=None, metrics=None):
+        """The stage-fusion entry (reference ``io/parquet.py:321-380``):
+        split i's per-row-group decode plans, their arguments uploaded
+        but nothing decoded, so a consumer exec runs the decode inside
+        its own fused stage. A list per row group of ``(num_rows, cap,
+        entries)``, ``entries`` = ``[(device args, run, field), ...]``
+        (``io/parquet_device.row_group_device_plans``); None for a
+        partitioned scan, a split with no row groups, ``deviceDecode``
+        off, or when any column needs the host decoder (the caller then
+        uses ``execute_partition``). Entries are cached in the device
+        scan cache under the ``"stage"`` / ``"stage-dict"`` keys, sized
+        by the bytes of their arguments: a warm stage skips the host
+        decode and the upload but decodes the pages again. A split is
+        cached only when every row group has its plan; when one declines,
+        every row group of the split is cached as declined (0 bytes), so
+        a later call on the same file returns None without planning it again
+        (the reference plans it again on every execution). ``metrics``:
+        the exec's counters, as in :meth:`read_split_device`."""
+        import pyarrow.parquet as pq
+
+        from ..columnar import resolve_device
+        from ..conf import PARQUET_DEVICE_DECODE, PARQUET_DICT_STRINGS
+        from .parquet_device import row_group_device_plans
+        from .scan_cache import DeviceScanCache, file_key
+
+        if not self.conf.get(PARQUET_DEVICE_DECODE):
+            return None
+        dict_strings = bool(self.conf.get(PARQUET_DICT_STRINGS))
+        s = self.splits()[i]
+        if not s.row_groups or self.partition_cols:
+            return None
+        dev = resolve_device(device)
+        cache = DeviceScanCache.get_instance(self.conf)
+        file_cols = [c for c in self.columns if c not in split_pcols(s)]
+        nfields = [f for f in self.schema.fields if f.name in file_cols]
+        # probe the cache before opening the file (see read_split_device)
+        kind = ("stage-dict" if dict_strings else "stage", str(dev))
+        keys = ([file_key(s.path, rg, file_cols, kind)
+                 for rg in s.row_groups] if cache is not None else None)
+        out = ([cache.get(k) for k in keys] if cache is not None
+               else [None] * len(s.row_groups))
+        if any(x is STAGE_DECLINED for x in out):
+            return None
+        if all(x is not None for x in out):
+            return out
+        pf = pq.ParquetFile(s.path)
+        import mmap
+
+        f = open(s.path, "rb")
+        try:
+            file_bytes = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        except ValueError:  # empty file
+            file_bytes = b""
+        finally:
+            f.close()
+        planned = []
+        for j, rg in enumerate(s.row_groups):
+            if out[j] is not None:
+                continue
+            stage = row_group_device_plans(
+                s.path, pf, rg, file_cols, nfields, file_bytes,
+                dict_strings=dict_strings, device=dev, metrics=metrics)
+            if stage is None:
+                # the whole split declines: every row group's entry
+                # becomes the marker, so no staged arguments of it stay
+                # cached where nothing can read them
+                if cache is not None:
+                    for k in keys:
+                        cache.put(k, STAGE_DECLINED, 0)
+                return None
+            out[j] = stage
+            planned.append(j)
+        if cache is not None:
+            # cached only once every row group of the split has its plan
+            for j in planned:
+                nbytes = sum(a.numel() * a.element_size()
+                             for (args, _, _) in out[j][2] for a in args)
+                cache.put(keys[j], out[j], nbytes)
+        return out
+
+
+#: the stage cache's entry for a row group the fused stage cannot take
+STAGE_DECLINED = "declined"
 
 
 def split_pcols(split: FileSplit) -> List[str]:

@@ -864,6 +864,104 @@ def _decode_pool() -> ThreadPoolExecutor:
     return _PQDEC_POOL
 
 
+def stage_decode_args(per_col_args: Sequence[Sequence[np.ndarray]],
+                      device) -> List[list]:
+    """Every column's decode payloads of one row group (codes, validity
+    words, dictionaries, plain words) in ONE staged host buffer and ONE
+    transfer (``arrow_convert.packed_upload``), split per column on the
+    device (reference ``parquet_device.py:861``)."""
+    from .arrow_convert import packed_upload
+
+    flat = [a for args in per_col_args for a in args]
+    if not flat:
+        return [list(args) for args in per_col_args]
+    devs = packed_upload(flat, device)
+    out = []
+    i = 0
+    for args in per_col_args:
+        out.append(list(devs[i: i + len(args)]))
+        i += len(args)
+    return out
+
+
+def _plan_columns(file_bytes, rgmd, pqschema, columns):
+    """Host-plan every requested column chunk of one row group on the
+    decode pool (reference ``parquet_device.py:949``). Returns (plans by
+    name, the names the device decoder cannot take, the summed host
+    decode ns)."""
+    name_to_ci = {rgmd.column(i).path_in_schema: i
+                  for i in range(rgmd.num_columns)}
+
+    def plan_one(name):
+        ci = name_to_ci.get(name)
+        if ci is None:
+            return name, None, 0
+        t0 = time.perf_counter_ns()
+        pqcol = pqschema.column(ci)
+        try:
+            plan = plan_chunk(
+                file_bytes, rgmd.column(ci), pqcol.max_definition_level,
+                pqcol.max_repetition_level, column_time_unit(pqcol))
+        except Exception:
+            plan = None
+        return name, plan, time.perf_counter_ns() - t0
+
+    plans: Dict[str, ChunkPlan] = {}
+    fallback: List[str] = []
+    ns = 0
+    for name, plan, dt in _decode_pool().map(plan_one, columns):
+        ns += dt
+        if plan is None:
+            fallback.append(name)
+        else:
+            plans[name] = plan
+    return plans, fallback, ns
+
+
+def row_group_device_plans(path: str, pf, rg: int, columns: Sequence[str],
+                           tpu_fields, file_bytes=None,
+                           dict_strings: bool = False, device=None,
+                           metrics=None):
+    """The stage-fusion variant of the row-group decode (reference
+    ``parquet_device.py:1189``): host-plan every column and upload all of
+    the row group's arguments in one transfer, but decode nothing.
+    Returns ``(num_rows, cap, entries)`` with ``entries`` =
+    ``[(device args, run, field), ...]``, ``run(args, device)`` being the
+    column's device decode, so the consumer runs it inside its fused
+    stage; None when ANY column needs the host decoder (the fused stage
+    has no host path). ``metrics`` receives the host decode time and the
+    uploaded bytes, as in :func:`read_row_groups_pipelined`."""
+    from ..columnar.column import choose_capacity, resolve_device
+
+    dev = resolve_device(device)
+    rgmd = pf.metadata.row_group(rg)
+    n = rgmd.num_rows
+    cap = choose_capacity(max(1, n))
+    if file_bytes is None:
+        with open(path, "rb") as f:
+            file_bytes = f.read()
+    plans, fallback, ns = _plan_columns(file_bytes, rgmd, pf.schema,
+                                        columns)
+    if metrics is not None and HOST_DECODE_TIME in metrics:
+        metrics[HOST_DECODE_TIME].add(ns)
+    if fallback or len(plans) != len(columns):
+        return None
+    staged = []
+    for name, f in zip(columns, tpu_fields):
+        try:
+            args, run = plan_decode(plans[name], f.dataType, cap,
+                                    dict_strings)
+        except _FallbackError:
+            return None
+        staged.append((args, run, f))
+    dev_args = stage_decode_args([a for (a, _, _) in staged], dev)
+    if metrics is not None and UPLOAD_BYTES in metrics:
+        metrics[UPLOAD_BYTES].add(sum(a.nbytes for (args, _, _) in staged
+                                      for a in args))
+    return n, cap, [(da, run, f)
+                    for da, (_, run, f) in zip(dev_args, staged)]
+
+
 #: metric names ``read_row_groups_pipelined`` adds to (ns, bytes and
 #: column chunks)
 HOST_DECODE_TIME = "hostDecodeTime"

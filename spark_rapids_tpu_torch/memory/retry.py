@@ -23,8 +23,8 @@ does not run with the first attempt's memory still held.
 Left out: the reference's ``_raise_if_donation_uaf`` (eager PyTorch
 donates no buffers) and its ``oom_retry``/``batch_split`` events and obs
 counters (ROADMAP.md items 7, 13 and 26). In their place, :func:`stats`
-counts the attempts, retries, splits and deepest split per op since
-:func:`reset_stats`.
+counts the attempts, retries, splits, deepest split and fused-plan
+fallbacks per op since :func:`reset_stats`.
 """
 from __future__ import annotations
 
@@ -122,14 +122,23 @@ def _note(op: str, **inc: int) -> None:
             if k == "max_depth":
                 s[k] = max(s[k], v)
             else:
-                s[k] += v
+                s[k] = s.get(k, 0) + v
 
 
 def stats() -> Dict[str, Dict[str, int]]:
     """Per op since :func:`reset_stats`: harness attempts, retries (failed
-    attempts), splits and the deepest split level reached."""
+    attempts), splits and the deepest split level reached; an aggregate
+    whose fused plan fell back to the streaming path on a device OOM also
+    counts ``fused_plan_fallback`` (the reference's event kind,
+    ``exec/aggregate.py:1070``)."""
     with _STATS_LOCK:
         return {op: dict(s) for op, s in _STATS.items()}
+
+
+def note_fallback(op: str, kind: str) -> None:
+    """Count one fallback of ``kind`` at ``op`` in :func:`stats` (the
+    reference emits it as an ``oom_retry`` event of that kind)."""
+    _note(op, **{kind: 1})
 
 
 def reset_stats() -> None:

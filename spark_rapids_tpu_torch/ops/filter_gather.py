@@ -29,6 +29,31 @@ def live_of(num_rows_or_mask, cap: int, device=None) -> torch.Tensor:
     return torch.arange(cap, dtype=torch.int32, device=device) < x
 
 
+def elide_validity(cols: Sequence[Val], live: torch.Tensor,
+                   nonnull: Sequence[bool]) -> List[Val]:
+    """Validity-plane elision for statically NON_NULL columns (reference
+    ``filter_gather.py:33``; ``plugin/plananalysis.entry_nonnull_flags``
+    gives ``nonnull``): at a pipeline entry a non-null column's stored
+    validity is exactly the liveness mask (padding slots are always
+    invalid, live rows always valid), so ``live`` replaces it bit for
+    bit and the stored plane is never read."""
+    if not nonnull or not any(nonnull):
+        return list(cols)
+    out: List[Val] = []
+    for c, nn in zip(cols, nonnull):
+        if not nn:
+            out.append(c)
+        elif isinstance(c, DictV):
+            out.append(DictV(c.codes, c.dictionary, live, c.mat_cap,
+                             c.max_len, c.unique))
+        elif isinstance(c, StrV):
+            out.append(StrV(c.offsets, c.chars, live))
+        else:
+            out.append(ColV(c.data, live))
+    out.extend(cols[len(out):])  # flags never exceed the columns
+    return out
+
+
 def _drop_add(npos: int, at: torch.Tensor, values: torch.Tensor
               ) -> torch.Tensor:
     """(npos,) int32 zeros with ``values`` added at positions ``at``;

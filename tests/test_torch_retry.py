@@ -7,10 +7,11 @@ rows, through an aggregate, a sort, a join probe and a project; the
 split pieces equal the reference's plane for plane; and an error that
 is not a device OOM is never retried.
 
-The reference's aggregate also consults the ``oom`` channel before its
-fused whole-plan program (``exec/aggregate.py:1050``), which the port
-does not have (ROADMAP.md item 3); the reference's side runs with
-``sql.agg.fusedPlan=OFF`` so that both count the same arrivals.
+Both aggregates also consult the ``oom`` channel before their fused
+whole-plan route (``exec/aggregate.py``), whose fallback
+``tests/test_torch_fused_agg.py`` holds; here both sides run with
+``sql.agg.fusedPlan=OFF``, so that the per-batch harness counts the same
+arrivals in both.
 """
 import numpy as np
 import pytest
@@ -43,7 +44,9 @@ NO_BACKOFF = {"spark.rapids.tpu.memory.oomRetry.backoffMs": 0}
 REF = dict(T=JT, E=JE, A=JA, F=JF, R=JR, S=lambda st: JSession(
     {**st, "spark.rapids.tpu.sql.agg.fusedPlan": "OFF"}))
 PORT = dict(T=T, E=PE, A=PA, F=PF, R=PR,
-            S=lambda st: PSession(st, device="cpu"))
+            S=lambda st: PSession(
+                {**st, "spark.rapids.tpu.sql.agg.fusedPlan": "OFF"},
+                device="cpu"))
 
 
 @pytest.fixture(autouse=True)
