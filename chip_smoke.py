@@ -389,6 +389,37 @@ Phases, each failing the run on any error or mismatch:
         rows), ``v between ib_lower_bound and ib_upper_bound`` (4.2e7
         pairs a batch in ``TpuBroadcastNestedLoopJoinExec``), group by
         ib_income_band_sk: count, sum(v) (K1).
+13. observability (items 7 and 13, and item 26's observability part):
+   three queries through the session at full width, each a cold and
+   three warm walls with every observability key at its default, then
+   again with the event log (a temporary ``eventLog.dir``),
+   ``metrics.deviceSync.enabled``, live metrics, the HTTP exporter and
+   the watchdog on:
+     Q20v-obs Q20v's TPC-H Q1 (one pyarrow-default file, AUTO);
+     Q22m-obs Q22m's TPC-H Q13 (two hash exchanges, the AQE join pair,
+        K4; join PALLAS);
+     Q29c-obs Q6's join through the session over parquet (2^23 fact rows
+        in one row group, the 100 000-row dim broadcast), group by fv,
+        order by fv, join PALLAS, ``memory.hbm.budgetBytes`` at 1 MiB:
+        the broadcast batch and the sorted build spill and come back.
+   Each kernel's launches (and the aggregates' routes) must equal the
+   run's with logging off, and no plain version may run. Every JSONL
+   record has its type's required fields; ``query_start.env`` says
+   ``backend`` gpu and names the card; the ``agg_strategy`` and
+   ``join_strategy`` picks are the strategies the plan's ``describe()``
+   shows; every exec that recorded a batch has ``op_span``s on both
+   lanes; the root's ``op_batch`` rows sum to each query's collected
+   rows; each query's device-lane time stays under its ``query_end``
+   duration; Q22m's ``shuffle_fetch`` rows equal its ``shuffle_write``
+   rows per reduce partition; Q29c's ``spill`` events equal the
+   catalog's spill and unspill counts and bytes over the logged runs;
+   at every ``heap_snapshot`` the ledger's ``buffer_alloc``/``free``
+   (and bid-stamped spills) add up to its ``live_bytes``, with no leak.
+   A scrape of ``/metrics`` on 127.0.0.1 shows ``tpu_agg_strategy`` and
+   ``tpu_join_strategy``, ``/status`` parses as JSON, and
+   ``export_trace`` writes a Chrome trace whose ``traceEvents`` load.
+   One line a query gives the walls off and on beside the card's name
+   and power limit.
 
 Q1r, Q1m and Q1s are Q1 under a forced RADIX (the RADIX kernel once
 per batch and in the merge), MATMUL (the f32 one-hot limb products, no
@@ -1895,6 +1926,21 @@ def _join_oracle(np, fk, fv, fnull, dk, dv, dnull, how, thresh=None,
     return (rows,) + tuple(out)
 
 
+def bench_join_arrays(np, n: int, dim_rows: int):
+    """The bench join's seeded columns (fk, fv, dk, dv) and its numpy
+    oracle's rows: (fv, sum(dv), count(*)) sorted by fv."""
+    rng = np.random.default_rng(11)
+    fk = rng.integers(0, dim_rows, n).astype(np.int64)
+    fv = rng.integers(0, 100, n).astype(np.int64)
+    dk = np.arange(dim_rows, dtype=np.int64)
+    dv = rng.integers(0, 10**6, dim_rows).astype(np.int64)
+    s_exp = np.bincount(fv, weights=dv[fk].astype(np.float64), minlength=100)
+    c_exp = np.bincount(fv, minlength=100)
+    want = sorted((g, int(s_exp[g]), int(c_exp[g])) for g in range(100)
+                  if c_exp[g])
+    return fk, fv, dk, dv, want
+
+
 def bench_join(torch, np, dev, n: int, dim_rows: int):
     """The bench join query's inputs (bench.py ``shape_join``: ``n``
     fact rows join ``dim_rows`` dim rows on fk = dk, then group by fv:
@@ -1908,21 +1954,13 @@ def bench_join(torch, np, dev, n: int, dim_rows: int):
     from spark_rapids_tpu_torch.expr import aggregates as A
     from spark_rapids_tpu_torch.expr.expressions import col
 
-    rng = np.random.default_rng(11)
-    fk = rng.integers(0, dim_rows, n).astype(np.int64)
-    fv = rng.integers(0, 100, n).astype(np.int64)
-    dk = np.arange(dim_rows, dtype=np.int64)
-    dv = rng.integers(0, 10**6, dim_rows).astype(np.int64)
+    fk, fv, dk, dv, want = bench_join_arrays(np, n, dim_rows)
     fs = schema_of(fk=T.LONG, fv=T.LONG)
     ds = schema_of(dk=T.LONG, dv=T.LONG)
     fact = [_padded_batch(np, torch, fs, [fk, fv], [np.ones(n, bool)] * 2,
                           dev)]
     dim = [_padded_batch(np, torch, ds, [dk, dv],
                          [np.ones(dim_rows, bool)] * 2, dev)]
-    s_exp = np.bincount(fv, weights=dv[fk].astype(np.float64), minlength=100)
-    c_exp = np.bincount(fv, minlength=100)
-    want = sorted((g, int(s_exp[g]), int(c_exp[g])) for g in range(100)
-                  if c_exp[g])
 
     def plan(conf):
         join = TpuShuffledHashJoinExec(
@@ -6731,6 +6769,367 @@ def memory_phase(torch, np, dev) -> dict:
     return per_query
 
 
+# ---------------------------------------------------------------------------
+# observability phase (Q20v-obs, Q22m-obs, Q29c-obs): each query with
+# every observability key off, then on; the event log, the live plane and
+# the device lane checked on the card
+# ---------------------------------------------------------------------------
+#: Q29c-obs's fact rows, as a power of two (Q6's), and its spill budget
+#: (Q29c's)
+Q29_FACT_LOG2_ROWS = 23
+Q29C_BUDGET = 1 << 20
+#: every observability key of the port on (the log's directory added per
+#: query)
+OBS_ON = {"spark.rapids.tpu.metrics.deviceSync.enabled": True,
+          "spark.rapids.tpu.metrics.live.enabled": True,
+          "spark.rapids.tpu.metrics.http.enabled": True,
+          "spark.rapids.tpu.watchdog.enabled": True}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count every call of a kernel module's ``*_plain`` version while
+    the block runs (the kernels' wrappers reach them through the module
+    globals). Yields the counts."""
+    counts = {}
+    saved = []
+    for mod in _kernel_modules():
+        for name, fn in list(vars(mod).items()):
+            if name.endswith("_plain") and callable(fn):
+                counts[name] = 0
+
+                def counted(*a, _fn=fn, _name=name, **k):
+                    counts[_name] += 1
+                    return _fn(*a, **k)
+
+                saved.append((mod, name, fn))
+                setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _strategies_shown(plan, cls_name: str) -> set:
+    """The ``strategy=X`` each ``cls_name`` exec of a plan shows in its
+    ``describe()``."""
+    import re
+
+    return {m.group(1) for e in _device_tree(plan)
+            if type(e).__name__ == cls_name
+            for m in [re.search(r"strategy=(\w+)", e.describe())] if m}
+
+
+def check_event_log(q: str, recs: list, root: str,
+                    env: tuple) -> dict:
+    """Hold one query's event log to the schema and to itself (see
+    :func:`observability_phase`): ``env`` is the (backend, device kind)
+    every ``query_start`` must carry (a kind of None is not checked);
+    ``root`` the plan's root exec. Returns the counts by event type."""
+    from collections import Counter
+
+    from spark_rapids_tpu_torch import events as EV
+
+    for r in recs:
+        need = ("ts", "event", "tid") + EV.EVENT_TYPES[r["event"]]
+        missing = [f for f in need if f not in r]
+        if missing:
+            raise AssertionError(f"{q}: {r['event']} lacks {missing}: {r}")
+    starts = [r for r in recs if r["event"] == "query_start"]
+    backend, kind = env
+    if not starts or any(
+            r["env"]["backend"] != backend
+            or kind is not None and r["env"]["device_kind"] != kind
+            for r in starts):
+        raise AssertionError(f"{q}: query_start env {starts[:1]}")
+    lanes = {}
+    for r in recs:
+        if r["event"] == "op_span":
+            lanes.setdefault(r["op"], set()).add(r["lane"])
+    batched = {r["op"] for r in recs if r["event"] == "op_batch"}
+    if not batched or any(lanes.get(op) != {"host", "device"}
+                          for op in batched):
+        raise AssertionError(f"{q}: lanes by op {lanes}, batches by "
+                             f"{sorted(batched)}")
+    by_q = {}
+    for r in recs:
+        qid = r.get("query_id")
+        if r["event"] in ("query_start", "query_end"):
+            by_q.setdefault(qid, {})[r["event"]] = r
+    # per query (its records lie between its start and end, on one
+    # thread): the root's rows and the device lane's total time
+    cur = None
+    root_rows, dev_ns = Counter(), Counter()
+    for r in recs:
+        ev = r["event"]
+        if ev == "query_start":
+            cur = r["query_id"]
+        elif ev == "query_end":
+            cur = None
+        elif cur is not None and ev == "op_batch" and r["op"] == root:
+            root_rows[cur] += r["rows"]
+        elif cur is not None and ev == "op_span" and r["lane"] == "device":
+            dev_ns[cur] += r["dur"]
+    for qid, se in by_q.items():
+        end = se.get("query_end")
+        if end is None or end["error"] or root_rows[qid] != end["rows"] \
+                or dev_ns[qid] > end["dur"]:
+            raise AssertionError(
+                f"{q} query {qid}: end {end}, root rows {root_rows[qid]}, "
+                f"device lane {dev_ns[qid]} ns")
+    # the ledger: allocs, frees and bid-stamped spills add up to each
+    # heap snapshot's live bytes
+    size, on_dev = {}, set()
+    for r in recs:
+        ev = r["event"]
+        if ev == "buffer_alloc" and r["kind"] != "reservation":
+            size[r["bid"]] = r["bytes"]
+            on_dev.add(r["bid"])
+        elif ev == "buffer_free":
+            size.pop(r["bid"], None)
+            on_dev.discard(r["bid"])
+        elif ev == "spill" and r.get("bid") in size:
+            if r["kind"] == "device_to_host":
+                on_dev.discard(r["bid"])
+            elif r["kind"] == "unspill":
+                on_dev.add(r["bid"])
+        elif ev == "heap_snapshot":
+            live = sum(size[b] for b in on_dev)
+            if r["live_bytes"] != live or r["leaked"]:
+                raise AssertionError(f"{q}: heap {r['live_bytes']} B "
+                                     f"(leaked {r['leaked']}), the log's "
+                                     f"allocs and frees {live} B")
+    return dict(Counter(r["event"] for r in recs))
+
+
+def observability_phase(torch, np, dev, smi: str) -> dict:
+    """Q20v-obs, Q22m-obs and Q29c-obs (see the module docstring): each
+    query's walls and launches with observability off and then on, the
+    event log, the live plane and the device lane held to the checks of
+    :func:`check_event_log` and the per-query ones below; ``smi`` (the
+    card's name and power limit) goes on each query's line. Returns each
+    path's launches (the logged runs')."""
+    import gc
+    import shutil
+    import tempfile
+    import urllib.request
+    from collections import Counter
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch import obs
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr.expressions import col
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.memory.catalog import BufferCatalog
+    from spark_rapids_tpu_torch.sql import session as S
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, PARQUET_DIR)
+    shutil.rmtree(base, ignore_errors=True)
+    logs = tempfile.mkdtemp(prefix="srt_obs_")
+    per_query = {}
+    try:
+        # --- the tables: Q20v's lineitem, Q22m's orders and customer, the
+        # bench join's fact and dim --------------------------------------
+        n = 1 << STRING_LOG2_ROWS
+        t, want20, _, strs = lineitem_inputs(np, n)
+        lpath = os.path.join(base, "lineitem_dict")
+        os.makedirs(lpath)
+        pq.write_table(pa.table({
+            **{k: _pa_strings(pa, np, v) for k, v in strs.items()},
+            "l_quantity": t["qty"], "l_extendedprice": t["price"],
+            "l_discount": t["disc"], "l_tax": t["tax"],
+            "l_shipdate": t["ship"]}), os.path.join(lpath, "t.parquet"),
+            row_group_size=n // Q17_ROW_GROUPS)
+        del t, strs
+        n22 = 1 << ORDERS_LOG2_ROWS
+        t22 = tpch_orders_customers(np, n22)
+        chars = comment_chars(torch, t22, dev).cpu().numpy()
+        opath = os.path.join(base, "orders")
+        cpath = os.path.join(base, "customer")
+        _write_files(pa, pq, opath, pa.table({
+            "o_orderkey": t22["orderkey"], "o_custkey": t22["custkey"],
+            "o_comment": _pa_strings(pa, np, (t22["offsets"], chars))}),
+            MULTI_FILES)
+        _write_files(pa, pq, cpath, pa.table({
+            "c_custkey": t22["c_custkey"]}), 2)
+        del chars
+        want22 = q13_oracle(np, t22, like_oracle(np, t22))
+        del t22
+        nf = 1 << Q29_FACT_LOG2_ROWS
+        fk, fv, dk, dv, want29 = bench_join_arrays(np, nf, DIM_ROWS)
+        fpath = os.path.join(base, "fact")
+        dpath = os.path.join(base, "dim")
+        _write_files(pa, pq, fpath, pa.table({"fk": fk, "fv": fv}), 1)
+        _write_files(pa, pq, dpath, pa.table({"dk": dk, "dv": dv}), 1)
+        del fk, fv, dk, dv
+
+        def q29(sess):
+            return (sess.read.parquet(fpath)
+                    .join(sess.read.parquet(dpath), [("fk", "dk")])
+                    .group_by("fv")
+                    .agg(A.agg(A.Sum(col("dv")), "s"),
+                         A.agg(A.Count(None), "c"))
+                    .order_by("fv"))
+
+        def equal_to(want, q):
+            def check(rows):
+                if [tuple(r) for r in rows] != want:
+                    raise AssertionError(f"{q}: rows differ from the "
+                                         "oracle")
+            return check
+
+        vfa = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+        pallas = {"spark.rapids.tpu.sql.join.strategy": "PALLAS"}
+        # (path, confs, DataFrame of a session, check, kernels it launches)
+        queries = [
+            ("Q20v", vfa, lambda s: tpch_q1_df(np, s, lpath),
+             lambda rows: tpch_q1_check(want20, rows, "Q20v-obs"),
+             ("bucket_sum", "bucket_float_sum", "bucket_winner",
+              "radix_segment_reduce")),
+            ("Q22m", pallas,
+             lambda s: tpch_q13_df(s, opath, cpath, _not_like),
+             equal_to([tuple(r) for r in want22], "Q22m-obs"),
+             ("probe_ranges", "bucket_sum")),
+            ("Q29c", {**pallas,
+                      "spark.rapids.tpu.memory.hbm.budgetBytes":
+                      Q29C_BUDGET},
+             q29, equal_to(want29, "Q29c-obs"), ("probe_ranges",)),
+        ]
+        env = ("gpu", torch.cuda.get_device_name(0)) if dev.type == "cuda" \
+            else ("cpu", None)
+
+        def fresh(settings):
+            DeviceScanCache.reset()
+            S._SCANNER_CACHE.clear()
+            return S.TpuSession(settings, device=dev)
+
+        def walls(q, sess, df_of, check):
+            plans = []
+
+            def run_once():
+                rows = df_of(sess).collect()
+                plans[:] = [sess.last_executed_plan]
+                return rows
+
+            with plain_calls() as plain:
+                cold, warm, counts = _walls(torch, q, run_once, check)
+            if dev.type == "cuda" and any(plain.values()):
+                raise AssertionError(f"{q}: plain versions ran: {plain}")
+            return cold, warm, counts, plans[0]
+
+        # every query with observability off first: the live plane, once
+        # started, stays up for the process until obs.shutdown()
+        off = {}
+        for q, settings, df_of, check, kernels in queries:
+            off[q] = walls(f"{q}-obs off", fresh(settings), df_of, check)
+            if not all(off[q][2][k] for k in kernels):
+                raise AssertionError(f"{q}-obs off: launches {off[q][2]}")
+        address = None
+        for q, settings, df_of, check, kernels in queries:
+            qdir = os.path.join(logs, q)
+            # a fresh catalog (and ledger) for each logged query: the
+            # earlier queries' buffers must not count in its heap
+            gc.collect()
+            BufferCatalog.reset(RapidsConf(settings), dev)
+            sess = fresh({**settings, **OBS_ON,
+                          "spark.rapids.tpu.eventLog.dir": qdir})
+            spill0 = dict(vars(BufferCatalog.get().metrics))
+            address = address or sess.obs_address
+            try:
+                cold, warm, counts, plan = walls(f"{q}-obs on", sess, df_of,
+                                                 check)
+                text = sess.explain_metrics()
+                trace = sess.export_trace(os.path.join(logs, f"{q}.json"))
+            finally:
+                sess.close()
+            spill1 = dict(vars(BufferCatalog.get().metrics))
+            if counts != off[q][2] or counts.agg_route != off[q][2].agg_route:
+                raise AssertionError(f"{q}-obs: launches on {counts} "
+                                     f"({counts.agg_route}), off "
+                                     f"{off[q][2]} ({off[q][2].agg_route})")
+            if "opTimeDevice" not in text or "hbm_gbps[device]" not in text:
+                raise AssertionError(f"{q}-obs: explain_metrics\n{text}")
+            with open(trace) as f:
+                tr = json.load(f)["traceEvents"]
+            if not any(e.get("ph") == "X" for e in tr):
+                raise AssertionError(f"{q}-obs: no span in the trace")
+            (log,) = [os.path.join(qdir, f) for f in os.listdir(qdir)]
+            with open(log) as f:
+                recs = [json.loads(ln) for ln in f]
+            root = plan.tpu_child.node_name
+            events = check_event_log(q, recs, root, env)
+            for ev, cls in (("agg_strategy", "TpuHashAggregateExec"),
+                            ("join_strategy", "TpuShuffledHashJoinExec")):
+                picked = {r["strategy"] for r in recs if r["event"] == ev}
+                shown = _strategies_shown(plan.tpu_child, cls)
+                if picked != shown:
+                    raise AssertionError(f"{q}-obs: {ev} {picked}, "
+                                         f"describe() {shown}")
+            extra = {}
+            if q == "Q22m":
+                writes, fetches = Counter(), Counter()
+                for r in recs:
+                    key = (r.get("shuffle_id"), r.get("reduce_id"))
+                    if r["event"] == "shuffle_write":
+                        writes[key] += r["rows"]
+                    elif r["event"] == "shuffle_fetch":
+                        fetches[key] += r["rows"]
+                if not writes or +writes != +fetches:
+                    raise AssertionError(f"{q}-obs: shuffle rows written "
+                                         f"{sum(writes.values())}, fetched "
+                                         f"{sum(fetches.values())}")
+                extra["shuffle_rows"] = sum(writes.values())
+            if q == "Q29c":
+                kinds = Counter(r["kind"] for r in recs
+                                if r["event"] == "spill")
+                spilled = sum(r["bytes"] for r in recs
+                              if r["event"] == "spill"
+                              and r["kind"] == "device_to_host")
+                delta = {k: spill1[k] - spill0[k] for k in spill1}
+                if not (kinds["device_to_host"] and kinds["unspill"]) or (
+                        kinds["device_to_host"], kinds["unspill"],
+                        kinds["host_to_disk"], spilled) != (
+                        delta["device_to_host"], delta["unspills"],
+                        delta["host_to_disk"], delta["spilled_bytes"]):
+                    raise AssertionError(f"{q}-obs: spill events {kinds} "
+                                         f"({spilled} B), catalog {delta}")
+                extra["spills"] = delta
+            per_query[f"{q}-obs"] = counts
+            emit({"query": f"{q}-obs", "card": smi,
+                  "off": {"cold_wall_ms": off[q][0],
+                          "warm_wall_ms": off[q][1]},
+                  "on": {"cold_wall_ms": cold, "warm_wall_ms": warm},
+                  "launches": counts, "agg_route": counts.agg_route,
+                  "events": events, **extra})
+        with urllib.request.urlopen(address + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        with urllib.request.urlopen(address + "/status", timeout=30) as r:
+            status = json.loads(r.read())
+        for fam in ("tpu_agg_strategy_total{", "tpu_join_strategy_total{"):
+            if fam not in metrics:
+                raise AssertionError(f"/metrics lacks {fam}")
+        if status["env"]["backend"] != env[0] or status["queries_live"]:
+            raise AssertionError(f"/status: {status['env']}, "
+                                 f"{status['queries_live']} live")
+        emit({"obs_plane": address,
+              "strategy_lines": [ln for ln in metrics.splitlines()
+                                 if ln.startswith(("tpu_agg_strategy_total",
+                                                   "tpu_join_strategy_total"))],
+              "status_queries": len(status["queries"]),
+              "alerts": status["alerts"]})
+    finally:
+        obs.shutdown()
+        BufferCatalog.reset()
+        shutil.rmtree(base, ignore_errors=True)
+        shutil.rmtree(logs, ignore_errors=True)
+    return per_query
+
+
 def _decode_threads() -> int:
     from spark_rapids_tpu_torch.io import parquet_device as PD
 
@@ -6914,6 +7313,8 @@ def main() -> int:
     lap("Q30-Q31")
     per_query.update(memory_phase(torch, np, dev))
     lap("Q29")
+    per_query.update(observability_phase(torch, np, dev, smi))
+    lap("obs")
     if QUERY_ROUTES["numpy"] or not QUERY_ROUTES["native"]:
         raise AssertionError(f"hybrid streams by route: {QUERY_ROUTES}")
     emit({"native_decode": {"query_streams": QUERY_ROUTES,

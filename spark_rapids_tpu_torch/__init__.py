@@ -16,4 +16,11 @@ Everything downstream follows the device of the tensors it is given.
 The hand-written Hopper kernels live in ``csrc/`` (the aggregation's,
 the join probe's and the word-count UDF's) and are built on first use
 into ``_build/`` (see ``ops/_cuda_build.py``).
+
+Observability follows the reference's schema letter for letter:
+``events.py`` (the structured event log and its Chrome trace),
+``obs/`` (the live metrics registry, the ``/metrics`` and ``/status``
+exporter, the progress tracker, the watchdog), ``envinfo.py`` (the
+environment on every ``query_start``) and ``utils/locks.py`` (the
+declared lock order). All of it is off by default.
 """

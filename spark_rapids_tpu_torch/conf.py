@@ -411,6 +411,129 @@ FAULTS_OOM = conf(
 FAULTS_TRANSFER = conf(
     "spark.rapids.tpu.test.faults.transfer", "",
     "Host-link transfer failure specs (site 'packed_upload').")
+LEDGER_ENABLED = conf(
+    "spark.rapids.tpu.memory.ledger.enabled", True,
+    "Per-buffer HBM ledger (owner attribution, lifecycle events, leak "
+    "sentinel). Only ever active while the event log or live metrics "
+    "are on (or a bench/test force-arms it) — with both off the ledger "
+    "costs one boolean read per buffer registration.")
+
+
+# ---------------------------------------------------------------------------
+# Observability: operator tracing, the device lane, the event log
+# (``events.py``), the live plane (``obs/``: metrics registry, /metrics +
+# /status HTTP exporter, watchdog); reference ``conf.py:201-214`` and
+# ``:555-625``, ``events.py:35-63``
+# ---------------------------------------------------------------------------
+ENABLE_TRACE = conf(
+    "spark.rapids.tpu.sql.trace.enabled", False,
+    "Wrap operator hot sections in torch.profiler record_function ranges "
+    "(reference: NvtxWithMetrics.scala).")
+METRICS_DEVICE_SYNC = conf(
+    "spark.rapids.tpu.metrics.deviceSync.enabled", False,
+    "Device-accurate operator timing: every operator blocks until its "
+    "output batch's device work is done and records the wait in its "
+    "opTimeDevice metric (reference: the GpuMetric op-time/CUDA-event "
+    "pairs in NvtxWithMetrics.scala). With the conf on for the whole "
+    "plan, upstream outputs are already fenced when an operator "
+    "dispatches, so each wait isolates that operator's own device work. "
+    "Costs one host sync per batch per operator — profiling runs only; "
+    "read the result with TpuSession.explain_metrics().")
+ANALYSIS_STORM_THRESHOLD = conf(
+    "spark.rapids.tpu.sql.analysis.recompileStorm.threshold", 8,
+    "Warn in explain() when the analyzer forecasts at least this many "
+    "distinct compile signatures for ONE pipeline cache site — the "
+    "static recompile-storm detector (the profiler's cache-miss footer "
+    "reports the same storms after the fact). The port compiles no "
+    "programs; the watchdog's recompile-storm rule reads the count.",
+    check=_positive)
+EVENT_LOG_ENABLED = conf(
+    "spark.rapids.tpu.eventLog.enabled", False,
+    "Enable the structured query event log (typed JSONL events covering "
+    "the full query lifecycle: plan tagging, analysis forecasts, per-op "
+    "spans, compile misses, transfers, spills, shuffle, scan cache). With "
+    "no eventLog.dir the events land only in the in-memory ring buffer "
+    "backing TpuSession.export_trace(); setting eventLog.dir implies this "
+    "key. Off by default — the emit fast path is a single boolean check.")
+EVENT_LOG_DIR = conf(
+    "spark.rapids.tpu.eventLog.dir", "",
+    "Directory for JSONL event-log files (one tpu-events-<pid>-<n>.jsonl "
+    "per session, append-only, thread-safe). Setting a directory turns "
+    "event logging on. Consume the files offline with "
+    "tools/tpu_profile.py, or open TpuSession.export_trace() output in "
+    "Perfetto.")
+EVENT_LOG_RING_SIZE = conf(
+    "spark.rapids.tpu.eventLog.ringBuffer.size", 65536,
+    "Events retained in the in-memory ring buffer that backs "
+    "TpuSession.export_trace() (oldest dropped first). The JSONL sink is "
+    "unbounded; the ring only bounds in-process memory.")
+EVENT_LOG_FLIGHT_RECORDER = conf(
+    "spark.rapids.tpu.eventLog.flightRecorder.enabled", False,
+    "Run the event log as a flight recorder: with eventLog.dir set, "
+    "events land ONLY in the in-memory ring buffer (no streaming JSONL "
+    "file), and each watchdog alert episode (obs/watchdog.py) dumps the "
+    "ring to eventLog.dir as one tpu-flightrec-<pid>-<episode>.jsonl — "
+    "post-hoc diagnosis of a misbehaving run without the volume of full "
+    "logging. Requires the watchdog (spark.rapids.tpu.watchdog.enabled) "
+    "for the trigger; TpuSession.export_trace() still reads the ring.")
+LIVE_METRICS_ENABLED = conf(
+    "spark.rapids.tpu.metrics.live.enabled", False,
+    "Install the process-global live metrics registry (obs/): per-op "
+    "host/device time and bytes, the BufferCatalog HBM watermark, "
+    "shuffle transport traffic, scan-cache hit rate, per-query "
+    "progress. Implied by metrics.http.enabled and watchdog.enabled. "
+    "Off by default — the engine's emit fast path is a single boolean "
+    "check (the event-log zero-overhead contract).")
+METRICS_HTTP_ENABLED = conf(
+    "spark.rapids.tpu.metrics.http.enabled", False,
+    "Start the stdlib-HTTP exporter daemon thread serving /metrics "
+    "(Prometheus text exposition 0.0.4 of the whole metric catalog) and "
+    "/status (JSON: live queries with per-op progress, HBM watermark vs "
+    "budget, watchdog alerts — the payload tools/tpu_top.py renders). "
+    "Implies metrics.live.enabled.")
+METRICS_HTTP_PORT = conf(
+    "spark.rapids.tpu.metrics.http.port", 0,
+    "TCP port for the metrics exporter; 0 picks an ephemeral port "
+    "(read the chosen address from TpuSession.obs_address).")
+METRICS_HTTP_HOST = conf(
+    "spark.rapids.tpu.metrics.http.host", "127.0.0.1",
+    "Bind address for the metrics exporter (localhost by default; bind "
+    "0.0.0.0 only behind your own auth/network policy).")
+WATCHDOG_ENABLED = conf(
+    "spark.rapids.tpu.watchdog.enabled", False,
+    "Start the watchdog sampler thread: raises typed alerts — operator "
+    "span open past watchdog.stallThresholdMs (stall), HBM watermark "
+    "above watchdog.hbmPressureFraction of the derived budget "
+    "(hbm_pressure), at least sql.analysis.recompileStorm.threshold "
+    "compile misses on one site inside watchdog.recompileStorm.windowMs "
+    "(recompile_storm) — surfaced as log warnings, 'alert' events in "
+    "the event log, and the /status alerts list. Implies "
+    "metrics.live.enabled. Tune thresholds offline with "
+    "tools/tpu_profile.py --alerts over a recorded event log.")
+WATCHDOG_INTERVAL_MS = conf(
+    "spark.rapids.tpu.watchdog.intervalMs", 1000,
+    "Watchdog sample interval.", check=_positive)
+WATCHDOG_STALL_MS = conf(
+    "spark.rapids.tpu.watchdog.stallThresholdMs", 30000,
+    "An operator span still open after this long raises a stall alert "
+    "(a hung device dispatch, a wedged host decode).", check=_positive)
+WATCHDOG_PRESSURE_FRACTION = conf(
+    "spark.rapids.tpu.watchdog.hbmPressureFraction", 0.85,
+    "Raise an hbm_pressure alert when the BufferCatalog device-byte "
+    "watermark reaches this fraction of the derived HBM budget (the "
+    "SAME derive_hbm_budget the spiller uses).", check=_fraction)
+WATCHDOG_STORM_WINDOW_MS = conf(
+    "spark.rapids.tpu.watchdog.recompileStorm.windowMs", 10000,
+    "Sliding window for the LIVE recompile-storm alert; the per-site "
+    "miss-count threshold is sql.analysis.recompileStorm.threshold (one "
+    "storm definition engine-wide).", check=_positive)
+WATCHDOG_RETRY_STORM_THRESHOLD = conf(
+    "spark.rapids.tpu.watchdog.retryStorm.threshold", 8,
+    "Raise a retry_storm alert when one operator logs at least this "
+    "many OOM recovery actions (memory/retry.py oom_retry events) "
+    "inside watchdog.recompileStorm.windowMs: the queries still "
+    "complete, but every batch is paying spill + backoff — the "
+    "memory.hbm.budgetBytes needs attention.", check=_positive)
 
 
 class RapidsConf:

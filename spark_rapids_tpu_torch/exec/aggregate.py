@@ -39,8 +39,9 @@ program, so the reference's program cache (``cached_pipeline``, its
 compile-miss counts) and its buffer donation (``_donation``,
 ``mark_exclusive``) have no counterpart, and the port syncs inside them
 only where its tiers already do (``PERF.md`` §3). The plan analyzer's
-``fusedPlan``/``stageFusion`` report lines and the event/observability
-emitters are not ported (ROADMAP.md item 26). The route a partition took
+``fusedPlan``/``stageFusion`` report lines are not ported (ROADMAP.md
+item 26). The strategy pick emits ``agg_strategy`` and its live twin
+(:meth:`TpuHashAggregateExec.resolved_strategy`). The route a partition took
 shows in the aggregate's ``sections`` (``stage``, ``plan``, or
 ``update`` and ``merge``).
 """
@@ -51,6 +52,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import events as _events
+from .. import obs as _obs
 from .. import types as T
 from ..columnar import ColumnarBatch, choose_capacity
 from ..conf import AGG_STRATEGY, IMPROVED_FLOAT_OPS, RapidsConf
@@ -264,7 +267,11 @@ class TpuHashAggregateExec(TpuExec):
                 f"aggs=[{aggs}]{strat})")
 
     def resolved_strategy(self, cap: int, device) -> Optional[str]:
-        """Resolve (and memoize per capacity bucket) the aggregation tier."""
+        """Resolve (and memoize per capacity bucket) the aggregation tier.
+        The choice lands in describe() and emits ONE ``agg_strategy``
+        event and ``tpu_agg_strategy`` count per (exec, capacity)
+        (reference ``aggregate.py:459-483``), so tools/tpu_profile.py can
+        hold the chooser to the measured op spans of the same log."""
         if not self.group_exprs:
             return None  # grand aggregates use the plain masked reduces
         hit = self._strategy_by_cap.get(cap)
@@ -275,6 +282,11 @@ class TpuHashAggregateExec(TpuExec):
             self._key_dtypes(), device)
         self._strategy_by_cap[cap] = strategy
         self._strategy_choice = (strategy, reason)
+        if _events.enabled():
+            _events.emit("agg_strategy", op=self.node_name,
+                         strategy=strategy, reason=reason, cap=cap)
+        if _obs.enabled():
+            _obs.inc("tpu_agg_strategy", 1, strategy=strategy)
         return strategy
 
     def _key_dtypes(self) -> Tuple[T.DataType, ...]:

@@ -6,6 +6,15 @@ Counterpart of ``spark_rapids_tpu/exec/base.py``. An exec exposes
 and run as one eager chain of torch calls per batch
 (:func:`run_fused_chain`). PyTorch runs eagerly, so there is no ``jit``, no
 ``cached_pipeline`` and no buffer donation.
+
+Every exec times its hot sections with :meth:`TpuExec.op_timed` (the host
+lane: ``totalTime``, an ``op_span`` event, the live open-span table and
+op time) and records each output batch with :meth:`TpuExec.record_batch`
+(rows, batches, ``bytesTouched``, ``op_batch``; under
+``metrics.deviceSync.enabled`` also the device lane: a wait on the
+batch's card into ``opTimeDevice``). With the event log, live metrics
+and ``sql.trace.enabled`` off (the default), ``op_timed`` is the plain
+timed context and ``record_batch`` neither emits nor synchronizes.
 """
 from __future__ import annotations
 
@@ -16,18 +25,26 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
+from .. import events as _events
+from .. import obs as _obs
 from .. import types as T
 from ..columnar import ColumnarBatch, DeviceColumn, choose_capacity
 from ..conf import RapidsConf
 from ..expr.eval import column_of_val, val_of_column
 from ..expr.values import DictV, Val
 from ..ops import concat as concat_ops
+from ..memory.ledger import op_scope
 from ..ops import filter_gather
 from ..types import StructType
 
 NUM_OUTPUT_ROWS = "numOutputRows"
 NUM_OUTPUT_BATCHES = "numOutputBatches"
 TOTAL_TIME = "totalTime"
+#: device-accurate per-op time under metrics.deviceSync.enabled (the wait
+#: for the op's own output batch on its card)
+OP_TIME_DEVICE = "opTimeDevice"
+#: output bytes per op: rows x row-bytes from the batch layout
+BYTES_TOUCHED = "bytesTouched"
 
 
 _PLANNING = threading.local()
@@ -59,7 +76,12 @@ class Metric:
         self.name = name
         self.value = 0
         if kind is None:
-            kind = "ns" if ("Time" in name or name == TOTAL_TIME) else "count"
+            if "Time" in name or name == TOTAL_TIME:
+                kind = "ns"
+            elif name.startswith("bytes") or name.endswith("Bytes"):
+                kind = "bytes"
+            else:
+                kind = "count"
         self.kind = kind
 
     def add(self, v: int) -> None:
@@ -79,6 +101,55 @@ class Metric:
         return f"{self.name}={self.value}"
 
 
+@contextlib.contextmanager
+def timed(metric: Optional[Metric], trace_name: str = "", trace: bool = False,
+          event_op: Optional[str] = None, event_section: str = ""):
+    """Time a hot section into a metric; optionally open a profiler range
+    (reference ``exec/base.py:295``: the JAX profiler's TraceAnnotation;
+    here ``torch.profiler.record_function``). ``event_op`` (set only while
+    event logging is on) also emits a host-lane ``op_span`` event with the
+    start and duration the metric accumulated."""
+    ctx = (torch.profiler.record_function(
+        trace_name or (metric.name if metric else "op"))
+        if trace else contextlib.nullcontext())
+    start = time.perf_counter_ns()
+    try:
+        with ctx:
+            yield
+    finally:
+        dur = time.perf_counter_ns() - start
+        if metric is not None:
+            metric.add(dur)
+        if event_op is not None:
+            _events.emit("op_span", op=event_op, section=event_section,
+                         start=start, dur=dur, lane="host")
+
+
+@contextlib.contextmanager
+def _op_scoped(inner, op: str):
+    """Ownership wrapper (built only while events or obs are on): buffers
+    the ledger records inside this exec's hot section carry op=<node_name>
+    (reference ``exec/base.py:326``, over ``xla_cost.op_scope``)."""
+    with op_scope(op):
+        with inner:
+            yield
+
+
+@contextlib.contextmanager
+def _obs_timed(inner, op: str, section: str):
+    """op_timed's live-metrics wrapper (built ONLY while the obs plane is
+    on): the open-span table is what the watchdog samples for stall
+    detection, so registration precedes the body."""
+    token = _obs.span_open(op, section)
+    start = time.perf_counter_ns()
+    try:
+        with inner:
+            yield
+    finally:
+        _obs.span_close(token)
+        _obs.add_op_time(op, "host", time.perf_counter_ns() - start)
+
+
 class TpuExec:
     """Base physical operator producing columnar batches."""
 
@@ -88,7 +159,11 @@ class TpuExec:
     sparsifies = False
 
     def __init__(self, conf: RapidsConf, children: Sequence["TpuExec"] = ()):
+        from ..conf import ENABLE_TRACE, METRICS_DEVICE_SYNC
+
         self.conf = conf
+        self._trace = conf.get(ENABLE_TRACE)
+        self._device_sync = conf.get(METRICS_DEVICE_SYNC)
         self.children: List[TpuExec] = list(children)
         self.metrics: Dict[str, Metric] = {}
         for name in (NUM_OUTPUT_ROWS, NUM_OUTPUT_BATCHES, TOTAL_TIME):
@@ -168,24 +243,72 @@ class TpuExec:
             self.metrics[name] = Metric(name, kind)
         return self.metrics[name]
 
-    @contextlib.contextmanager
     def op_timed(self, section: str = "", metric_name: str = TOTAL_TIME):
-        """Host wall-clock of a hot section into ``metric_name``. Kernel
-        launches are asynchronous, so this is enqueue time plus the time
-        of the host syncs inside the section, not device time."""
+        """Host wall-clock of a hot section into ``metric_name`` (reference
+        ``exec/base.py:472``). Kernel launches are asynchronous, so this is
+        enqueue time plus the time of the host syncs inside the section,
+        not device time. ``section`` also counts in :attr:`sections`.
+        Under ``sql.trace.enabled`` a ``torch.profiler.record_function``
+        range named ``<exec>.<section>`` wraps it; with the event log on it
+        emits a host-lane ``op_span``; with the obs plane on it registers
+        in the open-span table and adds live op time; with either on,
+        buffers registered in it are owned by this exec
+        (:func:`memory.ledger.op_scope`). With all off it is the plain
+        timed context."""
         if section:
             self.sections[section] = self.sections.get(section, 0) + 1
-        start = time.perf_counter_ns()
-        try:
-            yield
-        finally:
-            self.metric(metric_name).add(time.perf_counter_ns() - start)
+        name = self.node_name + ("." + section if section else "")
+        ctx = timed(self.metric(metric_name), name, self._trace,
+                    event_op=self.node_name if _events.enabled() else None,
+                    event_section=section)
+        if _obs.enabled():
+            ctx = _obs_timed(ctx, self.node_name, section)
+        if _events.enabled() or _obs.enabled():
+            ctx = _op_scoped(ctx, self.node_name)
+        return ctx
 
     def record_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """Count one output batch (reference ``exec/base.py:509``): rows
+        where the count is a host int, the batch, its ``bytesTouched``
+        (:func:`batch_bytes` at those rows, else at its capacity), and with
+        events or obs on its ``op_batch`` record and live counters. Under
+        ``metrics.deviceSync.enabled`` it first waits for the batch's card
+        (``torch.cuda.synchronize(device)``; nothing for a CPU batch) and
+        records the wait as ``opTimeDevice``, a device-lane ``op_span``
+        (section ``device_wait``) and a ``fence`` transfer; with the
+        plan-wide conf the children's outputs were fenced already, so the
+        wait is this op's own device work. The row count is then read
+        (free: the card is idle)."""
         nr = batch.num_rows_lazy
+        if self._device_sync:
+            t0 = time.perf_counter_ns()
+            dev = batch_device(batch)
+            if dev is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter_ns() - t0
+            self.metric(OP_TIME_DEVICE, "ns").add(dt)
+            if _obs.enabled():
+                _obs.add_op_time(self.node_name, "device", dt)
+                _obs.inc("tpu_transfers", 1, direction="fence")
+            if _events.enabled():
+                _events.emit("op_span", op=self.node_name,
+                             section="device_wait", start=t0, dur=dt,
+                             lane="device")
+                _events.emit("transfer", direction="fence", bytes=0,
+                             site="record_batch")
+            if not isinstance(nr, int):
+                nr = int(nr)
         if isinstance(nr, int):
             self.metrics[NUM_OUTPUT_ROWS].add(nr)
         self.metrics[NUM_OUTPUT_BATCHES].add(1)
+        by = batch_bytes(batch, nr if isinstance(nr, int) else None)
+        self.metric(BYTES_TOUCHED, "bytes").add(by)
+        if _events.enabled():
+            _events.emit("op_batch", op=self.node_name,
+                         rows=nr if isinstance(nr, int) else None, bytes=by)
+        if _obs.enabled():
+            _obs.note_op_batch(self.node_name,
+                               nr if isinstance(nr, int) else None, by)
         return batch
 
     def collect(self) -> List[tuple]:
@@ -213,14 +336,35 @@ class TpuExec:
 
 
 def format_metrics(plan: TpuExec) -> str:
-    """One line per exec: its ``describe()`` and its non-zero metrics
-    (reference ``exec/base.py:611`` without the device-lane, XLA-cost,
-    compile-cache and memory columns, which have no port yet)."""
+    """Per-operator metrics report (reference ``exec/base.py:611``): one
+    line per exec with its ``describe()`` and its non-zero metrics, plus
+    a derived bandwidth labeled by the lane that fed it:
+    ``hbm_gbps[device]`` (the op's input and output layout bytes over
+    ``opTimeDevice``, deviceSync runs) whenever the device lane exists,
+    else ``hbm_gbps[host]`` (over host wall-clock, which an asynchronous
+    launch makes far smaller than the device work it queued, so the
+    figure overstates bandwidth and says so). Then the
+    :func:`memory_footer`. The reference's XLA cost columns and its
+    compile-cache line have no counterpart: eager PyTorch compiles no
+    programs."""
     lines: List[str] = []
 
     def walk(node: TpuExec, depth: int) -> None:
         parts = [f"{m.name}={m.pretty()}" for m in node.metrics.values()
                  if m.value]
+        dev = node.metrics.get(OP_TIME_DEVICE)
+        host = node.metrics.get(TOTAL_TIME)
+        byt = node.metrics.get(BYTES_TOUCHED)
+        if byt is not None and byt.value:
+            # the bandwidth the op demanded: its input stream (the
+            # children's output bytes) plus its own output
+            io_bytes = byt.value + sum(
+                c.metrics[BYTES_TOUCHED].value for c in node.children
+                if isinstance(c, TpuExec) and BYTES_TOUCHED in c.metrics)
+            if dev is not None and dev.value:
+                parts.append(f"hbm_gbps[device]={io_bytes / dev.value:.2f}")
+            elif host is not None and host.value:
+                parts.append(f"hbm_gbps[host]={io_bytes / host.value:.2f}")
         lines.append("  " * depth + node.describe()
                      + (": " + ", ".join(parts) if parts else ""))
         for c in node.children:
@@ -228,7 +372,46 @@ def format_metrics(plan: TpuExec) -> str:
                 walk(c, depth + 1)
 
     walk(plan, 0)
+    lines.append(memory_footer())
     return "\n".join(lines)
+
+
+def memory_footer() -> str:
+    """The explain_metrics memory line (reference ``exec/base.py:733``):
+    the buffer catalog's live device bytes, the peak watermark and the
+    spill/unspill story (process-wide: the catalog is a process
+    singleton), and with the ledger armed the per-op peaks and leaks."""
+    from ..memory.catalog import BufferCatalog
+
+    cat = BufferCatalog.get()
+    m = cat.metrics
+
+    def mb(v: int) -> str:
+        return f"{v / 1e6:.1f}MB"
+
+    line = (f"memory: device {mb(cat.device_bytes)} "
+            f"(peak {mb(m.peak_device_bytes)}), "
+            f"spilled {mb(m.spilled_bytes)} in {m.device_to_host} "
+            f"spill(s) ({m.host_to_disk} to disk), "
+            f"{m.unspills} unspill(s)")
+    peaks = {op: b for op, b in cat.ledger.op_peaks().items() if b > 0}
+    if peaks:
+        rows = sorted(peaks.items(), key=lambda kv: kv[1], reverse=True)
+        line += "\nmemory by op (peak): " + ", ".join(
+            f"{op} {mb(b)}" for op, b in rows)
+        leaked = cat.ledger.stats()["leaked_live"]
+        if leaked:
+            line += f"; LEAKED {leaked} buffer(s)"
+    return line
+
+
+def batch_device(batch: ColumnarBatch) -> Optional[torch.device]:
+    """The device of a batch's tensors (None for a batch with no column
+    and a host row count)."""
+    for c in batch.columns:
+        return c.validity.device
+    nr = batch.num_rows_lazy
+    return nr.device if isinstance(nr, torch.Tensor) else None
 
 
 def vals_of_batch(batch: ColumnarBatch) -> List[Val]:
@@ -349,16 +532,17 @@ def head_rows(batch: ColumnarBatch, n: int) -> ColumnarBatch:
     return ColumnarBatch(cols, batch.schema, n)
 
 
-def batch_bytes(batch: ColumnarBatch) -> int:
-    """capacity x row-bytes from the batch layout (reference
-    ``exec/base.py:582``, its ``rows`` left at the padded capacity, so
-    the count needs no sync): a fixed-width column counts its storage
-    width plus 1 validity byte a row, a string column 4 offset bytes plus
-    1 validity byte a row and its byte pool, a dictionary column 4 code
-    bytes plus 1 validity byte a row and its dictionary."""
+def batch_bytes(batch: ColumnarBatch, rows: Optional[int] = None) -> int:
+    """rows x row-bytes from the batch layout (reference
+    ``exec/base.py:582``): a fixed-width column counts its storage width
+    plus 1 validity byte a row, a string column 4 offset bytes plus 1
+    validity byte a row and its byte pool, a dictionary column 4 code
+    bytes plus 1 validity byte a row and its dictionary. ``rows`` falls
+    back to the padded capacity when the row count is still a device
+    scalar (no sync just for accounting)."""
     total = 0
     for c in batch.columns:
-        r = c.capacity
+        r = rows if rows is not None else c.capacity
         if c.is_dict:
             d = c.dictv
             total += r * 5 + int(d.dictionary.chars.shape[0])

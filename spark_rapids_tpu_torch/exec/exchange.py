@@ -27,9 +27,9 @@ batch, like the device transport's pieces, is registered spillable
 (``memory/spillable.py``), so memory pressure can move it to the host
 between its reads.
 
-Left out (ROADMAP.md, queue A): the network transport (item
-'Multi-device execution') and the exchange events and observability
-counters (items 7, 13 and 26).
+The transports emit the shuffle events and counters
+(``shuffle/transport.py``). Left out (ROADMAP.md, queue A): the network
+transport (item 'Multi-device execution').
 """
 from __future__ import annotations
 
@@ -313,13 +313,16 @@ class TpuShuffleExchangeExec(TpuExec):
     # -- reduce side -------------------------------------------------------
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
         self._run_map_side()
-        pieces = self.transport.fetch(self.shuffle_id, index)
-        self._note_transport_stats()
-        self.release_after(self._consumed, index, self.num_partitions)
-        if not pieces:
-            return
-        with named_oom(f"{self.node_name}.reduce"):
-            out = concat_pieces(pieces, self.output_schema)
+        # the reduce side's fetch and concat: a host-timed section of
+        # their own (the reference leaves them untimed)
+        with self.op_timed("reduce"):
+            pieces = self.transport.fetch(self.shuffle_id, index)
+            self._note_transport_stats()
+            self.release_after(self._consumed, index, self.num_partitions)
+            if not pieces:
+                return
+            with named_oom(f"{self.node_name}.reduce"):
+                out = concat_pieces(pieces, self.output_schema)
         yield self.record_batch(out)
 
 
@@ -361,20 +364,21 @@ class TpuAQEShuffleReadExec(TpuExec):
         ex._run_map_side()
         spec = self.specs[index]
         pieces: List[ShufflePiece] = []
-        if spec[0] == "range":
-            _, lo, hi = spec
-            for rid in range(lo, hi):
-                pieces.extend(ex.transport.fetch(ex.shuffle_id, rid))
-        else:
-            _, rid, j, k = spec
-            pieces = _slice_pieces_by_rows(
-                ex.transport.fetch(ex.shuffle_id, rid), j, k)
-        ex._note_transport_stats()
-        ex.release_after(self._consumed, index, len(self.specs))
-        if not pieces:
-            return
-        with named_oom(f"{self.node_name}.reduce"):
-            out = concat_pieces(pieces, self.output_schema)
+        with self.op_timed("reduce"):
+            if spec[0] == "range":
+                _, lo, hi = spec
+                for rid in range(lo, hi):
+                    pieces.extend(ex.transport.fetch(ex.shuffle_id, rid))
+            else:
+                _, rid, j, k = spec
+                pieces = _slice_pieces_by_rows(
+                    ex.transport.fetch(ex.shuffle_id, rid), j, k)
+            ex._note_transport_stats()
+            ex.release_after(self._consumed, index, len(self.specs))
+            if not pieces:
+                return
+            with named_oom(f"{self.node_name}.reduce"):
+                out = concat_pieces(pieces, self.output_schema)
         yield self.record_batch(out)
 
 
@@ -554,31 +558,45 @@ class TpuBroadcastExchangeExec(TpuExec):
         return "TpuBroadcastExchangeExec"
 
     def materialize(self) -> Optional[ColumnarBatch]:
+        """The broadcast batch. The first call drains the child into one
+        batch, a drain the child's own execs time. The exchange's host
+        section ``read`` (the port's own: the reference leaves the read
+        untimed) times only what comes after it: the wire round trip, the
+        registration and each read of the spillable."""
         with self._lock:
+            built = None
             if not self._done:
                 built = concat_all(self.children[0])
-                if built is not None:
-                    built = materialized_batch(built)
-                    if self.conf.get(SHUFFLE_TRANSPORT_CLASS) == "host":
-                        from ..shuffle.serializer import (deserialize_batch,
-                                                          serialize_batch)
+            with self.op_timed("read"):
+                return self._read(built)
 
-                        data = serialize_batch(
-                            built, self.conf.get(SHUFFLE_COMPRESSION_CODEC))
-                        self.metric(DATA_SIZE, "bytes").set(len(data))
-                        built = deserialize_batch(data, self.device)
-                if built is not None:
-                    # registered spillable, as the reference's broadcast
-                    # batch (exchange.py:725); only the handle keeps it,
-                    # so a spill frees the device copy between reads
-                    from ..memory import SpillableColumnarBatch
+    def _read(self, built: Optional[ColumnarBatch]
+              ) -> Optional[ColumnarBatch]:
+        if not self._done:
+            if built is not None:
+                built = materialized_batch(built)
+                if self.conf.get(SHUFFLE_TRANSPORT_CLASS) == "host":
+                    from ..shuffle.serializer import (deserialize_batch,
+                                                      serialize_batch)
 
+                    data = serialize_batch(
+                        built, self.conf.get(SHUFFLE_COMPRESSION_CODEC))
+                    self.metric(DATA_SIZE, "bytes").set(len(data))
+                    built = deserialize_batch(data, self.device)
+            if built is not None:
+                # registered spillable, as the reference's broadcast
+                # batch (exchange.py:725); only the handle keeps it,
+                # so a spill frees the device copy between reads
+                from ..memory import SpillableColumnarBatch
+                from ..memory.ledger import op_scope
+
+                with op_scope(self.node_name):
                     self._spillable = SpillableColumnarBatch(
                         built, ledger_kind="plan_state")
-                self._done = True
-            if self._spillable is None:
-                return None
-            return self._spillable.get_batch()
+            self._done = True
+        if self._spillable is None:
+            return None
+        return self._spillable.get_batch()
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
         b = self.materialize()

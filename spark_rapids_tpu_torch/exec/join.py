@@ -30,9 +30,10 @@ side read through a broadcast exchange is read once and kept.
 
 The sorted build is registered spillable (:class:`_SpillableBuild`,
 reference ``join.py:34``) and each probe batch runs under the OOM retry
-harness with split-and-retry, each half's output its own batch. Left out
-(ROADMAP.md, queue A): buffer donation (eager PyTorch donates nothing)
-and the join events and observability counters.
+harness with split-and-retry, each half's output its own batch. The
+strategy pick emits ``join_strategy`` and its live twin
+(:meth:`TpuShuffledHashJoinExec.resolved_strategy`). Left out: buffer
+donation (eager PyTorch donates nothing).
 
 :class:`TpuBroadcastNestedLoopJoinExec` and
 :class:`TpuCartesianProductExec` (reference ``join.py:1009``, ``:1110``)
@@ -49,6 +50,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import events as _events
+from .. import obs as _obs
 from .. import types as T
 from ..columnar import ColumnarBatch, choose_capacity
 from ..conf import (JOIN_PALLAS_PROBE, JOIN_STRATEGY, RapidsConf,
@@ -56,6 +59,7 @@ from ..conf import (JOIN_PALLAS_PROBE, JOIN_STRATEGY, RapidsConf,
 from ..expr import expressions as E
 from ..expr.eval import lower
 from ..expr.values import ColV, StrV, Val, as_plain_str
+from ..memory.ledger import op_scope
 from ..memory.retry import with_oom_retry
 from ..ops import concat as concat_ops
 from ..ops import filter_gather
@@ -298,7 +302,9 @@ class TpuShuffledHashJoinExec(TpuExec):
 
     def resolved_strategy(self, build_cap: int, device) -> str:
         """Resolve (and memoize per build capacity) the probe lowering;
-        the pick and its reason land in describe()."""
+        the pick and its reason land in describe() and emit ONE
+        ``join_strategy`` event and ``tpu_join_strategy`` count per (exec,
+        build capacity) (reference ``join.py:334-358``)."""
         hit = self._strategy_by_cap.get(build_cap)
         if hit is not None:
             return hit
@@ -307,6 +313,12 @@ class TpuShuffledHashJoinExec(TpuExec):
             self._jt, torch.device(device).type)
         self._strategy_by_cap[build_cap] = strategy
         self._join_strategy_choice = (strategy, reason)
+        if _events.enabled():
+            _events.emit("join_strategy", op=self.node_name,
+                         strategy=strategy, reason=reason,
+                         build_cap=build_cap)
+        if _obs.enabled():
+            _obs.inc("tpu_join_strategy", 1, strategy=strategy)
         return strategy
 
     # -- build side ----------------------------------------------------------
@@ -374,8 +386,11 @@ class TpuShuffledHashJoinExec(TpuExec):
         sorted_cols = filter_gather.gather(cols, perm, live_all)
         sorted_words = [w[perm] for w in words]
         count = int(ok.sum())  # host sync: the build's joinable rows
-        built = (_SpillableBuild(sorted_cols, sorted_words, live_all),
-                 count, cap, join_ops.key_word_widths(keys, sml))
+        # builds run lazily on the first probe, outside any op_timed
+        # section: the ledger books the plan state to this join
+        with op_scope(self.node_name):
+            sb = _SpillableBuild(sorted_cols, sorted_words, live_all)
+        built = (sb, count, cap, join_ops.key_word_widths(keys, sml))
         self._built[index] = built
         if index is None:
             self._build_batch = None
@@ -768,8 +783,9 @@ class TpuBroadcastNestedLoopJoinExec(TpuExec):
                     counts = host_ints([nb_t] + [
                         c.offsets[nb_t] for c in cols
                         if isinstance(c, StrV)])
-                    self._built = (_SpillableBuild(cols), counts[0],
-                                   counts[1:])
+                    with op_scope(self.node_name):
+                        sb = _SpillableBuild(cols)
+                    self._built = (sb, counts[0], counts[1:])
             return self._built
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:

@@ -5,18 +5,21 @@ Counterpart of ``spark_rapids_tpu/exec/transitions.py``:
 most ``sql.reader.batchSizeRows`` rows (on the device it is given: an
 entry point, so ``None`` is the CUDA card); ``ColumnarToRowExec`` turns
 device batches back into host rows, string columns decoding to ``str``
-(``bytes`` for binary) through ``columnar.column.decode_string_rows``.
+(``bytes`` for binary) through ``columnar.column.decode_string_rows``,
+with a d2h ``transfer`` event a batch while logging is on.
 """
 from __future__ import annotations
 
 from typing import Iterator, List
 
+from .. import events as _events
+from .. import obs as _obs
 from ..columnar import ColumnarBatch, resolve_device
 from ..columnar.batch import batch_from_rows
 from ..conf import MAX_READER_BATCH_SIZE_ROWS, RapidsConf
 from ..cpu.plan import CpuExec
 from ..types import StructType
-from .base import TpuExec
+from .base import TpuExec, batch_bytes
 
 
 class RowToColumnarExec(TpuExec):
@@ -89,4 +92,14 @@ class ColumnarToRowExec(CpuExec):
 
     def execute_rows_partition(self, index: int) -> Iterator[tuple]:
         for batch in self.tpu_child.execute_partition(index):
-            yield from batch.to_rows()
+            rows = batch.to_rows()
+            if _events.enabled() or _obs.enabled():
+                # the device->host read of the collect boundary (the
+                # reference's host_pull): one transfer a batch, its bytes
+                # at the batch's live rows
+                nb = batch_bytes(batch, batch.num_rows)
+                _events.emit("transfer", direction="d2h", bytes=nb,
+                             site="collect")
+                _obs.inc("tpu_transfers", 1, direction="d2h")
+                _obs.inc("tpu_transfer_bytes", nb, direction="d2h")
+            yield from rows

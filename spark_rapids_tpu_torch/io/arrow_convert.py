@@ -11,8 +11,8 @@ reference: ``date32`` to int32 days, a ``timestamp`` of any unit cast to
 int64 microseconds, a ``decimal128`` (precision <= 18) to the low int64
 word of its unscaled value. :func:`batch_to_arrow` is the way back. The
 upload consults the fault injector's ``transfer`` channel and names a
-device OOM (``memory/retry.named_oom``), as the reference's does; its
-transfer events are not ported (ROADMAP.md items 7, 13 and 26).
+device OOM (``memory/retry.named_oom``) and emits its h2d ``transfer``
+event, as the reference's does.
 """
 from __future__ import annotations
 
@@ -144,7 +144,9 @@ def packed_upload(host_arrays: List[np.ndarray], device=None
     into typed views, one per input array (reference
     ``arrow_convert.packed_upload``). For a CUDA target the staging
     buffer is pinned and the copy is ``non_blocking``: the caching host
-    allocator keeps the buffer alive until the copy has run."""
+    allocator keeps the buffer alive until the copy has run. Emits one
+    ``transfer`` event (direction h2d, the staged bytes) and its
+    ``tpu_transfer*`` twins."""
     dev = resolve_device(device)
     layout = []
     pos = 0
@@ -167,6 +169,15 @@ def packed_upload(host_arrays: List[np.ndarray], device=None
     with named_oom("packed_upload"):
         staged = (host.to(dev, non_blocking=pin) if dev.type != "cpu"
                   else host)
+    from .. import events as _events
+    from .. import obs as _obs
+
+    if _events.enabled():
+        _events.emit("transfer", direction="h2d", bytes=int(pos),
+                     site="packed_upload")
+    if _obs.enabled():
+        _obs.inc("tpu_transfers", 1, direction="h2d")
+        _obs.inc("tpu_transfer_bytes", int(pos), direction="h2d")
     return [staged[off: off + nb].view(_TORCH_VIEW[dt])
             for off, nb, dt in layout]
 

@@ -994,8 +994,14 @@ def read_row_groups_pipelined(
     chunks (``hostDecodeTime``, ns, across pool threads) and the uploaded
     bytes (``uploadBytes``), and the column chunks the device decoder did
     not take (``hostFallbackChunks``: each decodes through pyarrow on the
-    host and uploads whole). Abandoning the generator is safe:
-    outstanding pool tasks finish and their results are dropped."""
+    host and uploads whole). Each stage emits the reference's
+    ``pq_pipeline`` event (decode a chunk, on its pool thread; upload a
+    packed transfer; unpack a row group's device decode) with its host
+    wall-clock and its ``tpu_pq_pipeline_*`` twins. Abandoning the
+    generator is safe: outstanding pool tasks finish and their results
+    are dropped."""
+    from .. import events as _events
+    from .. import obs as _obs
     from ..columnar.batch import ColumnarBatch
     from ..columnar.column import choose_capacity, resolve_device
     from ..types import StructType
@@ -1014,7 +1020,7 @@ def read_row_groups_pipelined(
         if metrics is not None and name in metrics:
             metrics[name].add(int(v))
 
-    def plan_one(rgmd, name, ci):
+    def plan_one(rg, rgmd, name, ci):
         t0 = time.perf_counter_ns()
         if ci is None:
             return name, None, 0
@@ -1026,7 +1032,14 @@ def read_row_groups_pipelined(
                 column_time_unit(pqcol))
         except Exception:
             return name, None, 0
-        return name, plan, time.perf_counter_ns() - t0
+        dt = time.perf_counter_ns() - t0
+        if _events.enabled() or _obs.enabled():
+            nbytes = int(rgmd.column(ci).total_uncompressed_size)
+            _events.emit("pq_pipeline", stage="decode", rg=rg,
+                         bytes=nbytes, dur=dt)
+            _obs.inc("tpu_pq_pipeline_stages", 1, stage="decode")
+            _obs.inc("tpu_pq_pipeline_bytes", nbytes, stage="decode")
+        return name, plan, dt
 
     pending: Dict[int, tuple] = {}  # pos -> (rg, rgmd, [futures])
 
@@ -1037,7 +1050,7 @@ def read_row_groups_pipelined(
             rgmd.column(i).path_in_schema: i
             for i in range(rgmd.num_columns)
         }
-        futs = [pool.submit(plan_one, rgmd, name, name_to_ci.get(name))
+        futs = [pool.submit(plan_one, rg, rgmd, name, name_to_ci.get(name))
                 for name in columns]
         pending[pos] = (rg, rgmd, futs)
 
@@ -1065,9 +1078,18 @@ def read_row_groups_pipelined(
         def flush(names):
             if not names:
                 return
+            t0 = time.perf_counter_ns()
             flat = [a for nm in names for a in decoded[nm][0]]
             ups = packed_upload(flat, dev)
-            note(UPLOAD_BYTES, sum(a.nbytes for a in flat))
+            nbytes = sum(a.nbytes for a in flat)
+            note(UPLOAD_BYTES, nbytes)
+            if _events.enabled() or _obs.enabled():
+                _events.emit("pq_pipeline", stage="upload", rg=rg,
+                             bytes=int(nbytes),
+                             dur=time.perf_counter_ns() - t0)
+                _obs.inc("tpu_pq_pipeline_stages", 1, stage="upload")
+                _obs.inc("tpu_pq_pipeline_bytes", int(nbytes),
+                         stage="upload")
             i = 0
             for nm in names:
                 k = len(decoded[nm][0])
@@ -1108,6 +1130,7 @@ def read_row_groups_pipelined(
             continue
         host_table = (pf.read_row_groups([rg], columns=fallback_cols)
                       if fallback_cols else None)
+        t0 = time.perf_counter_ns()
         cols = []
         fields = []
         for name, f in zip(columns, tpu_fields):
@@ -1121,6 +1144,11 @@ def read_row_groups_pipelined(
                 cols.append(b.columns[0])
             fields.append(f)
         batch = ColumnarBatch(cols, StructType(tuple(fields)), n)
+        if _events.enabled():
+            _events.emit("pq_pipeline", stage="unpack", rg=rg, bytes=0,
+                         dur=time.perf_counter_ns() - t0)
+        if _obs.enabled():
+            _obs.inc("tpu_pq_pipeline_stages", 1, stage="unpack")
         # advance the window BEFORE yielding: the next row group's chunks
         # decode while the consumer works on this batch
         nxt = pos + window

@@ -4,10 +4,14 @@ Own copy of ``DeviceScanCache`` of ``spark_rapids_tpu/io/scan_cache.py``:
 a plain LRU by bytes over device tensors (whatever the scanner stores per
 row group, with its byte count), keyed by :func:`file_key`, whose
 (path, mtime, size) makes a rewritten file miss instead of serving stale
-data. One lock guards the entries; under device memory pressure the
-OOM retry drops them all (:meth:`DeviceScanCache.drop_under_pressure`).
-The reference's ledger records of the entries, ordered locks, events and
-observability are not ported (ROADMAP.md items 7, 13 and 26).
+data. One lock guards the entries (``io.scan_cache`` in
+``utils/locks.py``, above the ledger and the event and registry locks it
+feeds); under device memory pressure the OOM retry drops them all
+(:meth:`DeviceScanCache.drop_under_pressure`). While the ledger is armed
+each entry has a ``scan_cache`` ledger record, freed with the reason it
+left (evict, replace, pressure_drop), and every hit, miss, put, evict
+and pressure drop emits a ``scan_cache`` event and its
+``tpu_scan_cache_*`` twins, as in the reference.
 
 The process singleton follows the reference: a later session's
 ``scan.deviceCache.maxBytes`` resizes it (evicting when it shrank) instead
@@ -21,6 +25,16 @@ import threading
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
+from .. import events as _events
+from .. import obs as _obs
+from ..utils.locks import ordered_lock
+
+
+def _ledger():
+    from ..memory.catalog import BufferCatalog
+
+    return BufferCatalog.get().ledger
+
 
 class DeviceScanCache:
     _instance: Optional["DeviceScanCache"] = None
@@ -28,9 +42,12 @@ class DeviceScanCache:
 
     def __init__(self, max_bytes: int):
         self.max_bytes = max_bytes
-        self._lock = threading.Lock()
+        self._lock = ordered_lock("io.scan_cache")
         #: key -> (value, nbytes)
         self._entries: "OrderedDict[tuple, Tuple[Any, int]]" = OrderedDict()
+        #: key -> (ledger, ledger id) of the entries made while the ledger
+        #: was armed (the ledger kept: a later catalog reset brings another)
+        self._lids: Dict[tuple, tuple] = {}
         self._bytes = 0
         self.hits = 0
         self.misses = 0
@@ -54,14 +71,41 @@ class DeviceScanCache:
 
     @classmethod
     def reset(cls) -> None:
+        """Drop the process's cache; its entries' ledger records are
+        freed (reason ``reset``)."""
         with cls._instance_lock:
-            cls._instance = None
+            old, cls._instance = cls._instance, None
+        if old is not None:
+            with old._lock:
+                for key in list(old._lids):
+                    old._free_lid(key, "reset")
+
+    def _free_lid(self, key: tuple, reason: str) -> None:
+        # under self._lock
+        rec = self._lids.pop(key, None)
+        if rec is not None:
+            rec[0].note_free(rec[1], reason=reason)
 
     def _evict_over_budget(self) -> None:
         while self._bytes > self.max_bytes and self._entries:
-            _, (_, sz) = self._entries.popitem(last=False)
+            key, (_, sz) = self._entries.popitem(last=False)
             self._bytes -= sz
             self.evictions += 1
+            self._free_lid(key, "evict")
+            if _events.enabled():
+                _events.emit("scan_cache", op="evict", bytes=sz)
+            if _obs.enabled():
+                self._obs_note("evict", sz)
+
+    def _obs_note(self, op: str, nbytes: int) -> None:
+        """Mirror one cache op into the live registry (called under
+        self._lock; the registry lock is a leaf)."""
+        _obs.inc("tpu_scan_cache_ops", 1, op=op)
+        if op in ("hit", "miss"):
+            seen = self.hits + self.misses
+            _obs.set_gauge("tpu_scan_cache_hit_ratio",
+                           self.hits / seen if seen else 0.0)
+        _obs.set_gauge("tpu_scan_cache_resident_bytes", self._bytes)
 
     def resize(self, max_bytes: int) -> None:
         """Adopt a new byte budget, evicting LRU entries if it shrank."""
@@ -81,9 +125,17 @@ class DeviceScanCache:
             hit = self._entries.get(key)
             if hit is None:
                 self.misses += 1
+                if _events.enabled():
+                    _events.emit("scan_cache", op="miss", bytes=0)
+                if _obs.enabled():
+                    self._obs_note("miss", 0)
                 return None
             self._entries.move_to_end(key)
             self.hits += 1
+            if _events.enabled():
+                _events.emit("scan_cache", op="hit", bytes=hit[1])
+            if _obs.enabled():
+                self._obs_note("hit", hit[1])
             return hit[0]
 
     def drop_under_pressure(self) -> int:
@@ -94,8 +146,14 @@ class DeviceScanCache:
         with self._lock:
             freed = self._bytes
             self.evictions += len(self._entries)
+            for key in list(self._lids):
+                self._free_lid(key, "pressure_drop")
             self._entries.clear()
             self._bytes = 0
+            if freed and _events.enabled():
+                _events.emit("scan_cache", op="pressure_drop", bytes=freed)
+            if freed and _obs.enabled():
+                self._obs_note("evict", freed)
             return freed
 
     def put(self, key: tuple, value: Any, nbytes: int) -> None:
@@ -103,11 +161,20 @@ class DeviceScanCache:
             if key in self._entries:
                 _, old = self._entries.pop(key)
                 self._bytes -= old
+                self._free_lid(key, "replace")
             # one oversized entry must not wedge the pool
             if nbytes > self.max_bytes:
                 return
+            led = _ledger()
+            if led.armed():
+                self._lids[key] = (led, led.note_alloc(nbytes,
+                                                       kind="scan_cache"))
             self._entries[key] = (value, nbytes)
             self._bytes += nbytes
+            if _events.enabled():
+                _events.emit("scan_cache", op="put", bytes=nbytes)
+            if _obs.enabled():
+                self._obs_note("put", nbytes)
             self._evict_over_budget()
 
 

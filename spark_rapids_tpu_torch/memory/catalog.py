@@ -14,7 +14,20 @@ other reference holds its tensors.
 The catalog holds its buffers weakly: a handle that is garbage collected
 without a ``close()`` (a join build or broadcast batch of a plan that is
 gone) unregisters itself, where the reference's catalog keeps every such
-buffer for the life of the process (ROADMAP.md §C).
+buffer for the life of the process (ROADMAP.md §C). Its finalizer only
+queues the buffer's id on a deque, which takes no lock: a collection can
+run at any bytecode, under any lock, the event and registry leaf locks
+included. The catalog's next ordinary entry (register, unregister,
+request, the watermark reads) and the session's query end drain the
+queue, so the buffer's ``buffer_free`` is emitted from a normal call path.
+
+Each spill, unspill and disk move emits a ``spill`` event (with the live
+device-byte watermark and, while the ledger is armed, the buffer's
+ledger id) and its ``tpu_spills``/``tpu_spill_bytes`` twins, and every
+change of the watermark sets the ``tpu_hbm_*`` gauges, as in the
+reference (``catalog.py:150-410``). The catalog's lock ranks above the
+ledger's and the event and registry locks (``utils/locks.py``), so it
+emits while holding it.
 """
 from __future__ import annotations
 
@@ -24,14 +37,18 @@ import shutil
 import tempfile
 import threading
 import weakref
+from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from .. import events as _events
+from .. import obs as _obs
 from ..conf import (HBM_BUDGET_BYTES, HBM_POOL_FRACTION, HBM_RESERVE,
                     HOST_SPILL_STORAGE_SIZE, MEMORY_DEBUG, SPILL_ENABLED,
                     RapidsConf)
+from ..utils.locks import ordered_lock
 from .ledger import Ledger
 
 log = logging.getLogger("spark_rapids_tpu_torch.memory")
@@ -105,19 +122,23 @@ class BufferCatalog:
 
     def __init__(self, conf_: Optional[RapidsConf] = None, device=None):
         self.conf = conf_ or RapidsConf({})
-        self._lock = threading.RLock()
+        self._lock = ordered_lock("memory.catalog", reentrant=True)
         self._buffers: Dict[int, _Slot] = {}
         self._next_id = 0
         self._device_bytes = 0
         self._host_bytes = 0
         self.metrics = SpillMetrics()
         self._spill_dir: Optional[str] = None
+        #: ids of handles collected without a close(), queued by their
+        #: finalizers and unregistered by :meth:`drain_collected`
+        self._collected: deque = deque()
         #: the device type the budget was derived for
         self.device_type = (torch.device(device).type if device is not None
                             else "cuda" if torch.cuda.is_available()
                             else "cpu")
         self._budget = derive_hbm_budget(self.conf, device)
-        #: per-buffer lifecycle book (armed only by ``ledger.force_arm``)
+        #: per-buffer lifecycle book (armed while events or obs are on, or
+        #: by ``ledger.force_arm``)
         self.ledger = Ledger(self.conf)
 
     @classmethod
@@ -137,11 +158,22 @@ class BufferCatalog:
 
     @property
     def budget(self) -> Optional[int]:
-        """The live spill budget (None = unlimited)."""
+        """The live spill budget (None = unlimited): the watchdog's
+        pressure rule and the /status HBM block read it too."""
         return self._budget
+
+    def _obs_watermark(self) -> None:
+        """Mirror the device-byte watermark into the live registry (a
+        leaf-lock callee: safe under self._lock)."""
+        _obs.set_gauge("tpu_hbm_device_bytes", self._device_bytes)
+        _obs.set_gauge("tpu_hbm_peak_device_bytes",
+                       self.metrics.peak_device_bytes)
+        if self._budget is not None:
+            _obs.set_gauge("tpu_hbm_budget_bytes", self._budget)
 
     # -- registration ------------------------------------------------------
     def register(self, handle: "SpillableHandle") -> _Slot:
+        self.drain_collected()
         with self._lock:
             bid = self._next_id
             self._next_id += 1
@@ -155,13 +187,29 @@ class BufferCatalog:
                 log.info("register buffer %d (%d B, prio %d): device=%d B",
                          bid, handle.size, handle.priority,
                          self._device_bytes)
+            if _obs.enabled():
+                self._obs_watermark()
             if self.ledger.armed():
                 slot.lid = self.ledger.note_alloc(
                     handle.size, kind=handle.ledger_kind)
         self.request(0)
         return slot
 
+    def drain_collected(self) -> None:
+        """Unregister the handles the garbage collector freed since the
+        last drain (their finalizers queued their ids)."""
+        while self._collected:
+            try:
+                bid = self._collected.popleft()
+            except IndexError:  # another thread drained it first
+                return
+            self._unregister(bid, "gc")
+
     def unregister(self, bid: int, reason: str = "close") -> None:
+        self.drain_collected()
+        self._unregister(bid, reason)
+
+    def _unregister(self, bid: int, reason: str) -> None:
         with self._lock:
             slot = self._buffers.pop(bid, None)
             if slot is None:
@@ -170,6 +218,8 @@ class BufferCatalog:
                 self._device_bytes -= slot.size
             elif slot.tier == TIER_HOST:
                 self._host_bytes -= slot.size
+            if _obs.enabled():
+                self._obs_watermark()
             self.ledger.note_free(slot.lid, reason)
         if slot.disk_path:
             shutil.rmtree(slot.disk_path, ignore_errors=True)
@@ -189,6 +239,14 @@ class BufferCatalog:
             self.metrics.unspills += 1
             if self._device_bytes > self.metrics.peak_device_bytes:
                 self.metrics.peak_device_bytes = self._device_bytes
+            if _events.enabled():
+                _events.emit("spill", kind="unspill", bytes=h.size,
+                             device_bytes=self._device_bytes,
+                             bid=h._slot.lid)
+            if _obs.enabled():
+                _obs.inc("tpu_spills", 1, kind="unspill")
+                _obs.inc("tpu_spill_bytes", h.size, kind="unspill")
+                self._obs_watermark()
             self.ledger.note_unspill(h._slot.lid)
         # the buffer just brought back is the one in use: spill others
         self.request(0, exclude=h)
@@ -203,7 +261,15 @@ class BufferCatalog:
             self._host_bytes += freed
             self.metrics.device_to_host += 1
             self.metrics.spilled_bytes += freed
-            self.ledger.note_spill(handle._slot.lid)
+            lid = handle._slot.lid
+            if _events.enabled():
+                _events.emit("spill", kind="device_to_host", bytes=freed,
+                             device_bytes=self._device_bytes, bid=lid)
+            if _obs.enabled():
+                _obs.inc("tpu_spills", 1, kind="device_to_host")
+                _obs.inc("tpu_spill_bytes", freed, kind="device_to_host")
+                self._obs_watermark()
+            self.ledger.note_spill(lid)
         if self.conf.get(MEMORY_DEBUG):
             log.info("%sspilled %d B to host (device=%d B)",
                      "emergency " if emergency else "", freed,
@@ -224,6 +290,14 @@ class BufferCatalog:
                 with self._lock:
                     self._host_bytes -= freed
                     self.metrics.host_to_disk += 1
+                    if _events.enabled():
+                        _events.emit("spill", kind="host_to_disk",
+                                     bytes=freed,
+                                     device_bytes=self._device_bytes)
+                    if _obs.enabled():
+                        _obs.inc("tpu_spills", 1, kind="host_to_disk")
+                        _obs.inc("tpu_spill_bytes", freed,
+                                 kind="host_to_disk")
 
     def _victims(self, exclude):
         return sorted((h for h in self._handles(TIER_DEVICE)
@@ -235,6 +309,7 @@ class BufferCatalog:
         """Make room for an upcoming allocation of ``nbytes`` (the
         DeviceMemoryEventHandler analog, invoked proactively). Victims
         are picked under the catalog lock and spilled outside it."""
+        self.drain_collected()
         if self._budget is None or not self.conf.get(SPILL_ENABLED):
             return
         with self._lock:
@@ -281,10 +356,12 @@ class BufferCatalog:
 
     @property
     def device_bytes(self) -> int:
+        self.drain_collected()
         return self._device_bytes
 
     @property
     def host_bytes(self) -> int:
+        self.drain_collected()
         return self._host_bytes
 
 
@@ -313,9 +390,10 @@ class SpillableHandle:
         self._id = -1
         self._slot: _Slot
         self._catalog.register(self)
-        # a handle collected without close() unregisters itself
+        # a handle collected without close() queues its id for the
+        # catalog's next drain; the finalizer itself takes no lock
         self._finalizer = weakref.finalize(
-            self, self._catalog.unregister, self._id, "gc")
+            self, self._catalog._collected.append, self._id)
 
     @property
     def tier(self) -> int:

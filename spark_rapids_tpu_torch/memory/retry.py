@@ -20,11 +20,13 @@ so its tensors, alive through its traceback; the harness drops the
 traceback and re-attempts only after the handler has exited, so a retry
 does not run with the first attempt's memory still held.
 
-Left out: the reference's ``_raise_if_donation_uaf`` (eager PyTorch
-donates no buffers) and its ``oom_retry``/``batch_split`` events and obs
-counters (ROADMAP.md items 7, 13 and 26). In their place, :func:`stats`
-counts the attempts, retries, splits, deepest split and fused-plan
-fallbacks per op since :func:`reset_stats`.
+Each recovery action emits the reference's ``oom_retry`` event (kind
+``retry`` or ``split``, with the catalog's watermark and budget) and its
+``tpu_oom_retries`` twin, and each split a ``batch_split`` event and
+``tpu_batch_splits``. Beside them, :func:`stats` counts the attempts,
+retries, splits, deepest split and fused-plan fallbacks per op since
+:func:`reset_stats`, with logging off too. Left out: the reference's
+``_raise_if_donation_uaf`` (eager PyTorch donates no buffers).
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
+from .. import events as _events
 from .. import faults as _faults
+from .. import obs as _obs
 from ..conf import (OOM_RETRY_BACKOFF_MS, OOM_RETRY_ENABLED,
                     OOM_RETRY_MAX_ATTEMPTS, OOM_RETRY_MAX_SPLIT_DEPTH,
                     RapidsConf)
@@ -107,8 +111,19 @@ def classify_oom(exc: BaseException, op: str) -> Optional[TpuRetryOOM]:
                        watermark=watermark, budget=budget)
 
 
+def _emit_retry(op: str, kind: str, attempt: int, depth: int) -> None:
+    """The ``oom_retry`` event and its live twin (reference
+    ``retry.py:161``)."""
+    if _events.enabled() or _obs.enabled():
+        watermark, budget, _ = _hbm_state()
+        _events.emit("oom_retry", op=op, kind=kind, attempt=attempt,
+                     depth=depth, watermark=watermark, budget=budget)
+        if _obs.enabled():
+            _obs.note_oom_retry(op, kind)
+
+
 # ---------------------------------------------------------------------------
-# Recovery counters (the port's stand-in for the reference's events)
+# Recovery counters, kept with logging off
 # ---------------------------------------------------------------------------
 _STATS: Dict[str, Dict[str, int]] = {}
 _STATS_LOCK = threading.Lock()
@@ -236,6 +251,7 @@ def _run_split(h: _Harness, b, depth: int) -> List:
             last = _detach(e)
         # the handler has exited: the attempt's frames are released
         _note(op, retries=1)
+        _emit_retry(op, "retry", attempt, depth)
         freed = _release_pressure(op, h.on_pressure)
         log.warning(
             "device OOM in %s (attempt %d/%d, split depth %d): "
@@ -257,6 +273,12 @@ def _run_split(h: _Harness, b, depth: int) -> List:
 
     lo, hi = split_batch(b)
     _note(op, splits=1, max_depth=depth + 1)
+    _emit_retry(op, "split", h.attempts, depth + 1)
+    if _events.enabled():
+        _events.emit("batch_split", op=op, depth=depth + 1, rows=n,
+                     rows_left=lo.num_rows, rows_right=hi.num_rows)
+    if _obs.enabled():
+        _obs.note_batch_split(op)
     log.warning("split-and-retry in %s: %d rows -> %d + %d (depth %d)",
                 op, n, lo.num_rows, hi.num_rows, depth + 1)
     out = _run_split(h, lo, depth + 1)
@@ -324,6 +346,7 @@ def with_oom_retry_nosplit(op: str, fn: Callable, conf_: RapidsConf):
                 raise
             last = _detach(e)
         _note(op, retries=1)
+        _emit_retry(op, "retry", attempt, 0)
         _release_pressure(op, None)
         _backoff(backoff_ms, attempt)
     watermark, budget, _ = _hbm_state()

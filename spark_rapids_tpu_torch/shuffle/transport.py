@@ -8,8 +8,10 @@ they live. ``DeviceShuffleTransport`` keeps each piece on the device,
 registered spillable with the buffer catalog (``memory/spillable.py``,
 at the shuffle-input spill priority), so memory pressure can move it to
 the host until its fetch; ``SerializedShuffleTransport`` round-trips
-every piece through the host wire format (``serializer.py``). The
-shuffle events and observability counters are items 7 and 26.
+every piece through the host wire format (``serializer.py``). Both emit
+the reference's ``shuffle_write`` (one a piece) and ``shuffle_fetch``
+(one a reduce partition) events with their ``tpu_shuffle_*`` twins; the
+host transport adds its codec's encode and decode seconds.
 """
 from __future__ import annotations
 
@@ -18,8 +20,36 @@ import threading
 import time
 from typing import Dict, List, Tuple
 
+from .. import events as _events
+from .. import obs as _obs
 from .. import types as T
 from ..expr.values import Val
+
+
+def _note_write(shuffle_id, map_id, reduce_id, rows: int, nbytes: int,
+                codec: str) -> None:
+    if _events.enabled():
+        _events.emit("shuffle_write", shuffle_id=shuffle_id, map_id=map_id,
+                     reduce_id=reduce_id, rows=rows, bytes=nbytes,
+                     codec=codec)
+    if _obs.enabled():
+        _obs.inc("tpu_shuffle_pieces", 1, direction="write", codec=codec)
+        _obs.inc("tpu_shuffle_bytes", nbytes, direction="write",
+                 codec=codec)
+
+
+def _note_fetch(shuffle_id, reduce_id, pieces: List["ShufflePiece"],
+                nbytes: int, codec: str) -> None:
+    if _events.enabled():
+        _events.emit("shuffle_fetch", shuffle_id=shuffle_id,
+                     reduce_id=reduce_id, pieces=len(pieces),
+                     rows=sum(p.n for p in pieces), bytes=nbytes,
+                     codec=codec)
+    if _obs.enabled():
+        _obs.inc("tpu_shuffle_pieces", len(pieces), direction="fetch",
+                 codec=codec)
+        _obs.inc("tpu_shuffle_bytes", nbytes, direction="fetch",
+                 codec=codec)
 
 
 @dataclasses.dataclass
@@ -84,15 +114,19 @@ class DeviceShuffleTransport(ShuffleTransport):
             self._catalog.setdefault((shuffle_id, reduce_id), []).append(
                 (map_id, (sv, piece.n, piece.byte_lens)))
             self._bytes += sv.size_bytes
+        _note_write(shuffle_id, map_id, reduce_id, piece.n, sv.size_bytes,
+                    self.codec)
 
     def fetch(self, shuffle_id, reduce_id):
         with self._lock:
             entries = sorted(self._catalog.get((shuffle_id, reduce_id), ()),
                              key=lambda e: e[0])
-            self._fetched += sum(sv.size_bytes for _, (sv, _n, _b)
-                                 in entries)
-        return [ShufflePiece(sv.get_vals(), n, bl)
-                for _, (sv, n, bl) in entries]
+            nb = sum(sv.size_bytes for _, (sv, _n, _b) in entries)
+            self._fetched += nb
+        out = [ShufflePiece(sv.get_vals(), n, bl)
+               for _, (sv, n, bl) in entries]
+        _note_fetch(shuffle_id, reduce_id, out, nb, self.codec)
+        return out
 
     def bytes_written(self):
         return self._bytes
@@ -143,6 +177,10 @@ class SerializedShuffleTransport(ShuffleTransport):
                 (map_id, data))
             self._bytes += len(data)
             self._encode_ns += enc
+        _note_write(shuffle_id, map_id, reduce_id, piece.n, len(data),
+                    self.codec)
+        if _obs.enabled():
+            _obs.inc("tpu_shuffle_codec_seconds", enc / 1e9, op="encode")
 
     def fetch(self, shuffle_id, reduce_id):
         from ..exec.base import vals_of_batch
@@ -164,6 +202,9 @@ class SerializedShuffleTransport(ShuffleTransport):
         with self._lock:
             self._fetched += nb
             self._decode_ns += dec
+        _note_fetch(shuffle_id, reduce_id, out, nb, self.codec)
+        if _obs.enabled():
+            _obs.inc("tpu_shuffle_codec_seconds", dec / 1e9, op="decode")
         return out
 
     def bytes_written(self):

@@ -19,12 +19,24 @@ Memory plane: a session installs the fault injector from its
 runs each collect in a query scope that the leak sentinel sweeps at its
 end (``last_leaks``).
 
+Observability (reference ``session.py:361-555``): ``self.events`` is the
+session's event logger (``events.py``; a no-op unless
+``eventLog.enabled``/``eventLog.dir``) and the live plane starts per its
+confs (``obs.ensure_started``: registry, ``/metrics`` + ``/status``
+exporter, watchdog). With either on, every drain emits ``query_start``
+(with the environment), ``plan_tagged`` and ``query_end`` (also when it
+fails), registers and ends the query's live progress, and runs in a
+ledger query scope (the ledger arms with them). ``export_trace(path)``
+writes the ring as a Chrome/Perfetto trace; ``obs_address`` is the
+exporter's URL; ``close()`` flushes the log.
+
 Left out, as later ROADMAP.md items: plan analysis (so ``explain()``
-returns the tagging lines only), the event log, the observability plane,
-serving and the XLA cost and HLO planes, and ``DataFrameWriter`` and the
-CSV and ORC readers ('The remaining modules'); their conf keys are not
-registered. With ``spark.rapids.tpu.sql.udfCompiler.enabled`` on, each
-``PythonUDF`` is compiled to engine expressions where its bytecode allows
+returns the tagging lines only and no ``plan_analysis`` event is
+emitted), serving and the XLA cost and HLO planes, and
+``DataFrameWriter`` and the CSV and ORC readers ('The remaining
+modules'); their conf keys are not registered. With
+``spark.rapids.tpu.sql.udfCompiler.enabled`` on, each ``PythonUDF`` is
+compiled to engine expressions where its bytecode allows
 (``udf/compiler.py``); an uncompilable one, and every one with the conf
 off (the default), falls back to the CPU engine, as in the reference.
 """
@@ -34,7 +46,9 @@ import dataclasses
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+from .. import events as _events
 from .. import faults as _faults
+from .. import obs as _obs
 from ..columnar import resolve_device
 from ..conf import (HBM_BUDGET_BYTES, HBM_POOL_FRACTION, HBM_RESERVE,
                     HOST_SPILL_STORAGE_SIZE, LEAK_SENTINEL_ENABLED,
@@ -285,13 +299,38 @@ class TpuSession:
         self.last_executed_plan = None
         self.last_cpu_plan = None
         #: the leak sentinel's finds at the last query's end (the ledger
-        #: is armed only by ``memory.ledger.force_arm``)
+        #: arms while events or obs are on, or by ``ledger.force_arm``)
         self.last_leaks: List[dict] = []
+        # the structured event log (events.py): a ring buffer always
+        # backs export_trace(); a JSONL sink appears when eventLog.dir is
+        # set. Disabled (the default) costs one boolean per emit site.
+        self.events = _events.EventLogger(self.conf)
+        self._active_query: Optional[int] = None
+        self._pending_obs: Optional[tuple] = None
         # the deterministic fault injector (faults.py): installs nothing
         # with the test.faults.* confs off; tests pair an install with
         # faults.uninstall() (reference session.py:282-287)
         _faults.install(self.conf)
         _configure_catalog(self.conf, self.device)
+        # the live observability plane (obs/): None, with nothing
+        # started, unless metrics.live / metrics.http / watchdog is on
+        self._obs_plane = _obs.ensure_started(self.conf)
+
+    def close(self) -> None:
+        """Flush and close the session's event sink and detach it from
+        the process-global emit path. The obs plane is process-wide and
+        stays up for other sessions; stop it with ``obs.shutdown()``."""
+        if _events._ACTIVE is self.events:
+            _events.uninstall()
+        self.events.close()
+
+    @property
+    def obs_address(self) -> Optional[str]:
+        """Base URL of the live metrics exporter (None unless
+        spark.rapids.tpu.metrics.http.enabled): <url>/metrics is the
+        Prometheus scrape target, <url>/status feeds tools/tpu_top.py."""
+        return (self._obs_plane.address
+                if self._obs_plane is not None else None)
 
     @property
     def last_explain(self) -> str:
@@ -328,38 +367,133 @@ class TpuSession:
     # -- execution ---------------------------------------------------------
     def _execute(self, node: LNode) -> C.CpuExec:
         """Lower -> override pass -> the collect boundary (reference
-        ``_execute``, ``session.py:361-447``, without plan analysis,
-        events and observability)."""
+        ``_execute``, ``session.py:361-447``, without plan analysis and
+        serving). With events or obs on, the query gets its id here, and
+        its ``query_start`` and ``plan_tagged`` events."""
         cpu = _lower(node, self.conf)
         self.last_cpu_plan = cpu
+        obs_on = _obs.enabled()
+        digest: Optional[str] = None
+        if self.events.enabled or obs_on:
+            import hashlib
+
+            digest = hashlib.sha1(
+                cpu.tree_string().encode()).hexdigest()[:12]
         final, is_tpu = self.overrides.apply(cpu)
         if is_tpu:
             final = ColumnarToRowExec(self.conf, final)
         self.last_executed_plan = final
+        self._active_query = None
+        self._pending_obs = None
+        if self.events.enabled or obs_on:
+            qid = self._active_query = _next_query_id()
+            if self.events.enabled:
+                self._emit_query_events(node, qid, digest, is_tpu)
+            if obs_on:
+                # registered on the draining thread by _run_collect (the
+                # port has no plan analyzer: no progress denominators)
+                self._pending_obs = (qid, digest)
         return final
 
-    def _collect(self, node: LNode) -> List[tuple]:
-        """Execute and collect. With the ledger armed, the buffers the
-        query registers are owned by it, and at its end the sweep folds
-        its peak and flags what it leaked (reference
-        ``session.py:525-555``)."""
-        final = self._execute(node)
-        ledger = BufferCatalog.get().ledger
-        if not ledger.armed():
+    def _emit_query_events(self, node: LNode, qid: int, plan_digest: str,
+                           is_tpu: bool) -> None:
+        """query_start + plan_tagged for one execution (reference
+        ``session.py:468``). The session's logger becomes the
+        process-wide active sink, so engine-level emitters (catalog,
+        caches, transports, pool threads) attribute to this session's
+        log."""
+        import hashlib
+
+        from .. import envinfo as _envinfo
+
+        _events.install(self.events)
+        _events.emit("query_start", query_id=qid, plan_digest=plan_digest,
+                     sql_hash=hashlib.sha1(
+                         repr(node).encode()).hexdigest()[:12],
+                     env=_envinfo.environment_info(self.device))
+        meta = self.overrides.last_meta
+        if meta is not None:
+            fallbacks = []
+
+            def walk(m):
+                if m.reasons:
+                    name = m.rule.name if m.rule else m.wrapped.node_name
+                    fallbacks.append({"op": name,
+                                      "reasons": list(m.reasons)})
+                for c in m.child_metas:
+                    walk(c)
+
+            walk(meta)
+            _events.emit("plan_tagged", query_id=qid, on_tpu=is_tpu,
+                         fallbacks=fallbacks)
+
+    def _run_collect(self, final: C.CpuExec) -> List[tuple]:
+        """Drain and collect (reference ``session.py:507-555``): the
+        query's live progress registered on this (the draining) thread,
+        its buffers owned by it in a ledger query scope, and in a finally
+        the ``query_end`` event (duration, rows, error), the end of its
+        progress and the ledger's sweep (its peak and leaks:
+        ``last_leaks``). The scope opens while events or obs are on, or
+        the ledger is force-armed; with all off nothing of this runs."""
+        import time as _time
+
+        t0 = _time.perf_counter_ns()
+        pending, self._pending_obs = self._pending_obs, None
+        qid = self._active_query
+        cat = BufferCatalog.get()
+        ledger = cat.ledger
+        if qid is None and ledger.armed():
+            qid = _next_query_id()
+        if qid is None:
             return final.collect()
-        qid = _next_query_id()
+        obs_qid = None
+        if pending is not None and _obs.enabled():
+            obs_qid, digest = pending
+            _obs.note_query_start(obs_qid, digest)
+        rows: Optional[List[tuple]] = None
         try:
             with query_scope(qid):
-                return final.collect()
+                rows = final.collect()
+            return rows
         finally:
+            if self.events.enabled:
+                _events.emit(
+                    "query_end", query_id=qid,
+                    dur=_time.perf_counter_ns() - t0,
+                    rows=len(rows) if rows is not None else None,
+                    error=rows is None)
+            if obs_qid is not None:
+                _obs.note_query_end(
+                    obs_qid, rows=len(rows) if rows is not None else None,
+                    error=rows is None)
+            # buffers collected during the drain are unregistered (and
+            # their buffer_free emitted) before the sentinel looks
+            cat.drain_collected()
             self.last_leaks = ledger.sweep_query(qid)
+
+    def _collect(self, node: LNode) -> List[tuple]:
+        return self._run_collect(self._execute(node))
+
+    def export_trace(self, path: str) -> str:
+        """Write the session's event ring buffer as Chrome/Perfetto
+        trace-event JSON (reference ``session.py:659``); raises when event
+        logging is off entirely."""
+        if not self.events.enabled:
+            raise RuntimeError(
+                "event logging is off: set spark.rapids.tpu.eventLog."
+                "enabled (ring buffer only) or eventLog.dir (JSONL file) "
+                "to record a trace")
+        return _events.export_chrome_trace(self.events.records(), path)
 
     def explain_metrics(self) -> str:
         """Per-operator report of the last executed plan (reference
         ``session.py:692``): one line per device exec with its
         ``describe()`` (the exchanges and adaptive reads as planned and
         resolved) and its metrics, such as an exchange's
-        ``partitionSize``, ``dataSize`` and ``shuffleBytesWritten``."""
+        ``partitionSize``, ``dataSize`` and ``shuffleBytesWritten``, every
+        exec's ``bytesTouched`` and, under
+        ``metrics.deviceSync.enabled``, its ``opTimeDevice`` and
+        ``hbm_gbps[device]``; the memory footer last."""
         from ..exec.base import TpuExec, format_metrics
 
         plan = self.last_executed_plan

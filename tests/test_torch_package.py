@@ -23,8 +23,8 @@ PKG = ROOT / "spark_rapids_tpu_torch"
 
 
 #: every subpackage the import walk must reach
-SUBPACKAGES = ("columnar", "cpu", "exec", "expr", "io", "ops", "plugin", "sql",
-               "udf")
+SUBPACKAGES = ("columnar", "cpu", "exec", "expr", "io", "obs", "ops", "plugin",
+               "sql", "udf", "utils")
 
 
 def test_import_leaves_jax_and_reference_out():
@@ -36,6 +36,8 @@ def test_import_leaves_jax_and_reference_out():
         f"for sub in {SUBPACKAGES!r}:\n"
         "    assert 'spark_rapids_tpu_torch.' + sub in sys.modules, sub\n"
         "assert 'spark_rapids_tpu_torch.udf.native' in sys.modules\n"
+        "for mod in ('events', 'envinfo'):\n"
+        "    assert 'spark_rapids_tpu_torch.' + mod in sys.modules, mod\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'spark_rapids_tpu'\n"
         "             or m.startswith('spark_rapids_tpu.'))\n"
