@@ -244,7 +244,9 @@ Phases, each failing the run on any error or mismatch:
         groups), count(*) per c_count (K1), by custdist desc, c_count
         desc; Q22r the same with ``not rlike 'special.*requests'``,
         which no device route takes: the planner runs that filter on the
-        CPU engine and the rows must be Q22's (one cold run); Q22d with
+        CPU engine, over the orders' first row group only (2^21 of the
+        2^23 orders, one cold run) and the rows must be the LIKE's over
+        those orders; Q22d with
         ``not rlike '^[a-z]+ (sly|furious)'``, which runs on the DFA
         kernel; each against a numpy oracle from the text pool's word
         positions (itself held to Python's ``re`` on a sample);
@@ -420,6 +422,24 @@ Phases, each failing the run on any error or mismatch:
    ``export_trace`` writes a Chrome trace whose ``traceEvents`` load.
    One line a query gives the walls off and on beside the card's name
    and power limit.
+14. the mesh (item 28): bench.py's six mesh shapes at scale 1
+   (``bench.py:731-925``, rebuilt here from the same seeds) under
+   ``shuffle.mode=ici`` over a mesh of 4 virtual devices on the one card
+   (``SRTPU_TORCH_VIRTUAL_DEVICES=4``, ``mesh.devices=4``,
+   ``variableFloatAgg`` as the bench's mesh lane sets it), each a cold
+   and two warm walls with the launch counts zeroed before each run and
+   read after it, no plain kernel version called, its mesh stages and
+   shards printed, and held to the port's host-exchange plan of the same
+   query on the card (integers bit for bit, rows as multisets, the
+   sort's keys in order; float averages and sums within 1e-9 of each
+   group's Σ|x|): M-agg (2^26 rows: the sharded scan, filter and project
+   absorbed per shard, sum, avg, count; K1 and K2 must launch) and
+   M-aggm (min, max: K3), M-sort, M-join (2^23 x 100 000), M-window
+   (2^23), M-string (2^22, string keys: the RADIX kernel), M-parquet (2^23
+   rows through the session, row groups round-robined onto the shards;
+   K1 and K2), and M-net, M-parquet's query under the single-process
+   exchange with ``shuffle.transport.class=network`` against the
+   ``host`` transport (:func:`mesh_phase`).
 
 Q1r, Q1m and Q1s are Q1 under a forced RADIX (the RADIX kernel once
 per batch and in the merge), MATMUL (the f32 one-hot limb products, no
@@ -450,6 +470,11 @@ K1 and K3 at that shape, K4 at Q8's and Q18's, the ordered sum at
 Q17's and Q18's, K1 and K3 at Q19(c)'s, K1 and K2 at Q20v's and K3 at
 Q21(a)'s have their own entries in the ``kernels`` line; the DFA row
 matcher's entry is its time at Q22's shape with Q22d's pattern.
+
+Cuts of depth, to keep the whole script in its time as phases are
+added: Q22r reads the orders' first row group only (since the mesh
+phase came; its CPU-engine filter over all 2^23 orders took 143 s on
+the H100's host, the longest step of the script).
 
 Output: one JSON line per kernel shape and per query, then one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` are those of its
@@ -4595,35 +4620,41 @@ def _not_rlike(pattern):
 
 
 def q22_queries(torch, np, dev, t, opath, cpath, like, anchored,
-                profile: bool) -> dict:
+                profile: bool, opath_r: str) -> dict:
     """Q22 (TPC-H Q13 with its LIKE), Q22r (the same words as an RLIKE
     the DFA refuses: the planner runs that filter on the CPU engine, and
-    the rows must be Q22's) and Q22d (an RLIKE the DFA takes), through a
-    port ``TpuSession`` over the parquet files, join strategy PALLAS (K4),
-    aggregates AUTO; each against its numpy oracle. Returns each path's
-    launches."""
+    the rows must be the LIKE's over the same orders) and Q22d (an RLIKE
+    the DFA takes), through a port ``TpuSession`` over the parquet files,
+    join strategy PALLAS (K4), aggregates AUTO; each against its numpy
+    oracle. Q22r reads ``opath_r``, the orders' first row group (its
+    CPU-engine filter is the longest step of the script). Returns each
+    path's launches."""
     from spark_rapids_tpu_torch.exec.scan import TpuFileSourceScanExec
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
     from spark_rapids_tpu_torch.sql import session as S
 
     n, nc = t["n"], t["customers"]
+    nr = n // ORDERS_ROW_GROUPS
     want = q13_oracle(np, t, like)
+    want_r = q13_oracle(np, {"customers": nc, "custkey": t["custkey"][:nr]},
+                        like[:nr])
     want_d = q13_oracle(np, t, anchored)
     conf = {"spark.rapids.tpu.sql.join.strategy": "PALLAS"}
     per_query = {}
-    live = int(t["offsets"][-1])
-    in_bytes = live + n * (4 + 8 + 8 + 3) + nc * 9
-    for q, pred, rows_want, runs in (
-            ("Q22", _not_like, want, 4),
-            ("Q22r", _not_rlike(Q22R_REGEX), want, 1),
-            ("Q22d", _not_rlike(Q22D_REGEX), want_d, 4)):
+    for q, pred, rows_want, runs, orders in (
+            ("Q22", _not_like, want, 4, opath),
+            ("Q22r", _not_rlike(Q22R_REGEX), want_r, 1, opath_r),
+            ("Q22d", _not_rlike(Q22D_REGEX), want_d, 4, opath)):
+        n_q = nr if orders == opath_r else n
+        in_bytes = (int(t["offsets"][n_q]) + n_q * (4 + 8 + 8 + 3)
+                    + nc * 9)
         sess = S.TpuSession(conf, device=dev)
         DeviceScanCache.reset()
         S._SCANNER_CACHE.clear()
         plans = []
 
-        def run_once(sess=sess, pred=pred):
-            rows = tpch_q13_df(sess, opath, cpath, pred).collect()
+        def run_once(sess=sess, pred=pred, orders=orders):
+            rows = tpch_q13_df(sess, orders, cpath, pred).collect()
             plans.append(sess.last_executed_plan)
             return rows
 
@@ -4639,7 +4670,7 @@ def q22_queries(torch, np, dev, t, opath, cpath, like, anchored,
                       for e in _device_tree(plans[0].tpu_child)
                       if isinstance(e, TpuFileSourceScanExec)]
         tree = plans[0].tree_string()
-        text = tpch_q13_df(sess, opath, cpath, pred).explain()
+        text = tpch_q13_df(sess, orders, cpath, pred).explain()
         fallback = "CpuFilterExec" in tree
         dfa = counts["dfa_accept_rows"]
         if (counts["probe_ranges"] <= 0 or counts["bucket_sum"] <= 0
@@ -4651,10 +4682,10 @@ def q22_queries(torch, np, dev, t, opath, cpath, like, anchored,
         scans = [{k: v.value for k, v in e.metrics.items()}
                  for e in _device_tree(plans[-1].tpu_child)
                  if isinstance(e, TpuFileSourceScanExec)]
-        emit({"query": q, "orders": n, "customers": nc,
+        emit({"query": q, "orders": n_q, "customers": nc,
               "rows": len(rows_want), "last_run_scans": scans,
               "excluded_orders": int((like if q != "Q22d"
-                                      else anchored).sum()),
+                                      else anchored)[:n_q].sum()),
               "cpu_filter": fallback, "cold_wall_ms": cold,
               "warm_wall_ms": warm, "cold_host_decode_ms": cold_scans,
               "decode_routes": routes, "bytes": in_bytes,
@@ -5114,19 +5145,24 @@ def string_expr_phase(torch, np, dev, log2_rows: int, reps: int,
     here = os.path.dirname(os.path.abspath(__file__))
     base = os.path.join(here, PARQUET_DIR)
     opath = os.path.join(base, "orders")
+    opath_r = os.path.join(base, "orders_r")
     cpath = os.path.join(base, "customer")
     shutil.rmtree(base, ignore_errors=True)
-    os.makedirs(opath)
-    os.makedirs(cpath)
+    for d in (opath, opath_r, cpath):
+        os.makedirs(d)
     try:
         chars = comment_chars(torch, t, dev)
         t0 = time.perf_counter()
-        pq.write_table(pa.table({
+        orders = pa.table({
             "o_orderkey": t["orderkey"], "o_custkey": t["custkey"],
             "o_comment": _pa_strings(pa, np, (t["offsets"],
-                                              chars.cpu().numpy()))}),
-            os.path.join(opath, "t.parquet"),
-            row_group_size=n // ORDERS_ROW_GROUPS)  # pyarrow's defaults
+                                              chars.cpu().numpy()))})
+        nr = n // ORDERS_ROW_GROUPS
+        pq.write_table(orders, os.path.join(opath, "t.parquet"),
+                       row_group_size=nr)  # pyarrow's defaults
+        pq.write_table(orders.slice(0, nr),
+                       os.path.join(opath_r, "t.parquet"))
+        del orders
         pq.write_table(pa.table({
             "c_custkey": t["c_custkey"], "c_nationkey": t["nation"],
             "c_phone": _pa_strings(pa, np, t["phone"]),
@@ -5142,7 +5178,7 @@ def string_expr_phase(torch, np, dev, log2_rows: int, reps: int,
         dfa = dfa_kernel_phase(torch, np, dev, t, chars, reps)
         del chars
         per_query = q22_queries(torch, np, dev, t, opath, cpath, like,
-                                anchored, profile)
+                                anchored, profile, opath_r)
         per_query.update(q23_tpch_q22(torch, np, dev, t, opath, cpath,
                                       profile))
     finally:
@@ -7130,6 +7166,466 @@ def observability_phase(torch, np, dev, smi: str) -> dict:
     return per_query
 
 
+# ---------------------------------------------------------------------------
+# mesh phase: bench.py's six mesh shapes over 4 shards of one card
+# ---------------------------------------------------------------------------
+#: shards of the mesh phase (virtual devices laid over the one card)
+MESH_SHARDS = 4
+MESH_BASE = {"spark.rapids.tpu.shuffle.mode": "ici",
+             "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+             "spark.rapids.tpu.mesh.devices": MESH_SHARDS}
+MESH_HOST = {"spark.rapids.tpu.shuffle.mode": "host",
+             "spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+#: the mesh shapes' rows (bench.py's at scale 1), as powers of two: the
+#: agg shapes, the sort/join/window/parquet shapes, the string shape
+MESH_AGG_LOG2_ROWS = 26
+MESH_LOG2_ROWS = 23
+MESH_STRING_LOG2_ROWS = 22
+
+
+def np_shard_parts(np, arrays, masks, n: int, n_parts: int):
+    """bench.py's ``_np_shard_parts``: the columns split into ``n_parts``
+    contiguous chunks of (data, valid)."""
+    per = (n + n_parts - 1) // n_parts
+    parts = []
+    for p in range(n_parts):
+        lo, hi = p * per, min((p + 1) * per, n)
+        parts.append(([(x[lo:hi], np.ones(hi - lo, bool) if m is None
+                        else m[lo:hi]) for x, m in zip(arrays, masks)],
+                      hi - lo))
+    return parts
+
+
+def plan_columns(torch, root):
+    """Every output column's live rows over all partitions on the card,
+    as (data with nulls zeroed, validity) pairs."""
+    cols = [[] for _ in root.output_schema.fields]
+    for p in range(root.num_partitions):
+        for b in root.execute_partition(p):
+            n = int(b.num_rows)
+            for j, c in enumerate(b.columns):
+                v = c.validity[:n]
+                cols[j].append((torch.where(v, c.data[:n],
+                                            torch.zeros_like(c.data[:n])), v))
+    return [(torch.cat([d for d, _ in ps]), torch.cat([v for _, v in ps]))
+            for ps in cols]
+
+
+def sorted_rows(torch, cols):
+    """The columns' rows in lexicographic order (nulls as 0 beside their
+    validity): the multiset of rows, comparable across plans."""
+    keys = [w for d, v in cols for w in (v.to(torch.int64), d)]
+    perm = torch.arange(keys[0].numel(), device=keys[0].device)
+    for k in reversed(keys):
+        perm = perm[torch.argsort(k[perm], stable=True)]
+    return [(d[perm], v[perm]) for d, v in cols]
+
+
+def same_columns(torch, what, got, want, exact=True):
+    """The same rows column by column, bit for bit."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} != {len(want)} columns")
+    for j, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+        if gd.numel() != wd.numel() or not torch.equal(gv, wv) or not (
+                torch.equal(gd, wd)):
+            raise AssertionError(f"{what}: column {j} differs")
+
+
+def mesh_stage_report(root) -> list:
+    """Each mesh stage of a device plan: its description, shards and
+    staging/exchange actuals."""
+    from spark_rapids_tpu_torch.exec.mesh import _MeshStage
+
+    out = []
+    for e in _device_tree(root):
+        if isinstance(e, _MeshStage):
+            out.append({"stage": e.describe(), "shards": e.n_shards,
+                        "devices": [str(d) for d in e.devices],
+                        **{k: v for k, v in e.mesh_actuals.items()
+                           if k != "per_chip_ns"},
+                        "per_chip_ms": [round(x / 1e6, 3) for x in
+                                        e.mesh_actuals.get("per_chip_ns",
+                                                           [])]})
+    return out
+
+
+def mesh_query(torch, q: str, mesh_run, host_run, compare, rows: int,
+               nbytes: int, need=()) -> dict:
+    """One mesh shape: the mesh plan's cold and two warm walls (launch
+    counts set to 0 before each run and read after, every run repeating
+    the first's, no plain version called), its stages; the port's
+    host-exchange plan of the same query once (its wall), and
+    ``compare(mesh result, host result)``. ``need``: the kernels that
+    must launch on the mesh path. Returns the launches."""
+    results = []
+
+    def run_once():
+        res, root = mesh_run()
+        results[:] = [(res, root)]
+        return res
+
+    with plain_calls() as plain:
+        cold, warm, counts = _walls(torch, q, run_once, lambda r: None,
+                                    runs=3)
+    if any(plain.values()):
+        raise AssertionError(f"{q}: plain versions called on the card: "
+                             f"{plain}")
+    res, root = results[0]
+    stages = mesh_stage_report(root)
+    if not stages or any(s["shards"] != MESH_SHARDS for s in stages):
+        raise AssertionError(f"{q}: mesh stages {stages}")
+    missing = [k for k in need if not counts[k]]
+    if missing:
+        raise AssertionError(f"{q}: {missing} did not launch: {counts}")
+    reset_launches()
+    t0 = time.perf_counter()
+    want = host_run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    compare(res, want)
+    emit({"query": q, "rows": rows, "cold_wall_ms": cold,
+          "warm_wall_ms": warm, "host_exchange_wall_ms": host_ms,
+          "bytes": nbytes, "bound_ms": bound_ms(nbytes), "launches": counts,
+          "stages": stages})
+    return counts
+
+
+def _mesh_agg_shape(np, n: int):
+    """bench.py ``mesh_shape_agg`` (seed 42): k in [0, 64), a, b ~ N(0, 1)
+    with 5% nulls."""
+    rng = np.random.default_rng(42)
+    k = rng.integers(0, 64, n).astype(np.int32)
+    a = rng.integers(-(10**6), 10**6, n).astype(np.int64)
+    b = rng.normal(size=n)
+    b_null = rng.random(n) < 0.05
+    return k, a, np.where(b_null, 0.0, b), ~b_null
+
+
+def mesh_phase(torch, np, dev) -> dict:
+    """bench.py's six mesh shapes (``bench.py:731-925``) at scale 1 under
+    ``shuffle.mode=ici`` over a mesh of 4 virtual devices on the one card
+    (``SRTPU_TORCH_VIRTUAL_DEVICES=4``, ``mesh.devices=4``,
+    ``variableFloatAgg`` as the bench's mesh lane sets it), each against
+    the port's host-exchange plan of the same query on the card, and one
+    partitioned query under ``shuffle.transport.class=network``:
+
+      M-agg    2^26 rows from the sharded scan -> filter a >= 0 -> project
+               a2 = a*2 -> mesh aggregate by k: sum(a2), avg(b),
+               count(b) (the chain absorbed per shard); K1 and K2 must
+               launch; M-aggm the same chain with min(a2), max(b): K3;
+      M-sort   2^23 int64 keys, the sampled range exchange;
+      M-join   2^23 fact rows x 100 000 dim rows, inner, on fk = dk;
+      M-window 2^23 rows, sum(v) and row_number() over (partition by k
+               order by ts);
+      M-string 2^22 rows of the bench string pool (dictionary layout,
+               materialized at staging), filter contains(s, "X"), group by
+               s: count(*), sum(v); string keys take the RADIX kernel;
+      M-parquet bench.py ``shape_parquet`` through a session: 2^23 rows in
+               8 row groups round-robined onto the shards; K1 and K2;
+      M-net    M-parquet's query under the single-process exchange with
+               ``transport.class=network`` (a local block server) against
+               the ``host`` transport.
+
+    Integer columns must equal the host plan's bit for bit (rows as
+    multisets; M-sort's key sequence in order); float sums and averages
+    within 1e-9 of each group's sum of |x| (the kernels' atomics order
+    them)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, schema_of
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec, TpuFilterExec,
+                                             TpuHashAggregateExec,
+                                             TpuProjectExec)
+    from spark_rapids_tpu_torch.exec.exchange import TpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.exec.join import TpuShuffledHashJoinExec
+    from spark_rapids_tpu_torch.exec.mesh import (TpuMeshAggregateExec,
+                                                  TpuMeshHashJoinExec,
+                                                  TpuMeshSortExec,
+                                                  TpuMeshWindowExec)
+    from spark_rapids_tpu_torch.exec.scan import MeshShardedScanExec
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+    from spark_rapids_tpu_torch.exec.window import TpuWindowExec
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr import windows as W
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.ops.sort import SortOrder
+    from spark_rapids_tpu_torch.parallel import mesh as PM
+    from spark_rapids_tpu_torch.shuffle.partition import (HashPartitioning,
+                                                          RangePartitioning)
+
+    saved = os.environ.get(PM.VIRTUAL_DEVICES_ENV)
+    os.environ[PM.VIRTUAL_DEVICES_ENV] = str(MESH_SHARDS)
+    conf = RapidsConf(MESH_BASE)
+    hconf = RapidsConf(MESH_HOST)
+    per_query = {}
+
+    def hash_ex(child, keys):
+        return TpuShuffleExchangeExec(hconf, child,
+                                      HashPartitioning(keys, MESH_SHARDS))
+
+    def two_phase(scan_of, chain, keys, aggs):
+        """partial -> hash exchange -> final over ``chain(scan)``: the
+        planner's host route."""
+        partial = TpuHashAggregateExec(hconf, keys, aggs, chain(scan_of()),
+                                       A.PARTIAL)
+        return TpuHashAggregateExec(hconf, keys, aggs,
+                                    hash_ex(partial, list(range(len(keys)))),
+                                    A.FINAL)
+
+    def agg_rows(root):
+        return sorted(ColumnarToRowExec(conf, root).collect(),
+                      key=lambda r: (r[0] is None, r[0]))
+
+    from spark_rapids_tpu_torch.exec import ColumnarToRowExec
+
+    try:
+        # M-agg, M-aggm ------------------------------------------------
+        n = 1 << MESH_AGG_LOG2_ROWS
+        k, a, b, bv = _mesh_agg_shape(np, n)
+        schema = schema_of(k=T.INT, a=T.LONG, b=T.DOUBLE)
+        parts = np_shard_parts(np, [k, a, b], [None, None, bv], n,
+                               MESH_SHARDS)
+        keep = a >= 0
+        abs_b = np.bincount(k[keep & bv], weights=np.abs(b[keep & bv]),
+                            minlength=64)
+        cnt_b = np.bincount(k[keep & bv], minlength=64)
+
+        def chain(scan):
+            filt = TpuFilterExec(scan.conf, E.GreaterThanOrEqual(
+                col("a"), lit(0)), scan)
+            return TpuProjectExec(scan.conf, [
+                col("k"), E.Alias(E.Multiply(col("a"), lit(2)), "a2"),
+                col("b")], filt)
+
+        for q, aggs, need, fcols in (
+                ("M-agg", [A.agg(A.Sum(col("a2")), "s"),
+                           A.agg(A.Average(col("b")), "m"),
+                           A.agg(A.Count(col("b")), "c")],
+                 ("bucket_sum", "bucket_float_sum"), {2: "avg"}),
+                ("M-aggm", [A.agg(A.Min(col("a2")), "mn"),
+                            A.agg(A.Max(col("b")), "mx"),
+                            A.agg(A.Count(col("b")), "c")],
+                 ("bucket_winner",), {})):
+            def mesh_run(aggs=aggs):
+                root = TpuMeshAggregateExec(
+                    conf, [col("k")], aggs,
+                    chain(MeshShardedScanExec(conf, parts, schema, dev)))
+                return agg_rows(root), root
+
+            def host_run(aggs=aggs):
+                return agg_rows(two_phase(
+                    lambda: MeshShardedScanExec(hconf, parts, schema, dev),
+                    chain, [col("k")], aggs))
+
+            def compare(got, want, q=q, fcols=fcols):
+                if len(got) != len(want) or len(got) != 64:
+                    raise AssertionError(f"{q}: {len(got)} groups")
+                for g, w in zip(got, want):
+                    for j, (x, y) in enumerate(zip(g, w)):
+                        if j in fcols:
+                            kk = g[0]
+                            if not _close(x, y, abs_b[kk] / max(
+                                    cnt_b[kk], 1)):
+                                raise AssertionError(f"{q} {g} != {w}")
+                        elif x != y:
+                            raise AssertionError(f"{q} {g} != {w}")
+
+            per_query[q] = mesh_query(torch, q, mesh_run, host_run, compare,
+                                      n, n * 22, need)
+        del parts, k, a, b, bv
+
+        # M-sort --------------------------------------------------------
+        n = 1 << MESH_LOG2_ROWS
+        rng = np.random.default_rng(7)
+        key = rng.integers(-(2**40), 2**40, n)
+        pay = rng.integers(0, 1000, n).astype(np.int32)
+        schema = schema_of(key=T.LONG, pay=T.INT)
+        parts = np_shard_parts(np, [key, pay], [None, None], n, MESH_SHARDS)
+
+        def sort_compare(got, want):
+            if not torch.equal(got[0][0], want[0][0]):
+                raise AssertionError("M-sort: key order differs")
+            same_columns(torch, "M-sort", sorted_rows(torch, got),
+                         sorted_rows(torch, want))
+
+        per_query["M-sort"] = mesh_query(
+            torch, "M-sort",
+            lambda: (lambda r: (plan_columns(torch, r), r))(TpuMeshSortExec(
+                conf, [0], [(True, True)],
+                MeshShardedScanExec(conf, parts, schema, dev))),
+            lambda: plan_columns(torch, TpuSortExec(
+                hconf, [col("key")], [(True, True)], TpuShuffleExchangeExec(
+                    hconf, MeshShardedScanExec(hconf, parts, schema, dev),
+                    RangePartitioning([0], [SortOrder(True, True)],
+                                      MESH_SHARDS)), global_sort=False)),
+            sort_compare, n, n * 12 * 2)
+        del parts, key, pay
+
+        # M-join --------------------------------------------------------
+        d = DIM_ROWS
+        rng = np.random.default_rng(11)
+        fk = rng.integers(0, d, n).astype(np.int64)
+        fv = rng.integers(0, 100, n).astype(np.int64)
+        dk = np.arange(d, dtype=np.int64)
+        dv = rng.integers(0, 10**6, d).astype(np.int64)
+        fs, ds = schema_of(fk=T.LONG, fv=T.LONG), schema_of(dk=T.LONG,
+                                                           dv=T.LONG)
+        fparts = np_shard_parts(np, [fk, fv], [None, None], n, MESH_SHARDS)
+        dparts = np_shard_parts(np, [dk, dv], [None, None], d, MESH_SHARDS)
+
+        def multiset(q):
+            return lambda got, want: same_columns(
+                torch, q, sorted_rows(torch, got), sorted_rows(torch, want))
+
+        per_query["M-join"] = mesh_query(
+            torch, "M-join",
+            lambda: (lambda r: (plan_columns(torch, r), r))(
+                TpuMeshHashJoinExec(
+                    conf, MeshShardedScanExec(conf, fparts, fs, dev),
+                    MeshShardedScanExec(conf, dparts, ds, dev), [0], [0])),
+            lambda: plan_columns(torch, TpuShuffledHashJoinExec(
+                hconf,
+                hash_ex(MeshShardedScanExec(hconf, fparts, fs, dev), [0]),
+                hash_ex(MeshShardedScanExec(hconf, dparts, ds, dev), [0]),
+                [col("fk")], [col("dk")], "inner", None, partitioned=True)),
+            multiset("M-join"), n, (n + d) * 16 + n * 32)
+        del fparts, dparts, fk, fv
+
+        # M-window ------------------------------------------------------
+        rng = np.random.default_rng(13)
+        wk = rng.integers(0, 64, n).astype(np.int32)
+        ts = rng.permutation(n).astype(np.int64)
+        wv = rng.integers(0, 1000, n).astype(np.int64)
+        schema = schema_of(k=T.INT, ts=T.LONG, v=T.LONG)
+        parts = np_shard_parts(np, [wk, ts, wv], [None] * 3, n, MESH_SHARDS)
+        spec = W.WindowSpec(partition_by=(col("k"),), order_by=(col("ts"),),
+                            orders=((True, True),))
+        wexprs = [W.WindowExpression(A.Sum(col("v")), spec, "rs"),
+                  W.WindowExpression(W.RowNumber(), spec, "rn")]
+        per_query["M-window"] = mesh_query(
+            torch, "M-window",
+            lambda: (lambda r: (plan_columns(torch, r), r))(
+                TpuMeshWindowExec(conf, wexprs, MeshShardedScanExec(
+                    conf, parts, schema, dev))),
+            lambda: plan_columns(torch, TpuWindowExec(
+                hconf, wexprs, MeshShardedScanExec(hconf, parts, schema,
+                                                   dev))),
+            multiset("M-window"), n, n * 20 * 2)
+        del parts, wk, ts, wv
+
+        # M-string ------------------------------------------------------
+        n = 1 << MESH_STRING_LOG2_ROWS
+        idx, sv, _, _ = string_pool_rows(np, n)
+        schema = schema_of(s=T.STRING, v=T.LONG)
+        per = n // MESH_SHARDS
+        partitions = []
+        for p in range(MESH_SHARDS):
+            lo, hi = p * per, (p + 1) * per
+            vb = _padded_batch(np, torch, schema_of(v=T.LONG), [sv[lo:hi]],
+                               [np.ones(hi - lo, bool)], dev)
+            partitions.append([ColumnarBatch(
+                [pool_dict_column(np, dev, STRING_POOL, idx[lo:hi]),
+                 vb.columns[0]], schema, hi - lo)])
+        sagg = [A.agg(A.Count(None), "c"), A.agg(A.Sum(col("v")), "sv")]
+
+        def sfilt(scan):
+            return TpuFilterExec(scan.conf, E.Contains(col("s"), lit("X")),
+                                 scan)
+
+        def sscan(c):
+            return InMemoryScanExec(c, partitions, schema)
+
+        def exact(q):
+            def check(got, want):
+                if got != want or not got:
+                    raise AssertionError(f"{q}: {got} != {want}")
+            return check
+
+        per_query["M-string"] = mesh_query(
+            torch, "M-string",
+            lambda: (lambda r: (agg_rows(r), r))(TpuMeshAggregateExec(
+                conf, [col("s")], sagg, sfilt(sscan(conf)))),
+            lambda: agg_rows(two_phase(lambda: sscan(hconf), sfilt,
+                                       [col("s")], sagg)),
+            exact("M-string"), n, n * 13, ("radix_segment_reduce",))
+        del partitions
+
+        # M-parquet, M-net ----------------------------------------------
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from spark_rapids_tpu_torch.sql import TpuSession
+
+        n = 1 << MESH_LOG2_ROWS
+        item, qty, cost, date = bench_parquet_table(np, n)
+        pdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            PARQUET_DIR, "mesh")
+        os.makedirs(pdir, exist_ok=True)
+        path = os.path.join(pdir, "t.parquet")
+        pq.write_table(pa.table({
+            "ss_item_sk": item, "ss_quantity": qty,
+            "ss_wholesale_cost": cost, "ss_sold_date_sk": date}), path,
+            row_group_size=n // (2 * MESH_SHARDS))
+        q11 = q11_check(np, qty, cost, date)
+        # one split per row group (bench.py's batchSizeBytes=1)
+        split = {"spark.rapids.tpu.sql.reader.batchSizeBytes": 1}
+
+        def pq_rows(settings):
+            sess = TpuSession({**settings, **split}, device=dev)
+            df = (sess.read.parquet(pdir)
+                  .where(E.GreaterThanOrEqual(col("ss_sold_date_sk"),
+                                              lit(2_452_015)))
+                  .group_by("ss_quantity")
+                  .agg(A.agg(A.Sum(col("ss_wholesale_cost")), "s"),
+                       A.agg(A.Count(col("ss_item_sk")), "c")))
+            return sorted(df.collect()), sess.last_executed_plan.tpu_child
+
+        def q11_compare(q):
+            def check(got, want):
+                q11(got, q)
+                q11(want, q + " (host)")
+                for g, w in zip(got, want):
+                    if g[0] != w[0] or g[2] != w[2]:
+                        raise AssertionError(f"{q}: {g} != {w}")
+            return check
+
+        try:
+            per_query["M-parquet"] = mesh_query(
+                torch, "M-parquet", lambda: pq_rows(MESH_BASE),
+                lambda: pq_rows(MESH_HOST)[0], q11_compare("M-parquet"), n,
+                n * 12, ("bucket_sum", "bucket_float_sum"))
+            net = {**MESH_HOST,
+                   "spark.rapids.tpu.shuffle.transport.class": "network"}
+            reset_launches()
+            t0 = time.perf_counter()
+            got, plan = pq_rows(net)
+            net_ms = (time.perf_counter() - t0) * 1e3
+            per_query["M-net"] = launches()
+            want, _ = pq_rows({**MESH_HOST,
+                               "spark.rapids.tpu.shuffle.transport.class":
+                               "host"})
+            q11_compare("M-net")(got, want)
+            xs = exchange_report(plan)
+            if not xs or not all(x["shuffleBytesFetched"] for x in xs):
+                raise AssertionError(f"M-net: exchanges {xs}")
+            emit({"query": "M-net", "rows": n, "wall_ms": net_ms,
+                  "launches": per_query["M-net"], "exchanges": xs})
+        finally:
+            import shutil
+
+            from spark_rapids_tpu_torch.shuffle.network import (
+                shutdown_local_server)
+
+            shutdown_local_server()
+            shutil.rmtree(pdir, ignore_errors=True)
+    finally:
+        if saved is None:
+            os.environ.pop(PM.VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[PM.VIRTUAL_DEVICES_ENV] = saved
+    return per_query
+
+
 def _decode_threads() -> int:
     from spark_rapids_tpu_torch.io import parquet_device as PD
 
@@ -7315,6 +7811,8 @@ def main() -> int:
     lap("Q29")
     per_query.update(observability_phase(torch, np, dev, smi))
     lap("obs")
+    per_query.update(mesh_phase(torch, np, dev))
+    lap("mesh")
     if QUERY_ROUTES["numpy"] or not QUERY_ROUTES["native"]:
         raise AssertionError(f"hybrid streams by route: {QUERY_ROUTES}")
     emit({"native_decode": {"query_streams": QUERY_ROUTES,

@@ -125,24 +125,75 @@ AQE_SKEW_FACTOR = conf(
     "spark.rapids.tpu.sql.adaptive.skewedPartitionFactor", 4.0,
     "A join probe partition is skewed when its rows exceed this multiple "
     "of the median (and the target rows).")
+SHUFFLE_MESH_SIZE = conf(
+    "spark.rapids.tpu.shuffle.meshSize", 0,
+    "Number of devices in the exchange mesh (0 = all local devices). "
+    "Superseded by spark.rapids.tpu.mesh.devices when both are set.")
+MESH_DEVICES = conf(
+    "spark.rapids.tpu.mesh.devices", 0,
+    "Shard count for mesh execution (parallel/mesh.get_mesh): caps or "
+    "forces how many local devices the mesh spans (0 = all). A value "
+    "above the visible device count raises at mesh construction instead "
+    "of silently truncating; meshes are memoized per count so every "
+    "stage at one width shares a single Mesh.",
+    check=lambda v: None if v >= 0 else "must be >= 0")
+MESH_WHOLE_PLAN = conf(
+    "spark.rapids.tpu.shuffle.mesh.wholePlan.enabled", True,
+    "Absorb fixed-width filter/project chains between a mesh stage and "
+    "its source INTO the stage's per-shard program (the execs' "
+    "lower_batch hooks run per shard), and feed the stage from a sharded "
+    "scan (io/mesh_stage.py) when the source supports it. Off: children "
+    "execute on the plan's device and staging gathers their batches "
+    "onto the shards.")
+MESH_EXCHANGE_BUCKET_FACTOR = conf(
+    "spark.rapids.tpu.shuffle.mesh.exchangeBucketFactor", 2.0,
+    "Mesh SORT exchange granule as a multiple of the fair per-target "
+    "share (cap / n_shards): sampled range bounds spread rows roughly "
+    "evenly, so a ~2x granule keeps the all_to_all receive surface "
+    "O(cap) instead of O(n_shards x cap); a skewed distribution "
+    "overflows the block and the stage retries with the granule "
+    "doubled. 0 disables (always-fits full-capacity granule).",
+    check=lambda v: None if v >= 0 else "must be >= 0")
+MESH_AGG_EXCHANGE_CAP = conf(
+    "spark.rapids.tpu.shuffle.mesh.aggExchangeCapacity", 4096,
+    "Starting per-shard row capacity for the mesh aggregate's post-PARTIAL "
+    "all_to_all: partial aggregates are compacted and sliced to this many "
+    "groups per shard before they cross to their target shard, so the "
+    "exchange surface is sized to the GROUP cardinality, not the input "
+    "row capacity. A shard with more groups than the cap reports "
+    "overflow and the stage retries with the cap doubled.",
+    check=_positive)
 SHUFFLE_MODE = conf(
     "spark.rapids.tpu.shuffle.mode", "auto",
-    "Exchange lowering: 'host' uses the single-process exchange "
-    "(exec/exchange.py), 'ici' the multi-device mesh stages, which are not "
-    "ported yet and raise where a plan would take them (ROADMAP.md, queue "
-    "A item 'Multi-device execution'). 'auto' takes the host exchange: "
-    "the reference picks its mesh only when more than one device is "
-    "visible, and the port runs on one card.",
+    "Exchange lowering: 'ici' lowers shuffle-bounded stages (aggregate, "
+    "sort, equi-join, window) to the mesh stages of exec/mesh.py, one "
+    "program per shard over the device mesh with the collectives of "
+    "parallel/collective.py between them; 'host' uses the single-process "
+    "exchange (exec/exchange.py); 'auto' picks ici when more than one "
+    "device is visible (parallel/mesh.device_count: the CUDA cards, or "
+    "the SRTPU_TORCH_VIRTUAL_DEVICES shards).",
     valid_values=("auto", "host", "ici"))
 SHUFFLE_TRANSPORT_CLASS = conf(
     "spark.rapids.tpu.shuffle.transport.class", "device",
     "Transport for exchange pieces: 'device' (pieces stay on the card as "
     "slices of the partitioned batch), 'host' (serialized host bytes in "
     "the TPUB wire format, the fallback-serializer analog), or 'network' "
-    "(the TCP block server of a multi-process cluster: not ported yet, "
-    "it raises naming ROADMAP.md, queue A item 'Multi-device "
-    "execution').",
+    "(the TCP block server/client of shuffle/network.py across worker "
+    "processes, the RapidsShuffleServer/Client analog: this process's "
+    "server holds its map output and fetches merge every peer's "
+    "pieces).",
     valid_values=("device", "host", "network"))
+SHUFFLE_NETWORK_PEERS = conf(
+    "spark.rapids.tpu.shuffle.network.peers", "",
+    "Comma-separated host:port list of the OTHER workers' shuffle "
+    "servers; fetches merge local pieces with every peer's (reference: "
+    "RapidsCachingReader splits local catalog hits from transport "
+    "fetches, RapidsCachingReader.scala:60-155).")
+SHUFFLE_NETWORK_LISTEN_PORT = conf(
+    "spark.rapids.tpu.shuffle.network.listenPort", 0,
+    "TCP port for this process's shuffle block server; 0 picks an "
+    "ephemeral port (the chosen address is in the transport's "
+    "server.address).")
 SHUFFLE_COMPRESSION_CODEC = conf(
     "spark.rapids.tpu.shuffle.compression.codec", "none",
     "Codec for host-path shuffle payloads: none/zstd/lz4. zstd needs the "
@@ -395,9 +446,9 @@ OOM_RETRY_MAX_SPLIT_DEPTH = conf(
 FAULTS_ENABLED = conf(
     "spark.rapids.tpu.test.faults.enabled", False,
     "Install the deterministic fault injector (chaos testing; see the "
-    "channel confs test.faults.oom/transfer). Off, the default, keeps "
-    "every injection site a single module-global boolean read. Setting "
-    "any channel spec implies this key.")
+    "channel confs test.faults.oom/transfer/fetch). Off, the default, "
+    "keeps every injection site a single module-global boolean read. "
+    "Setting any channel spec implies this key.")
 FAULTS_SEED = conf(
     "spark.rapids.tpu.test.faults.seed", 0,
     "Seed for the '?K' spec form: the firing arrival is derived "
@@ -411,6 +462,11 @@ FAULTS_OOM = conf(
 FAULTS_TRANSFER = conf(
     "spark.rapids.tpu.test.faults.transfer", "",
     "Host-link transfer failure specs (site 'packed_upload').")
+FAULTS_FETCH = conf(
+    "spark.rapids.tpu.test.faults.fetch", "",
+    "Shuffle network fetch failure specs (site 'network_fetch'); the "
+    "injected error is a ConnectionError, so the client's backoff retry "
+    "path handles it like a real peer reset.")
 LEDGER_ENABLED = conf(
     "spark.rapids.tpu.memory.ledger.enabled", True,
     "Per-buffer HBM ledger (owner attribution, lifecycle events, leak "

@@ -11,9 +11,10 @@ ONE typed JSON object with a monotonic timestamp.
 
 ``EVENT_TYPES`` also declares families nothing in the port emits yet
 (``plan_analysis``, ``compile_miss``, ``program_cost``, ``hlo_summary``,
-``program_cache``, ``donation``, ``admission``, ``queue``, the ``shard``
-fields): the schema is shared, and ROADMAP.md says which item brings
-each.
+``program_cache``, ``donation``, ``admission``, ``queue``): the schema
+is shared, and ROADMAP.md says which item brings each. The mesh stages
+(``exec/mesh.py``) stamp their per-shard ``transfer`` and device-lane
+``op_span`` events with the optional ``shard`` field.
 
 Sinks: when ``spark.rapids.tpu.eventLog.dir`` is set, events append to a
 JSONL file (one file per logger, line-buffered, thread-safe); a bounded

@@ -314,10 +314,8 @@ class TpuHashAggregateExec(TpuExec):
         if nonnull is None:
             nonnull = entry_nonnull_flags(batch.schema, self.conf)
         cols = elide_validity(cols, live, nonnull)
-        # each chain member's side tensors (a fused join's build table)
-        # enter with its lowering, as in the reference (aggregate.py:556)
         for e in chain:
-            cols, live = e.lower_batch(cols, live, cap, e.side_vals())
+            cols, live = e.lower_batch(cols, live, cap)
         dev = live.device
         keys = [lower(e, cols, cap, dev) for e in key_exprs]
         vals = [None if e is None else _agg_input(op, lower(e, cols, cap, dev))

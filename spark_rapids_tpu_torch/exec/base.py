@@ -208,21 +208,15 @@ class TpuExec:
                 sem.release_if_necessary()
 
     # -- fusion --------------------------------------------------------------
-    def lower_batch(self, cols, live, cap, side=()):
-        """(cols, live_mask) -> (cols, live_mask), eager torch ops.
-        ``side``: this exec's :meth:`side_vals` (e.g. a join's build-side
-        table)."""
+    def lower_batch(self, cols, live, cap):
+        """(cols, live_mask) -> (cols, live_mask), eager torch ops. A
+        fast-path join reads its build table from its own state."""
         raise NotImplementedError(type(self).__name__)
-
-    def side_vals(self) -> tuple:
-        """Device tensors this exec's ``lower_batch`` needs beyond the
-        streamed batch."""
-        return ()
 
     def fusion_stream_child(self) -> Optional["TpuExec"]:
         """The child whose batches stream through this exec's lowering:
         a single-child exec's only child; a fast-path join's probe side
-        (its build side enters through :meth:`side_vals`)."""
+        (its build table is the join's own state)."""
         return self.children[0] if len(self.children) == 1 else None
 
     def fused_source_chain(self):
@@ -575,7 +569,6 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
     source, chain = exec_self.fused_source_chain()
     out_schema = exec_self.output_schema
     needs_compact = any(e.sparsifies for e in chain)
-    sides = [e.side_vals() for e in chain]
     nonnull = entry_nonnull_flags(source.output_schema, exec_self.conf)
 
     def attempt(b: ColumnarBatch) -> ColumnarBatch:
@@ -585,8 +578,8 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
         dev = cols[0].validity.device if cols else None
         live = filter_gather.live_of(nr, cap, dev)
         cols = filter_gather.elide_validity(cols, live, nonnull)
-        for e, side in zip(chain, sides):
-            cols, live = e.lower_batch(cols, live, cap, side)
+        for e in chain:
+            cols, live = e.lower_batch(cols, live, cap)
         if needs_compact:
             cols, nr = filter_gather.filter_cols(cols, live)
         return batch_from_vals(cols, out_schema, nr, capacity=cap)

@@ -131,7 +131,7 @@ class TpuProjectExec(TpuExec):
     def describe(self):
         return f"TpuProjectExec [{', '.join(map(str, self.exprs))}]"
 
-    def lower_batch(self, cols, live, cap, side=()):
+    def lower_batch(self, cols, live, cap):
         return [lower(e, cols, cap, live.device) for e in self._bound], live
 
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
@@ -247,7 +247,7 @@ class TpuFilterExec(TpuExec):
     def describe(self):
         return f"TpuFilterExec [{self.condition}]"
 
-    def lower_batch(self, cols, live, cap, side=()):
+    def lower_batch(self, cols, live, cap):
         c = lower(self._bound, cols, cap, live.device)
         return cols, live & c.data & c.validity
 

@@ -28,8 +28,8 @@ batch, like the device transport's pieces, is registered spillable
 between its reads.
 
 The transports emit the shuffle events and counters
-(``shuffle/transport.py``). Left out (ROADMAP.md, queue A): the network
-transport (item 'Multi-device execution').
+(``shuffle/transport.py``); ``shuffle.transport.class=network`` takes the
+TCP block server and client of ``shuffle/network.py``.
 """
 from __future__ import annotations
 
@@ -64,27 +64,47 @@ SHUFFLE_BYTES_FETCHED = "shuffleBytesFetched"
 CODEC_ENCODE_TIME = "codecEncodeTime"
 CODEC_DECODE_TIME = "codecDecodeTime"
 
-#: the item of the multi-device half of the exchange
-MULTI_DEVICE_ITEM = "Multi-device execution"
+def _network_peers(conf: RapidsConf) -> Tuple[Tuple[str, int], ...]:
+    """``shuffle.network.peers`` as (host, port) pairs."""
+    from ..conf import SHUFFLE_NETWORK_PEERS
 
-
-def multi_device_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: see ROADMAP.md, queue A item "
-        f"'{MULTI_DEVICE_ITEM}'")
+    remotes = []
+    for p in conf.get(SHUFFLE_NETWORK_PEERS).split(","):
+        p = p.strip()
+        if not p:
+            continue
+        host, sep, port = p.rpartition(":")
+        if not sep or not host or not port:
+            raise ValueError(
+                "spark.rapids.tpu.shuffle.network.peers: invalid peer "
+                f"entry {p!r} (expected host:port)")
+        try:
+            remotes.append((host, int(port)))
+        except ValueError:
+            raise ValueError(
+                "spark.rapids.tpu.shuffle.network.peers: invalid port in "
+                f"peer entry {p!r} (expected host:port)") from None
+    return tuple(remotes)
 
 
 def make_transport(conf: RapidsConf, device) -> ShuffleTransport:
     """The transport ``shuffle.transport.class`` names (reference
-    ``exchange.py:64``)."""
+    ``exchange.py:64``). ``network``: the process-wide block server owns
+    this worker's map output and fetches merge every peer's pieces
+    (transport selection by conf, RapidsShuffleTransport.scala:328-411)."""
     kind = conf.get(SHUFFLE_TRANSPORT_CLASS)
     if kind == "host":
         return SerializedShuffleTransport(
             conf.get(SHUFFLE_COMPRESSION_CODEC), device)
     if kind == "network":
-        raise multi_device_not_ported(
-            "spark.rapids.tpu.shuffle.transport.class=network (the TCP "
-            "block server and client between worker processes)")
+        from ..conf import SHUFFLE_NETWORK_LISTEN_PORT
+        from ..shuffle.network import NetworkShuffleTransport, local_server
+
+        return NetworkShuffleTransport(
+            server=local_server(conf.get(SHUFFLE_NETWORK_LISTEN_PORT)),
+            remotes=_network_peers(conf),
+            codec=conf.get(SHUFFLE_COMPRESSION_CODEC),
+            owns_server=False, device=device)
     return DeviceShuffleTransport()
 
 

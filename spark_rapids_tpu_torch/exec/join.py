@@ -525,13 +525,9 @@ class TpuShuffledHashJoinExec(TpuExec):
     def fusion_stream_child(self):
         return self._probe
 
-    def side_vals(self) -> tuple:
-        st = self._try_fast_build()
-        assert isinstance(st, dict)
-        return st["side"]
-
-    def lower_batch(self, cols, live, cap, side=()):
+    def lower_batch(self, cols, live, cap):
         st = self._fast_built
+        side = st["side"]
         dev = live.device
         keys = [lower(k, cols, cap, dev) for k in self._probe_keys]
         words, any_null = join_ops.radix_key_words(

@@ -13,10 +13,14 @@ split's staged row-group decodes instead (:meth:`fused_stage_plans`). A
 directory of several files is several splits, so several partitions, and
 the planner puts exchanges above it where an aggregate, sort, join or
 window needs them
-(``exec/exchange.py``). The reference's mesh staging
-(``MeshShardedScanExec``, the sharded row-group staging) and its serving
-prefetch are not ported (ROADMAP.md, queue A items 'Multi-device
-execution' and 'The remaining modules').
+(``exec/exchange.py``), or a mesh stage (``exec/mesh.py``) stages it onto
+its shards. The mesh halves: :class:`MeshShardedScanExec` (per-shard host
+columns, placed straight on their shards) and the parquet scan's
+``mesh_stage_items`` / ``stage_mesh_planes`` (row groups round-robined
+over the shards, each shard's row groups decoded through the device
+decode onto its own device: ``io/mesh_stage.py``). The reference's
+serving prefetch is not ported (ROADMAP.md, queue A item 'The remaining
+modules').
 
 Metrics: ``scanTime`` (host read of the plain route), ``tpuDecodeTime``
 (the device-decode route's wall: planning, uploads and the decode ops
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 from typing import Iterator
 
+import numpy as np
 import torch
 
 from .. import types as T
@@ -66,6 +71,102 @@ def constant_string_column(value, n: int, cap: int, device) -> DeviceColumn:
         chars[: L * n] = one.repeat(n)
     return DeviceColumn(T.STRING, n, None, valid, offsets=offsets,
                         chars=chars)
+
+
+class MeshShardedScanExec(TpuExec):
+    """Leaf over PER-PARTITION host column arrays: the decoded form a
+    data-parallel scan hands the mesh (reference ``exec/scan.py:73``).
+    Under a mesh stage, ``stage_mesh_planes`` places partition ``i`` on
+    mesh shard ``i % n`` straight from the host
+    (``io/mesh_stage.stage_sharded``: no gather, the host copy of shard
+    k+1 overlapping the upload of shard k). Off the mesh it emits
+    ordinary device batches on ``device`` (``None``: the CUDA card), so
+    the same exec drives the host-exchange plan of a mesh query.
+
+    ``parts``: one entry per partition, a list of (data, validity) numpy
+    pairs (schema order) plus the live row count."""
+
+    def __init__(self, conf: RapidsConf, parts, schema: StructType,
+                 device=None):
+        super().__init__(conf)
+        self._parts = [(list(arrays), int(rows)) for arrays, rows in parts]
+        self._schema = schema
+        self._device = resolve_device(device)
+
+    @property
+    def device(self):
+        return self._device
+
+    @property
+    def output_schema(self) -> StructType:
+        return self._schema
+
+    @property
+    def num_partitions(self) -> int:
+        return max(1, len(self._parts))
+
+    def describe(self):
+        return f"MeshShardedScanExec({len(self._parts)} shard parts)"
+
+    def partition_rows(self):
+        """Static per-partition row counts."""
+        return [rows for _, rows in self._parts]
+
+    def mesh_stage_items(self):
+        """Per-item row counts the sharded-scan staging round-robins
+        (None: the fast path declines)."""
+        from ..io import mesh_stage as MS
+
+        if not MS.stageable_schema(self._schema):
+            return None
+        return self.partition_rows()
+
+    def stage_mesh_planes(self, mesh, n_shards: int, conf, on_shard=None):
+        from ..io import mesh_stage as MS
+
+        if not MS.stageable_schema(self._schema):
+            return None
+        assign = MS.round_robin(len(self._parts), n_shards)
+        rows_per_shard = [sum(self._parts[i][1] for i in idxs)
+                          for idxs in assign]
+
+        def decode_shard(s: int) -> "MS.ShardPayload":
+            arrays = []
+            for j, f in enumerate(self._schema.fields):
+                pieces = [self._parts[i][0][j] for i in assign[s]]
+                rows = [self._parts[i][1] for i in assign[s]]
+                arrays.append((
+                    np.concatenate([d[:r] for (d, _), r in zip(pieces, rows)]
+                                   or [np.zeros(0, f.dataType.to_numpy())]),
+                    np.concatenate([v[:r] for (_, v), r in zip(pieces, rows)]
+                                   or [np.zeros(0, bool)])))
+            return MS.ShardPayload(arrays, rows_per_shard[s])
+
+        return MS.stage_sharded(
+            mesh, n_shards, self._schema, decode_shard, rows_per_shard,
+            self.conf.shape_bucket_min, on_shard=on_shard)
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        from ..io.arrow_convert import packed_upload
+
+        if index >= len(self._parts):
+            return
+        arrays, n = self._parts[index]
+        if n == 0:
+            return
+        cap = choose_capacity(max(1, n))
+        planes = []
+        for f, (data, valid) in zip(self._schema.fields, arrays):
+            d = np.zeros(cap, f.dataType.to_numpy())
+            v = np.zeros(cap, bool)
+            d[:n] = data[:n]
+            v[:n] = valid[:n]
+            planes.extend([d, v])
+        with named_oom(f"{self.node_name}.upload"):
+            up = packed_upload(planes, self._device)
+        cols = [DeviceColumn(f.dataType, n, up[2 * j], up[2 * j + 1])
+                for j, f in enumerate(self._schema.fields)]
+        yield self.record_batch(ColumnarBatch(cols, self._schema, n))
 
 
 class TpuFileSourceScanExec(TpuExec):
@@ -143,6 +244,133 @@ class TpuFileSourceScanExec(TpuExec):
             cols.append(constant_string_column(pmap.get(k), n, cap,
                                                self._device))
         return ColumnarBatch(cols, schema, n)
+
+    def _mesh_row_groups(self):
+        """Flat (path, row_group, rows) list for the mesh round-robin:
+        row group i goes to shard i % n. None when the scanner's splits
+        do not expose row groups or a footer is unreadable."""
+        splits = getattr(self.scanner, "splits", None)
+        if splits is None:
+            return None
+        try:
+            import pyarrow.parquet as pq
+
+            out = []
+            mds = {}
+            for sp in splits():
+                rgs = getattr(sp, "row_groups", None)
+                if rgs is None:
+                    return None
+                md = mds.get(sp.path)
+                if md is None:
+                    md = mds[sp.path] = pq.ParquetFile(sp.path).metadata
+                for rg in rgs:
+                    out.append((sp.path, rg, md.row_group(rg).num_rows))
+            return out
+        except Exception:
+            return None
+
+    def mesh_stage_items(self):
+        """Per-ROW-GROUP rows the sharded scan round-robins (None: the
+        fast path declines)."""
+        from ..io import mesh_stage as MS
+
+        if getattr(self.scanner, "partition_cols", None):
+            return None
+        if not MS.stageable_schema(self.output_schema):
+            return None
+        rgs = self._mesh_row_groups()
+        return None if rgs is None else [r for _, _, r in rgs]
+
+    def partition_rows(self):
+        """Static per-split row counts from the parquet footers (None when
+        unknowable)."""
+        rgs = self._mesh_row_groups()
+        if rgs is None:
+            return None
+        return [sum(r for p, rg, r in rgs
+                    if p == sp.path and rg in sp.row_groups)
+                for sp in self.scanner.splits()]
+
+    def stage_mesh_planes(self, mesh, n_shards: int, conf, on_shard=None):
+        """Data-parallel parquet ingestion (reference
+        ``exec/scan.py:271``): row groups round-robined over the mesh
+        shards; each shard's row groups are decoded through the device
+        decode (``io/parquet_device.read_row_groups_pipelined``) onto that
+        shard's device on a worker thread, while the previous shard's
+        planes are padded to the common capacity
+        (``io/mesh_stage.stage_sharded``). A row group no column of which
+        takes the device path decodes through pyarrow on the host.
+        Fixed-width file columns only; partition-value columns are
+        strings and keep the generic path. Reads bypass the device scan
+        cache, which holds the plan device's batches."""
+        from ..io import mesh_stage as MS
+
+        if getattr(self.scanner, "partition_cols", None):
+            return None
+        schema = self.output_schema
+        if not MS.stageable_schema(schema):
+            return None
+        rgs = self._mesh_row_groups()
+        if rgs is None:
+            return None
+        assign = MS.round_robin(len(rgs), n_shards)
+        rows_per_shard = [sum(rgs[i][2] for i in idxs) for idxs in assign]
+        columns = [f.name for f in schema.fields]
+        devices = list(mesh.devices)
+
+        def decode_shard(s: int) -> "MS.ShardPayload":
+            import pyarrow.parquet as pq
+
+            from ..conf import (PARQUET_DEVICE_DECODE,
+                                PARQUET_PIPELINE_MAX_IN_FLIGHT)
+            from ..io.arrow_convert import _np_from_arrow_array
+            from ..io.parquet_device import read_row_groups_pipelined
+
+            dev = devices[s]
+            by_path = {}
+            for i in assign[s]:
+                path, rg, _ = rgs[i]
+                by_path.setdefault(path, []).append(rg)
+            with self.op_timed("mesh_decode", DECODE_TIME):
+                pieces = []  # per row group: [(data, valid) per column]
+                for path, groups in by_path.items():
+                    pf = pq.ParquetFile(path)
+                    got = ([None] * len(groups)
+                           if not self.conf.get(PARQUET_DEVICE_DECODE)
+                           else [b for _, b in read_row_groups_pipelined(
+                               path, pf, groups, columns, schema.fields,
+                               max_in_flight=self.conf.get(
+                                   PARQUET_PIPELINE_MAX_IN_FLIGHT),
+                               device=dev, metrics=self.metrics)])
+                    for rg, b in zip(groups, got):
+                        n = pf.metadata.row_group(rg).num_rows
+                        if b is not None:
+                            pieces.append([(c.data[:n], c.validity[:n])
+                                           for c in b.columns])
+                            continue
+                        t = pf.read_row_groups([rg], columns=columns)
+                        host = [_np_from_arrow_array(
+                            t.column(j).combine_chunks(), f.dataType)
+                            for j, f in enumerate(schema.fields)]
+                        pieces.append([
+                            (torch.from_numpy(np.ascontiguousarray(
+                                d[:n])).to(dev),
+                             torch.from_numpy(np.ascontiguousarray(
+                                 v[:n])).to(dev)) for d, v in host])
+                arrays = []
+                for j, f in enumerate(schema.fields):
+                    if pieces:
+                        arrays.append((torch.cat([p[j][0] for p in pieces]),
+                                       torch.cat([p[j][1] for p in pieces])))
+                    else:
+                        arrays.append((np.zeros(0, f.dataType.to_numpy()),
+                                       np.zeros(0, bool)))
+            return MS.ShardPayload(arrays, rows_per_shard[s])
+
+        return MS.stage_sharded(
+            mesh, n_shards, schema, decode_shard, rows_per_shard,
+            self.conf.shape_bucket_min, on_shard=on_shard)
 
     def fused_stage_plans(self, index: int):
         """Stage fusion (reference ``exec/scan.py:357-368``): the consumer

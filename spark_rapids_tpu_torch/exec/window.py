@@ -9,9 +9,9 @@ keys) and derives partition and peer boundaries from the co-sorted radix
 keys; each function is then O(n) scan arithmetic (``ops/window.py``). A
 string partition or order key sorts by its chunk words, bounded by its
 longest row (one host sync for all string keys), and its boundaries come
-from the sorted words. The reference's mesh window
-(``exec/mesh.TpuMeshWindowExec``), its hash-exchanged route over more
-than one device, is ROADMAP.md, queue A item 'Multi-device execution'.
+from the sorted words. The mesh window (``exec/mesh.TpuMeshWindowExec``)
+hash-exchanges the rows over the mesh's shards by the partition keys and
+runs :meth:`TpuWindowExec.window_fn` on each shard.
 """
 from __future__ import annotations
 

@@ -2,17 +2,20 @@
 
 Counterpart of ``spark_rapids_tpu/faults.py``: the same keys, spec
 grammar, seeding and error types, so one fault spec drives both packages
-to the same arrivals. Two channels, each a conf of comma-separated site
+to the same arrivals. Three channels, each a conf of comma-separated site
 specs:
 
   * ``oom``      — synthetic device OOM at the top of a retry-harness
                    attempt (the site is the exec's node name);
-  * ``transfer`` — host-to-device upload failure in ``packed_upload``.
+  * ``transfer`` — host-to-device upload failure in ``packed_upload``;
+  * ``fetch``    — network shuffle fetch failure (site ``network_fetch``
+                   in ``shuffle/network.ShuffleClient``), a
+                   ConnectionError that the client's retry loop takes
+                   like a real peer reset.
 
-The reference's ``fetch`` channel comes with the network shuffle
-transport (ROADMAP.md item 28). Its ``compile`` and ``aotcache``
-channels fail XLA's pipeline and program caches, which eager PyTorch
-does not have, so the port has neither.
+The reference's ``compile`` and ``aotcache`` channels fail XLA's
+pipeline and program caches, which eager PyTorch does not have, so the
+port has neither.
 
 Spec grammar (per entry, comma-separated; sites match by fnmatch)::
 
@@ -33,12 +36,13 @@ import fnmatch
 import threading
 from typing import Dict, List, Optional, Tuple
 
-from .conf import (FAULTS_ENABLED, FAULTS_OOM, FAULTS_SEED, FAULTS_TRANSFER,
-                   RapidsConf)
+from .conf import (FAULTS_ENABLED, FAULTS_FETCH, FAULTS_OOM, FAULTS_SEED,
+                   FAULTS_TRANSFER, RapidsConf)
 
 _CHANNEL_CONFS = {
     "oom": FAULTS_OOM,
     "transfer": FAULTS_TRANSFER,
+    "fetch": FAULTS_FETCH,
 }
 
 
@@ -56,9 +60,15 @@ class InjectedTransferError(InjectedFault, ConnectionError):
     """Synthetic host-link transfer failure."""
 
 
+class InjectedFetchError(InjectedFault, ConnectionError):
+    """Synthetic shuffle fetch failure (a ConnectionError, so the
+    transport's retry loop treats it like a real peer reset)."""
+
+
 _ERROR_OF = {
     "oom": InjectedOOM,
     "transfer": InjectedTransferError,
+    "fetch": InjectedFetchError,
 }
 
 

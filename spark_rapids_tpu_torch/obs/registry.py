@@ -23,8 +23,10 @@ Design mirrors events.py so the two planes share one mental model:
     locks (the BufferCatalog does) with no lock-ordering hazard.
 
 Families whose emitters the port has not ported (compile misses,
-program costs, HLO summaries, the AOT program cache, donation, serving,
-the mesh) are declared and stay at zero (ROADMAP.md).
+program costs, HLO summaries, the AOT program cache, donation, serving)
+are declared and stay at zero (ROADMAP.md). The mesh stages feed
+``tpu_mesh_staged_rows`` and ``tpu_mesh_shard_seconds`` per shard, the
+network shuffle client ``tpu_shuffle_fetch_retries``.
 """
 from __future__ import annotations
 

@@ -18,12 +18,13 @@ routes (``exec/exchange.py``): partial -> hash (or single) exchange ->
 adaptive read -> final aggregate; range (or single) exchange -> local
 sort; a broadcast hash join under ``autoBroadcastJoinThreshold``, else
 co-partitioning hash exchanges with the adaptive join pair; a window
-over every partition gathered. The reference's mesh routes, which it
-takes under ``spark.rapids.tpu.shuffle.mode=ici``, raise
-``NotImplementedError`` naming ROADMAP.md's item 'Multi-device
-execution'. A join without keys reads its build side through a broadcast
-exchange into the nested-loop join, or the cartesian product when it has
-no condition.
+over every partition gathered. Under ``spark.rapids.tpu.shuffle.mode=
+ici``, or ``auto`` with more than one device visible, they take the
+reference's mesh routes instead (``exec/mesh.py``): the mesh aggregate,
+sort, inner equi-join and window, each at the reference's place and
+with its fallbacks. A join without keys reads its build side through a
+broadcast exchange into the nested-loop join, or the cartesian product
+when it has no condition.
 
 Device rule: the plan's device (``None``: the CUDA card) is threaded to
 every leaf the pass builds: the in-memory scan, the file scan and the
@@ -505,23 +506,17 @@ def _shuffle_partitions(conf, child) -> int:
     return n if n > 0 else child.num_partitions
 
 
-def _mesh_eligible(conf, *schemas) -> bool:
-    """True where the reference would lower the exchange-bounded stage to
-    its device mesh (reference ``overrides.py:575``): under
-    ``shuffle.mode=ici`` over fixed-width and string columns. The port's
-    ``auto`` takes the host exchange (``conf.SHUFFLE_MODE``)."""
-    from ..conf import SHUFFLE_MODE
+def _mesh_eligible(conf, device, *schemas) -> bool:
+    """True when the exchange-bounded stage lowers to the mesh stages
+    (``exec/mesh.py``; reference ``overrides.py:575``): the mesh is
+    available to a plan on ``device`` and every column is fixed-width or
+    a string (strings cross the collective as a second byte plane;
+    binary stays on the single-process exchange)."""
+    from ..exec.mesh import mesh_available
 
-    return conf.get(SHUFFLE_MODE) == "ici" and all(
+    return mesh_available(conf, device) and all(
         T.is_fixed_width(f.dataType) or isinstance(f.dataType, T.StringType)
         for s in schemas for f in s.fields)
-
-
-def _mesh_not_ported(name: str) -> NotImplementedError:
-    from ..exec.exchange import multi_device_not_ported
-
-    return multi_device_not_ported(
-        f"{name} (spark.rapids.tpu.shuffle.mode=ici)")
 
 
 def _convert_aggregate(cpu: C.CpuHashAggregateExec, conf, children, device):
@@ -543,18 +538,26 @@ def _convert_aggregate(cpu: C.CpuHashAggregateExec, conf, children, device):
                 return True
         return False
 
-    if cpu.group_exprs and _mesh_eligible(conf, child.output_schema) \
+    # the mesh route: partial -> exchange -> final over the shards. String
+    # AGGREGATE inputs (min/max over strings) stay on the exchange path
+    if cpu.group_exprs and _mesh_eligible(conf, device, child.output_schema) \
             and not _string_agg_input():
         try:
             bound_keys = [E.bind_references(g, child.output_schema)
                           for g in cpu.group_exprs]
         except (ValueError, KeyError):
             bound_keys = None
+        # string group keys need the staged source column's byte bound,
+        # so they must be DIRECT column references; computed string keys
+        # stay on the single-process exchange
         if bound_keys is not None and all(
                 T.is_fixed_width(b.dtype)
                 or (T.is_string(b.dtype) and isinstance(b, E.BoundReference))
                 for b in bound_keys):
-            raise _mesh_not_ported("TpuMeshAggregateExec")
+            from ..exec.mesh import TpuMeshAggregateExec
+
+            return TpuMeshAggregateExec(conf, cpu.group_exprs,
+                                        cpu.agg_exprs, child)
     # partial per partition -> key-hash exchange -> final merge per reduce
     # partition (reference overrides.py:631-659): group keys are
     # partition-disjoint after the hash exchange
@@ -622,8 +625,12 @@ def _convert_sort(cpu: C.CpuSortExec, conf, children, device):
     refs = bool(bound) and all(isinstance(b, E.BoundReference)
                                for b in bound)
     P = _shuffle_partitions(conf, child)
-    if refs and _mesh_eligible(conf, schema):
-        raise _mesh_not_ported("TpuMeshSortExec")
+    if refs and _mesh_eligible(conf, device, schema):
+        # local sort -> sampled range exchange -> merge sort over the mesh
+        from ..exec.mesh import TpuMeshSortExec
+
+        return TpuMeshSortExec(conf, [b.ordinal for b in bound], cpu.orders,
+                               child)
     if refs and P > 1:
         part = RangePartitioning([b.ordinal for b in bound],
                                  [SortOrder(a, nf) for a, nf in cpu.orders],
@@ -720,9 +727,14 @@ def _convert_join(cpu: C.CpuJoinExec, conf, children, device):
                  and all(isinstance(b, E.BoundReference) for b in rb)
                  and all(lt.dtype == rt.dtype for lt, rt in zip(lb, rb)))
         if (plain and cpu.join_type == "inner" and cpu.condition is None
-                and _mesh_eligible(conf, left.output_schema,
+                and _mesh_eligible(conf, device, left.output_schema,
                                    right.output_schema)):
-            raise _mesh_not_ported("TpuMeshHashJoinExec")
+            # hash exchange of both sides + local join over the mesh
+            from ..exec.mesh import TpuMeshHashJoinExec
+
+            return TpuMeshHashJoinExec(conf, left, right,
+                                       [b.ordinal for b in lb],
+                                       [b.ordinal for b in rb])
         partitioned = plain and P > 1
         if partitioned:
             lpart = HashPartitioning([b.ordinal for b in lb], P)
@@ -832,7 +844,7 @@ def _convert_window(cpu: C.CpuWindowExec, conf, children, device):
     spec = cpu.window_exprs[0].spec if cpu.window_exprs else None
     if (spec is not None and spec.partition_by
             and child.num_partitions > 1
-            and _mesh_eligible(conf, child.output_schema)
+            and _mesh_eligible(conf, device, child.output_schema)
             and all(T.is_fixed_width(f.dataType)
                     for f in child.output_schema.fields)):
         try:
@@ -840,10 +852,15 @@ def _convert_window(cpu: C.CpuWindowExec, conf, children, device):
                      for k in spec.partition_by]
         except (ValueError, KeyError):
             bound = None
+        # hash exchange on the partition keys, then the per-shard window:
+        # direct fixed-width partition keys over a fixed-width child
+        # (strings keep the single-partition gather)
         if bound is not None and all(
                 isinstance(b, E.BoundReference) and T.is_fixed_width(b.dtype)
                 for b in bound):
-            raise _mesh_not_ported("TpuMeshWindowExec")
+            from ..exec.mesh import TpuMeshWindowExec
+
+            return TpuMeshWindowExec(conf, cpu.window_exprs, child)
     # the window gathers every partition of its child into one batch
     # (reference overrides.py:973)
     return TpuWindowExec(conf, cpu.window_exprs, child)

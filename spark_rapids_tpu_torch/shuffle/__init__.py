@@ -4,10 +4,9 @@ Counterpart of ``spark_rapids_tpu/shuffle/`` (``__init__``, ``partition``,
 ``serializer``, ``transport``): partitioning is one stable device sort by
 partition id (``partition.partition_cols``), pieces stay on the device in
 the in-process transport or round-trip through the host wire format in
-the serializing one. The exchange execs that drive them are
-``exec/exchange.py``. The reference's network transport
-(``shuffle/network.py``) is ROADMAP.md, queue A item 'Multi-device
-execution'.
+the serializing ones, the host bytes (``transport.py``) or a TCP block
+server and client between processes (``network.py``). The exchange execs
+that drive them are ``exec/exchange.py``.
 """
 from .partition import (
     HashPartitioning,

@@ -132,6 +132,25 @@ def _signed_words(words: List[torch.Tensor], wide: bool
     return words
 
 
+def range_key_words(key_cols: Sequence[Val],
+                    key_dtypes: Sequence[T.DataType],
+                    orders: Sequence[SortOrder],
+                    str_max_lens: Sequence[int] = ()) -> List[torch.Tensor]:
+    """Each row's words for a range comparison, most significant first
+    and signed-ordered (:func:`count_bounds_le`): per key its null rank
+    and value word, or a string key's null rank and chunks under its
+    byte bound (the next of ``str_max_lens``; 64 when there is none)."""
+    words: List[torch.Tensor] = []
+    lens = iter(str_max_lens)
+    for colv, dt, order in zip(key_cols, key_dtypes, orders):
+        if isinstance(colv, StrV):
+            words.extend(string_chunk_keys(colv, order, next(lens, 64)))
+        else:
+            words.extend(_signed_words(fixed_radix_keys(colv, dt, order),
+                                       _wide(dt, colv.data)))
+    return words
+
+
 @dataclasses.dataclass
 class RangePartitioning(Partitioning):
     """Ordered partitioning against sampled bounds (reference
@@ -153,23 +172,21 @@ class RangePartitioning(Partitioning):
             return torch.zeros(live.shape[0], dtype=torch.int32,
                                device=live.device)
         dev = live.device
-        row_keys: List[torch.Tensor] = []
+        key_cols = [cols[i] for i in self.key_indices]
+        key_dts = [schema.fields[i].dataType for i in self.key_indices]
+        row_keys = range_key_words(key_cols, key_dts, self.orders,
+                                   str_max_lens)
         bound_keys: List[torch.Tensor] = []
         lens = iter(str_max_lens)
-        for k, i in enumerate(self.key_indices):
-            colv, dt, order = cols[i], schema.fields[i].dataType, \
-                self.orders[k]
-            bvals = self.bounds[k]
+        for colv, dt, order, bvals in zip(key_cols, key_dts, self.orders,
+                                          self.bounds):
             if isinstance(colv, StrV):
-                ml = next(lens, 64)
-                row_keys.extend(string_chunk_keys(colv, order, ml))
-                bound_keys.extend(_string_bound_keys(bvals, order, ml, dev))
+                bound_keys.extend(_string_bound_keys(
+                    bvals, order, next(lens, 64), dev))
             else:
-                wide = _wide(dt, colv.data)
-                row_keys.extend(_signed_words(
-                    fixed_radix_keys(colv, dt, order), wide))
                 bound_keys.extend(_signed_words(
-                    _fixed_bound_keys(bvals, dt, order, dev), wide))
+                    _fixed_bound_keys(bvals, dt, order, dev),
+                    _wide(dt, colv.data)))
         # row r belongs to partition j iff bounds[j-1] <= r < bounds[j]
         return count_bounds_le(row_keys, bound_keys, nb)
 

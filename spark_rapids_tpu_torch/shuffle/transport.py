@@ -11,14 +11,16 @@ the host until its fetch; ``SerializedShuffleTransport`` round-trips
 every piece through the host wire format (``serializer.py``). Both emit
 the reference's ``shuffle_write`` (one a piece) and ``shuffle_fetch``
 (one a reduce partition) events with their ``tpu_shuffle_*`` twins; the
-host transport adds its codec's encode and decode seconds.
+serializing transports (this host one and ``network.py``'s) share
+``SerializingTransportBase`` and add their codec's encode and decode
+seconds.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import events as _events
 from .. import obs as _obs
@@ -39,12 +41,13 @@ def _note_write(shuffle_id, map_id, reduce_id, rows: int, nbytes: int,
 
 
 def _note_fetch(shuffle_id, reduce_id, pieces: List["ShufflePiece"],
-                nbytes: int, codec: str) -> None:
+                nbytes: int, codec: str, retries=None) -> None:
     if _events.enabled():
+        extra = {} if retries is None else {"retries": retries}
         _events.emit("shuffle_fetch", shuffle_id=shuffle_id,
                      reduce_id=reduce_id, pieces=len(pieces),
                      rows=sum(p.n for p in pieces), bytes=nbytes,
-                     codec=codec)
+                     codec=codec, **extra)
     if _obs.enabled():
         _obs.inc("tpu_shuffle_pieces", len(pieces), direction="fetch",
                  codec=codec)
@@ -149,22 +152,26 @@ class DeviceShuffleTransport(ShuffleTransport):
                        if k[0] == shuffle_id)
 
 
-class SerializedShuffleTransport(ShuffleTransport):
-    """Pieces round-trip through the host wire format (the fallback
-    serializer path: GpuColumnarBatchSerializer.scala:51), uploaded back
-    to ``device`` at fetch."""
+class SerializingTransportBase(ShuffleTransport):
+    """Wire-format accounting shared by the transports whose pieces
+    round-trip through the host serializer (the host-bytes fallback and
+    the network transport, reference ``transport.py:143``): codec encode
+    and decode timing, byte counters both ways and the shuffle events,
+    ONE implementation so their metrics cannot drift. Fetched pieces are
+    uploaded back to ``device``."""
 
     def __init__(self, codec: str = "none", device=None):
         self.codec = codec
         self.device = device
-        self._store: Dict[Tuple[int, int], List[Tuple[int, bytes]]] = {}
         self._bytes = 0
         self._fetched = 0
         self._encode_ns = 0
         self._decode_ns = 0
         self._lock = threading.Lock()
 
-    def write(self, shuffle_id, map_id, reduce_id, piece, schema):
+    def _encode_piece(self, piece: ShufflePiece, schema, shuffle_id: int,
+                      map_id: int, reduce_id: int) -> bytes:
+        """piece -> wire bytes, counting encode time and written bytes."""
         from ..exec.base import batch_from_vals
         from .serializer import serialize_batch
 
@@ -173,22 +180,25 @@ class SerializedShuffleTransport(ShuffleTransport):
         data = serialize_batch(batch, self.codec)
         enc = time.perf_counter_ns() - t0
         with self._lock:
-            self._store.setdefault((shuffle_id, reduce_id), []).append(
-                (map_id, data))
             self._bytes += len(data)
             self._encode_ns += enc
         _note_write(shuffle_id, map_id, reduce_id, piece.n, len(data),
                     self.codec)
         if _obs.enabled():
             _obs.inc("tpu_shuffle_codec_seconds", enc / 1e9, op="encode")
+        return data
 
-    def fetch(self, shuffle_id, reduce_id):
+    def _decode_entries(self, entries: Sequence[Tuple[int, bytes]],
+                        shuffle_id: int, reduce_id: int,
+                        retries: Optional[int] = None
+                        ) -> List[ShufflePiece]:
+        """Map-ordered (map_id, wire bytes) -> pieces, counting decode
+        time (the upload included) and fetched bytes. ``retries``: the
+        transient-failure retries this fetch paid (network transport
+        only; the event's optional field)."""
         from ..exec.base import vals_of_batch
         from .serializer import deserialize_with_byte_lens
 
-        with self._lock:
-            entries = sorted(self._store.get((shuffle_id, reduce_id), ()),
-                             key=lambda e: e[0])
         out: List[ShufflePiece] = []
         nb = 0
         t0 = time.perf_counter_ns()
@@ -202,7 +212,7 @@ class SerializedShuffleTransport(ShuffleTransport):
         with self._lock:
             self._fetched += nb
             self._decode_ns += dec
-        _note_fetch(shuffle_id, reduce_id, out, nb, self.codec)
+        _note_fetch(shuffle_id, reduce_id, out, nb, self.codec, retries)
         if _obs.enabled():
             _obs.inc("tpu_shuffle_codec_seconds", dec / 1e9, op="decode")
         return out
@@ -216,6 +226,29 @@ class SerializedShuffleTransport(ShuffleTransport):
                     "bytes_fetched": self._fetched,
                     "encode_ns": self._encode_ns,
                     "decode_ns": self._decode_ns}
+
+
+class SerializedShuffleTransport(SerializingTransportBase):
+    """Pieces round-trip through the host wire format (the fallback
+    serializer path: GpuColumnarBatchSerializer.scala:51), uploaded back
+    to ``device`` at fetch."""
+
+    def __init__(self, codec: str = "none", device=None):
+        super().__init__(codec, device)
+        self._store: Dict[Tuple[int, int], List[Tuple[int, bytes]]] = {}
+
+    def write(self, shuffle_id, map_id, reduce_id, piece, schema):
+        data = self._encode_piece(piece, schema, shuffle_id, map_id,
+                                  reduce_id)
+        with self._lock:
+            self._store.setdefault((shuffle_id, reduce_id), []).append(
+                (map_id, data))
+
+    def fetch(self, shuffle_id, reduce_id):
+        with self._lock:
+            entries = sorted(self._store.get((shuffle_id, reduce_id), ()),
+                             key=lambda e: e[0])
+        return self._decode_entries(entries, shuffle_id, reduce_id)
 
     def release(self, shuffle_id):
         with self._lock:

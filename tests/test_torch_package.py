@@ -23,8 +23,8 @@ PKG = ROOT / "spark_rapids_tpu_torch"
 
 
 #: every subpackage the import walk must reach
-SUBPACKAGES = ("columnar", "cpu", "exec", "expr", "io", "obs", "ops", "plugin",
-               "sql", "udf", "utils")
+SUBPACKAGES = ("columnar", "cpu", "exec", "expr", "io", "obs", "ops",
+               "parallel", "plugin", "shuffle", "sql", "udf", "utils")
 
 
 def test_import_leaves_jax_and_reference_out():

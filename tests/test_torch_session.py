@@ -371,14 +371,20 @@ def _order_by_partitioned(m, sess):
     return _df(m, sess, parts=3).order_by("k")
 
 
-ICI = {"spark.rapids.tpu.shuffle.mode": "ici"}
+def _read_csv(m, sess):
+    return sess.read.csv("unused.csv")
 
+
+def _read_orc(m, sess):
+    return sess.read.orc("unused.orc")
+
+
+#: what still raises; the mesh stages and the network transport that
+#: were here are ported (tests/test_torch_mesh*.py,
+#: tests/test_torch_network_shuffle.py)
 NOT_PORTED = {
-    "ici_aggregate": (_partitioned_agg, ICI, "Multi-device execution"),
-    "ici_sort": (_order_by_partitioned, ICI, "Multi-device execution"),
-    "network_transport": (
-        _partitioned_agg, {"spark.rapids.tpu.shuffle.transport.class":
-                           "network"}, "Multi-device execution"),
+    "csv_scan": (_read_csv, {}, "The remaining modules"),
+    "orc_scan": (_read_orc, {}, "The remaining modules"),
 }
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
