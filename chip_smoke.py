@@ -440,6 +440,27 @@ Phases, each failing the run on any error or mismatch:
    K1 and K2), and M-net, M-parquet's query under the single-process
    exchange with ``shuffle.transport.class=network`` against the
    ``host`` transport (:func:`mesh_phase`).
+15. serving (item 26's serving part, :func:`serve_phase`): Q11, Q20v,
+   Q18m and Q25 at their full sizes, their files written again from
+   their phases' seeds. S-solo: each alone through a session with
+   ``serve.enabled`` and the event ring on, against its phase's oracle,
+   with its launches, the plan analyzer's ``peak_hbm`` beside the peak
+   the caching allocator measured around the run
+   (``max_memory_allocated`` less the baseline) and the HBM ledger's
+   observed peak (a forecast below the measured peak is printed, not
+   failed). S-mix: four sessions on four threads, one query each (Q18m's
+   with ``serve.priority=1``), each submitting it 3 times, under a
+   ``memory.hbm.budgetBytes`` of the largest forecast plus half the
+   second (the two largest cannot be admitted together); every result
+   against its oracle, each kernel's launches exactly 3x the sum of its
+   S-solo launches (K1-K4 > 0), at least one ``queue`` verdict in
+   ``QueryScheduler.stats()`` and the admission records, no reservation
+   left, ``/status`` read from the exporter while a ticket waits (its
+   ``serve`` block shows it), the threads joined with a timeout (a wedge
+   fails the run); the budget, every ticket's forecast and its source,
+   the makespan beside 3x the solo walls. S-reject: Q11 under a budget
+   of half its forecast must raise ``ServeAdmissionRejected`` and leave
+   no ticket or reservation.
 
 Q1r, Q1m and Q1s are Q1 under a forced RADIX (the RADIX kernel once
 per batch and in the merge), MATMUL (the f32 one-hot limb products, no
@@ -2560,8 +2581,9 @@ def sort_window_phase(torch, np, dev, log2_rows: int,
 # ---------------------------------------------------------------------------
 # session phase (Q11, Q12): the session's own entry points
 # ---------------------------------------------------------------------------
-#: the tagging report Q12 must give (the reference's, pinned by
-#: tests/test_torch_session.py against the JAX package on the CPU)
+#: the tagging report Q12 must give above its plan analysis block (the
+#: reference's, pinned by tests/test_torch_session.py against the JAX
+#: package on the CPU)
 Q12_EXPLAIN = (
     "*Exec <HashAggregateExec> will run on TPU\n"
     "  !Exec <ProjectExec> cannot run on TPU because expression PythonUDF "
@@ -2817,7 +2839,8 @@ def session_query_phase(torch, np, dev, log2_parquet: int, log2_udf: int,
                                    A.agg(A.Count(col("u")), "cu")))
 
     text = q12().explain()
-    if text != Q12_EXPLAIN:
+    tagging, sep, _ = text.partition("\n== Static Plan Analysis ==\n")
+    if tagging != Q12_EXPLAIN or not sep:
         raise AssertionError(f"Q12 explain:\n{text}")
     reset_launches()
     rows, ms12 = timed_collect(q12())
@@ -5277,6 +5300,57 @@ def exchange_query(torch, q: str, sess, df_of, check, need: str, rows: int,
     return counts
 
 
+def q18m_write(np, pa, pq, base: str):
+    """Q18m's tables under ``base``: Q18's fact of 2^STRING_LOG2_ROWS rows
+    as :data:`MULTI_FILES` files, its dim as one. Returns (fact path, dim
+    path, oracle rows, seconds spent writing)."""
+    n = 1 << STRING_LOG2_ROWS
+    z = zip_tables(np, n, DIM_ROWS)
+    cities = city_pool(np)
+    want18 = q18_oracle(np, z, cities, DIM_ROWS)
+    zips = zip_pool(DIM_ROWS)
+    fpath = os.path.join(base, "fact")
+    dpath = os.path.join(base, "dim")
+    write_s = _write_files(pa, pq, fpath, pa.table({
+        "zip": _pa_nullable_strings(
+            pa, np, pool_planes(np, z["fzip"], zips, ~z["fnull"]),
+            ~z["fnull"]),
+        "net_paid": z["paid"]}), MULTI_FILES)
+    write_s += _write_files(pa, pq, dpath, pa.table({
+        "dzip": _pa_strings(pa, np, pool_planes(np, z["dzip"], zips)),
+        "city": _pa_strings(pa, np, pool_planes(np, z["dcity"], cities)),
+        "state": _pa_strings(pa, np, pool_planes(np, z["dstate"],
+                                                 STATES))}), 1)
+    return fpath, dpath, want18, write_s
+
+
+def q18m_df(sess, fpath: str, dpath: str):
+    """Q18m: the fact files join the dim on zip, group by city: count,
+    sum(net_paid), min(state), max(state)."""
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr.expressions import col
+
+    return (sess.read.parquet(fpath)
+            .join(sess.read.parquet(dpath), [("zip", "dzip")])
+            .group_by("city")
+            .agg(A.agg(A.Count(None), "n"),
+                 A.agg(A.Sum(col("net_paid")), "s"),
+                 A.agg(A.Min(col("state")), "mn"),
+                 A.agg(A.Max(col("state")), "mx")))
+
+
+def q18m_check(want18, rows, what: str) -> None:
+    """Q18m's rows against :func:`q18_oracle`'s: cities, counts and
+    states exactly, sums within 1e-12 of each city's sum of |x|."""
+    rows = sorted(rows)
+    if len(rows) != len(want18):
+        raise AssertionError(f"{what}: {len(rows)} cities")
+    for r, (c, k, s_, mag, mn, mx) in zip(rows, want18):
+        if (r[0], r[1], r[3], r[4]) != (c, k, mn, mx) or not _close(
+                r[2], s_, mag, 1e-12):
+            raise AssertionError(f"{what}: {r} != {(c, k, s_, mn, mx)}")
+
+
 def exchange_phase(torch, np, dev) -> dict:
     """Q11m, Q20m (and Q20ms), Q22m, Q18m and Q14m: earlier tables written
     as several parquet files (several splits, so several partitions)
@@ -5420,22 +5494,7 @@ def exchange_phase(torch, np, dev) -> dict:
 
         # --- Q18m: Q18's zip join, the dim broadcast ------------------------
         n = 1 << STRING_LOG2_ROWS
-        z = zip_tables(np, n, DIM_ROWS)
-        cities = city_pool(np)
-        want18 = q18_oracle(np, z, cities, DIM_ROWS)
-        zips = zip_pool(DIM_ROWS)
-        fpath = os.path.join(base, "fact")
-        dpath = os.path.join(base, "dim")
-        write_s = _write_files(pa, pq, fpath, pa.table({
-            "zip": _pa_nullable_strings(
-                pa, np, pool_planes(np, z["fzip"], zips, ~z["fnull"]),
-                ~z["fnull"]),
-            "net_paid": z["paid"]}), MULTI_FILES)
-        write_s += _write_files(pa, pq, dpath, pa.table({
-            "dzip": _pa_strings(pa, np, pool_planes(np, z["dzip"], zips)),
-            "city": _pa_strings(pa, np, pool_planes(np, z["dcity"], cities)),
-            "state": _pa_strings(pa, np, pool_planes(np, z["dstate"],
-                                                     STATES))}), 1)
+        fpath, dpath, want18, write_s = q18m_write(np, pa, pq, base)
         emit({"table": "fact, dim", "files": [MULTI_FILES, 1],
               "fact_rows": n, "dim_rows": DIM_ROWS, "write_s": write_s,
               "dim_bytes": sum(os.path.getsize(os.path.join(dpath, f))
@@ -5443,22 +5502,10 @@ def exchange_phase(torch, np, dev) -> dict:
         sess = fresh({**vfa, "spark.rapids.tpu.sql.join.strategy": "PALLAS"})
 
         def q18():
-            return (sess.read.parquet(fpath)
-                    .join(sess.read.parquet(dpath), [("zip", "dzip")])
-                    .group_by("city")
-                    .agg(A.agg(A.Count(None), "n"),
-                         A.agg(A.Sum(col("net_paid")), "s"),
-                         A.agg(A.Min(col("state")), "mn"),
-                         A.agg(A.Max(col("state")), "mx")))
+            return q18m_df(sess, fpath, dpath)
 
         def check18(rows):
-            rows = sorted(rows)
-            if len(rows) != len(want18):
-                raise AssertionError(f"Q18m: {len(rows)} cities")
-            for r, (c, k, s_, mag, mn, mx) in zip(rows, want18):
-                if (r[0], r[1], r[3], r[4]) != (c, k, mn, mx) or not _close(
-                        r[2], s_, mag, 1e-12):
-                    raise AssertionError(f"Q18m: {r} != {(c, k, s_, mn, mx)}")
+            q18m_check(want18, rows, "Q18m")
 
         per_query["Q18m"] = exchange_query(
             torch, "Q18m", sess, q18, check18, "TpuBroadcastExchangeExec", n,
@@ -7626,6 +7673,369 @@ def mesh_phase(torch, np, dev) -> dict:
     return per_query
 
 
+# ---------------------------------------------------------------------------
+# serve phase (S-solo, S-mix, S-reject): Q11, Q20v, Q18m and Q25 through the
+# serving scheduler (serve/), one session a query
+# ---------------------------------------------------------------------------
+#: serving on, with the event log's ring (the admission records and the
+#: ledger, which arms with it)
+SERVE_ON = {"spark.rapids.tpu.serve.enabled": True,
+            "spark.rapids.tpu.eventLog.enabled": True}
+#: S-mix: submissions of each session's query, the sessions' queue
+#: timeout, the threads' join timeout (s) and the priority session
+SERVE_REPEATS = 3
+SERVE_QUEUE_TIMEOUT_MS = 120_000
+SERVE_JOIN_S = 300
+SERVE_PRIORITY_QUERY = "Q18m"
+#: the kernels each query must launch alone (its phase's own check)
+SERVE_KERNELS = {"Q11": ("bucket_sum", "bucket_float_sum"),
+                 "Q20v": ("bucket_sum", "bucket_float_sum", "bucket_winner"),
+                 "Q18m": ("probe_ranges",),
+                 "Q25": ("probe_ranges", "radix_segment_reduce")}
+#: K1-K4, which S-mix must launch
+SERVE_MIX_KERNELS = ("bucket_sum", "bucket_float_sum", "bucket_winner",
+                     "probe_ranges")
+
+
+def serve_queries(np, pa, pq, base: str) -> tuple:
+    """Q11's, Q20v's, Q18m's and Q25's files written again under ``base``
+    from their phases' seeds, at their full sizes. Returns ({query:
+    (settings, DataFrame of a session, check(rows, what))}, seconds spent
+    writing)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    vfa = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+    pallas = {"spark.rapids.tpu.sql.join.strategy": "PALLAS"}
+    t0 = time.perf_counter()
+    # Q11: the bench parquet table, one file of 2^21-row row groups
+    n = 1 << PARQUET_LOG2_ROWS
+    item, qty, cost, date = bench_parquet_table(np, n)
+    spath = os.path.join(base, "store_sales")
+    os.makedirs(spath)
+    pq.write_table(pa.table({
+        "ss_item_sk": item, "ss_quantity": qty,
+        "ss_wholesale_cost": cost, "ss_sold_date_sk": date}),
+        os.path.join(spath, "t.parquet"), row_group_size=1 << 21)
+    check11 = q11_check(np, qty, cost, date)
+    del item, qty, cost, date
+
+    def q11(sess):
+        return (sess.read.parquet(spath)
+                .where(E.GreaterThanOrEqual(col("ss_sold_date_sk"),
+                                            lit(2_452_015)))
+                .group_by("ss_quantity")
+                .agg(A.agg(A.Sum(col("ss_wholesale_cost")), "s"),
+                     A.agg(A.Count(col("ss_item_sk")), "c")))
+
+    # Q20v: TPC-H Q1 over one pyarrow-default (dictionary) file
+    n = 1 << STRING_LOG2_ROWS
+    t, want20, _, strs = lineitem_inputs(np, n)
+    lpath = os.path.join(base, "lineitem_dict")
+    os.makedirs(lpath)
+    pq.write_table(pa.table({
+        **{k: _pa_strings(pa, np, v) for k, v in strs.items()},
+        "l_quantity": t["qty"], "l_extendedprice": t["price"],
+        "l_discount": t["disc"], "l_tax": t["tax"],
+        "l_shipdate": t["ship"]}), os.path.join(lpath, "t.parquet"),
+        row_group_size=n // Q17_ROW_GROUPS)
+    del t, strs
+    # Q18m: the zip join, fact as MULTI_FILES files, the dim broadcast
+    fpath, dpath, want18, _ = q18m_write(np, pa, pq, base)
+    # Q25: TPC-DS q5's store channel over the sales tables
+    t = store_sales_table(np, 1 << SALES_LOG2_ROWS)
+    tables = tpcds_sales_tables(pa, np, t)
+    paths = {k: os.path.join(base, k + "_25") for k in tables}
+    _write_files(pa, pq, paths["store_sales"], tables["store_sales"],
+                 MULTI_FILES, store_decimal_as_integer=True)
+    for k in ("date_dim", "store"):
+        _write_files(pa, pq, paths[k], tables[k], 1)
+    want25 = q25_oracle(np, t)
+    del t, tables
+
+    def check25(rows, what):
+        if rows != want25:
+            raise AssertionError(f"{what}: {rows[:3]} != {want25[:3]}")
+
+    queries = {
+        "Q11": (vfa, q11, check11),
+        "Q20v": (vfa, lambda s: tpch_q1_df(np, s, lpath),
+                 lambda rows, what: tpch_q1_check(want20, rows, what)),
+        "Q18m": ({**vfa, **pallas}, lambda s: q18m_df(s, fpath, dpath),
+                 lambda rows, what: q18m_check(want18, rows, what)),
+        "Q25": (pallas, lambda s: q25_df(s, paths, E, A, T), check25),
+    }
+    return queries, time.perf_counter() - t0
+
+
+def serve_phase(torch, np, dev, smi: str) -> dict:
+    """S-solo, S-mix and S-reject (see the module docstring): the four
+    queries alone through a serving session each (their launches, the
+    analyzer's forecast beside the measured peak and the ledger's
+    observed peak), then on four sessions on four threads under a budget
+    that cannot hold the two largest forecasts at once, then one refused
+    outright. Returns each path's launches."""
+    import shutil
+    import threading
+    import traceback
+    import urllib.request
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch import obs
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.memory.catalog import BufferCatalog
+    from spark_rapids_tpu_torch.serve import (QueryScheduler,
+                                              ServeAdmissionRejected,
+                                              SharedPlanCache)
+    from spark_rapids_tpu_torch.sql import session as S
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, PARQUET_DIR)
+    shutil.rmtree(base, ignore_errors=True)
+    per_query = {}
+
+    def admissions(sessions):
+        """Every admission record of ``sessions``' rings (the scheduler
+        emits into whichever session's log is the active sink)."""
+        recs = [r for s in sessions for r in s.events.records()
+                if r["event"] == "admission"]
+        return sorted(recs, key=lambda r: r["ts"])
+
+    try:
+        queries, write_s = serve_queries(np, pa, pq, base)
+        emit({"table": "serve", "queries": list(queries),
+              "write_s": write_s})
+
+        # --- S-solo: each query alone, cold ------------------------------
+        QueryScheduler.reset()
+        SharedPlanCache.reset()
+        solo = {}
+        with plain_calls() as plain:
+            for q, (settings, df_of, check) in queries.items():
+                DeviceScanCache.reset()
+                S._SCANNER_CACHE.clear()
+                sess = S.TpuSession({**settings, **SERVE_ON}, device=dev)
+                try:
+                    df = df_of(sess)
+                    torch.cuda.synchronize()
+                    mem0 = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    rows = df.collect()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    counts = launches()
+                    measured = torch.cuda.max_memory_allocated(dev) - mem0
+                    check(rows, f"S-solo {q}")
+                    an = sess.last_analysis
+                    ledger = BufferCatalog.get().ledger.observed_peak(
+                        sess._last_digest)
+                    (adm,) = admissions([sess])
+                finally:
+                    sess.close()
+                if not all(counts[k] for k in SERVE_KERNELS[q]):
+                    raise AssertionError(f"S-solo {q}: launches {counts}")
+                forecast = an.peak_hbm if an is not None else None
+                solo[q] = {"wall_ms": wall, "peak_hbm": forecast,
+                           "measured_peak_bytes": measured,
+                           "ledger_peak": ledger, "launches": counts}
+                per_query[f"S-{q}"] = counts
+                emit({"query": f"S-{q}", "card": smi, "wall_ms": wall,
+                      "launches": counts, "peak_hbm_forecast": forecast,
+                      "bounded": an.bounded if an is not None else None,
+                      "measured_peak_bytes": measured,
+                      "ledger_observed_peak": ledger,
+                      "forecast_below_measured": (
+                          forecast is not None and forecast < measured),
+                      "admission": {k: adm[k] for k in (
+                          "verdict", "forecast_bytes", "forecast_source")}})
+        if dev.type == "cuda" and any(plain.values()):
+            raise AssertionError(f"S-solo: plain versions ran: {plain}")
+
+        # --- S-mix: four sessions, four threads, a budget too small for
+        # the two largest forecasts at once ----------------------------
+        # a session's first submission is admitted on the analyzer's
+        # forecast (the mix's catalog, and so its ledger, is new), later
+        # ones on the ledger's observed peak of that first run
+        top = sorted(((max(v for v in (s["peak_hbm"], s["ledger_peak"])
+                           if v is not None), q)
+                      for q, s in solo.items()
+                      if s["peak_hbm"] is not None
+                      or s["ledger_peak"] is not None), reverse=True)
+        if len(top) < 2:
+            raise AssertionError(f"S-mix: fewer than two forecasts: {solo}")
+        budget = top[0][0] + top[1][0] // 2
+        mix = {}
+        for q, (settings, _, _) in queries.items():
+            mix[q] = {**settings, **SERVE_ON,
+                      "spark.rapids.tpu.metrics.http.enabled": True,
+                      "spark.rapids.tpu.memory.hbm.budgetBytes": budget,
+                      "spark.rapids.tpu.serve.queueTimeoutMs":
+                      SERVE_QUEUE_TIMEOUT_MS}
+            if q == SERVE_PRIORITY_QUERY:
+                mix[q]["spark.rapids.tpu.serve.priority"] = 1
+        DeviceScanCache.reset()
+        S._SCANNER_CACHE.clear()
+        # sessions made here, on one thread: the first resets the
+        # catalog to the budget, the others find it so
+        sessions = {q: S.TpuSession(mix[q], device=dev) for q in queries}
+        name = {s.serve_id: q for q, s in sessions.items()}
+        address = sessions["Q11"].obs_address
+        sched = QueryScheduler.reset()
+        SharedPlanCache.reset()
+        barrier = threading.Barrier(len(queries))
+        errors = []
+        walls = {q: [] for q in queries}
+
+        def worker(q):
+            sess = sessions[q]
+            _, df_of, check = queries[q]
+            try:
+                barrier.wait(60)
+                for i in range(SERVE_REPEATS):
+                    t0 = time.perf_counter()
+                    rows = df_of(sess).collect()
+                    walls[q].append((time.perf_counter() - t0) * 1e3)
+                    check(rows, f"S-mix {q} run {i}")
+            except Exception:  # reported by the main thread
+                errors.append((q, traceback.format_exc()))
+
+        status_serve = None
+        with plain_calls() as plain:
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            threads = [threading.Thread(target=worker, args=(q,),
+                                        name=f"serve-{q}", daemon=True)
+                       for q in queries]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            # /status once while a ticket waits (the exporter's thread
+            # reads the scheduler as tpu_top does)
+            while any(th.is_alive() for th in threads) and \
+                    time.perf_counter() - t0 < SERVE_JOIN_S:
+                if status_serve is None and sched.stats()["waiting"]:
+                    with urllib.request.urlopen(address + "/status",
+                                                timeout=30) as r:
+                        st = json.loads(r.read())
+                    if st["serve"] and st["serve"]["queue"]:
+                        status_serve = st["serve"]
+                        status_reserved = st["hbm"]["reserved_bytes"]
+                time.sleep(0.002)
+            for th in threads:
+                th.join(max(1.0, SERVE_JOIN_S - (time.perf_counter() - t0)))
+            torch.cuda.synchronize()
+            makespan = (time.perf_counter() - t0) * 1e3
+            counts = launches()
+            measured = torch.cuda.max_memory_allocated(dev) - mem0
+        wedged = [th.name for th in threads if th.is_alive()]
+        if wedged:
+            raise AssertionError(f"S-mix: threads still running after "
+                                 f"{SERVE_JOIN_S} s: {wedged}, "
+                                 f"{sched.stats()}, {sched.queue_status()}")
+        if errors:
+            raise AssertionError(f"S-mix failed: {errors}")
+        if dev.type == "cuda" and any(plain.values()):
+            raise AssertionError(f"S-mix: plain versions ran: {plain}")
+        stats = sched.stats()
+        recs = admissions(sessions.values())
+        tickets = [{"query": name.get(r["session"], r["session"]),
+                    "verdict": r["verdict"],
+                    "forecast_bytes": r["forecast_bytes"],
+                    "forecast_source": r["forecast_source"]} for r in recs]
+        cat = BufferCatalog.get()
+        for s in sessions.values():
+            s.close()
+        want = {k: SERVE_REPEATS * sum(s["launches"][k]
+                                       for s in solo.values())
+                for k in counts}
+        if dict(counts) != want or not all(counts[k]
+                                           for k in SERVE_MIX_KERNELS):
+            raise AssertionError(f"S-mix launches {dict(counts)}, 3x the "
+                                 f"solo sums {want}")
+        admits = sum(t["verdict"] == "admit" for t in tickets)
+        if (stats["admitted"] != SERVE_REPEATS * len(queries)
+                or admits != stats["admitted"] or not stats["queued"]
+                or not any(t["verdict"] == "queue" for t in tickets)
+                or stats["rejected"] or stats["timeouts"]
+                or stats["active"] or stats["waiting"]
+                or cat.reserved_bytes):
+            raise AssertionError(f"S-mix: stats {stats}, reserved "
+                                 f"{cat.reserved_bytes} B, tickets "
+                                 f"{tickets}")
+        if not stats["bypass_admissions"] and \
+                stats["peak_inflight_forecast"] > budget:
+            raise AssertionError(f"S-mix admitted past the budget: {stats}")
+        if status_serve is None:
+            raise AssertionError("S-mix: /status never showed a waiting "
+                                 "query")
+        waiting = [name.get(w["session"], w["session"])
+                   for w in status_serve["queue"]]
+        per_query["S-mix"] = counts
+        emit({"query": "S-mix", "card": smi, "budget": budget,
+              "forecasts": {q: {k: s[k] for k in ("peak_hbm",
+                                                  "ledger_peak")}
+                            for q, s in solo.items()},
+              "tickets": tickets, "stats": stats,
+              "status_waiting": waiting,
+              "status_reserved_bytes": status_reserved,
+              "makespan_ms": makespan,
+              "serial_ms": SERVE_REPEATS * sum(s["wall_ms"]
+                                              for s in solo.values()),
+              "walls_ms": walls, "measured_peak_bytes": measured,
+              "launches": counts})
+        obs.shutdown()
+
+        # --- S-reject: Q11 under a budget below its forecast -------------
+        settings, df_of, _ = queries["Q11"]
+        low = solo["Q11"]["peak_hbm"] // 2
+        sess = S.TpuSession({**settings, **SERVE_ON,
+                             "spark.rapids.tpu.memory.hbm.budgetBytes":
+                             low}, device=dev)
+        sched = QueryScheduler.reset()
+        reset_launches()
+        try:
+            try:
+                df_of(sess).collect()
+            except ServeAdmissionRejected as e:
+                reason = str(e)
+            else:
+                raise AssertionError("S-reject: Q11 was admitted under "
+                                     f"a budget of {low} B")
+            recs = sess.events.records()
+        finally:
+            sess.close()
+        counts = launches()
+        stats = sched.stats()
+        ends = [r for r in recs if r["event"] == "query_end"]
+        if (stats["rejected"] != 1 or stats["admitted"] or stats["active"]
+                or stats["waiting"] or BufferCatalog.get().reserved_bytes
+                or any(counts.values()) or len(ends) != 1
+                or not ends[0]["error"]):
+            raise AssertionError(f"S-reject: stats {stats}, reserved "
+                                 f"{BufferCatalog.get().reserved_bytes} B, "
+                                 f"launches {counts}, ends {ends}")
+        per_query["S-reject"] = counts
+        emit({"query": "S-reject", "card": smi, "budget": low,
+              "forecast": solo["Q11"]["peak_hbm"], "error": reason,
+              "stats": stats, "launches": counts})
+    finally:
+        obs.shutdown()
+        QueryScheduler.reset()
+        SharedPlanCache.reset()
+        BufferCatalog.reset()
+        DeviceScanCache.reset()
+        shutil.rmtree(base, ignore_errors=True)
+    return per_query
+
+
 def _decode_threads() -> int:
     from spark_rapids_tpu_torch.io import parquet_device as PD
 
@@ -7813,6 +8223,8 @@ def main() -> int:
     lap("obs")
     per_query.update(mesh_phase(torch, np, dev))
     lap("mesh")
+    per_query.update(serve_phase(torch, np, dev, smi))
+    lap("serve")
     if QUERY_ROUTES["numpy"] or not QUERY_ROUTES["native"]:
         raise AssertionError(f"hybrid streams by route: {QUERY_ROUTES}")
     emit({"native_decode": {"query_streams": QUERY_ROUTES,

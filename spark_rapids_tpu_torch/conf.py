@@ -304,6 +304,24 @@ STAGE_FUSION = conf(
     "the staged arguments, not decoded batches). On the CPU the separate "
     "decode plus the device scan cache decode once and reuse, so AUTO "
     "prefers that.", valid_values=("AUTO", "ON", "OFF"))
+ANALYSIS_ENABLED = conf(
+    "spark.rapids.tpu.sql.analysis.enabled", True,
+    "Run the static plan analyzer (plugin/plananalysis.py) and render its "
+    "report — per-operator batch layouts, nullability, predicted peak "
+    "device-memory footprint, and the reference's forecast of distinct "
+    "compile signatures per pipeline cache site — in explain(). The "
+    "analysis walks the bound plan without lowering or executing "
+    "anything. With the event log, the live plane or serving on, each "
+    "query is analyzed too (the plan_analysis event, the progress "
+    "denominators, the admission forecast).")
+ANALYSIS_CROSS_CHECK = conf(
+    "spark.rapids.tpu.sql.analysis.crossCheck.enabled", False,
+    "Debug: analyze every query and hold the forecasts to what ran — "
+    "measured bytesTouched never exceeds the analyzer's byte bound, and "
+    "nullability-elided execution matches the mask-carrying path "
+    "exactly. The reference's third check (compile-cache misses against "
+    "the compile forecast) has no counterpart: eager PyTorch compiles no "
+    "programs.")
 ANALYSIS_NULL_ELISION = conf(
     "spark.rapids.tpu.sql.analysis.nullElision.enabled", True,
     "Elide validity-plane reads for statically NON_NULL columns at "

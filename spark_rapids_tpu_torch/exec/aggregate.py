@@ -38,9 +38,9 @@ with the same kernels as the streaming path: there is no compiled
 program, so the reference's program cache (``cached_pipeline``, its
 compile-miss counts) and its buffer donation (``_donation``,
 ``mark_exclusive``) have no counterpart, and the port syncs inside them
-only where its tiers already do (``PERF.md`` §3). The plan analyzer's
-``fusedPlan``/``stageFusion`` report lines are not ported (ROADMAP.md
-item 26). The strategy pick emits ``agg_strategy`` and its live twin
+only where its tiers already do (``PERF.md`` §3). The plan analyzer
+(``plugin/plananalysis.py``) reports the ``fusedPlan``/``stageFusion``
+lines from these same gates. The strategy pick emits ``agg_strategy`` and its live twin
 (:meth:`TpuHashAggregateExec.resolved_strategy`). The route a partition took
 shows in the aggregate's ``sections`` (``stage``, ``plan``, or
 ``update`` and ``merge``).
@@ -513,11 +513,14 @@ class TpuHashAggregateExec(TpuExec):
             chain, max(b.capacity for b in batches), self.device)
         return finish([update_batch(b, nonnull) for b in batches])
 
-    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
-        from .. import faults as _faults
-        from ..conf import AGG_FUSED_PLAN, OOM_RETRY_ENABLED
-        from ..memory.retry import is_device_oom, note_fallback
-
+    def _stage_source(self):
+        """``(source, chain, staged)``: the exec the partition reads, the
+        fusable chain it absorbs, and whether the fused scan->aggregate
+        stage reads that source's staged decodes
+        (``exec/scan.fused_stage_plans``). A string min/max keeps its
+        chain as real execs, as the reference does (``aggregate.py:955-
+        970``, where a fused chain would bound its rank sort by the
+        source batch's strings)."""
         child = self.children[0]
         source, chain = (child.fused_source_chain() if child.fusable
                          else (child, []))
@@ -525,14 +528,39 @@ class TpuHashAggregateExec(TpuExec):
                          and T.is_string(e.dtype)
                          for op, e in zip(self._update_ops,
                                           self._update_exprs)):
-            # a string min/max runs its chain as real execs, as the
-            # reference does (aggregate.py:955-970, where a fused chain
-            # would bound its rank sort by the source batch's strings)
             source, chain = child, []
-        fsp = getattr(source, "fused_stage_plans", None)
-        if (fsp is not None and self._can_fuse_stage()
-                and self._stage_fusion_on()):
-            stage = fsp(index)
+        staged = (getattr(source, "fused_stage_plans", None) is not None
+                  and self._can_fuse_stage() and self._stage_fusion_on())
+        return source, chain, staged
+
+    def _fused_plan_fits(self, nbatches: int, cap_sum: int,
+                         byte_sum: int) -> bool:
+        """Whether ``nbatches`` buffered input batches of ``cap_sum`` rows
+        of capacity and ``byte_sum`` bytes stay within the fused plan's
+        guards: the buffering here and the analyzer's forecast ask this
+        one question."""
+        return (cap_sum <= self._FUSED_PLAN_MAX_ROWS
+                and byte_sum <= self._FUSED_PLAN_MAX_BYTES
+                and nbatches <= self._FUSED_PLAN_MAX_BATCHES
+                and self._fused_plan_on(nbatches))
+
+    def host_prefetch(self) -> None:
+        """The serving prefetch (``TpuExec.host_prefetch``), except under
+        a fused scan->aggregate stage: that route reads its source's
+        staged decodes, never the scan's decoded batches, so prefetching
+        them would decode every row group twice and pin the unused
+        batches in the device scan cache."""
+        if not self._stage_source()[2]:
+            super().host_prefetch()
+
+    def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        from .. import faults as _faults
+        from ..conf import AGG_FUSED_PLAN, OOM_RETRY_ENABLED
+        from ..memory.retry import is_device_oom, note_fallback
+
+        source, chain, staged = self._stage_source()
+        if staged:
+            stage = source.fused_stage_plans(index)
             if stage:
                 with self.op_timed("stage"):
                     out = self._run_fused_stage(stage, chain,
@@ -583,10 +611,7 @@ class TpuHashAggregateExec(TpuExec):
             batches.append(batch)
             cap_sum += max(1, batch.capacity)
             byte_sum += batch_bytes(batch)
-            if (cap_sum > self._FUSED_PLAN_MAX_ROWS
-                    or byte_sum > self._FUSED_PLAN_MAX_BYTES
-                    or len(batches) > self._FUSED_PLAN_MAX_BATCHES
-                    or not self._fused_plan_on(len(batches))):
+            if not self._fused_plan_fits(len(batches), cap_sum, byte_sum):
                 use_fused = False
                 flush_buffered()
         if use_fused and batches:

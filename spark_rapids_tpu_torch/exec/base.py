@@ -207,6 +207,17 @@ class TpuExec:
             finally:
                 sem.release_if_necessary()
 
+    def host_prefetch(self) -> None:
+        """Serving-path pipelining hook (reference ``exec/base.py:402``):
+        start this plan's host-side work (file reads, parquet decode on
+        the prefetch pool) BEFORE the caller takes the device semaphore,
+        so an admitted query's host phase overlaps the running query's
+        device work. Default: recurse; scans override (``exec/scan.py``).
+        Must not block on the work it starts and must be safe to call at
+        most once per plan."""
+        for c in self.children:
+            c.host_prefetch()
+
     # -- fusion --------------------------------------------------------------
     def lower_batch(self, cols, live, cap):
         """(cols, live_mask) -> (cols, live_mask), eager torch ops. A
@@ -570,6 +581,9 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
     out_schema = exec_self.output_schema
     needs_compact = any(e.sparsifies for e in chain)
     nonnull = entry_nonnull_flags(source.output_schema, exec_self.conf)
+    # pressure hook (reference exec/base.py:879): a scan source's prefetch
+    # holds device batches an OOM recovery wants back (exec/scan.py)
+    on_pressure = getattr(source, "invalidate_prefetch", None)
 
     def attempt(b: ColumnarBatch) -> ColumnarBatch:
         cols = vals_of_batch(b)
@@ -587,5 +601,5 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
     for b in source.execute_partition(index):
         with exec_self.op_timed():
             out = with_oom_retry(exec_self.node_name, attempt, b,
-                                 exec_self.conf)
+                                 exec_self.conf, on_pressure=on_pressure)
         yield exec_self.record_batch(out)

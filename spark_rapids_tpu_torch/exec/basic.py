@@ -73,6 +73,12 @@ class InMemoryScanExec(TpuExec):
         for b in self._partitions[index]:
             yield self.record_batch(b)
 
+    def partition_rows(self):
+        """Static per-partition row counts (reference
+        ``exec/basic.py:143``): the mesh forecast's input for a
+        host-staged source (``plugin/plananalysis.forecast_mesh``)."""
+        return [sum(int(b.num_rows) for b in p) for p in self._partitions]
+
     @staticmethod
     def from_pydict(conf: RapidsConf, data, schema: StructType,
                     device=None) -> "InMemoryScanExec":

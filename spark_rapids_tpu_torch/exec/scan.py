@@ -18,9 +18,12 @@ its shards. The mesh halves: :class:`MeshShardedScanExec` (per-shard host
 columns, placed straight on their shards) and the parquet scan's
 ``mesh_stage_items`` / ``stage_mesh_planes`` (row groups round-robined
 over the shards, each shard's row groups decoded through the device
-decode onto its own device: ``io/mesh_stage.py``). The reference's
-serving prefetch is not ported (ROADMAP.md, queue A item 'The remaining
-modules').
+decode onto its own device: ``io/mesh_stage.py``). The serving path's
+:meth:`TpuFileSourceScanExec.host_prefetch` (reference
+``exec/scan.py:370``) starts every split's read, or its device decode,
+on a two-worker prefetch pool once the query is admitted; the drain
+consumes those futures, and :meth:`invalidate_prefetch` drops them under
+OOM pressure.
 
 Metrics: ``scanTime`` (host read of the plain route), ``tpuDecodeTime``
 (the device-decode route's wall: planning, uploads and the decode ops
@@ -31,6 +34,7 @@ device decoder did not take, decoded by pyarrow on the host instead).
 """
 from __future__ import annotations
 
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -48,6 +52,28 @@ from .base import TpuExec
 
 SCAN_TIME = "scanTime"  # reference metric name (GpuMetricNames)
 DECODE_TIME = "tpuDecodeTime"
+
+# Serving-path prefetch pool (reference ``exec/scan.py:27-45``):
+# host_prefetch() submits whole-split reads here. DISTINCT from the
+# chunk-decode pool on purpose — a split read fans out chunk decodes onto
+# that pool, so running the outer task on the same bounded pool could
+# occupy every worker with waiters (nested-pool deadlock). Two workers
+# are enough: the point is overlap with the device phase, not parallel
+# split storms.
+_PREFETCH_POOL = None
+_PREFETCH_POOL_LOCK = threading.Lock()
+
+
+def _prefetch_pool():
+    global _PREFETCH_POOL
+    if _PREFETCH_POOL is None:
+        with _PREFETCH_POOL_LOCK:
+            if _PREFETCH_POOL is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                _PREFETCH_POOL = ThreadPoolExecutor(
+                    max_workers=2, thread_name_prefix="srt-prefetch")
+    return _PREFETCH_POOL
 
 
 def constant_string_column(value, n: int, cap: int, device) -> DeviceColumn:
@@ -179,6 +205,7 @@ class TpuFileSourceScanExec(TpuExec):
         self.fmt = fmt
         self._device = resolve_device(device)
         self._prefetch = None  # MULTITHREADED reader futures
+        self._prefetch_dev = None  # host_prefetch device-path futures
         #: splits already drained: a prefetch table built later must not
         #: resubmit them
         self._consumed_splits: set = set()
@@ -390,6 +417,47 @@ class TpuFileSourceScanExec(TpuExec):
             self._consumed_splits.add(index)
             return fn(index, self._device, self.metrics)
 
+    def host_prefetch(self) -> None:
+        """Serving-path phase split (reference ``exec/scan.py:370``):
+        start every split's device decode (or, for a scanner without
+        one, its host read) on the prefetch pool NOW, before the caller
+        takes the device semaphore — the host work of an admitted query
+        overlaps the running query's device work. The drain consumes the
+        futures instead of reading again."""
+        n = self.scanner.num_splits()
+        if n == 0:
+            return
+        if hasattr(self.scanner, "read_split_device"):
+            if self._prefetch_dev is None:
+                self._prefetch_dev = [
+                    _prefetch_pool().submit(
+                        self.scanner.read_split_device, i, self._device,
+                        self.metrics)
+                    if i not in self._consumed_splits else None
+                    for i in range(n)
+                ]
+        elif self._prefetch is None:
+            self._prefetch = [
+                _prefetch_pool().submit(self.scanner.read_split_i, i)
+                if i not in self._consumed_splits else None
+                for i in range(n)
+            ]
+
+    def invalidate_prefetch(self) -> None:
+        """OOM-pressure hook (``memory/retry.py``'s ``on_pressure``):
+        cancel pending prefetch futures and drop the tables — the device
+        path's futures hold decoded device batches, exactly the residency
+        an OOM recovery wants back. Futures already running finish and
+        are collected; the drain reads those splits again, so the results
+        are the same either way."""
+        for futs in (self._prefetch_dev, self._prefetch):
+            if futs:
+                for f in futs:
+                    if f is not None:
+                        f.cancel()
+        self._prefetch_dev = None
+        self._prefetch = None
+
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
         from ..io.arrow_convert import arrow_to_batch
 
@@ -402,8 +470,15 @@ class TpuFileSourceScanExec(TpuExec):
             with self.op_timed("decode", DECODE_TIME), \
                     named_oom(f"{self.node_name}.decode"):
                 self._consumed_splits.add(index)
-                dev, pvals = self.scanner.read_split_device(
-                    index, self._device, self.metrics)
+                fut = None
+                if self._prefetch_dev is not None:
+                    fut = self._prefetch_dev[index]
+                    self._prefetch_dev[index] = None
+                if fut is not None:
+                    dev, pvals = fut.result()
+                else:
+                    dev, pvals = self.scanner.read_split_device(
+                        index, self._device, self.metrics)
             if dev is not None:
                 with named_oom(f"{self.node_name}.decode"):
                     for b in dev:

@@ -21,6 +21,17 @@ included. The catalog's next ordinary entry (register, unregister,
 request, the watermark reads) and the session's query end drain the
 queue, so the buffer's ``buffer_free`` is emitted from a normal call path.
 
+The serving scheduler's admissions reserve their forecast here
+(:meth:`BufferCatalog.reserve`, reference ``catalog.py:368-430``): the
+reserved bytes narrow the headroom the next admission sees until the
+query releases them, set the ``tpu_hbm_reserved_bytes`` gauge and, with
+the ledger armed, carry a ``reservation`` record. A session whose memory
+confs differ from the live catalog's replaces it only while no serving
+ticket is admitted or waiting and nothing is reserved
+(:class:`CatalogInUseError` otherwise, ``sql/session.py``). The new
+catalog's ledger starts with no observed peaks: those were measured
+under the old memory confs.
+
 Each spill, unspill and disk move emits a ``spill`` event (with the live
 device-byte watermark and, while the ledger is armed, the buffer's
 ledger id) and its ``tpu_spills``/``tpu_spill_bytes`` twins, and every
@@ -49,9 +60,16 @@ from ..conf import (HBM_BUDGET_BYTES, HBM_POOL_FRACTION, HBM_RESERVE,
                     HOST_SPILL_STORAGE_SIZE, MEMORY_DEBUG, SPILL_ENABLED,
                     RapidsConf)
 from ..utils.locks import ordered_lock
-from .ledger import Ledger
+from .ledger import KIND_RESERVATION, Ledger
 
 log = logging.getLogger("spark_rapids_tpu_torch.memory")
+
+
+class CatalogInUseError(RuntimeError):
+    """A session asked for a spill catalog with other memory confs while
+    serving tickets or reservations depend on the live one: replacing it
+    would drop their reservations and let the scheduler admit past the
+    budget."""
 
 # tier ordering (reference: RapidsBuffer.scala:54-61 StorageTier)
 TIER_DEVICE = 0
@@ -137,6 +155,14 @@ class BufferCatalog:
                             else "cuda" if torch.cuda.is_available()
                             else "cpu")
         self._budget = derive_hbm_budget(self.conf, device)
+        # admission reservations (serve/scheduler.py): rid -> (bytes,
+        # label, ledger id). An admitted query's forecast counts against
+        # the budget from admission until release, so the scheduler's
+        # admit decision and the spiller never promise the same headroom
+        # twice.
+        self._reservations: Dict[int, tuple] = {}
+        self._reserved_bytes = 0
+        self._next_rid = 0
         #: per-buffer lifecycle book (armed while events or obs are on, or
         #: by ``ledger.force_arm``)
         self.ledger = Ledger(self.conf)
@@ -363,6 +389,61 @@ class BufferCatalog:
     def host_bytes(self) -> int:
         self.drain_collected()
         return self._host_bytes
+
+    # -- admission reservations (serve/scheduler.py) -----------------------
+    def observed_query_peak(self, query_id: Optional[str]
+                            ) -> Optional[int]:
+        """Ledger-observed device-byte peak of one query: the figure the
+        serving path's OOM requeue inflates its forecast to."""
+        return self.ledger.query_peak(query_id)
+
+    def reserve(self, nbytes: int, label: str = "") -> int:
+        """Charge an admitted query's peak forecast against the budget
+        until :meth:`release_reservation`. Accounting only: nothing is
+        allocated; the reservation narrows what the scheduler admits
+        next. Conservative on purpose: a running query's own buffers also
+        register in ``device_bytes``, so headroom is counted twice toward
+        safety (queueing, never OOM)."""
+        with self._lock:
+            rid = self._next_rid
+            self._next_rid += 1
+            lid = self.ledger.note_alloc(
+                int(nbytes), kind=KIND_RESERVATION,
+                site=f"reservation:{label}" if label else "reservation",
+            ) if self.ledger.armed() else None
+            self._reservations[rid] = (int(nbytes), label, lid)
+            self._reserved_bytes += int(nbytes)
+            if _obs.enabled():
+                _obs.set_gauge("tpu_hbm_reserved_bytes",
+                               self._reserved_bytes)
+            if self.conf.get(MEMORY_DEBUG):
+                log.info("reserve %d B (%s): reserved=%d B", nbytes, label,
+                         self._reserved_bytes)
+            return rid
+
+    def release_reservation(self, rid: int) -> None:
+        with self._lock:
+            entry = self._reservations.pop(rid, None)
+            if entry is None:
+                return
+            self._reserved_bytes -= entry[0]
+            self.ledger.note_free(entry[2], reason="release")
+            if _obs.enabled():
+                _obs.set_gauge("tpu_hbm_reserved_bytes",
+                               self._reserved_bytes)
+
+    @property
+    def reserved_bytes(self) -> int:
+        return self._reserved_bytes
+
+    def admission_state(self) -> tuple:
+        """(budget, device_bytes, reserved_bytes) read at once under the
+        catalog lock: the scheduler derives its admission headroom from
+        one consistent snapshot, never from separate reads that could
+        interleave with a concurrent register or reserve."""
+        self.drain_collected()
+        with self._lock:
+            return self._budget, self._device_bytes, self._reserved_bytes
 
 
 class SpillableHandle:

@@ -24,9 +24,14 @@ query end flags still-live spillable buffers whose owning query is gone
 — surfaced as a watchdog alert, a ``/status`` heap block and the
 session's ``last_leaks``. Scan-cache entries and declared plan state
 (join builds, broadcast batches) outlive queries by design and are
-exempt; so are reservations (the port has no serving scheduler to make
-them). The reference's per-plan-digest peak history, which its serving
-admission reads, comes with serving (ROADMAP.md item 26).
+exempt; so are admission reservations, which the serving scheduler
+releases after the query window closes.
+
+The sweep also folds each query's observed peak into a bounded
+per-plan-digest history: :meth:`Ledger.observed_peak` is the measured
+figure the serving admission (``sql/session._collect_serve_once``)
+charges in place of the analyzer's static forecast once a digest has
+run.
 """
 from __future__ import annotations
 
@@ -64,7 +69,8 @@ KIND_PLAN_STATE = "plan_state"
 SWEEP_EXEMPT_KINDS = frozenset(
     {KIND_SCAN_CACHE, KIND_RESERVATION, KIND_PLAN_STATE})
 
-#: bounded history size of the per-query peaks
+#: bounded history sizes (per-digest observed peaks / per-query peaks)
+_DIGEST_HISTORY = 256
 _QUERY_HISTORY = 256
 
 # -- force arm (bench/tests): attribution without events/obs ---------------
@@ -197,6 +203,8 @@ class Ledger:
         #: is process-globally unique — the owner tag also carries tid)
         self._query_live: Dict[str, int] = {}
         self._query_peak: "OrderedDict[str, int]" = OrderedDict()
+        #: per-plan-digest observed peaks (the admission feed)
+        self._digest_peak: "OrderedDict[str, int]" = OrderedDict()
         self._alloc_count = 0
         self._free_count = 0
         self._leaked_total = 0
@@ -342,16 +350,26 @@ class Ledger:
             self._query_peak.popitem(last=False)
 
     # -- query end: peak fold + leak sentinel ------------------------------
-    def sweep_query(self, query_id: Optional[str]) -> List[dict]:
-        """Close a query's ownership window and — when the sentinel is on
-        — flag every still-live spillable buffer it owns as leaked; emit
-        the ``heap_snapshot``. Returns the leak records (copies) for the
-        caller (watchdog alert detail, the session's ``last_leaks``)."""
+    def sweep_query(self, query_id: Optional[str],
+                    digest: Optional[str] = None) -> List[dict]:
+        """Close a query's ownership window: fold its observed peak into
+        the per-digest history (the admission feed) and — when the
+        sentinel is on — flag every still-live spillable buffer it owns
+        as leaked; emit the ``heap_snapshot``. Returns the leak records
+        (copies) for the caller (watchdog alert detail, the session's
+        ``last_leaks``)."""
         if query_id is None or not self._enabled:
             return []
         leaks: List[dict] = []
         with self._lock:
+            peak = self._query_peak.get(query_id)
             self._query_live.pop(query_id, None)
+            if digest and peak:
+                old = self._digest_peak.get(digest, 0)
+                self._digest_peak[digest] = max(old, peak)
+                self._digest_peak.move_to_end(digest)
+                while len(self._digest_peak) > _DIGEST_HISTORY:
+                    self._digest_peak.popitem(last=False)
             if self._sentinel:
                 for r in self._records.values():
                     if (r["query_id"] == query_id and not r["leaked"]
@@ -375,6 +393,16 @@ class Ledger:
                          by_op=snap["by_op"], top=snap["top"],
                          leaked=snap["leaked"])
         return leaks
+
+    # -- admission feed ----------------------------------------------------
+    def observed_peak(self, digest: Optional[str]) -> Optional[int]:
+        """Largest device-byte peak any completed run of this plan digest
+        reached — the measured replacement for the analyzer's static
+        bound in the serve admission path."""
+        if not digest or not self._enabled:
+            return None
+        with self._lock:
+            return self._digest_peak.get(digest)
 
     def query_peak(self, query_id: Optional[str]) -> Optional[int]:
         """Observed device-byte peak of one query (survives its sweep in

@@ -22,9 +22,11 @@ Design mirrors events.py so the two planes share one mental model:
     engine subsystem, so emitters may call in while holding their own
     locks (the BufferCatalog does) with no lock-ordering hazard.
 
-Families whose emitters the port has not ported (compile misses,
-program costs, HLO summaries, the AOT program cache, donation, serving)
-are declared and stay at zero (ROADMAP.md). The mesh stages feed
+Families whose emitters the port has no counterpart of (compile
+misses, program costs, HLO summaries, the AOT program cache, donation:
+the port compiles no programs) are declared and stay at zero
+(ROADMAP.md). The serving scheduler (``serve/``) feeds the
+``tpu_serve_*`` families, the catalog ``tpu_hbm_reserved_bytes``. The mesh stages feed
 ``tpu_mesh_staged_rows`` and ``tpu_mesh_shard_seconds`` per shard, the
 network shuffle client ``tpu_shuffle_fetch_retries``.
 """

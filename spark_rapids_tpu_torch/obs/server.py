@@ -7,10 +7,13 @@ Prometheus text exposition 0.0.4 of the whole metric catalog (every
 family renders its HELP/TYPE header even before the first sample);
 ``/status`` serves the operator view ``tools/tpu_top.py`` renders, with
 the reference's key set: live queries with per-op progress, the HBM
-watermark vs the shared budget, the ledger's heap block, the watchdog's
-alert history. ``serve`` and ``program_cache`` are ``null``: the port
-has no serving scheduler and no AOT program cache yet (ROADMAP.md item
-26), and ``hbm.reserved_bytes`` is 0 (no admission reservations).
+watermark vs the shared budget with the serving admissions' reserved
+bytes, the ledger's heap block, the serving scheduler's ``serve`` block
+(its stats, the waiting queue in drain order, the admitted queries;
+``null`` in a process that never served: the scheduler singleton is
+peeked, never created), the watchdog's alert history.
+``program_cache`` is always ``null``: eager PyTorch compiles no
+programs, so the reference's AOT program cache has no counterpart.
 """
 from __future__ import annotations
 
@@ -39,11 +42,22 @@ def build_status(registry: MetricsRegistry, progress: ProgressTracker,
         "device_bytes": cat.device_bytes,
         "peak_device_bytes": m.peak_device_bytes,
         "spilled_bytes": m.spilled_bytes,
-        # no serving scheduler, so no admission reservations
-        "reserved_bytes": 0,
+        "reserved_bytes": cat.reserved_bytes,
         "budget_bytes": budget,
         "pressure": (cat.device_bytes / budget) if budget else None,
     }
+    # serving queue (serve/scheduler.py) — peek only: /status must not
+    # conjure a scheduler in a process that never served
+    from ..serve.scheduler import QueryScheduler
+
+    sched = QueryScheduler.instance()
+    serve = None
+    if sched is not None:
+        serve = {
+            "stats": sched.stats(),
+            "queue": sched.queue_status(),
+            "active": sched.active_status(),
+        }
     # environment provenance (envinfo): a live operator must be able to
     # tell at a glance whether the numbers on screen come from the card
     from .. import envinfo
@@ -57,7 +71,8 @@ def build_status(registry: MetricsRegistry, progress: ProgressTracker,
         # down by owning op, top owners, and the leak sentinel's tally —
         # all zeros while the ledger is unarmed
         "heap": cat.ledger.status_block(),
-        "serve": None,
+        "serve": serve,
+        # no AOT program cache: the port compiles no programs
         "program_cache": None,
         "alerts": [a.to_json() for a in watchdog.alerts()]
         if watchdog is not None else [],

@@ -77,9 +77,22 @@ _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
 
 
+#: guards :data:`LAUNCHES`: sessions on several threads launch at once,
+#: and ``+=`` on a dict entry can lose an increment when threads switch
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name`` to :data:`LAUNCHES` (called once by
+    the wrapper, just after its kernel launched)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -224,7 +237,7 @@ def bucket_sum(seg: torch.Tensor, B: int,
                 (ctypes.c_int * len(bounds))(*bounds), len(passes),
                 in_device_memory, out.data_ptr(), _stream(dev))
             _check(lib, rc, "bucket_sum")
-            LAUNCHES["bucket_sum"] += 1
+            count_launch("bucket_sum")
             outs.extend(out.unbind(0))
     return outs[:len(int_cols)], outs[len(int_cols):]
 
@@ -291,7 +304,7 @@ def bucket_float_sum(seg: torch.Tensor, B: int,
                 plan_bucket_fsum(B, len(chunk)), out.data_ptr(),
                 _stream(dev))
             _check(lib, rc, "bucket_float_sum")
-            LAUNCHES["bucket_float_sum"] += 1
+            count_launch("bucket_float_sum")
             outs.extend(out[:, i] for i in range(len(chunk)))
     return outs
 
@@ -345,7 +358,7 @@ def bucket_winner(seg: torch.Tensor, B: int, op: str,
                                    int(plan_bucket_winner(B)),
                                    out.data_ptr(), _stream(dev))
     _check(lib, rc, "bucket_winner")
-    LAUNCHES["bucket_winner"] += 1
+    count_launch("bucket_winner")
     return out
 
 
@@ -382,7 +395,7 @@ def ordered_segment_sum(vals: torch.Tensor, seg: torch.Tensor,
         rc = lib.srt_ordered_segment_sum(v.data_ptr(), bounds.data_ptr(),
                                          nseg, out.data_ptr(), _stream(dev))
     _check(lib, rc, "ordered_segment_sum")
-    LAUNCHES["ordered_segment_sum"] += 1
+    count_launch("ordered_segment_sum")
     return out
 
 

@@ -58,9 +58,22 @@ _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
 
 
+#: guards :data:`LAUNCHES`: sessions on several threads launch at once,
+#: and ``+=`` on a dict entry can lose an increment when threads switch
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name`` to :data:`LAUNCHES` (called once by
+    the wrapper, just after its kernel launched)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -204,5 +217,5 @@ def probe_ranges(build_words: Sequence[torch.Tensor], build_count,
             barrier.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             _cuda_build.stream(dev))
     _cuda_build.check_launch(lib.srt_join_error_string, rc, "probe_ranges")
-    LAUNCHES["probe_ranges"] += 1
+    count_launch("probe_ranges")
     return lo, hi

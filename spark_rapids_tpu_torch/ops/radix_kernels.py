@@ -82,9 +82,22 @@ class Stream(NamedTuple):
     op: str = "min"
 
 
+#: guards :data:`LAUNCHES`: sessions on several threads launch at once,
+#: and ``+=`` on a dict entry can lose an increment when threads switch
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name`` to :data:`LAUNCHES` (called once by
+    the wrapper, just after its kernel launched)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -363,5 +376,5 @@ def segment_reduce(perm: torch.Tensor, seg: torch.Tensor,
             ins.buffer_info()[0], scratch.data_ptr(), _stream(dev))
     _cuda_build.check_launch(lib.srt_radix_error_string, rc,
                              "radix_segment_reduce")
-    LAUNCHES["radix_segment_reduce"] += 1
+    count_launch("radix_segment_reduce")
     return outs

@@ -48,9 +48,22 @@ _LIB_LOCK = threading.Lock()
 _TABLES: Dict[Tuple[int, torch.device], Tuple[object, torch.Tensor, int]] = {}
 
 
+#: guards :data:`LAUNCHES`: sessions on several threads launch at once,
+#: and ``+=`` on a dict entry can lose an increment when threads switch
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name`` to :data:`LAUNCHES` (called once by
+    the wrapper, just after its kernel launched)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -240,5 +253,5 @@ def dfa_accept_rows(offsets: torch.Tensor, chars: torch.Tensor,
             int(dfa.start_accept), out.data_ptr(), _cuda_build.stream(dev))
     _cuda_build.check_launch(lib.srt_regex_error_string, rc,
                              "dfa_accept_rows")
-    LAUNCHES["dfa_accept_rows"] += 1
+    count_launch("dfa_accept_rows")
     return out

@@ -46,9 +46,22 @@ _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
 
 
+#: guards :data:`LAUNCHES`: sessions on several threads launch at once,
+#: and ``+=`` on a dict entry can lose an increment when threads switch
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name`` to :data:`LAUNCHES` (called once by
+    the wrapper, just after its kernel launched)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -158,5 +171,5 @@ def word_counts(offsets: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
         rc = lib.srt_word_counts(off.data_ptr(), rows, chars.data_ptr(), nch,
                                  out.data_ptr(), _cuda_build.stream(dev))
     _cuda_build.check_launch(lib.srt_udf_error_string, rc, "word_counts")
-    LAUNCHES["word_counts"] += 1
+    count_launch("word_counts")
     return out

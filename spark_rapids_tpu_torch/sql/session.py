@@ -24,17 +24,35 @@ session's event logger (``events.py``; a no-op unless
 ``eventLog.enabled``/``eventLog.dir``) and the live plane starts per its
 confs (``obs.ensure_started``: registry, ``/metrics`` + ``/status``
 exporter, watchdog). With either on, every drain emits ``query_start``
-(with the environment), ``plan_tagged`` and ``query_end`` (also when it
-fails), registers and ends the query's live progress, and runs in a
-ledger query scope (the ledger arms with them). ``export_trace(path)``
-writes the ring as a Chrome/Perfetto trace; ``obs_address`` is the
-exporter's URL; ``close()`` flushes the log.
+(with the environment), ``plan_tagged``, ``plan_analysis`` and
+``query_end`` (also when it fails), registers and ends the query's live
+progress (the analyzer's ``rows_by_op``/``batches_by_op`` are its
+denominators), and runs in a ledger query scope (the ledger arms with
+them; the sweep folds the query's peak into the per-digest history).
+``export_trace(path)`` writes the ring as a Chrome/Perfetto trace;
+``obs_address`` is the exporter's URL; ``close()`` flushes the log.
 
-Left out, as later ROADMAP.md items: plan analysis (so ``explain()``
-returns the tagging lines only and no ``plan_analysis`` event is
-emitted), serving and the XLA cost and HLO planes, and
-``DataFrameWriter`` and the CSV and ORC readers ('The remaining
-modules'); their conf keys are not registered. With
+Plan analysis (``plugin/plananalysis.py``, reference ``session.py:361-447``):
+``explain()`` appends the analyzer's ``== Static Plan Analysis ==`` block
+under ``sql.analysis.enabled``; a collect runs the analyzer (before any
+device work) under ``sql.analysis.crossCheck.enabled``, or with events,
+obs or serving on and ``sql.analysis.enabled``; ``last_analysis`` keeps
+the result.
+
+Serving (``serve/``, reference ``session.py:558-680``): with
+``spark.rapids.tpu.serve.enabled`` a collect plans on the calling thread
+under the session's plan lock, takes its analysis from the process-wide
+``SharedPlanCache``, is admitted by the ``QueryScheduler`` against its
+peak forecast (the ledger's observed peak once the plan's digest has
+run), host-prefetches its scans, drains, and releases its reservation.
+A reject or a queue timeout is a named error that still closes the
+query's ``query_end`` window; a device OOM of an admitted query is
+requeued once with its forecast raised to the observed peak.
+
+Left out, as later ROADMAP.md items: the XLA cost and HLO planes (the
+port compiles no programs), ``DataFrameWriter`` and the CSV and ORC
+readers ('The remaining modules'); their conf keys are not registered.
+With
 ``spark.rapids.tpu.sql.udfCompiler.enabled`` on, each ``PythonUDF`` is
 compiled to engine expressions where its bytecode allows
 (``udf/compiler.py``); an uncompilable one, and every one with the conf
@@ -55,12 +73,14 @@ from ..conf import (HBM_BUDGET_BYTES, HBM_POOL_FRACTION, HBM_RESERVE,
                     MEMORY_DEBUG, SPILL_ENABLED, RapidsConf)
 from ..cpu import plan as C
 from ..exec.transitions import ColumnarToRowExec
-from ..memory.catalog import BufferCatalog
+from ..memory.catalog import BufferCatalog, CatalogInUseError
 from ..memory.ledger import query_scope
 from ..expr import aggregates as A
 from ..expr import expressions as E
 from ..plugin.overrides import TpuOverrides, not_ported as _not_ported
+from ..serve import scheduler as _serve  # registers the serve.* confs
 from ..types import StructType
+from ..utils import locks as _locks
 
 REMAINING_ITEM = "The remaining modules"
 
@@ -75,6 +95,17 @@ def _next_query_id() -> int:
         return _QUERY_SEQ[0]
 
 
+_SESSION_SEQ = [0]
+_SESSION_SEQ_LOCK = threading.Lock()
+
+
+def _next_session_id() -> str:
+    """A session's stable name in serving queues and event lanes."""
+    with _SESSION_SEQ_LOCK:
+        _SESSION_SEQ[0] += 1
+        return f"session-{_SESSION_SEQ[0]}"
+
+
 #: the conf keys the spill catalog is built from
 _CATALOG_KEYS = (HBM_BUDGET_BYTES, HBM_POOL_FRACTION, HBM_RESERVE,
                  HOST_SPILL_STORAGE_SIZE, SPILL_ENABLED, MEMORY_DEBUG,
@@ -82,15 +113,36 @@ _CATALOG_KEYS = (HBM_BUDGET_BYTES, HBM_POOL_FRACTION, HBM_RESERVE,
 
 
 def _configure_catalog(conf: RapidsConf, device) -> None:
-    """Reset the process's spill catalog when this session's memory confs
-    or device type differ from the ones it was built for (the catalog is
-    a process singleton; a session with another budget gets a catalog of
-    its own, and buffers registered with the old one keep their accounts
-    there)."""
-    cat = BufferCatalog._instance
-    want = tuple(conf.get(k) for k in _CATALOG_KEYS)
-    if cat is None or cat.device_type != device.type or tuple(
-            cat.conf.get(k) for k in _CATALOG_KEYS) != want:
+    """Replace the process's spill catalog when this session's memory
+    confs or device type differ from the ones it was built for (the
+    catalog is a process singleton; a session with another budget gets a
+    catalog of its own, and buffers registered with the old one keep
+    their accounts there). The serving scheduler's reservations live in
+    the catalog, so the swap happens with admission held still and only
+    while no ticket is admitted or waiting and nothing is reserved:
+    otherwise :class:`CatalogInUseError`. The new catalog's ledger
+    starts with no observed peaks (they were measured under the old
+    confs), so the next admissions take the analyzer's forecasts."""
+    want = (device.type, tuple(conf.get(k) for k in _CATALOG_KEYS))
+
+    def built_for(cat) -> bool:
+        return cat is not None and (cat.device_type, tuple(
+            cat.conf.get(k) for k in _CATALOG_KEYS)) == want
+
+    if built_for(BufferCatalog._instance):
+        return
+    with _serve.QueryScheduler.admission_paused() as tickets:
+        old = BufferCatalog._instance
+        if built_for(old):
+            return
+        reserved = old.reserved_bytes if old is not None else 0
+        if tickets or reserved:
+            raise CatalogInUseError(
+                f"a session with other memory confs cannot replace the "
+                f"process's spill catalog while {tickets} serving "
+                f"ticket(s) are admitted or waiting and {reserved} bytes "
+                f"are reserved; build it before serving starts or after "
+                f"the queries finish")
         BufferCatalog.reset(conf, device)
 
 
@@ -298,6 +350,17 @@ class TpuSession:
         self.overrides = TpuOverrides(self.conf, self.device)
         self.last_executed_plan = None
         self.last_cpu_plan = None
+        self.last_analysis = None
+        #: stable name in serving queues / event lanes ("session-N")
+        self.serve_id = _next_session_id()
+        # planning mutates session state (last_* fields, the pending obs
+        # slot): the serving path lets N threads share one session, so
+        # plan+claim runs under this lock (the drain itself is arbitrated
+        # by the scheduler and the semaphore, not this lock)
+        self._plan_lock = _locks.ordered_lock("sql.plan", reentrant=True)
+        self._serve_analysis = None
+        self._serve_plan_key = None
+        self._last_digest: Optional[str] = None
         #: the leak sentinel's finds at the last query's end (the ledger
         #: arms while events or obs are on, or by ``ledger.force_arm``)
         self.last_leaks: List[dict] = []
@@ -366,19 +429,57 @@ class TpuSession:
 
     # -- execution ---------------------------------------------------------
     def _execute(self, node: LNode) -> C.CpuExec:
-        """Lower -> override pass -> the collect boundary (reference
-        ``_execute``, ``session.py:361-447``, without plan analysis and
-        serving). With events or obs on, the query gets its id here, and
-        its ``query_start`` and ``plan_tagged`` events."""
+        """Lower -> static analysis -> override pass -> the collect
+        boundary (reference ``_execute``, ``session.py:361-447``). With
+        events or obs on, the query gets its id here, and its
+        ``query_start``, ``plan_tagged`` and ``plan_analysis`` events."""
+        from ..conf import ANALYSIS_CROSS_CHECK, ANALYSIS_ENABLED, SQL_ENABLED
+
         cpu = _lower(node, self.conf)
         self.last_cpu_plan = cpu
         obs_on = _obs.enabled()
+        serve_on = self._serve_enabled()
+        run_analysis = self.conf.get(SQL_ENABLED) and (
+            self.conf.get(ANALYSIS_CROSS_CHECK)
+            # with event logging on, the analyzer's forecasts ride in the
+            # log (tools/tpu_profile.py's forecast-vs-actual report); the
+            # live plane needs them too — /status progress denominators;
+            # the serving scheduler needs the peak forecast for admission
+            or ((self.events.enabled or obs_on or serve_on)
+                and self.conf.get(ANALYSIS_ENABLED)))
         digest: Optional[str] = None
-        if self.events.enabled or obs_on:
+        if self.events.enabled or obs_on or serve_on:
             import hashlib
 
             digest = hashlib.sha1(
                 cpu.tree_string().encode()).hexdigest()[:12]
+        self._last_digest = digest
+        analysis = None
+        self._serve_analysis = None
+        self._serve_plan_key = None
+        if run_analysis:
+            # the static analyzer runs BEFORE conversion and execution:
+            # it never touches the device (plugin/plananalysis.py)
+            from ..plugin.plananalysis import analyze_plan
+
+            if serve_on and digest is not None:
+                # one analysis per plan digest across ALL sessions: the
+                # admission forecast of a repeated plan shape is served
+                # from the shared cache instead of recomputed (keyed by
+                # the device type too: the choosers' notes read it)
+                from ..serve import SharedPlanCache, conf_fingerprint
+
+                key = (digest, conf_fingerprint(self.conf),
+                       self.device.type)
+                self._serve_plan_key = key
+                analysis, _hit = SharedPlanCache.get().analysis_for(
+                    key, lambda: analyze_plan(cpu, self.conf,
+                                              device=self.device))
+                self.last_analysis = analysis
+            else:
+                analysis = self.last_analysis = analyze_plan(
+                    cpu, self.conf, device=self.device)
+            self._serve_analysis = analysis
         final, is_tpu = self.overrides.apply(cpu)
         if is_tpu:
             final = ColumnarToRowExec(self.conf, final)
@@ -388,17 +489,23 @@ class TpuSession:
         if self.events.enabled or obs_on:
             qid = self._active_query = _next_query_id()
             if self.events.enabled:
-                self._emit_query_events(node, qid, digest, is_tpu)
+                self._emit_query_events(node, qid, digest, is_tpu,
+                                        analysis)
             if obs_on:
-                # registered on the draining thread by _run_collect (the
-                # port has no plan analyzer: no progress denominators)
-                self._pending_obs = (qid, digest)
+                # registered on the draining thread by _run_collect; THIS
+                # query's analysis only (last_analysis may hold an
+                # earlier query's when the analyzer was skipped here)
+                self._pending_obs = (
+                    qid, digest,
+                    analysis.rows_by_op if analysis is not None else None,
+                    analysis.batches_by_op
+                    if analysis is not None else None)
         return final
 
     def _emit_query_events(self, node: LNode, qid: int, plan_digest: str,
-                           is_tpu: bool) -> None:
-        """query_start + plan_tagged for one execution (reference
-        ``session.py:468``). The session's logger becomes the
+                           is_tpu: bool, analysis=None) -> None:
+        """query_start + plan_tagged + plan_analysis for one execution
+        (reference ``session.py:468``). The session's logger becomes the
         process-wide active sink, so engine-level emitters (catalog,
         caches, transports, pool threads) attribute to this session's
         log."""
@@ -426,20 +533,34 @@ class TpuSession:
             walk(meta)
             _events.emit("plan_tagged", query_id=qid, on_tpu=is_tpu,
                          fallbacks=fallbacks)
+        if analysis is not None:
+            _events.emit("plan_analysis", query_id=qid,
+                         **analysis.event_fields())
 
-    def _run_collect(self, final: C.CpuExec) -> List[tuple]:
+    def _claim_query(self) -> tuple:
+        """``(qid, pending, digest)`` that :meth:`_execute` left for the
+        query it just planned: its id, its live-progress registration and
+        its plan digest. The registration slot is cleared, so a query
+        registers once. The serving path claims under the plan lock, where
+        concurrent submits on one session would otherwise race the slots."""
+        pending, self._pending_obs = self._pending_obs, None
+        return self._active_query, pending, self._last_digest
+
+    def _run_collect(self, final: C.CpuExec, qid: Optional[int],
+                     pending: Optional[tuple],
+                     digest: Optional[str]) -> List[tuple]:
         """Drain and collect (reference ``session.py:507-555``): the
         query's live progress registered on this (the draining) thread,
         its buffers owned by it in a ledger query scope, and in a finally
         the ``query_end`` event (duration, rows, error), the end of its
-        progress and the ledger's sweep (its peak and leaks:
-        ``last_leaks``). The scope opens while events or obs are on, or
-        the ledger is force-armed; with all off nothing of this runs."""
+        progress and the ledger's sweep (its peak folded into the
+        digest's history, and its leaks: ``last_leaks``). The scope opens
+        while events or obs are on, or the ledger is force-armed; with
+        all off nothing of this runs. ``qid``, ``pending`` and ``digest``
+        are the query's claim (:meth:`_claim_query`)."""
         import time as _time
 
         t0 = _time.perf_counter_ns()
-        pending, self._pending_obs = self._pending_obs, None
-        qid = self._active_query
         cat = BufferCatalog.get()
         ledger = cat.ledger
         if qid is None and ledger.armed():
@@ -448,8 +569,9 @@ class TpuSession:
             return final.collect()
         obs_qid = None
         if pending is not None and _obs.enabled():
-            obs_qid, digest = pending
-            _obs.note_query_start(obs_qid, digest)
+            obs_qid, pdigest, rows_by_op, batches_by_op = pending
+            _obs.note_query_start(obs_qid, pdigest, rows_by_op,
+                                  batches_by_op)
         rows: Optional[List[tuple]] = None
         try:
             with query_scope(qid):
@@ -469,10 +591,111 @@ class TpuSession:
             # buffers collected during the drain are unregistered (and
             # their buffer_free emitted) before the sentinel looks
             cat.drain_collected()
-            self.last_leaks = ledger.sweep_query(qid)
+            self.last_leaks = ledger.sweep_query(qid, digest=digest)
+
+    # -- serving path (serve/scheduler.py) ---------------------------------
+    def _serve_enabled(self) -> bool:
+        return self.conf.get(_serve.SERVE_ENABLED)
 
     def _collect(self, node: LNode) -> List[tuple]:
-        return self._run_collect(self._execute(node))
+        """Plan + drain one query, through the serving scheduler when
+        spark.rapids.tpu.serve.enabled is set."""
+        if not self._serve_enabled():
+            final = self._execute(node)
+            return self._run_collect(final, *self._claim_query())
+        return self._collect_serve(node)
+
+    def _collect_serve(self, node: LNode) -> List[tuple]:
+        """Serve-path drain with the OOM requeue contract (reference
+        ``session.py:569``): an admitted query whose runtime peak busts
+        its forecast, and whose spill/retry/split recovery
+        (``memory/retry.py``) still could not complete it, releases its
+        reservation (the finally of :meth:`_collect_serve_once`) and is
+        resubmitted exactly ONCE with its forecast raised to its observed
+        peak, so the scheduler queues it until that much headroom is
+        real. A second typed OOM propagates: forecast misses become
+        queueing, a genuine can't-fit a named error, never a loop."""
+        from ..memory.retry import TpuOOMError
+        from ..serve import QueryScheduler
+
+        try:
+            return self._collect_serve_once(node)
+        except TpuOOMError as e:
+            # THIS query's observed need: the ledger's per-query peak
+            # when it tracked the failed attempt, else the catalog
+            # watermark the typed error captured — never the process'
+            # lifetime peak. Capped at the total budget, so a transient
+            # OOM never turns into a permanent ServeAdmissionRejected.
+            cat = BufferCatalog.get()
+            led_peak = cat.observed_query_peak(self._active_query)
+            observed = led_peak or getattr(e, "watermark", None) or 0
+            budget, _, _ = cat.admission_state()
+            if budget is not None:
+                observed = min(observed, budget)
+            QueryScheduler.get(self.conf).note_oom_requeue(
+                self.serve_id, self._last_digest or "", observed or None,
+                forecast_source="ledger" if led_peak else "watermark")
+            return self._collect_serve_once(
+                node, forecast_floor=observed or None)
+
+    def _collect_serve_once(self, node: LNode,
+                            forecast_floor: Optional[int] = None
+                            ) -> List[tuple]:
+        """Submit through the scheduler (reference ``session.py:614``):
+        plan on the calling thread (a queued query's host work overlaps
+        the running query's device work), admit against the peak
+        forecast, host-prefetch the scans after admission but BEFORE the
+        device semaphore, then drain. The reservation releases in a
+        finally, so a failed query frees its headroom.
+        ``forecast_floor``: the OOM requeue's raised forecast."""
+        from ..serve import QueryScheduler, SharedPlanCache
+        from ..serve.scheduler import SERVE_PRIORITY
+
+        sched = QueryScheduler.get(self.conf)
+        with self._plan_lock:
+            final = self._execute(node)
+            qid, pending, digest = self._claim_query()
+            plan_key = self._serve_plan_key
+            analysis = self._serve_analysis
+        # the analyzer's peak forecast whenever it produced one: parquet
+        # plans forecast a peak (footer-derived residency) without being
+        # fully bounded
+        forecast = analysis.peak_hbm if analysis is not None else None
+        forecast_source = "analyzer"
+        # the measured-stats loop: once the ledger has observed a
+        # completed run of this plan digest, its peak replaces the
+        # static bound
+        observed = BufferCatalog.get().ledger.observed_peak(digest)
+        if observed:
+            forecast = observed
+            forecast_source = "ledger"
+        if forecast_floor is not None:
+            forecast = max(forecast or 0, forecast_floor)
+        try:
+            # priority/timeout/depth are THIS session's settings — the
+            # scheduler singleton may have been created by another one
+            ticket = sched.acquire(
+                self.serve_id, self.conf.get(SERVE_PRIORITY), forecast,
+                digest, conf_=self.conf, forecast_source=forecast_source)
+        except Exception:
+            # a reject/timeout must still CLOSE the query_start window
+            # _execute opened
+            if self.events.enabled and qid is not None:
+                _events.emit("query_end", query_id=qid, dur=0, rows=None,
+                             error=True)
+            raise
+        try:
+            if isinstance(final, ColumnarToRowExec):
+                # host-side decode starts now, on the prefetch pool,
+                # while whoever holds the semaphore keeps the device busy
+                final.tpu_child.host_prefetch()
+            rows = self._run_collect(final, qid=qid, pending=pending,
+                                     digest=digest)
+            if plan_key is not None:
+                SharedPlanCache.get().mark_warm(plan_key)
+            return rows
+        finally:
+            sched.release(ticket)
 
     def export_trace(self, path: str) -> str:
         """Write the session's event ring buffer as Chrome/Perfetto
@@ -675,12 +898,25 @@ class DataFrame:
         return {n: [r[i] for r in rows] for i, n in enumerate(names)}
 
     def explain(self) -> str:
-        """The tagging report: which operators run on the device and, for
-        each that does not, why (the reference's ``explain()`` without its
-        static plan analysis block). Nothing is lowered or executed."""
+        """The tagging report (which operators run on the device and, for
+        each that does not, why) plus — under sql.analysis.enabled — the
+        static plan analysis: per-operator batch layouts, nullability,
+        the compile-signature forecast and the predicted peak footprint
+        checked against the memory budget (reference ``session.py:981``).
+        Nothing is lowered or executed and nothing is allocated."""
+        from ..conf import ANALYSIS_ENABLED, SQL_ENABLED
         from ..plugin.overrides import PlanMeta
 
-        meta = PlanMeta(_lower(self.node, self.session.conf),
-                        self.session.conf, device=self.session.device)
+        conf = self.session.conf
+        cpu = _lower(self.node, conf)
+        meta = PlanMeta(cpu, conf, device=self.session.device)
         meta.tag_for_tpu()
-        return "\n".join(meta.explain_lines())
+        lines = meta.explain_lines()
+        if conf.get(SQL_ENABLED) and conf.get(ANALYSIS_ENABLED):
+            from ..plugin.plananalysis import analyze_plan
+
+            analysis = analyze_plan(cpu, conf, meta=meta,
+                                    device=self.session.device)
+            self.session.last_analysis = analysis
+            lines.extend(analysis.render_lines())
+        return "\n".join(lines)

@@ -22,9 +22,10 @@ witness, so a lock of the port ranks where the reference's twin does.
   (metric/event emission): they are at the bottom of the order and must
   never call out while held — the witness would raise on it.
 
-The manifest lists locks of modules the port has not ported yet
-(``serve.*``, ``aot.*``, ``exec.pipeline_cache``): they keep their
-ranks so the two packages' tables stay one table.
+The manifest lists locks of modules the port has no counterpart of
+(``aot.*``, ``exec.pipeline_cache``): they keep their ranks so the two
+packages' tables stay one table. ``serve.scheduler`` and
+``serve.plan_cache`` are the serving path's (``serve/``).
 """
 from __future__ import annotations
 

@@ -31,6 +31,7 @@ from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import expressions as E
 from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
 from spark_rapids_tpu_torch.sql.session import TpuSession as PSession
+from test_torch_plananalysis import comparable_explain
 
 HOST = {"spark.rapids.tpu.shuffle.mode": "host"}
 ROWS = 1 << 12
@@ -57,17 +58,25 @@ def tpcds(request, tmp_path_factory):
     DeviceScanCache.reset()
 
 
-def _ref_rows(tpcds, q):
-    """The reference's rows of ``q`` over the one-file copy, computed
-    once per layout."""
-    _, _, one, cache = tpcds
+def _ref_rows(tpcds, q, settings=None):
+    """The reference's rows of ``q`` over the one-file copy (computed once
+    per layout), and its ``explain()`` of ``q`` under ``settings`` over
+    the multi-file tables the port reads (the analysis reads their
+    footers; nothing runs)."""
+    _, paths, one, cache = tpcds
+    settings = dict(settings or {})
+
+    def df_of(sess, p):
+        return (CS.q25_df(sess, p, JE, JA, JT) if q == "Q25"
+                else CS.q27_df(sess, p["store_sales"], JE, JA))
+
     if q not in cache:
-        sess = JSession(HOST)
-        df = (CS.q25_df(sess, one, JE, JA, JT) if q == "Q25"
-              else CS.q27_df(sess, one["store_sales"], JE, JA))
-        cache[q] = (df.collect(), df.explain().split(
-            "== Static Plan Analysis ==")[0].rstrip("\n"))
-    return cache[q]
+        cache[q] = df_of(JSession(HOST), one).collect()
+    key = (q, tuple(sorted(settings.items())))
+    if key not in cache:
+        cache[key] = comparable_explain(
+            df_of(JSession({**HOST, **settings}), paths).explain())
+    return cache[q], cache[key]
 
 
 def _no_fallback(df):
@@ -79,13 +88,14 @@ def _no_fallback(df):
 @pytest.mark.parametrize("strategy", ["PALLAS", "AUTO"])
 def test_q25_tpcds_q5_store_channel(tpcds, strategy):
     t, paths, _, _ = tpcds
-    psess = PSession({"spark.rapids.tpu.sql.join.strategy": strategy},
-                     device="cpu")
+    settings = {"spark.rapids.tpu.sql.join.strategy": strategy}
+    psess = PSession(settings, device="cpu")
     df = CS.q25_df(psess, paths, E, A, T)
     text = _no_fallback(df)
     got = df.collect()
     assert got == CS.q25_oracle(np, t)
-    assert (got, text) == _ref_rows(tpcds, "Q25")
+    assert (got, comparable_explain(text)) == _ref_rows(tpcds, "Q25",
+                                                        settings)
     assert all(isinstance(r[1], Decimal) for r in got)
 
 
@@ -93,10 +103,10 @@ def test_q27_per_day_rollup(tpcds):
     t, paths, _, _ = tpcds
     psess = PSession({}, device="cpu")
     df = CS.q27_df(psess, paths["store_sales"], E, A)
-    _no_fallback(df)
+    text = _no_fallback(df)
     got = df.collect()
     assert got == CS.q27_oracle(np, t)
-    assert got == _ref_rows(tpcds, "Q27")[0]
+    assert (got, comparable_explain(text)) == _ref_rows(tpcds, "Q27")
 
 
 def test_reference_partitioned_decimal_sum_raises(tpcds):

@@ -21,6 +21,10 @@ emitters at its ported sites, against the reference's.
   reaches an emitter, never arms the ledger and never synchronizes;
 * the ledger arms with the event log, and its records balance at the
   query's heap snapshot;
+* with the analyzer on in both, the ``plan_analysis`` record is the
+  reference's; the serving scheduler's ``admission``, ``queue`` and
+  serve-lane ``op_span`` records are the reference's on one scenario
+  (queue, admit, reject, requeue);
 * ``tools/tpu_profile.py`` reads a port log, unchanged;
 * ``sql.trace.enabled`` names each hot section's profiler range.
 """
@@ -28,6 +32,8 @@ import json
 import os
 import subprocess
 import sys
+import threading
+import time
 from collections import Counter
 from pathlib import Path
 
@@ -338,6 +344,89 @@ def test_session_events_are_the_references(q, settings, parts):
     assert qs["env"]["backend"] == "cpu"
     assert set(qs["env"]) == {"backend", "device_kind", "device_count",
                               "torch_version", "host_cores"}
+
+
+def _plan_analysis(recs):
+    (r,) = [r for r in recs if r["event"] == "plan_analysis"]
+    return {k: v for k, v in r.items() if k not in ("ts", "tid",
+                                                    "query_id")}
+
+
+@pytest.mark.parametrize("q,settings,parts", CASES)
+def test_plan_analysis_event_is_the_references(q, settings, parts):
+    """With the analyzer on in both packages, the ``plan_analysis``
+    record of a query is the reference's, field for field."""
+    host = {"spark.rapids.tpu.shuffle.mode": "host"}
+    sessions = (JSession({**EVENTS_ON, **host, **settings}),
+                PSession({**EVENTS_ON, **settings}, device="cpu"))
+    got = []
+    for m, sess in zip((REF, PORT), sessions):
+        try:
+            _query(m, sess, q, parts).collect()
+            got.append(_plan_analysis(sess.events.records()))
+        finally:
+            sess.close()
+    assert got[1] == got[0]
+    assert got[1]["rows_by_op"] and got[1]["batches_by_op"]
+
+
+def _serve_trace(serve, events, catalog, conf_cls):
+    """Admission and queue records of one scheduler scenario: a blocker
+    holds most of the budget, a second ticket queues until it releases,
+    a third can never fit."""
+    catalog.BufferCatalog.reset(conf_cls(
+        {"spark.rapids.tpu.memory.hbm.budgetBytes": 1 << 20}))
+    sched = serve.QueryScheduler.reset(conf_cls({}))
+    logger = events.EventLogger(conf_cls(
+        {"spark.rapids.tpu.eventLog.enabled": True}))
+    events.install(logger)
+    try:
+        t1 = sched.acquire("session-a", 0, 900_000, "d1")
+        got = []
+        th = threading.Thread(
+            target=lambda: got.append(sched.acquire("session-b", 0,
+                                                    600_000, "d2")))
+        th.start()
+        for _ in range(200):
+            if sched.stats()["waiting"]:
+                break
+            time.sleep(0.01)
+        sched.release(t1)
+        th.join(10)
+        assert not th.is_alive()
+        sched.release(got[0])
+        with pytest.raises(serve.ServeAdmissionRejected):
+            sched.acquire("session-c", 0, 2 << 20, "d3")
+        sched.note_oom_requeue("session-b", "d2", 700_000)
+    finally:
+        events.uninstall()
+    out = []
+    for r in logger.records():
+        if r["event"] == "admission":
+            out.append(("admission", r["session"], r["digest"],
+                        r["verdict"], r["forecast_bytes"], r["free_bytes"],
+                        r["reason"], r["forecast_source"]))
+        elif r["event"] == "queue":
+            out.append(("queue", r["session"], r["op"], r["depth"]))
+        elif r["event"] == "op_span":
+            out.append(("op_span", r["op"], r["section"], r["lane"]))
+        elif r["event"] == "oom_retry":
+            out.append(("oom_retry", r["op"], r["kind"], r["watermark"]))
+    return out
+
+
+def test_serve_admission_and_queue_events_are_the_references():
+    from spark_rapids_tpu import serve as JServe
+    from spark_rapids_tpu_torch import serve as PServe
+
+    want = _serve_trace(JServe, JEv, JC, JConf.RapidsConf)
+    got = _serve_trace(PServe, PEv, PC, PConf.RapidsConf)
+    assert got == want
+    verdicts = [r[3] for r in got if r[0] == "admission"]
+    assert verdicts == ["admit", "queue", "admit", "reject", "requeue"]
+    assert [r[2] for r in got if r[0] == "queue"] == ["enqueue", "dequeue"]
+    JServe.QueryScheduler.reset()
+    PServe.QueryScheduler.reset()
 
 
 def test_shuffle_events_balance():

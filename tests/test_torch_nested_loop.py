@@ -9,8 +9,8 @@ and conditioned joins (the reference's ``tests/test_operators.py:58-90``
 and ``tests/test_sort_join_window.py:122``), with nulls, strings, empty
 sides and more than one probe partition. The rows must be equal; the
 plan must hold the exec the reference plans, with the build side read
-through a broadcast exchange; the tagging lines of ``explain()`` must be
-the reference's, and a non-inner join with a residual condition or
+through a broadcast exchange; ``explain()`` (tagging lines and plan
+analysis, AUTO strategy reasons cut) must be the reference's, and a non-inner join with a residual condition or
 without keys falls back with the reference's reasons.
 """
 import pytest
@@ -29,6 +29,7 @@ from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
 from spark_rapids_tpu_torch.exec.join import _SpillableBuild
 from spark_rapids_tpu_torch.expr import expressions as PE
 from spark_rapids_tpu_torch.sql.session import TpuSession as PSession
+from test_torch_plananalysis import comparable_explain
 
 REF = (JT, JE, JSession)
 PORT = (T, PE, PSession)
@@ -104,10 +105,6 @@ def _key(row):
     return tuple((v is None, repr(v)) for v in row)
 
 
-def _tagging(text):
-    return text.split("== Static Plan Analysis ==")[0].rstrip("\n")
-
-
 @pytest.mark.parametrize("case", sorted(QUERIES))
 def test_nested_loop_rows_match_reference_and_cpu_engine(case):
     q, exec_name = QUERIES[case]
@@ -121,7 +118,8 @@ def test_nested_loop_rows_match_reference_and_cpu_engine(case):
     assert got == ref == cpu
     tree = sess.last_executed_plan.tree_string()
     assert exec_name in tree and "TpuBroadcastExchangeExec" in tree, tree
-    assert _tagging(df.explain()) == _tagging(ref_df.explain())
+    assert comparable_explain(df.explain()) == comparable_explain(
+        ref_df.explain())
 
 
 def _fallback_left_condition(m, sess):
@@ -148,7 +146,8 @@ def test_non_inner_nested_loop_falls_back_as_the_reference(q):
     assert sorted(df.collect(), key=_key) == sorted(ref_df.collect(),
                                                     key=_key)
     assert "CpuJoinExec" in sess.last_executed_plan.tree_string()
-    assert _tagging(df.explain()) == _tagging(ref_df.explain())
+    assert comparable_explain(df.explain()) == comparable_explain(
+        ref_df.explain())
 
 
 def _scan(conf, data, schema, parts=1):

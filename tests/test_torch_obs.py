@@ -7,12 +7,15 @@ against the reference's.
 * the same registry states, catalogs and ledgers give the same
   ``Watchdog.check_now`` alerts, and the same event lists the same
   ``replay_alerts``;
-* ``build_status`` has the reference's keys and serializes to JSON; the
-  exporter serves ``/metrics`` and ``/status`` on an ephemeral port;
+* ``build_status`` has the reference's keys, and with a live serving
+  scheduler the reference's ``serve`` block and reserved bytes, and
+  serializes to JSON; the exporter serves ``/metrics`` and ``/status``
+  on an ephemeral port;
 * the flight recorder dumps the ring once per alert episode, and the
   watchdog's own thread raises a stall;
 * a port query under ``metrics.live.enabled`` feeds the per-op counters,
-  the strategy counters and the progress tracker, and
+  the strategy counters and the progress tracker (the plan analyzer's
+  row forecasts as its denominators), and
   ``tools/tpu_top.py`` renders its ``/status``; with the defaults,
   nothing is started.
 """
@@ -217,14 +220,36 @@ def _status_keys(d, prefix=""):
 
 
 def test_build_status_has_the_references_keys():
+    """The same keys as the reference's /status, and with a live serving
+    scheduler in each package holding one admitted ticket, the same
+    ``serve`` block and reserved bytes."""
+    from spark_rapids_tpu import serve as JServe
+    from spark_rapids_tpu_torch import serve as PServe
+
     keep = _catalogs(1 << 20)
-    p = PServer.build_status(PObs.MetricsRegistry(), PObs.ProgressTracker(),
-                             None)
-    j = JServer.build_status(JObs.MetricsRegistry(), JObs.ProgressTracker(),
-                             None)
+    scheds = (JServe.QueryScheduler.reset(JConf({})),
+              PServe.QueryScheduler.reset(PConf({})))
+    tickets = [s.acquire("session-1", 0, 4096, "abc") for s in scheds]
+    try:
+        p = PServer.build_status(PObs.MetricsRegistry(),
+                                 PObs.ProgressTracker(), None)
+        j = JServer.build_status(JObs.MetricsRegistry(),
+                                 JObs.ProgressTracker(), None)
+    finally:
+        for s, t in zip(scheds, tickets):
+            s.release(t)
+        JServe.QueryScheduler._instance = None
+        PServe.QueryScheduler._instance = None
     assert _status_keys(p) == _status_keys(j)
-    assert p["serve"] is None and p["program_cache"] is None
-    assert p["heap"]["leaked"] == 2 and p["hbm"]["reserved_bytes"] == 0
+    assert p["program_cache"] is None
+    assert p["serve"]["stats"] == j["serve"]["stats"]
+    assert p["serve"]["queue"] == j["serve"]["queue"] == []
+    assert [{k: v for k, v in a.items() if k != "running_ms"}
+            for a in p["serve"]["active"]] == [
+        {k: v for k, v in a.items() if k != "running_ms"}
+        for a in j["serve"]["active"]]
+    assert p["hbm"]["reserved_bytes"] == j["hbm"]["reserved_bytes"] == 4096
+    assert p["heap"]["leaked"] == 2
     assert p["heap"] == {**j["heap"], "spill_churn_bytes":
                          p["heap"]["spill_churn_bytes"]}
     assert json.loads(json.dumps(p))["env"]["backend"] in ("cpu", "gpu")
@@ -326,8 +351,15 @@ def test_live_metrics_follow_a_port_query():
     assert q["state"] == "finished" and q["rows_out"] == 11
     by_op = {o["op"]: o for o in q["ops"]}
     assert by_op["InMemoryScanExec"]["rows"] == 2011
-    assert all(o["rows_forecast"] is None and o["progress"] is None
+    # the denominators are the plan analyzer's forecasts: the in-memory
+    # scans' rows are known, the join's and the aggregate's are not
+    an = sess.last_analysis
+    assert an is not None
+    assert all(o["rows_forecast"] == an.rows_by_op.get(o["op"])
                for o in q["ops"])
+    assert by_op["InMemoryScanExec"]["rows_forecast"] == 2011
+    assert by_op["InMemoryScanExec"]["progress"] == 1.0
+    assert by_op["TpuShuffledHashJoinExec"]["rows_forecast"] is None
     reg = PObs.active()
     assert reg.value("tpu_queries", state="finished") == 1
     assert reg.value("tpu_op_time_seconds", op="TpuShuffledHashJoinExec",

@@ -36,6 +36,7 @@ from spark_rapids_tpu_torch.io import parquet_device as PPD  # noqa: E402
 from spark_rapids_tpu_torch.io.arrow_convert import arrow_schema_to_tpu  # noqa: E402
 from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache  # noqa: E402
 from spark_rapids_tpu_torch.sql.session import TpuSession as PSession  # noqa: E402
+from test_torch_plananalysis import comparable_explain
 
 N = 3000
 
@@ -299,10 +300,13 @@ def test_bench_parquet_query_through_both_sessions(tmp_path):
     for r, g in zip(ref, got):
         assert g[0] == r[0] and g[2] == r[2]
         assert abs(g[1] - r[1]) <= 1e-9 * max(1.0, abs(r[1]))
-    assert df.explain() == (
+    text = df.explain()
+    assert text.split("\n== Static Plan Analysis ==")[0] == (
         "*Exec <HashAggregateExec> will run on TPU\n"
         "  *Exec <FilterExec> will run on TPU\n"
         "    *Exec <FileSourceScanExec> will run on TPU")
+    assert comparable_explain(text) == comparable_explain(_bench_query(
+        dict(E=JE, A=JA), JSession(vfa), path).explain())
     scan = psess.last_executed_plan.tpu_child.children[0].children[0]
     assert isinstance(scan, TpuFileSourceScanExec)
     assert scan.metrics["numOutputBatches"].value == 4  # one per row group

@@ -6,9 +6,9 @@ Both sessions run the same DataFrame queries over the same seeded rows
 rtol 1e-4 / atol 1e-6 for float sums of the PALLAS tier under
 ``variableFloatAgg`` (the tolerance of ``tests/test_radix_agg.py``; the
 data has no heavy cancellation, ROADMAP.md §C). The tagging lines of
-``explain()`` must be equal too: the reference's report up to its
-``== Static Plan Analysis ==`` block, which is plan analysis and not
-ported. What the reference runs on its device and the port has not
+``explain()`` must be equal too: the tagging lines and the static plan
+analysis block, with the reasons of AUTO strategy notes cut
+(``test_torch_plananalysis.comparable_explain``). What the reference runs on its device and the port has not
 ported raises ``NotImplementedError`` naming the ROADMAP.md item.
 """
 import math
@@ -35,6 +35,7 @@ from spark_rapids_tpu_torch.expr import aggregates as PA
 from spark_rapids_tpu_torch.expr import expressions as PE
 from spark_rapids_tpu_torch.expr import windows as PW
 from spark_rapids_tpu_torch.sql.session import TpuSession as PSession
+from test_torch_plananalysis import comparable_explain
 
 REF = dict(T=JT, E=JE, A=JA, W=JW)
 PORT = dict(T=T, E=PE, A=PA, W=PW)
@@ -269,6 +270,12 @@ def _tagging_lines(text):
     return text.split("== Static Plan Analysis ==")[0].rstrip("\n")
 
 
+def _same_explain(got, want):
+    assert comparable_explain(got) == comparable_explain(want)
+    block = "== Static Plan Analysis =="
+    assert (block in got) == (block in want)
+
+
 _REF_CACHE = {}
 
 
@@ -277,8 +284,7 @@ def _ref_result(case):
         q, settings = QUERIES[case]
         sess = JSession(settings)
         df = q(REF, sess)
-        _REF_CACHE[case] = (sorted(df.collect(), key=_key),
-                            _tagging_lines(df.explain()))
+        _REF_CACHE[case] = (sorted(df.collect(), key=_key), df.explain())
     return _REF_CACHE[case]
 
 
@@ -321,7 +327,7 @@ def test_explain_tagging_matches_reference(case):
     q, settings = QUERIES[case]
     _, ref_text = _ref_result(case)
     got = q(PORT, PSession(settings, device="cpu")).explain()
-    assert got == ref_text
+    _same_explain(got, ref_text)
 
 
 def test_q12_fallback_reason_and_boundaries():
@@ -333,7 +339,10 @@ def test_q12_fallback_reason_and_boundaries():
 
     sess = PSession({}, device="cpu")
     df = _q_udf(PORT, sess)
-    assert df.explain() == Q12_EXPLAIN == _ref_result("python_udf_fallback")[1]
+    text = df.explain()
+    assert _tagging_lines(text) == Q12_EXPLAIN == _tagging_lines(
+        _ref_result("python_udf_fallback")[1])
+    _same_explain(text, _ref_result("python_udf_fallback")[1])
     df.collect()
     top = sess.last_executed_plan
     assert isinstance(top, ColumnarToRowExec)
@@ -354,7 +363,8 @@ def test_float_sum_reason_without_variable_float_agg():
             "floating-point sum/average can differ from CPU results; set "
             "spark.rapids.tpu.sql.variableFloatAgg.enabled=true to enable"
             ) in text
-    assert _q_float_sum(PORT, PSession({}, device="cpu")).explain() == text
+    _same_explain(_q_float_sum(PORT, PSession({}, device="cpu")).explain(),
+                  text)
 
 
 def test_device_plan_has_no_cpu_exec():
@@ -408,6 +418,8 @@ def test_session_without_a_card_raises():
 #: which the port leaves out
 UNPORTED_KEYS = (
     "spark.rapids.tpu.sql.matrix.probeCrossCheck.enabled",
+)
+ANALYSIS_KEYS = (
     "spark.rapids.tpu.sql.analysis.enabled",
     "spark.rapids.tpu.sql.analysis.crossCheck.enabled",
 )
@@ -418,3 +430,17 @@ def test_unported_debug_keys_stay_unregistered(key):
     JSession({key: True})
     with pytest.raises(ValueError, match="unknown config key"):
         PSession({key: True}, device="cpu")
+
+
+@pytest.mark.parametrize("key", ANALYSIS_KEYS)
+def test_analysis_keys_are_registered(key):
+    """The analyzer's keys are registered (``conf.py``) with the
+    reference's defaults, and a session takes both values."""
+    from spark_rapids_tpu import conf as JC
+    from spark_rapids_tpu_torch import conf as PC
+
+    entry = PC._REGISTRY[key]
+    assert entry.default == JC._REGISTRY[key].default
+    for v in (True, False):
+        assert PSession({key: v}, device="cpu").conf.get(entry) is v
+        assert PSession({key: v}, device="cpu").conf._values[key] is v
