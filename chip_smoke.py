@@ -461,6 +461,33 @@ Phases, each failing the run on any error or mismatch:
    the makespan beside 3x the solo walls. S-reject: Q11 under a budget
    of half its forecast must raise ``ServeAdmissionRejected`` and leave
    no ticket or reservation.
+16. files (item 26's formats and export parts, :func:`io_phase`): Q17's
+   ``lineitem`` at 2^23 rows (TPC-H SF 1.4; strings, f64 money, int32
+   days) written by pyarrow as 4 CSV files and as 4 ORC files (pyarrow's
+   default stripes) under ``_chip_data/io``. W-csv: TPC-H Q1 over
+   ``read.csv`` with the schema given, W-csvi with it inferred from the
+   first file (rows equal to W-csv's), W-orc over ``read.orc`` with the
+   ``l_shipdate`` filter pushed into the host read (rows uploaded equal
+   the kept rows); each under AUTO, a cold wall and three warm ones
+   (W-csvi and W-orc one), the host read's share, no CPU exec in the
+   plan, the RADIX kernel launched.
+   W-write: W-csv's files filtered at Q1's cutoff and projected (flag,
+   status, mode, qty, disc_price) written by ``df.write.parquet``,
+   ``.orc`` and ``.csv`` (each stats dictionary counts the oracle's rows,
+   no ``._temporary`` file left), each read back through the session and
+   aggregated by (flag, status): sum(qty), sum(disc_price), count,
+   min/max(mode), a cold and a warm wall (the parquet read-back on the
+   dictionary-code route: K1, K2 and K3; ORC and CSV: the RADIX kernel);
+   then the parquet file, now
+   cached on the device, overwritten with a narrower filter: the commit
+   empties the device scan cache of it and the next read gives the new
+   rows. W-ml: ``exportColumnarRdd`` on, ``columnar_rdd`` over the
+   filtered numeric columns (every tensor on the card, DLPack sharing
+   each column's storage, the oracle's row count), ``to_numpy_batches``
+   equal to the oracle's arrays, and ``map_in_arrow`` (a
+   ``pyarrow.compute`` function a batch) and ``map_in_pandas`` (the same
+   in pandas) over the first 2^20 rows, each followed by a group-by on the
+   card (K1 and K2). Counts exact, float sums within 1e-9 of Σ|x|.
 
 Q1r, Q1m and Q1s are Q1 under a forced RADIX (the RADIX kernel once
 per batch and in the merge), MATMUL (the f32 one-hot limb products, no
@@ -495,7 +522,10 @@ matcher's entry is its time at Q22's shape with Q22d's pattern.
 Cuts of depth, to keep the whole script in its time as phases are
 added: Q22r reads the orders' first row group only (since the mesh
 phase came; its CPU-engine filter over all 2^23 orders took 143 s on
-the H100's host, the longest step of the script).
+the H100's host, the longest step of the script); W-ml's
+``map_in_arrow`` and ``map_in_pandas`` run over the first 2^20 rows
+(their results come back as Python lists, as the reference's data plane
+has them).
 
 Output: one JSON line per kernel shape and per query, then one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` are those of its
@@ -8036,6 +8066,404 @@ def serve_phase(torch, np, dev, smi: str) -> dict:
     return per_query
 
 
+# ---------------------------------------------------------------------------
+# io phase (W-csv, W-csvi, W-orc, W-write, W-ml): TPC-H Q1 from CSV and ORC,
+# a CSV -> columnar write round trip and the ML hand-off over Q17's table
+# ---------------------------------------------------------------------------
+IO_LOG2_ROWS = 23
+IO_FILES = 4
+#: rows of the ``map_in_arrow`` and ``map_in_pandas`` calls (their results
+#: come back as Python lists, as the reference's data plane has them)
+IO_ML_ARROW_ROWS = 1 << 20
+#: runs of each path: a cold one and warm ones (W-csv: three warm walls)
+IO_CSV_RUNS = 4
+IO_RUNS = 2
+IO_VFA = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+#: the overwrite's narrower filter: a year before Q1's cutoff
+IO_NARROW_CUTOFF = "1997-09-02"
+
+
+def io_schema(T):
+    """The ``lineitem`` columns of Q17's file, in its order."""
+    return T.StructType(
+        [T.StructField(c, T.STRING) for c in ("l_returnflag",
+                                              "l_linestatus", "l_shipmode")]
+        + [T.StructField(c, T.DOUBLE) for c in ("l_quantity",
+                                                "l_extendedprice",
+                                                "l_discount", "l_tax")]
+        + [T.StructField("l_shipdate", T.INT)])
+
+
+def device_only(plan, what: str):
+    """Fail unless the whole plan runs on the device (no CPU exec, no
+    row-to-columnar transition); returns its file scans."""
+    from spark_rapids_tpu_torch.exec import (ColumnarToRowExec,
+                                             RowToColumnarExec, TpuExec)
+    from spark_rapids_tpu_torch.exec.scan import TpuFileSourceScanExec
+
+    if not isinstance(plan, ColumnarToRowExec):
+        raise AssertionError(f"{what}: the plan runs on the CPU engine:\n"
+                             f"{plan.tree_string()}")
+    nodes = list(_device_tree(plan.tpu_child))
+    if any(isinstance(n, RowToColumnarExec) or not isinstance(n, TpuExec)
+           for n in nodes):
+        raise AssertionError(f"{what}: a CPU exec in the plan:\n"
+                             f"{plan.tree_string()}")
+    return [n for n in nodes if isinstance(n, TpuFileSourceScanExec)]
+
+
+def need_kernels(what: str, counts, need) -> None:
+    """Fail unless every kernel in ``need`` launched and no kernel outside
+    the aggregates' (K1-K3, the RADIX kernel) did."""
+    aggs = ("bucket_sum", "bucket_float_sum", "bucket_winner",
+            "radix_segment_reduce")
+    if any(not counts[k] for k in need) or any(
+            v for k, v in counts.items() if v and k not in aggs):
+        raise AssertionError(f"{what}: launches {dict(counts)}, need "
+                             f"{need}")
+
+
+def write_back_oracle(np, t, cutoff: str):
+    """(flag, status) -> [sum qty, |qty|, sum disc_price, |disc_price|,
+    count, min mode, max mode] over the rows shipped by ``cutoff``."""
+    keep = t["ship"] <= _days(np, cutoff)
+    dp = t["price"] * (1 - t["disc"])
+    g = (t["flag"] * 2 + t["status"])[keep]
+    modes = np.array([m.decode() for m in SHIP_MODES], object)[
+        t["mode"][keep]]
+    out = {}
+    for gid in np.unique(g):
+        sel = g == gid
+        q, d = t["qty"][keep][sel], dp[keep][sel]
+        m = sorted(set(modes[sel]))
+        out[(RETURN_FLAGS[gid // 2].decode(),
+             LINE_STATUS[gid % 2].decode())] = [
+            float(q.sum()), float(np.abs(q).sum()), float(d.sum()),
+            float(np.abs(d).sum()), int(sel.sum()), m[0], m[-1]]
+    return out, int(keep.sum())
+
+
+def check_write_back(want: dict, rows, what: str) -> None:
+    """Rows of the read-back aggregate against :func:`write_back_oracle`:
+    keys, counts and modes exact, sums within 1e-9 of Σ|x|."""
+    got = {(r[0], r[1]): r[2:] for r in rows}
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: groups {sorted(got)} != "
+                             f"{sorted(want)}")
+    for k, (sq, mq, sd, md, cnt, mn, mx) in want.items():
+        gq, gd, gc, gmn, gmx = got[k]
+        if ((gc, gmn, gmx) != (cnt, mn, mx) or not _close(gq, sq, mq, 1e-9)
+                or not _close(gd, sd, md, 1e-9)):
+            raise AssertionError(f"{what} {k}: {got[k]} != "
+                                 f"{(sq, sd, cnt, mn, mx)}")
+
+
+def io_phase(torch, np, dev, smi: str) -> dict:
+    """W-csv, W-csvi, W-orc, W-write and W-ml (see the module
+    docstring) over Q17's ``lineitem`` at 2^23 rows, written under
+    ``_chip_data/io``. Returns each path's launches."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+    import pyarrow.orc as paorc
+
+    from spark_rapids_tpu_torch import ml
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.sql import session as S
+
+    n = 1 << IO_LOG2_ROWS
+    t, want, kept, strs = lineitem_inputs(np, n)
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, PARQUET_DIR, "io")
+    shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
+    csv_dir = os.path.join(base, "csv")
+    orc_dir = os.path.join(base, "orc")
+    schema = io_schema(T)
+    cutoff = _days(np, Q17_CUTOFF)
+    per_query = {}
+    try:
+        table = pa.table(
+            {**{k: _pa_strings(pa, np, v) for k, v in strs.items()},
+             "l_quantity": t["qty"], "l_extendedprice": t["price"],
+             "l_discount": t["disc"], "l_tax": t["tax"],
+             "l_shipdate": t["ship"]})
+        per = n // IO_FILES
+        writes = {}
+        for fmt, d, write in (
+                ("csv", csv_dir, lambda s, p: pacsv.write_csv(s, p)),
+                ("orc", orc_dir, lambda s, p: paorc.write_table(s, p))):
+            os.makedirs(d)
+            t0 = time.perf_counter()
+            # one thread a file: pyarrow's encoders release the GIL
+            with ThreadPoolExecutor(IO_FILES) as pool:
+                list(pool.map(lambda i: write(
+                    table.slice(i * per, per),
+                    os.path.join(d, f"part-{i}.{fmt}")), range(IO_FILES)))
+            writes[fmt] = time.perf_counter() - t0
+        csv_bytes = sum(os.path.getsize(os.path.join(csv_dir, f))
+                        for f in os.listdir(csv_dir))
+        stripes = sum(paorc.ORCFile(os.path.join(orc_dir, f)).nstripes
+                      for f in os.listdir(orc_dir))
+        emit({"table": "io", "rows": n, "files": IO_FILES,
+              "csv_bytes": csv_bytes, "csv_write_s": writes["csv"],
+              "orc_write_s": writes["orc"], "orc_stripes": stripes})
+
+        # --- W-csv, W-csvi, W-orc: TPC-H Q1 from the files ---------------
+        results = {}
+        for q, df_of, runs in (
+                ("W-csv", lambda s: s.read.csv(csv_dir, schema=schema),
+                 IO_CSV_RUNS),
+                ("W-csvi", lambda s: s.read.csv(csv_dir), IO_RUNS),
+                ("W-orc", lambda s: s.read.orc(orc_dir), IO_RUNS)):
+            S._SCANNER_CACHE.clear()
+            sess = S.TpuSession(IO_VFA, device=dev)
+            plans, outs = [], []
+
+            def run_once():
+                rows = tpch_q1_df(np, sess, None, source=df_of(sess)
+                                  ).collect()
+                plans.append(sess.last_executed_plan)
+                outs.append(rows)
+                return rows
+
+            cold, warm, counts = _walls(
+                torch, q, run_once, lambda rows: tpch_q1_check(want, rows,
+                                                               q), runs)
+            scans = device_only(plans[0], q)
+            need_kernels(q, counts, ("radix_segment_reduce",))
+            per_query[q] = counts
+            m = {k: sum(s.metrics[k].value for s in scans)
+                 for k in ("scanTime", "tpuDecodeTime", "numOutputRows",
+                           "numOutputBatches")}
+            line = {"query": q, "card": smi, "rows": n, "kept_rows": kept,
+                    "cold_wall_ms": cold, "warm_wall_ms": warm,
+                    "host_read_ms": m["scanTime"] / 1e6,
+                    "upload_ms": m["tpuDecodeTime"] / 1e6,
+                    "host_read_share": m["scanTime"] / 1e6 / cold,
+                    "rows_uploaded": m["numOutputRows"],
+                    "scan_batches": m["numOutputBatches"],
+                    "launches": counts}
+            results[q] = outs[0]
+            if q == "W-orc":
+                pushed = [(f.column, f.op) for s in scans
+                          for f in s.scanner.filters]
+                if pushed != [("l_shipdate", "<=")] or \
+                        m["numOutputRows"] != kept:
+                    raise AssertionError(
+                        f"W-orc: pushed {pushed}, {m['numOutputRows']} rows "
+                        f"uploaded of {n} read (kept {kept})")
+                line.update(rows_read=n, stripes=stripes, pushed=pushed)
+            else:
+                line["csv_bytes"] = csv_bytes
+            emit(line)
+        if results["W-csvi"] != results["W-csv"]:
+            raise AssertionError(f"W-csvi: rows {results['W-csvi']} != "
+                                 f"W-csv's {results['W-csv']}")
+        emit({"query": "W-csvi", "rows_equal_w_csv_exactly": True})
+
+        # --- W-write: CSV -> parquet, ORC and CSV, and each read back -----
+        def projected(sess, cut):
+            src = sess.read.csv(csv_dir, schema=schema)
+            return src.where(E.LessThanOrEqual(
+                E.col("l_shipdate"), E.lit(cut))).select(
+                "l_returnflag", "l_linestatus", "l_shipmode", "l_quantity",
+                E.Alias(E.Multiply(E.col("l_extendedprice"), E.Subtract(
+                    E.lit(1.0), E.col("l_discount"))), "disc_price"))
+
+        def read_back(sess, fmt, path):
+            src = (sess.read.csv(path, schema=T.StructType(
+                [T.StructField(c, T.STRING) for c in
+                 ("l_returnflag", "l_linestatus", "l_shipmode")]
+                + [T.StructField(c, T.DOUBLE) for c in
+                   ("l_quantity", "disc_price")]))
+                   if fmt == "csv" else getattr(sess.read, fmt)(path))
+            return src.group_by("l_returnflag", "l_linestatus").agg(
+                A.agg(A.Sum(E.col("l_quantity")), "sum_qty"),
+                A.agg(A.Sum(E.col("disc_price")), "sum_disc_price"),
+                A.agg(A.Count(None), "count"),
+                A.agg(A.Min(E.col("l_shipmode")), "min_mode"),
+                A.agg(A.Max(E.col("l_shipmode")), "max_mode"))
+
+        wb, wb_kept = write_back_oracle(np, t, Q17_CUTOFF)
+        out_dir = os.path.join(base, "out")
+        DeviceScanCache.reset()
+        sess = S.TpuSession(IO_VFA, device=dev)
+        for fmt, need in (("parquet", ("bucket_sum", "bucket_float_sum",
+                                       "bucket_winner")),
+                          ("orc", ("radix_segment_reduce",)),
+                          ("csv", ("radix_segment_reduce",))):
+            q = f"W-write-{fmt}"
+            path = os.path.join(out_dir, f"lineitem.{fmt}")
+            S._SCANNER_CACHE.clear()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = getattr(projected(sess, cutoff).write, fmt)(path)
+            write_ms = (time.perf_counter() - t0) * 1e3
+            device_only(sess.last_executed_plan, q)
+            wrote = stats["numRows" if fmt == "parquet" else "rows"]
+            left = [f for f in os.listdir(out_dir) if "._temporary" in f]
+            if wrote != wb_kept or left:
+                raise AssertionError(f"{q}: {stats}, expected {wb_kept} "
+                                     f"rows; left behind: {left}")
+            plans = []
+
+            def run_once():
+                rows = read_back(sess, fmt, path).collect()
+                plans.append(sess.last_executed_plan)
+                return rows
+
+            cold, warm, counts = _walls(
+                torch, q, run_once, lambda rows: check_write_back(wb, rows,
+                                                                  q),
+                IO_RUNS)
+            device_only(plans[0], q)
+            need_kernels(q, counts, need)
+            per_query[q] = counts
+            emit({"query": q, "card": smi, "rows": wb_kept, "stats": stats,
+                  "file_bytes": os.path.getsize(path), "write_ms": write_ms,
+                  "cold_wall_ms": cold, "warm_wall_ms": warm,
+                  "launches": counts})
+        # overwrite the parquet file, now cached on the device and in the
+        # session's scanners, with a narrower filter: the commit drops the
+        # file's cache entries and scanners, and the next read, through
+        # the same session with nothing cleared by hand, gives the new rows
+        path = os.path.join(out_dir, "lineitem.parquet")
+        cache = DeviceScanCache._instance
+        before = cache.stats()
+        narrow, narrow_kept = write_back_oracle(np, t, IO_NARROW_CUTOFF)
+        t0 = time.perf_counter()
+        stats = projected(sess, _days(np, IO_NARROW_CUTOFF)).write.parquet(
+            path)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        after = cache.stats()
+        check_write_back(narrow, read_back(sess, "parquet", path).collect(),
+                         "W-write-overwrite")
+        if (stats["numRows"] != narrow_kept or not before["entries"]
+                or after["entries"] or after["bytes"]):
+            raise AssertionError(f"W-write-overwrite: {stats}, cache before "
+                                 f"{before}, after {after}")
+        emit({"query": "W-write-overwrite", "card": smi,
+              "rows": narrow_kept, "write_ms": write_ms,
+              "cache_before": before, "cache_after_commit": after})
+
+        # --- W-ml: the device batches to an ML consumer -------------------
+        ml_on = {**IO_VFA, "spark.rapids.tpu.sql.exportColumnarRdd": True}
+        sess = S.TpuSession(ml_on, device=dev)
+        S._SCANNER_CACHE.clear()
+        nums = ("l_quantity", "l_extendedprice", "l_discount", "l_shipdate")
+
+        def numeric(s):
+            return s.read.csv(csv_dir, schema=schema).where(
+                E.LessThanOrEqual(E.col("l_shipdate"), E.lit(cutoff))
+            ).select(*nums)
+
+        keep = t["ship"] <= cutoff
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        total = batches = 0
+        for b in ml.columnar_rdd(numeric(sess)):
+            if not all(c.data.is_cuda and c.validity.is_cuda
+                       for c in b.columns):
+                raise AssertionError("W-ml: a batch column off the card")
+            total += b.num_rows
+            batches += 1
+        rdd_ms = (time.perf_counter() - t0) * 1e3
+        shared = 0
+        for cols in ml.to_dlpack_batches(numeric(sess)):
+            for c in cols:
+                if torch.from_dlpack(c).data_ptr() != c.data_ptr() or \
+                        not c.is_cuda:
+                    raise AssertionError("W-ml: DLPack copied a column")
+                shared += 1
+        t0 = time.perf_counter()
+        mats = list(ml.to_numpy_batches(numeric(sess)))
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        got = [np.concatenate([m[j] for m in mats]) for j in range(4)]
+        exp = [t["qty"][keep], t["price"][keep], t["disc"][keep],
+               t["ship"][keep].astype(np.float64)]
+        if total != kept or not all(np.array_equal(g, e)
+                                    for g, e in zip(got, exp)):
+            raise AssertionError(f"W-ml: {total} rows exported, expected "
+                                 f"{kept}, or a numpy column differs")
+        rdd_counts = launches()
+        ml_csv = os.path.join(base, "ml.csv")
+        pacsv.write_csv(table.slice(0, IO_ML_ARROW_ROWS), ml_csv)
+
+        def year_and_price(tb):
+            import pyarrow.compute as pc
+
+            return pa.table({
+                "year": pc.divide(pc.cast(tb.column("l_shipdate"),
+                                          pa.int64()), 365),
+                "disc_price": pc.multiply(
+                    tb.column("l_extendedprice"),
+                    pc.subtract(1.0, tb.column("l_discount")))})
+
+        def year_and_price_pandas(pdf):
+            import pandas as pd
+
+            return pd.DataFrame({
+                "year": pdf["l_shipdate"].astype("int64") // 365,
+                "disc_price": pdf["l_extendedprice"]
+                * (1.0 - pdf["l_discount"])})
+
+        out_schema = T.StructType([T.StructField("year", T.LONG),
+                                   T.StructField("disc_price", T.DOUBLE)])
+        sub = slice(0, IO_ML_ARROW_ROWS)
+        yr = t["ship"][sub].astype(np.int64) // 365
+        dp = t["price"][sub] * (1 - t["disc"][sub])
+        mapped = {}
+        for how, fn, call in (
+                ("arrow", year_and_price, ml.map_in_arrow),
+                ("pandas", year_and_price_pandas, ml.map_in_pandas)):
+            q = "W-ml" if how == "arrow" else "W-ml-pandas"
+            S._SCANNER_CACHE.clear()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            rows = call(sess.read.csv(ml_csv, schema=schema), fn,
+                        out_schema).group_by("year").agg(
+                A.agg(A.Sum(E.col("disc_price")), "s"),
+                A.agg(A.Count(None), "c")).collect()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = launches()
+            device_only(sess.last_executed_plan, q)
+            need_kernels(q, counts, ("bucket_sum", "bucket_float_sum"))
+            got = {r[0]: r[1:] for r in rows}
+            if sorted(got) != sorted(np.unique(yr).tolist()):
+                raise AssertionError(f"{q}: years {sorted(got)}")
+            for y, (sm, c) in got.items():
+                sel = yr == y
+                if c != int(sel.sum()) or not _close(
+                        sm, float(dp[sel].sum()),
+                        float(np.abs(dp[sel]).sum()), 1e-9):
+                    raise AssertionError(f"{q} {y}: {(sm, c)}")
+            per_query[q] = counts
+            mapped[how] = {"ms": ms, "launches": counts}
+        emit({"query": "W-ml", "card": smi, "rows": n, "kept_rows": kept,
+              "exported_rows": total, "batches": batches,
+              "dlpack_columns_shared": shared, "columnar_rdd_ms": rdd_ms,
+              "to_numpy_ms": numpy_ms, "export_launches": rdd_counts,
+              "map_rows": IO_ML_ARROW_ROWS, "groups": len(got),
+              "map_in_arrow_group_by_ms": mapped["arrow"]["ms"],
+              "map_in_pandas_group_by_ms": mapped["pandas"]["ms"],
+              "pandas_launches": mapped["pandas"]["launches"],
+              "launches": mapped["arrow"]["launches"]})
+    finally:
+        DeviceScanCache.reset()
+        S._SCANNER_CACHE.clear()
+        shutil.rmtree(os.path.join(here, PARQUET_DIR), ignore_errors=True)
+    return per_query
+
+
 def _decode_threads() -> int:
     from spark_rapids_tpu_torch.io import parquet_device as PD
 
@@ -8225,6 +8653,8 @@ def main() -> int:
     lap("mesh")
     per_query.update(serve_phase(torch, np, dev, smi))
     lap("serve")
+    per_query.update(io_phase(torch, np, dev, smi))
+    lap("io")
     if QUERY_ROUTES["numpy"] or not QUERY_ROUTES["native"]:
         raise AssertionError(f"hybrid streams by route: {QUERY_ROUTES}")
     emit({"native_decode": {"query_streams": QUERY_ROUTES,

@@ -247,22 +247,44 @@ def arrow_to_batch(table_or_rb, schema: Optional[T.StructType] = None,
     return ColumnarBatch(cols, schema, n, capacity=cap)
 
 
+def _string_array(c: DeviceColumn, n: int):
+    """A plain string column's first ``n`` rows as an Arrow array built
+    from its planes (offsets, the bytes they cover, the validity as a
+    bitmap): the writers' data plane, with no Python object a row."""
+    import pyarrow as pa
+
+    offsets = np.ascontiguousarray(c.offsets[:n + 1].cpu().numpy())
+    chars = c.chars[:int(offsets[n]) if n else 0].cpu().numpy()
+    valid = c.validity[:n].cpu().numpy()
+    bitmap = (None if valid.all() else
+              pa.py_buffer(np.packbits(valid, bitorder="little")))
+    at = pa.string() if isinstance(c.dtype, T.StringType) else pa.binary()
+    return pa.Array.from_buffers(
+        at, n, [bitmap, pa.py_buffer(offsets.astype(np.int32, copy=False)),
+                pa.py_buffer(np.ascontiguousarray(chars))],
+        null_count=int(n - valid.sum()))
+
+
 def batch_to_arrow(batch: ColumnarBatch):
     """Device ColumnarBatch -> pyarrow Table (reference
     ``arrow_convert.batch_to_arrow``): DATE as ``date32``, TIMESTAMP as
     ``timestamp[us, UTC]``, a decimal as ``decimal128(p, s)`` built from
-    its unscaled ints."""
+    its unscaled ints, a plain string column from its planes
+    (:func:`_string_array`)."""
     import decimal as _d
 
     import pyarrow as pa
 
-    hosts = batch.host_columns()
     n = batch.num_rows
     arrays = []
     names = []
-    for f, h in zip(batch.schema.fields, hosts):
+    for f, c in zip(batch.schema.fields, batch.columns):
         names.append(f.name)
         dt = f.dataType
+        if c.is_string and not c.is_dict:
+            arrays.append(_string_array(c, n))
+            continue
+        h = c.to_host(n)
         mask = ~h.validity[:n]
         if isinstance(dt, (T.StringType, T.BinaryType)):
             at = pa.string() if isinstance(dt, T.StringType) else pa.binary()

@@ -6,9 +6,9 @@ Own copy of ``spark_rapids_tpu/io/parquet.py``: ``discover_files``,
 MULTITHREADED through the scan exec's thread pool) and
 ``read_split_device``, which decodes on the device the caller names. As
 in the reference, pyarrow does the host half (footers, the host decode of
-the columns the device decoder cannot take). The writer
-(``write_parquet``) is not ported yet (ROADMAP.md, queue A item 'The
-remaining modules'). The stage-fusion entry, :meth:`ParquetScanner.
+the columns the device decoder cannot take). The writer,
+:func:`write_parquet`, is pyarrow's chunked ``ParquetWriter`` under the
+commit protocol of ``io/commit.py``. The stage-fusion entry, :meth:`ParquetScanner.
 device_stage_plans`, hands the fused scan->aggregate stage each row
 group's staged decode (``exec/aggregate.py``).
 """
@@ -85,14 +85,25 @@ def discover_files(path: str) -> List[Tuple[str, Tuple[Tuple[str, Any], ...]]]:
     return out
 
 
+def is_nan(v) -> bool:
+    """Is a pushed filter's literal a floating NaN?"""
+    return isinstance(v, float) and v != v
+
+
 def _stats_allow(stats, f: PushedFilter) -> bool:
     """Can this row group contain rows passing the filter? Conservative:
-    True when unknown (reference: filterBlocks keeps unprunable blocks)."""
+    True when unknown (reference: filterBlocks keeps unprunable blocks).
+    Parquet's floating min/max leave NaN out, and Spark orders NaN above
+    every other value and equal to itself: a NaN literal, or ``>``/``>=``
+    on a floating column, cannot prune."""
     if stats is None or not stats.has_min_max:
         return f.op not in ("isnull",) or stats is None or (
             stats.null_count is None or stats.null_count > 0)
     mn, mx = stats.min, stats.max
     v = f.value
+    if is_nan(v) or (f.op in (">", ">=")
+                     and stats.physical_type in ("FLOAT", "DOUBLE")):
+        return True
     try:
         if f.op == "=":
             return mn <= v <= mx
@@ -439,3 +450,27 @@ def batch_device_bytes(batch) -> int:
             if t is not None:
                 n += t.numel() * t.element_size()
     return n
+
+
+# ---------------------------------------------------------------------------
+# writer (reference: GpuParquetFileFormat.scala + GpuFileFormatWriter)
+# ---------------------------------------------------------------------------
+def write_parquet(
+    batches, path: str, schema: T.StructType,
+    compression: str = "snappy",
+) -> Dict[str, int]:
+    """Chunked parquet write with the temp-file commit protocol
+    (reference ``io/parquet.py:406``): one row group a batch, and an
+    empty file with the schema for an empty result. Returns the write
+    stats (BasicColumnarWriteStatsTracker analog): ``numRows``,
+    ``numBatches`` and the committed file's ``bytes``."""
+    import pyarrow.parquet as pq
+
+    from .commit import write_batches
+
+    rows, nbatches = write_batches(
+        batches, path, schema,
+        lambda tmp, s: pq.ParquetWriter(tmp, s, compression=compression),
+        lambda w, t: w.write_table(t))
+    return {"numRows": rows, "numBatches": nbatches,
+            "bytes": os.path.getsize(path)}

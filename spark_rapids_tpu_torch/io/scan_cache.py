@@ -9,7 +9,8 @@ data. One lock guards the entries (``io.scan_cache`` in
 feeds); under device memory pressure the OOM retry drops them all
 (:meth:`DeviceScanCache.drop_under_pressure`). While the ledger is armed
 each entry has a ``scan_cache`` ledger record, freed with the reason it
-left (evict, replace, pressure_drop), and every hit, miss, put, evict
+left (evict, replace, pressure_drop, invalidate: a writer's commit
+of the file, ``io/commit.py``), and every hit, miss, put, evict
 and pressure drop emits a ``scan_cache`` event and its
 ``tpu_scan_cache_*`` twins, as in the reference.
 
@@ -155,6 +156,21 @@ class DeviceScanCache:
             if freed and _obs.enabled():
                 self._obs_note("evict", freed)
             return freed
+
+    def invalidate_path(self, path: str) -> None:
+        """Drop every entry of one file (the writers' commit protocol,
+        ``io/commit.py``; reference ``scan_cache.py:185``): reads stay
+        correct either way through the (mtime, size) key, this frees the
+        device memory at once. The path is resolved as :func:`file_key`
+        resolves it, so a commit through a symlink still finds the
+        scanner's entries; their ledger records are freed with reason
+        ``invalidate``."""
+        path = _real(path)
+        with self._lock:
+            for key in [k for k in self._entries if k and k[0] == path]:
+                _, sz = self._entries.pop(key)
+                self._bytes -= sz
+                self._free_lid(key, "invalidate")
 
     def put(self, key: tuple, value: Any, nbytes: int) -> None:
         with self._lock:

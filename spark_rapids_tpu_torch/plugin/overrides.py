@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
 from .. import types as T
 from ..conf import (
     EXPLAIN,
+    MATRIX_PROBE_CROSS_CHECK,
     RapidsConf,
     SQL_ENABLED,
     TEST_ALLOWED_NONTPU,
@@ -274,6 +275,30 @@ def check_expression(
                     reasons.append(err)
             except Exception:  # noqa: BLE001
                 pass  # already reported by the matrix walk
+    if conf.get(MATRIX_PROBE_CROSS_CHECK):
+        # the debug cross-check (reference ``overrides.py:271-291``): the
+        # lowering probe's verdict beside the matrix's; a probe that
+        # raised is a probe fallback
+        unported = False
+        try:
+            legacy = _probe_check_expression(
+                expr, schema, conf, allow_context)
+        except Exception as e:  # noqa: BLE001 — probe crash = fallback
+            legacy = [f"lowering probe raised: {e}"]
+            unported = isinstance(e, NotImplementedError)
+        if bool(legacy) != bool(reasons):
+            TC.note_cross_check_disagreement(
+                f"{type(expr).__name__}: matrix="
+                f"{'FALLBACK' if reasons else 'ON_TPU'}"
+                f"({'; '.join(reasons) or '-'}) probe="
+                f"{'FALLBACK' if legacy else 'ON_TPU'}"
+                f"({'; '.join(legacy) or '-'})")
+            if legacy and not reasons and not unported:
+                # conservative: a probe-detected lowering gap falls back
+                # even where the matrix accepts (then fix the matrix); a
+                # node the port has not ported is no fallback: the probe
+                # below raises it
+                reasons.extend(legacy)
     if not reasons and not isinstance(
             expr, (A.AggregateExpression, A.AggregateFunction)):
         # the matrix accepts it, so the reference lowers it on its
@@ -283,6 +308,66 @@ def check_expression(
         # the project's boundary, not in eval.py: they are probed as
         # typed placeholders (reference ``overrides.py:321-333``).
         tpu_supports(_context_placeholders(expr, schema), schema)
+    return reasons
+
+
+def _probe_check_expression(
+    expr: E.Expression, schema: StructType, conf: RapidsConf,
+    allow_context: bool = False,
+) -> List[str]:
+    """The lowering probe's verdict (reference ``overrides.py:294``): every
+    node has a rule, and the port's lowering (``expr/eval.tpu_supports``)
+    takes the expression, context nodes probed as typed placeholders.
+    Only the ``probeCrossCheck`` debug path runs it; the type matrix is
+    the tagging mechanism."""
+    reasons: List[str] = []
+
+    def visit(node: E.Expression):
+        if type(node) not in EXPRESSION_RULES:
+            reasons.append(
+                f"expression {type(node).__name__} is not supported on TPU"
+            )
+        for c in node.children:
+            visit(c)
+
+    visit(expr)
+    if reasons:
+        return reasons
+    if (E.has_context_expr(expr) or _has_string_hash(expr, schema)) \
+            and not allow_context:
+        return [_CONTEXT_EXPR_REASON]
+    if not isinstance(expr, (A.AggregateExpression, A.AggregateFunction)):
+        ok, why = tpu_supports(_context_placeholders(expr, schema), schema)
+        if not ok:
+            reasons.append(why or "lowering probe failed")
+        else:
+            try:
+                bound = E.bind_references(expr, schema)
+                err = _check_type(bound.dtype, conf)
+                if err:
+                    reasons.append(err)
+                reasons.extend(_gated_cast_reasons(bound, conf))
+            except (TypeError, ValueError, KeyError) as e:
+                reasons.append(str(e))
+    return reasons
+
+
+def _gated_cast_reasons(bound: E.Expression, conf: RapidsConf) -> List[str]:
+    """The conf gates of the casts in ``bound``, as the cast matrix
+    (``typechecks.CastChecks``) holds them."""
+    from .typechecks import CAST_CHECKS
+
+    reasons: List[str] = []
+
+    def visit(node: E.Expression):
+        if isinstance(node, E.Cast):
+            r = CAST_CHECKS.gate_reason(node.child.dtype, node.to, conf)
+            if r:
+                reasons.append(r)
+        for c in node.children:
+            visit(c)
+
+    visit(bound)
     return reasons
 
 

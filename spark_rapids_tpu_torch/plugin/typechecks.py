@@ -25,8 +25,12 @@ walks the plan producing reasoned verdicts (``willNotWorkOnGpu``):
     rule, the parameter and the offending type (e.g. ``Min: input
     string is not supported in the window context``).
 
-The reference's docs generator (the doc cells of a TypeSig) is not
-ported.
+The same tables generate ``docs/torch/supported_ops.md``
+(``plugin/docgen.py``, through :meth:`TypeSig.cell` and
+:meth:`TypeSig.cell_note`), so the document cannot drift from the
+tagging. Under ``sql.matrix.probeCrossCheck.enabled`` the planner also
+runs the lowering probe and keeps each disagreement in
+:func:`cross_check_log`.
 """
 from __future__ import annotations
 
@@ -49,11 +53,22 @@ from ..expr import windows as W
 
 # ---------------------------------------------------------------------------
 # Expression contexts (reference: the ExprContext column of TypeChecks —
-# project / aggregation / window cells can differ per rule)
+# project / aggregation / window / lambda cells can differ per rule)
 # ---------------------------------------------------------------------------
 PROJECT = "project"
 AGGREGATION = "aggregation"
 WINDOW = "window"
+LAMBDA = "lambda"
+
+CONTEXTS = (PROJECT, AGGREGATION, WINDOW, LAMBDA)
+
+# Canonical type-tag order (doc columns). ``decimal`` covers every
+# DecimalType(p<=18); array/struct are not representable on the engine at
+# all and never appear as tags.
+TYPE_TAGS = (
+    "boolean", "tinyint", "smallint", "int", "bigint", "float", "double",
+    "decimal", "string", "binary", "date", "timestamp", "null",
+)
 
 
 def tag_of(dt: T.DataType) -> str:
@@ -114,6 +129,28 @@ class TypeSig:
             gates[t] = (entry, message)
         return TypeSig(self.tags, self.lit_only, gates=gates,
                        notes=self.notes)
+
+    # -- doc cells --------------------------------------------------------
+    def cell(self, tag: str) -> str:
+        """'S' full support, 'PS' partial (noted/gated/lit-only), '' none."""
+        if tag not in self.tags:
+            return ""
+        if tag in self.notes or tag in self.gates or tag in self.lit_only:
+            return "PS"
+        return "S"
+
+    def cell_note(self, tag: str) -> Optional[str]:
+        if tag not in self.tags:
+            return None
+        parts = []
+        if tag in self.lit_only:
+            parts.append("literal only")
+        if tag in self.notes:
+            parts.append(self.notes[tag])
+        if tag in self.gates:
+            entry, _ = self.gates[tag]
+            parts.append(f"requires {entry.key}=true")
+        return "; ".join(parts) if parts else None
 
     # -- checking ---------------------------------------------------------
     def check(self, dt: T.DataType, conf: RapidsConf,
@@ -336,11 +373,18 @@ class CastChecks:
         sig = self.matrix.get(tag_of(frm))
         if sig is None:
             return (f"cast from {frm.simpleString} is not supported on TPU")
-        t = tag_of(to)
-        if t not in sig.tags:
+        if tag_of(to) not in sig.tags:
             return (f"cast {frm.simpleString} -> {to.simpleString} "
                     "is not supported on TPU")
-        gate = sig.gates.get(t)
+        return self.gate_reason(frm, to, conf)
+
+    def gate_reason(self, frm: T.DataType, to: T.DataType,
+                    conf: RapidsConf) -> Optional[str]:
+        """The conf gate's message where the pair is gated and its conf
+        is off (reference: RapidsConf.scala:487-533, risky cast kernels
+        that tag the plan for fallback unless enabled), else None."""
+        sig = self.matrix.get(tag_of(frm))
+        gate = sig.gates.get(tag_of(to)) if sig is not None else None
         if gate is not None and not conf.get(gate[0]):
             return gate[1]
         return None
@@ -881,3 +925,25 @@ def check_expr(bound: E.Expression, conf: RapidsConf,
 
     visit(bound, context)
     return reasons
+
+
+# ---------------------------------------------------------------------------
+# Cross-check bookkeeping (the matrix verdict against the lowering probe,
+# behind spark.rapids.tpu.sql.matrix.probeCrossCheck.enabled; reference
+# ``typechecks.py:915-940``)
+# ---------------------------------------------------------------------------
+_CROSS_CHECK_LOG: List[str] = []
+_CROSS_CHECK_MAX = 256
+
+
+def note_cross_check_disagreement(msg: str) -> None:
+    if len(_CROSS_CHECK_LOG) < _CROSS_CHECK_MAX:
+        _CROSS_CHECK_LOG.append(msg)
+
+
+def cross_check_log() -> List[str]:
+    return list(_CROSS_CHECK_LOG)
+
+
+def clear_cross_check_log() -> None:
+    _CROSS_CHECK_LOG.clear()

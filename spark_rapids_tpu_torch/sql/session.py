@@ -49,10 +49,14 @@ A reject or a queue timeout is a named error that still closes the
 query's ``query_end`` window; a device OOM of an admitted query is
 requeued once with its forecast raised to the observed peak.
 
-Left out, as later ROADMAP.md items: the XLA cost and HLO planes (the
-port compiles no programs), ``DataFrameWriter`` and the CSV and ORC
-readers ('The remaining modules'); their conf keys are not registered.
-With
+Files (reference ``session.py:79-90`` and ``:748-846``): ``read.parquet``,
+``read.csv`` and ``read.orc`` plan file scans (``io/``); ``df.write``
+(:class:`DataFrameWriter`) hands a device plan's batches straight to the
+parquet, ORC or CSV writer, or a CPU plan's rows 65 536 at a time, in
+the same query window as a collect.
+
+Left out, as the later ROADMAP.md item 26.2: the XLA cost and HLO planes
+(the port compiles no programs). With
 ``spark.rapids.tpu.sql.udfCompiler.enabled`` on, each ``PythonUDF`` is
 compiled to engine expressions where its bytecode allows
 (``udf/compiler.py``); an uncompilable one, and every one with the conf
@@ -60,8 +64,10 @@ off (the default), falls back to the CPU engine, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from .. import events as _events
@@ -70,19 +76,18 @@ from .. import obs as _obs
 from ..columnar import resolve_device
 from ..conf import (HBM_BUDGET_BYTES, HBM_POOL_FRACTION, HBM_RESERVE,
                     HOST_SPILL_STORAGE_SIZE, LEAK_SENTINEL_ENABLED,
-                    MEMORY_DEBUG, SPILL_ENABLED, RapidsConf)
+                    MEMORY_DEBUG, RACECHECK_WITNESS_ENABLED, SPILL_ENABLED,
+                    RapidsConf)
 from ..cpu import plan as C
 from ..exec.transitions import ColumnarToRowExec
 from ..memory.catalog import BufferCatalog, CatalogInUseError
 from ..memory.ledger import query_scope
 from ..expr import aggregates as A
 from ..expr import expressions as E
-from ..plugin.overrides import TpuOverrides, not_ported as _not_ported
+from ..plugin.overrides import TpuOverrides
 from ..serve import scheduler as _serve  # registers the serve.* confs
 from ..types import StructType
 from ..utils import locks as _locks
-
-REMAINING_ITEM = "The remaining modules"
 
 _QUERY_SEQ = [0]
 _QUERY_SEQ_LOCK = threading.Lock()
@@ -201,14 +206,45 @@ def _make_scanner(fmt: str, path: str, opts: tuple, conf: RapidsConf,
             sc = ParquetScanner(
                 path, conf, columns=od.get("columns"),
                 filters=list(pushed))
-        elif fmt in ("csv", "orc"):
-            raise _not_ported(f"the {fmt} scan", REMAINING_ITEM)
+        elif fmt == "csv":
+            from ..io.csv import CsvScanner
+
+            sc = CsvScanner(
+                path, conf, schema=od.get("schema"),
+                header=od.get("header", True), sep=od.get("sep", ","))
+        elif fmt == "orc":
+            from ..io.orc import OrcScanner
+
+            sc = OrcScanner(path, conf, columns=od.get("columns"),
+                            filters=list(pushed))
         else:
             raise ValueError(f"unknown file format {fmt}")
         if len(_SCANNER_CACHE) > 256:
             _SCANNER_CACHE.clear()
         _SCANNER_CACHE[key] = sc
     return sc
+
+
+def invalidate_scanners(path: str) -> None:
+    """Drop the cached scanners that a write to ``path`` makes stale
+    (``io/commit.committed_file`` calls this after each commit). A
+    scanner keeps what it planned from the files it found when it was
+    built: the file list, the parquet row-group splits, the ORC stripes,
+    the inferred CSV schema. So one over the rewritten file, or over a
+    directory or pattern that now holds it, is built anew."""
+    import fnmatch
+    import os
+
+    from ..io.scan_cache import _real
+
+    real = _real(path)
+    with _SCANNER_CACHE_LOCK:
+        for key, sc in list(_SCANNER_CACHE.items()):
+            root = _real(key[1])
+            if (real == root or real.startswith(root + os.sep)
+                    or fnmatch.fnmatchcase(real, root)
+                    or any(_real(f) == real for f, _ in sc.files)):
+                del _SCANNER_CACHE[key]
 
 
 def _extract_pushed_filters(cond: E.Expression) -> tuple:
@@ -378,6 +414,12 @@ class TpuSession:
         # the live observability plane (obs/): None, with nothing
         # started, unless metrics.live / metrics.http / watchdog is on
         self._obs_plane = _obs.ensure_started(self.conf)
+        # the runtime lock-order witness (utils/locks.py): every
+        # ordered_lock acquire checked against LOCK_ORDER; process-global
+        # once on, tests pair it with uninstall_witness() (reference
+        # session.py:301-302)
+        if self.conf.get(RACECHECK_WITNESS_ENABLED):
+            _locks.install_witness()
 
     def close(self) -> None:
         """Flush and close the session's event sink and detach it from
@@ -546,52 +588,61 @@ class TpuSession:
         pending, self._pending_obs = self._pending_obs, None
         return self._active_query, pending, self._last_digest
 
-    def _run_collect(self, final: C.CpuExec, qid: Optional[int],
-                     pending: Optional[tuple],
-                     digest: Optional[str]) -> List[tuple]:
-        """Drain and collect (reference ``session.py:507-555``): the
-        query's live progress registered on this (the draining) thread,
-        its buffers owned by it in a ledger query scope, and in a finally
-        the ``query_end`` event (duration, rows, error), the end of its
-        progress and the ledger's sweep (its peak folded into the
-        digest's history, and its leaks: ``last_leaks``). The scope opens
-        while events or obs are on, or the ledger is force-armed; with
-        all off nothing of this runs. ``qid``, ``pending`` and ``digest``
-        are the query's claim (:meth:`_claim_query`)."""
-        import time as _time
-
-        t0 = _time.perf_counter_ns()
+    @contextlib.contextmanager
+    def _query_window(self, qid: Optional[int], pending: Optional[tuple],
+                      digest: Optional[str]):
+        """The window a query's drain runs in (reference
+        ``session.py:507-555``): its live progress registered on this (the
+        draining) thread, its buffers owned by it in a ledger query scope,
+        and in a finally the ``query_end`` event (duration, rows, error),
+        the end of its progress and the ledger's sweep (its peak folded
+        into the digest's history, and its leaks: ``last_leaks``). The
+        window opens while events or obs are on, or the ledger is
+        force-armed; with all off nothing of this runs. ``qid``,
+        ``pending`` and ``digest`` are the query's claim
+        (:meth:`_claim_query`). Yields a dict whose ``rows`` the drain
+        sets when it knows the count (a writer leaves it None)."""
+        t0 = time.perf_counter_ns()
         cat = BufferCatalog.get()
         ledger = cat.ledger
         if qid is None and ledger.armed():
             qid = _next_query_id()
+        out: Dict[str, Optional[int]] = {"rows": None}
         if qid is None:
-            return final.collect()
+            yield out
+            return
         obs_qid = None
         if pending is not None and _obs.enabled():
             obs_qid, pdigest, rows_by_op, batches_by_op = pending
             _obs.note_query_start(obs_qid, pdigest, rows_by_op,
                                   batches_by_op)
-        rows: Optional[List[tuple]] = None
+        ok = False
         try:
             with query_scope(qid):
-                rows = final.collect()
-            return rows
+                yield out
+            ok = True
         finally:
+            rows = out["rows"] if ok else None
             if self.events.enabled:
-                _events.emit(
-                    "query_end", query_id=qid,
-                    dur=_time.perf_counter_ns() - t0,
-                    rows=len(rows) if rows is not None else None,
-                    error=rows is None)
+                _events.emit("query_end", query_id=qid,
+                             dur=time.perf_counter_ns() - t0, rows=rows,
+                             error=not ok)
             if obs_qid is not None:
-                _obs.note_query_end(
-                    obs_qid, rows=len(rows) if rows is not None else None,
-                    error=rows is None)
+                _obs.note_query_end(obs_qid, rows=rows, error=not ok)
             # buffers collected during the drain are unregistered (and
             # their buffer_free emitted) before the sentinel looks
             cat.drain_collected()
             self.last_leaks = ledger.sweep_query(qid, digest=digest)
+
+    def _run_collect(self, final: C.CpuExec, qid: Optional[int],
+                     pending: Optional[tuple],
+                     digest: Optional[str]) -> List[tuple]:
+        """Drain and collect in the query's window
+        (:meth:`_query_window`)."""
+        with self._query_window(qid, pending, digest) as out:
+            rows = final.collect()
+            out["rows"] = len(rows)
+        return rows
 
     # -- serving path (serve/scheduler.py) ---------------------------------
     def _serve_enabled(self) -> bool:
@@ -757,11 +808,82 @@ class DataFrameReader:
 
     def csv(self, path: str, schema: Optional[StructType] = None,
             header: bool = True, sep: str = ",") -> "DataFrame":
-        raise _not_ported("the csv scan", REMAINING_ITEM)
+        opts = (("schema", schema), ("header", header), ("sep", sep))
+        return DataFrame(
+            self._session, LNode("file_scan", ("csv", path, opts)))
 
     def orc(self, path: str,
             columns: Optional[Sequence[str]] = None) -> "DataFrame":
-        raise _not_ported("the orc scan", REMAINING_ITEM)
+        opts = (("columns", tuple(columns) if columns else None),)
+        return DataFrame(
+            self._session, LNode("file_scan", ("orc", path, opts)))
+
+
+class DataFrameWriter:
+    """reference analog: df.write through GpuParquetFileFormat and
+    GpuFileFormatWriter's commit protocol (reference
+    ``session.py:761-846``). Each writer returns its stats dictionary:
+    ``numRows``, ``numBatches`` and ``bytes`` for parquet, ``rows``,
+    ``batches`` and ``files`` for ORC and CSV, as in the reference."""
+
+    #: rows a batch of a CPU plan's output carries to the writer
+    ROWS_PER_BATCH = 65536
+
+    def __init__(self, df: "DataFrame"):
+        self._df = df
+
+    def _batches(self):
+        """(batches, schema): the plan's output as a generator of device
+        batches. The query is planned and claimed now, so a later query on
+        the session cannot take its slots; its window
+        (:meth:`TpuSession._query_window`, with ``rows=None``: a count
+        would cost a sync a batch) opens and closes with the drain, on
+        the draining thread, also when the drain fails or is
+        abandoned."""
+        df = self._df
+        sess = df.session
+        final = sess._execute(df.node)
+        claim = sess._claim_query()
+        schema = final.output_schema
+
+        def gen():
+            with sess._query_window(*claim):
+                if isinstance(final, ColumnarToRowExec):
+                    # the device batches go to the writer as they are
+                    yield from final.tpu_child.execute_columnar()
+                    return
+                from ..columnar.batch import batch_from_rows
+
+                buf: List[tuple] = []
+                for row in (r for p in range(final.num_partitions)
+                            for r in final.execute_rows_partition(p)):
+                    buf.append(row)
+                    if len(buf) >= self.ROWS_PER_BATCH:
+                        yield batch_from_rows(buf, schema, sess.device)
+                        buf = []
+                if buf:
+                    yield batch_from_rows(buf, schema, sess.device)
+
+        return gen(), schema
+
+    def parquet(self, path: str,
+                compression: str = "snappy") -> Dict[str, int]:
+        from ..io.parquet import write_parquet
+
+        batches, schema = self._batches()
+        return write_parquet(batches, path, schema, compression)
+
+    def orc(self, path: str, compression: str = "zstd") -> Dict[str, int]:
+        from ..io.orc import write_orc
+
+        batches, schema = self._batches()
+        return write_orc(batches, path, schema, compression)
+
+    def csv(self, path: str) -> Dict[str, int]:
+        from ..io.csv import write_csv
+
+        batches, schema = self._batches()
+        return write_csv(batches, path, schema)
 
 
 class DataFrame:
@@ -770,8 +892,8 @@ class DataFrame:
         self.node = node
 
     @property
-    def write(self):
-        raise _not_ported("DataFrameWriter", REMAINING_ITEM)
+    def write(self) -> DataFrameWriter:
+        return DataFrameWriter(self)
 
     # -- transformations ---------------------------------------------------
     def select(self, *exprs: Union[str, E.Expression]) -> "DataFrame":

@@ -381,29 +381,6 @@ def _order_by_partitioned(m, sess):
     return _df(m, sess, parts=3).order_by("k")
 
 
-def _read_csv(m, sess):
-    return sess.read.csv("unused.csv")
-
-
-def _read_orc(m, sess):
-    return sess.read.orc("unused.orc")
-
-
-#: what still raises; the mesh stages and the network transport that
-#: were here are ported (tests/test_torch_mesh*.py,
-#: tests/test_torch_network_shuffle.py)
-NOT_PORTED = {
-    "csv_scan": (_read_csv, {}, "The remaining modules"),
-    "orc_scan": (_read_orc, {}, "The remaining modules"),
-}
-
-@pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_not_ported_raise_naming_their_item(case):
-    q, settings, item = NOT_PORTED[case]
-    with pytest.raises(NotImplementedError, match=f"item '{item}'"):
-        q(PORT, PSession(settings, device="cpu")).collect()
-
-
 def test_session_without_a_card_raises():
     import torch
 
@@ -414,10 +391,15 @@ def test_session_without_a_card_raises():
     PSession({}, device="cpu")
 
 
-#: keys the reference registers for its debug and plan-analysis paths,
-#: which the port leaves out
+#: keys the reference registers for its XLA program plane (ROADMAP.md
+#: item 26.2: the AOT program cache, HLO summaries, buffer donation),
+#: which the port leaves out until that slice
 UNPORTED_KEYS = (
-    "spark.rapids.tpu.sql.matrix.probeCrossCheck.enabled",
+    "spark.rapids.tpu.aotCache.enabled",
+    "spark.rapids.tpu.tools.donate.allowlistPath",
+    "spark.rapids.tpu.sql.donation.enabled",
+    "spark.rapids.tpu.sql.inMemoryScan.hostResident",
+    "spark.rapids.tpu.tools.donation.witness.enabled",
 )
 ANALYSIS_KEYS = (
     "spark.rapids.tpu.sql.analysis.enabled",
@@ -427,7 +409,9 @@ ANALYSIS_KEYS = (
 
 @pytest.mark.parametrize("key", UNPORTED_KEYS)
 def test_unported_debug_keys_stay_unregistered(key):
-    JSession({key: True})
+    from spark_rapids_tpu import conf as JC
+
+    assert key in JC._REGISTRY
     with pytest.raises(ValueError, match="unknown config key"):
         PSession({key: True}, device="cpu")
 
