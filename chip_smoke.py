@@ -858,8 +858,7 @@ def fsum_shape(torch, dev, seg, B: int, fcols, reps: int) -> dict:
         err = max(err, float(diff.max()))
     res = {"max_abs_err": err, "replicas": K.plan_bucket_fsum(B, len(fcols))}
     live = (seg >= 0) & (seg < B)
-    nbytes = 4 * n + int(live.sum()) * len(fcols) + 8 * sum(
-        int((v & live).sum()) for _, v in fcols) + 8 * B * len(fcols)
+    nbytes = int(K.bucket_float_sum_bytes(seg, B, fcols))
     fidx = torch.where(live, seg.long(), B)
     fvals = torch.stack([torch.where(v, d, 0.0) for d, v in fcols], 1)
     res.update({
@@ -895,9 +894,7 @@ def sum_shape(torch, dev, seg, B: int, int_cols, cnt_cols,
             raise AssertionError(f"bucket_sum B={B}: kernel != plain")
     L = len(int_cols) + len(cnt_cols)
     passes = K.plan_bucket_sum(B, len(int_cols), len(cnt_cols))
-    n_in = int(live.sum())
-    n_data = sum(int((v & live).sum()) for _, v in int_cols)
-    nbytes = 4 * n + n_in * L + 8 * n_data + 8 * B * L
+    nbytes = int(K.bucket_sum_bytes(seg, B, int_cols, cnt_cols))
     idx = torch.where(live, seg.long(), B)
     stacked = torch.stack([torch.where(v, d, 0) for d, v in int_cols]
                           + [v.long() for v in cnt_cols], 1)
@@ -939,8 +936,7 @@ def ordered_sum_shape(torch, np, dev, sv, sseg, B: int, reps: int,
                        (got - exp).abs())
     if bool((diff > 1e-9 * torch.nan_to_num(absx) + 1e-300).any()):
         raise AssertionError(f"ordered_segment_sum B={B}: kernel != plain")
-    n_in = int(keep.sum())
-    nbytes = 8 * n + 8 * n_in + 8 * B
+    nbytes = int(K.ordered_segment_sum_bytes(sseg, B))
     longest = int(np.bincount(seg_h[keep], minlength=B).max())
     sidx = torch.where((sseg >= 0) & (sseg < B), sseg.long(), B)
     return {
@@ -967,9 +963,14 @@ def ordered_sum_shape(torch, np, dev, sv, sseg, B: int, reps: int,
 def captured_calls(mod, name: str, keep, limit: int = 1):
     """Record the arguments of the first ``limit`` calls to ``mod.name``
     for which ``keep(*args)`` holds, in a list the block receives; each
-    call still runs (and counts its launch)."""
+    call still runs (and counts its launch). The recorded tensors outlive
+    the run, so no site donates in the block (a donated batch's planes
+    are released once its site has read them)."""
+    from spark_rapids_tpu_torch.plugin import donation
+
     calls = []
     fn = getattr(mod, name)
+    mask = donation.dispatch_mask
 
     def recording(*args):
         if len(calls) < limit and keep(*args):
@@ -977,10 +978,12 @@ def captured_calls(mod, name: str, keep, limit: int = 1):
         return fn(*args)
 
     setattr(mod, name, recording)
+    donation.dispatch_mask = lambda *a, **k: ()
     try:
         yield calls
     finally:
         setattr(mod, name, fn)
+        donation.dispatch_mask = mask
 
 
 def winner_shape(torch, dev, seg, B: int, op: str, word, reps: int) -> dict:
@@ -996,7 +999,7 @@ def winner_shape(torch, dev, seg, B: int, op: str, word, reps: int) -> dict:
     exp = K.bucket_winner_plain(seg, B, op, word)
     if not torch.equal(got, exp):
         raise AssertionError(f"bucket_winner B={B}: kernel != plain")
-    nbytes = 4 * seg.shape[0] + 8 * int(live.sum()) + 8 * B
+    nbytes = int(K.bucket_winner_bytes(seg, B))
     idx = torch.where(live, seg.long(), B)
     sw = word ^ SIGN64
     init = (K.IDENT_MIN if op == "min" else K.IDENT_MAX) ^ SIGN64
@@ -1291,14 +1294,7 @@ def query_phase(torch, np, dev, log2_rows: int, nbatches: int,
 
     # --- Q1: the bench query ----------------------------------------------
     def q1_plan(conf):
-        scan = InMemoryScanExec(conf, [batches], schema)
-        filt = TpuFilterExec(conf, E.GreaterThanOrEqual(col("a"), lit(0)),
-                             scan)
-        proj = TpuProjectExec(conf, [col("k"), E.Alias(
-            E.Multiply(col("a"), lit(2)), "a2"), col("b")], filt)
-        return TpuHashAggregateExec(conf, [col("k")], [
-            A.agg(A.Sum(col("a2")), "s"), A.agg(A.Average(col("b")), "m"),
-            A.agg(A.Count(col("b")), "c")], proj)
+        return q1_over(conf, InMemoryScanExec(conf, [batches], schema))
 
     m = a >= 0
     mb = m & ~b_null
@@ -1689,24 +1685,10 @@ def q1p_phase(torch, np, dev, k, a, b_val, b_null, schema, report,
 def profile_q1(torch, conf, batches, schema, n):
     """Q1 once more under torch.profiler (:func:`profile_plan`); its
     bytes bound reads each input plane once."""
-    from spark_rapids_tpu_torch.exec import (InMemoryScanExec, TpuFilterExec,
-                                             TpuHashAggregateExec,
-                                             TpuProjectExec)
-    from spark_rapids_tpu_torch.expr import aggregates as A
-    from spark_rapids_tpu_torch.expr import expressions as E
-    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    from spark_rapids_tpu_torch.exec import InMemoryScanExec
 
-    def plan():
-        scan = InMemoryScanExec(conf, [batches], schema)
-        filt = TpuFilterExec(conf, E.GreaterThanOrEqual(col("a"), lit(0)),
-                             scan)
-        proj = TpuProjectExec(conf, [col("k"), E.Alias(
-            E.Multiply(col("a"), lit(2)), "a2"), col("b")], filt)
-        return TpuHashAggregateExec(conf, [col("k")], [
-            A.agg(A.Sum(col("a2")), "s"), A.agg(A.Average(col("b")), "m"),
-            A.agg(A.Count(col("b")), "c")], proj)
-
-    profile_plan(torch, "Q1", plan, conf, n, n * (4 + 8 + 8 + 3))
+    profile_plan(torch, "Q1", lambda: q1_over(conf, InMemoryScanExec(
+        conf, [batches], schema)), conf, n, n * (4 + 8 + 8 + 3))
 
 
 def profile_plan(torch, name, plan, conf, rows, nbytes, sort_kernels=()):
@@ -1839,12 +1821,11 @@ def probe_timed(torch, bw, bcount: int, pw, live, reps: int) -> dict:
     _check_probe(torch, [g[:sample] for g in got], exp,
                  f"{m} x {nb} vs plain (sample)")
 
-    # the bound counts what the probe needs: 4 bytes per u32 key word, the
-    # liveness byte and two int32s out per probe row, 8 bytes per build
-    # row (its packed u64 key). The wrapper's ABI moves each probe word
-    # as an int64 (8 bytes): bound_abi_ms counts that.
+    # the bound counts what the probe needs (JK.probe_ranges_bytes). The
+    # wrapper's ABI moves each probe word as an int64 (8 bytes):
+    # bound_abi_ms counts that.
     nw = len(pw)
-    nbytes = m * (4 * nw + 1 + 8) + 8 * nb
+    nbytes = JK.probe_ranges_bytes(m, nw, nb)
     nbytes_abi = m * (8 * nw + 1 + 8) + 8 * nb
     return {
         "max_abs_err": 0.0,
@@ -2330,7 +2311,7 @@ def udf_kernel_phase(torch, np, dev, batch, words, reps: int):
             offsets, chars), reps),
         "library_ms": None,
         "library": "none: no single torch call",
-        "bound_ms": bound_ms((live - start) + 8 * rows),
+        "bound_ms": bound_ms(int(UK.word_counts_bytes(offsets))),
         "bound_abi_ms": bound_ms(16 * chunks + 4 * (rows + 1) + 4 * rows),
     }
     emit({"kernel_shape": "word_counts", "rows": rows,
@@ -4586,7 +4567,7 @@ def dfa_kernel_phase(torch, np, dev, t, chars, reps: int) -> dict:
     mid = n // 2 + min(12345, n // 8)
     spans = ((0, n), (0, min(n, 1 << 20)), (mid, min(n, mid + (1 << 16))))
     live = int(t["offsets"][-1])
-    nbytes = live + 4 * (n + 1) + 2 * n
+    nbytes = int(RK.dfa_accept_rows_bytes(off))
     out = None
     for pat, pool, vld in [(Q22D_REGEX, chars, valid)] + [
             (p, var, vvalid) for p in DFA_PATTERNS]:
@@ -8464,6 +8445,509 @@ def io_phase(torch, np, dev, smi: str) -> dict:
     return per_query
 
 
+# ---------------------------------------------------------------------------
+# cost phase: the cost plane, donation and the kernel-library cache (item
+# 26.2) over Q1, Q2, Q6 and Q10
+# ---------------------------------------------------------------------------
+#: the hand kernels each rerun query launches (its own phase's counts)
+COST_KERNELS = {"Q1": ("bucket_sum", "bucket_float_sum"),
+                "Q2": ("bucket_sum", "bucket_winner"),
+                "Q6": ("probe_ranges", "bucket_sum"),
+                "Q10": ("word_counts", "bucket_sum")}
+#: the sites an aggregate harvests by the route it took (AGG_ROUTES)
+ROUTE_SITES = {"stage": ("agg_stage",), "plan": ("agg_plan",),
+               "update": ("agg_update", "agg_merge")}
+#: rows of Q1 in the kernel-library cache's fresh processes (Q1's own)
+CACHE_Q1_LOG2_ROWS = 26
+#: Q1's and Q6's fact rows in the cost phase (their phases' defaults)
+COST_Q1_LOG2_ROWS = 26
+COST_JOIN_LOG2_ROWS = 23
+
+
+def q1_inputs(np, torch, dev, log2_rows: int, nbatches: int = 4):
+    """Q1's table (``query_phase``'s, seeded alike) in ``nbatches``
+    device batches: (batches, schema, check(rows, what))."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import schema_of
+
+    n = 1 << log2_rows
+    rng = np.random.default_rng(42)
+    k = rng.integers(0, 64, n).astype(np.int32)
+    a = rng.integers(-(10**6), 10**6, n).astype(np.int64)
+    b = rng.normal(size=n)
+    b_null = rng.random(n) < 0.05
+    schema = schema_of(k=T.INT, a=T.LONG, b=T.DOUBLE)
+    ones = np.ones(n, bool)
+    batches = _batches(np, torch, schema, [k, a, np.where(b_null, 0.0, b)],
+                       [ones, ones, ~b_null], nbatches, dev)
+    m = a >= 0
+    mb = m & ~b_null
+    s_exp = np.bincount(k[m], weights=(2 * a[m]).astype(np.float64),
+                        minlength=64)
+    c_exp = np.bincount(k[mb], minlength=64)
+    bsum = np.bincount(k[mb], weights=b[mb], minlength=64)
+    babs = np.bincount(k[mb], weights=np.abs(b[mb]), minlength=64)
+    groups = set(np.unique(k[m]).tolist())
+
+    def check(rows, what):
+        got = {r[0]: r[1:] for r in rows}
+        if set(got) != groups:
+            raise AssertionError(f"{what}: group set differs from the "
+                                 "oracle")
+        for g, (s, mean, c) in got.items():
+            if s != int(s_exp[g]) or c != int(c_exp[g]) or not _close(
+                    mean, bsum[g] / c_exp[g], babs[g] / c_exp[g]):
+                raise AssertionError(f"{what} group {g}: {(s, mean, c)}")
+
+    return batches, schema, check
+
+
+def q1_over(conf, scan):
+    """Q1 over ``scan``: filter a >= 0, project a2 = a*2, group by k:
+    sum(a2), avg(b), count(b)."""
+    from spark_rapids_tpu_torch.exec import (TpuFilterExec,
+                                             TpuHashAggregateExec,
+                                             TpuProjectExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+
+    filt = TpuFilterExec(conf, E.GreaterThanOrEqual(col("a"), lit(0)), scan)
+    proj = TpuProjectExec(conf, [col("k"), E.Alias(
+        E.Multiply(col("a"), lit(2)), "a2"), col("b")], filt)
+    return TpuHashAggregateExec(conf, [col("k")], [
+        A.agg(A.Sum(col("a2")), "s"), A.agg(A.Average(col("b")), "m"),
+        A.agg(A.Count(col("b")), "c")], proj)
+
+
+def cache_child(cache_dir: str, log2_rows: int) -> None:
+    """One fresh process of the cost phase's cache check: Q1 as its first
+    query with the kernel-library cache in ``cache_dir``, then every other
+    library loaded; prints one JSON line (walls, compile misses, the
+    cache's stats, launches)."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import InMemoryScanExec
+    from spark_rapids_tpu_torch.ops import _cuda_build
+    from spark_rapids_tpu_torch.serve import program_cache
+
+    conf = RapidsConf(CACHE_CONF | {"spark.rapids.tpu.aotCache.dir":
+                                    cache_dir})
+    program_cache.install(conf)
+    dev = torch.device("cuda")
+    batches, schema, check = q1_inputs(np, torch, dev, log2_rows)
+    reset_launches()
+    rows, wall = _run(torch, q1_over(conf, InMemoryScanExec(
+        conf, [batches], schema)), conf)
+    counts = launches()
+    check(rows, "Q1 (cache child)")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_kernel_modules())) as pool:
+        list(pool.map(lambda mod: mod.build_kernels(), _kernel_modules()))
+    rows2, warm = _run(torch, q1_over(conf, InMemoryScanExec(
+        conf, [batches], schema)), conf)
+    check(rows2, "Q1 (cache child, warm)")
+    print(json.dumps({"cache_child": {
+        "first_query_wall_ms": wall, "warm_wall_ms": warm,
+        "other_libraries_s": time.perf_counter() - t0,
+        "compile_misses": _cuda_build.compile_miss_count(),
+        "nvcc": _cuda_build.compiler_version(),
+        "stats": program_cache.stats(),
+        "launches": {k: v for k, v in counts.items() if v}}}), flush=True)
+
+
+#: the conf of the cache check's processes (its fingerprint keys the
+#: entries, so the parent's truncation check uses the same)
+CACHE_CONF = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+
+
+def _cache_phase(torch, here: str, smi: str) -> dict:
+    """The kernel-library cache: a fresh process stores the 5 libraries
+    (running Q1 first), a second one with no ``nvcc`` (none on ``PATH``,
+    ``CUDA_HOME`` empty) runs Q1 on hits only, and a truncated entry is
+    poisoned and rebuilt."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.ops import udf_kernels as UK
+    from spark_rapids_tpu_torch.serve import program_cache
+
+    cache_dir = tempfile.mkdtemp(prefix="srt_aot_")
+    no_cuda = tempfile.mkdtemp(prefix="srt_nocuda_")
+    out = {}
+    try:
+        code = ("import sys, chip_smoke; chip_smoke.cache_child("
+                f"{cache_dir!r}, {CACHE_Q1_LOG2_ROWS})")
+        base_env = dict(os.environ, PYTHONPATH=here)
+        bare_path = os.pathsep.join(
+            d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc")))
+        for what, env in (("store", base_env),
+                          ("hit", dict(base_env, PATH=bare_path,
+                                       CUDA_HOME=no_cuda))):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-c", code], cwd=here,
+                                 env=env, capture_output=True, text=True,
+                                 timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"cache child ({what}) failed:\n"
+                                     f"{res.stdout[-2000:]}"
+                                     f"{res.stderr[-4000:]}")
+            line = [ln for ln in res.stdout.splitlines()
+                    if ln.startswith('{"cache_child"')][-1]
+            out[what] = json.loads(line)["cache_child"]
+            out[what]["process_s"] = time.perf_counter() - t0
+        st, hit = out["store"], out["hit"]
+        if st["stats"]["puts"] != 5 or st["compile_misses"] != 5:
+            raise AssertionError(f"cache store: {st}")
+        if (hit["compile_misses"] or hit["nvcc"] is not None
+                or hit["stats"]["hits"] != 5 or hit["stats"]["misses"]
+                or hit["stats"]["corrupt"]):
+            raise AssertionError(f"cache hit (no nvcc): {hit}")
+        if hit["launches"] != st["launches"]:
+            raise AssertionError(f"cache hit launches {hit['launches']} != "
+                                 f"{st['launches']}")
+        # a truncated entry: poisoned, then rebuilt from the source
+        pc = program_cache.ProgramCache(RapidsConf(
+            CACHE_CONF | {"spark.rapids.tpu.aotCache.dir": cache_dir}))
+        entry = os.path.join(cache_dir, pc.entry_name(pc.identity(
+            UK.SOURCE)))
+        size = os.path.getsize(entry)
+        with open(entry, "r+b") as f:
+            f.truncate(size // 2)
+        lib, saved = pc.load_library(UK.SOURCE, [], UK.SYMBOLS)
+        s = pc.stats.to_json()
+        rebuilt = pc._read_entry(entry)[0]  # whole again
+        if (saved is not None or s["corrupt"] != 1 or s["puts"] != 1
+                or not rebuilt["blob_len"]):
+            raise AssertionError(f"truncated entry: {s}, saved {saved}")
+        out["truncated"] = {"entry_bytes": size, "stats": s}
+        emit({"cost": "kernel_library_cache", "card": smi,
+              "store_first_query_wall_ms": st["first_query_wall_ms"],
+              "hit_first_query_wall_ms": hit["first_query_wall_ms"],
+              "store_warm_wall_ms": st["warm_wall_ms"],
+              "hit_warm_wall_ms": hit["warm_wall_ms"],
+              "store_other_libraries_s": st["other_libraries_s"],
+              "hit_other_libraries_s": hit["other_libraries_s"],
+              "store_process_s": st["process_s"],
+              "hit_process_s": hit["process_s"],
+              "store_stats": st["stats"], "hit_stats": hit["stats"],
+              "hit_nvcc": hit["nvcc"], "truncated": out["truncated"]})
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        shutil.rmtree(no_cuda, ignore_errors=True)
+    return out
+
+
+def _donation_runs(torch, np, dev, smi: str, q1, bench) -> dict:
+    """Q1 and Q6 over host-resident scans, donation on (the witness on)
+    and off: rows equal, donated bytes at the aggregate's update and at
+    the join, each run's wall and peak device memory; then a read of a
+    donated plane raises ``TpuDonationViolation``."""
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuHashAggregateExec,
+                                             TpuShuffledHashJoinExec)
+    from spark_rapids_tpu_torch.exec.base import vals_of_batch
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr.expressions import col
+    from spark_rapids_tpu_torch.plugin import donation
+
+    host = {"spark.rapids.tpu.sql.inMemoryScan.hostResident": True}
+    off = {"spark.rapids.tpu.sql.donation.enabled": False}
+    batches, schema, check = q1
+    fact, dim, want6, fs, ds = bench
+    q1_scan = InMemoryScanExec(RapidsConf(host), [batches], schema)
+    f_scan = InMemoryScanExec(RapidsConf(host), [fact], fs)
+    d_scan = InMemoryScanExec(RapidsConf(host), [dim], ds)
+
+    def q1_of(c):
+        return q1_over(RapidsConf(CACHE_CONF | c), q1_scan)
+
+    def q6_of(c):
+        conf = RapidsConf({"spark.rapids.tpu.sql.join.strategy": "PALLAS",
+                           **c})
+        join = TpuShuffledHashJoinExec(conf, f_scan, d_scan, [col("fk")],
+                                       [col("dk")], "inner")
+        return TpuHashAggregateExec(conf, [col("fv")], [
+            A.agg(A.Sum(col("dv")), "s"), A.agg(A.Count(None), "c")], join)
+
+    def checked6(rows, what):
+        if sorted(rows) != want6:
+            raise AssertionError(f"{what}: rows differ from the oracle")
+
+    res = {}
+    for q, plan_of, chk in (("Q1", q1_of, check), ("Q6", q6_of, checked6)):
+        _run(torch, plan_of(off), RapidsConf(off))  # the host pull, once
+        got = {}
+        for mode in ("off", "on", "on", "off"):
+            c = off if mode == "off" else {}
+            if mode == "on":
+                donation.install_witness()
+            snap = donation.snapshot_counters()
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            try:
+                rows, wall = _run(torch, plan_of(c), RapidsConf(c))
+            finally:
+                donation.uninstall_witness()
+            chk(rows, f"{q}-donate-{mode}")
+            donated = donation.counters_since(snap)
+            run = {"wall_ms": wall,
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "base_bytes": base, "donated": donated,
+                   "launches": {k: v for k, v in launches().items() if v}}
+            got.setdefault(mode, []).append((sorted(rows), run))
+        a, b = got["on"][0][0], got["off"][0][0]
+        if len(a) != len(b) or any(
+                x[:1] != y[:1] or any(
+                    (u != v) if isinstance(u, int) or u is None else
+                    not _close(u, v, abs(v)) for u, v in zip(x[1:], y[1:]))
+                for x, y in zip(a, b)):
+            raise AssertionError(f"{q}: donation-on rows != donation-off")
+        for _, run in got["on"]:
+            # the aggregate's update (streaming or the fused plan) and,
+            # in Q6, the join's probe
+            d = run["donated"]
+            if (d.get("agg_update", 0) + d.get("agg_plan", 0) <= 0
+                    or q == "Q6" and d.get("join", 0) <= 0):
+                raise AssertionError(f"{q}: donated {d}")
+        for _, run in got["off"]:
+            if run["donated"]:
+                raise AssertionError(f"{q}: donated with donation off: "
+                                     f"{run['donated']}")
+        if got["on"][0][1]["launches"] != got["off"][0][1]["launches"]:
+            raise AssertionError(f"{q}: launches differ on/off")
+        res[q] = {m: [r for _, r in runs] for m, runs in got.items()}
+        emit({"cost": "donation", "query": q, "card": smi,
+              "on": res[q]["on"], "off": res[q]["off"]})
+    # a read of a donated plane, under the witness
+    conf = RapidsConf(host)
+    b = next(InMemoryScanExec(conf, [batches[:1]], schema)
+             .execute_partition(0))
+    donation.install_witness()
+    try:
+        with donation.guard("agg_update", b, op="chip_smoke", conf=conf):
+            pass
+        try:
+            vals_of_batch(b)
+        except donation.TpuDonationViolation as e:
+            res["violation"] = str(e)
+        else:
+            raise AssertionError("a donated plane was read without "
+                                 "TpuDonationViolation")
+    finally:
+        donation.uninstall_witness()
+    emit({"cost": "donation_violation", "raised": res["violation"]})
+    return res
+
+
+def cost_phase(torch, np, dev, smi: str, per_query: dict, kres: dict,
+               wc_batches) -> dict:
+    """Q1, Q2, Q6 and Q10 at their phases' full widths with the event log,
+    the live plane and the device lane on: each query's launches equal its
+    own phase's; each (site, digest) harvested once (one ``program_cost``
+    and its ``hlo_summary`` twin); each hand kernel on a path in its
+    site's top rows with a profiler ``device_ms`` above 0 (printed beside
+    the kernel phase's ``ms``); a rerun harvests nothing;
+    ``tools/tpu_profile.py`` over the log prints its ``== roofline ==``
+    and ``== hlo ==`` sections naming the sites. Then donation
+    (:func:`_donation_runs`) and the kernel-library cache
+    (:func:`_cache_phase`)."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_tpu_torch import events, kernel_cost, obs
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import (InMemoryScanExec,
+                                             TpuHashAggregateExec,
+                                             TpuProjectExec)
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import expressions as E
+    from spark_rapids_tpu_torch.expr.expressions import col
+    from spark_rapids_tpu_torch.udf import string_word_count
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = tempfile.mkdtemp(prefix="srt_cost_")
+    on = {"spark.rapids.tpu.eventLog.dir": logs,
+          "spark.rapids.tpu.metrics.live.enabled": True,
+          "spark.rapids.tpu.metrics.deviceSync.enabled": True}
+    conf1 = RapidsConf(CACHE_CONF | on)
+    conf2 = RapidsConf(on)
+    q1 = q1_inputs(np, torch, dev, COST_Q1_LOG2_ROWS)
+    batches, schema, check1 = q1
+    fact, dim, want6, bench_plan = bench_join(
+        torch, np, dev, 1 << COST_JOIN_LOG2_ROWS, DIM_ROWS)
+    wb, schema10, k10, words, valid10 = wc_batches
+    sw = np.bincount(k10, weights=np.where(valid10, words, 0), minlength=64)
+    cw = np.bincount(k10[valid10], minlength=64)
+    c10 = np.bincount(k10, minlength=64)
+    want10 = [(g, int(sw[g]), int(cw[g]), int(c10[g])) for g in range(64)
+              if c10[g]]
+
+    def q2_plan(conf):
+        return TpuHashAggregateExec(conf, [col("k")], [
+            A.agg(A.Min(col("b")), "mn"), A.agg(A.Max(col("a")), "mx"),
+            A.agg(A.First(col("a")), "f"), A.agg(A.Last(col("b")), "l")],
+            InMemoryScanExec(conf, [batches], schema))
+
+    def q10_plan(conf):
+        proj = TpuProjectExec(conf, [col("k"), E.Alias(
+            string_word_count(col("s")), "wc")],
+            InMemoryScanExec(conf, [wb], schema10))
+        return TpuHashAggregateExec(conf, [col("k")], [
+            A.agg(A.Sum(col("wc")), "sw"), A.agg(A.Count(col("wc")), "cw"),
+            A.agg(A.Count(None), "c")], proj)
+
+    conf6 = RapidsConf({"spark.rapids.tpu.sql.join.strategy": "PALLAS",
+                        **on})
+    queries = (
+        ("Q1", lambda: q1_over(conf1, InMemoryScanExec(conf1, [batches],
+                                                       schema)), conf1,
+         lambda rows: check1(rows, "Q1-cost")),
+        ("Q2", lambda: q2_plan(conf2), conf2, same_rows("Q2-cost")),
+        ("Q6", lambda: bench_plan(conf6)[1], conf6,
+         lambda rows: sorted(rows) == want6 or _fail("Q6-cost: rows")),
+        ("Q10", lambda: q10_plan(conf2), conf2,
+         lambda rows: sorted(rows) == want10 or _fail("Q10-cost: rows")))
+    logger = events.EventLogger(conf1)
+    events.install(logger)
+    obs.ensure_started(conf1)
+    kernel_cost.reset_seen()
+    out = {"queries": {}}
+    all_sites = set()
+    try:
+        t_phase = time.perf_counter()
+        for q, plan, conf, chk in queries:
+            seq = kernel_cost.snapshot()
+            reset_launches()
+            rows, wall = _run(torch, plan(), conf)
+            counts = launches()
+            chk(rows)
+            want = {k: v for k, v in per_query[q].items() if v}
+            if {k: v for k, v in counts.items() if v} != want:
+                raise AssertionError(f"{q}-cost: launches {counts} != its "
+                                     f"phase's {want}")
+            recs = [r for r in kernel_cost.records_since(seq)
+                    if "device_ms" in r]
+            sums = kernel_cost.summaries_since(seq)
+            keys = [(r["site"], r["digest"]) for r in recs]
+            if len(keys) != len(set(keys)) or sorted(keys) != sorted(
+                    (s["site"], s["digest"]) for s in sums):
+                raise AssertionError(f"{q}-cost: program_cost {keys} vs "
+                                     "hlo_summary twins")
+            sites = {s for s, _ in keys}
+            need = {s for r in counts.agg_route for s in ROUTE_SITES[r]}
+            need |= {"join"} if q == "Q6" else set()
+            if not need <= sites:
+                raise AssertionError(f"{q}-cost: sites {sites}, need "
+                                     f"{need} (routes {counts.agg_route})")
+            all_sites |= sites
+            found = {}
+            for s in sums:
+                for row in s["top_fusions"]:
+                    if row["op"].startswith("srt::"):
+                        name = row["op"][len("srt::"):]
+                        if row["device_ms"] > found.get(name, (0, ""))[0]:
+                            found[name] = (row["device_ms"], s["site"])
+            for name in COST_KERNELS[q]:
+                if dev.type == "cuda" and found.get(name, (0,))[0] <= 0:
+                    raise AssertionError(
+                        f"{q}-cost: {name} not in a site's top rows with "
+                        f"device time ({found}); summaries: " + json.dumps(
+                            [(s["site"], s["instructions"], s["coverage"],
+                              [(x["op"], x["bytes"], x["device_ms"])
+                               for x in s["top_fusions"]])
+                             for s in sums])[:4000])
+                if name in found:
+                    emit({"cost": "kernel_device_ms", "query": q,
+                          "kernel": name, "site": found[name][1],
+                          "profiler_device_ms": found[name][0],
+                          "kernel_phase_ms": kres.get((name, 128), {})
+                          .get("ms"), "card": smi})
+            # a rerun in the same process harvests nothing
+            seq2 = kernel_cost.snapshot()
+            reset_launches()
+            rows2, warm = _run(torch, plan(), conf)
+            chk(rows2)
+            if kernel_cost.records_since(seq2):
+                raise AssertionError(f"{q}-cost: the rerun harvested "
+                                     f"{kernel_cost.records_since(seq2)}")
+            out["queries"][q] = {
+                "harvested_wall_ms": wall, "warm_wall_ms": warm,
+                "programs": [{k: r.get(k) for k in (
+                    "site", "digest", "trace_ms", "compile_ms", "device_ms",
+                    "bytes_accessed", "argument_bytes", "output_bytes",
+                    "temp_bytes", "alias_bytes", "flops")} for r in recs],
+                "summaries": [{"site": s["site"], "coverage": s["coverage"],
+                               "accounted_frac": s["accounted_frac"],
+                               "scatter_count": s["scatter_count"],
+                               "top": [(x["name"], x["class"], x["bytes"],
+                                        x["device_ms"])
+                                       for x in s["top_fusions"]]}
+                              for s in sums]}
+            emit({"cost": "query", "query": q, "card": smi,
+                  **out["queries"][q], "launches": counts})
+        out["harvest_s"] = time.perf_counter() - t_phase
+    finally:
+        events.uninstall()
+        logger.close()
+        obs.shutdown()
+    # the profile tool over the phase's log: its sections, not its exit
+    # code (its forecast-vs-actual lines read a library build as a
+    # program compile miss)
+    res = subprocess.run([sys.executable, os.path.join(here, "tools",
+                                                       "tpu_profile.py"),
+                          logs], capture_output=True, text=True,
+                         timeout=300)
+    text = res.stdout
+    shutil.rmtree(logs, ignore_errors=True)
+    roof = text.split("== roofline ==", 1)[1].split("\n==", 1)[0] \
+        if "== roofline ==" in text else ""
+    hlo = text.split("== hlo ==", 1)[1].split("\n==", 1)[0] \
+        if "== hlo ==" in text else ""
+    for name, sec in (("roofline", roof), ("hlo", hlo)):
+        missing = [s for s in all_sites if f"site={s} " not in sec]
+        if not sec or missing:
+            raise AssertionError(f"tpu_profile == {name} ==: sites "
+                                 f"{missing} missing:\n{text[-3000:]}")
+    named = sorted(k for q in COST_KERNELS.values() for k in q
+                   if k in hlo)
+    emit({"cost": "tpu_profile", "rc": res.returncode,
+          "roofline": roof.strip().splitlines(),
+          "hlo": hlo.strip().splitlines(), "hand_kernels_named": named})
+    out["donation"] = _donation_runs(
+        torch, np, dev, smi, q1, (fact, dim, want6,
+                                  fact[0].schema, dim[0].schema))
+    del q1, batches, fact, dim
+    torch.cuda.empty_cache()
+    out["cache"] = _cache_phase(torch, here, smi)
+    return {}
+
+
+def _fail(what: str):
+    raise AssertionError(what)
+
+
+def same_rows(what: str):
+    """A check that keeps the first rows it is given and holds every
+    later call to them exactly (a query with no float sum)."""
+    first = []
+
+    def check(rows):
+        if not first:
+            first.append(sorted(rows))
+        elif sorted(rows) != first[0]:
+            raise AssertionError(f"{what}: a rerun's rows differ")
+    return check
+
+
 def _decode_threads() -> int:
     from spark_rapids_tpu_torch.io import parquet_device as PD
 
@@ -8655,6 +9139,9 @@ def main() -> int:
     lap("serve")
     per_query.update(io_phase(torch, np, dev, smi))
     lap("io")
+    per_query.update(cost_phase(torch, np, dev, smi, per_query, kres,
+                                wc_batches))
+    lap("cost")
     if QUERY_ROUTES["numpy"] or not QUERY_ROUTES["native"]:
         raise AssertionError(f"hybrid streams by route: {QUERY_ROUTES}")
     emit({"native_decode": {"query_streams": QUERY_ROUTES,

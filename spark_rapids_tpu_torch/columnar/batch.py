@@ -27,12 +27,15 @@ from .column import (
 
 
 class ColumnarBatch:
-    __slots__ = ("columns", "schema", "_num_rows", "_capacity")
+    __slots__ = ("columns", "schema", "_num_rows", "_capacity", "exclusive")
 
     def __init__(self, columns: Sequence[DeviceColumn], schema: StructType,
                  num_rows=None, capacity: Optional[int] = None):
         self.columns: List[DeviceColumn] = list(columns)
         self.schema = schema
+        #: set by a producer whose planes nobody else holds
+        #: (``plugin/donation.mark_exclusive``), cleared by a retainer
+        self.exclusive = False
         if num_rows is None:
             num_rows = int(columns[0].length) if columns else 0
         self._num_rows = num_rows

@@ -3,14 +3,13 @@
 Counterpart of ``spark_rapids_tpu/conf.py``: the same keys, defaults, doc
 strings and validation, so one conf dict drives both packages, and the
 generated ``docs/torch/configs.md`` (``plugin/docgen.py``) lists the
-reference's rows; only the four descriptions that name JAX APIs
+reference's rows; only the seven descriptions that name JAX APIs
 (``mesh.devices``, ``sql.agg.strategy``, ``sql.join.strategy``,
-``sql.trace.enabled``) are the port's own. Where the port does the work
-another way, the entry's ``port_note`` says how; the generated doc lists
-those notes under the table. Unknown ``spark.rapids.tpu.*`` keys are rejected, as in the
-reference. The reference's keys of its XLA program plane (the AOT
-program cache, HLO summaries, buffer donation and its tools) are not
-registered: ROADMAP.md, item 26.2.
+``sql.trace.enabled`` and the three ``aotCache.*`` keys) are the port's
+own. Where the port does the work another way, the entry's
+``port_note`` says how; the generated doc lists those notes under the
+table. Unknown ``spark.rapids.tpu.*`` keys are rejected, as in the
+reference. Every key the reference registers is registered here.
 """
 from __future__ import annotations
 
@@ -543,6 +542,69 @@ RACECHECK_WITNESS_ENABLED = conf(
               "key on installs it.")
 
 
+DONATION_ENABLED = conf(
+    "spark.rapids.tpu.sql.donation.enabled", True,
+    "Donate dead-after-dispatch input planes to XLA (donate_argnums) at "
+    "the compile sites the donation-safety analyzer certifies "
+    "(tools/tpu_donate.py; plugin/donation.py holds the per-site "
+    "certification table). A donated plane's HBM is reused for the "
+    "program's outputs/temps, cutting peak temp bytes; soundness comes "
+    "from the batch-exclusivity protocol — only batches explicitly "
+    "marked exclusive by their producer ever donate, so scan-cache / "
+    "catalog / spill-held planes are never aliased away. Disable to "
+    "force copy-semantics dispatch everywhere (the donation "
+    "differential tests diff the two bit-for-bit).",
+    port_note="At the certified sites of plugin/donation.py, release an "
+              "exclusive input batch's plane storages once the site's last "
+              "read of them is enqueued, so the caching allocator reuses "
+              "them for the site's outputs and temporaries. A storage any "
+              "other tensor still holds is never released.")
+DONATION_RETRY_SNAPSHOT = conf(
+    "spark.rapids.tpu.sql.donation.retrySnapshot.enabled", True,
+    "At donating sites under with_oom_retry, snapshot donated planes to "
+    "host before dispatch and restore them on failure, so split-and-"
+    "retry can re-read the input batch it re-dispatches (memory/"
+    "retry.py's contract). Disabling switches those sites to exclusion "
+    "mode — retry-covered args are simply not donated — trading the "
+    "snapshot's host round-trip for the lost donation win.")
+DONATION_WITNESS_ENABLED = conf(
+    "spark.rapids.tpu.tools.donation.witness.enabled", False,
+    "Install the runtime donation witness: after every donating "
+    "dispatch, assert at least one donated buffer was actually deleted "
+    "by JAX (the backend may decline INDIVIDUAL aliases — a validity "
+    "plane matching no output — but a mask with NO effect means the "
+    "certification named an argnum the program never aliased) and "
+    "convert any "
+    "use-after-donation 'Array has been deleted' error into a typed, "
+    "op-attributed TpuDonationViolation naming the site and plane. Off "
+    "by default — a dispatch then costs one module-global read (the "
+    "event-log zero-overhead contract). The SRTPU_DONATION_WITNESS=1 "
+    "environment variable turns it on at import for subprocess/CI runs.",
+    port_note="After every donating dispatch, require that at least one "
+              "plane storage was released, and raise TpuDonationViolation, "
+              "naming the donating site and op, when a later read reaches "
+              "a released plane.")
+DONATE_ALLOWLIST_PATH = conf(
+    "spark.rapids.tpu.tools.donate.allowlistPath",
+    "tools/tpu_donate_allow.txt",
+    "Path (relative to the repo root) of the donation-safety analyzer's "
+    "allowlist file — the documented deliberate exceptions "
+    "tools/tpu_donate.py accepts (one 'path::qualname::RULE  # why' per "
+    "line). Read by the donation TOOL at startup (override per run with "
+    "--allowlist=); not a per-session runtime setting.",
+    port_note="Registered for parity: the port has no static donation "
+              "analyzer, so nothing reads it.")
+SCAN_HOST_RESIDENT = conf(
+    "spark.rapids.tpu.sql.inMemoryScan.hostResident", False,
+    "Keep InMemoryScanExec partitions host-resident and upload fresh "
+    "device planes on every execute (the faithful Spark .cache() "
+    "semantics: the cached representation survives the query). Fresh "
+    "uploads are exclusive to the executing query, so downstream "
+    "certified sites can donate them; the default device-resident mode "
+    "retains device batches across executes (zero re-upload cost) and "
+    "therefore never donates scan planes.")
+
+
 JOIN_PALLAS_PROBE = conf(
     "spark.rapids.tpu.sql.join.pallasProbe.enabled", False,
     "Legacy toggle (pre-round-14): lower single-fixed-width-key "
@@ -607,14 +669,22 @@ ROOFLINE_PEAK_TFLOPS = conf(
     "bucket_reduce matmuls run on the MXU), a nominal 1 TFLOP/s on "
     "the CPU fallback backend.",
     check=_non_negative,
-    port_note="Peak compute throughput (TFLOP/s). Kept for parity with the "
-              "reference's conf keys; no chooser of the port reads it yet.")
+    port_note="Peak compute throughput (TFLOP/s) of the cost plane's "
+              "roofline (kernel_cost.py). 0.0 (the default) picks a "
+              "per-device peak (:data:`DEVICE_PEAK_TFLOPS`).")
 
 #: per-device-type peak device-memory GB/s when peakHbmGBps is 0.0.
 #: "cuda" is one NVIDIA H100 SXM at its 700 W limit, from NVIDIA's H100
 #: data sheet: 3.35 TB/s of HBM3. "cpu" is the reference's nominal figure
 #: for its CPU backend, kept so the CPU chooser prices the same way.
 DEVICE_PEAKS: Dict[str, float] = {"cuda": 3350.0, "cpu": 100.0}
+#: per-device-type peak TFLOP/s when peakTflops is 0.0, the roofline's
+#: compute ceiling. "cuda" is the same NVIDIA H100 SXM data sheet at 700
+#: W: 67 TFLOP/s of float32 on the CUDA cores, outside the tensor cores
+#: (the engine runs no tensor-core type; its int64 and f64 work runs
+#: slower, so a compute share against this figure is a lower bound).
+#: "cpu" is the reference's nominal figure for its CPU backend.
+DEVICE_PEAK_TFLOPS: Dict[str, float] = {"cuda": 67.0, "cpu": 1.0}
 
 
 def roofline_peak_bps(rconf: "RapidsConf", device_type: str) -> float:
@@ -718,11 +788,7 @@ FAULTS_ENABLED = conf(
     "channel confs test.faults.oom/transfer/fetch/compile). Off — the "
     "default — keeps every injection site a single module-global "
     "boolean read. Setting any channel spec implies this key.",
-    internal=True,
-    port_note="Install the deterministic fault injector (chaos testing; see "
-              "the channel confs test.faults.oom/transfer/fetch). Off, the "
-              "default, keeps every injection site a single module-global "
-              "boolean read. Setting any channel spec implies this key.")
+    internal=True)
 FAULTS_SEED = conf(
     "spark.rapids.tpu.test.faults.seed", 0,
     "Seed for the '?K' spec form: the firing arrival is derived "
@@ -750,6 +816,26 @@ FAULTS_FETCH = conf(
     "injected error is a ConnectionError, so the client's backoff retry "
     "path handles it like a real peer reset.",
     internal=True)
+FAULTS_COMPILE = conf(
+    "spark.rapids.tpu.test.faults.compile", "",
+    "Pipeline-cache build failure specs (sites are compile-cache site "
+    "names, e.g. 'fused_chain', 'agg_plan').", internal=True,
+    port_note="Kernel-library build failure specs: sites are the "
+              "libraries' stems (e.g. 'groupby_kernels'), checked just "
+              "before nvcc runs.")
+FAULTS_AOTCACHE = conf(
+    "spark.rapids.tpu.test.faults.aotcache", "",
+    "Persistent AOT program-cache I/O failure specs "
+    "(serve/program_cache.py): sites are 'read:<compile-site>' / "
+    "'write:<compile-site>' (fnmatch, so 'read:*' corrupts every "
+    "lookup). A read fault is handled as a corrupt entry (deleted, "
+    "plain compile fallback); a write fault skips the store — either "
+    "way the query must succeed, which is exactly what the chaos CI "
+    "job asserts.", internal=True,
+    port_note="Kernel-library cache I/O failure specs: sites are "
+              "'read:<stem>' / 'write:<stem>'. A read fault poisons the "
+              "entry and rebuilds the library from its source; a write "
+              "fault skips the store.")
 LEDGER_ENABLED = conf(
     "spark.rapids.tpu.memory.ledger.enabled", True,
     "Per-buffer HBM ledger (owner attribution, lifecycle events, leak "
@@ -798,9 +884,9 @@ ANALYSIS_STORM_THRESHOLD = conf(
     port_note="Warn in explain() when the analyzer forecasts at least this "
               "many distinct compile signatures for ONE pipeline cache site — "
               "the static recompile-storm detector (the profiler's cache-miss "
-              "footer reports the same storms after the fact). The port "
-              "compiles no programs; the watchdog's recompile-storm rule "
-              "reads the count.")
+              "footer reports the same storms after the fact). The port's "
+              "compile misses are its kernel-library builds; the "
+              "watchdog's recompile-storm rule reads the count.")
 EVENT_LOG_ENABLED = conf(
     "spark.rapids.tpu.eventLog.enabled", False,
     "Enable the structured query event log (typed JSONL events covering "
@@ -836,6 +922,48 @@ EVENT_LOG_FLIGHT_RECORDER = conf(
     "post-hoc diagnosis of a misbehaving run without the volume of full "
     "logging. Requires the watchdog (spark.rapids.tpu.watchdog.enabled) "
     "for the trigger; TpuSession.export_trace() still reads the ring.")
+# ---------------------------------------------------------------------------
+# The cost plane (kernel_cost.py, kernel_summary.py) and the persistent
+# kernel-library cache (serve/program_cache.py); reference ``hlo.py:58``
+# and ``serve/program_cache.py:71-98``
+# ---------------------------------------------------------------------------
+HLO_TOP_K = conf(
+    "spark.rapids.tpu.hlo.topK", 5,
+    "Fusions/instructions reported per compiled program in the "
+    "hlo_summary event's top-fusions list (ranked by attributed bytes). "
+    "The full per-instruction table is never logged — only the top-K "
+    "plus the scatter count, largest-output producer, and parse "
+    "coverage.",
+    check=lambda v: None if v >= 1 else "must be >= 1",
+    port_note="Rows reported per harvested call in the hlo_summary "
+              "event's top list, ranked by attributed bytes: top-level "
+              "torch ops and hand kernels (kernel_summary.py); a hand "
+              "kernel's row is kept even below the K-th.")
+AOT_CACHE_ENABLED = conf(
+    "spark.rapids.tpu.aotCache.enabled", False,
+    "Enable the persistent kernel-library cache: each CUDA kernel "
+    "library the engine builds (one per csrc/*.cu source) is stored in "
+    "aotCache.dir as one entry named by its identity (source digest, "
+    "nvcc flags and version, torch and CUDA versions, device name and "
+    "compute capability, conf fingerprint), and a later process loads "
+    "it from there without running nvcc. Setting aotCache.dir implies "
+    "this key. Off by default: the libraries stay in the package's "
+    "build directory and the off path touches no cache directory.")
+AOT_CACHE_DIR = conf(
+    "spark.rapids.tpu.aotCache.dir", "",
+    "Directory of the persistent kernel-library cache (one "
+    "<digest>.aot entry per library: a JSON header, then the "
+    "library's bytes). Setting a directory turns the cache on; with "
+    "aotCache.enabled true and no directory, entries land under "
+    "~/.cache/spark-rapids-tpu/aot. Share a directory only between "
+    "processes on identical hardware and toolchains (mismatches key "
+    "apart, so they are safe, but never hit).")
+AOT_CACHE_MAX_BYTES = conf(
+    "spark.rapids.tpu.aotCache.maxBytes", 1 << 30,
+    "Size cap for the kernel-library cache directory. After each store "
+    "the directory is scanned and least-recently-USED entries (hits "
+    "bump an entry's mtime) are evicted until under the cap.",
+    check=lambda v: None if v > 0 else "must be positive")
 LIVE_METRICS_ENABLED = conf(
     "spark.rapids.tpu.metrics.live.enabled", False,
     "Install the process-global live metrics registry (obs/): per-op "

@@ -9,10 +9,12 @@ host and device lanes, host-link transfers, spills, the buffer ledger,
 shuffle traffic, scan-cache activity, the strategy picks — is emitted as
 ONE typed JSON object with a monotonic timestamp.
 
-``EVENT_TYPES`` also declares families nothing in the port emits
-(``compile_miss``, ``program_cost``, ``hlo_summary``, ``program_cache``,
-``donation``: eager PyTorch compiles no programs): the schema is shared,
-and ROADMAP.md says which item brings each. The session emits
+The families of the reference's program plane have the port's own
+emitters: ``compile_miss`` a kernel-library build
+(``ops/_cuda_build.py``), ``program_cost`` and ``hlo_summary`` the cost
+plane's harvests (``kernel_cost.py``, ``kernel_summary.py``),
+``program_cache`` the kernel-library cache (``serve/program_cache.py``)
+and ``donation`` a donating site (``plugin/donation.py``). The session emits
 ``plan_analysis`` (``plugin/plananalysis.py``), the serving scheduler
 ``admission`` and ``queue`` (``serve/scheduler.py``). The mesh stages
 (``exec/mesh.py``) stamp their per-shard ``transfer`` and device-lane

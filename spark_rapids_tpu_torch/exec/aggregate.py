@@ -35,10 +35,12 @@ partition's input batches and updates each; both then concatenate the
 partials padded at capacity, merge them and (not PARTIAL) apply the
 result projection, all in one Python call. They run as eager torch calls
 with the same kernels as the streaming path: there is no compiled
-program, so the reference's program cache (``cached_pipeline``, its
-compile-miss counts) and its buffer donation (``_donation``,
-``mark_exclusive``) have no counterpart, and the port syncs inside them
-only where its tiers already do (``PERF.md`` §3). The plan analyzer
+program, and the port syncs inside them only where its tiers already do
+(``PERF.md`` §3). The reference's compile sites are ``site_call``s here
+(``exec/base.py``): ``agg_update`` (one batch's update, which donates an
+exclusive input: ``plugin/donation.py``), ``agg_plan`` (the fused plan,
+donating its buffered batches once it succeeded), ``agg_stage`` and
+``agg_merge``, each harvested by the cost plane (``kernel_cost.py``). The plan analyzer
 (``plugin/plananalysis.py``) reports the ``fusedPlan``/``stageFusion``
 lines from these same gates. The strategy pick emits ``agg_strategy`` and its live twin
 (:meth:`TpuHashAggregateExec.resolved_strategy`). The route a partition took
@@ -69,7 +71,7 @@ from ..memory.retry import with_oom_retry, with_oom_retry_nosplit
 from ..plugin.plananalysis import entry_nonnull_flags
 from ..types import StructField, StructType
 from .base import (TpuExec, batch_bytes, batch_from_vals, concat_batches,
-                   vals_of_batch)
+                   site_call, vals_of_batch)
 
 #: the reference's CPU rule: AUTO picks RADIX at or above this capacity
 _RADIX_CPU_MIN_CAP = 1 << 21
@@ -265,6 +267,13 @@ class TpuHashAggregateExec(TpuExec):
             strat += ")"
         return (f"TpuHashAggregateExec(mode={self.mode}, keys=[{keys}], "
                 f"aggs=[{aggs}]{strat})")
+
+    def program_signature(self) -> str:
+        """:meth:`describe` without the strategy and routes a run chose."""
+        keys = ", ".join(str(k) for k in self.group_exprs)
+        aggs = ", ".join(a.resolved_name() for a in self.agg_exprs)
+        return (f"TpuHashAggregateExec(mode={self.mode}, keys=[{keys}], "
+                f"aggs=[{aggs}])")
 
     def resolved_strategy(self, cap: int, device) -> Optional[str]:
         """Resolve (and memoize per capacity bucket) the aggregation tier.
@@ -563,8 +572,14 @@ class TpuHashAggregateExec(TpuExec):
             stage = source.fused_stage_plans(index)
             if stage:
                 with self.op_timed("stage"):
-                    out = self._run_fused_stage(stage, chain,
-                                                source.output_schema)
+                    out = site_call(
+                        self, "agg_stage", [],
+                        lambda: self._run_fused_stage(
+                            stage, chain, source.output_schema),
+                        key=lambda: (tuple(cap for _, cap, _ in stage),
+                                     self.resolved_strategy(
+                                         max(cap for _, cap, _ in stage),
+                                         self.device)))
                 yield self.record_batch(out)
                 return
         partials: List[ColumnarBatch] = []
@@ -572,10 +587,14 @@ class TpuHashAggregateExec(TpuExec):
         src_nonnull = entry_nonnull_flags(source.output_schema, self.conf)
 
         def update(piece):
-            return self._run_batch(
-                piece, self._update_ops, self._update_exprs,
-                self._bound_keys, chain, routes=self._update_routes,
-                nonnull=src_nonnull)
+            return site_call(
+                self, "agg_update", piece, lambda: self._run_batch(
+                    piece, self._update_ops, self._update_exprs,
+                    self._bound_keys, chain, routes=self._update_routes,
+                    nonnull=src_nonnull),
+                key=lambda: (self.resolved_strategy(piece.capacity,
+                                                    self.device),),
+                donate=True)
 
         def update_with_retry(b):
             # the update under the OOM harness (reference
@@ -624,7 +643,14 @@ class TpuHashAggregateExec(TpuExec):
                         # (reference aggregate.py:1043-1052)
                         _faults.check("oom", self.node_name,
                                       cap=max(b.capacity for b in batches))
-                    out = self._run_fused_plan(batches, chain, src_nonnull)
+                    out = site_call(
+                        self, "agg_plan", batches,
+                        lambda: self._run_fused_plan(batches, chain,
+                                                     src_nonnull),
+                        key=lambda: (self.resolved_strategy(
+                            max(b.capacity for b in batches),
+                            self.device),),
+                        donate=True)
             except Exception as e:  # noqa: BLE001 - filtered below
                 if not is_device_oom(e) \
                         or not self.conf.get(OOM_RETRY_ENABLED):
@@ -654,8 +680,9 @@ class TpuHashAggregateExec(TpuExec):
         with self.op_timed("merge"):
             # the merge reads compacted partials (group-sized): retried,
             # not split (reference ``aggregate.py:1083``)
-            out = with_oom_retry_nosplit(self.node_name + ".merge",
-                                         lambda: self._result(
-                                             self._merge(partials)),
-                                         self.conf)
+            out = with_oom_retry_nosplit(
+                self.node_name + ".merge",
+                lambda: site_call(self, "agg_merge", partials,
+                                  lambda: self._result(self._merge(partials))),
+                self.conf)
         yield self.record_batch(out)

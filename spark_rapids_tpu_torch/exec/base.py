@@ -4,8 +4,11 @@ Counterpart of ``spark_rapids_tpu/exec/base.py``. An exec exposes
 ``num_partitions`` and ``execute_partition(i)``; fusable execs
 (project, filter, a join on its fused fast path) implement ``lower_batch``
 and run as one eager chain of torch calls per batch
-(:func:`run_fused_chain`). PyTorch runs eagerly, so there is no ``jit``, no
-``cached_pipeline`` and no buffer donation.
+(:func:`run_fused_chain`). PyTorch runs eagerly, so there is no ``jit`` and
+no ``cached_pipeline``: the reference's compile sites are the places that
+call :func:`site_call`, where the cost plane harvests a site's first call
+per signature (``kernel_cost.py``) and a certified site donates an
+exclusive input batch (``plugin/donation.py``).
 
 Every exec times its hot sections with :meth:`TpuExec.op_timed` (the host
 lane: ``totalTime``, an ``op_span`` event, the live open-span table and
@@ -26,6 +29,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import torch
 
 from .. import events as _events
+from .. import kernel_cost as _kernel_cost
 from .. import obs as _obs
 from .. import types as T
 from ..columnar import ColumnarBatch, DeviceColumn, choose_capacity
@@ -35,6 +39,7 @@ from ..expr.values import DictV, Val
 from ..ops import concat as concat_ops
 from ..memory.ledger import op_scope
 from ..ops import filter_gather
+from ..plugin import donation as _donation
 from ..types import StructType
 
 NUM_OUTPUT_ROWS = "numOutputRows"
@@ -45,6 +50,8 @@ TOTAL_TIME = "totalTime"
 OP_TIME_DEVICE = "opTimeDevice"
 #: output bytes per op: rows x row-bytes from the batch layout
 BYTES_TOUCHED = "bytesTouched"
+#: input plane bytes an op's certified sites released (plugin/donation.py)
+DONATED_BYTES = "donatedBytes"
 
 
 _PLANNING = threading.local()
@@ -336,6 +343,12 @@ class TpuExec:
     def describe(self) -> str:
         return self.node_name
 
+    def program_signature(self) -> str:
+        """What this exec computes, for the cost plane's signature
+        (:func:`site_call`): its :meth:`describe` unless that also
+        reports what a run chose."""
+        return self.describe()
+
     def __repr__(self):
         return self.tree_string()
 
@@ -350,8 +363,8 @@ def format_metrics(plan: TpuExec) -> str:
     launch makes far smaller than the device work it queued, so the
     figure overstates bandwidth and says so). Then the
     :func:`memory_footer`. The reference's XLA cost columns and its
-    compile-cache line have no counterpart: eager PyTorch compiles no
-    programs."""
+    compile-cache line have no counterpart here: the cost plane's
+    harvests (``kernel_cost.records_since``) carry a site's costs."""
     lines: List[str] = []
 
     def walk(node: TpuExec, depth: int) -> None:
@@ -421,8 +434,65 @@ def batch_device(batch: ColumnarBatch) -> Optional[torch.device]:
 
 def vals_of_batch(batch: ColumnarBatch) -> List[Val]:
     """The batch's columns as lowering values (a dictionary-encoded one
-    as its DictV)."""
+    as its DictV). Under the donation witness a released plane raises
+    ``TpuDonationViolation`` here."""
+    if _donation.witness_enabled():
+        _donation.check_readable(batch)
     return [val_of_column(c) for c in batch.columns]
+
+
+def _plan_device(exec_: "TpuExec"):
+    try:
+        return exec_.device
+    except NotImplementedError:
+        return None
+
+
+def batch_signature_key(batches, *extra) -> tuple:
+    """A site's signature: each input batch's column types and capacity,
+    then ``extra`` (the site's strategy)."""
+    if not isinstance(batches, (list, tuple)):
+        batches = (batches,)
+    return tuple((tuple(str(f.dataType) for f in b.schema.fields),
+                  b.capacity) for b in batches) + extra
+
+
+def site_call(exec_: "TpuExec", site: str, batches, work,
+              key=None, donate: bool = False):
+    """Run ``work()``, one dispatch of the compile site ``site`` over the
+    input ``batches``, through the cost plane and donation: while
+    ``kernel_cost.harvesting()``, the first call per (site, signature)
+    in the process is harvested (``key()`` gives the signature's extra
+    parts, :func:`batch_signature_key`, then the exec's
+    ``program_signature()``); with ``donate`` and an
+    exclusive input at a certified site, the inputs' storages are
+    released once ``work`` returned (``plugin/donation.guard``, counted
+    in the exec's ``donatedBytes``). With both off it is ``work()``."""
+    mask = (_donation.dispatch_mask(site, batches, exec_.conf)
+            if donate else ())
+    harvest = None
+    if _kernel_cost.harvesting():
+        harvest = _kernel_cost.begin(
+            site, lambda: batch_signature_key(
+                batches, *(key() if key is not None else ()))
+            + (exec_.program_signature(),),
+            batches, exec_.node_name, _plan_device(exec_))
+    if not mask and harvest is None:
+        return work()
+    ctx = (_kernel_cost.harvested() if harvest is not None
+           else contextlib.nullcontext())
+    with ctx:
+        guard = (_donation.guard(site, batches, op=exec_.node_name,
+                                 conf=exec_.conf,
+                                 metric=exec_.metric(DONATED_BYTES, "bytes"))
+                 if mask else contextlib.nullcontext(None))
+        with guard as done:
+            out = harvest.run(work) if harvest is not None else work()
+            if done is not None:
+                done.keep = out
+        if harvest is not None:
+            harvest.emit(out, done.bytes if done is not None else 0)
+    return out
 
 
 def materialized_batch(batch: ColumnarBatch) -> ColumnarBatch:
@@ -476,7 +546,8 @@ def concat_batches(schema: StructType, batches: List[ColumnarBatch],
     if not batches:
         return None
     if len(batches) == 1:
-        return batches[0]
+        # the caller keeps it (a join's build): no site may release it
+        return _donation.claim(batches[0])
     if any(c.is_dict for b in batches for c in b.columns):
         # expand only each batch's live rows (one more sync, for the row
         # counts): an aggregate's partial holds a few groups at its
@@ -585,7 +656,7 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
     # holds device batches an OOM recovery wants back (exec/scan.py)
     on_pressure = getattr(source, "invalidate_prefetch", None)
 
-    def attempt(b: ColumnarBatch) -> ColumnarBatch:
+    def lowered(b: ColumnarBatch) -> ColumnarBatch:
         cols = vals_of_batch(b)
         cap = b.capacity
         nr = b.num_rows_lazy
@@ -597,6 +668,15 @@ def run_fused_chain(exec_self: TpuExec, index: int) -> Iterator[ColumnarBatch]:
         if needs_compact:
             cols, nr = filter_gather.filter_cols(cols, live)
         return batch_from_vals(cols, out_schema, nr, capacity=cap)
+
+    site = "fused_chain"
+
+    def attempt(b: ColumnarBatch) -> ColumnarBatch:
+        # the chain's output is a producer's fresh batch unless it passes
+        # through a column of a batch somebody else holds
+        return _donation.mark_fresh(
+            site_call(exec_self, site, b, lambda: lowered(b), donate=True),
+            b)
 
     for b in source.execute_partition(index):
         with exec_self.op_timed():

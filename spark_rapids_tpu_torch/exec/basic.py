@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Iterator, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import types as T
@@ -27,6 +28,11 @@ from ..ops import filter_gather
 from ..types import StructField, StructType
 from .base import (TpuExec, batch_from_vals, concat_batches, run_fused_chain,
                    vals_of_batch)
+
+
+def _np_dtype(dt: torch.dtype):
+    """The numpy dtype of a torch dtype (a host plane's)."""
+    return torch.empty(0, dtype=dt).numpy().dtype
 
 
 def _output_schema_for(exprs: Sequence[E.Expression],
@@ -44,11 +50,25 @@ class InMemoryScanExec(TpuExec):
     """Leaf over already device-resident batches; each partition is a list
     of batches. The plan's device is ``device``, or with ``device=None``
     the batches' own; a scan with no batches and ``device=None`` is on the
-    CUDA card."""
+    CUDA card.
+
+    Under ``spark.rapids.tpu.sql.inMemoryScan.hostResident`` (reference
+    ``exec/basic.py:52-135``) the cached representation lives on the host
+    (Spark's ``.cache()`` semantics: it survives the query): the batches
+    are pulled to the host once, one transfer per batch, and every
+    execute uploads them fresh through ``io/arrow_convert.packed_upload``,
+    one transfer per batch. Fresh uploads have one holder, the executing
+    query, so they are marked exclusive and a certified site downstream
+    may donate them (``plugin/donation.py``). Dictionary batches stay on
+    the device and are never marked: their pools are shared. The default
+    device-resident mode yields the same batches every execute and never
+    marks them."""
 
     def __init__(self, conf: RapidsConf,
                  partitions: Sequence[Sequence[ColumnarBatch]],
                  schema: StructType, device=None):
+        from ..conf import SCAN_HOST_RESIDENT
+
         super().__init__(conf)
         self._partitions = [list(p) for p in partitions]
         self._schema = schema
@@ -56,6 +76,8 @@ class InMemoryScanExec(TpuExec):
             device = next((c.validity.device for p in self._partitions
                            for b in p for c in b.columns), None)
         self._device = resolve_device(device)
+        self._host_resident = bool(conf.get(SCAN_HOST_RESIDENT))
+        self._host_planes: Optional[List[List[Optional[tuple]]]] = None
 
     @property
     def device(self):
@@ -69,7 +91,72 @@ class InMemoryScanExec(TpuExec):
     def num_partitions(self):
         return len(self._partitions)
 
+    _SLOTS = ("data", "validity", "offsets", "chars")
+
+    def _snapshot_to_host(self) -> List[List[Optional[tuple]]]:
+        """The batches' planes on the host, one device-to-host transfer
+        per batch (its planes' bytes gathered into one buffer); None for a
+        dictionary batch. Built into a local and assigned whole by the
+        caller: concurrent executors may both build it, but neither sees
+        a partial list."""
+        out: List[List[Optional[tuple]]] = []
+        for part in self._partitions:
+            rows: List[Optional[tuple]] = []
+            for b in part:
+                if any(c.is_dict for c in b.columns):
+                    rows.append(None)
+                    continue
+                planes = [[getattr(c, s) for s in self._SLOTS]
+                          for c in b.columns]
+                flat = [t for ps in planes for t in ps if t is not None]
+                nr = b.num_rows_lazy
+                # the row count rides in the same pull
+                head = torch.as_tensor(nr, dtype=torch.int64,
+                                       device=self._device).reshape(1)
+                raw = torch.cat([head.view(torch.uint8)] + [
+                    t.contiguous().reshape(-1).view(torch.uint8)
+                    for t in flat]).cpu().numpy()
+                num_rows = int(raw[:8].view(np.int64)[0])
+                pos, it = 8, []
+                for t in flat:
+                    nb = t.numel() * t.element_size()
+                    it.append(raw[pos:pos + nb].view(
+                        _np_dtype(t.dtype)).reshape(t.shape).copy())
+                    pos += nb
+                it = iter(it)
+                rows.append((num_rows, tuple(
+                    tuple(next(it) if t is not None else None for t in ps)
+                    for ps in planes)))
+            out.append(rows)
+        return out
+
+    def _upload(self, b: ColumnarBatch, snap: tuple) -> ColumnarBatch:
+        """A fresh upload of one host-resident batch, one transfer,
+        marked exclusive."""
+        from ..io.arrow_convert import packed_upload
+        from ..plugin import donation as _donation
+
+        num_rows, planes = snap
+        host = [a for ps in planes for a in ps if a is not None]
+        it = iter(packed_upload(host, self._device))
+        cols = []
+        for c, ps in zip(b.columns, planes):
+            data, validity, offsets, chars = (
+                next(it) if a is not None else None for a in ps)
+            cols.append(DeviceColumn(c.dtype, num_rows, data, validity,
+                                     offsets, chars))
+        return _donation.mark_exclusive(
+            ColumnarBatch(cols, self._schema, num_rows))
+
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
+        if self._host_resident:
+            if self._host_planes is None:
+                self._host_planes = self._snapshot_to_host()
+            for b, snap in zip(self._partitions[index],
+                               self._host_planes[index]):
+                yield self.record_batch(
+                    b if snap is None else self._upload(b, snap))
+            return
         for b in self._partitions[index]:
             yield self.record_batch(b)
 

@@ -53,8 +53,9 @@ from ..shuffle.transport import (DeviceShuffleTransport,
                                  SerializedShuffleTransport, ShufflePiece,
                                  ShuffleTransport, new_shuffle_id)
 from ..types import StructType
+from ..plugin.donation import claim
 from .base import (TpuExec, batch_from_vals, concat_all, head_rows,
-                   host_ints, in_planning, materialized_batch,
+                   host_ints, in_planning, materialized_batch, site_call,
                    vals_of_batch)
 
 PARTITION_SIZE = "partitionSize"  # reference metric (GpuExec.scala:27-60)
@@ -302,7 +303,12 @@ class TpuShuffleExchangeExec(TpuExec):
             with self.op_timed(), named_oom(f"{self.node_name}.map"):
                 for map_id, batch in batch_iter:
                     if batch.columns:
-                        self._map_batch(map_id, batch, schema)
+                        # the transport retains what it is handed
+                        claim(batch)
+                        site_call(self, "exchange", batch,
+                                  lambda: self._map_batch(map_id, batch,
+                                                          schema),
+                                  key=lambda: (self.num_partitions,))
             self.metrics[DATA_SIZE].set(self.transport.bytes_written())
             self._note_transport_stats()
             self._map_done = True

@@ -32,8 +32,12 @@ The sorted build is registered spillable (:class:`_SpillableBuild`,
 reference ``join.py:34``) and each probe batch runs under the OOM retry
 harness with split-and-retry, each half's output its own batch. The
 strategy pick emits ``join_strategy`` and its live twin
-(:meth:`TpuShuffledHashJoinExec.resolved_strategy`). Left out: buffer
-donation (eager PyTorch donates nothing).
+(:meth:`TpuShuffledHashJoinExec.resolved_strategy`). Each probe batch is
+one dispatch of the ``join`` site (``exec/base.site_call``): the cost
+plane harvests its first call per signature, and an exclusive probe
+batch donates its planes once its last read is enqueued
+(``plugin/donation.py``); the probe's outputs are a producer's fresh
+batches.
 
 :class:`TpuBroadcastNestedLoopJoinExec` and
 :class:`TpuCartesianProductExec` (reference ``join.py:1009``, ``:1110``)
@@ -66,9 +70,10 @@ from ..ops import filter_gather
 from ..ops import join as join_ops
 from ..ops.sort import SortOrder, sort_permutation, str_max_lens
 from ..types import StructField, StructType, torch_dtype
+from ..plugin.donation import mark_fresh
 from .base import (TpuExec, batch_from_vals, concat_all, concat_batches,
                    host_ints, materialized_batch, run_fused_chain,
-                   vals_of_batch)
+                   site_call, vals_of_batch)
 
 _JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
 
@@ -299,6 +304,12 @@ class TpuShuffledHashJoinExec(TpuExec):
         if self._join_strategy_choice is not None:
             out += f" [{self._join_strategy_choice[1]}]"
         return out
+
+    def program_signature(self) -> str:
+        """The join type, keys and condition (not the strategy a run
+        chose)."""
+        return (f"TpuShuffledHashJoinExec({self.join_type}, "
+                f"{[str(k) for k in self._probe_keys]}, {self._cond})")
 
     def resolved_strategy(self, build_cap: int, device) -> str:
         """Resolve (and memoize per build capacity) the probe lowering;
@@ -589,8 +600,15 @@ class TpuShuffledHashJoinExec(TpuExec):
                        if self.join_type == "full" and not self.partitioned
                        else [index])
         def probe_attempt(b):
-            return self._probe_batch(b, build_cols, build_words,
-                                     build_count, build_cap, build_widths)
+            out, matched = site_call(
+                self, "join", b, lambda: self._probe_batch(
+                    b, build_cols, build_words, build_count, build_cap,
+                    build_widths),
+                key=lambda: (self.join_type, build_cap,
+                             self.resolved_strategy(
+                                 build_cap, build_words[0].device)),
+                donate=True)
+            return mark_fresh(out, b), matched
 
         for pi in probe_parts:
             for pbatch in self._probe.execute_partition(pi):
@@ -793,7 +811,11 @@ class TpuBroadcastNestedLoopJoinExec(TpuExec):
                 with self.op_timed("probe"):
                     outs = with_oom_retry(
                         self.node_name,
-                        lambda b: self._expand(b, build_cols, nb, bbytes),
+                        lambda b: mark_fresh(site_call(
+                            self, "join", b,
+                            lambda: self._expand(b, build_cols, nb, bbytes),
+                            key=lambda: ("nested_loop", nb), donate=True),
+                            b),
                         pbatch, self.conf, combine="list")
                 for out in outs:
                     if out is not None and out.num_rows > 0:

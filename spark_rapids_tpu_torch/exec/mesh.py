@@ -77,8 +77,9 @@ from ..parallel.collective import all_to_all_exchange
 from ..parallel.mesh import device_count, get_mesh
 from ..types import StructField, StructType
 from . import aggregate as XA
+from ..plugin.donation import claim
 from .base import (TpuExec, batch_from_vals, host_ints, materialized_batch,
-                   vals_of_batch)
+                   site_call, vals_of_batch)
 from .join import _null_col, choose_join_strategy
 
 #: the join's output-capacity retry limit (each attempt doubles it)
@@ -231,7 +232,8 @@ class _MeshStage(TpuExec):
         per_shard: List[List[ColumnarBatch]] = [[] for _ in range(n)]
         for p in range(child.num_partitions):
             for b in child.execute_partition(p):
-                per_shard[p % n].append(materialized_batch(b))
+                # retained until the stage ran: no site may release it
+                per_shard[p % n].append(materialized_batch(claim(b)))
         str_cols = [j for j, f in enumerate(schema.fields)
                     if T.is_string(f.dataType)]
         heads = []
@@ -410,7 +412,8 @@ class _MeshStage(TpuExec):
     def execute_partition(self, index: int) -> Iterator[ColumnarBatch]:
         if self._outputs is None:
             with self.op_timed():
-                self._materialize()
+                site_call(self, self.mesh_site, [], self._materialize,
+                          key=lambda: (self.n_shards,))
         b = self._outputs[index]
         if b is not None and b.num_rows > 0:
             yield self.record_batch(b)

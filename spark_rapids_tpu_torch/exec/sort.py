@@ -24,7 +24,7 @@ from ..ops import filter_gather
 from ..ops.sort import SortOrder, sort_permutation, str_max_lens
 from ..types import StructType
 from .base import (TpuExec, batch_from_vals, concat_all, concat_batches,
-                   materialized_batch, vals_of_batch)
+                   materialized_batch, site_call, vals_of_batch)
 
 
 class TpuSortExec(TpuExec):
@@ -83,6 +83,9 @@ class TpuSortExec(TpuExec):
                 self.output_schema, pieces, self.conf.shape_bucket_min))
 
         with self.op_timed():
-            out = with_oom_retry(self.node_name, self._sort_batch, batch,
-                                 self.conf, combine=combine)
+            out = with_oom_retry(
+                self.node_name,
+                lambda b: site_call(self, "sort", b,
+                                    lambda: self._sort_batch(b)),
+                batch, self.conf, combine=combine)
         yield self.record_batch(out)

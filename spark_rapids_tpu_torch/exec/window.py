@@ -33,7 +33,7 @@ from ..ops import window as window_ops
 from ..ops.sort import SortOrder, sort_with_radix_keys, str_max_lens
 from ..types import StructField, StructType
 from .base import (TpuExec, batch_from_vals, concat_all, materialized_batch,
-                   vals_of_batch)
+                   site_call, vals_of_batch)
 
 _AGG_OPS = {A.Count: "count", A.Sum: "sum", A.Min: "min", A.Max: "max"}
 
@@ -89,8 +89,8 @@ class TpuWindowExec(TpuExec):
         # chunk keys want plain bytes, as in the sort
         batch = materialized_batch(batch)
         with self.op_timed():
-            vals = self.window_fn(vals_of_batch(batch), batch.capacity,
-                                  batch.num_rows_lazy)
+            vals = site_call(self, "window", batch, lambda: self.window_fn(
+                vals_of_batch(batch), batch.capacity, batch.num_rows_lazy))
         yield self.record_batch(
             batch_from_vals(vals, self._schema, batch.num_rows_lazy))
 

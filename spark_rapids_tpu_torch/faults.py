@@ -2,7 +2,7 @@
 
 Counterpart of ``spark_rapids_tpu/faults.py``: the same keys, spec
 grammar, seeding and error types, so one fault spec drives both packages
-to the same arrivals. Three channels, each a conf of comma-separated site
+to the same arrivals. Five channels, each a conf of comma-separated site
 specs:
 
   * ``oom``      — synthetic device OOM at the top of a retry-harness
@@ -11,11 +11,13 @@ specs:
   * ``fetch``    — network shuffle fetch failure (site ``network_fetch``
                    in ``shuffle/network.ShuffleClient``), a
                    ConnectionError that the client's retry loop takes
-                   like a real peer reset.
-
-The reference's ``compile`` and ``aotcache`` channels fail XLA's
-pipeline and program caches, which eager PyTorch does not have, so the
-port has neither.
+                   like a real peer reset;
+  * ``compile``  — kernel-library build failure, just before ``nvcc``
+                   runs (the site is the library's stem, e.g.
+                   ``groupby_kernels``; ``ops/_cuda_build.py``);
+  * ``aotcache`` — kernel-library cache I/O failure
+                   (``serve/program_cache.py``; sites ``read:<stem>`` /
+                   ``write:<stem>``).
 
 Spec grammar (per entry, comma-separated; sites match by fnmatch)::
 
@@ -36,13 +38,16 @@ import fnmatch
 import threading
 from typing import Dict, List, Optional, Tuple
 
-from .conf import (FAULTS_ENABLED, FAULTS_FETCH, FAULTS_OOM, FAULTS_SEED,
-                   FAULTS_TRANSFER, RapidsConf)
+from .conf import (FAULTS_AOTCACHE, FAULTS_COMPILE, FAULTS_ENABLED,
+                   FAULTS_FETCH, FAULTS_OOM, FAULTS_SEED, FAULTS_TRANSFER,
+                   RapidsConf)
 
 _CHANNEL_CONFS = {
     "oom": FAULTS_OOM,
     "transfer": FAULTS_TRANSFER,
     "fetch": FAULTS_FETCH,
+    "compile": FAULTS_COMPILE,
+    "aotcache": FAULTS_AOTCACHE,
 }
 
 
@@ -65,10 +70,22 @@ class InjectedFetchError(InjectedFault, ConnectionError):
     transport's retry loop treats it like a real peer reset)."""
 
 
+class InjectedCompileError(InjectedFault):
+    """Synthetic kernel-library build failure."""
+
+
+class InjectedCacheError(InjectedFault, OSError):
+    """Synthetic kernel-library cache I/O failure (an OSError, so the
+    cache's read and write paths take it like a real disk fault: the
+    entry poisoned on a read, the store skipped on a write)."""
+
+
 _ERROR_OF = {
     "oom": InjectedOOM,
     "transfer": InjectedTransferError,
     "fetch": InjectedFetchError,
+    "compile": InjectedCompileError,
+    "aotcache": InjectedCacheError,
 }
 
 

@@ -166,9 +166,15 @@ def packed_upload(host_arrays: List[np.ndarray], device=None
         _faults.check("transfer", "packed_upload")
     from ..memory.retry import named_oom
 
+    from .. import kernel_cost
+    from ..columnar.column import choose_capacity
+
     with named_oom("packed_upload"):
-        staged = (host.to(dev, non_blocking=pin) if dev.type != "cpu"
-                  else host)
+        staged = kernel_cost.call(
+            "upload_unpack",
+            lambda: (len(host_arrays), choose_capacity(max(pos, 1))),
+            lambda: (host.to(dev, non_blocking=pin) if dev.type != "cpu"
+                     else host), device=dev)
     from .. import events as _events
     from .. import obs as _obs
 

@@ -807,7 +807,13 @@ def _run_decode(plan: ChunkPlan, dtype_tpu, run, dev_args, device):
 
     from ..expr.values import DictV
 
-    out = run(dev_args, device)
+    from .. import kernel_cost
+    from ..columnar.column import choose_capacity
+
+    out = kernel_cost.call(
+        "pq_decode", lambda: (plan.phys, str(dtype_tpu),
+                              choose_capacity(plan.num_values)),
+        lambda: run(dev_args, device), dev_args, device)
     n = plan.num_values
     if isinstance(out, DictV):
         return DeviceColumn.dict_encoded(dtype_tpu, n, out)

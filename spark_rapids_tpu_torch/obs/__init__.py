@@ -13,9 +13,9 @@ This module is also the facade the engine emits through: the helpers
 below (``note_op_batch``, ``add_op_time``, ``note_query_start``/``end``,
 span open/close, the OOM-retry twins) update the registry AND the
 per-query progress tracker in one call so call sites stay one-liners.
-``note_compile_miss``, ``note_program_cost`` and ``note_hlo_summary``
-are kept for the shared schema; eager PyTorch compiles no programs, so
-nothing in the port calls them.
+``note_compile_miss`` is fed by the kernel-library builds
+(``ops/_cuda_build.py``), ``note_program_cost`` and ``note_hlo_summary``
+by the cost plane's harvests (``kernel_cost.py``).
 """
 from __future__ import annotations
 

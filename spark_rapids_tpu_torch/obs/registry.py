@@ -22,10 +22,11 @@ Design mirrors events.py so the two planes share one mental model:
     engine subsystem, so emitters may call in while holding their own
     locks (the BufferCatalog does) with no lock-ordering hazard.
 
-Families whose emitters the port has no counterpart of (compile
-misses, program costs, HLO summaries, the AOT program cache, donation:
-the port compiles no programs) are declared and stay at zero
-(ROADMAP.md). The serving scheduler (``serve/``) feeds the
+The program-plane families have the port's own emitters: compile
+misses are kernel-library builds (``ops/_cuda_build.py``), program costs
+and HLO summaries the cost plane's harvests (``kernel_cost.py``), the
+program cache the kernel-library cache (``serve/program_cache.py``),
+donated bytes the donating sites (``plugin/donation.py``). The serving scheduler (``serve/``) feeds the
 ``tpu_serve_*`` families, the catalog ``tpu_hbm_reserved_bytes``. The mesh stages feed
 ``tpu_mesh_staged_rows`` and ``tpu_mesh_shard_seconds`` per shard, the
 network shuffle client ``tpu_shuffle_fetch_retries``.

@@ -12,8 +12,8 @@ bytes, the ledger's heap block, the serving scheduler's ``serve`` block
 (its stats, the waiting queue in drain order, the admitted queries;
 ``null`` in a process that never served: the scheduler singleton is
 peeked, never created), the watchdog's alert history.
-``program_cache`` is always ``null``: eager PyTorch compiles no
-programs, so the reference's AOT program cache has no counterpart.
+``program_cache`` is the kernel-library cache's stats
+(``serve/program_cache.stats``), ``null`` while none is installed.
 """
 from __future__ import annotations
 
@@ -27,6 +27,12 @@ from .registry import MetricsRegistry
 from .watchdog import Watchdog
 
 PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _program_cache_stats() -> Optional[dict]:
+    from ..serve import program_cache
+
+    return program_cache.stats()
 
 
 def build_status(registry: MetricsRegistry, progress: ProgressTracker,
@@ -72,8 +78,8 @@ def build_status(registry: MetricsRegistry, progress: ProgressTracker,
         # all zeros while the ledger is unarmed
         "heap": cat.ledger.status_block(),
         "serve": serve,
-        # no AOT program cache: the port compiles no programs
-        "program_cache": None,
+        # the kernel-library cache's stats (null while none is installed)
+        "program_cache": _program_cache_stats(),
         "alerts": [a.to_json() for a in watchdog.alerts()]
         if watchdog is not None else [],
         "metrics": registry.snapshot(),

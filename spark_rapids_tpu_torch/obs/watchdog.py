@@ -14,11 +14,9 @@ Counterpart of ``spark_rapids_tpu/obs/watchdog.py``, every rule ported:
     recovery actions on one op inside the window;
   * **recompile_storm** — at least ``sql.analysis.recompileStorm
     .threshold`` compile misses on ONE site within
-    ``watchdog.recompileStorm.windowMs``. Eager PyTorch compiles no
-    programs, so nothing in the port calls ``note_compile_miss`` and this
-    rule has no live feed; it stays, so :func:`replay_alerts` and the
-    rules read the reference's logs and a later compile cache as they
-    read the reference's.
+    ``watchdog.recompileStorm.windowMs``. The port's compile misses are
+    its kernel-library builds (``ops/_cuda_build.note_compile_miss``: one
+    per ``nvcc`` run, the site the library's stem).
 
 Every alert is surfaced three ways: a ``log.warning``, an ``alert``
 event in the event log (so offline traces show when the watchdog

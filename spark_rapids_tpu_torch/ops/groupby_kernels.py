@@ -35,6 +35,11 @@ its longest segment.
 torch has little uint32/uint64 support, so 64-bit words (order words,
 unsigned accumulators) ride in int64 tensors with the same bit pattern;
 the kernels read them as unsigned through raw pointers.
+
+Each kernel's byte model (``*_bytes``: what its launch must move, each
+input read once and each output written once) is kept here, beside its
+wrapper: the cost plane's attribution (``kernel_cost.kernel_launch``)
+and ``chip_smoke.py``'s bound column read the same formula.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import kernel_cost as _kernel_cost
 from . import _cuda_build
 from ._cuda_build import ptrs as _ptrs
 from ._cuda_build import stream as _stream
@@ -72,6 +78,13 @@ LAUNCHES: Dict[str, int] = {"bucket_sum": 0, "bucket_float_sum": 0,
 #: nvcc's output (``-Xptxas -v``: registers, shared memory, spills) from
 #: the build this process loaded
 BUILD_LOG: List[str] = []
+#: the library's C symbols (a loaded library lacking one is refused)
+SYMBOLS = ("srt_bucket_sum",
+           "srt_bucket_fsum",
+           "srt_bucket_winner",
+           "srt_ordered_segment_sum",
+           "srt_dadd_chain",
+           "srt_error_string",)
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
@@ -101,8 +114,8 @@ def build_kernels() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        so = _cuda_build.build_library(SOURCE, BUILD_DIR, BUILD_LOG)
-        lib = ctypes.CDLL(str(so))
+        lib = _cuda_build.load_library(SOURCE, BUILD_DIR, BUILD_LOG,
+                                       SYMBOLS)
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         pp = ctypes.POINTER(ctypes.c_void_p)
         lib.srt_bucket_sum.argtypes = [vp, i64, i32, i32, i32, pp, pp,
@@ -202,6 +215,42 @@ def plan_bucket_sum(B: int, nint: int, ncnt: int,
     return passes
 
 
+def _live(seg: torch.Tensor, B: int) -> torch.Tensor:
+    return (seg >= 0) & (seg < B)
+
+
+def bucket_sum_bytes(seg, B: int, int_cols=(), count_cols=()):
+    """K1's byte model: the segment ids (4 B a row), one validity byte a
+    live row per column, 8 B a live valid value, 8 B a bucket per column
+    out (a 0-d tensor)."""
+    live = _live(seg, B)
+    L = len(int_cols) + len(count_cols)
+    n_data = sum(((v & live).sum() for _, v in int_cols),
+                 torch.zeros((), dtype=torch.int64, device=seg.device))
+    return 4 * seg.shape[0] + live.sum() * L + 8 * n_data + 8 * B * L
+
+
+def bucket_float_sum_bytes(seg, B: int, float_cols=()):
+    """K2's byte model: as K1's, every column a float sum."""
+    live = _live(seg, B)
+    F = len(float_cols)
+    n_data = sum(((v & live).sum() for _, v in float_cols),
+                 torch.zeros((), dtype=torch.int64, device=seg.device))
+    return 4 * seg.shape[0] + live.sum() * F + 8 * n_data + 8 * B * F
+
+
+def bucket_winner_bytes(seg, B: int):
+    """K3's byte model: the segment ids, each live row's 8-byte word,
+    the table out."""
+    return 4 * seg.shape[0] + 8 * _live(seg, B).sum() + 8 * B
+
+
+def ordered_segment_sum_bytes(seg, nseg: int):
+    """The ordered sum's byte model: 8 B a row, 8 B a kept value, 8 B a
+    segment out."""
+    return 8 * seg.shape[0] + 8 * _live(seg, nseg).sum() + 8 * nseg
+
+
 def bucket_sum(seg: torch.Tensor, B: int,
                int_cols: Sequence[Tuple[torch.Tensor, torch.Tensor]] = (),
                count_cols: Sequence[torch.Tensor] = ()
@@ -231,11 +280,17 @@ def bucket_sum(seg: torch.Tensor, B: int,
             in_device_memory = sum(1 << i for i, p in enumerate(passes)
                                    if not p[2])
             out = torch.zeros((len(chunk), B), dtype=torch.int64, device=dev)
-            rc = lib.srt_bucket_sum(
-                seg32.data_ptr(), n, B, len(datas), len(chunk) - len(datas),
-                _ptrs(datas), _ptrs([v for _, v in chunk]),
-                (ctypes.c_int * len(bounds))(*bounds), len(passes),
-                in_device_memory, out.data_ptr(), _stream(dev))
+            part = ([(d, v) for d, v in chunk if d is not None],
+                    [v for d, v in chunk if d is None])
+            with _kernel_cost.kernel_launch(
+                    "bucket_sum", lambda p=part: bucket_sum_bytes(
+                        seg32, B, p[0], p[1])):
+                rc = lib.srt_bucket_sum(
+                    seg32.data_ptr(), n, B, len(datas),
+                    len(chunk) - len(datas), _ptrs(datas),
+                    _ptrs([v for _, v in chunk]),
+                    (ctypes.c_int * len(bounds))(*bounds), len(passes),
+                    in_device_memory, out.data_ptr(), _stream(dev))
             _check(lib, rc, "bucket_sum")
             count_launch("bucket_sum")
             outs.extend(out.unbind(0))
@@ -298,11 +353,15 @@ def bucket_float_sum(seg: torch.Tensor, B: int,
             # zeroed on the stream by the entry point
             out = torch.empty((B, len(chunk)), dtype=torch.float64,
                               device=dev)
-            rc = lib.srt_bucket_fsum(
-                seg32.data_ptr(), n, B, len(chunk),
-                _ptrs([d for d, _ in chunk]), _ptrs([v for _, v in chunk]),
-                plan_bucket_fsum(B, len(chunk)), out.data_ptr(),
-                _stream(dev))
+            with _kernel_cost.kernel_launch(
+                    "bucket_float_sum", lambda c=chunk:
+                    bucket_float_sum_bytes(seg32, B, c)):
+                rc = lib.srt_bucket_fsum(
+                    seg32.data_ptr(), n, B, len(chunk),
+                    _ptrs([d for d, _ in chunk]),
+                    _ptrs([v for _, v in chunk]),
+                    plan_bucket_fsum(B, len(chunk)), out.data_ptr(),
+                    _stream(dev))
             _check(lib, rc, "bucket_float_sum")
             count_launch("bucket_float_sum")
             outs.extend(out[:, i] for i in range(len(chunk)))
@@ -352,7 +411,8 @@ def bucket_winner(seg: torch.Tensor, B: int, op: str,
         seg.to(torch.int32).contiguous(), word.to(torch.int64).contiguous()))
     out = torch.full((B,), IDENT_MIN if op == "min" else IDENT_MAX,
                      dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_cost.kernel_launch(
+            "bucket_winner", lambda: bucket_winner_bytes(seg32, B)):
         rc = lib.srt_bucket_winner(seg32.data_ptr(), seg.shape[0], B,
                                    int(op == "min"), w.data_ptr(),
                                    int(plan_bucket_winner(B)),
@@ -391,7 +451,9 @@ def ordered_segment_sum(vals: torch.Tensor, seg: torch.Tensor,
     out = torch.zeros(nseg, dtype=torch.float64, device=dev)
     if nseg == 0:
         return out
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_cost.kernel_launch(
+            "ordered_segment_sum",
+            lambda: ordered_segment_sum_bytes(s, nseg)):
         rc = lib.srt_ordered_segment_sum(v.data_ptr(), bounds.data_ptr(),
                                          nseg, out.data_ptr(), _stream(dev))
     _check(lib, rc, "ordered_segment_sum")

@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import kernel_cost as _kernel_cost
 from . import _cuda_build
 from ._cuda_build import BLOCK_SMEM
 
@@ -47,6 +48,9 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 LAUNCHES: Dict[str, int] = {"probe_ranges": 0}
 #: nvcc's output (``-Xptxas -v``) from the build this process loaded
 BUILD_LOG: List[str] = []
+#: the library's C symbols (a loaded library lacking one is refused)
+SYMBOLS = ("srt_probe_ranges",
+           "srt_join_error_string",)
 #: elements of the plain version's equality mask per chunk of probe rows
 PLAIN_CHUNK_ELEMS = 1 << 24
 #: log2 of the largest bucket index the planner picks: 2^15 + 1 u32
@@ -82,8 +86,8 @@ def build_kernels() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        so = _cuda_build.build_library(SOURCE, BUILD_DIR, BUILD_LOG)
-        lib = ctypes.CDLL(str(so))
+        lib = _cuda_build.load_library(SOURCE, BUILD_DIR, BUILD_LOG,
+                                       SYMBOLS)
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.srt_probe_ranges.argtypes = [vp, vp, vp, i64, vp, vp, i64, i32,
                                          vp, i64, i32, vp, vp, vp, vp, vp, vp]
@@ -169,6 +173,14 @@ def probe_ranges_plain(build_words: Sequence[torch.Tensor], build_count,
     return lo, lo + cnt
 
 
+def probe_ranges_bytes(m: int, nwords: int, nb: int) -> int:
+    """K4's byte model, what the probe needs: 4 bytes per u32 key word,
+    the liveness byte and two int32s out per probe row, 8 bytes per build
+    row (its packed u64 key). (The wrapper's ABI moves each probe word
+    as an int64: 8 bytes.)"""
+    return m * (4 * nwords + 1 + 8) + 8 * nb
+
+
 def probe_ranges(build_words: Sequence[torch.Tensor], build_count,
                  probe_words: Sequence[torch.Tensor],
                  probe_live: torch.Tensor
@@ -208,7 +220,8 @@ def probe_ranges(build_words: Sequence[torch.Tensor], build_count,
                         device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     two = len(pw) > 1
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_cost.kernel_launch(
+            "probe_ranges", lambda: probe_ranges_bytes(m, len(pw), nb)):
         rc = lib.srt_probe_ranges(
             pw[0].data_ptr(), pw[1].data_ptr() if two else None,
             live.data_ptr(), m, bw[0].data_ptr(),

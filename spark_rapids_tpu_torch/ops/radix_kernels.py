@@ -42,6 +42,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from .. import kernel_cost as _kernel_cost
 from . import _cuda_build
 from . import radix_bin as RB
 from ._cuda_build import stream as _stream
@@ -53,6 +54,10 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 LAUNCHES: Dict[str, int] = {"radix_segment_reduce": 0}
 #: nvcc's output (``-Xptxas -v``) from the build this process loaded
 BUILD_LOG: List[str] = []
+#: the library's C symbols (a loaded library lacking one is refused)
+SYMBOLS = ("srt_radix_segment_reduce",
+           "srt_radix_tile_rows",
+           "srt_radix_error_string",)
 #: sorted rows a block of the kernel owns (TILE in the .cu)
 TILE_ROWS = 1024
 
@@ -106,15 +111,15 @@ def build_kernels() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        so = _cuda_build.build_library(SOURCE, BUILD_DIR, BUILD_LOG)
-        lib = ctypes.CDLL(str(so))
+        lib = _cuda_build.load_library(SOURCE, BUILD_DIR, BUILD_LOG,
+                                       SYMBOLS)
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         # the arrays go as the addresses of array.array buffers
         lib.srt_radix_segment_reduce.argtypes = [
             vp, vp, i64, i32, i32, vp, vp, i32, vp, vp, vp, vp]
         lib.srt_radix_segment_reduce.restype = i32
         if lib.srt_radix_tile_rows() != TILE_ROWS:
-            raise RuntimeError(f"{so} has tiles of "
+            raise RuntimeError(f"{SOURCE.name} has tiles of "
                                f"{lib.srt_radix_tile_rows()} rows, the "
                                f"wrapper {TILE_ROWS}")
         lib.srt_radix_error_string.argtypes = [i32]
@@ -329,6 +334,16 @@ def bound_bytes(perm: torch.Tensor, streams: Sequence[Stream], nlive: int,
     return total
 
 
+def segment_reduce_bytes(perm: torch.Tensor, seg: torch.Tensor,
+                         streams: Sequence[Stream]) -> int:
+    """:func:`bound_bytes` at this call's live rows and segments (two
+    host reads)."""
+    cap = perm.shape[0]
+    nlive = int(((seg >= 0) & (seg < cap)).sum())
+    nseg = int(seg[:nlive].max()) + 1 if nlive else 0
+    return bound_bytes(perm, streams, nlive, nseg)
+
+
 def segment_reduce(perm: torch.Tensor, seg: torch.Tensor,
                    streams: Sequence[Stream], ref_tile: int) -> List[tuple]:
     """Every stream reduced per segment of the sorted order (see
@@ -368,7 +383,9 @@ def segment_reduce(perm: torch.Tensor, seg: torch.Tensor,
     # the tile partials: (streams, tiles, 6) u64
     scratch = torch.empty(len(streams) * -(-cap // TILE_ROWS) * 6,
                           dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_cost.kernel_launch(
+            "radix_segment_reduce",
+            lambda: segment_reduce_bytes(perm, seg, streams)):
         rc = lib.srt_radix_segment_reduce(
             p64.data_ptr(), s32.data_ptr(), cap,
             int(ref_tile), len(streams), sargs.buffer_info()[0],

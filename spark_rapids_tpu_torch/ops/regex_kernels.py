@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernel_cost as _kernel_cost
 from . import _cuda_build
 
 SOURCE = _cuda_build.PKG / "csrc" / "regex_kernels.cu"
@@ -40,6 +41,9 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 LAUNCHES: Dict[str, int] = {"dfa_accept_rows": 0}
 #: nvcc's output (``-Xptxas -v``) from the build this process loaded
 BUILD_LOG: List[str] = []
+#: the library's C symbols (a loaded library lacking one is refused)
+SYMBOLS = ("srt_dfa_accept_rows",
+           "srt_regex_error_string",)
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
@@ -72,8 +76,8 @@ def build_kernels() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        so = _cuda_build.build_library(SOURCE, BUILD_DIR, BUILD_LOG)
-        lib = ctypes.CDLL(str(so))
+        lib = _cuda_build.load_library(SOURCE, BUILD_DIR, BUILD_LOG,
+                                       SYMBOLS)
         vp = ctypes.c_void_p
         lib.srt_dfa_accept_rows.argtypes = [
             vp, ctypes.c_int64, vp, ctypes.c_int64, vp, vp,
@@ -224,6 +228,16 @@ def dfa_exit_plain(offsets: torch.Tensor, chars: torch.Tensor,
     return steps, acc & validity
 
 
+def dfa_accept_rows_bytes(offsets: torch.Tensor):
+    """The DFA kernel's byte model over every live byte: the rows' chars,
+    4 bytes of offsets a row (and one more), the validity byte and the
+    verdict byte a row. A walk that stops early reads fewer
+    (``chip_smoke.py`` also bounds the walked bytes)."""
+    cap = offsets.shape[0] - 1
+    return ((offsets[-1] - offsets[0]).to(torch.int64) + 4 * (cap + 1)
+            + 2 * cap)
+
+
 def dfa_accept_rows(offsets: torch.Tensor, chars: torch.Tensor,
                     validity: torch.Tensor, dfa) -> torch.Tensor:
     """(cap,) bool: each row's DFA verdict ANDed with ``validity``
@@ -245,7 +259,8 @@ def dfa_accept_rows(offsets: torch.Tensor, chars: torch.Tensor,
     off = offsets.contiguous()
     chars = chars.contiguous()  # any alignment: the kernel shifts to 16
     valid = validity.contiguous()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_cost.kernel_launch(
+            "dfa_accept_rows", lambda: dfa_accept_rows_bytes(off)):
         rc = lib.srt_dfa_accept_rows(
             off.data_ptr(), cap, chars.data_ptr(), nch, valid.data_ptr(),
             table.data_ptr(),

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from .. import kernel_cost as _kernel_cost
 from . import _cuda_build
 
 SOURCE = _cuda_build.PKG / "csrc" / "udf_kernels.cu"
@@ -41,6 +42,9 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 LAUNCHES: Dict[str, int] = {"word_counts": 0}
 #: nvcc's output (``-Xptxas -v``) from the build this process loaded
 BUILD_LOG: List[str] = []
+#: the library's C symbols (a loaded library lacking one is refused)
+SYMBOLS = ("srt_word_counts",
+           "srt_udf_error_string",)
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
@@ -70,8 +74,8 @@ def build_kernels() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        so = _cuda_build.build_library(SOURCE, BUILD_DIR, BUILD_LOG)
-        lib = ctypes.CDLL(str(so))
+        lib = _cuda_build.load_library(SOURCE, BUILD_DIR, BUILD_LOG,
+                                       SYMBOLS)
         vp = ctypes.c_void_p
         lib.srt_word_counts.argtypes = [vp, ctypes.c_int64, vp,
                                         ctypes.c_int64, vp, vp]
@@ -136,6 +140,13 @@ def word_counts_plain(offsets: torch.Tensor,
     return (counts + fix.to(torch.int32)).to(torch.int32)
 
 
+def word_counts_bytes(offsets: torch.Tensor):
+    """K5's byte model, what the word count needs: the live chars read
+    once, 4 bytes of offsets and 4 of output per row."""
+    rows = offsets.shape[0] - 1
+    return (offsets[-1] - offsets[0]).to(torch.int64) + 8 * rows
+
+
 def word_counts(offsets: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
     """K5: (rows,) int32 word counts of a string column's rows
     (``offsets`` (rows+1,) int32, ``chars`` the uint8 pool). Offsets are
@@ -167,7 +178,8 @@ def word_counts(offsets: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
     if chars.data_ptr() % 16:  # the kernel loads 16 bytes at a time
         chars = chars.clone()
     out = torch.empty(rows, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_cost.kernel_launch(
+            "word_counts", lambda: word_counts_bytes(off)):
         rc = lib.srt_word_counts(off.data_ptr(), rows, chars.data_ptr(), nch,
                                  out.data_ptr(), _cuda_build.stream(dev))
     _cuda_build.check_launch(lib.srt_udf_error_string, rc, "word_counts")

@@ -7,9 +7,9 @@ per-session queue layered over the TpuSemaphore, and pipelined session
 execution (admitted queries host-prefetch scans before taking the device
 semaphore). ``plan_cache.SharedPlanCache`` — one static analysis per
 plan digest across all sessions. Sessions route through here when
-``spark.rapids.tpu.serve.enabled`` is set (``sql/session.py``). The
-reference's ``program_cache`` (the persistent AOT program store) has no
-counterpart: eager PyTorch compiles no programs.
+``spark.rapids.tpu.serve.enabled`` is set (``sql/session.py``).
+``program_cache`` is the persistent kernel-library cache, the port's
+counterpart of the reference's AOT program store.
 """
 from .plan_cache import SharedPlanCache, conf_fingerprint
 from .scheduler import (

@@ -420,6 +420,20 @@ class TpuSession:
         # session.py:301-302)
         if self.conf.get(RACECHECK_WITNESS_ENABLED):
             _locks.install_witness()
+        # the persistent kernel-library cache (serve/program_cache.py):
+        # installs nothing with the aotCache.* confs off; process-global,
+        # tests pair install with uninstall() (reference session.py:293)
+        from ..serve import program_cache as _progcache
+
+        _progcache.install(self.conf)
+        # the runtime donation witness (plugin/donation.py): the same
+        # lifecycle as the lock witness (reference session.py:303-310)
+        from ..conf import DONATION_WITNESS_ENABLED
+
+        if self.conf.get(DONATION_WITNESS_ENABLED):
+            from ..plugin import donation as _donation
+
+            _donation.install_witness()
 
     def close(self) -> None:
         """Flush and close the session's event sink and detach it from
@@ -554,7 +568,12 @@ class TpuSession:
         import hashlib
 
         from .. import envinfo as _envinfo
+        from .. import kernel_cost as _kernel_cost
 
+        # the cost plane's conf-declared peaks and top-K ride to its
+        # harvests (reference session.py:424-427)
+        _kernel_cost.set_conf_peaks(self.conf)
+        _kernel_cost.set_conf_top_k(self.conf)
         _events.install(self.events)
         _events.emit("query_start", query_id=qid, plan_digest=plan_digest,
                      sql_hash=hashlib.sha1(

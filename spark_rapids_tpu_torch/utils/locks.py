@@ -23,9 +23,11 @@ witness, so a lock of the port ranks where the reference's twin does.
   never call out while held — the witness would raise on it.
 
 The manifest lists locks of modules the port has no counterpart of
-(``aot.*``, ``exec.pipeline_cache``): they keep their ranks so the two
-packages' tables stay one table. ``serve.scheduler`` and
-``serve.plan_cache`` are the serving path's (``serve/``).
+(``aot.store_probe``, ``aot.load_probe``, ``exec.pipeline_cache``): they
+keep their ranks so the two packages' tables stay one table.
+``serve.scheduler`` and ``serve.plan_cache`` are the serving path's
+(``serve/``), ``aot.stats`` the kernel-library cache's
+(``serve/program_cache.py``).
 """
 from __future__ import annotations
 

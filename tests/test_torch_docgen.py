@@ -4,10 +4,9 @@ registries and against the reference's.
 ``docs/torch/configs.md`` and ``docs/torch/supported_ops.md`` must be
 what the port's registries generate now (the ``--check`` gate), its
 supported-ops matrix must be the reference's cell for cell, and its conf
-table must have the reference's row for every key both register (four
-descriptions that name JAX APIs aside: the port's sources name none). The
-keys only the reference registers are item 26.2's (the XLA program
-plane: ROADMAP.md), named below; the next slice empties the list.
+table must have the reference's row for every key both register (the
+descriptions that name JAX APIs aside: the port's sources name none).
+The two packages register the same keys.
 """
 import os
 import re
@@ -18,22 +17,6 @@ from spark_rapids_tpu_torch.conf import _REGISTRY as PREG
 from spark_rapids_tpu_torch.plugin import docgen as PD
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-#: the reference's keys of ROADMAP.md item 26.2 (the AOT program cache,
-#: HLO summaries, buffer donation and their tools and fault channels)
-ITEM_26_2_KEYS = {
-    "spark.rapids.tpu.aotCache.dir",
-    "spark.rapids.tpu.aotCache.enabled",
-    "spark.rapids.tpu.aotCache.maxBytes",
-    "spark.rapids.tpu.hlo.topK",
-    "spark.rapids.tpu.sql.donation.enabled",
-    "spark.rapids.tpu.sql.donation.retrySnapshot.enabled",
-    "spark.rapids.tpu.sql.inMemoryScan.hostResident",
-    "spark.rapids.tpu.test.faults.aotcache",
-    "spark.rapids.tpu.test.faults.compile",
-    "spark.rapids.tpu.tools.donate.allowlistPath",
-    "spark.rapids.tpu.tools.donation.witness.enabled",
-}
 
 
 def _rows_by_key(md: str) -> dict:
@@ -70,6 +53,9 @@ def test_supported_ops_equal_the_reference():
 #: name no JAX (tests/test_torch_package.py), so their descriptions are
 #: the port's own
 JAX_NAMING_KEYS = {
+    "spark.rapids.tpu.aotCache.dir",
+    "spark.rapids.tpu.aotCache.enabled",
+    "spark.rapids.tpu.aotCache.maxBytes",
     "spark.rapids.tpu.mesh.devices",
     "spark.rapids.tpu.sql.agg.strategy",
     "spark.rapids.tpu.sql.join.strategy",
@@ -88,8 +74,7 @@ def test_configs_equal_the_reference():
         else:
             assert port[key] == ref[key], key
     assert set(port) <= set(ref)
-    assert set(JREG) - set(PREG) == ITEM_26_2_KEYS
-    assert set(PREG) <= set(JREG)
+    assert set(JREG) == set(PREG)
     for key, e in PREG.items():
         j = JREG[key]
         assert (e.default, e.internal) == (j.default, j.internal), key

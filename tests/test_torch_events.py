@@ -11,12 +11,17 @@ emitters at its ported sites, against the reference's.
   same (event, op) multiset in every family both emit, the same
   ``agg_strategy``/``join_strategy`` (strategy, reason, capacity), the
   same ``op_batch`` rows and bytes per op, ``plan_tagged`` fallbacks,
-  ``query_end`` rows and ``bytesTouched`` per exec. Two differences are
-  by design and excluded: ``transfer`` (the port's d2h is one record a
-  collected batch and its device lane adds a ``fence`` a batch; the
-  reference reads through ``host_pull`` inside its execs) and the port's
+  ``query_end`` rows and ``bytesTouched`` per exec. Three differences
+  are by design and excluded: ``transfer`` (the port's d2h is one record
+  a collected batch and its device lane adds a ``fence`` a batch; the
+  reference reads through ``host_pull`` inside its execs), the port's
   host-lane spans of the exchange reads (sections ``reduce`` and
-  ``read``, which the reference leaves untimed);
+  ``read``, which the reference leaves untimed), and the counts of the
+  cost plane's ``program_cost``/``hlo_summary`` (the reference harvests
+  each XLA program it compiles, a join's build, count and expand
+  programs apart; the port one eager dispatch per site and signature):
+  the port's harvested sites must be sites the reference harvested, each
+  with its ``hlo_summary`` twin;
 * with every observability key at its default, a whole port query never
   reaches an emitter, never arms the ledger and never synchronizes;
 * the ledger arms with the event log, and its records balance at the
@@ -291,11 +296,15 @@ def _run(q, settings, parts, port: bool):
 PORT_READ_SECTIONS = {"reduce", "read"}
 
 
+#: families whose counts differ by design (the module docstring)
+BY_DESIGN = {"transfer", "program_cost", "hlo_summary"}
+
+
 def _families(recs, both):
     out = Counter()
     for r in recs:
         ev = r["event"]
-        if ev not in both or ev == "transfer":
+        if ev not in both or ev in BY_DESIGN:
             continue
         if (ev == "op_span" and r["lane"] == "host"
                 and r["section"] in PORT_READ_SECTIONS):
@@ -313,6 +322,14 @@ def test_session_events_are_the_references(q, settings, parts):
     assert {"query_start", "plan_tagged", "op_span", "op_batch",
             "query_end", "heap_snapshot"} <= both
     assert _families(prec, both) == _families(jrec, both)
+
+    def harvested(recs, ev):
+        return sorted((r["site"], r["digest"]) for r in recs
+                      if r["event"] == ev)
+
+    assert harvested(prec, "program_cost") == harvested(prec, "hlo_summary")
+    assert {s for s, _ in harvested(prec, "program_cost")} <= {
+        s for s, _ in harvested(jrec, "program_cost")}
     strat = "agg_strategy" if q == "agg" else "join_strategy"
 
     def picks(recs):

@@ -391,15 +391,22 @@ def test_session_without_a_card_raises():
     PSession({}, device="cpu")
 
 
-#: keys the reference registers for its XLA program plane (ROADMAP.md
-#: item 26.2: the AOT program cache, HLO summaries, buffer donation),
-#: which the port leaves out until that slice
-UNPORTED_KEYS = (
-    "spark.rapids.tpu.aotCache.enabled",
-    "spark.rapids.tpu.tools.donate.allowlistPath",
-    "spark.rapids.tpu.sql.donation.enabled",
-    "spark.rapids.tpu.sql.inMemoryScan.hostResident",
-    "spark.rapids.tpu.tools.donation.witness.enabled",
+#: the reference's keys of its program plane (ROADMAP.md item 26.2: the
+#: AOT program cache, HLO summaries, buffer donation, their tools and
+#: fault channels), which the port registers for its kernel-library
+#: cache, cost plane and donation, with a value a session takes
+ITEM_26_2_KEYS = (
+    ("spark.rapids.tpu.aotCache.dir", "aot"),  # under tmp_path
+    ("spark.rapids.tpu.aotCache.enabled", False),
+    ("spark.rapids.tpu.aotCache.maxBytes", 1 << 20),
+    ("spark.rapids.tpu.hlo.topK", 3),
+    ("spark.rapids.tpu.sql.donation.enabled", False),
+    ("spark.rapids.tpu.sql.donation.retrySnapshot.enabled", False),
+    ("spark.rapids.tpu.sql.inMemoryScan.hostResident", True),
+    ("spark.rapids.tpu.test.faults.aotcache", "read:nothing"),
+    ("spark.rapids.tpu.test.faults.compile", "nothing"),
+    ("spark.rapids.tpu.tools.donate.allowlistPath", "allow.txt"),
+    ("spark.rapids.tpu.tools.donation.witness.enabled", False),
 )
 ANALYSIS_KEYS = (
     "spark.rapids.tpu.sql.analysis.enabled",
@@ -407,13 +414,29 @@ ANALYSIS_KEYS = (
 )
 
 
-@pytest.mark.parametrize("key", UNPORTED_KEYS)
-def test_unported_debug_keys_stay_unregistered(key):
+@pytest.mark.parametrize("key,value", ITEM_26_2_KEYS)
+def test_item_26_2_keys_are_registered(key, value, tmp_path):
+    """Each key is registered with the reference's default and internal
+    flag, and a session takes a value for it."""
+    if key.endswith("aotCache.dir"):
+        value = str(tmp_path / value)
     from spark_rapids_tpu import conf as JC
+    from spark_rapids_tpu import faults as _jf  # noqa: F401 - registers
+    from spark_rapids_tpu import hlo as _jh  # noqa: F401 - registers
+    from spark_rapids_tpu.serve import program_cache as _jp  # noqa: F401
+    from spark_rapids_tpu_torch import conf as PC
+    from spark_rapids_tpu_torch import faults
 
-    assert key in JC._REGISTRY
-    with pytest.raises(ValueError, match="unknown config key"):
-        PSession({key: True}, device="cpu")
+    entry = PC._REGISTRY[key]
+    ref = JC._REGISTRY[key]
+    assert (entry.default, entry.internal) == (ref.default, ref.internal)
+    try:
+        sess = PSession({key: value}, device="cpu")
+        assert sess.conf.get(entry) == value
+    finally:
+        faults.uninstall()
+        from spark_rapids_tpu_torch.serve import program_cache
+        program_cache.uninstall()
 
 
 @pytest.mark.parametrize("key", ANALYSIS_KEYS)
